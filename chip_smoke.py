@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port (`delta_tpu_torch`) once on one card.
+
+    python3 chip_smoke.py [--commits N]
+
+1. Prints the card (name, count, `nvidia-smi` name and power limit).
+2. Builds every hand-written kernel from `delta_tpu_torch/csrc/` with
+   `nvcc` for sm_90a, one process per source, all at once.
+3. Kernel phase: each kernel against its plain PyTorch version on the card,
+   at the main path's shapes, exact (`torch.equal`), then timed with CUDA
+   events beside its plain version and its bound. K1 is timed on a real
+   parse window; K2 on the main path's own sorted replay keys, after the
+   load, with its bound counted from those keys' winners.
+4. Main path: writes the repo's headline log shape (`bench.py`'s
+   `synth_delta_log`: 100 files per commit, 20% removes, stats on every
+   add, commits only; --commits, default 10,000, cuts the depth of the
+   benchmark's 100,000) and loads it with
+   `Table.for_path(p, engine=TorchEngine()).latest_snapshot().state`,
+   with every counter set to 0 just before. The live files, their size
+   and the tombstones must equal the generator's own truth; the parse
+   must have run on the device with no fallback, and each kernel must
+   have launched during the load.
+5. A small log loaded on the card and on the CPU (plain versions) must
+   give equal masks.
+
+Prints a metrics line, a `kernels` JSON line, the card's
+`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
+as the last line `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
+and prints no result; so does a run without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 peak, taken as the
+                            # integer-operation ceiling (the data sheet gives
+                            # no separate integer ALU rate)
+
+
+def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: warm-up, then `reps` calls
+    between two CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def kernel_phase(window: torch.Tensor, n_rows: int, dev) -> dict:
+    """Each kernel against its plain version on the card; returns the
+    per-kernel numbers of the `kernels` line (launches filled in later)."""
+    from delta_tpu_torch.ops.byte_class import byte_class, byte_class_plain
+    from delta_tpu_torch.ops.replay import winner_pack, winner_pack_plain
+
+    # K1: a real 64 MiB window, then lengths that are not multiples of 16
+    # and a buffer that is not 16-byte aligned
+    got = byte_class(window)
+    torch.cuda.synchronize()
+    want = byte_class_plain(window)
+    _check(torch.equal(got, want), "byte_class != plain on the window")
+    err1 = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    for n in (1, 15, 17, 4097, 1_000_003):
+        x = window[:n]
+        _check(torch.equal(byte_class(x), byte_class_plain(x)),
+               f"byte_class != plain at n={n}")
+        torch.cuda.synchronize()
+    x = window[1:1 + 999_999]
+    _check(torch.equal(byte_class(x), byte_class_plain(x)),
+           "byte_class != plain on an unaligned slice")
+    torch.cuda.synchronize()
+    n1 = window.numel()
+    k1_ms = _time_ms(lambda: byte_class(window), 50)
+    k1_plain = _time_ms(lambda: byte_class_plain(window), 10)
+    k1_bound, k1_by = _bound_ms(2.0 * n1, 12.0 * n1)
+
+    # K2: the main path's row count with long duplicate runs and a key
+    # 0xFFFFFFFF, then n = 1 and 33 (it is timed on the main path's own
+    # keys, after the load: `winner_pack_phase`)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    for n in (n_rows, 1, 33):
+        key = torch.randint(0, max(1, n // 64), (n,), generator=g,
+                            dtype=torch.int64)
+        key[::97] = 0xFFFFFFFF
+        skey, sidx = torch.sort(key.to(dev), stable=True)
+        sidx = sidx.to(torch.int32)
+        _check(torch.equal(winner_pack(skey, sidx, n),
+                           winner_pack_plain(skey, sidx, n)),
+               f"winner_pack != plain on long runs at n={n}")
+        torch.cuda.synchronize()
+    return {
+        "byte_class": {
+            "name": "byte_class", "route": "cuda", "ok": True,
+            "source": "delta_tpu_torch/csrc/byte_class.cu",
+            "replaces": "delta_tpu/ops/pallas_kernels.py:203",
+            "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain,
+            "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+            "shape": f"u8[{n1}]"},
+    }
+
+
+def _winner_pack_bytes(skey: torch.Tensor) -> tuple[float, int]:
+    """Bytes K2 must move on these sorted keys, and their winner count.
+    Every key is read once; a row's index is read only when the row wins,
+    so index bytes are the 32-byte sectors (8 sorted rows each) that hold
+    a winner; one 4-byte word is written per 32 rows."""
+    n = skey.numel()
+    winner = torch.ones(-(-n // 8) * 8, dtype=torch.bool, device=skey.device)
+    winner[n:] = False
+    winner[:n - 1] = skey[:-1] != skey[1:]
+    sectors = int(winner.view(-1, 8).any(1).sum())
+    return 8.0 * n + 32.0 * sectors + 4.0 * -(-n // 32), int(winner.sum())
+
+
+def winner_pack_phase(state) -> dict:
+    """K2 against its plain version on the main path's own inputs: the
+    replay key of the loaded rows, sorted as the load sorts it; then timed
+    beside its plain version and its bound on those inputs."""
+    from delta_tpu_torch.ops.replay import (
+        chrono_ok, combine_key_lanes, winner_pack, winner_pack_plain)
+
+    fa = state.file_actions
+    _check(chrono_ok(fa.version, fa.order), "main-path rows are chronological")
+    skey, sidx = torch.sort(combine_key_lanes([fa.path_code, fa.dv_code]),
+                            stable=True)
+    sidx = sidx.to(torch.int32)
+    n = skey.numel()
+    got = winner_pack(skey, sidx, n)
+    torch.cuda.synchronize()
+    want = winner_pack_plain(skey, sidx, n)
+    _check(torch.equal(got, want), "winner_pack != plain on the main path")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    ms = _time_ms(lambda: winner_pack(skey, sidx, n), 50)
+    plain = _time_ms(lambda: winner_pack_plain(skey, sidx, n), 10)
+    nbytes, winners = _winner_pack_bytes(skey)
+    bound, by = _bound_ms(nbytes, 2.0 * n)
+    return {
+        "name": "winner_pack", "route": "cuda", "ok": True,
+        "source": "delta_tpu_torch/csrc/winner_pack.cu",
+        "replaces": "delta_tpu/ops/replay.py:183",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": f"i64[{n}]+i32[{n}]", "winners": winners,
+        "bound_bytes": nbytes}
+
+
+def profile_load(path: str, Table, TorchEngine) -> None:
+    """Two more loads of the same log, warm: one timed plainly, one under
+    torch.profiler for device time by kernel and the device's busy share
+    of the load's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def load():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = Table.for_path(path, engine=TorchEngine()).latest_snapshot().state
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, st.phase_seconds
+
+    warm_s, warm_phases = load()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_s, _ = load()
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): an operator's row
+        # repeats the time of the kernels it launched
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    print("profile: " + json.dumps({
+        "warm_load_s": warm_s, "warm_phase_s": warm_phases,
+        "traced_load_s": traced_s, "device_busy_s": busy_s,
+        "device_busy_share": busy_s / traced_s,
+        "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
+                for us, k, c in rows[:15]]}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--commits", type=int, default=10_000,
+                    help="log depth (the headline benchmark has 100000)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also time a warm load and trace one with "
+                    "torch.profiler (device time by kernel, busy share)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.log.segment import build_log_segment
+    from delta_tpu_torch.ops import cuda_build
+    from delta_tpu_torch.replay.columnar import _read_commits_buffer
+    from delta_tpu_torch.utils import filenames
+    from delta_tpu_torch.utils.synth import synth_delta_log
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    card = _card_line()
+    print(f"device: {kind} x{count}; nvidia-smi: {card}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    build_s = time.perf_counter() - t0
+    for name, info in built.items():
+        print(f"build {name}: {info['seconds']:.2f}s\n{info['log'].strip()}")
+    print(f"build wall: {build_s:.2f}s", flush=True)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path = os.path.join(work, "headline")
+        t0 = time.perf_counter()
+        truth = synth_delta_log(path, args.commits, 100, seed=args.seed)
+        print(f"generated {args.commits} commits, {truth.num_actions} "
+              f"actions in {time.perf_counter() - t0:.1f}s", flush=True)
+
+        # one real parse window of the log: its first <= 64 MiB of commits
+        eng = TorchEngine()
+        seg = build_log_segment(eng.fs, os.path.join(path, "_delta_log"))
+        buf, starts, _ = _read_commits_buffer(
+            [(filenames.delta_version(f.path), f.path) for f in seg.deltas])
+        cut = int(starts[starts <= eng.parse_window_bytes][-1])
+        window = torch.frombuffer(buf, dtype=torch.uint8)[:cut].to(dev)
+        del buf
+        kernels = kernel_phase(window, truth.num_actions, dev)
+        del window
+        print("kernel phase ok: " + json.dumps(
+            {k: {"ms": v["ms"], "plain_ms": v["plain_ms"]}
+             for k, v in kernels.items()}) + "; winner_pack equal on "
+            "long runs", flush=True)
+
+        # main path, counters from 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        obs.reset()
+        t0 = time.perf_counter()
+        snap = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
+        t_list = time.perf_counter()
+        state = snap.state
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = obs.counters()
+        peak = torch.cuda.max_memory_allocated()
+        load_s = t_end - t0
+
+        live_paths = sorted(a.path for a in state.add_files)
+        sha = hashlib.sha256("\n".join(live_paths).encode()).hexdigest()
+        want_sha = hashlib.sha256(
+            "\n".join(truth.live_paths).encode()).hexdigest()
+        n_actions = state.file_actions.num_rows
+        _check(state.version == truth.version, "version")
+        _check(state.num_files == len(truth.live_paths), "num_files")
+        _check(state.size_in_bytes == truth.size_in_bytes, "size_in_bytes")
+        _check(sha == want_sha, "sha256 of the sorted live paths")
+        _check(int(state.tombstone_mask.sum()) == truth.num_tombstones,
+               "tombstone count")
+        _check(n_actions == truth.num_actions, "action count")
+        windows = counts.get("parse.device_windows", 0)
+        _check(windows >= 1, "parse.device_windows >= 1")
+        _check(counts.get("parse.device_fallbacks", 0) == 0,
+               "parse.device_fallbacks == 0")
+        k1 = counts.get("kernel.byte_class.launches", 0)
+        k2 = counts.get("kernel.winner_pack.launches", 0)
+        _check(k1 >= windows, "byte_class launched once per window")
+        _check(k2 >= 1, "winner_pack launched")
+        kernels["byte_class"]["launches"] = k1
+        kernels["winner_pack"] = winner_pack_phase(state)
+        kernels["winner_pack"]["launches"] = k2
+        print("winner_pack on the main path's keys: " + json.dumps(
+            kernels["winner_pack"]), flush=True)
+        print("load: " + json.dumps({
+            "commits": args.commits, "actions": n_actions,
+            "live_files": state.num_files,
+            "tombstones": int(state.tombstone_mask.sum()),
+            "bytes": int(starts[-1]),
+            "windows": windows, "list_s": t_list - t0, "load_s": load_s,
+            "phase_s": state.phase_seconds,
+            "actions_per_s": n_actions / load_s,
+            "peak_device_bytes": peak, "card": card}), flush=True)
+
+        # a small log on the card and on the CPU: equal masks
+        small = os.path.join(work, "small")
+        synth_delta_log(small, 300, 100, seed=args.seed + 1)
+        on_card = Table.for_path(small, engine=TorchEngine(
+            parse_window_bytes=1 << 20)).latest_snapshot().state
+        on_cpu = Table.for_path(small, engine=TorchEngine(
+            "cpu", parse_window_bytes=1 << 20)).latest_snapshot().state
+        _check(torch.equal(on_card.live_mask.cpu(), on_cpu.live_mask)
+               and torch.equal(on_card.tombstone_mask.cpu(),
+                               on_cpu.tombstone_mask),
+               "small log: card masks == CPU masks")
+        print("small log: card == cpu", flush=True)
+        if args.profile:
+            profile_load(path, Table, TorchEngine)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(card)  # name, power limit: nvidia-smi's own line
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

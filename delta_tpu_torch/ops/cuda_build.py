@@ -1,0 +1,108 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each source in `delta_tpu_torch/csrc/` has a plain C interface and is
+compiled on its own by `nvcc` for Hopper (`sm_90a`) into a shared library,
+then loaded with `ctypes`: seconds per kernel, where a build that includes
+PyTorch's headers takes minutes. Libraries land in `build/delta_tpu_torch/`
+beside the package (listed in `.gitignore`), named by a digest of source
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import: a kernel is built the first time its wrapper
+launches it, or ahead of time by `build()`, which starts one `nvcc` per
+source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "delta_tpu_torch"
+SOURCES = {
+    "byte_class": "byte_class.cu",
+    "winner_pack": "winner_pack.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin); "
+            "the CUDA toolkit is needed to build the package's kernels")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernels (all when None) that are not built yet,
+    one `nvcc` process per source, all started together. Returns
+    {name: {"seconds": wall seconds of its build (0.0 if reused),
+    "log": nvcc's output, with -Xptxas=-v's register and spill report}}.
+    Raises RuntimeError naming the source when a build fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out: Dict[str, dict] = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            out[name] = {"seconds": 0.0, "log": "reused " + target.name}
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       time.perf_counter(), tmp, target)
+    failed = []
+    for name, (proc, t0, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        text = log.decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):\n"
+                          f"{text}")
+            continue
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+        out[name] = {"seconds": seconds, "log": text}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of kernel library `name`, built on first
+    use. Every entry point returns the CUDA error code of its launch."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[(name, symbol)] = fn
+    return fn
+
+
+def check_launch(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {code}")

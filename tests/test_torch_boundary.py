@@ -1,0 +1,56 @@
+"""The port stands alone: it imports nothing of the JAX package.
+
+A snapshot load through `delta_tpu_torch` in a fresh interpreter must
+leave no `jax`, `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module
+in `sys.modules` (`delta_tpu_torch` itself shares the prefix, so the check
+matches whole dotted names). And no source of the port may name them in
+an import.
+"""
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import json, sys
+from delta_tpu_torch import Table, TorchEngine
+from delta_tpu_torch.utils.synth import synth_delta_log
+
+d = sys.argv[1]
+truth = synth_delta_log(d, 6, 10)
+st = Table.for_path(d, engine=TorchEngine("cpu")).latest_snapshot().state
+assert sorted(a.path for a in st.add_files) == truth.live_paths
+assert len(st.tombstones) == truth.num_tombstones
+banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in banned)))
+"""
+
+
+def test_snapshot_load_imports_no_jax_pyarrow_or_reference(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(tmp_path)],
+                         cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_REFERENCE_IMPORT = re.compile(r"\b(from|import)\s+delta_tpu(\.|\s|$)",
+                               re.MULTILINE)
+
+
+def test_port_sources_name_no_jax_pyarrow_or_reference():
+    sources = sorted((REPO / "delta_tpu_torch").rglob("*.py"))
+    sources.append(REPO / "chip_smoke.py")
+    assert len(sources) > 10
+    for src in sources:
+        text = src.read_text()
+        name = src.relative_to(REPO)
+        for word in ("import jax", "from jax", "pyarrow", "pandas"):
+            assert word not in text, f"{name} contains {word!r}"
+        # `delta_tpu_torch.` is the port itself; `delta_tpu.` is not
+        assert not _REFERENCE_IMPORT.search(text), f"{name} imports delta_tpu"
