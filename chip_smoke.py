@@ -1,32 +1,48 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (`delta_tpu_torch`) once on one card.
 
-    python3 chip_smoke.py [--commits N]
+    python3 chip_smoke.py [--commits N] [--profile]
 
 1. Prints the card (name, count, `nvidia-smi` name and power limit).
 2. Builds every hand-written kernel from `delta_tpu_torch/csrc/` with
-   `nvcc` for sm_90a, one process per source, all at once.
-3. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes, exact (`torch.equal`), then timed with CUDA
-   events beside its plain version and its bound. K1 is timed on a real
-   parse window; K2 on the main path's own sorted replay keys, after the
-   load, with its bound counted from those keys' winners.
-4. Main path: writes the repo's headline log shape (`bench.py`'s
-   `synth_delta_log`: 100 files per commit, 20% removes, stats on every
-   add, commits only; --commits, default 10,000, cuts the depth of the
-   benchmark's 100,000) and loads it with
-   `Table.for_path(p, engine=TorchEngine()).latest_snapshot().state`,
-   with every counter set to 0 just before. The live files, their size
-   and the tombstones must equal the generator's own truth; the parse
-   must have run on the device with no fallback, and each kernel must
-   have launched during the load.
-5. A small log loaded on the card and on the CPU (plain versions) must
-   give equal masks.
+   `nvcc` for sm_90a, and the host codec library with `c++`, one compiler
+   per source, all at once.
+3. Writes the repo's headline log shape (`bench.py`'s `synth_delta_log`:
+   100 files per commit, 20% removes, stats on every add; --commits,
+   default 10,000, cuts the depth of the benchmark's 100,000) and, with
+   the port's `write_checkpoint`, a checkpoint of its state at version
+   `commits - 10` (Delta's default interval of 10 commits), split into
+   parts as `bench.py` splits them (`part_size = num_files // 8`), with
+   every tombstone inside the 7-day retention window.
+4. Kernel phase K1/K2: each against its plain PyTorch version on the
+   card, at the main path's shapes, exact (`torch.equal`), then timed with
+   CUDA events beside its plain version and its bound. K1 is timed on a
+   real parse window; K2 on the commit-only load's own sorted replay keys.
+5. Commit-only path: the checkpoint files set aside, the log loads with
+   `Table.for_path(p, engine=TorchEngine()).latest_snapshot().state`, with
+   every counter set to 0 just before. The live files, their size and the
+   tombstones must equal the generator's truth; the parse must have run
+   on the device with no fallback; K1 and K2 must have launched.
+6. Kernel phase K3: `hybrid_extract` against its plain version on the run
+   and lane plan of a real part of the headline checkpoint and on edge
+   plans (widths 0, 1, 31, 32, shift 0, an RLE value with bit 31 set,
+   h_total 1 and 1025, a bit-packed run ending in the lane's last bytes);
+   timed on the real plan beside its plain version and its bound.
+7. Checkpoint path, the slice's main path: the checkpoint put back, the
+   same load runs through it (the checkpoint parts, then the 9 tail
+   commits), counters from 0; the truth must hold again, every part must
+   have decoded on the device (no fallback), K3 must have launched once
+   per part and K1 and K2 at least once. Prints the phase split.
+8. Handoff phase: a 200-commit log checkpointed at its head (its path
+   dictionaries stay under 1 MiB, so the keys are dictionary-coded) must
+   load through the handoff (`decode.handoff_launches` >= 1) to its truth.
+9. A small checkpointed log loads on the card and on the CPU (plain
+   versions) to equal masks and equal live files.
 
-Prints a metrics line, a `kernels` JSON line, the card's
+Prints a metrics line per phase, a `kernels` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
-as the last line `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
-and prints no result; so does a run without a CUDA device.
+as the last line `{"ok": true, "device": {...}}`. Any failed phase exits
+non-zero and prints no result; so does a run without a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,6 +63,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 peak, taken as the
                             # integer-operation ceiling (the data sheet gives
                             # no separate integer ALU rate)
+WEEK_MS = 7 * 86_400_000    # now_ms that keeps every synthetic tombstone
+                            # (deletionTimestamp = its commit index) within
+                            # the default 7-day retention
 
 
 def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -181,6 +200,128 @@ def winner_pack_phase(state) -> dict:
         "bound_bytes": nbytes}
 
 
+def _edge_plans(real_lane: torch.Tensor):
+    """(name, lane, runs, h_total) edge cases of K3's plan space."""
+    import numpy as np
+
+    g = np.random.default_rng(11)
+    lane = g.integers(0, 256, 4096, dtype=np.uint8)
+    plans = []
+    for w in (0, 1, 31, 32):
+        n = 1025
+        plans.append((f"w={w}, shift 0", lane,
+                      [(0, n, 0, w, 0, 0)], n))
+        plans.append((f"w={w}, shift 5", lane,
+                      [(0, 900, 5, w, 0, 0)], 900))
+    plans.append(("rle with bit 31 set", lane,
+                  [(0, 7, 0, 32, 1, -(1 << 31) + 12345),
+                   (7, 9, 8 * 100 + 3, 13, 0, 0)], 16))
+    plans.append(("h_total=1", lane, [(0, 1, 17, 9, 0, 0)], 1))
+    tail_w, tail_n = 17, 64
+    plans.append(("bit-packed run in the last 4 bytes", lane,
+                  [(0, 10, 0, 3, 0, 0),
+                   (10, tail_n, lane.size * 8 - tail_n * tail_w, tail_w,
+                    0, 0)], 10 + tail_n))
+    out = [(name, torch.from_numpy(ln), torch.tensor(r, dtype=torch.int32), h)
+           for name, ln, r, h in plans]
+    return out + [("real lane, h_total=1025", real_lane, None, 1025)]
+
+
+def hybrid_extract_phase(part_path: str, dev) -> dict:
+    """K3 against its plain version on a real part's plan and on edge
+    plans; timed on the real plan."""
+    from delta_tpu_torch.log.page_decode import (
+        _VALUE_COLUMNS, build_part_plan)
+    from delta_tpu_torch.log.parquet_footer import read_footer
+    from delta_tpu_torch.ops.page_decode import (
+        R_N, R_RLE, R_W, hybrid_extract, hybrid_extract_plain)
+
+    with open(part_path, "rb") as f:
+        data = f.read()
+    footer = read_footer(data)
+    # the main path's plan: with tail commits the path keys are not planned
+    plan, _, _, _ = build_part_plan(
+        footer, data, [c for c in _VALUE_COLUMNS if c in footer.index], [])
+    lane = torch.from_numpy(plan.lane).to(dev)
+    runs = torch.from_numpy(plan.runs).to(dev)
+    h = plan.h_total
+    got = hybrid_extract(lane, runs, h)
+    torch.cuda.synchronize()
+    want = hybrid_extract_plain(lane, runs, h)
+    _check(torch.equal(got, want), "hybrid_extract != plain on a real part")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    for name, ln, r, total in _edge_plans(lane):
+        ln = ln.to(dev)
+        r = runs if r is None else r.to(dev)
+        _check(torch.equal(hybrid_extract(ln, r, total),
+                           hybrid_extract_plain(ln, r, total)),
+               f"hybrid_extract != plain on the edge plan '{name}'")
+        torch.cuda.synchronize()
+    ms = _time_ms(lambda: hybrid_extract(lane, runs, h), 50)
+    plain = _time_ms(lambda: hybrid_extract_plain(lane, runs, h), 10)
+    r = plan.runs.astype("int64")
+    packed = r[:, R_RLE] == 0
+    lane_bytes = int(((r[packed, R_N] * r[packed, R_W] + 7) // 8).sum())
+    nbytes = 4.0 * h + lane_bytes + 24.0 * r.shape[0]
+    ops = h * (max(1, int(r.shape[0]).bit_length()) + 16.0)
+    bound, by = _bound_ms(nbytes, ops)
+    return {
+        "name": "hybrid_extract", "route": "cuda", "ok": True,
+        "source": "delta_tpu_torch/csrc/hybrid_extract.cu",
+        "replaces": "delta_tpu/ops/pallas_kernels.py:357",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": f"u8[{plan.lane.size}]+i32[{r.shape[0]},6]->u32[{h}]",
+        "bound_bytes": nbytes}
+
+
+def _set_aside(log: str, side: str) -> list:
+    """Move the checkpoint files of `log` into `side`; returns their
+    names (for `_put_back`)."""
+    os.makedirs(side, exist_ok=True)
+    names = [n for n in os.listdir(log)
+             if ".checkpoint." in n or n == "_last_checkpoint"]
+    for n in names:
+        os.replace(os.path.join(log, n), os.path.join(side, n))
+    return names
+
+
+def _put_back(log: str, side: str, names: list) -> None:
+    for n in names:
+        os.replace(os.path.join(side, n), os.path.join(log, n))
+
+
+def _truth_checks(state, truth, what: str) -> str:
+    live_paths = sorted(a.path for a in state.add_files)
+    sha = hashlib.sha256("\n".join(live_paths).encode()).hexdigest()
+    want_sha = hashlib.sha256("\n".join(truth.live_paths).encode()).hexdigest()
+    _check(state.version == truth.version, f"{what}: version")
+    _check(state.num_files == len(truth.live_paths), f"{what}: num_files")
+    _check(state.size_in_bytes == truth.size_in_bytes,
+           f"{what}: size_in_bytes")
+    _check(sha == want_sha, f"{what}: sha256 of the sorted live paths")
+    _check(int(state.tombstone_mask.sum()) == truth.num_tombstones,
+           f"{what}: tombstone count")
+    return sha
+
+
+def _timed_load(path: str, Table, TorchEngine, obs, **engine_kw):
+    """One load with every counter at 0 just before; returns (state,
+    counters, list seconds, load seconds, peak device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    obs.reset()
+    t0 = time.perf_counter()
+    snap = Table.for_path(path, engine=TorchEngine(**engine_kw)) \
+        .latest_snapshot()
+    t_list = time.perf_counter()
+    state = snap.state
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    return (state, obs.counters(), t_list - t0, t_end - t0,
+            torch.cuda.max_memory_allocated())
+
+
 def profile_load(path: str, Table, TorchEngine) -> None:
     """Two more loads of the same log, warm: one timed plainly, one under
     torch.profiler for device time by kernel and the device's busy share
@@ -255,14 +396,22 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         path = os.path.join(work, "headline")
+        log = os.path.join(path, "_delta_log")
+        cp_version = max(0, args.commits - 10)
         t0 = time.perf_counter()
-        truth = synth_delta_log(path, args.commits, 100, seed=args.seed)
+        truth = synth_delta_log(path, args.commits, 100, seed=args.seed,
+                                checkpoint_version=cp_version,
+                                now_ms=WEEK_MS)
         print(f"generated {args.commits} commits, {truth.num_actions} "
-              f"actions in {time.perf_counter() - t0:.1f}s", flush=True)
+              f"actions and a {truth.checkpoint.get('parts', 1)}-part "
+              f"checkpoint at {cp_version} in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        side = os.path.join(work, "checkpoint_aside")
+        aside = _set_aside(log, side)
 
         # one real parse window of the log: its first <= 64 MiB of commits
         eng = TorchEngine()
-        seg = build_log_segment(eng.fs, os.path.join(path, "_delta_log"))
+        seg = build_log_segment(eng.fs, log)
         buf, starts, _ = _read_commits_buffer(
             [(filenames.delta_version(f.path), f.path) for f in seg.deltas])
         cut = int(starts[starts <= eng.parse_window_bytes][-1])
@@ -275,31 +424,11 @@ def main(argv=None) -> int:
              for k, v in kernels.items()}) + "; winner_pack equal on "
             "long runs", flush=True)
 
-        # main path, counters from 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        obs.reset()
-        t0 = time.perf_counter()
-        snap = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
-        t_list = time.perf_counter()
-        state = snap.state
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-        counts = obs.counters()
-        peak = torch.cuda.max_memory_allocated()
-        load_s = t_end - t0
-
-        live_paths = sorted(a.path for a in state.add_files)
-        sha = hashlib.sha256("\n".join(live_paths).encode()).hexdigest()
-        want_sha = hashlib.sha256(
-            "\n".join(truth.live_paths).encode()).hexdigest()
+        # commit-only path, counters from 0
+        state, counts, list_s, load_s, peak = _timed_load(
+            path, Table, TorchEngine, obs)
         n_actions = state.file_actions.num_rows
-        _check(state.version == truth.version, "version")
-        _check(state.num_files == len(truth.live_paths), "num_files")
-        _check(state.size_in_bytes == truth.size_in_bytes, "size_in_bytes")
-        _check(sha == want_sha, "sha256 of the sorted live paths")
-        _check(int(state.tombstone_mask.sum()) == truth.num_tombstones,
-               "tombstone count")
+        _truth_checks(state, truth, "commit-only load")
         _check(n_actions == truth.num_actions, "action count")
         windows = counts.get("parse.device_windows", 0)
         _check(windows >= 1, "parse.device_windows >= 1")
@@ -319,23 +448,81 @@ def main(argv=None) -> int:
             "live_files": state.num_files,
             "tombstones": int(state.tombstone_mask.sum()),
             "bytes": int(starts[-1]),
-            "windows": windows, "list_s": t_list - t0, "load_s": load_s,
+            "windows": windows, "list_s": list_s, "load_s": load_s,
             "phase_s": state.phase_seconds,
             "actions_per_s": n_actions / load_s,
             "peak_device_bytes": peak, "card": card}), flush=True)
+        del state
+        _put_back(log, side, aside)
 
-        # a small log on the card and on the CPU: equal masks
+        # K3 on a real part of the headline checkpoint, then edge plans
+        parts = sorted(os.path.join(log, n) for n in aside
+                       if n.endswith(".parquet"))
+        kernels["hybrid_extract"] = hybrid_extract_phase(
+            parts[1 if len(parts) > 1 else 0], dev)
+        print("hybrid_extract phase: " + json.dumps(
+            kernels["hybrid_extract"]), flush=True)
+
+        # checkpoint path (the slice's main path), counters from 0
+        state, counts, list_s, load_s, peak = _timed_load(
+            path, Table, TorchEngine, obs)
+        _truth_checks(state, truth, "checkpoint load")
+        n_parts = len(parts)
+        _check(counts.get("decode.device_parts", 0) == n_parts,
+               "decode.device_parts == the part count")
+        _check(counts.get("decode.device_fallbacks", 0) == 0,
+               "decode.device_fallbacks == 0")
+        k3 = counts.get("kernel.hybrid_extract.launches", 0)
+        _check(k3 >= n_parts, "hybrid_extract launched once per part")
+        ck1 = counts.get("kernel.byte_class.launches", 0)
+        ck2 = counts.get("kernel.winner_pack.launches", 0)
+        _check(ck1 >= 1, "byte_class launched on the tail commits")
+        _check(ck2 >= 1, "winner_pack launched on the checkpoint path")
+        kernels["hybrid_extract"]["launches"] = k3
+        kernels["byte_class"]["launches_checkpoint_path"] = ck1
+        kernels["winner_pack"]["launches_checkpoint_path"] = ck2
+        n_rows = state.file_actions.num_rows
+        print("checkpoint load: " + json.dumps({
+            "commits": args.commits, "checkpoint_version": cp_version,
+            "parts": n_parts, "tail_commits": args.commits - 1 - cp_version,
+            "checkpoint_bytes": sum(os.path.getsize(p) for p in parts),
+            "rows": n_rows, "live_files": state.num_files,
+            "tombstones": int(state.tombstone_mask.sum()),
+            "counters": counts, "list_s": list_s, "load_s": load_s,
+            "phase_s": state.phase_seconds,
+            "actions_per_s": n_rows / load_s,
+            "peak_device_bytes": peak, "card": card}), flush=True)
+        del state
+
+        # handoff: a checkpoint at the head of a 200-commit log
+        small = os.path.join(work, "handoff")
+        h_truth = synth_delta_log(small, 200, 100, seed=args.seed + 2,
+                                  checkpoint_version=199, now_ms=WEEK_MS)
+        h_state, h_counts, _, h_s, _ = _timed_load(
+            small, Table, TorchEngine, obs)
+        _truth_checks(h_state, h_truth, "handoff load")
+        _check(h_counts.get("decode.handoff_launches", 0) >= 1,
+               "decode.handoff_launches >= 1")
+        _check(h_counts.get("decode.device_fallbacks", 0) == 0,
+               "handoff load: decode.device_fallbacks == 0")
+        print("handoff load: " + json.dumps({
+            "parts": h_truth.checkpoint.get("parts", 1), "load_s": h_s,
+            "counters": h_counts}), flush=True)
+
+        # a small checkpointed log on the card and on the CPU: equal masks
         small = os.path.join(work, "small")
-        synth_delta_log(small, 300, 100, seed=args.seed + 1)
+        synth_delta_log(small, 300, 100, seed=args.seed + 1,
+                        checkpoint_version=290, now_ms=WEEK_MS)
         on_card = Table.for_path(small, engine=TorchEngine(
             parse_window_bytes=1 << 20)).latest_snapshot().state
         on_cpu = Table.for_path(small, engine=TorchEngine(
             "cpu", parse_window_bytes=1 << 20)).latest_snapshot().state
         _check(torch.equal(on_card.live_mask.cpu(), on_cpu.live_mask)
                and torch.equal(on_card.tombstone_mask.cpu(),
-                               on_cpu.tombstone_mask),
-               "small log: card masks == CPU masks")
-        print("small log: card == cpu", flush=True)
+                               on_cpu.tombstone_mask)
+               and on_card.add_files == on_cpu.add_files,
+               "small checkpointed log: card == CPU")
+        print("small checkpointed log: card == cpu", flush=True)
         if args.profile:
             profile_load(path, Table, TorchEngine)
     finally:

@@ -1,14 +1,17 @@
 """delta_tpu_torch: the PyTorch/CUDA port of delta-tpu, for an NVIDIA H100.
 
 The JAX package `delta_tpu` stays the reference; this package imports
-nothing of it. This slice loads a commit-only `_delta_log`:
+nothing of it. It loads a `_delta_log` of JSON commits, anchored or not by
+a classic (single- or multi-part) Parquet checkpoint:
 
     from delta_tpu_torch import Table, TorchEngine
     state = Table.for_path(path, engine=TorchEngine()).latest_snapshot().state
 
-LIST -> parallel read -> device JSON parse (kernel K1, byte classes) ->
-device replay (stable sort + kernel K2, the winner pass) -> live-file and
-tombstone masks on the card.
+LIST -> checkpoint parts (own footer reader and snappy; device page decode,
+kernel K3, the hybrid bit-field extract; host leaf reader for the rest) ->
+tail commits (parallel read, device JSON parse, kernel K1, byte classes)
+-> device replay (stable sort + kernel K2, the winner pass) -> live-file
+and tombstone masks on the card.
 """
 
 from delta_tpu_torch.engine import TorchEngine

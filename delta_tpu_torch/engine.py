@@ -3,8 +3,10 @@
 Counterpart of `delta_tpu/engine/tpu.py::TpuEngine` plus the read half of
 `delta_tpu/engine/host.py`. It holds the device every load runs on and
 the filesystem the log is read from. On the card, every snapshot load
-takes the device JSON parse and the device replay; the routing economics
-of the JAX package (`parallel/gate.py`) are not ported yet.
+takes the device page decode for every Parquet checkpoint part, the
+device JSON parse and the device replay; the routing economics of the JAX
+package (`parallel/gate.py::decode_route` and `replay_route`) are not
+ported yet.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Errors raised on the commit-log snapshot load.
+"""Errors raised on the snapshot load.
 
 Counterpart of `delta_tpu/errors.py`, cut to the classes this package
 raises. Each error carries the same stable ``error_class`` string as the
@@ -48,10 +48,10 @@ class CorruptLogError(DeltaError):
 
 
 class UnsupportedLogError(DeltaError):
-    """The log needs a reader this package does not have yet: the newest
-    version is anchored by a checkpoint or a compacted delta. This package
-    replays JSON commits only; checkpoint reading is the next slice of the
-    port, so the load stops here instead of replaying around the
-    checkpoint."""
+    """The log needs a reader this package does not have yet: a V2
+    checkpoint (UUID-named, sidecars), a compacted delta in the segment, a
+    checkpoint part in a codec other than snappy or none (ZSTD among
+    them), or add stats held only as `stats_parsed` structs. The load
+    stops here instead of replaying around what it cannot read."""
 
     error_class = "DELTA_UNSUPPORTED_LOG_SEGMENT"

@@ -1,21 +1,25 @@
-"""LogSegment: the commit files that reproduce a version.
+"""LogSegment: the checkpoint and commit files that reproduce a version.
 
-Counterpart of `delta_tpu/log/segment.py::build_log_segment`, for a
-segment made of JSON commits only:
+Counterpart of `delta_tpu/log/segment.py::_build_log_segment`, for the
+latest version:
 
 1. LIST `_delta_log` (lexicographic order is version order).
 2. Partition the listing into commits, checkpoints and compacted deltas.
-3. If a complete checkpoint or a compacted delta would anchor the
-   segment, raise `UnsupportedLogError`: reading checkpoints is the next
-   slice of the port, and replaying the commits around a checkpoint would
-   silently diverge from the JAX package once old commits are cleaned up.
-4. Keep the commits `0..latest`, verify they are contiguous.
+3. The newest complete checkpoint anchors the segment: single-part or
+   multi-part classic Parquet. A V2 checkpoint (UUID-named, JSON or
+   Parquet top level, sidecars) raises `UnsupportedLogError`, as does a
+   compacted delta the reference would use: neither is ported yet.
+4. Keep the commits after the checkpoint and verify they are contiguous
+   up to the latest version. At checkpoint-at-head the snapshot's
+   timestamp is the last commit's mtime, as in the reference.
+
+Time travel (a target version) comes with a later slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 from delta_tpu_torch.errors import (
     CorruptLogError,
@@ -25,8 +29,9 @@ from delta_tpu_torch.errors import (
 from delta_tpu_torch.storage.local import FileStatus
 from delta_tpu_torch.utils import filenames
 from delta_tpu_torch.utils.filenames import (
+    CheckpointFormat,
     CheckpointInstance,
-    complete_checkpoint_versions,
+    group_complete_checkpoints,
 )
 
 
@@ -35,12 +40,13 @@ class LogSegment:
     log_path: str
     version: int
     deltas: List[FileStatus] = field(default_factory=list)  # ascending version
+    checkpoints: List[FileStatus] = field(default_factory=list)  # one checkpoint's parts
+    checkpoint_version: Optional[int] = None
     last_commit_timestamp: int = 0
 
 
 def build_log_segment(fs, log_path: str) -> LogSegment:
-    """LIST the log and assemble the commit-only segment of its latest
-    version (time travel comes with a later slice of the port)."""
+    """LIST the log and assemble the segment of its latest version."""
     try:
         # commits skip the stat (the reader learns their sizes as it reads
         # them); only the newest commit's mtime is needed (stat'd below)
@@ -60,37 +66,64 @@ def build_log_segment(fs, log_path: str) -> LogSegment:
         if filenames.DELTA_FILE_RE.match(name):
             deltas.append((int(name.split(".", 1)[0]), fstat))
         elif filenames.CHECKPOINT_FILE_RE.match(name) and fstat.size > 0:
-            checkpoints.append(CheckpointInstance.parse(fstat.path))
+            ci = CheckpointInstance.parse(fstat.path)
+            if ci is not None:
+                checkpoints.append(ci)
         elif filenames.COMPACTED_DELTA_FILE_RE.match(name):
             compacted.append(filenames.compacted_delta_versions(fstat.path))
-
-    complete = complete_checkpoint_versions(checkpoints)
-    if complete:
-        raise UnsupportedLogError(
-            f"{log_path} has a complete checkpoint at version "
-            f"{complete[-1]}; this package replays JSON commits only, "
-            f"checkpoint reading is the next slice of the port",
-            checkpoint_version=complete[-1])
-    if compacted:
-        raise UnsupportedLogError(
-            f"{log_path} has compacted deltas {compacted[:3]}; this package "
-            f"replays single JSON commits only",
-            compacted=compacted)
-    if not deltas:
+    if not deltas and not checkpoints:
         raise TableNotFoundError(f"no commits found in {log_path}",
                                  error_class="DELTA_NO_COMMITS_FOUND")
 
-    versions = [v for v, _ in deltas]
-    version = versions[-1]
-    if versions != list(range(0, version + 1)):
+    complete = group_complete_checkpoints(checkpoints)
+    chosen = complete[-1] if complete else []
+    cp_version = chosen[0].version if chosen else None
+    if chosen and chosen[0].fmt in (CheckpointFormat.V2_JSON,
+                                    CheckpointFormat.V2_PARQUET):
+        raise UnsupportedLogError(
+            f"{log_path}: the newest checkpoint ({filenames.file_name(chosen[0].path)}) "
+            f"is a V2 checkpoint; this package reads classic single- and "
+            f"multi-part checkpoints, V2 checkpoints with sidecars are a "
+            f"later slice of the port", checkpoint_version=cp_version)
+    start = cp_version + 1 if cp_version is not None else 0
+    used = [c for c in compacted if c[0] >= start]
+    if used:
+        raise UnsupportedLogError(
+            f"{log_path} has compacted deltas {used[:3]}; this package "
+            f"replays single JSON commits, compacted deltas are a later "
+            f"slice of the port", compacted=used)
+
+    tail = [(v, f) for v, f in deltas if v >= start]
+    versions = [v for v, _ in tail]
+    version = versions[-1] if versions else cp_version
+    if version is None:
+        raise TableNotFoundError(f"no commits found in {log_path}",
+                                 error_class="DELTA_NO_COMMITS_FOUND")
+    if versions != list(range(start, version + 1)):
         raise CorruptLogError(
             error_class="DELTA_TRUNCATED_TRANSACTION_LOG",
             message=f"Log is missing commit files: have versions "
-            f"{versions[:5]}..., expected contiguous [0, {version}]")
-    files = [f for _, f in deltas]
+            f"{versions[:5]}..., expected contiguous [{start}, {version}]")
+
+    by_path = {f.path: f for f in listing}
+    parts = [by_path[ci.path] for ci in chosen]
+    # the snapshot's timestamp is the newest commit's mtime, also at
+    # checkpoint-at-head (the checkpoint is written after its commit)
+    head = tail[-1][1] if tail else next(
+        (f for v, f in deltas if v == version), None)
+    ts = 0
+    if head is not None:
+        try:
+            ts = fs.file_status(head.path).modification_time
+        except FileNotFoundError:
+            ts = 0
+    if ts == 0 and not tail:
+        ts = max((f.modification_time for f in parts), default=0)
     return LogSegment(
         log_path=log_path,
         version=version,
-        deltas=files,
-        last_commit_timestamp=fs.file_status(files[-1].path).modification_time,
+        deltas=[f for _, f in tail],
+        checkpoints=parts,
+        checkpoint_version=cp_version,
+        last_commit_timestamp=ts,
     )

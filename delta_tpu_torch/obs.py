@@ -1,7 +1,9 @@
 """Process-wide counters.
 
-The port's only global state. Parse counters carry the same names as the
-JAX package's (`parse.device_windows`, `parse.device_fallbacks`); every
+The port's only global state. Parse and decode counters carry the same
+names as the JAX package's (`parse.device_windows`,
+`parse.device_fallbacks`, `decode.device_parts`, `decode.device_fallbacks`,
+`decode.handoff_launches`); every
 hand-written kernel's wrapper owns a `kernel.<name>.launches` counter that
 it bumps where, and only where, it launches the kernel on the card.
 """

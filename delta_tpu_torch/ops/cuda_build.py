@@ -1,15 +1,18 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's hand-written native code.
 
-Each source in `delta_tpu_torch/csrc/` has a plain C interface and is
+Each CUDA source in `delta_tpu_torch/csrc/` has a plain C interface and is
 compiled on its own by `nvcc` for Hopper (`sm_90a`) into a shared library,
 then loaded with `ctypes`: seconds per kernel, where a build that includes
-PyTorch's headers takes minutes. Libraries land in `build/delta_tpu_torch/`
-beside the package (listed in `.gitignore`), named by a digest of source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+PyTorch's headers takes minutes. The host library `parquet_host.cpp`
+(snappy and the PLAIN BYTE_ARRAY walk of the checkpoint reader) is built
+the same way by the host C++ compiler, so it also builds where there is
+no CUDA toolkit. Libraries land in `build/delta_tpu_torch/` beside the
+package (listed in `.gitignore`), named by a digest of source and flags,
+so an edited source is rebuilt and an unchanged one is reused.
 
-Nothing here runs at import: a kernel is built the first time its wrapper
-launches it, or ahead of time by `build()`, which starts one `nvcc` per
-source, all at once.
+Nothing here runs at import: a library is built the first time its
+wrapper calls it, or ahead of time by `build()`, which starts one
+compiler per source, all at once.
 """
 
 from __future__ import annotations
@@ -28,9 +31,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "delta_tpu_torch"
 SOURCES = {
     "byte_class": "byte_class.cu",
     "winner_pack": "winner_pack.cu",
+    "hybrid_extract": "hybrid_extract.cu",
+    "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
@@ -45,18 +51,32 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) on PATH; "
+                           "the checkpoint reader's codec needs one")
+    return path
+
+
+def _is_host(name: str) -> bool:
+    return not SOURCES[name].endswith(".cu")
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = HOST_FLAGS if _is_host(name) else NVCC_FLAGS
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the named kernels (all when None) that are not built yet,
-    one `nvcc` process per source, all started together. Returns
+    """Compile the named libraries (all when None) that are not built yet,
+    one compiler process per source, all started together. Returns
     {name: {"seconds": wall seconds of its build (0.0 if reused),
-    "log": nvcc's output, with -Xptxas=-v's register and spill report}}.
-    Raises RuntimeError naming the source when a build fails."""
+    "log": the compiler's output (nvcc's with -Xptxas=-v's register and
+    spill report)}}. Raises RuntimeError naming the source when a build
+    fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -67,7 +87,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             out[name] = {"seconds": 0.0, "log": "reused " + target.name}
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        if _is_host(name):
+            cmd = [_cxx(), *HOST_FLAGS]
+        else:
+            cmd = [_nvcc(), *NVCC_FLAGS]
+        cmd += ["-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
                        time.perf_counter(), tmp, target)
@@ -77,19 +101,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         seconds = time.perf_counter() - t0
         text = log.decode(errors="replace")
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):\n"
+            failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n"
                           f"{text}")
             continue
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
         out[name] = {"seconds": seconds, "log": text}
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("native build failed: " + "\n".join(failed))
     return out
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point `symbol` of kernel library `name`, built on first
-    use. Every entry point returns the CUDA error code of its launch."""
+def function(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of library `name`, built on first use.
+    Every kernel entry point returns the CUDA error code of its launch."""
     fn = _FUNCS.get((name, symbol))
     if fn is None:
         lib = _LIBS.get(name)
@@ -98,7 +123,7 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FUNCS[(name, symbol)] = fn
     return fn
 

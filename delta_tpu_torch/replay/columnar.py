@@ -1,23 +1,37 @@
-"""Columnarization: a commit-only log segment -> replay lanes on the device.
+"""Columnarization: a log segment -> replay lanes on the device.
 
-Counterpart of the commit half of `delta_tpu/replay/columnar.py`. All JSON
-commits of the segment are read in parallel into ONE buffer
-(`_read_commits_buffer`); the device parse (`replay/device_parse.py`)
-turns it into per-row lanes in line order, or, when the JAX package's
-ladder sends the buffer back to the host, the host parser
-(`replay/host_parse.py`) does. Either way the result is a `FileActions`:
+Counterpart of `delta_tpu/replay/columnar.py`. Two halves:
+
+- Checkpoint parts (`_read_checkpoint`): each part reads through
+  `log/page_decode.py::read_checkpoint_part`: the device decode (kernel
+  K3) for the projected hot columns, the host leaf reader for the rest,
+  the whole part on the host when the plan is out of scope
+  (`decode.device_parts` / `decode.device_fallbacks` count them).
+  Checkpoint rows come first, with `version = checkpoint_version` and
+  `order = arange`, part by part, each part's adds before its removes.
+- JSON commits: read in parallel into ONE buffer (`_read_commits_buffer`);
+  the device parse (`replay/device_parse.py`) turns it into per-row lanes
+  in line order, or, when the JAX package's ladder sends the buffer back
+  to the host, the host parser (`replay/host_parse.py`) does.
+
+Either way the result is a `FileActions`:
 
 - lanes on the engine's device, one row per add/remove action: `is_add`,
   `version`, `order` (the row's line rank within its commit), `size`
   (0 where absent), and the replay key `(path_code, dv_code)`, exact
   dictionary codes of the percent-decoded path and of the deletion
-  vector's unique id (0 = none);
+  vector's unique id (0 = none). Path codes of checkpoint and commit rows
+  come from one `torch.unique` over their zero-padded path byte rows;
+  a checkpoint-only load whose parts are all dictionary-keyed takes the
+  handoff instead (`ops/page_decode.py::launch_checkpoint_handoff`),
+  which also launches the replay;
 - a host-side row store that materializes `AddFile` / `RemoveFile`
   objects for the rows a caller asks for (stats decoded on that first
   access).
 
 The small actions (protocol, metaData, txn, domainMetadata, commitInfo)
-resolve host-side, latest (version, order) wins; they are O(commits).
+resolve host-side, latest (version, order) wins; the checkpoint's rows
+come before every commit's.
 """
 
 from __future__ import annotations
@@ -27,19 +41,31 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+from urllib.parse import unquote
 
 import numpy as np
 import torch
 
-from delta_tpu_torch.errors import CorruptLogError
+from delta_tpu_torch import obs
+from delta_tpu_torch.errors import (
+    CorruptLogError,
+    LogCorruptedError,
+    UnsupportedLogError,
+)
 from delta_tpu_torch.models.actions import (
+    AddFile,
     CommitInfo,
+    DeletionVectorDescriptor,
     DomainMetadata,
     Metadata,
     Protocol,
+    RemoveFile,
     SetTransaction,
 )
 from delta_tpu_torch.utils import filenames
+
+_OBS_DECODE_PARTS = obs.counter("decode.device_parts")
+_OBS_DECODE_FALLBACKS = obs.counter("decode.device_fallbacks")
 
 
 @dataclass
@@ -62,10 +88,13 @@ class FileActions:
 
 @dataclass
 class ParsedCommits:
-    """One parse of a commit buffer, by either route."""
+    """One parse of a commit buffer, by either route. `path_keys` are the
+    device route's path byte rows (objects with `path_bytes`, `path_len`,
+    `has_percent`), kept to code them together with checkpoint rows."""
 
     file_actions: FileActions
     others: List[Tuple[int, int, dict]]  # (version, order, control action)
+    path_keys: Optional[list] = None
 
 
 def _prune_nones(d):
@@ -137,8 +166,9 @@ class ColumnarActions:
     latest_commit_info: Optional[CommitInfo] = None
     commit_infos: Dict[int, CommitInfo] = field(default_factory=dict)
     parsed_on_device: bool = False
-    # wall seconds of the read and parse phases (device work included)
+    # wall seconds of the load's phases (device work included)
     phase_seconds: Dict[str, float] = field(default_factory=dict)
+    pending: object = None  # the checkpoint handoff's ReplayPending
 
 
 _READ_CHUNK = 1 << 20
@@ -196,32 +226,486 @@ def _read_commits_buffer(
     return buf, starts, versions
 
 
+# ------------------------------------------------ checkpoint half ----
+
+# the add/remove fields the reference's canonical file-action table keeps
+_FILE_FIELDS = frozenset({
+    "path", "partitionValues", "size", "modificationTime", "dataChange",
+    "stats", "tags", "deletionVector", "baseRowId",
+    "defaultRowCommitVersion", "clusteringProvider", "deletionTimestamp",
+    "extendedFileMetadata"})
+_SMALL_ROOTS = ("protocol", "metaData", "txn", "domainMetadata")
+
+
+def _wanted_leaf(leaf) -> bool:
+    """Checkpoint leaves a snapshot load reads."""
+    root = leaf.parts[0]
+    if root in ("add", "remove"):
+        return len(leaf.parts) > 1 and leaf.parts[1] in _FILE_FIELDS
+    return root in _SMALL_ROOTS or leaf.parts[:2] == ("sidecar", "path")
+
+
+def _flat(read, path: str, rows: np.ndarray):
+    """(values, valid) numpy lanes of a non-repeated leaf at `rows`, from
+    the device decode or the host reader; zeros / False where absent."""
+    dc = read.decoded.get(path)
+    if dc is not None:
+        return dc.values[rows], dc.valid[rows]
+    leaf = read.leaves.get(path)
+    if leaf is None:
+        return np.zeros(len(rows), np.int64), np.zeros(len(rows), bool)
+    vi = leaf.value_index[rows]
+    valid = vi >= 0
+    if not len(leaf.values):
+        return np.zeros(len(rows), np.int64), valid
+    return np.asarray(leaf.values)[np.maximum(vi, 0)], valid
+
+
+def _python(read, path: str, rows: np.ndarray) -> list:
+    """Python values (None where null) of a non-repeated leaf at `rows`."""
+    dc = read.decoded.get(path)
+    if dc is not None:
+        valid = dc.valid[rows].tolist()
+        vals = dc.values[rows].tolist()
+        if dc.uniq is not None:
+            return [dc.uniq[v].decode("utf-8") if ok else None
+                    for v, ok in zip(vals, valid)]
+        return [v if ok else None for v, ok in zip(vals, valid)]
+    leaf = read.leaves.get(path)
+    return [None] * len(rows) if leaf is None else leaf.row_values(rows)
+
+
+def _map(read, path: str, rows: np.ndarray) -> list:
+    """A map<string,string> leaf pair as dicts (None where null)."""
+    keys = read.leaves.get(f"{path}.key_value.key")
+    if keys is None:
+        return [None] * len(rows)
+    vals = read.leaves.get(f"{path}.key_value.value")
+    ks = keys.row_lists(rows)
+    vs = vals.row_lists(rows) if vals is not None else [
+        None if k is None else [None] * len(k) for k in ks]
+    return [None if k is None else dict(zip(k, v)) for k, v in zip(ks, vs)]
+
+
+def _present(read, root: str) -> np.ndarray:
+    """Rows of the part where the root struct is non-null."""
+    for path, leaf in read.leaves.items():
+        if leaf.leaf.parts[0] == root:
+            return leaf.present(0)
+    return np.zeros(read.n_rows, bool)
+
+
+def _dvs(read, root: str, rows: np.ndarray):
+    """(DeletionVectorDescriptor or None per row, {position: unique id})
+    of `root`'s deletion vectors; the unique id is the reference's
+    storageType + pathOrInlineDv [+ "@" offset] of every non-null struct."""
+    base = f"{root}.deletionVector."
+    leaf = next((lf for p, lf in read.leaves.items() if p.startswith(base)),
+                None)
+    descs: list = [None] * len(rows)
+    ids: Dict[int, str] = {}
+    if leaf is None:
+        return descs, ids
+    at = np.flatnonzero(leaf.present(1, rows))
+    if not at.size:
+        return descs, ids
+    sub = rows[at]
+    f = {name: _python(read, base + name, sub) for name in (
+        "storageType", "pathOrInlineDv", "offset", "sizeInBytes",
+        "cardinality", "maxRowIndex")}
+    for k, pos in enumerate(at.tolist()):
+        st, pth, off = f["storageType"][k], f["pathOrInlineDv"][k], f["offset"][k]
+        ids[pos] = (st or "") + (pth or "") + (f"@{off}" if off is not None
+                                               else "")
+        if st is not None:
+            descs[pos] = DeletionVectorDescriptor(
+                storageType=st, pathOrInlineDv=pth,
+                sizeInBytes=f["sizeInBytes"][k] or 0,
+                cardinality=f["cardinality"][k] or 0, offset=off,
+                maxRowIndex=f["maxRowIndex"][k])
+    return descs, ids
+
+
+def _decode_path(raw: str) -> str:
+    """Percent-decode a path URI, as every replay key is."""
+    return unquote(raw) if "%" in raw else raw
+
+
+@dataclass
+class _CkptPart:
+    read: object           # log.page_decode.PartRead
+    add_rows: np.ndarray   # part rows holding an add, ascending
+    rem_rows: np.ndarray
+
+
+class CheckpointRows:
+    """Host row store of the checkpoint's file actions, in lane order:
+    part by part, each part's adds, then its removes. Materialized the way
+    the reference's canonical table is (a null dataChange reads False, an
+    empty partitionValues map of a remove reads None, an empty tags map
+    reads {})."""
+
+    def __init__(self, parts: List[_CkptPart]):
+        self.parts = parts
+        sizes = [n for p in parts for n in (len(p.add_rows), len(p.rem_rows))]
+        self.bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+    def _blocks(self, idx: np.ndarray):
+        """(part, is_add, part rows) per block that `idx` (ascending)
+        touches, in order."""
+        blk = np.searchsorted(self.bounds, idx, side="right") - 1
+        for k in np.unique(blk).tolist():
+            local = idx[blk == k] - self.bounds[k]
+            part = self.parts[k // 2]
+            yield part, k % 2 == 0, (part.add_rows if k % 2 == 0
+                                     else part.rem_rows)[local]
+
+    def paths(self, idx: np.ndarray) -> List[str]:
+        out: List[str] = []
+        for part, is_add, rows in self._blocks(idx):
+            raw = _python(part.read, ("add" if is_add else "remove")
+                          + ".path", rows)
+            out += [_decode_path(p) for p in raw]
+        return out
+
+    def add_files(self, idx: np.ndarray) -> List[AddFile]:
+        out: List[AddFile] = []
+        for part, is_add, rows in self._blocks(idx):
+            out += (self._adds if is_add else self._removes)(part.read, rows)
+        return out
+
+    remove_files = add_files  # rows decide which action they hold
+
+    @staticmethod
+    def _adds(read, rows) -> list:
+        c = {f: _python(read, "add." + f, rows) for f in (
+            "path", "size", "modificationTime", "dataChange", "stats",
+            "baseRowId", "defaultRowCommitVersion", "clusteringProvider")}
+        pv = _map(read, "add.partitionValues", rows)
+        tags = _map(read, "add.tags", rows)
+        dvs, _ = _dvs(read, "add", rows)
+        return [AddFile(
+            path=_decode_path(c["path"][j]),
+            partitionValues=pv[j] or {},
+            size=c["size"][j] or 0,
+            modificationTime=c["modificationTime"][j] or 0,
+            dataChange=bool(c["dataChange"][j]),
+            stats=c["stats"][j],
+            tags=tags[j],
+            deletionVector=dvs[j],
+            baseRowId=c["baseRowId"][j],
+            defaultRowCommitVersion=c["defaultRowCommitVersion"][j],
+            clusteringProvider=c["clusteringProvider"][j],
+        ) for j in range(len(rows))]
+
+    @staticmethod
+    def _removes(read, rows) -> list:
+        c = {f: _python(read, "remove." + f, rows) for f in (
+            "path", "deletionTimestamp", "dataChange",
+            "extendedFileMetadata", "size", "stats", "baseRowId",
+            "defaultRowCommitVersion")}
+        pv = _map(read, "remove.partitionValues", rows)
+        tags = _map(read, "remove.tags", rows)
+        dvs, _ = _dvs(read, "remove", rows)
+        return [RemoveFile(
+            path=_decode_path(c["path"][j]),
+            deletionTimestamp=c["deletionTimestamp"][j],
+            dataChange=bool(c["dataChange"][j]),
+            extendedFileMetadata=c["extendedFileMetadata"][j],
+            partitionValues=pv[j] or None,
+            size=c["size"][j],
+            stats=c["stats"][j],
+            tags=tags[j],
+            deletionVector=dvs[j],
+            baseRowId=c["baseRowId"][j],
+            defaultRowCommitVersion=c["defaultRowCommitVersion"][j],
+        ) for j in range(len(rows))]
+
+
+class _PathRows:
+    """Zero-padded path byte rows of some file actions, on a device."""
+
+    def __init__(self, mat: np.ndarray, lens: np.ndarray, device):
+        self.path_bytes = torch.from_numpy(mat).to(device)
+        self.path_len = torch.from_numpy(lens.astype(np.int64)).to(device)
+        self.has_percent = bool((mat == 37).any())
+
+
+def _path_rows(read, root: str, rows: np.ndarray, device) -> _PathRows:
+    """The raw path bytes of `root`'s rows: gathered from the part's
+    dictionary where the device decoded the path as a key, else from the
+    host reader's strings."""
+    from delta_tpu_torch.log.parquet_host import Strings
+
+    path = root + ".path"
+    dc = read.decoded.get(path)
+    if dc is not None:
+        valid, codes = dc.valid[rows], dc.values[rows]
+        uniq = Strings.from_bytes(dc.uniq)
+        strings = uniq.take(np.where(valid, codes, 0))
+    else:
+        leaf = read.leaves.get(path)
+        if leaf is None:
+            valid = np.zeros(len(rows), bool)
+            strings = None
+        else:
+            vi = leaf.value_index[rows]
+            valid = vi >= 0
+            strings = leaf.values.take(np.maximum(vi, 0)) if valid.all() \
+                else None
+    if not valid.all():
+        raise LogCorruptedError(f"a checkpoint {root} action has no path")
+    mat, lens = strings.matrix()
+    return _PathRows(mat, lens, device)
+
+
+@dataclass
+class CheckpointActions:
+    """The checkpoint's file-action lanes (host numpy), row store, path
+    rows, deletion-vector ids, control rows and handoff."""
+
+    is_add: np.ndarray
+    size: np.ndarray
+    rows: CheckpointRows
+    path_rows: List[_PathRows]
+    dv_ids: Dict[int, str]
+    others: List[Tuple[int, int, dict]]
+    handoff: Optional[tuple] = None  # (ReplayPending, path codes)
+
+    @property
+    def n(self) -> int:
+        return int(self.is_add.shape[0])
+
+
+def _read_part_bytes(path: str, version: int) -> bytes:
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except FileNotFoundError as e:
+        raise LogCorruptedError(
+            f"couldn't find all part files of the checkpoint at version "
+            f"{version}: {path} is missing",
+            error_class="DELTA_MISSING_PART_FILES") from e
+
+
+def _read_checkpoint(engine, segment, phases: Dict[str, float]
+                     ) -> CheckpointActions:
+    """Read every part of the segment's checkpoint (port of the reference's
+    `_consume_parts_device`, `_consume_checkpoint_table` and
+    `_track_handoff`). The handoff is wanted when the checkpoint is the
+    only source of file actions; it stays on while every part is keyed on
+    the device with counts that agree with the host's rows and no
+    deletion vector."""
+    from delta_tpu_torch.log.page_decode import read_checkpoint_part
+    from delta_tpu_torch.log.parquet_footer import DecodeUnsupported
+    from delta_tpu_torch.log.parquet_host import assemble
+    from delta_tpu_torch.ops.page_decode import launch_checkpoint_handoff
+
+    cp = segment.checkpoint_version
+    want_handoff = not segment.deltas
+    handoff_ok = want_handoff
+    keyed = []
+    parts: List[_CkptPart] = []
+    others: List[Tuple[int, int, dict]] = []
+    dv_ids: Dict[int, str] = {}
+    is_add, size = [], []
+    n = 0
+    for fstat in segment.checkpoints:
+        t0 = time.perf_counter()
+        data = _read_part_bytes(fstat.path, cp)
+        phases["ckpt_read"] = phases.get("ckpt_read", 0.0) + (
+            time.perf_counter() - t0)
+        try:
+            read = read_checkpoint_part(data, engine.device, _wanted_leaf,
+                                        want_keys=want_handoff,
+                                        phases=phases)
+            t1 = time.perf_counter()
+            if any(lf.parts[:2] == ("add", "stats_parsed")
+                   for lf in read.footer.leaves):
+                stats = _python(read, "add.stats",
+                                np.flatnonzero(_present(read, "add")))
+                if stats and all(s is None for s in stats):
+                    raise UnsupportedLogError(
+                        f"{fstat.path} carries add stats only as "
+                        f"stats_parsed structs; reading them is a later "
+                        f"slice of the port")
+            if _present(read, "sidecar").any():
+                raise UnsupportedLogError(
+                    f"{fstat.path} is a V2 checkpoint with sidecars; they "
+                    f"are a later slice of the port")
+            for root in _SMALL_ROOTS:
+                at = np.flatnonzero(_present(read, root))
+                if at.size:
+                    bodies = assemble(read.leaves, root, at)
+                    others += [(cp, int(r), {root: b})
+                               for r, b in zip(at.tolist(), bodies)]
+        except DecodeUnsupported as e:
+            raise UnsupportedLogError(
+                f"checkpoint part {fstat.path}: {e}",
+                error_class="DELTA_UNSUPPORTED_CHECKPOINT") from e
+        (_OBS_DECODE_PARTS if read.on_device else _OBS_DECODE_FALLBACKS).inc()
+        part = _CkptPart(read, np.flatnonzero(_present(read, "add")),
+                         np.flatnonzero(_present(read, "remove")))
+        parts.append(part)
+        for root, rows in (("add", part.add_rows), ("remove", part.rem_rows)):
+            _, ids = _dvs(read, root, rows)
+            dv_ids.update({n + k: v for k, v in ids.items()})
+            is_add.append(np.full(len(rows), root == "add"))
+            vals, valid = _flat(read, root + ".size", rows)
+            size.append(np.where(valid, vals, 0).astype(np.int64))
+            n += len(rows)
+        if handoff_ok:
+            keys, n_add, n_rem = read.keys, len(part.add_rows), len(part.rem_rows)
+            if keys is None:
+                # a keyless part breaks the row alignment unless it holds
+                # no file actions
+                handoff_ok = not (n_add or n_rem)
+            elif (keys.n_bad or keys.n_add != n_add or keys.n_rem != n_rem
+                  or any(r >= n - n_add - n_rem for r in dv_ids)):
+                handoff_ok = False
+            else:
+                keyed.append(keys)
+        phases["ckpt_rows"] = phases.get("ckpt_rows", 0.0) + (
+            time.perf_counter() - t1)
+    t2 = time.perf_counter()
+    rows = CheckpointRows(parts)
+    handoff = None
+    if handoff_ok and keyed:
+        handoff = launch_checkpoint_handoff(keyed, engine.device)
+    path_rows = []
+    if handoff is None:
+        for part in parts:
+            for root, r in (("add", part.add_rows), ("remove", part.rem_rows)):
+                if len(r):
+                    path_rows.append(_path_rows(part.read, root, r,
+                                                engine.device))
+    phases["ckpt_rows"] = phases.get("ckpt_rows", 0.0) + (
+        time.perf_counter() - t2)
+    return CheckpointActions(
+        is_add=np.concatenate(is_add) if is_add else np.zeros(0, bool),
+        size=np.concatenate(size) if size else np.zeros(0, np.int64),
+        rows=rows, path_rows=path_rows, dv_ids=dv_ids, others=others,
+        handoff=handoff)
+
+
+class CompositeRows:
+    """Row store over checkpoint rows followed by commit rows."""
+
+    def __init__(self, first, n_first: int, second):
+        self.first, self.n_first, self.second = first, n_first, second
+
+    def _split(self, idx: np.ndarray):
+        cut = int(np.searchsorted(idx, self.n_first))
+        return idx[:cut], idx[cut:] - self.n_first
+
+    def paths(self, idx: np.ndarray) -> List[str]:
+        a, b = self._split(idx)
+        return self.first.paths(a) + self.second.paths(b)
+
+    def add_files(self, idx: np.ndarray) -> List[AddFile]:
+        a, b = self._split(idx)
+        return self.first.add_files(a) + self.second.add_files(b)
+
+    def remove_files(self, idx: np.ndarray) -> List[RemoveFile]:
+        a, b = self._split(idx)
+        return self.first.remove_files(a) + self.second.remove_files(b)
+
+
+def _dv_codes(ck: CheckpointActions, commit_fa: Optional[FileActions],
+              device) -> torch.Tensor:
+    """Exact codes (0 = none) of the deletion-vector ids of checkpoint and
+    commit rows together."""
+    table: Dict[Optional[str], int] = {None: 0}
+    ck_codes = np.zeros(ck.n, np.int64)
+    for r, dv in ck.dv_ids.items():
+        ck_codes[r] = table.setdefault(dv, len(table))
+    lanes = [torch.from_numpy(ck_codes).to(device)]
+    if commit_fa is not None:
+        local = commit_fa.dv_code.cpu().numpy()
+        if local.any():
+            # the host parser's local codes -> ids -> the shared table
+            uniq, first = np.unique(local, return_index=True)
+            ids = commit_fa.rows.dv_ids(first)
+            remap = np.zeros(int(uniq.max()) + 1, np.int64)
+            for u, dv in zip(uniq.tolist(), ids):
+                remap[u] = table.setdefault(dv, len(table))
+            local = remap[local]
+        lanes.append(torch.from_numpy(local).to(device))
+    return torch.cat(lanes)
+
+
 def columnarize_log_segment(engine, segment) -> ColumnarActions:
-    """Read every commit of the segment and produce its ColumnarActions:
-    the device parse first, the host parser when the device parse hands
-    the buffer back (`parse.device_fallbacks` counts those)."""
+    """Read the segment's checkpoint parts and commits and produce its
+    ColumnarActions. Commits take the device parse first, the host parser
+    when the device parse hands the buffer back
+    (`parse.device_fallbacks` counts those). Returns, besides, the
+    handoff's launched replay (`ColumnarActions.pending`) when one ran."""
     from delta_tpu_torch.replay import device_parse, host_parse
 
-    t0 = time.perf_counter()
-    buf, starts, versions = _read_commits_buffer(
-        [(filenames.delta_version(f.path), f.path) for f in segment.deltas])
-    t1 = time.perf_counter()
-    parsed = device_parse.parse_commits_device(
-        buf, starts, versions, engine.device, engine.parse_window_bytes)
-    on_device = parsed is not None
-    if parsed is None:
-        parsed = host_parse.parse_commits_host(buf, starts, versions,
-                                               engine.device)
-    engine.synchronize()
+    phases: Dict[str, float] = {}
+    ck = None
+    if segment.checkpoints:
+        ck = _read_checkpoint(engine, segment, phases)
+        engine.synchronize()
+    parsed = None
+    on_device = False
+    if segment.deltas:
+        t0 = time.perf_counter()
+        buf, starts, versions = _read_commits_buffer(
+            [(filenames.delta_version(f.path), f.path)
+             for f in segment.deltas])
+        t1 = time.perf_counter()
+        parsed = device_parse.parse_commits_device(
+            buf, starts, versions, engine.device, engine.parse_window_bytes)
+        on_device = parsed is not None
+        if parsed is None:
+            parsed = host_parse.parse_commits_host(buf, starts, versions,
+                                                   engine.device)
+        engine.synchronize()
+        phases["read"] = t1 - t0
+        phases["parse"] = time.perf_counter() - t1
+
     t2 = time.perf_counter()
+    pending = None
+    dev = engine.device
+    if ck is None:
+        fa = parsed.file_actions
+    else:
+        n_ck = ck.n
+        lanes = dict(
+            is_add=torch.from_numpy(ck.is_add).to(dev),
+            version=torch.full((n_ck,), segment.checkpoint_version,
+                               dtype=torch.int64, device=dev),
+            order=torch.arange(n_ck, dtype=torch.int32, device=dev),
+            size=torch.from_numpy(ck.size).to(dev))
+        commit_fa = parsed.file_actions if parsed is not None else None
+        if commit_fa is not None:
+            lanes = {k: torch.cat([v, getattr(commit_fa, k)])
+                     for k, v in lanes.items()}
+        store = (ck.rows if commit_fa is None
+                 else CompositeRows(ck.rows, n_ck, commit_fa.rows))
+        if ck.handoff is not None:
+            pending, path_code = ck.handoff
+        else:
+            keys = list(ck.path_rows)
+            if commit_fa is not None:
+                keys += (parsed.path_keys if parsed.path_keys is not None
+                         else [commit_fa.rows.path_rows(dev)])
+            path_code = device_parse.path_codes(keys, store.paths, dev)
+        fa = FileActions(path_code=path_code,
+                         dv_code=_dv_codes(ck, commit_fa, dev),
+                         rows=store, **lanes)
+        engine.synchronize()
+        phases["codes"] = time.perf_counter() - t2
 
     tracker = _SmallActionTracker()
-    tracker.scan_pylist(parsed.others)
+    tracker.scan_pylist((ck.others if ck is not None else [])
+                        + (parsed.others if parsed is not None else []))
     latest_ci = None
     if tracker.commit_infos:
         latest_ci = tracker.commit_infos[max(tracker.commit_infos)]
     return ColumnarActions(
-        file_actions=parsed.file_actions,
+        file_actions=fa,
         protocol=tracker.protocol[2],
         metadata=tracker.metadata[2],
         set_transactions={k: t[2] for k, t in tracker.txns.items()},
@@ -229,5 +713,6 @@ def columnarize_log_segment(engine, segment) -> ColumnarActions:
         latest_commit_info=latest_ci,
         commit_infos=tracker.commit_infos,
         parsed_on_device=on_device,
-        phase_seconds={"read": t1 - t0, "parse": t2 - t1},
+        phase_seconds=phases,
+        pending=pending,
     )

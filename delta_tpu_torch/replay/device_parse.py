@@ -315,9 +315,13 @@ def _parse_one_window(buf: np.ndarray, base: int, file_starts: np.ndarray,
         has_percent=has_percent, host=host, others=others)
 
 
-def _path_codes(windows: List[_Window], store: SpanRows,
-                device) -> torch.Tensor:
-    """Exact dictionary codes of the decoded paths of all windows' rows."""
+def path_codes(windows, paths_of, device) -> torch.Tensor:
+    """Exact dictionary codes of the decoded paths of all rows of
+    `windows` (in order): each has `path_bytes` (uint8 [rows, width], zero
+    past each length), `path_len` and `has_percent`. One `torch.unique`
+    over the byte rows and lengths codes the raw paths; when any raw path
+    holds a '%', `paths_of(row indices)` gives the decoded paths of one
+    row per raw path, and those are coded."""
     if sum(int(w.path_len.shape[0]) for w in windows) == 0:
         return torch.zeros(0, dtype=torch.int64, device=device)
     width = max(w.path_bytes.shape[1] for w in windows)
@@ -339,7 +343,7 @@ def _path_codes(windows: List[_Window], store: SpanRows,
         .scatter_reduce_(0, codes, torch.arange(n, device=device), "amin")
     decoded: dict = {}
     remap = np.fromiter((decoded.setdefault(p, len(decoded))
-                         for p in store.paths(first.cpu().numpy())),
+                         for p in paths_of(first.cpu().numpy())),
                         np.int64, u)
     return torch.from_numpy(remap).to(device)[codes]
 
@@ -381,9 +385,10 @@ def parse_commits_device(buf, file_starts: np.ndarray,
         version=torch.cat([w.version for w in windows]),
         order=torch.cat([w.order for w in windows]),
         size=torch.cat([w.size for w in windows]),
-        path_code=_path_codes(windows, store, device),
+        path_code=path_codes(windows, store.paths, device),
         dv_code=torch.zeros(n, dtype=torch.int64, device=device),
         rows=store,
     )
     return ParsedCommits(file_actions=fa,
-                         others=[r for w in windows for r in w.others])
+                         others=[r for w in windows for r in w.others],
+                         path_keys=windows)

@@ -57,6 +57,23 @@ class DictRows:
     def __init__(self, bodies: List[dict]):
         self.bodies = bodies
 
+    def paths(self, idx: np.ndarray) -> List[str]:
+        return [decode_path(self.bodies[i]["path"]) for i in idx.tolist()]
+
+    def dv_ids(self, idx: np.ndarray) -> List[Optional[str]]:
+        return [_dv_unique_id(self.bodies[i].get("deletionVector"))
+                for i in idx.tolist()]
+
+    def path_rows(self, device):
+        """The raw (not percent-decoded) path bytes of every row, as the
+        device parse lays them out, to code them beside checkpoint rows."""
+        from delta_tpu_torch.log.parquet_host import Strings
+        from delta_tpu_torch.replay.columnar import _PathRows
+
+        mat, lens = Strings.from_list(
+            [b["path"] for b in self.bodies]).matrix()
+        return _PathRows(mat, lens, device)
+
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         out = []
         for i in idx.tolist():

@@ -1,12 +1,15 @@
 """State reconstruction: a log segment -> SnapshotState.
 
-Counterpart of `delta_tpu/replay/state.py` for a commit-only segment:
+Counterpart of `delta_tpu/replay/state.py`:
 
-1. Columnarize the segment (`replay/columnar.py`): read, device parse,
+1. Columnarize the segment (`replay/columnar.py`): checkpoint parts
+   (device page decode, kernel K3), then commits (device parse, K1);
    replay lanes on the engine's device.
 2. Replay on the device (`ops/replay.py`): stable sort by the exact
    `(path, dv)` key codes, then kernel K2 marks each file's newest action;
-   the live-file and tombstone masks stay on the device.
+   a checkpoint-only load whose parts were keyed on the device already
+   launched that replay in the handoff. The live-file and tombstone masks
+   stay on the device.
 3. Aggregates (`num_files`, `size_in_bytes`) reduce on the device; the
    `AddFile` / `RemoveFile` lists materialize on first access.
 """
@@ -51,7 +54,7 @@ class SnapshotState:
     latest_commit_info: Optional[CommitInfo] = None
     commit_infos: Dict[int, CommitInfo] = field(default_factory=dict)
     timestamp_ms: int = 0
-    # wall seconds of the load's phases: read, parse, replay
+    # wall seconds of the load's phases (ckpt_*, read, parse, codes, replay)
     phase_seconds: Dict[str, float] = field(default_factory=dict)
 
     @property
@@ -136,7 +139,7 @@ def check_read_supported(protocol: Protocol) -> None:
 
 
 def reconstruct_state(engine, segment) -> SnapshotState:
-    """Full state reconstruction of a commit-only log segment."""
+    """Full state reconstruction of a log segment."""
     columnar = columnarize_log_segment(engine, segment)
     if columnar.protocol is None or columnar.metadata is None:
         raise LogCorruptedError(
@@ -144,7 +147,10 @@ def reconstruct_state(engine, segment) -> SnapshotState:
             f"{'protocol' if columnar.protocol is None else 'metadata'} action")
     check_read_supported(columnar.protocol)
     t0 = time.perf_counter()
-    live, tomb = compute_masks_device(columnar)
+    if columnar.pending is not None:  # the checkpoint handoff's replay
+        live, tomb = columnar.pending.finish()
+    else:
+        live, tomb = compute_masks_device(columnar)
     engine.synchronize()
     phases = dict(columnar.phase_seconds, replay=time.perf_counter() - t0)
     return SnapshotState(

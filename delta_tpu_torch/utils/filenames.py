@@ -1,16 +1,18 @@
-"""`_delta_log` file names: the part a commit-only snapshot load needs.
+"""`_delta_log` file names: the part a snapshot load needs.
 
 Counterpart of `delta_tpu/utils/filenames.py`. Commit files are
-``%020d.json``; checkpoints (``%020d.checkpoint[...].parquet|json``) and
-compacted ranges (``%020d.%020d.compacted.json``) are recognised so the
-segment builder can refuse them. Zero padding makes a lexicographic
-listing return files in version order.
+``%020d.json``; classic checkpoints ``%020d.checkpoint.parquet``,
+multi-part ones ``%020d.checkpoint.%010d.%010d.parquet``, V2 ones
+``%020d.checkpoint.<uuid>.{json,parquet}``; compacted ranges
+``%020d.%020d.compacted.json``. Zero padding makes a lexicographic listing
+return files in version order.
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
+from enum import Enum
 from typing import List, Optional, Sequence
 
 LOG_DIR_NAME = "_delta_log"
@@ -42,16 +44,52 @@ def compacted_delta_versions(path: str) -> tuple[int, int]:
     return int(parts[0]), int(parts[1])
 
 
+def checkpoint_file_singular(log_path: str, version: int) -> str:
+    return f"{log_path}/{version:020d}.checkpoint.parquet"
+
+
+def checkpoint_file_with_parts(log_path: str, version: int,
+                               num_parts: int) -> List[str]:
+    return [f"{log_path}/{version:020d}.checkpoint.{i:010d}.{num_parts:010d}"
+            f".parquet" for i in range(1, num_parts + 1)]
+
+
+def last_checkpoint_file(log_path: str) -> str:
+    return f"{log_path}/_last_checkpoint"
+
+
+class CheckpointFormat(Enum):
+    CLASSIC = "classic"            # %020d.checkpoint.parquet
+    MULTIPART = "multipart"        # %020d.checkpoint.%010d.%010d.parquet
+    V2_JSON = "v2-json"            # %020d.checkpoint.<uuid>.json
+    V2_PARQUET = "v2-parquet"      # %020d.checkpoint.<uuid>.parquet
+
+
+_FORMAT_RANK = {
+    CheckpointFormat.CLASSIC: 0,
+    CheckpointFormat.MULTIPART: 1,
+    CheckpointFormat.V2_JSON: 2,
+    CheckpointFormat.V2_PARQUET: 2,
+}
+
+
 @dataclass(frozen=True)
 class CheckpointInstance:
-    """Identity of one checkpoint file: its version and, for a multi-part
-    checkpoint, which part of how many. A classic or V2 checkpoint is one
-    part of one."""
+    """Identity of one checkpoint file: version, format and, for a
+    multi-part checkpoint, which part of how many. Ordered by version,
+    then format (V2 > multi-part > classic), as the reference picks the
+    best complete checkpoint."""
 
     version: int
-    part: int = 1
+    fmt: CheckpointFormat
     num_parts: int = 1
+    part: int = 1
+    uuid: Optional[str] = None
     path: Optional[str] = None
+
+    @property
+    def sort_key(self):
+        return (self.version, _FORMAT_RANK[self.fmt], self.num_parts)
 
     @staticmethod
     def parse(path: str) -> Optional["CheckpointInstance"]:
@@ -61,20 +99,35 @@ class CheckpointInstance:
             return None
         version = int(m.group(1))
         parts = name.split(".")
+        if len(parts) == 3:
+            return CheckpointInstance(version, CheckpointFormat.CLASSIC,
+                                      path=path)
         if len(parts) == 5 and parts[2].isdigit() and parts[3].isdigit():
-            return CheckpointInstance(version, part=int(parts[2]),
-                                      num_parts=int(parts[3]), path=path)
-        return CheckpointInstance(version, path=path)
+            return CheckpointInstance(version, CheckpointFormat.MULTIPART,
+                                      num_parts=int(parts[3]),
+                                      part=int(parts[2]), path=path)
+        if len(parts) == 4:
+            fmt = (CheckpointFormat.V2_JSON if parts[3] == "json"
+                   else CheckpointFormat.V2_PARQUET)
+            return CheckpointInstance(version, fmt, uuid=parts[2], path=path)
+        return None
 
 
-def complete_checkpoint_versions(
+def group_complete_checkpoints(
     instances: Sequence[CheckpointInstance],
-) -> List[int]:
-    """Versions that have a complete checkpoint, ascending: a single-file
-    checkpoint is complete by itself, a multi-part one when all of its
-    `num_parts` parts are listed."""
-    parts: dict = {}
+) -> List[List[CheckpointInstance]]:
+    """Complete checkpoints, ascending by (version, format rank): a
+    classic or V2 file is complete by itself, a multi-part checkpoint when
+    all `num_parts` parts of one (version, num_parts) are listed."""
+    groups: List[List[CheckpointInstance]] = []
+    multi: dict = {}
     for ci in instances:
-        parts.setdefault((ci.version, ci.num_parts), set()).add(ci.part)
-    return sorted({v for (v, k), got in parts.items()
-                   if got == set(range(1, k + 1))})
+        if ci.fmt == CheckpointFormat.MULTIPART:
+            multi.setdefault((ci.version, ci.num_parts), {})[ci.part] = ci
+        else:
+            groups.append([ci])
+    for (_, num_parts), parts in multi.items():
+        if set(parts) == set(range(1, num_parts + 1)):
+            groups.append([parts[i] for i in range(1, num_parts + 1)])
+    groups.sort(key=lambda g: g[0].sort_key)
+    return groups

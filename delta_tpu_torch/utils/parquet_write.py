@@ -1,0 +1,355 @@
+"""A minimal Parquet writer for synthetic checkpoint parts.
+
+It writes what parquet-cpp (Arrow's writer, which the JAX package's
+checkpointer uses) writes for a checkpoint table, in the same encodings:
+one row group, data page v1, RLE/bit-packed hybrid levels, a dictionary
+page plus RLE_DICTIONARY data pages for every non-boolean column, with
+parquet-cpp's fallback to PLAIN pages once the dictionary passes
+`DICT_LIMIT` bytes (1 MiB), PLAIN booleans, and snappy pages
+(`log/snappy.py`). The footer is written with a thrift compact-protocol
+writer.
+
+Input is one `LeafColumn` per leaf, levels and values already laid out
+(`utils/synth.py` builds them for the checkpoint schema). Everything is
+numpy over whole columns; no step loops over rows in Python. It serves
+`chip_smoke.py` and the tests; writing checkpoints is not a feature of the
+package yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from delta_tpu_torch.log import snappy
+from delta_tpu_torch.log.parquet_host import Strings, ragged_arange
+
+DICT_LIMIT = 1 << 20    # parquet-cpp's default dictionary page size limit
+PAGE_ENTRIES = 1 << 15  # level entries per data page, at most
+
+_TYPES = {"BOOLEAN": 0, "INT32": 1, "INT64": 2, "BYTE_ARRAY": 6}
+_NP = {"INT32": np.int32, "INT64": np.int64}
+_PLAIN, _RLE, _RLE_DICT = 0, 3, 8
+_SNAPPY = 1
+
+
+class _Thrift:
+    """Thrift compact-protocol writer: the subset a footer and a page
+    header need (i32/i64, binary, lists, nested structs)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self._last = [0]
+
+    def varint(self, v: int) -> None:
+        while v >= 0x80:
+            self.out.append((v & 0x7F) | 0x80)
+            v >>= 7
+        self.out.append(v)
+
+    def _zigzag(self, v: int) -> None:
+        self.varint((v << 1) ^ (v >> 63))
+
+    def _field(self, fid: int, ctype: int) -> None:
+        delta = fid - self._last[-1]
+        if 0 < delta <= 15:
+            self.out.append((delta << 4) | ctype)
+        else:
+            self.out.append(ctype)
+            self._zigzag(fid)
+        self._last[-1] = fid
+
+    def i32(self, fid: int, v: int) -> None:
+        self._field(fid, 5)
+        self._zigzag(v)
+
+    def i64(self, fid: int, v: int) -> None:
+        self._field(fid, 6)
+        self._zigzag(v)
+
+    def binary(self, fid: int, b: bytes) -> None:
+        self._field(fid, 8)
+        self.varint(len(b))
+        self.out += b
+
+    def begin(self, fid: Optional[int] = None) -> None:
+        """Open a struct: a field of the enclosing struct, or (fid None)
+        a list element or the top level."""
+        if fid is not None:
+            self._field(fid, 12)
+        self._last.append(0)
+
+    def end(self) -> None:
+        self.out.append(0)
+        self._last.pop()
+
+    def list(self, fid: int, etype: int, n: int) -> None:
+        self._field(fid, 9)
+        if n < 15:
+            self.out.append((n << 4) | etype)
+        else:
+            self.out.append(0xF0 | etype)
+            self.varint(n)
+
+
+@dataclass
+class SchemaNode:
+    """One SchemaElement: a group (children) or a leaf (physical type)."""
+
+    name: str
+    repetition: int                 # 0 required, 1 optional, 2 repeated
+    children: Tuple["SchemaNode", ...] = ()
+    physical: Optional[str] = None
+    converted: Optional[int] = None  # 0 UTF8, 1 MAP, 3 LIST
+
+
+@dataclass
+class LeafColumn:
+    """One leaf's column chunk, laid out: definition (and repetition)
+    levels per entry, the values at the full definition level."""
+
+    path: Tuple[str, ...]
+    physical: str
+    defs: np.ndarray
+    reps: Optional[np.ndarray]
+    max_def: int
+    max_rep: int
+    values: object  # numpy array, or Strings for BYTE_ARRAY
+
+
+def _hybrid(v: np.ndarray, w: int) -> bytes:
+    """RLE/bit-packed hybrid of `v` at width `w`: one RLE run when every
+    value is equal, else one bit-packed run (padded to 8 values)."""
+    n = v.shape[0]
+    if n == 0:
+        return b""
+    t = _Thrift()
+    if w == 0 or bool((v == v[0]).all()):
+        t.varint(n << 1)
+        return bytes(t.out) + int(v[0]).to_bytes((w + 7) // 8, "little")
+    groups = -(-n // 8)
+    padded = np.zeros(groups * 8, np.uint64)
+    padded[:n] = v
+    bits = ((padded[:, None] >> np.arange(w, dtype=np.uint64)) & 1)
+    t.varint((groups << 1) | 1)
+    return bytes(t.out) + np.packbits(bits.astype(np.uint8).reshape(-1),
+                                      bitorder="little").tobytes()
+
+
+def _levels(v: np.ndarray, max_level: int) -> bytes:
+    body = _hybrid(v.astype(np.uint64), max(1, int(max_level).bit_length()))
+    return len(body).to_bytes(4, "little") + body
+
+
+def _plain(physical: str, values) -> bytes:
+    if physical == "BOOLEAN":
+        return np.packbits(np.asarray(values, bool),
+                           bitorder="little").tobytes()
+    if physical != "BYTE_ARRAY":
+        return np.asarray(values, _NP[physical]).tobytes()
+    n = len(values)
+    out = np.zeros(4 * n + int(values.lens.sum()), np.uint8)
+    at = np.arange(n, dtype=np.int64) * 4 + np.concatenate(
+        [[0], np.cumsum(values.lens)[:-1]]).astype(np.int64)
+    out[(at[:, None] + np.arange(4)).reshape(-1)] = \
+        values.lens.astype("<u4").view(np.uint8)
+    within = ragged_arange(values.lens)
+    out[np.repeat(at + 4, values.lens) + within] = values.buf[
+        np.repeat(values.starts, values.lens) + within]
+    return out.tobytes()
+
+
+def _dictionary(physical: str, values):
+    """(unique values in first-appearance order, each value's code, and
+    how many leading values a dictionary under DICT_LIMIT covers)."""
+    n = len(values)
+    if physical == "BYTE_ARRAY":
+        mat, lens = values.matrix()
+        keyed = np.concatenate([mat, lens.astype("<u8").view(np.uint8)
+                                .reshape(n, 8)], 1)
+        keyed = np.ascontiguousarray(keyed).view(
+            np.dtype((np.void, keyed.shape[1]))).reshape(n)
+        sizes_of = lambda idx: 4 + values.lens[idx]  # noqa: E731
+    else:
+        keyed = np.asarray(values)
+        sizes_of = lambda idx: np.full(len(idx), np.dtype(  # noqa: E731
+            _NP[physical]).itemsize)
+    if n == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), 0
+    _, first, inverse = np.unique(keyed, return_index=True,
+                                  return_inverse=True)
+    rank = np.empty(first.shape[0], np.int64)
+    order = np.argsort(first, kind="stable")
+    rank[order] = np.arange(first.shape[0])
+    firsts = first[order]  # value index of each unique, insertion order
+    fits = int(np.searchsorted(np.cumsum(sizes_of(firsts)), DICT_LIMIT,
+                               side="right"))
+    covered = n if fits == firsts.shape[0] else int(firsts[fits])
+    return firsts[:fits], rank[inverse.reshape(-1)], covered
+
+
+def _page(t_type: int, payload: bytes, num_values: int,
+          encoding: int) -> Tuple[bytes, int]:
+    """(page header + snappy payload, its uncompressed size)."""
+    comp = snappy.compress(payload)
+    t = _Thrift()
+    t.begin()
+    t.i32(1, t_type)
+    t.i32(2, len(payload))
+    t.i32(3, len(comp))
+    if t_type == 0:
+        t.begin(5)
+        t.i32(1, num_values)
+        t.i32(2, encoding)
+        t.i32(3, _RLE)
+        t.i32(4, _RLE)
+        t.end()
+    else:
+        t.begin(7)
+        t.i32(1, num_values)
+        t.i32(2, encoding)
+        t.end()
+    t.end()
+    return bytes(t.out) + comp, len(t.out) + len(payload)
+
+
+def _chunk(col: LeafColumn, base: int):
+    """(chunk bytes, column metadata fields) of one leaf."""
+    n_entries = col.defs.shape[0]
+    full = col.defs == col.max_def
+    vpos = np.cumsum(full) - full  # values before each entry
+    starts = (np.flatnonzero(col.reps == 0) if col.reps is not None
+              else np.arange(n_entries))  # pages begin at a row
+    encodings = [_RLE]
+    pieces: List[bytes] = []
+    uncompressed = 0
+    dict_off = None
+    codes = None
+    plain_from = n_entries
+    if col.physical != "BOOLEAN":
+        uniq_first, codes, covered = _dictionary(col.physical, col.values)
+        if covered < len(col.values):
+            # parquet-cpp's fallback: the entries from the first value the
+            # dictionary cannot hold (from its row) go out as PLAIN
+            e = int(np.searchsorted(vpos, covered, side="right")) - 1
+            e = max(e, 0)
+            plain_from = int(starts[np.searchsorted(starts, e, side="right")
+                                    - 1])
+        dict_vals = (col.values.take(uniq_first)
+                     if isinstance(col.values, Strings)
+                     else np.asarray(col.values)[uniq_first])
+        dict_off = base
+        page, u = _page(2, _plain(col.physical, dict_vals),
+                        len(uniq_first), _PLAIN)
+        pieces.append(page)
+        uncompressed += u
+        encodings = [_PLAIN, _RLE, _RLE_DICT]
+        width = max(1, int(max(len(uniq_first) - 1, 0)).bit_length())
+    cuts = list(starts[::max(1, PAGE_ENTRIES)].tolist()) if n_entries else [0]
+    cuts = sorted(set([c for c in cuts if c < n_entries] + [plain_from])
+                  - {n_entries}) + [n_entries]
+    if cuts[0] != 0:
+        cuts.insert(0, 0)
+    data_off = base + sum(len(p) for p in pieces)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        body = b""
+        if col.max_rep:
+            body += _levels(col.reps[lo:hi], col.max_rep)
+        if col.max_def:
+            body += _levels(col.defs[lo:hi], col.max_def)
+        v0, v1 = int(vpos[lo]), int(vpos[hi - 1] + full[hi - 1])
+        if col.physical == "BOOLEAN" or lo >= plain_from:
+            vals = (col.values.take(np.arange(v0, v1))
+                    if isinstance(col.values, Strings)
+                    else np.asarray(col.values)[v0:v1])
+            body += _plain(col.physical, vals)
+            enc = _PLAIN
+            if _PLAIN not in encodings:
+                encodings.append(_PLAIN)
+        else:
+            body += bytes([width]) + _hybrid(
+                codes[v0:v1].astype(np.uint64), width)
+            enc = _RLE_DICT
+        page, u = _page(0, body, hi - lo, enc)
+        pieces.append(page)
+        uncompressed += u
+    blob = b"".join(pieces)
+    return blob, dict(encodings=encodings, num_values=n_entries,
+                      uncompressed=uncompressed, compressed=len(blob),
+                      data_off=data_off, dict_off=dict_off)
+
+
+def _schema(t: _Thrift, node: SchemaNode, top: bool = False) -> None:
+    t.begin()
+    if node.physical is not None:
+        t.i32(1, _TYPES[node.physical])
+    if not top:
+        t.i32(3, node.repetition)
+    t.binary(4, node.name.encode())
+    if node.children:
+        t.i32(5, len(node.children))
+    if node.converted is not None:
+        t.i32(6, node.converted)
+    t.end()
+    for child in node.children:
+        _schema(t, child)
+
+
+def _count(node: SchemaNode) -> int:
+    return 1 + sum(_count(c) for c in node.children)
+
+
+def write_parquet(schema: SchemaNode, columns: List[LeafColumn],
+                  num_rows: int) -> bytes:
+    """One Parquet file: `schema` is the root group, `columns` its leaves
+    in depth-first order."""
+    out = [b"PAR1"]
+    pos = 4
+    metas = []
+    for col in columns:
+        blob, meta = _chunk(col, pos)
+        out.append(blob)
+        metas.append((col, pos, meta))
+        pos += len(blob)
+    t = _Thrift()
+    t.begin()
+    t.i32(1, 1)
+    t.list(2, 12, _count(schema))
+    _schema(t, schema, top=True)
+    t.i64(3, num_rows)
+    t.list(4, 12, 1)
+    t.begin()
+    t.list(1, 12, len(metas))
+    total = 0
+    for col, start, m in metas:
+        t.begin()
+        t.i64(2, start)
+        t.begin(3)
+        t.i32(1, _TYPES[col.physical])
+        t.list(2, 5, len(m["encodings"]))
+        for e in m["encodings"]:
+            t._zigzag(e)
+        t.list(3, 8, len(col.path))
+        for p in col.path:
+            t.varint(len(p.encode()))
+            t.out += p.encode()
+        t.i32(4, _SNAPPY)
+        t.i64(5, m["num_values"])
+        t.i64(6, m["uncompressed"])
+        t.i64(7, m["compressed"])
+        t.i64(9, m["data_off"])
+        if m["dict_off"] is not None:
+            t.i64(11, m["dict_off"])
+        t.end()
+        t.end()
+        total += m["uncompressed"]
+    t.i64(2, total)
+    t.i64(3, num_rows)
+    t.end()
+    t.binary(6, b"delta_tpu_torch synthetic checkpoint writer")
+    t.end()
+    footer = bytes(t.out)
+    out += [footer, len(footer).to_bytes(4, "little"), b"PAR1"]
+    return b"".join(out)

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of the JAX package.
 
-A snapshot load through `delta_tpu_torch` in a fresh interpreter must
-leave no `jax`, `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module
+A snapshot load through `delta_tpu_torch` in a fresh interpreter, of a
+commit-only log and of a checkpointed one, must leave no `jax`, `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module
 in `sys.modules` (`delta_tpu_torch` itself shares the prefix, so the check
 matches whole dotted names). And no source of the port may name them in
 an import.
@@ -23,6 +23,14 @@ from delta_tpu_torch.utils.synth import synth_delta_log
 d = sys.argv[1]
 truth = synth_delta_log(d, 6, 10)
 st = Table.for_path(d, engine=TorchEngine("cpu")).latest_snapshot().state
+assert sorted(a.path for a in st.add_files) == truth.live_paths
+assert len(st.tombstones) == truth.num_tombstones
+# a checkpointed log: the footer reader, snappy, the plan, the host leaf
+# reader and the synthetic writer all run
+d2 = d + "/checkpointed"
+truth = synth_delta_log(d2, 12, 10, checkpoint_version=9, now_ms=7 * 86_400_000)
+st = Table.for_path(d2, engine=TorchEngine("cpu")).latest_snapshot().state
+assert st.file_actions.version.min() == 9  # rows from the checkpoint
 assert sorted(a.path for a in st.add_files) == truth.live_paths
 assert len(st.tombstones) == truth.num_tombstones
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")

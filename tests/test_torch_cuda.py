@@ -14,6 +14,10 @@ import torch
 
 from delta_tpu_torch import Table, TorchEngine, obs
 from delta_tpu_torch.ops.byte_class import byte_class, byte_class_plain
+from delta_tpu_torch.ops.page_decode import (
+    hybrid_extract,
+    hybrid_extract_plain,
+)
 from delta_tpu_torch.ops.replay import winner_pack, winner_pack_plain
 from delta_tpu_torch.utils.synth import synth_delta_log
 
@@ -75,3 +79,64 @@ def test_card_load_equals_cpu_load(tmp_path):
     assert torch.equal(on_card.live_mask.cpu(), on_cpu.live_mask)
     assert torch.equal(on_card.tombstone_mask.cpu(), on_cpu.tombstone_mask)
     assert on_card.add_files == on_cpu.add_files
+
+
+def random_hybrid_plan(rng, n_runs: int, lane_bytes: int):
+    """A lane and a run plan: bit-packed runs at widths 0..32 and shifts
+    0..7, RLE runs with values of bit 31 set, one run ending in the last
+    bytes of the lane (used by the K3 tests on the card and on the CPU)."""
+    lane = rng.integers(0, 256, lane_bytes, dtype=np.uint8)
+    rows, h = [], 0
+    for k in range(n_runs):
+        count = int(rng.integers(1, 300))
+        if k % 4 == 3:
+            val = int(rng.integers(0, 1 << 32))
+            rows.append((h, count, 0, int(rng.integers(0, 33)), 1,
+                         val - (1 << 32) if val >= 1 << 31 else val))
+        else:
+            w = int(rng.choice([0, 1, 2, 7, 13, 31, 32, int(rng.integers(0, 33))]))
+            bits = count * w
+            top = max(0, lane_bytes * 8 - bits)
+            bit = int(rng.integers(0, top + 1)) if k else 0
+            if k == n_runs - 1:
+                bit = top  # ends in the last bytes of the lane
+            rows.append((h, count, bit, w, 0, 0))
+        h += count
+    return lane, np.asarray(rows, np.int32), h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_runs", [(0, 1), (1, 7), (2, 64), (3, 999)])
+def test_hybrid_extract_kernel_matches_plain(seed, n_runs):
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    lane, runs, h = random_hybrid_plan(rng, n_runs, 4096 + seed)
+    lane_t = torch.from_numpy(lane).to(dev)
+    runs_t = torch.from_numpy(runs).to(dev)
+    launches = obs.counter("kernel.hybrid_extract.launches").read()
+    for total in (h, 1, min(h, 1025)):
+        assert torch.equal(hybrid_extract(lane_t, runs_t, total),
+                           hybrid_extract_plain(lane_t, runs_t, total))
+    torch.cuda.synchronize()
+    assert obs.counter("kernel.hybrid_extract.launches").read() \
+        == launches + 3
+
+
+@pytest.mark.cuda
+def test_checkpointed_card_load_equals_cpu_load(tmp_path):
+    _card()
+    truth = synth_delta_log(str(tmp_path), 40, 100, seed=5,
+                            checkpoint_version=30, now_ms=7 * 86_400_000)
+    obs.reset()
+    on_card = Table.for_path(str(tmp_path), engine=TorchEngine()) \
+        .latest_snapshot().state
+    counts = obs.counters()
+    parts = truth.checkpoint["parts"]
+    assert counts["decode.device_parts"] == parts
+    assert counts["decode.device_fallbacks"] == 0
+    assert counts["kernel.hybrid_extract.launches"] == parts
+    on_cpu = Table.for_path(str(tmp_path), engine=TorchEngine("cpu")) \
+        .latest_snapshot().state
+    assert torch.equal(on_card.live_mask.cpu(), on_cpu.live_mask)
+    assert torch.equal(on_card.tombstone_mask.cpu(), on_cpu.tombstone_mask)
+    assert sorted(a.path for a in on_card.add_files) == truth.live_paths

@@ -180,13 +180,16 @@ def test_malformed_control_line_falls_back_then_raises(tmp_path):
 
 
 def test_checkpointed_or_compacted_log_is_refused(tmp_path):
+    """A V2 checkpoint (UUID-named) and a compacted delta are not read
+    yet; classic checkpoints are (tests/test_torch_checkpoint.py)."""
     path = _write_log(tmp_path, [[_PROTO, _META, _add("a")], [_add("b")]])
     log = os.path.join(path, "_delta_log")
-    with open(os.path.join(log, f"{1:020d}.checkpoint.parquet"), "wb") as f:
+    v2 = os.path.join(log, f"{1:020d}.checkpoint.3f2a-uuid.parquet")
+    with open(v2, "wb") as f:
         f.write(b"PAR1")
     with pytest.raises(UnsupportedLogError):
         Table.for_path(path, engine=TorchEngine("cpu")).latest_snapshot()
-    os.remove(os.path.join(log, f"{1:020d}.checkpoint.parquet"))
+    os.remove(v2)
     with open(os.path.join(log, f"{0:020d}.{1:020d}.compacted.json"),
               "w") as f:
         f.write(_add("a") + "\n")
