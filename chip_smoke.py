@@ -38,6 +38,26 @@
    load through the handoff (`decode.handoff_launches` >= 1) to its truth.
 9. A small checkpointed log loads on the card and on the CPU (plain
    versions) to equal masks and equal live files.
+10. Kernel phase K4: `interleave_bits` against its plain version on the
+    card, exact, on the OPTIMIZE cell's own rank matrix ([3, rows],
+    n_bits 32: the scaled ranks of k1, k2, k3) and on edge shapes
+    (n = 1, 31, 33, 1023, 1025; k = 1..5; n_bits 16 and 32; bit 31 set;
+    all-ones rows); timed beside its plain version and its bound.
+11. OPTIMIZE path, BASELINE config 4 (`benchmarks/workloads.py:162-203`):
+    the port's `write_table` builds a table of 20 appends of 500,000 rows
+    (k1, k2, k3 int64 uniform in [0, 2^30), payload float64 normal; 10M
+    rows, uncut), then, counters from 0,
+    `Table.for_path(p, engine=TorchEngine()).optimize()
+    .execute_zorder_by("k1", "k2", "k3")`. The new snapshot must hold 20
+    tombstones with dataChange false and ceil(bytes / 256 MiB) live files,
+    all with ZCube tags; the rows read back in add order must be the
+    input rows (an order-free digest, and a row-by-row match), in
+    non-decreasing curve-key order under the keys the plain versions
+    compute; K4 must have launched. Prints the phase split, rows/s of the
+    command and of `zorder_sort_indices` alone, and peak device memory.
+12. A 20,000-row table optimized along both curves on the card and on the
+    CPU (plain versions): the same output rows in the same order and the
+    same stats.
 
 Prints a metrics line per phase, a `kernels` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
@@ -57,6 +77,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -202,8 +223,6 @@ def winner_pack_phase(state) -> dict:
 
 def _edge_plans(real_lane: torch.Tensor):
     """(name, lane, runs, h_total) edge cases of K3's plan space."""
-    import numpy as np
-
     g = np.random.default_rng(11)
     lane = g.integers(0, 256, 4096, dtype=np.uint8)
     plans = []
@@ -359,14 +378,282 @@ def profile_load(path: str, Table, TorchEngine) -> None:
                 for us, k, c in rows[:15]]}), flush=True)
 
 
+ZORDER_COLS = ("k1", "k2", "k3")
+OPTIMIZE_APPENDS = 20       # BASELINE config 4: 20 appends
+CONFIG4_ROWS = 10_000_000   # of 500,000 rows each
+OPTIMIZE_MAX_FILE = 256 << 20  # the default max_file_size
+
+
+def config4_appends(seed: int) -> list:
+    """The OPTIMIZE cell's appends as `OptimizeBenchmark` makes them
+    (`benchmarks/workloads.py:171-182`): 20 appends of k1, k2, k3 int64
+    uniform in [0, 2^30) and payload float64 normal, one seeded
+    generator."""
+    rng = np.random.default_rng(seed)
+    per = CONFIG4_ROWS // OPTIMIZE_APPENDS
+    out = []
+    for _ in range(OPTIMIZE_APPENDS):
+        out.append({
+            "k1": rng.integers(0, 1 << 30, per).astype(np.int64),
+            "k2": rng.integers(0, 1 << 30, per).astype(np.int64),
+            "k3": rng.integers(0, 1 << 30, per).astype(np.int64),
+            "payload": rng.normal(size=per),
+        })
+    return out
+
+
+def rank_matrix(cols, dev) -> torch.Tensor:
+    """K4's input on the Z-order path for these columns: the scaled
+    ranks, int32 bit patterns [k, n] on `dev`."""
+    from delta_tpu_torch.ops import zorder as tz
+    from delta_tpu_torch.ops.u32 import to_i32_bits
+
+    stacked = np.stack([tz.to_sortable_u32(c) for c in cols])
+    on_dev = torch.from_numpy(stacked.view(np.int32)).to(dev)
+    return to_i32_bits(tz.scaled_ranks(on_dev, tz.pad_bucket(len(cols[0]))))
+
+
+def interleave_phase(ranks: torch.Tensor, dev) -> dict:
+    """K4 against its plain version on the cell's rank matrix and on edge
+    shapes; timed on the rank matrix."""
+    from delta_tpu_torch.ops.interleave import (
+        interleave_bits, interleave_bits_plain, n_words)
+
+    got = interleave_bits(ranks, 32)
+    torch.cuda.synchronize()
+    want = interleave_bits_plain(ranks, 32)
+    _check(torch.equal(got, want), "interleave_bits != plain on the ranks")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    del got, want
+    g = np.random.default_rng(13)
+    shapes = [(k, b, n) for n in (1, 31, 33, 1023, 1025)
+              for k in (1, 2, 3, 4, 5) for b in (16, 32)]
+    for k, b, n in shapes + [(7, 5, 1025), (32, 32, 1025)]:
+        x = g.integers(0, 2**32, (k, n), dtype=np.uint32)
+        x[:, ::3] |= np.uint32(0x80000000)  # bit 31 set
+        x[:, 1::5] = 0xFFFFFFFF             # all-ones rows
+        t = torch.from_numpy(x.view(np.int32)).to(dev)
+        _check(torch.equal(interleave_bits(t, b), interleave_bits_plain(t, b)),
+               f"interleave_bits != plain at k={k} n_bits={b} n={n}")
+        torch.cuda.synchronize()
+    k, n = ranks.shape
+    ms = _time_ms(lambda: interleave_bits(ranks, 32), 50)
+    plain = _time_ms(lambda: interleave_bits_plain(ranks, 32), 3)
+    w = n_words(k, 32)
+    nbytes = 4.0 * (k + w) * n
+    bound, by = _bound_ms(nbytes, 4.0 * k * 32 * n)
+    return {
+        "name": "interleave_bits", "route": "cuda", "ok": True,
+        "source": "delta_tpu_torch/csrc/interleave_bits.cu",
+        "replaces": "delta_tpu/ops/pallas_kernels.py:73",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": f"u32[{k},{n}]->u32[{w},{n}]", "bound_bytes": nbytes}
+
+
+def _row_hash(k1, k2, k3, payload):
+    """A 64-bit mix of each row's (k1, k2, k3, payload bits)."""
+    with np.errstate(over="ignore"):
+        h = k1.view(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+        h ^= k2.view(np.uint64) * np.uint64(0xC2B2AE3D27D4EB4F)
+        h ^= k3.view(np.uint64) * np.uint64(0x165667B19E3779F9)
+        h ^= payload.view(np.uint64) * np.uint64(0xD6E8FEB86659FD93)
+        h ^= h >> np.uint64(31)
+        h *= np.uint64(0xBF58476D1CE4E5B9)
+    return h
+
+
+def check_optimized_rows(inp: dict, out, dev) -> None:
+    """The rows read back are the input rows (an order-free digest, then
+    a row-by-row match), and in non-decreasing curve-key order under the
+    keys the plain versions compute from the input in its order."""
+    from delta_tpu_torch.ops.interleave import interleave_bits_plain
+    from delta_tpu_torch.ops.u32 import widen_u32
+
+    n = len(inp["k1"])
+    _check(out.num_rows == n, "optimize: row count")
+    cols = ("k1", "k2", "k3", "payload")
+    h_in = _row_hash(*(inp[c] for c in cols))
+    h_out = _row_hash(*(out.column(c).values for c in cols))
+    _check(int(h_in.sum(dtype=np.uint64)) == int(h_out.sum(dtype=np.uint64))
+           and int(np.bitwise_xor.reduce(h_in))
+           == int(np.bitwise_xor.reduce(h_out)),
+           "optimize: order-free digest of the rows")
+    order = np.argsort(h_in, kind="stable")
+    pos = np.minimum(np.searchsorted(h_in[order], h_out), n - 1)
+    perm = order[pos]  # input row of each output row
+    for c in cols:
+        a, b = inp[c][perm], out.column(c).values
+        _check(np.array_equal(a.view(np.int64), b.view(np.int64)),
+               f"optimize: output rows match input rows ({c})")
+    _check(np.unique(perm).size == n, "optimize: every input row once")
+    keys = interleave_bits_plain(
+        rank_matrix([inp[c] for c in ZORDER_COLS], dev), 32)
+    w = widen_u32(keys[:, torch.from_numpy(perm).to(dev)])
+    del keys
+    ok = torch.ones(n - 1, dtype=torch.bool, device=dev)
+    undecided = torch.ones_like(ok)
+    for i in range(w.shape[0]):
+        a, b = w[i, :-1], w[i, 1:]
+        ok &= ~(undecided & (a > b))
+        undecided &= a == b
+    _check(bool(ok.all()), "optimize: curve keys non-decreasing")
+
+
+def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
+    """The OPTIMIZE cell on the card, counters from 0; returns its
+    metrics line (K4's launches under `launches`)."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.log.parquet_data import read_data_file_path
+    from delta_tpu_torch.models.batch import Batch
+    from delta_tpu_torch.ops.zorder import zorder_sort_indices
+
+    path = os.path.join(work, "optimize")
+    t0 = time.perf_counter()
+    for cols in appends:
+        write_table(path, cols, engine=TorchEngine())
+    write_s = time.perf_counter() - t0
+    before = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
+    _check(before.state.num_files == len(appends), "optimize: input files")
+    bytes_in = before.state.size_in_bytes
+    n_rows = sum(len(c["k1"]) for c in appends)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    obs.reset()
+    t0 = time.perf_counter()
+    m = Table.for_path(path, engine=TorchEngine()).optimize() \
+        .execute_zorder_by(*ZORDER_COLS)
+    torch.cuda.synchronize()
+    command_s = time.perf_counter() - t0
+    counts = obs.counters()
+    peak = torch.cuda.max_memory_allocated()
+    k4 = counts.get("kernel.interleave_bits.launches", 0)
+    _check(k4 >= 1, "interleave_bits launched on the OPTIMIZE path")
+
+    after = Table.for_path(path, engine=TorchEngine()).latest_snapshot().state
+    n_out = max(1, -(-bytes_in // OPTIMIZE_MAX_FILE))
+    _check(after.version == len(appends) == m.version,
+           "optimize: committed the next version")
+    tombs = after.tombstones
+    _check(len(tombs) == len(appends)
+           and not any(t.dataChange for t in tombs),
+           "optimize: one dataChange=false tombstone per input file")
+    adds = after.add_files
+    _check(len(adds) == n_out == m.num_files_added,
+           f"optimize: {n_out} output files")
+    cubes = {(a.tags or {}).get("ZCUBE_ID") for a in adds}
+    _check(len(cubes) == 1 and None not in cubes,
+           "optimize: every output file carries the command's ZCube tags")
+    t0 = time.perf_counter()
+    out = Batch.concat([read_data_file_path(os.path.join(path, a.path))
+                        for a in adds])
+    read_back_s = time.perf_counter() - t0
+    inp = {c: np.concatenate([a[c] for a in appends])
+           for c in ("k1", "k2", "k3", "payload")}
+    check_optimized_rows(inp, out, dev)
+    del out
+
+    # the curve key alone (config 4's second metric), warm
+    cols = [inp[c] for c in ZORDER_COLS]
+    zorder_sort_indices(cols, device=dev)
+    curve_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zorder_sort_indices(cols, device=dev)
+        curve_s.append(time.perf_counter() - t0)
+    curve_s.sort()
+    return {
+        "rows": n_rows, "appends": len(appends), "input_bytes": bytes_in,
+        "output_files": len(adds),
+        "output_bytes": sum(a.size for a in adds),
+        "write_appends_s": write_s, "command_s": command_s,
+        "command_rows_per_s": n_rows / command_s,
+        "phase_s": m.phase_seconds,
+        "curve_key_s": curve_s, "curve_key_rows_per_s": n_rows / curve_s[1],
+        "read_back_s": read_back_s, "peak_device_bytes": peak,
+        "counters": counts, "launches": k4, "card": card}
+
+
+def profile_optimize(path: str) -> None:
+    """OPTIMIZE ZORDER BY once more on the cell's table (now its two
+    output files), under torch.profiler: device time by kernel and the
+    device's busy share of the command's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from delta_tpu_torch import Table, TorchEngine
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = Table.for_path(path, engine=TorchEngine()).optimize() \
+            .execute_zorder_by(*ZORDER_COLS)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    print("profile optimize: " + json.dumps({
+        "traced_command_s": traced_s, "phase_s": m.phase_seconds,
+        "device_busy_s": busy_s, "device_busy_share": busy_s / traced_s,
+        "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
+                for us, k, c in rows[:15]]}), flush=True)
+
+
+def optimize_card_vs_cpu(work: str) -> None:
+    """A 20,000-row table optimized along both curves on the card and on
+    the CPU: the same output rows in the same order, the same stats."""
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.log.parquet_data import read_data_file_path
+    from delta_tpu_torch.models.batch import Batch
+
+    src = os.path.join(work, "optimize_small")
+    rng = np.random.default_rng(21)
+    for _ in range(4):
+        write_table(src, {"k1": rng.integers(0, 1 << 30, 5000),
+                          "k2": rng.integers(0, 1 << 10, 5000),  # ties
+                          "k3": rng.integers(0, 1 << 30, 5000),
+                          "payload": rng.normal(size=5000)},
+                    engine=TorchEngine("cpu"))
+    for curve in ("zorder", "hilbert"):
+        results = []
+        for device in ("cuda", "cpu"):
+            p = os.path.join(work, f"optimize_small_{curve}_{device}")
+            shutil.copytree(src, p)
+            Table.for_path(p, engine=TorchEngine(device)).optimize() \
+                .execute_zorder_by(*ZORDER_COLS, curve=curve)
+            st = Table.for_path(p, engine=TorchEngine("cpu")) \
+                .latest_snapshot().state
+            rows = Batch.concat([read_data_file_path(os.path.join(p, a.path))
+                                 for a in st.add_files])
+            results.append((rows, [a.stats for a in st.add_files]))
+        (card_rows, card_stats), (cpu_rows, cpu_stats) = results
+        _check(card_stats == cpu_stats, f"{curve}: card stats == CPU stats")
+        for c in ("k1", "k2", "k3", "payload"):
+            _check(np.array_equal(card_rows.column(c).values.view(np.int64),
+                                  cpu_rows.column(c).values.view(np.int64)),
+                   f"{curve}: card rows == CPU rows ({c})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
                     help="log depth (the headline benchmark has 100000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also time a warm load and trace one with "
-                    "torch.profiler (device time by kernel, busy share)")
+                    help="also time a warm load and trace one, and trace "
+                    "a second OPTIMIZE, with torch.profiler (device time "
+                    "by kernel, busy share)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -523,8 +810,26 @@ def main(argv=None) -> int:
                and on_card.add_files == on_cpu.add_files,
                "small checkpointed log: card == CPU")
         print("small checkpointed log: card == cpu", flush=True)
+
+        # K4 on the OPTIMIZE cell's own rank matrix, then edge shapes
+        appends = config4_appends(args.seed + 1)
+        ranks = rank_matrix([np.concatenate([a[c] for a in appends])
+                             for c in ZORDER_COLS], dev)
+        kernels["interleave_bits"] = interleave_phase(ranks, dev)
+        del ranks
+        print("interleave_bits phase: " + json.dumps(
+            kernels["interleave_bits"]), flush=True)
+
+        # the OPTIMIZE path, counters from 0
+        opt = optimize_phase(work, appends, card, dev)
+        kernels["interleave_bits"]["launches"] = opt["launches"]
+        print("optimize zorder: " + json.dumps(opt), flush=True)
+        del appends
+        optimize_card_vs_cpu(work)
+        print("small optimize, both curves: card == cpu", flush=True)
         if args.profile:
             profile_load(path, Table, TorchEngine)
+            profile_optimize(os.path.join(work, "optimize"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -12,6 +12,11 @@ kernel K3, the hybrid bit-field extract; host leaf reader for the rest) ->
 tail commits (parallel read, device JSON parse, kernel K1, byte classes)
 -> device replay (stable sort + kernel K2, the winner pass) -> live-file
 and tombstone masks on the card.
+
+It writes to an unpartitioned table (`api.write_table`) and runs OPTIMIZE
+(`Table.optimize()`: compaction, Z-order and Hilbert clustering) with its
+own data-file reader and writer and an optimistic transaction; the curve
+permutation runs on the card (kernel K4, the bit interleave).
 """
 
 from delta_tpu_torch.engine import TorchEngine

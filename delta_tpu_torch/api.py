@@ -1,0 +1,63 @@
+"""Writing rows to a table: the counterpart of `delta_tpu/api.py::write_table`
+for an unpartitioned table.
+
+    from delta_tpu_torch.api import write_table
+    write_table(path, {"k": np.arange(10), "s": np.array(["a"] * 10)})
+    write_table(path, {"k": (values, valid)}, mode="append")
+
+`columns` maps names to numpy arrays, (values, valid) pairs, or
+`models.batch.Column`s; a new table's schema comes from their dtypes
+(`models/schema.py::type_name_of`). The first write
+creates the table: protocol (1, 2) and metadata with the given
+properties, in the same commit as the data, as the reference does
+(`delta_tpu/api.py:24`). Returns the committed version.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from delta_tpu_torch.errors import PathExistsError, UnsupportedTableError
+from delta_tpu_torch.models.batch import Batch, as_column
+from delta_tpu_torch.models.schema import (
+    StructField,
+    StructType,
+    schema_from_json,
+    type_name_of,
+)
+from delta_tpu_torch.table import Table
+from delta_tpu_torch.txn.transaction import Operation, check_write_supported
+from delta_tpu_torch.write.writer import write_data_files
+
+
+def schema_of(batch: Batch) -> StructType:
+    return StructType([StructField(name, type_name_of(c.values.dtype))
+                       for name, c in batch.columns.items()])
+
+
+def write_table(path: str, columns, mode: str = "append", engine=None,
+                properties: Optional[Dict[str, str]] = None) -> int:
+    """Append `columns` to the table at `path` (creating it), or with
+    mode="error" create it and fail if it exists."""
+    if mode not in ("append", "error"):
+        raise UnsupportedTableError(f"write mode {mode!r} is not supported "
+                                    "yet", feature=f"mode {mode}")
+    batch = columns if isinstance(columns, Batch) else Batch(
+        {name: as_column(v) for name, v in columns.items()})
+    table = Table.for_path(path, engine)
+    exists = table.exists()
+    if exists and mode == "error":
+        raise PathExistsError(f"table {path} already exists")
+    builder = table.create_transaction_builder(
+        Operation.WRITE if exists else Operation.CREATE_TABLE)
+    if not exists:
+        builder = builder.with_schema(schema_of(batch))
+        if properties:
+            builder = builder.with_table_properties(properties)
+    txn = builder.build()
+    meta = txn.metadata()
+    check_write_supported(txn.protocol(), meta)
+    txn.add_files(write_data_files(
+        table.engine, table.path, batch, schema_from_json(meta.schemaString),
+        meta.partitionColumns, meta.configuration))
+    return txn.commit().version

@@ -1,4 +1,4 @@
-"""Errors raised on the snapshot load.
+"""Errors raised by the snapshot load and the write path.
 
 Counterpart of `delta_tpu/errors.py`, cut to the classes this package
 raises. Each error carries the same stable ``error_class`` string as the
@@ -55,3 +55,79 @@ class UnsupportedLogError(DeltaError):
     stops here instead of replaying around what it cannot read."""
 
     error_class = "DELTA_UNSUPPORTED_LOG_SEGMENT"
+
+
+class UnsupportedTableError(DeltaError):
+    """The table or the request needs a write-path feature this package
+    does not implement yet (a partitioned table, deletion vectors, column
+    mapping, a clustered table, a predicate, in-commit timestamps, row
+    tracking, coordinated or group commit, domain writes, writer features
+    beyond appendOnly and invariants, a type outside the flat primitive
+    set). The command stops before it writes anything a commit would
+    reference."""
+
+    error_class = "DELTA_UNSUPPORTED_FEATURES_FOR_WRITE"
+
+
+class InvalidArgumentError(DeltaError):
+    error_class = "DELTA_ILLEGAL_ARGUMENT"
+
+
+class InvalidTablePropertyError(DeltaError):
+    error_class = "DELTA_INVALID_TABLE_PROPERTY"
+
+
+class OptimizeArgumentError(DeltaError):
+    error_class = "DELTA_OPTIMIZE_INVALID_ARGUMENT"
+
+
+class PathExistsError(DeltaError):
+    error_class = "DELTA_PATH_EXISTS"
+
+
+class FileNotFoundInLogError(DeltaError):
+    error_class = "DELTA_FILE_NOT_FOUND_DETAILED"
+
+
+class InvariantViolationError(DeltaError):
+    """NOT NULL constraint violated by written data."""
+
+    error_class = "DELTA_VIOLATE_CONSTRAINT"
+
+
+class SchemaMismatchError(DeltaError):
+    error_class = "DELTA_SCHEMA_MISMATCH"
+
+
+class MaxCommitRetriesExceededError(DeltaError):
+    error_class = "DELTA_MAX_COMMIT_RETRIES_EXCEEDED"
+
+
+class ConcurrentModificationError(DeltaError):
+    """A concurrent commit conflicts with this transaction."""
+
+    error_class = "DELTA_CONCURRENT_MODIFICATION"
+
+
+class ProtocolChangedError(ConcurrentModificationError):
+    error_class = "DELTA_PROTOCOL_CHANGED"
+
+
+class MetadataChangedError(ConcurrentModificationError):
+    error_class = "DELTA_METADATA_CHANGED"
+
+
+class ConcurrentAppendError(ConcurrentModificationError):
+    error_class = "DELTA_CONCURRENT_APPEND"
+
+
+class ConcurrentDeleteReadError(ConcurrentModificationError):
+    error_class = "DELTA_CONCURRENT_DELETE_READ"
+
+
+class ConcurrentDeleteDeleteError(ConcurrentModificationError):
+    error_class = "DELTA_CONCURRENT_DELETE_DELETE"
+
+
+class ConcurrentTransactionError(ConcurrentModificationError):
+    error_class = "DELTA_CONCURRENT_TRANSACTION"

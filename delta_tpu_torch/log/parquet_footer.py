@@ -13,7 +13,7 @@ splitter also uses for PageHeaders.
 from __future__ import annotations
 
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 
@@ -140,6 +140,9 @@ class Leaf:
     physical_type: str
     def_at: Tuple[int, ...]
     rep_at: Tuple[int, ...]
+    converted_type: Optional[int] = None  # SchemaElement field 6
+    logical_type: Optional[dict] = field(  # field 10: {union id: struct}
+        default=None, compare=False, hash=False)
 
     @property
     def max_definition_level(self) -> int:
@@ -214,7 +217,7 @@ def _schema_leaves(elements: List[dict]) -> List[Leaf]:
             else:
                 leaves.append(Leaf(".".join(p), p,
                                    PHYSICAL_TYPES.get(el.get(1), "UNKNOWN"),
-                                   dd, rr))
+                                   dd, rr, el.get(6), el.get(10)))
 
     walk(elements[0].get(5, 0), (), (), ())
     return leaves

@@ -1,22 +1,23 @@
-"""Typed schemas of the transaction-log actions a snapshot load reads.
+"""Typed schemas of the transaction-log actions.
 
-Counterpart of `delta_tpu/models/actions.py`, cut to the actions of a
-commit-only snapshot load: `metaData`, `protocol`, `add`, `remove`,
-`txn`, `domainMetadata` and `commitInfo` (plus the deletion-vector
-descriptor an `add`/`remove` may carry). Field lists follow the Delta
-protocol's action definitions.
+Counterpart of `delta_tpu/models/actions.py`, cut to `metaData`,
+`protocol`, `add`, `remove`, `txn`, `domainMetadata` and `commitInfo`
+(plus the deletion-vector descriptor an `add`/`remove` may carry). Field
+lists follow the Delta protocol's action definitions.
 
 - Dataclasses keep an `extra` dict so unknown fields from future writers
   round-trip unchanged.
 - `AddFile.stats` stays a raw JSON string.
 - The replay identity of a logical file is `(path, dv_unique_id)`.
-- Only the read side is here: `from_dict`, and `to_dict` for comparing
-  actions; writing commits comes with a later slice.
+- `actions_to_commit_bytes` / `actions_from_commit_bytes` write and read
+  a commit file (one wrapped JSON object per line); what they write
+  parses to the same dicts as the reference's.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
-from typing import Any, ClassVar, Dict, List, Optional
+from typing import Any, ClassVar, Dict, Iterable, List, Optional
 
 
 def _prune(d: Dict[str, Any]) -> Dict[str, Any]:
@@ -98,6 +99,8 @@ class Format:
 class Metadata:
     """Table metadata (`metaData` action). Latest-seen wins in replay."""
 
+    WRAPPER_KEY: ClassVar[str] = "metaData"
+
     id: str
     schemaString: str = ""
     partitionColumns: List[str] = field(default_factory=list)
@@ -157,6 +160,8 @@ class Protocol:
     version 7 (PROTOCOL.md:844-876).
     """
 
+    WRAPPER_KEY: ClassVar[str] = "protocol"
+
     minReaderVersion: int = 1
     minWriterVersion: int = 2
     readerFeatures: Optional[List[str]] = None
@@ -197,6 +202,8 @@ class Protocol:
 class AddFile:
     """`add` action: a logical file joining the table."""
 
+    WRAPPER_KEY: ClassVar[str] = "add"
+
     path: str
     partitionValues: Dict[str, Optional[str]] = field(default_factory=dict)
     size: int = 0
@@ -213,6 +220,23 @@ class AddFile:
     @property
     def dv_unique_id(self) -> Optional[str]:
         return self.deletionVector.unique_id if self.deletionVector else None
+
+    def remove(self, deletion_timestamp: int,
+               data_change: bool = True) -> "RemoveFile":
+        """Tombstone for this file (reference `AddFile.remove`)."""
+        return RemoveFile(
+            path=self.path,
+            deletionTimestamp=deletion_timestamp,
+            dataChange=data_change,
+            extendedFileMetadata=True,
+            partitionValues=dict(self.partitionValues),
+            size=self.size,
+            stats=self.stats,
+            tags=self.tags,
+            deletionVector=self.deletionVector,
+            baseRowId=self.baseRowId,
+            defaultRowCommitVersion=self.defaultRowCommitVersion,
+        )
 
     def to_dict(self) -> Dict[str, Any]:
         d = _prune(
@@ -269,6 +293,8 @@ class AddFile:
 @dataclass
 class RemoveFile:
     """`remove` action: a tombstone for a logical file."""
+
+    WRAPPER_KEY: ClassVar[str] = "remove"
 
     path: str
     deletionTimestamp: Optional[int] = None
@@ -346,6 +372,8 @@ class SetTransaction:
     """`txn` action: idempotence watermark per application id. Latest-seen
     version wins per appId."""
 
+    WRAPPER_KEY: ClassVar[str] = "txn"
+
     appId: str
     version: int
     lastUpdated: Optional[int] = None
@@ -366,6 +394,8 @@ class SetTransaction:
 class DomainMetadata:
     """`domainMetadata` action: per-domain configuration, latest-seen wins;
     `removed=True` entries are tombstones not returned by reads."""
+
+    WRAPPER_KEY: ClassVar[str] = "domainMetadata"
 
     domain: str
     configuration: str = ""
@@ -392,6 +422,8 @@ class CommitInfo:
     """`commitInfo` action: provenance (operation name/params, engine info,
     ICT). Not part of reconciled state; must be the first line of a commit
     when in-commit timestamps are enabled."""
+
+    WRAPPER_KEY: ClassVar[str] = "commitInfo"
 
     timestamp: Optional[int] = None
     operation: Optional[str] = None
@@ -450,3 +482,37 @@ class CommitInfo:
             txnId=d.get("txnId"),
             extra={k: v for k, v in d.items() if k not in known},
         )
+
+
+_WRAPPER_TO_CLASS = {cls.WRAPPER_KEY: cls for cls in (
+    AddFile, RemoveFile, Metadata, Protocol, SetTransaction, DomainMetadata,
+    CommitInfo)}
+
+
+def action_to_json(action) -> str:
+    return json.dumps({action.WRAPPER_KEY: action.to_dict()},
+                      separators=(",", ":"))
+
+
+def actions_to_commit_bytes(actions: Iterable) -> bytes:
+    """Commit-file bytes: one JSON object per line."""
+    return ("\n".join(action_to_json(a) for a in actions) + "\n") \
+        .encode("utf-8")
+
+
+def actions_from_commit_bytes(data: bytes) -> list:
+    """Parse a commit file into actions; a wrapper this module does not
+    model (`cdc`, `checkpointMetadata`, `sidecar`, future ones) is
+    skipped, as readers must skip action types they do not know."""
+    out = []
+    for line in data.split(b"\n"):
+        line = line.strip()
+        if not line:
+            continue
+        wrapped = json.loads(line)
+        for key, cls in _WRAPPER_TO_CLASS.items():
+            body = wrapped.get(key)
+            if body is not None:
+                out.append(cls.from_dict(body))
+                break
+    return out

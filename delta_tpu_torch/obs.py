@@ -1,4 +1,4 @@
-"""Process-wide counters.
+"""Process-wide counters, and a phase timer.
 
 The port's only global state. Parse and decode counters carry the same
 names as the JAX package's (`parse.device_windows`,
@@ -10,7 +10,8 @@ it bumps where, and only where, it launches the kernel on the card.
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Callable, Dict, Optional
 
 
 class Counter:
@@ -46,3 +47,23 @@ def reset() -> None:
     """Set every counter to 0."""
     for c in _REGISTRY.values():
         c.value = 0
+
+
+class PhaseTimer:
+    """Wall seconds of a command's successive phases: each call
+    `timer(name)` adds the time since the previous call (or since the
+    timer was made) to `seconds[name]`. `sync`, when given, waits for the
+    device first, so queued kernels count in the phase that launched
+    them. An object the caller creates, not process state."""
+
+    def __init__(self, sync: Optional[Callable[[], None]] = None):
+        self.seconds: Dict[str, float] = {}
+        self._sync = sync
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        if self._sync is not None:
+            self._sync()
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
+        self._t = now

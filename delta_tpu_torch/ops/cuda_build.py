@@ -32,6 +32,7 @@ SOURCES = {
     "byte_class": "byte_class.cu",
     "winner_pack": "winner_pack.cu",
     "hybrid_extract": "hybrid_extract.cu",
+    "interleave_bits": "interleave_bits.cu",
     "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

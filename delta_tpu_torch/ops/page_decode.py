@@ -44,6 +44,7 @@ import torch
 
 from delta_tpu_torch import obs
 from delta_tpu_torch.ops import cuda_build
+from delta_tpu_torch.ops.u32 import U32, to_i32_bits, widen_u32
 
 # run_plan columns
 R_H, R_N, R_BIT, R_W, R_RLE, R_VAL = range(6)
@@ -65,8 +66,6 @@ _FAR = 0x3FFFFFFF  # the reference's clip bound for in-page offsets
 
 # byte-lane cap so every absolute bit offset fits int32 (8 * B < 2^31)
 MAX_LANE_BYTES = 192 << 20
-
-_U32 = 0xFFFFFFFF
 
 LAUNCHES = obs.counter("kernel.hybrid_extract.launches")
 _OBS_HANDOFFS = obs.counter("decode.handoff_launches")
@@ -97,11 +96,6 @@ class PartKeys:
     uniq: List[bytes]      # part-local dictionary, code order, raw bytes
 
 
-def _to_i32_bits(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> the same 32 bits as int32."""
-    return (v - ((v >> 31) << 32)).to(torch.int32)
-
-
 def hybrid_extract_plain(lane: torch.Tensor, runs: torch.Tensor,
                          h_total: int) -> torch.Tensor:
     """K3's function in plain PyTorch: int32[h_total] bit patterns of the
@@ -130,10 +124,10 @@ def hybrid_extract_plain(lane: torch.Tensor, runs: torch.Tensor,
     lo = byte(0) | (byte(1) << 8) | (byte(2) << 16) | (byte(3) << 24)
     sh = bit & 7
     v = (lo >> sh) | (byte(4) << (32 - sh))
-    mask = torch.where(w >= 32, _U32, (1 << w.clamp(max=31)) - 1)
-    v = v & mask & _U32
-    out = torch.where(row[:, R_RLE] == 1, row[:, R_VAL] & _U32, v)
-    return _to_i32_bits(out)
+    mask = torch.where(w >= 32, U32, (1 << w.clamp(max=31)) - 1)
+    v = v & mask & U32
+    out = torch.where(row[:, R_RLE] == 1, row[:, R_VAL] & U32, v)
+    return to_i32_bits(out)
 
 
 def hybrid_extract(lane: torch.Tensor, runs: torch.Tensor,
@@ -182,7 +176,7 @@ def decode_part(plan: PartPlan, device
     lane = torch.from_numpy(plan.lane).to(device)
     runs = torch.from_numpy(plan.runs).to(device)
     pages = torch.from_numpy(plan.pages).to(device).to(torch.int64)
-    hyb = hybrid_extract(lane, runs, plan.h_total).to(torch.int64) & _U32
+    hyb = widen_u32(hybrid_extract(lane, runs, plan.h_total))
     if hyb.numel() == 0:
         hyb = torch.zeros(1, dtype=torch.int64, device=lane.device)
     h_max = hyb.shape[0] - 1
@@ -242,7 +236,7 @@ def decode_part(plan: PartPlan, device
     rank_r = torch.cumsum(pres_r.to(torch.int64), 0) - 1
     pos = torch.where(pres_a, rank_a,
                       torch.where(pres_r, n_add + rank_r, n))
-    codes = torch.full((n,), _U32, dtype=torch.int64, device=lane.device)
+    codes = torch.full((n,), U32, dtype=torch.int64, device=lane.device)
     keep = pos < n
     codes[pos[keep]] = lo[keep]
     keys = PartKeys(codes=codes, n_add=int(n_add), n_rem=int(n_rem),

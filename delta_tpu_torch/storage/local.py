@@ -1,14 +1,20 @@
-"""Local-filesystem reads of a `_delta_log`.
+"""The local filesystem under a Delta table.
 
-Counterpart of the read half of `LocalLogStore` in
-`delta_tpu/storage/logstore.py`: a sorted listing from a prefix and a
-stat. The commit reader (`replay/columnar.py`) opens the listed files
-itself. Writes come with a later slice of the port.
+Counterpart of `LocalLogStore` in `delta_tpu/storage/logstore.py`: a
+sorted listing from a prefix, a stat, a whole-file read, and an atomic
+write. Without `overwrite` the write is a put-if-absent: the bytes go to
+a temporary file first (written and fsynced), which is then linked under
+the final name; `os.link` fails when the name exists, so exactly one of
+two racing writers of `N.json` wins and the other gets FileExistsError,
+and no reader ever sees a partial file. With `overwrite` the temporary
+file replaces the target by rename. The commit reader
+(`replay/columnar.py`) opens the listed commit files itself.
 """
 
 from __future__ import annotations
 
 import os
+import uuid
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -57,3 +63,31 @@ class LocalLogStore:
     def file_status(self, path: str) -> FileStatus:
         st = os.stat(path)
         return FileStatus(path, st.st_size, int(st.st_mtime * 1000))
+
+    def read_file(self, path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def mkdirs(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+
+    def write(self, path: str, data: bytes, overwrite: bool = False) -> None:
+        """Atomically create `path` holding `data`. Without `overwrite`,
+        raise FileExistsError when `path` exists (the failure leaves no
+        file behind)."""
+        parent = os.path.dirname(path)
+        if parent:
+            self.mkdirs(parent)
+        tmp = os.path.join(parent,
+                           f".{os.path.basename(path)}.{uuid.uuid4().hex}.tmp")
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        if overwrite:
+            os.replace(tmp, path)
+            return
+        try:
+            os.link(tmp, path)
+        finally:
+            os.unlink(tmp)

@@ -30,6 +30,15 @@ def listing_prefix(log_path: str, version: int) -> str:
     return f"{log_path}/{version:020d}."
 
 
+def delta_file(log_path: str, version: int) -> str:
+    """Path of the commit file of `version`."""
+    return f"{log_path}/{version:020d}.json"
+
+
+def is_delta_file(path: str) -> bool:
+    return DELTA_FILE_RE.match(file_name(path)) is not None
+
+
 def file_name(path: str) -> str:
     return path.rstrip("/").rsplit("/", 1)[-1]
 

@@ -1,19 +1,21 @@
-"""A minimal Parquet writer for synthetic checkpoint parts.
+"""A Parquet writer: data files of flat tables, and checkpoint parts.
 
-It writes what parquet-cpp (Arrow's writer, which the JAX package's
-checkpointer uses) writes for a checkpoint table, in the same encodings:
-one row group, data page v1, RLE/bit-packed hybrid levels, a dictionary
-page plus RLE_DICTIONARY data pages for every non-boolean column, with
+It writes what parquet-cpp (Arrow's writer, which the JAX package uses for
+its data files and checkpoints) writes, in the same encodings: one row
+group, data page v1, RLE/bit-packed hybrid levels, a dictionary page plus
+RLE_DICTIONARY data pages for every non-boolean column, with
 parquet-cpp's fallback to PLAIN pages once the dictionary passes
 `DICT_LIMIT` bytes (1 MiB), PLAIN booleans, and snappy pages
 (`log/snappy.py`). The footer is written with a thrift compact-protocol
-writer.
+writer. Physical types: BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY;
+logical annotations STRING, DATE and TIMESTAMP (micros, UTC).
 
-Input is one `LeafColumn` per leaf, levels and values already laid out
+`write_data_file` writes one data file of a table from a
+`models.batch.Batch` (an OPTIONAL column per nullable field, REQUIRED
+otherwise), as the write path does. `write_parquet` takes one
+`LeafColumn` per leaf, levels and values already laid out
 (`utils/synth.py` builds them for the checkpoint schema). Everything is
-numpy over whole columns; no step loops over rows in Python. It serves
-`chip_smoke.py` and the tests; writing checkpoints is not a feature of the
-package yet.
+numpy over whole columns; no step loops over rows in Python.
 """
 
 from __future__ import annotations
@@ -25,12 +27,18 @@ import numpy as np
 
 from delta_tpu_torch.log import snappy
 from delta_tpu_torch.log.parquet_host import Strings, ragged_arange
+from delta_tpu_torch.storage.local import FileStatus, LocalLogStore
 
 DICT_LIMIT = 1 << 20    # parquet-cpp's default dictionary page size limit
 PAGE_ENTRIES = 1 << 15  # level entries per data page, at most
 
-_TYPES = {"BOOLEAN": 0, "INT32": 1, "INT64": 2, "BYTE_ARRAY": 6}
-_NP = {"INT32": np.int32, "INT64": np.int64}
+_TYPES = {"BOOLEAN": 0, "INT32": 1, "INT64": 2, "FLOAT": 4, "DOUBLE": 5,
+          "BYTE_ARRAY": 6}
+_NP = {"INT32": np.int32, "INT64": np.int64, "FLOAT": np.float32,
+       "DOUBLE": np.float64}
+# floats enter the dictionary by bit pattern: 0.0 and -0.0 (and NaNs of
+# other payloads) stay distinct entries, as in parquet-cpp's hash table
+_BITS = {"FLOAT": np.uint32, "DOUBLE": np.uint64}
 _PLAIN, _RLE, _RLE_DICT = 0, 3, 8
 _SNAPPY = 1
 
@@ -69,6 +77,9 @@ class _Thrift:
         self._field(fid, 6)
         self._zigzag(v)
 
+    def boolean(self, fid: int, v: bool) -> None:
+        self._field(fid, 1 if v else 2)
+
     def binary(self, fid: int, b: bytes) -> None:
         self._field(fid, 8)
         self.varint(len(b))
@@ -102,7 +113,9 @@ class SchemaNode:
     repetition: int                 # 0 required, 1 optional, 2 repeated
     children: Tuple["SchemaNode", ...] = ()
     physical: Optional[str] = None
-    converted: Optional[int] = None  # 0 UTF8, 1 MAP, 3 LIST
+    converted: Optional[int] = None  # 0 UTF8, 1 MAP, 3 LIST, 6 DATE, ...
+    logical: Optional[int] = None    # LogicalType: 1 STRING, 6 DATE,
+                                     # 8 TIMESTAMP (micros, UTC)
 
 
 @dataclass
@@ -174,6 +187,8 @@ def _dictionary(physical: str, values):
         sizes_of = lambda idx: 4 + values.lens[idx]  # noqa: E731
     else:
         keyed = np.asarray(values)
+        if physical in _BITS:
+            keyed = np.ascontiguousarray(keyed).view(_BITS[physical])
         sizes_of = lambda idx: np.full(len(idx), np.dtype(  # noqa: E731
             _NP[physical]).itemsize)
     if n == 0:
@@ -292,6 +307,17 @@ def _schema(t: _Thrift, node: SchemaNode, top: bool = False) -> None:
         t.i32(5, len(node.children))
     if node.converted is not None:
         t.i32(6, node.converted)
+    if node.logical is not None:
+        t.begin(10)
+        t.begin(node.logical)
+        if node.logical == 8:  # TimestampType: adjusted to UTC, MICROS
+            t.boolean(1, True)
+            t.begin(2)
+            t.begin(2)
+            t.end()
+            t.end()
+        t.end()
+        t.end()
     t.end()
     for child in node.children:
         _schema(t, child)
@@ -348,8 +374,60 @@ def write_parquet(schema: SchemaNode, columns: List[LeafColumn],
     t.i64(2, total)
     t.i64(3, num_rows)
     t.end()
-    t.binary(6, b"delta_tpu_torch synthetic checkpoint writer")
+    t.binary(6, b"delta_tpu_torch parquet writer")
     t.end()
     footer = bytes(t.out)
     out += [footer, len(footer).to_bytes(4, "little"), b"PAR1"]
     return b"".join(out)
+
+
+def _leaf(field, col) -> Tuple[SchemaNode, LeafColumn]:
+    """The schema node and laid-out leaf of one flat column."""
+    n = len(col)
+    optional = bool(field.nullable)
+    valid = col.valid
+    values = col.values if valid is None else col.values[valid]
+    if field.type_name == "string":
+        try:
+            values = Strings.from_list(list(values))
+        except ValueError:  # a string holds a NUL byte: encode one by one
+            values = Strings.from_bytes([v.encode("utf-8") for v in values])
+    elif field.type_name == "date":
+        values = values.astype("datetime64[D]").astype(np.int64) \
+            .astype(np.int32)
+    elif field.type_name == "timestamp":
+        values = values.astype("datetime64[us]").astype(np.int64)
+    else:
+        values = np.asarray(values, field.numpy_dtype)
+    if optional:
+        defs = (np.ones(n, np.int32) if valid is None
+                else valid.astype(np.int32))
+    else:
+        defs = np.zeros(n, np.int32)
+    node = SchemaNode(field.name, 1 if optional else 0,
+                      physical=field.physical_type,
+                      converted=field.converted_type,
+                      logical=field.logical_type)
+    return node, LeafColumn((field.name,), field.physical_type, defs, None,
+                            1 if optional else 0, 0, values)
+
+
+def data_file_bytes(batch, schema) -> bytes:
+    """The bytes of one data file holding `batch`'s columns in `schema`'s
+    field order (a flat schema of `models/schema.py`'s primitives)."""
+    nodes, leaves = [], []
+    for f in schema.fields:
+        node, leaf = _leaf(f, batch.columns[f.name])
+        nodes.append(node)
+        leaves.append(leaf)
+    root = SchemaNode("schema", 0, tuple(nodes))
+    return write_parquet(root, leaves, batch.num_rows)
+
+
+def write_data_file(path: str, batch, schema,
+                    store: Optional[LocalLogStore] = None) -> FileStatus:
+    """Write one data file at `path` (replacing any file there, through
+    a temporary file and a rename) and return its status."""
+    store = store or LocalLogStore()
+    store.write(path, data_file_bytes(batch, schema), overwrite=True)
+    return store.file_status(path)

@@ -1,10 +1,11 @@
 """The port stands alone: it imports nothing of the JAX package.
 
 A snapshot load through `delta_tpu_torch` in a fresh interpreter, of a
-commit-only log and of a checkpointed one, must leave no `jax`, `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module
-in `sys.modules` (`delta_tpu_torch` itself shares the prefix, so the check
-matches whole dotted names). And no source of the port may name them in
-an import.
+commit-only log and of a checkpointed one, and a `write_table` plus
+OPTIMIZE (both curves, and compaction), must leave no `jax`, `pyarrow`,
+`pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
+(`delta_tpu_torch` itself shares the prefix, so the check matches whole
+dotted names). And no source of the port may name them in an import.
 """
 
 import json
@@ -33,6 +34,21 @@ st = Table.for_path(d2, engine=TorchEngine("cpu")).latest_snapshot().state
 assert st.file_actions.version.min() == 9  # rows from the checkpoint
 assert sorted(a.path for a in st.add_files) == truth.live_paths
 assert len(st.tombstones) == truth.num_tombstones
+# the write path: appends, OPTIMIZE along both curves, compaction
+import numpy as np
+from delta_tpu_torch.api import write_table
+d3 = d + "/written"
+rng = np.random.default_rng(0)
+for i in range(3):
+    write_table(d3, {"k": rng.integers(0, 1 << 30, 500),
+                     "s": np.array([f"v{j}" for j in range(500)]),
+                     "x": rng.normal(size=500)}, engine=TorchEngine("cpu"))
+t = Table.for_path(d3, engine=TorchEngine("cpu"))
+assert t.optimize().execute_zorder_by("k", "s").version == 3
+assert t.optimize().execute_zorder_by("k", "x", curve="hilbert").version == 4
+write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
+assert t.optimize().execute_compaction().version == 6
+assert t.latest_snapshot().state.num_files == 1
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))

@@ -14,6 +14,10 @@ import torch
 
 from delta_tpu_torch import Table, TorchEngine, obs
 from delta_tpu_torch.ops.byte_class import byte_class, byte_class_plain
+from delta_tpu_torch.ops.interleave import (
+    interleave_bits,
+    interleave_bits_plain,
+)
 from delta_tpu_torch.ops.page_decode import (
     hybrid_extract,
     hybrid_extract_plain,
@@ -140,3 +144,59 @@ def test_checkpointed_card_load_equals_cpu_load(tmp_path):
     assert torch.equal(on_card.live_mask.cpu(), on_cpu.live_mask)
     assert torch.equal(on_card.tombstone_mask.cpu(), on_cpu.tombstone_mask)
     assert sorted(a.path for a in on_card.add_files) == truth.live_paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n_bits,n", [
+    (1, 16, 1), (1, 32, 31), (2, 16, 33), (2, 32, 1023), (3, 32, 1025),
+    (3, 16, 100_003), (4, 32, 4096), (4, 16, 7), (5, 32, 1025),
+    (7, 5, 999), (32, 32, 257), (3, 32, 3_000_000)])
+def test_interleave_bits_kernel_matches_plain(k, n_bits, n):
+    dev = _card()
+    rng = np.random.default_rng(k * 1000 + n_bits + n)
+    x = rng.integers(0, 2**32, (k, n), dtype=np.uint32)
+    x[:, ::3] |= np.uint32(0x80000000)
+    x[:, 1::5] = 0xFFFFFFFF
+    t = torch.from_numpy(x.view(np.int32)).to(dev)
+    launches = obs.counter("kernel.interleave_bits.launches").read()
+    got = interleave_bits(t, n_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, interleave_bits_plain(t, n_bits))
+    assert obs.counter("kernel.interleave_bits.launches").read() \
+        == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", ["zorder", "hilbert"])
+def test_optimize_on_card_matches_cpu(tmp_path, curve):
+    import shutil
+
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.log.parquet_data import read_data_file_path
+
+    dev = _card()
+    src = str(tmp_path / "src")
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        write_table(src, {"a": rng.integers(0, 1 << 30, 3000),
+                          "b": rng.integers(0, 50, 3000),
+                          "c": rng.normal(size=3000)},
+                    engine=TorchEngine("cpu"))
+    out = []
+    for device in (dev.type, "cpu"):
+        p = str(tmp_path / device)
+        shutil.copytree(src, p)
+        launches = obs.counter("kernel.interleave_bits.launches").read()
+        Table.for_path(p, engine=TorchEngine(device)).optimize() \
+            .execute_zorder_by("a", "b", "c", curve=curve)
+        ran = obs.counter("kernel.interleave_bits.launches").read() - launches
+        assert ran == (1 if device == "cuda" else 0)
+        st = Table.for_path(p, engine=TorchEngine("cpu")) \
+            .latest_snapshot().state
+        rows = [read_data_file_path(f"{p}/{a.path}") for a in st.add_files]
+        out.append(([r.column("a").values for r in rows],
+                     [a.stats for a in st.add_files]))
+    (card_a, card_stats), (cpu_a, cpu_stats) = out
+    assert card_stats == cpu_stats
+    for x, y in zip(card_a, cpu_a):
+        np.testing.assert_array_equal(x, y)
