@@ -10,7 +10,9 @@
 3. Writes the repo's headline log shape (`bench.py`'s `synth_delta_log`:
    100 files per commit, 20% removes, stats on every add; --commits,
    default 10,000, cuts the depth of the benchmark's 100,000) and, with
-   the port's `write_checkpoint`, a checkpoint of its state at version
+   the generator's `utils/synth.py::write_checkpoint` (the package's
+   checkpoint encoder over the generator's truth), a checkpoint of its
+   state at version
    `commits - 10` (Delta's default interval of 10 commits), split into
    parts as `bench.py` splits them (`part_size = num_files // 8`), with
    every tombstone inside the 7-day retention window.
@@ -33,17 +35,46 @@
    commits), counters from 0; the truth must hold again, every part must
    have decoded on the device (no fallback), K3 must have launched once
    per part and K1 and K2 at least once. Prints the phase split.
-8. Handoff phase: a 200-commit log checkpointed at its head (its path
+8. Checkpoint-write path, BASELINE config 2's write half: the latest
+   snapshot of the headline log loaded on the card, then, counters from
+   0, `log/checkpointer.py::write_checkpoint(engine, snapshot)` with
+   `checkpoint_part_size = num_files // 8` (`bench.py:823`); prints
+   `checkpoint_write_gbps` (bytes written / wall, as `bench.py:940-960`),
+   parts, rows, bytes, the phase split and peak device memory. Checks:
+   `_last_checkpoint` names the head version with the part count and
+   numOfAddFiles; the write's aggregate counters
+   (`checkpoint.logical_bytes`, `.dv_cardinality`,
+   `.distinct_partition_values`) equal the facts of the block that the
+   card and the host twin compute alike on the same lanes, and the
+   logical bytes equal `size_in_bytes`; a fresh load, counters from
+   0, reads the new checkpoint alone (K3 once per part, no fallback) to
+   the generator's live files, size and path digest, and to the
+   tombstones retained under the real clock (computed from the loaded
+   state). The new checkpoint is then removed again.
+9. Handoff phase: a 200-commit log checkpointed at its head (its path
    dictionaries stay under 1 MiB, so the keys are dictionary-coded) must
    load through the handoff (`decode.handoff_launches` >= 1) to its truth.
-9. A small checkpointed log loads on the card and on the CPU (plain
-   versions) to equal masks and equal live files.
-10. Kernel phase K4: `interleave_bits` against its plain version on the
+10. A small checkpointed log loads on the card and on the CPU (plain
+    versions) to equal masks and equal live files.
+11. Kernel phase K4: `interleave_bits` against its plain version on the
     card, exact, on the OPTIMIZE cell's own rank matrix ([3, rows],
     n_bits 32: the scaled ranks of k1, k2, k3) and on edge shapes
     (n = 1, 31, 33, 1023, 1025; k = 1..5; n_bits 16 and 32; bit 31 set;
     all-ones rows); timed beside its plain version and its bound.
-11. OPTIMIZE path, BASELINE config 4 (`benchmarks/workloads.py:162-203`):
+12. Kernel phase K5: the entry point `unpack_bitpacked` at the
+    benchmark's shape (`benchmarks/device_merit.py:491-506`: w = 16,
+    random words; 10M values), counters from 0, then the kernel against
+    its plain version, exact, there and on every w in 1..32 at G = 1, 31,
+    1025, plus w = 0 and the width guard; timed beside its plain version
+    and its bound (60 MB of words and values).
+13. Kernel phase K6: the entry point `batched_file_stats` on the OPTIMIZE
+    cell's payload column as f32 [20, 500,000], all valid and under a
+    seeded 10% null mask, counters from 0, against numpy; the kernel
+    against its plain version bit for bit there and on edge shapes (F = 1,
+    9; R = 1, 129; NaN, signed zeros, infinities, an empty file); timed
+    beside its plain version, `torch.where` + `torch.aminmax`, and its
+    bound.
+14. OPTIMIZE path, BASELINE config 4 (`benchmarks/workloads.py:162-203`):
     the port's `write_table` builds a table of 20 appends of 500,000 rows
     (k1, k2, k3 int64 uniform in [0, 2^30), payload float64 normal; 10M
     rows, uncut), then, counters from 0,
@@ -53,13 +84,19 @@
     all with ZCube tags; the rows read back in add order must be the
     input rows (an order-free digest, and a row-by-row match), in
     non-decreasing curve-key order under the keys the plain versions
-    compute; K4 must have launched. Prints the phase split, rows/s of the
+    compute; K4 must have launched. The post-commit hooks run on every
+    commit: checkpoints at 10 and 20 (the new snapshot loads from 20), a
+    `.crc` per version, the OPTIMIZE commit's validating against the
+    reloaded state, no hook failure; the ZCube tags are checked on the
+    OPTIMIZE commit file's own adds (the checkpoint, like the reference's,
+    has no add.tags column). Prints the phase split, rows/s of the
     command and of `zorder_sort_indices` alone, and peak device memory.
-12. A 20,000-row table optimized along both curves on the card and on the
+15. A 20,000-row table optimized along both curves on the card and on the
     CPU (plain versions): the same output rows in the same order and the
     same stats.
 
-Prints a metrics line per phase, a `kernels` JSON line, the card's
+Prints a metrics line per phase, a `kernels` JSON line (K1-K6, each with
+its launches, times, bound and share of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
 as the last line `{"ok": true, "device": {...}}`. Any failed phase exits
 non-zero and prints no result; so does a run without a CUDA device.
@@ -341,6 +378,24 @@ def _timed_load(path: str, Table, TorchEngine, obs, **engine_kw):
             torch.cuda.max_memory_allocated())
 
 
+def _device_time(prof):
+    """(device busy seconds, the 15 largest device rows as dicts) of a
+    torch.profiler trace: device-side events only (kernels, copies), since
+    an operator's row repeats the time of the kernels it launched."""
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    return (sum(r[0] for r in rows) / 1e6,
+            [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
+             for us, k, c in rows[:15]])
+
+
 def profile_load(path: str, Table, TorchEngine) -> None:
     """Two more loads of the same log, warm: one timed plainly, one under
     torch.profiler for device time by kernel and the device's busy share
@@ -358,24 +413,12 @@ def profile_load(path: str, Table, TorchEngine) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced_s, _ = load()
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): an operator's row
-        # repeats the time of the kernels it launched
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
+    busy_s, top = _device_time(prof)
     print("profile: " + json.dumps({
         "warm_load_s": warm_s, "warm_phase_s": warm_phases,
         "traced_load_s": traced_s, "device_busy_s": busy_s,
         "device_busy_share": busy_s / traced_s,
-        "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
-                for us, k, c in rows[:15]]}), flush=True)
+        "top": top}), flush=True)
 
 
 ZORDER_COLS = ("k1", "k2", "k3")
@@ -505,15 +548,29 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     metrics line (K4's launches under `launches`)."""
     from delta_tpu_torch import Table, TorchEngine, obs
     from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.log.checksum import (
+        read_checksum, validate_state_against_checksum)
+    from delta_tpu_torch.log.last_checkpoint import read_last_checkpoint
     from delta_tpu_torch.log.parquet_data import read_data_file_path
+    from delta_tpu_torch.models.actions import (
+        AddFile, actions_from_commit_bytes)
     from delta_tpu_torch.models.batch import Batch
     from delta_tpu_torch.ops.zorder import zorder_sort_indices
+    from delta_tpu_torch.utils import filenames
 
     path = os.path.join(work, "optimize")
+    log = os.path.join(path, "_delta_log")
+    obs.reset()
     t0 = time.perf_counter()
     for cols in appends:
         write_table(path, cols, engine=TorchEngine())
     write_s = time.perf_counter() - t0
+    _check(not any(v for k, v in obs.counters().items()
+                   if k.startswith("hooks.")),
+           "optimize: no hook failed on the appends")
+    _check(os.path.exists(filenames.checkpoint_file_singular(log, 10))
+           and read_last_checkpoint(TorchEngine().fs, log).version == 10,
+           "optimize: the hook checkpointed version 10")
     before = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
     _check(before.state.num_files == len(appends), "optimize: input files")
     bytes_in = before.state.size_in_bytes
@@ -543,8 +600,27 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     adds = after.add_files
     _check(len(adds) == n_out == m.num_files_added,
            f"optimize: {n_out} output files")
-    cubes = {(a.tags or {}).get("ZCUBE_ID") for a in adds}
-    _check(len(cubes) == 1 and None not in cubes,
+    # the hooks: checkpoints at 10 and 20 (the snapshot now loads from
+    # 20), a .crc per version, the OPTIMIZE commit's validating
+    _check(after.file_actions.version.min() == m.version
+           and read_last_checkpoint(TorchEngine().fs, log).version
+           == m.version, "optimize: the hook checkpointed the OPTIMIZE "
+           "commit")
+    _check(all(read_checksum(TorchEngine().fs, log, v) is not None
+               for v in range(m.version + 1)), "optimize: a .crc per version")
+    validate_state_against_checksum(
+        after, read_checksum(TorchEngine().fs, log, m.version))
+    hook_failures = {k: v for k, v in counts.items()
+                     if k.startswith("hooks.")}
+    _check(not any(hook_failures.values()),
+           "optimize: no hook failed on the OPTIMIZE commit")
+    # the reference's checkpoint has no add.tags column (ROADMAP C1): the
+    # ZCube tags are checked on the OPTIMIZE commit's own add actions
+    with open(filenames.delta_file(log, m.version), "rb") as fh:
+        committed = [a for a in actions_from_commit_bytes(fh.read())
+                     if isinstance(a, AddFile)]
+    cubes = {(a.tags or {}).get("ZCUBE_ID") for a in committed}
+    _check(len(committed) == n_out and len(cubes) == 1 and None not in cubes,
            "optimize: every output file carries the command's ZCube tags")
     t0 = time.perf_counter()
     out = Batch.concat([read_data_file_path(os.path.join(path, a.path))
@@ -574,7 +650,8 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
         "phase_s": m.phase_seconds,
         "curve_key_s": curve_s, "curve_key_rows_per_s": n_rows / curve_s[1],
         "read_back_s": read_back_s, "peak_device_bytes": peak,
-        "counters": counts, "launches": k4, "card": card}
+        "counters": counts, "launches": k4, "hook_failures": hook_failures,
+        "card": card}
 
 
 def profile_optimize(path: str) -> None:
@@ -592,21 +669,52 @@ def profile_optimize(path: str) -> None:
             .execute_zorder_by(*ZORDER_COLS)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
+    busy_s, top = _device_time(prof)
     print("profile optimize: " + json.dumps({
         "traced_command_s": traced_s, "phase_s": m.phase_seconds,
         "device_busy_s": busy_s, "device_busy_share": busy_s / traced_s,
-        "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
-                for us, k, c in rows[:15]]}), flush=True)
+        "top": top}), flush=True)
+
+
+def profile_checkpoint_write(path: str, version: int) -> None:
+    """The checkpoint write once more, of the snapshot one version before
+    the head, under torch.profiler: device time by kernel and the
+    device's busy share of the write's wall time; its files are removed
+    afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.config import settings
+    from delta_tpu_torch.log.checkpointer import (
+        CheckpointMetrics, write_checkpoint)
+    from delta_tpu_torch.utils import filenames
+
+    eng = TorchEngine()
+    snap = Table.for_path(path, engine=eng).snapshot_at(version)
+    log = os.path.join(path, "_delta_log")
+    hint_path = filenames.last_checkpoint_file(log)
+    with open(hint_path, "rb") as fh:
+        old_hint = fh.read()
+    settings.checkpoint_part_size = max(1, snap.state.num_files // 8)
+    m = CheckpointMetrics()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write_checkpoint(eng, snap, metrics=m)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+    finally:
+        settings.checkpoint_part_size = None
+    for p in filenames.checkpoint_file_with_parts(log, version, m.parts):
+        os.remove(p)
+    with open(hint_path, "wb") as fh:
+        fh.write(old_hint)
+    busy_s, top = _device_time(prof)
+    print("profile checkpoint write: " + json.dumps({
+        "traced_write_s": traced_s, "phase_s": m.phase_seconds,
+        "device_busy_s": busy_s, "device_busy_share": busy_s / traced_s,
+        "top": top}), flush=True)
 
 
 def optimize_card_vs_cpu(work: str) -> None:
@@ -645,6 +753,254 @@ def optimize_card_vs_cpu(work: str) -> None:
                    f"{curve}: card rows == CPU rows ({c})")
 
 
+UNPACK_W = 16               # device_merit.py:491-506: w = 16, random words
+UNPACK_VALUES = 10_000_000  # BASELINE config 2's scale
+
+
+def unpack_phase(dev) -> dict:
+    """K5: the entry point `unpack_bitpacked` at the benchmark's shape
+    (w = 16, random words, 10M values), counters from 0; then the kernel
+    against its plain version, exact, on that shape and on edge shapes
+    (every w in 1..32 at G = 1, 31, 1025; w = 0 and the width guard);
+    timed beside its plain version and its bound."""
+    from delta_tpu_torch import obs
+    from delta_tpu_torch.errors import InvalidArgumentError
+    from delta_tpu_torch.ops.unpack import (
+        unpack_bitpacked, unpack_bitpacked_plain, unpack_bitpacked_words)
+
+    g = UNPACK_VALUES // 32
+    rng = np.random.default_rng(31)
+    stream = rng.integers(0, 2**32, g * UNPACK_W, dtype=np.uint32)
+    torch.cuda.synchronize()
+    obs.reset()
+    out = unpack_bitpacked(stream, UNPACK_W, g)
+    torch.cuda.synchronize()
+    launches = obs.counters().get("kernel.unpack_bitpacked.launches", 0)
+    _check(launches >= 1, "unpack_bitpacked launched on its entry point")
+    packed = torch.from_numpy(np.ascontiguousarray(
+        stream.reshape(g, UNPACK_W).T).view(np.int32)).to(dev)
+    want = unpack_bitpacked_plain(packed, UNPACK_W)
+    _check(torch.equal(out, want), "unpack_bitpacked != plain (10M values)")
+    err = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
+    del out, want
+    for w in range(1, 33):
+        for n_groups in (1, 31, 1025):
+            x = torch.from_numpy(rng.integers(
+                0, 2**32, (w, n_groups), dtype=np.uint32).view(np.int32)).to(dev)
+            x[:, ::3] = -1  # all-ones words
+            _check(torch.equal(unpack_bitpacked_words(x, w),
+                               unpack_bitpacked_plain(x, w)),
+                   f"unpack_bitpacked != plain at w={w} G={n_groups}")
+            torch.cuda.synchronize()
+    _check(not unpack_bitpacked(stream, 0, 1025).any(), "w = 0 gives zeros")
+    for bad in (-1, 33, 2.5):
+        try:
+            unpack_bitpacked(stream, bad, 1)
+        except InvalidArgumentError:
+            continue
+        _check(False, f"the width guard refuses w={bad!r}")
+    ms = _time_ms(lambda: unpack_bitpacked_words(packed, UNPACK_W), 50)
+    plain = _time_ms(lambda: unpack_bitpacked_plain(packed, UNPACK_W), 5)
+    nbytes = (4.0 * UNPACK_W + 128.0) * g
+    bound, by = _bound_ms(nbytes, 4.0 * 32 * g)
+    return {
+        "name": "unpack_bitpacked", "route": "cuda", "ok": True,
+        "source": "delta_tpu_torch/csrc/unpack_bitpacked.cu",
+        "replaces": "delta_tpu/ops/pallas_kernels.py:258",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "shape": f"u32[{UNPACK_W},{g}]->u32[{g * 32}]",
+        "bound_bytes": nbytes}
+
+
+def _minmax_edges():
+    """(name, values, mask) edge cases of K6."""
+    g = np.random.default_rng(17)
+    out = []
+    for f, r in ((1, 1), (1, 129), (9, 1), (9, 129)):
+        v = g.normal(size=(f, r)).astype(np.float32)
+        out.append((f"F={f} R={r}", v, g.random((f, r)) > 0.2))
+    v = g.normal(size=(6, 300)).astype(np.float32)
+    m = np.ones((6, 300), bool)
+    v[0] = 0.0
+    v[0, ::2] = -0.0          # min -0.0, max +0.0 in any order
+    v[1, 7] = np.nan          # a valid NaN: both NaN
+    m[2] = False              # no valid row: +inf, -inf, 0
+    v[3] = np.inf             # +inf as a min
+    v[4, 5] = -np.inf
+    v[5, 9] = np.nan
+    m[5, 9] = False           # a masked NaN is ignored
+    out.append(("NaN, signed zeros, infinities, an empty file", v, m))
+    return out
+
+
+def minmax_phase(appends: list, dev) -> dict:
+    """K6: the entry point `batched_file_stats` on the OPTIMIZE cell's own
+    data (the 20 appends' payload as f32 [20, 500,000], cast as the
+    reference casts it), all valid and under a seeded 10% null mask,
+    counters from 0; then the kernel against its plain version and numpy,
+    exact, and on edge shapes; timed beside its plain version, the
+    two-call where + aminmax yardstick, and its bound."""
+    from delta_tpu_torch import obs
+    from delta_tpu_torch.ops.minmax import (
+        batched_file_stats, segmented_minmax, segmented_minmax_plain)
+
+    values = np.stack([a["payload"] for a in appends]).astype(np.float32)
+    f, r = values.shape
+    masks = [np.ones((f, r), bool),
+             np.random.default_rng(41).random((f, r)) >= 0.1]
+    torch.cuda.synchronize()
+    obs.reset()
+    stats = [batched_file_stats(values, m) for m in masks]
+    torch.cuda.synchronize()
+    launches = obs.counters().get("kernel.segmented_minmax.launches", 0)
+    _check(launches >= 2, "segmented_minmax launched on its entry point")
+    for (mn, mx, nulls, records), m in zip(stats, masks):
+        filled = np.where(m, values, np.inf)
+        _check(np.array_equal(mn, filled.min(1))
+               and np.array_equal(mx, np.where(m, values, -np.inf).max(1)),
+               "batched_file_stats min/max == numpy")
+        _check(np.array_equal(nulls, r - m.sum(1))
+               and np.array_equal(records, np.full(f, r)),
+               "batched_file_stats null counts == numpy")
+    v = torch.from_numpy(values).to(dev)
+    err = 0.0
+    cases = [("payload", values, m) for m in masks] + _minmax_edges()
+    for name, vals, m in cases:
+        vt = torch.from_numpy(vals).to(dev)
+        mt = torch.from_numpy(m).to(dev)
+        got = segmented_minmax(vt, mt)
+        torch.cuda.synchronize()
+        want = segmented_minmax_plain(vt, mt)
+        for a, b in zip(got, want):
+            _check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                   f"segmented_minmax != plain bit for bit ({name})")
+        err = max(err, float((got[0] - want[0]).abs().nan_to_num(0).max()))
+    mt = torch.from_numpy(masks[1]).to(dev)
+    ms = _time_ms(lambda: segmented_minmax(v, mt), 50)
+    plain = _time_ms(lambda: segmented_minmax_plain(v, mt), 10)
+    yardstick = _time_ms(
+        lambda: torch.aminmax(torch.where(mt, v, torch.inf), dim=1), 20)
+    bound, by = _bound_ms(5.0 * f * r, 4.0 * f * r)
+    return {
+        "name": "segmented_minmax", "route": "cuda", "ok": True,
+        "source": "delta_tpu_torch/csrc/segmented_minmax.cu",
+        "replaces": "delta_tpu/ops/pallas_kernels.py:125",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "where_aminmax_ms": yardstick,
+        "shape": f"f32[{f},{r}]+bool[{f},{r}]->f32[{f}]x2+i32[{f}]",
+        "bound_bytes": 5.0 * f * r}
+
+
+def checkpoint_write_phase(path: str, truth, card: str) -> dict:
+    """BASELINE config 2's write half: the latest snapshot loaded on the
+    card, then, counters from 0, `write_checkpoint(engine, snapshot)` with
+    `checkpoint_part_size = num_files // 8` (bench.py:823); its hint, its
+    aggregate counters against the block of the same lanes on the card
+    and through the host twin, and a fresh load through the
+    new checkpoint alone against the generator's truth and the retained
+    tombstones. The new checkpoint is removed afterwards, so that later
+    loads of the log see the cell they measured before."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.config import settings
+    from delta_tpu_torch.log import checkpointer
+    from delta_tpu_torch.log.checkpointer import (
+        RETENTION_MS, CheckpointMetrics, write_checkpoint)
+    from delta_tpu_torch.log.last_checkpoint import read_last_checkpoint
+    from delta_tpu_torch.ops.stats import (
+        checkpoint_stats_block, host_stats_block)
+    from delta_tpu_torch.utils import filenames
+
+    eng = TorchEngine()
+    log = os.path.join(path, "_delta_log")
+    hint_path = filenames.last_checkpoint_file(log)
+    with open(hint_path, "rb") as fh:
+        old_hint = fh.read()
+    snap = Table.for_path(path, engine=eng).latest_snapshot()
+    state = snap.state
+    live = state.num_files
+    # the tombstones a checkpoint written now keeps, computed here from
+    # the loaded state (the generator's timestamps are commit indexes)
+    now_ms = int(time.time() * 1000)
+    keep = sorted(t.path for t in state.tombstones
+                  if (t.deletionTimestamp or 0) >= now_ms - RETENTION_MS)
+    settings.checkpoint_part_size = max(1, live // 8)
+    try:
+        m = CheckpointMetrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        obs.reset()
+        t0 = time.perf_counter()
+        info = write_checkpoint(eng, snap, metrics=m)
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        counts = obs.counters()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        settings.checkpoint_part_size = None
+    nbytes = counts.get("checkpoint.bytes_written", 0)
+    hint = read_last_checkpoint(eng.fs, log)
+    _check(hint is not None and hint.version == truth.version,
+           "checkpoint write: _last_checkpoint names the head version")
+    _check(hint.parts == m.parts and hint.numOfAddFiles == live,
+           "checkpoint write: _last_checkpoint parts and numOfAddFiles")
+    # the write's aggregate facts against the same lanes and plan,
+    # assembled again, on the card and through the host twin
+    adds = checkpointer._file_block(
+        state.file_actions.rows,
+        np.flatnonzero(state.live_mask.cpu().numpy()), "add")
+    plan = checkpointer._chunk_plan(adds.n, len(keep), max(1, live // 8))
+    lanes, valids, part_of, n_codes = checkpointer._checkpoint_lanes(
+        state, adds, plan)
+    block = checkpoint_stats_block(lanes, valids, part_of, len(plan),
+                                   n_codes, eng.device)
+    _check(np.array_equal(block, host_stats_block(
+        lanes, valids, part_of, len(plan), n_codes)),
+        "checkpoint write: the card's aggregate block == the host twin")
+    _check(counts.get("checkpoint.logical_bytes") == int(block[8].sum())
+           == state.size_in_bytes
+           and counts.get("checkpoint.dv_cardinality") == int(block[10].sum())
+           == 0 and counts.get("checkpoint.distinct_partition_values")
+           == int(block[16].max()) == 1,
+           "checkpoint write: its aggregate counters == the block's facts "
+           "(logical bytes == size_in_bytes, no DVs, one partition)")
+    del state, snap, adds, lanes, valids
+
+    reload, rcounts, _, reload_s, _ = _timed_load(path, Table, TorchEngine,
+                                                  obs)
+    _check(reload.file_actions.version.min() == truth.version,
+           "checkpoint write: the reload reads the new checkpoint alone")
+    _check(rcounts.get("decode.device_parts", 0) == m.parts
+           and rcounts.get("decode.device_fallbacks", 0) == 0,
+           "checkpoint write: every part decoded on the card")
+    k3 = rcounts.get("kernel.hybrid_extract.launches", 0)
+    _check(k3 == m.parts, "checkpoint write: K3 once per part on the reload")
+    live_paths = sorted(a.path for a in reload.add_files)
+    _check(reload.num_files == len(truth.live_paths)
+           and reload.size_in_bytes == truth.size_in_bytes
+           and hashlib.sha256("\n".join(live_paths).encode()).hexdigest()
+           == hashlib.sha256("\n".join(truth.live_paths).encode())
+           .hexdigest(), "checkpoint write: the reload meets the truth")
+    _check(sorted(t.path for t in reload.tombstones) == keep,
+           "checkpoint write: tombstones == the retained set")
+    del reload
+    for p in filenames.checkpoint_file_with_parts(log, truth.version,
+                                                  m.parts):
+        os.remove(p)
+    with open(hint_path, "wb") as fh:
+        fh.write(old_hint)
+    return {
+        "version": info.version, "parts": m.parts, "rows": m.rows,
+        "live_files": live, "retained_tombstones": len(keep),
+        "bytes": nbytes, "write_s": write_s,
+        "checkpoint_write_gbps": nbytes / write_s / 1e9,
+        "phase_s": m.phase_seconds, "peak_device_bytes": peak,
+        "counters": counts, "reload_s": reload_s, "reload_counters": rcounts,
+        "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -652,8 +1008,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also time a warm load and trace one, and trace "
-                    "a second OPTIMIZE, with torch.profiler (device time "
-                    "by kernel, busy share)")
+                    "a second checkpoint write and a second OPTIMIZE, with "
+                    "torch.profiler (device time by kernel, busy share)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -781,6 +1137,12 @@ def main(argv=None) -> int:
             "peak_device_bytes": peak, "card": card}), flush=True)
         del state
 
+        # the checkpoint write (the slice's main path), counters from 0
+        cw = checkpoint_write_phase(path, truth, card)
+        kernels["hybrid_extract"]["launches_checkpoint_write_reload"] = \
+            cw["reload_counters"].get("kernel.hybrid_extract.launches", 0)
+        print("checkpoint write: " + json.dumps(cw), flush=True)
+
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
         h_truth = synth_delta_log(small, 200, 100, seed=args.seed + 2,
@@ -820,6 +1182,14 @@ def main(argv=None) -> int:
         print("interleave_bits phase: " + json.dumps(
             kernels["interleave_bits"]), flush=True)
 
+        # K5 and K6 on their own entry points (no production caller)
+        kernels["unpack_bitpacked"] = unpack_phase(dev)
+        print("unpack_bitpacked phase: " + json.dumps(
+            kernels["unpack_bitpacked"]), flush=True)
+        kernels["segmented_minmax"] = minmax_phase(appends, dev)
+        print("segmented_minmax phase: " + json.dumps(
+            kernels["segmented_minmax"]), flush=True)
+
         # the OPTIMIZE path, counters from 0
         opt = optimize_phase(work, appends, card, dev)
         kernels["interleave_bits"]["launches"] = opt["launches"]
@@ -829,10 +1199,13 @@ def main(argv=None) -> int:
         print("small optimize, both curves: card == cpu", flush=True)
         if args.profile:
             profile_load(path, Table, TorchEngine)
+            profile_checkpoint_write(path, truth.version - 1)
             profile_optimize(os.path.join(work, "optimize"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    for k in kernels.values():
+        k["share"] = k["bound_ms"] / k["ms"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {

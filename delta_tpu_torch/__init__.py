@@ -16,7 +16,13 @@ and tombstone masks on the card.
 It writes to an unpartitioned table (`api.write_table`) and runs OPTIMIZE
 (`Table.optimize()`: compaction, Z-order and Hilbert clustering) with its
 own data-file reader and writer and an optimistic transaction; the curve
-permutation runs on the card (kernel K4, the bit interleave).
+permutation runs on the card (kernel K4, the bit interleave). Every commit
+runs the post-commit hooks (`hooks.py`: a `.crc` per version, a classic
+or multi-part checkpoint every `delta.checkpointInterval` commits,
+auto-compaction); `Table.checkpoint()` writes one on demand. The last two
+TPU kernels have entry points of their own: `ops/unpack.py` (kernel K5,
+Parquet bit-packed groups) and `ops/minmax.py` (kernel K6, per-file min,
+max and null count).
 """
 
 from delta_tpu_torch.engine import TorchEngine

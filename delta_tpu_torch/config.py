@@ -1,20 +1,56 @@
 """Table properties (`delta.*` keys in `Metadata.configuration`) that the
-write path reads.
+write path, the checkpoint writer and the post-commit hooks read, and the
+process-wide settings they consult.
 
 Counterpart of `delta_tpu/config.py`, cut to those keys, with the same
-defaults and parsing (a boolean is true only for "true", any case).
+defaults and parsing (a boolean is true only for "true", any case; a
+duration is "interval <n> <unit>" or a plain millisecond count).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 from delta_tpu_torch.errors import InvalidTablePropertyError
+
+_DAY_MS = 86_400_000
+_UNIT_MS = {"millisecond": 1, "second": 1000, "minute": 60_000,
+            "hour": 3_600_000, "day": _DAY_MS, "week": 7 * _DAY_MS}
 
 
 def _parse_bool(s: str) -> bool:
     return s.strip().lower() == "true"
+
+
+def _parse_interval_ms(s: str) -> int:
+    """'interval <n> <unit>' (Spark's CalendarInterval subset) or a plain
+    millisecond count."""
+    s = s.strip().lower()
+    if not s.startswith("interval"):
+        return int(s)
+    parts = s.split()
+    if len(parts) < 2:
+        raise InvalidTablePropertyError(
+            "interval value is empty; expected 'interval <n> <unit>'",
+            error_class="DELTA_INVALID_CALENDAR_INTERVAL_EMPTY")
+    unit = parts[2].rstrip("s") if len(parts) > 2 else "millisecond"
+    try:
+        return int(float(parts[1]) * _UNIT_MS[unit])
+    except (ValueError, KeyError):
+        raise InvalidTablePropertyError(
+            f"invalid interval {s!r}; expected 'interval <n> "
+            f"<{'|'.join(_UNIT_MS)}>'",
+            error_class="DELTA_INVALID_INTERVAL") from None
+
+
+def _parse_formats(s: str):
+    out = [f.strip().lower() for f in s.split(",") if f.strip()]
+    bad = [f for f in out if f not in ("iceberg", "hudi")]
+    if bad:
+        raise ValueError(
+            f"invalid delta.universalFormat.enabledFormats entries {bad}")
+    return out
 
 
 def _parse_isolation(s: str) -> str:
@@ -53,6 +89,24 @@ ROW_TRACKING_ENABLED = TableConfig("delta.enableRowTracking", False,
                                    _parse_bool)
 COORDINATED_COMMITS_COORDINATOR = TableConfig(
     "delta.coordinatedCommits.commitCoordinator-preview", None, str)
+# checkpoints and post-commit hooks
+CHECKPOINT_INTERVAL = TableConfig("delta.checkpointInterval", 10, int)
+TOMBSTONE_RETENTION = TableConfig("delta.deletedFileRetentionDuration",
+                                  7 * _DAY_MS, _parse_interval_ms)
+CHECKPOINT_POLICY = TableConfig("delta.checkpointPolicy", "classic", str)
+CHECKPOINT_WRITE_STATS_AS_JSON = TableConfig(
+    "delta.checkpoint.writeStatsAsJson", True, _parse_bool)
+CHECKPOINT_WRITE_STATS_AS_STRUCT = TableConfig(
+    "delta.checkpoint.writeStatsAsStruct", False, _parse_bool)
+SET_TXN_RETENTION = TableConfig("delta.setTransactionRetentionDuration",
+                                None, _parse_interval_ms)
+AUTO_OPTIMIZE_AUTO_COMPACT = TableConfig("delta.autoOptimize.autoCompact",
+                                         False, _parse_bool)
+AUTO_OPTIMIZE_LEGACY = TableConfig("delta.autoOptimize", False, _parse_bool)
+UNIFORM_ENABLED_FORMATS = TableConfig("delta.universalFormat.enabledFormats",
+                                      [], _parse_formats)
+SYMLINK_MANIFEST_ENABLED = TableConfig(
+    "delta.compatibility.symlinkFormatManifest.enabled", False, _parse_bool)
 
 
 def get_table_config(configuration: Dict[str, str], cfg: TableConfig):
@@ -60,3 +114,14 @@ def get_table_config(configuration: Dict[str, str], cfg: TableConfig):
     if raw is None:
         return cfg.default
     return cfg.parse(raw)
+
+
+@dataclass
+class Settings:
+    """Process-wide settings (the reference's `Settings`, cut to the one
+    the checkpoint writer reads)."""
+
+    checkpoint_part_size: Optional[int] = None  # file actions per part
+
+
+settings = Settings()

@@ -131,3 +131,26 @@ class ConcurrentDeleteDeleteError(ConcurrentModificationError):
 
 class ConcurrentTransactionError(ConcurrentModificationError):
     error_class = "DELTA_CONCURRENT_TRANSACTION"
+
+
+class VersionNotFoundError(DeltaError):
+    """The requested version is outside the reconstructable range."""
+
+    error_class = "DELTA_VERSION_NOT_FOUND"
+
+    def __init__(self, version=None, earliest=None, latest=None):
+        super().__init__(
+            f"Cannot time travel Delta table to version {version}. "
+            f"Available versions: [{earliest}, {latest}].",
+            version=version, earliest=earliest, latest=latest)
+
+
+class ChecksumMismatchError(DeltaError):
+    """Replayed state disagrees with the `.crc` version checksum, or a
+    checkpoint's rows with its snapshot."""
+
+    error_class = "DELTA_CHECKSUM_MISMATCH"
+
+
+class CheckpointError(DeltaError):
+    error_class = "DELTA_CHECKPOINT_NON_EXIST_TABLE"

@@ -1,0 +1,77 @@
+"""Post-commit hooks, run after every successful commit.
+
+Counterpart of `delta_tpu/hooks.py`: the `.crc` checksum of the new
+version (`checksum_hook`), a checkpoint every `delta.checkpointInterval`
+commits (`checkpoint_hook`, at versions > 0 that the interval divides), and
+auto-compaction after a data-adding commit on a table with
+`delta.autoOptimize.autoCompact` (or the legacy `delta.autoOptimize`)
+once 50 files are under 128 MiB (`auto_compact_hook`, the port's
+`execute_compaction`). The commit has landed before they run, so they
+are best-effort, as in the reference: a failing hook does not fail the
+commit, but bumps `hooks.<name>.failures` and is logged, so that nothing
+swallows it unseen. The reference's Iceberg/Hudi and symlink-manifest
+hooks are not ported; a table whose configuration asks for them is
+refused before the commit (`txn/transaction.py::check_write_supported`).
+"""
+
+from __future__ import annotations
+
+import logging
+
+from delta_tpu_torch import obs
+from delta_tpu_torch.config import (
+    AUTO_OPTIMIZE_AUTO_COMPACT,
+    AUTO_OPTIMIZE_LEGACY,
+    CHECKPOINT_INTERVAL,
+    get_table_config,
+)
+
+_log = logging.getLogger(__name__)
+
+AUTO_COMPACT_MIN_FILES = 50
+AUTO_COMPACT_MAX_FILE_SIZE = 128 * 1024 * 1024
+
+
+def checksum_hook(table, txn, version: int, metadata) -> None:
+    from delta_tpu_torch.log.checksum import write_checksum_for_commit
+
+    write_checksum_for_commit(table, txn, version)
+
+
+def checkpoint_hook(table, txn, version: int, metadata) -> None:
+    interval = get_table_config(metadata.configuration, CHECKPOINT_INTERVAL)
+    if interval > 0 and version > 0 and version % interval == 0:
+        from delta_tpu_torch.log.checkpointer import write_checkpoint
+
+        # at `version` even when another writer has moved past it
+        write_checkpoint(table.engine, table.snapshot_at(version))
+
+
+def auto_compact_hook(table, txn, version: int, metadata) -> None:
+    conf = metadata.configuration
+    if not (get_table_config(conf, AUTO_OPTIMIZE_AUTO_COMPACT)
+            or get_table_config(conf, AUTO_OPTIMIZE_LEGACY)):
+        return
+    if txn.operation == "OPTIMIZE" or not txn._adds:
+        return
+    state = table.snapshot_at(version).state
+    sizes = state.file_actions.size[state.live_mask]
+    if int((sizes < AUTO_COMPACT_MAX_FILE_SIZE).sum()) < AUTO_COMPACT_MIN_FILES:
+        return
+    table.optimize().execute_compaction(
+        min_file_size=AUTO_COMPACT_MAX_FILE_SIZE,
+        max_file_size=AUTO_COMPACT_MAX_FILE_SIZE)
+
+
+HOOKS = (checksum_hook, checkpoint_hook, auto_compact_hook)
+
+
+def run_post_commit_hooks(table, txn, version: int, metadata) -> None:
+    for hook in HOOKS:
+        try:
+            hook(table, txn, version, metadata)
+        except Exception:
+            obs.counter(f"hooks.{hook.__name__}.failures").inc()
+            _log.warning("post-commit hook %s failed after version %d "
+                         "committed (the commit stands)", hook.__name__,
+                         version, exc_info=True)

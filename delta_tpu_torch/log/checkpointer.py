@@ -1,0 +1,797 @@
+"""Checkpoint writing: classic single-file and multi-part.
+
+Counterpart of `delta_tpu/log/checkpointer.py` (`write_checkpoint` :520,
+`_write_checkpoint` :536, `_chunk_plan` :658,
+`_write_multipart_checkpoint` :795). A checkpoint holds the state at a
+version in the SingleAction layout, one non-null root struct per row:
+
+- one protocol and one metaData row; one txn row per appId (those idle
+  past `delta.setTransactionRetentionDuration` dropped); one
+  domainMetadata row per domain;
+- every live add, and every remove tombstone whose deletionTimestamp is
+  within `delta.deletedFileRetentionDuration` of now (real clock), both
+  with dataChange written false and stats as the JSON string.
+
+The columns are the reference's `ADD_STRUCT` / `REMOVE_STRUCT` (:70-97),
+so the add has no `tags` column, as there. A multi-part checkpoint
+(`settings.checkpoint_part_size` below the file-action count) puts the
+small actions alone in part 1 and fixed `part_size`-row chunks of
+[adds; removes] in the others (`part_layout`, which the synthetic
+checkpoint of `utils/synth.py` shares). The file actions come from the
+snapshot's row store by column (`_file_block`): checkpoint rows straight
+from the part's leaves, commit rows through their actions. Each part is
+encoded by `encode_part` (`utils/parquet_write.py` underneath) and
+written put-if-absent through `write/ckpt_pipeline.py`; a torn write
+deletes what this attempt created (`checkpoint.aborted_writes`) and
+leaves `_last_checkpoint` at the previous checkpoint. Then
+`_last_checkpoint` (`log/last_checkpoint.py`), without a `partManifest`.
+
+The aggregate stage (`ops/stats.py`) reduces the add lanes (size,
+modification time, deletion-vector cardinality, partition codes) per
+part on the engine's device; a failure there raises. Its block yields
+the counters `checkpoint.logical_bytes`, `checkpoint.dv_cardinality` and
+`checkpoint.distinct_partition_values`, the facts of the reference's
+`checkpoint.aggregate` span. V2 checkpoints
+(`delta.checkpointPolicy=v2`) and `stats_parsed`
+(`delta.checkpoint.writeStatsAsStruct`) raise `UnsupportedTableError`.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from delta_tpu_torch import obs
+from delta_tpu_torch.config import (
+    CHECKPOINT_POLICY,
+    CHECKPOINT_WRITE_STATS_AS_JSON,
+    CHECKPOINT_WRITE_STATS_AS_STRUCT,
+    SET_TXN_RETENTION,
+    TOMBSTONE_RETENTION,
+    get_table_config,
+    settings,
+)
+from delta_tpu_torch.errors import ChecksumMismatchError, UnsupportedTableError
+from delta_tpu_torch.log.last_checkpoint import (
+    LastCheckpointInfo,
+    write_last_checkpoint,
+)
+from delta_tpu_torch.log.parquet_host import Strings, ragged_arange
+from delta_tpu_torch.utils import filenames
+from delta_tpu_torch.utils.parquet_write import (
+    LeafColumn,
+    SchemaNode,
+    write_parquet,
+)
+from delta_tpu_torch.write import ckpt_pipeline
+
+_BYTES_WRITTEN = obs.counter("checkpoint.bytes_written")
+_PARTS_WRITTEN = obs.counter("checkpoint.parts_written")
+_ABORTED_WRITES = obs.counter("checkpoint.aborted_writes")
+_LOGICAL_BYTES = obs.counter("checkpoint.logical_bytes")
+_DV_CARDINALITY = obs.counter("checkpoint.dv_cardinality")
+_DISTINCT_PARTITION_VALUES = obs.counter(
+    "checkpoint.distinct_partition_values")
+
+RETENTION_MS = TOMBSTONE_RETENTION.default
+
+
+# ------------------------------------------------------------- schema --
+
+def _grp(name, *kids, converted=None):
+    return SchemaNode(name, 1, tuple(kids), converted=converted)
+
+
+def _leaf(name, physical, repetition=1):
+    return SchemaNode(name, repetition, physical=physical,
+                      converted=0 if physical == "BYTE_ARRAY" else None)
+
+
+def _str(name):
+    return _leaf(name, "BYTE_ARRAY")
+
+
+def _map(name):
+    return _grp(name, SchemaNode("key_value", 2, (
+        _leaf("key", "BYTE_ARRAY", 0), _str("value"))), converted=1)
+
+
+def _list(name):
+    return _grp(name, SchemaNode("list", 2, (_str("element"),)), converted=3)
+
+
+_DV = _grp("deletionVector", _str("storageType"), _str("pathOrInlineDv"),
+           _leaf("offset", "INT32"), _leaf("sizeInBytes", "INT32"),
+           _leaf("cardinality", "INT64"), _leaf("maxRowIndex", "INT64"))
+
+# the JAX checkpointer's SingleAction schema, column for column
+CHECKPOINT_SCHEMA = SchemaNode("schema", 0, (
+    _grp("protocol", _leaf("minReaderVersion", "INT32"),
+         _leaf("minWriterVersion", "INT32"), _list("readerFeatures"),
+         _list("writerFeatures")),
+    _grp("metaData", _str("id"), _str("name"), _str("description"),
+         _grp("format", _str("provider"), _map("options")),
+         _str("schemaString"), _list("partitionColumns"),
+         _map("configuration"), _leaf("createdTime", "INT64")),
+    _grp("txn", _str("appId"), _leaf("version", "INT64"),
+         _leaf("lastUpdated", "INT64")),
+    _grp("domainMetadata", _str("domain"), _str("configuration"),
+         _leaf("removed", "BOOLEAN")),
+    _grp("add", _str("path"), _map("partitionValues"),
+         _leaf("size", "INT64"), _leaf("modificationTime", "INT64"),
+         _leaf("dataChange", "BOOLEAN"), _str("stats"), _DV,
+         _leaf("baseRowId", "INT64"),
+         _leaf("defaultRowCommitVersion", "INT64"),
+         _str("clusteringProvider")),
+    _grp("remove", _str("path"), _leaf("deletionTimestamp", "INT64"),
+         _leaf("dataChange", "BOOLEAN"),
+         _leaf("extendedFileMetadata", "BOOLEAN"), _map("partitionValues"),
+         _leaf("size", "INT64"), _DV, _leaf("baseRowId", "INT64"),
+         _leaf("defaultRowCommitVersion", "INT64")),
+))
+_ROOTS = {node.name: node for node in CHECKPOINT_SCHEMA.children}
+
+
+# ------------------------------------------------------------- blocks --
+
+def _empty_strings(n: int = 0) -> Strings:
+    return Strings(np.zeros(0, np.uint8), np.zeros(n, np.int64),
+                   np.zeros(n, np.int64))
+
+
+@dataclass
+class Repeated:
+    """A map<string,string> or list<string> column: per-row validity and
+    offsets into `items` (map values / list elements), `keys` for a map."""
+
+    valid: np.ndarray
+    offsets: np.ndarray
+    items: Strings
+    item_valid: np.ndarray
+    keys: Optional[Strings] = None
+
+    def take(self, idx: np.ndarray) -> "Repeated":
+        counts = np.diff(self.offsets)[idx]
+        ent = np.repeat(self.offsets[:-1][idx], counts) + ragged_arange(counts)
+        return Repeated(self.valid[idx],
+                        np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
+                        self.items.take(ent), self.item_valid[ent],
+                        None if self.keys is None else self.keys.take(ent))
+
+    @staticmethod
+    def concat(parts: Sequence["Repeated"]) -> "Repeated":
+        sizes = [int(p.offsets[-1]) for p in parts]
+        base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        offsets = np.concatenate([[0]] + [p.offsets[1:] + b
+                                          for p, b in zip(parts, base)])
+        keyed = parts[0].keys is not None
+        return Repeated(
+            np.concatenate([p.valid for p in parts]), offsets.astype(np.int64),
+            Strings.concat([p.items for p in parts]),
+            np.concatenate([p.item_valid for p in parts]),
+            Strings.concat([p.keys for p in parts]) if keyed else None)
+
+
+@dataclass
+class Block:
+    """`n` rows of one root struct, by column: a leaf's relative path ->
+    (values, valid) with values a numpy array or Strings of n entries; a
+    nested struct's path -> its validity mask; a map or list -> Repeated.
+    Absent columns are null."""
+
+    root: str
+    n: int
+    cols: Dict[tuple, object] = field(default_factory=dict)
+
+    def take(self, idx: np.ndarray) -> "Block":
+        out = {}
+        for k, c in self.cols.items():
+            if isinstance(c, Repeated):
+                out[k] = c.take(idx)
+            elif isinstance(c, tuple):
+                v, ok = c
+                out[k] = (v.take(idx) if isinstance(v, Strings) else v[idx],
+                          ok[idx])
+            else:
+                out[k] = c[idx]
+        return Block(self.root, int(idx.shape[0]), out)
+
+
+def _null_like(c, n: int):
+    if isinstance(c, Repeated):
+        return Repeated(np.zeros(n, bool), np.zeros(n + 1, np.int64),
+                        _empty_strings(), np.zeros(0, bool),
+                        None if c.keys is None else _empty_strings())
+    if isinstance(c, tuple):
+        v = _empty_strings(n) if isinstance(c[0], Strings) \
+            else np.zeros(n, c[0].dtype)
+        return v, np.zeros(n, bool)
+    return np.zeros(n, bool)
+
+
+def _concat_blocks(root: str, blocks: Sequence[Block]) -> Block:
+    """The rows of `blocks` in order; a column absent from some block is
+    null there."""
+    blocks = [b for b in blocks if b.n]
+    if len(blocks) == 1:
+        return blocks[0]
+    keys = {k: c for b in blocks for k, c in b.cols.items()}
+    cols: Dict[tuple, object] = {}
+    for k, like in keys.items():
+        per = [b.cols.get(k, None) for b in blocks]
+        per = [c if c is not None else _null_like(like, b.n)
+               for c, b in zip(per, blocks)]
+        if isinstance(like, Repeated):
+            cols[k] = Repeated.concat(per)
+        elif isinstance(like, tuple):
+            vals = [c[0] for c in per]
+            cols[k] = ((Strings.concat(vals) if isinstance(vals[0], Strings)
+                        else np.concatenate(vals)),
+                       np.concatenate([c[1] for c in per]))
+        else:
+            cols[k] = np.concatenate(per)
+    return Block(root, sum(b.n for b in blocks), cols)
+
+
+def _strings(values: Sequence[Optional[str]]):
+    return (Strings.from_list([v if v is not None else "" for v in values]),
+            np.array([v is not None for v in values], bool))
+
+
+def rows_block(root: str, rows: Sequence[dict]) -> Block:
+    """A Block from Python dicts (one per row; maps as dicts, lists as
+    lists, None or absent for null). Loops over rows: for the small
+    actions, commit rows and tests."""
+    n = len(rows)
+
+    def walk(node, prefix, dicts, cols):
+        for child in node.children:
+            path = prefix + (child.name,)
+            vals = [None if d is None else d.get(child.name) for d in dicts]
+            if child.converted in (1, 3):
+                valid = np.array([v is not None for v in vals], bool)
+                seqs = [(list(v.items()) if child.converted == 1 else list(v))
+                        if v is not None else [] for v in vals]
+                counts = np.array([len(q) for q in seqs], np.int64)
+                flat = [e for q in seqs for e in q]
+                if child.converted == 1:
+                    keys = Strings.from_list([k for k, _ in flat])
+                    items, ok = _strings([v for _, v in flat])
+                else:
+                    keys = None
+                    items, ok = _strings(flat)
+                cols[path] = Repeated(valid, np.concatenate(
+                    [[0], np.cumsum(counts)]).astype(np.int64), items, ok, keys)
+            elif child.children:
+                cols[path] = np.array([v is not None for v in vals], bool)
+                walk(child, path, vals, cols)
+            elif child.physical == "BYTE_ARRAY":
+                cols[path] = _strings(vals)
+            else:
+                dt = bool if child.physical == "BOOLEAN" else np.int64
+                cols[path] = (np.array([v if v is not None else 0
+                                        for v in vals], dt),
+                              np.array([v is not None for v in vals], bool))
+
+    cols: Dict[tuple, object] = {}
+    walk(_ROOTS[root], (), list(rows), cols)
+    return Block(root, n, cols)
+
+
+# ------------------------------------------------------------ encoder --
+
+def _block_leaves(node: SchemaNode, block: Block):
+    """(path, physical, defs, reps, values, max_def, max_rep) of every
+    leaf under `node` for the block's rows (root present in each)."""
+    out = []
+
+    def walk(nd, prefix, lvl, alive, max_def):
+        for child in nd.children:
+            path = prefix + (child.name,)
+            if child.converted in (1, 3):
+                out.extend(_repeated_leaves(child, path, block, lvl, alive,
+                                            max_def))
+            elif child.children:
+                sv = block.cols.get(path)  # an absent struct is null
+                a = alive & (sv if sv is not None
+                             else np.zeros(block.n, bool))
+                walk(child, path, lvl + a, a, max_def + 1)
+            else:
+                c = block.cols.get(path)
+                if c is None:
+                    vals = (_empty_strings(block.n)
+                            if child.physical == "BYTE_ARRAY"
+                            else np.zeros(block.n, np.int64))
+                    ok = np.zeros(block.n, bool)
+                else:
+                    vals, ok = c
+                a = alive & ok
+                idx = np.flatnonzero(a)
+                v = (vals.take(idx) if isinstance(vals, Strings)
+                     else np.asarray(vals)[idx])
+                out.append((path, child.physical, (lvl + a).astype(np.int32),
+                            None, v, max_def + 1, 0))
+
+    walk(node, (), np.ones(block.n, np.int32), np.ones(block.n, bool), 1)
+    return out
+
+
+def _repeated_leaves(node, path, block, lvl, alive, max_def):
+    """The key/value (map) or element (list) leaves of one repeated
+    container with one repetition level."""
+    rc = block.cols.get(path)
+    n = block.n
+    if rc is None:
+        rc = Repeated(np.zeros(n, bool), np.zeros(n + 1, np.int64),
+                      _empty_strings(), np.zeros(0, bool), _empty_strings())
+    alive_c = alive & rc.valid
+    lvl_c = lvl + alive_c
+    counts = np.where(alive_c, np.diff(rc.offsets), 0)
+    has = counts > 0
+    m = np.where(has, counts, 1)
+    first = np.cumsum(m) - m
+    row = np.repeat(np.arange(n), m)
+    within = np.arange(int(m.sum())) - first[row]
+    is_entry = has[row]
+    entry = (rc.offsets[:-1][row] + within)[is_entry]
+    reps = np.ones(row.shape[0], np.int32)
+    reps[first] = 0
+    base = lvl_c[row]
+    kv = node.children[0]
+    out = []
+    if node.converted == 1:
+        out.append((path + (kv.name, "key"), "BYTE_ARRAY",
+                    (base + is_entry).astype(np.int32), reps,
+                    rc.keys.take(entry), max_def + 2, 1))
+    ok = np.zeros(row.shape[0], bool)
+    ok[is_entry] = rc.item_valid[entry]
+    leafname = "value" if node.converted == 1 else "element"
+    out.append((path + (kv.name, leafname), "BYTE_ARRAY",
+                (base + is_entry + ok).astype(np.int32), reps,
+                rc.items.take(entry[rc.item_valid[entry]]), max_def + 3, 1))
+    return out
+
+
+def encode_part(blocks: Sequence[Block]) -> bytes:
+    """One checkpoint Parquet file holding `blocks` (row ranges, in
+    order; each row has exactly one non-null root)."""
+    n_rows = sum(b.n for b in blocks)
+    columns = []
+    for root in CHECKPOINT_SCHEMA.children:
+        per_block = [_block_leaves(root, b) if b.root == root.name else None
+                     for b in blocks]
+        template = _block_leaves(root, Block(root.name, 0))
+        for k, (path, phys, _, _, _, max_def, max_rep) in enumerate(template):
+            defs, reps, vals = [], [], []
+            for b, leaves in zip(blocks, per_block):
+                if leaves is None:
+                    defs.append(np.zeros(b.n, np.int32))
+                    reps.append(np.zeros(b.n, np.int32))
+                    continue
+                _, _, d, r, v, _, _ = leaves[k]
+                defs.append(d)
+                reps.append(r if r is not None else np.zeros(b.n, np.int32))
+                vals.append(v)
+            if phys == "BYTE_ARRAY":
+                values = Strings.concat(vals) if vals else _empty_strings()
+            else:
+                values = (np.concatenate(vals) if vals
+                          else np.zeros(0, np.int64))
+            columns.append(LeafColumn(
+                (root.name,) + path, phys,
+                np.concatenate(defs) if defs else np.zeros(0, np.int32),
+                (np.concatenate(reps) if reps else np.zeros(0, np.int32))
+                if max_rep else None, max_def, max_rep, values))
+    return write_parquet(CHECKPOINT_SCHEMA, columns, n_rows)
+
+
+def _chunk_plan(n_add: int, n_rem: int, part_size: int) -> List[tuple]:
+    """Fixed `part_size`-row chunks over [adds; removes] ->
+    [(a0, a1, r0, r1)] per part (the reference's `_chunk_plan`)."""
+    total = n_add + n_rem
+    out = []
+    lo = 0
+    while lo < total:
+        hi = min(lo + part_size, total)
+        out.append((min(lo, n_add), min(hi, n_add),
+                    max(lo, n_add) - n_add, max(hi, n_add) - n_add))
+        lo = hi
+    return out or [(0, 0, 0, 0)]
+
+
+@dataclass
+class PartLayout:
+    """The files of one checkpoint: each part's path and blocks, the
+    chunk plan of the file-action parts, and the row counts."""
+
+    paths: List[str]
+    contents: List[List[Block]]
+    plan: List[tuple]
+    rows: int
+    num_adds: int
+
+    def hint(self, version: int, size_in_bytes: Optional[int]
+             ) -> LastCheckpointInfo:
+        """The `_last_checkpoint` record of these parts."""
+        return LastCheckpointInfo(
+            version=version, size=self.rows,
+            parts=len(self.paths) if len(self.paths) > 1 else None,
+            sizeInBytes=size_in_bytes, numOfAddFiles=self.num_adds)
+
+
+def part_layout(log_path: str, version: int, small: Sequence[Block],
+                adds: Block, tombs: Block,
+                part_size: Optional[int]) -> PartLayout:
+    """The checkpoint at `version` of the `small` action blocks, the live
+    `adds` and the retained `tombs`, with dataChange written false on
+    every add and remove: one classic file, or, when `part_size` is
+    given and the file actions exceed it, the small actions alone in part
+    1 and `_chunk_plan` chunks of [adds; tombs] in the others."""
+    adds = Block(adds.root, adds.n, dict(adds.cols))
+    tombs = Block(tombs.root, tombs.n, dict(tombs.cols))
+    for b in (adds, tombs):
+        b.cols[("dataChange",)] = (np.zeros(b.n, bool), np.ones(b.n, bool))
+    small = list(small)
+    if part_size is not None and adds.n + tombs.n > part_size:
+        plan = _chunk_plan(adds.n, tombs.n, part_size)
+        contents = [small] + [
+            [adds.take(np.arange(a0, a1)), tombs.take(np.arange(r0, r1))]
+            for a0, a1, r0, r1 in plan]
+        paths = filenames.checkpoint_file_with_parts(log_path, version,
+                                                     len(contents))
+    else:
+        plan = [(0, adds.n, 0, tombs.n)]
+        contents = [small + [adds, tombs]]
+        paths = [filenames.checkpoint_file_singular(log_path, version)]
+    return PartLayout(paths, contents, plan,
+                      sum(b.n for b in small) + adds.n + tombs.n, adds.n)
+
+
+# ----------------------------------------------- rows from a snapshot --
+
+def _part_map(read, path: str, rows: np.ndarray) -> Optional[Repeated]:
+    """The map<string,string> at `path` for part `rows`, from the host
+    reader's key and value leaves."""
+    keys = read.leaves.get(f"{path}.key_value.key")
+    if keys is None:
+        return None
+    vals = read.leaves.get(f"{path}.key_value.value")
+    k_rep = keys.leaf.rep_at.index(1)
+    container = keys.leaf.def_at[k_rep - 1] if k_rep else 0
+    starts = keys.row_starts
+    s, e = starts[rows], starts[rows + 1]
+    d = keys.defs[s]
+    valid = d >= container
+    counts = np.where(d >= keys.leaf.def_at[k_rep], e - s, 0)
+    entry = np.repeat(s, counts) + ragged_arange(counts)
+    key_strings = keys.values.take(keys.value_index[entry])
+    if vals is None:
+        items = _empty_strings(len(entry))
+        item_valid = np.zeros(len(entry), bool)
+    else:
+        vi = vals.value_index[entry]
+        item_valid = vi >= 0
+        items = (vals.values.take(np.maximum(vi, 0)) if len(vals.values)
+                 else _empty_strings(len(entry)))
+    return Repeated(valid, np.concatenate([[0], np.cumsum(counts)])
+                    .astype(np.int64), items, item_valid, key_strings)
+
+
+def _decode_paths(strings: Strings) -> Strings:
+    """Percent-decode path URIs (a snapshot's paths are decoded)."""
+    if not (strings.buf == 37).any():
+        return strings
+    from urllib.parse import unquote
+
+    raw = [strings.raw(i).decode("utf-8") for i in range(len(strings))]
+    return Strings.from_list([unquote(p) if "%" in p else p for p in raw])
+
+
+def _part_block(read, root: str, rows: np.ndarray) -> Block:
+    """The `root` file actions at part `rows`, column by column."""
+    from delta_tpu_torch.replay.columnar import leaf_column
+
+    cols: Dict[tuple, object] = {}
+
+    def walk(node, prefix):
+        for child in node.children:
+            path = prefix + (child.name,)
+            full = ".".join((root,) + path)
+            if child.converted == 1:
+                rc = _part_map(read, full, rows)
+                if rc is not None:
+                    cols[path] = rc
+            elif child.children:
+                leaf = next((lf for p, lf in read.leaves.items()
+                             if p.startswith(full + ".")), None)
+                if leaf is not None:
+                    cols[path] = leaf.present(len(path), rows)
+                    walk(child, path)
+            else:
+                c = leaf_column(read, full, rows)
+                if c is not None:
+                    cols[path] = c
+
+    walk(_ROOTS[root], ())
+    if ("path",) in cols:
+        v, ok = cols[("path",)]
+        cols[("path",)] = (_decode_paths(v), ok)
+    return Block(root, len(rows), cols)
+
+
+def _span_block(store, idx: np.ndarray, root: str) -> Block:
+    """The `root` actions at rows `idx` of the device parse's row store,
+    from its host lanes (simple lines: no deletion vector, no tags, an
+    empty or absent partitionValues map)."""
+    a = store.lanes
+    n = len(idx)
+    cols: Dict[tuple, object] = {
+        ("path",): (Strings.from_list(store.paths(idx)), np.ones(n, bool)),
+        ("partitionValues",): Repeated(
+            a["pv_present"][idx], np.zeros(n + 1, np.int64),
+            _empty_strings(), np.zeros(0, bool), _empty_strings()),
+        ("size",): (a["size"][idx], a["size_present"][idx]),
+    }
+    if root == "add":
+        cols[("modificationTime",)] = (a["mod_time"][idx],
+                                       a["mod_time_present"][idx])
+        cols[("stats",)] = _strings(store.strings(
+            idx, "stats", a["stats_present"][idx]))
+    else:
+        cols[("deletionTimestamp",)] = (a["del_ts"][idx],
+                                        a["del_ts_present"][idx])
+        cols[("extendedFileMetadata",)] = (a["ext_meta_val"][idx].astype(bool),
+                                           a["ext_meta_present"][idx])
+    return Block(root, n, cols)
+
+
+def _file_block(store, idx: np.ndarray, root: str) -> Block:
+    """The `root` ("add" or "remove") actions at rows `idx` (ascending)
+    of a snapshot's row store, as a Block of the values the log holds
+    (an empty partitionValues map stays empty, an absent one null):
+    checkpoint rows column by column from their part's leaves, device
+    parsed commit rows from their host lanes, host parsed ones from their
+    JSON bodies."""
+    from delta_tpu_torch.replay.columnar import CheckpointRows, CompositeRows
+    from delta_tpu_torch.replay.device_parse import SpanRows
+    from delta_tpu_torch.replay.host_parse import DictRows, decode_path
+
+    if isinstance(store, CompositeRows):
+        a, b = store.split(idx)
+        return _concat_blocks(root, [_file_block(store.first, a, root),
+                                    _file_block(store.second, b, root)])
+    if isinstance(store, CheckpointRows):
+        return _concat_blocks(root, [
+            _part_block(part.read, root, rows)
+            for part, _, rows in store.blocks(idx)])
+    if isinstance(store, SpanRows):
+        return _span_block(store, idx, root)
+    if isinstance(store, DictRows):
+        return rows_block(root, [
+            dict(store.bodies[i], path=decode_path(store.bodies[i]["path"]))
+            for i in idx.tolist()])
+    raise TypeError(f"no file actions from a {type(store).__name__}")
+
+
+def retained(tombs: Block, now_ms: int, retention_ms: int) -> Block:
+    """The tombstones whose deletionTimestamp (null reads 0) is at least
+    `now_ms - retention_ms`."""
+    ts, ok = tombs.cols.get(("deletionTimestamp",),
+                            (np.zeros(tombs.n, np.int64),
+                             np.zeros(tombs.n, bool)))
+    return tombs.take(np.flatnonzero(np.where(ok, ts, 0)
+                                     >= now_ms - retention_ms))
+
+
+def _small_action_blocks(state, txn_min_last_updated: Optional[int] = None
+                        ) -> List[Block]:
+    """protocol, metaData, txn and domainMetadata rows of `state` (the
+    reference's `_small_action_arrays`); txns idle before
+    `txn_min_last_updated`, or without a lastUpdated, are dropped when it
+    is given."""
+    proto, meta = state.protocol, state.metadata
+    blocks = [
+        rows_block("protocol", [{
+            "minReaderVersion": proto.minReaderVersion,
+            "minWriterVersion": proto.minWriterVersion,
+            "readerFeatures": (sorted(proto.readerFeatures)
+                               if proto.readerFeatures is not None else None),
+            "writerFeatures": (sorted(proto.writerFeatures)
+                               if proto.writerFeatures is not None else None),
+        }]),
+        rows_block("metaData", [{
+            "id": meta.id, "name": meta.name,
+            "description": meta.description,
+            "format": {"provider": meta.format.provider,
+                       "options": dict(meta.format.options)},
+            "schemaString": meta.schemaString,
+            "partitionColumns": list(meta.partitionColumns),
+            "configuration": dict(meta.configuration),
+            "createdTime": meta.createdTime,
+        }])]
+    txns = list(state.set_transactions.values())
+    if txn_min_last_updated is not None:
+        txns = [t for t in txns if t.lastUpdated is not None
+                and t.lastUpdated >= txn_min_last_updated]
+    if txns:
+        blocks.append(rows_block("txn", [
+            {"appId": t.appId, "version": t.version,
+             "lastUpdated": t.lastUpdated} for t in txns]))
+    if state.domain_metadata:
+        blocks.append(rows_block("domainMetadata", [
+            {"domain": d.domain, "configuration": d.configuration,
+             "removed": d.removed} for d in state.domain_metadata.values()]))
+    return blocks
+
+
+# ---------------------------------------------------------- aggregates --
+
+def _partition_codes(state, adds: Block):
+    """Dictionary code of each add's partition-value tuple; every row
+    codes 0 in an unpartitioned table."""
+    if not state.metadata.partitionColumns:
+        return np.zeros(adds.n, np.int64), 1
+    pv = adds.cols.get(("partitionValues",))
+    codebook: dict = {}
+    codes = np.empty(adds.n, np.int64)
+    for i in range(adds.n):
+        key = ()
+        if pv is not None and pv.valid[i]:
+            lo, hi = int(pv.offsets[i]), int(pv.offsets[i + 1])
+            key = tuple((pv.keys.raw(j),
+                         pv.items.raw(j) if pv.item_valid[j] else None)
+                        for j in range(lo, hi))
+        codes[i] = codebook.setdefault(key, len(codebook))
+    return codes, max(len(codebook), 1)
+
+
+def _lane(block: Block, path: tuple, struct: Optional[tuple] = None):
+    n = block.n
+    vals, ok = block.cols.get(path, (np.zeros(n, np.int64),
+                                     np.zeros(n, bool)))
+    if struct is not None:
+        ok = ok & block.cols.get(struct, np.zeros(n, bool))
+    return np.where(ok, vals, 0).astype(np.int64), ok
+
+
+def _checkpoint_lanes(state, adds: Block, plan: List[tuple]):
+    """The aggregate stage's inputs (the reference's
+    `_checkpoint_aggregates`): lanes size, modification time,
+    deletion-vector cardinality and partition code of every add, their
+    validity, each add's part, and the partition code count."""
+    size_v, size_ok = _lane(adds, ("size",))
+    mt_v, mt_ok = _lane(adds, ("modificationTime",))
+    dv_v, dv_ok = _lane(adds, ("deletionVector", "cardinality"),
+                        ("deletionVector",))
+    codes, n_codes = _partition_codes(state, adds)
+    part_of = np.zeros(adds.n, np.int32)
+    for i, (a0, a1, _r0, _r1) in enumerate(plan):
+        part_of[a0:a1] = i
+    return ([size_v, mt_v, dv_v, codes],
+            [size_ok, mt_ok, dv_ok, np.ones(adds.n, bool)], part_of, n_codes)
+
+
+def _publish_aggregates(block: np.ndarray, n_lanes: int) -> None:
+    """The facts the reference's `checkpoint.aggregate` span carries, as
+    counters summed over writes: the live files' logical bytes, their
+    deletion-vector cardinality, and the most distinct partition values
+    in one part."""
+    _LOGICAL_BYTES.inc(int(block[2 * n_lanes].sum()))
+    _DV_CARDINALITY.inc(int(block[2 * n_lanes + 2].sum()))
+    _DISTINCT_PARTITION_VALUES.inc(int(block[4 * n_lanes].max(initial=0)))
+
+
+# -------------------------------------------------------------- write --
+
+@dataclass
+class CheckpointMetrics:
+    """What one `write_checkpoint` did: wall seconds by phase
+    ("rows", "retention", "aggregate", "encode", "put", "hint"), and the
+    parts, rows and bytes written."""
+
+    phase_seconds: Dict[str, float] = field(default_factory=dict)
+    parts: int = 0
+    rows: int = 0
+    bytes_written: int = 0
+
+
+def write_checkpoint(engine, snapshot,
+                     metrics: Optional[CheckpointMetrics] = None
+                     ) -> LastCheckpointInfo:
+    """Write a checkpoint of `snapshot` and point `_last_checkpoint` at
+    it; returns the hint written. `metrics`, when given, is filled in."""
+    from delta_tpu_torch.ops import stats
+
+    m = metrics if metrics is not None else CheckpointMetrics()
+    ph = m.phase_seconds
+    t = time.perf_counter()
+
+    def mark(name):
+        nonlocal t
+        engine.synchronize()
+        now = time.perf_counter()
+        ph[name] = ph.get(name, 0.0) + now - t
+        t = now
+
+    state = snapshot.state
+    conf = state.metadata.configuration
+    if get_table_config(conf, CHECKPOINT_POLICY) == "v2":
+        raise UnsupportedTableError(
+            "V2 checkpoints (delta.checkpointPolicy=v2) are not written yet",
+            feature="v2 checkpoints")
+    if get_table_config(conf, CHECKPOINT_WRITE_STATS_AS_STRUCT):
+        raise UnsupportedTableError(
+            "stats_parsed checkpoint columns "
+            "(delta.checkpoint.writeStatsAsStruct) are not written yet",
+            feature="stats_parsed")
+    now_ms = int(time.time() * 1000)
+    store = state.file_actions.rows
+    live = np.flatnonzero(state.live_mask.cpu().numpy())
+    dead = np.flatnonzero(state.tombstone_mask.cpu().numpy())
+    adds = _file_block(store, live, "add")
+    tombs = _file_block(store, dead, "remove")
+    if not get_table_config(conf, CHECKPOINT_WRITE_STATS_AS_JSON):
+        adds.cols.pop(("stats",), None)
+    mark("rows")
+    tombs = retained(tombs, now_ms, get_table_config(conf,
+                                                     TOMBSTONE_RETENTION))
+    txn_retention = get_table_config(conf, SET_TXN_RETENTION)
+    small = _small_action_blocks(
+        state, None if txn_retention is None else now_ms - txn_retention)
+    mark("retention")
+    if adds.n != state.num_files:
+        raise ChecksumMismatchError(
+            f"checkpoint add rows {adds.n} != snapshot numFiles "
+            f"{state.num_files}",
+            error_class="DELTA_CHECKPOINT_SNAPSHOT_MISMATCH")
+    log_path = snapshot._table.log_path
+    version = snapshot.version
+    layout = part_layout(log_path, version, small, adds, tombs,
+                         settings.checkpoint_part_size)
+    mark("rows")
+
+    lanes, valids, part_of, n_codes = _checkpoint_lanes(state, adds,
+                                                        layout.plan)
+    block = stats.checkpoint_stats_block(lanes, valids, part_of,
+                                         len(layout.plan), n_codes,
+                                         engine.device)
+    _publish_aggregates(block, len(lanes))
+    mark("aggregate")
+
+    tasks = [ckpt_pipeline.WriteTask(p, lambda blocks=blocks:
+                                     encode_part(blocks))
+             for p, blocks in zip(layout.paths, layout.contents)]
+    try:
+        results = ckpt_pipeline.run_write_tasks(engine.fs, tasks, ph)
+    except ckpt_pipeline.CheckpointWriteError as e:
+        _ABORTED_WRITES.inc()
+        _cleanup_orphans(engine.fs, e.touched_paths)
+        raise
+    t = time.perf_counter()
+    for r in results:
+        if r.created:
+            _PARTS_WRITTEN.inc()
+            _BYTES_WRITTEN.inc(r.nbytes)
+    whole = all(r.status is not None for r in results)
+    total = sum(r.status.size for r in results if r.status is not None)
+    m.parts = len(layout.paths)
+    m.rows = layout.rows
+    m.bytes_written = sum(r.nbytes for r in results)
+    info = layout.hint(version, total if whole else None)
+    write_last_checkpoint(engine.fs, log_path, info)
+    mark("hint")
+    return info
+
+
+def _cleanup_orphans(fs, paths) -> None:
+    """Best-effort delete of an aborted attempt's files (the reference's
+    `_cleanup_orphans`): the write failure is re-raised by the caller
+    either way, and an orphan part is never selected by a reader."""
+    for p in paths:
+        try:
+            fs.delete(p)
+        except OSError:
+            pass

@@ -1,9 +1,10 @@
 """LogSegment: the checkpoint and commit files that reproduce a version.
 
 Counterpart of `delta_tpu/log/segment.py::_build_log_segment`, for the
-latest version:
+latest version or a target version at or below it:
 
-1. LIST `_delta_log` (lexicographic order is version order).
+1. LIST `_delta_log` (lexicographic order is version order); with a
+   target version, commits and checkpoints past it are left out.
 2. Partition the listing into commits, checkpoints and compacted deltas.
 3. The newest complete checkpoint anchors the segment: single-part or
    multi-part classic Parquet. A V2 checkpoint (UUID-named, JSON or
@@ -13,7 +14,8 @@ latest version:
    up to the latest version. At checkpoint-at-head the snapshot's
    timestamp is the last commit's mtime, as in the reference.
 
-Time travel (a target version) comes with a later slice.
+A target version that the listing cannot reach raises
+`VersionNotFoundError`. Time travel by timestamp comes with a later slice.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from delta_tpu_torch.errors import (
     CorruptLogError,
     TableNotFoundError,
     UnsupportedLogError,
+    VersionNotFoundError,
 )
 from delta_tpu_torch.storage.local import FileStatus
 from delta_tpu_torch.utils import filenames
@@ -45,8 +48,10 @@ class LogSegment:
     last_commit_timestamp: int = 0
 
 
-def build_log_segment(fs, log_path: str) -> LogSegment:
-    """LIST the log and assemble the segment of its latest version."""
+def build_log_segment(fs, log_path: str,
+                      target_version: Optional[int] = None) -> LogSegment:
+    """LIST the log and assemble the segment of its latest version, or of
+    `target_version`."""
     try:
         # commits skip the stat (the reader learns their sizes as it reads
         # them); only the newest commit's mtime is needed (stat'd below)
@@ -61,16 +66,21 @@ def build_log_segment(fs, log_path: str) -> LogSegment:
     deltas: List[tuple] = []
     checkpoints: List[CheckpointInstance] = []
     compacted: List[tuple] = []
+    last = target_version
     for fstat in listing:
         name = filenames.file_name(fstat.path)
         if filenames.DELTA_FILE_RE.match(name):
-            deltas.append((int(name.split(".", 1)[0]), fstat))
+            v = int(name.split(".", 1)[0])
+            if last is None or v <= last:
+                deltas.append((v, fstat))
         elif filenames.CHECKPOINT_FILE_RE.match(name) and fstat.size > 0:
             ci = CheckpointInstance.parse(fstat.path)
-            if ci is not None:
+            if ci is not None and (last is None or ci.version <= last):
                 checkpoints.append(ci)
         elif filenames.COMPACTED_DELTA_FILE_RE.match(name):
-            compacted.append(filenames.compacted_delta_versions(fstat.path))
+            lo_hi = filenames.compacted_delta_versions(fstat.path)
+            if last is None or lo_hi[1] <= last:
+                compacted.append(lo_hi)
     if not deltas and not checkpoints:
         raise TableNotFoundError(f"no commits found in {log_path}",
                                  error_class="DELTA_NO_COMMITS_FOUND")
@@ -99,6 +109,10 @@ def build_log_segment(fs, log_path: str) -> LogSegment:
     if version is None:
         raise TableNotFoundError(f"no commits found in {log_path}",
                                  error_class="DELTA_NO_COMMITS_FOUND")
+    if target_version is not None and version != target_version:
+        raise VersionNotFoundError(
+            version=target_version,
+            earliest=versions[0] if versions else cp_version, latest=version)
     if versions != list(range(start, version + 1)):
         raise CorruptLogError(
             error_class="DELTA_TRUNCATED_TRANSACTION_LOG",

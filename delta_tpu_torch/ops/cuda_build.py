@@ -33,6 +33,8 @@ SOURCES = {
     "winner_pack": "winner_pack.cu",
     "hybrid_extract": "hybrid_extract.cu",
     "interleave_bits": "interleave_bits.cu",
+    "unpack_bitpacked": "unpack_bitpacked.cu",
+    "segmented_minmax": "segmented_minmax.cu",
     "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -245,20 +245,34 @@ def _wanted_leaf(leaf) -> bool:
     return root in _SMALL_ROOTS or leaf.parts[:2] == ("sidecar", "path")
 
 
-def _flat(read, path: str, rows: np.ndarray):
-    """(values, valid) numpy lanes of a non-repeated leaf at `rows`, from
-    the device decode or the host reader; zeros / False where absent."""
+def leaf_column(read, path: str, rows: np.ndarray):
+    """(values, valid) of a non-repeated leaf at part `rows`, from the
+    device decode or the host reader: numpy values, or Strings for a
+    BYTE_ARRAY leaf (a dictionary-keyed path's strings gathered from its
+    dictionary); None where the part has no such leaf."""
+    from delta_tpu_torch.log.parquet_host import Strings
+
     dc = read.decoded.get(path)
     if dc is not None:
-        return dc.values[rows], dc.valid[rows]
+        valid = dc.valid[rows]
+        if dc.uniq is not None:
+            codes = np.where(valid, dc.values[rows], 0)
+            return Strings.from_bytes(dc.uniq or [b""]).take(codes), valid
+        return dc.values[rows], valid
     leaf = read.leaves.get(path)
     if leaf is None:
-        return np.zeros(len(rows), np.int64), np.zeros(len(rows), bool)
+        return None
     vi = leaf.value_index[rows]
     valid = vi >= 0
-    if not len(leaf.values):
-        return np.zeros(len(rows), np.int64), valid
-    return np.asarray(leaf.values)[np.maximum(vi, 0)], valid
+    if isinstance(leaf.values, Strings):
+        if not len(leaf.values):
+            return Strings(np.zeros(0, np.uint8), np.zeros(len(rows), np.int64),
+                           np.zeros(len(rows), np.int64)), valid
+        return leaf.values.take(np.maximum(vi, 0)), valid
+    values = np.asarray(leaf.values)
+    if not len(values):
+        return np.zeros(len(rows), values.dtype), valid
+    return values[np.maximum(vi, 0)], valid
 
 
 def _python(read, path: str, rows: np.ndarray) -> list:
@@ -350,7 +364,7 @@ class CheckpointRows:
         sizes = [n for p in parts for n in (len(p.add_rows), len(p.rem_rows))]
         self.bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
 
-    def _blocks(self, idx: np.ndarray):
+    def blocks(self, idx: np.ndarray):
         """(part, is_add, part rows) per block that `idx` (ascending)
         touches, in order."""
         blk = np.searchsorted(self.bounds, idx, side="right") - 1
@@ -362,7 +376,7 @@ class CheckpointRows:
 
     def paths(self, idx: np.ndarray) -> List[str]:
         out: List[str] = []
-        for part, is_add, rows in self._blocks(idx):
+        for part, is_add, rows in self.blocks(idx):
             raw = _python(part.read, ("add" if is_add else "remove")
                           + ".path", rows)
             out += [_decode_path(p) for p in raw]
@@ -370,7 +384,7 @@ class CheckpointRows:
 
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         out: List[AddFile] = []
-        for part, is_add, rows in self._blocks(idx):
+        for part, is_add, rows in self.blocks(idx):
             out += (self._adds if is_add else self._removes)(part.read, rows)
         return out
 
@@ -551,8 +565,9 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
             _, ids = _dvs(read, root, rows)
             dv_ids.update({n + k: v for k, v in ids.items()})
             is_add.append(np.full(len(rows), root == "add"))
-            vals, valid = _flat(read, root + ".size", rows)
-            size.append(np.where(valid, vals, 0).astype(np.int64))
+            col = leaf_column(read, root + ".size", rows)
+            size.append(np.zeros(len(rows), np.int64) if col is None
+                        else np.where(col[1], col[0], 0).astype(np.int64))
             n += len(rows)
         if handoff_ok:
             keys, n_add, n_rem = read.keys, len(part.add_rows), len(part.rem_rows)
@@ -594,20 +609,20 @@ class CompositeRows:
     def __init__(self, first, n_first: int, second):
         self.first, self.n_first, self.second = first, n_first, second
 
-    def _split(self, idx: np.ndarray):
+    def split(self, idx: np.ndarray):
         cut = int(np.searchsorted(idx, self.n_first))
         return idx[:cut], idx[cut:] - self.n_first
 
     def paths(self, idx: np.ndarray) -> List[str]:
-        a, b = self._split(idx)
+        a, b = self.split(idx)
         return self.first.paths(a) + self.second.paths(b)
 
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
-        a, b = self._split(idx)
+        a, b = self.split(idx)
         return self.first.add_files(a) + self.second.add_files(b)
 
     def remove_files(self, idx: np.ndarray) -> List[RemoveFile]:
-        a, b = self._split(idx)
+        a, b = self.split(idx)
         return self.first.remove_files(a) + self.second.remove_files(b)
 
 

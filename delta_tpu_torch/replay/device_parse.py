@@ -144,7 +144,8 @@ _SPAN_LANES = ("path_start", "path_end", "path_esc", "stats_start",
                "stats_end", "stats_esc", "stats_present")
 _VALUE_LANES = ("size", "size_present", "mod_time", "mod_time_present",
                 "data_change_val", "data_change_present", "del_ts",
-                "del_ts_present", "ext_meta_val", "ext_meta_present")
+                "del_ts_present", "ext_meta_val", "ext_meta_present",
+                "pv_present")
 _HOST_LANES = _SPAN_LANES + _VALUE_LANES
 
 
@@ -159,7 +160,7 @@ class SpanRows:
         self.buf = buf
         self.lanes = lanes
 
-    def _strings(self, idx: np.ndarray, key: str, present) -> List[Optional[str]]:
+    def strings(self, idx: np.ndarray, key: str, present) -> List[Optional[str]]:
         a = self.lanes
         return decode_spans(self.buf, a[f"{key}_start"][idx],
                             a[f"{key}_end"][idx], present,
@@ -168,11 +169,11 @@ class SpanRows:
     def paths(self, idx: np.ndarray) -> List[str]:
         """Unescaped, percent-decoded paths of rows `idx`."""
         return [decode_path(p) for p in
-                self._strings(idx, "path", np.ones(len(idx), bool))]
+                self.strings(idx, "path", np.ones(len(idx), bool))]
 
     def _common(self, idx):
         a = self.lanes
-        stats = self._strings(idx, "stats", a["stats_present"][idx])
+        stats = self.strings(idx, "stats", a["stats_present"][idx])
         cols = {k: a[k][idx].tolist() for k in _VALUE_LANES}
         return self.paths(idx), stats, cols
 

@@ -1,12 +1,12 @@
 """The local filesystem under a Delta table.
 
 Counterpart of `LocalLogStore` in `delta_tpu/storage/logstore.py`: a
-sorted listing from a prefix, a stat, a whole-file read, and an atomic
-write. Without `overwrite` the write is a put-if-absent: the bytes go to
-a temporary file first (written and fsynced), which is then linked under
-the final name; `os.link` fails when the name exists, so exactly one of
-two racing writers of `N.json` wins and the other gets FileExistsError,
-and no reader ever sees a partial file. With `overwrite` the temporary
+sorted listing from a prefix, a stat, a whole-file read, an atomic
+write, and a delete. Without `overwrite` the write is a put-if-absent:
+the bytes go to a temporary file first (written and fsynced), which is
+then linked under the final name; `os.link` fails when the name exists,
+so exactly one of two racing writers of `N.json` wins and the other gets
+FileExistsError, and no reader ever sees a partial file. With `overwrite` the temporary
 file replaces the target by rename. The commit reader
 (`replay/columnar.py`) opens the listed commit files itself.
 """
@@ -91,3 +91,7 @@ class LocalLogStore:
             os.link(tmp, path)
         finally:
             os.unlink(tmp)
+
+    def delete(self, path: str) -> None:
+        """Remove `path`; a missing file raises FileNotFoundError."""
+        os.remove(path)

@@ -14,15 +14,17 @@ commits: a winner carrying our own `txnId` is our own landed commit;
 otherwise `check_conflicts` either raises a typed
 `ConcurrentModificationError` or the transaction rebases and retries at
 the next version, up to `MAX_COMMIT_RETRIES` times
-(`MaxCommitRetriesExceededError`). The commit writes the commit file
-only: post-commit hooks (the `.crc` checksum, the checkpoint every
-`delta.checkpointInterval` commits, auto-compaction) are a later slice.
+(`MaxCommitRetriesExceededError`). After a successful commit the
+post-commit hooks run (`hooks.py`: the `.crc` checksum, the checkpoint
+every `delta.checkpointInterval` commits, auto-compaction), best-effort:
+a failing hook is counted and logged, and the commit stands.
 
 Refused with `UnsupportedTableError`, before anything is written: group
 commit, coordinated commits, in-commit timestamps, row tracking, domain
-writes, a scan with a predicate, partitioned tables, and protocol writer
+writes, a scan with a predicate, partitioned tables, protocol writer
 features beyond appendOnly and invariants (which also covers deletion
-vectors and column mapping).
+vectors and column mapping), and tables that ask for the UniForm
+(Iceberg/Hudi) or symlink-manifest hooks, which are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from delta_tpu_torch.config import (
     IN_COMMIT_TIMESTAMPS,
     ISOLATION_LEVEL,
     ROW_TRACKING_ENABLED,
+    SYMLINK_MANIFEST_ENABLED,
+    UNIFORM_ENABLED_FORMATS,
     _parse_bool,
     get_table_config,
 )
@@ -51,6 +55,7 @@ from delta_tpu_torch.errors import (
     TableNotFoundError,
     UnsupportedTableError,
 )
+from delta_tpu_torch.hooks import run_post_commit_hooks
 from delta_tpu_torch.models.actions import (
     AddFile,
     CommitInfo,
@@ -127,6 +132,16 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
     if metadata.partitionColumns:
         raise UnsupportedTableError("partitioned tables are not supported "
                                     "yet", feature="partitioned table")
+    if get_table_config(conf, UNIFORM_ENABLED_FORMATS):
+        raise UnsupportedTableError(
+            "UniForm (delta.universalFormat.enabledFormats) needs the "
+            "Iceberg/Hudi post-commit hooks, which are not ported yet",
+            feature="uniform")
+    if get_table_config(conf, SYMLINK_MANIFEST_ENABLED):
+        raise UnsupportedTableError(
+            "delta.compatibility.symlinkFormatManifest.enabled needs the "
+            "symlink-manifest post-commit hook, which is not ported yet",
+            feature="symlink manifest")
     schema_from_json(metadata.schemaString)  # raises on an unsupported type
 
 
@@ -451,6 +466,8 @@ class Transaction:
                     continue
                 # an ambiguous write outcome: the winner is our own commit
             self._committed = True
+            run_post_commit_hooks(self._table, self, attempt_version,
+                                  self.metadata())
             return CommitResult(attempt_version, True, attempts)
         raise MaxCommitRetriesExceededError(
             f"commit failed after {attempts} attempts (last tried version "

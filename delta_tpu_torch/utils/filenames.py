@@ -4,7 +4,7 @@ Counterpart of `delta_tpu/utils/filenames.py`. Commit files are
 ``%020d.json``; classic checkpoints ``%020d.checkpoint.parquet``,
 multi-part ones ``%020d.checkpoint.%010d.%010d.parquet``, V2 ones
 ``%020d.checkpoint.<uuid>.{json,parquet}``; compacted ranges
-``%020d.%020d.compacted.json``. Zero padding makes a lexicographic listing
+``%020d.%020d.compacted.json``; version checksums ``%020d.crc``. Zero padding makes a lexicographic listing
 return files in version order.
 """
 
@@ -65,6 +65,10 @@ def checkpoint_file_with_parts(log_path: str, version: int,
 
 def last_checkpoint_file(log_path: str) -> str:
     return f"{log_path}/_last_checkpoint"
+
+
+def checksum_file(log_path: str, version: int) -> str:
+    return f"{log_path}/{version:020d}.crc"
 
 
 class CheckpointFormat(Enum):

@@ -1,9 +1,10 @@
 """The port stands alone: it imports nothing of the JAX package.
 
 A snapshot load through `delta_tpu_torch` in a fresh interpreter, of a
-commit-only log and of a checkpointed one, and a `write_table` plus
-OPTIMIZE (both curves, and compaction), must leave no `jax`, `pyarrow`,
-`pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
+commit-only log and of a checkpointed one, a `write_table` plus OPTIMIZE
+(both curves, and compaction), and the checkpoint writes of the
+post-commit hooks and of `Table.checkpoint` must leave no `jax`,
+`pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
 """
@@ -49,6 +50,18 @@ assert t.optimize().execute_zorder_by("k", "x", curve="hilbert").version == 4
 write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
 assert t.optimize().execute_compaction().version == 6
 assert t.latest_snapshot().state.num_files == 1
+# the checkpoint write: the hook's multi-part checkpoint at version 10,
+# the .crc of every version, and Table.checkpoint at an earlier version
+from delta_tpu_torch import obs
+from delta_tpu_torch.config import settings
+settings.checkpoint_part_size = 2
+for i in range(4):
+    write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
+st = t.latest_snapshot().state
+assert st.version == 10 and st.file_actions.version.min() == 10
+assert obs.counters()["checkpoint.parts_written"] >= 3
+t.checkpoint(version=9)
+assert not any(v for k, v in obs.counters().items() if k.startswith("hooks."))
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))

@@ -14,6 +14,10 @@ import torch
 
 from delta_tpu_torch import Table, TorchEngine, obs
 from delta_tpu_torch.ops.byte_class import byte_class, byte_class_plain
+from delta_tpu_torch.ops.minmax import (
+    segmented_minmax,
+    segmented_minmax_plain,
+)
 from delta_tpu_torch.ops.interleave import (
     interleave_bits,
     interleave_bits_plain,
@@ -23,6 +27,12 @@ from delta_tpu_torch.ops.page_decode import (
     hybrid_extract_plain,
 )
 from delta_tpu_torch.ops.replay import winner_pack, winner_pack_plain
+from delta_tpu_torch.ops.stats import checkpoint_stats_block, host_stats_block
+from delta_tpu_torch.ops.unpack import (
+    unpack_bitpacked,
+    unpack_bitpacked_plain,
+    unpack_bitpacked_words,
+)
 from delta_tpu_torch.utils.synth import synth_delta_log
 
 
@@ -200,3 +210,126 @@ def test_optimize_on_card_matches_cpu(tmp_path, curve):
     assert card_stats == cpu_stats
     for x, y in zip(card_a, cpu_a):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 31, 32, 33, 1025, 312_500])
+@pytest.mark.parametrize("w", [1, 2, 7, 16, 17, 31, 32])
+def test_unpack_bitpacked_kernel_matches_plain(w, g):
+    dev = _card()
+    words = np.random.default_rng(w * 100 + g).integers(
+        0, 2**32, (w, g), dtype=np.uint32)
+    words[:, ::7] = 0xFFFFFFFF
+    t = torch.from_numpy(words.view(np.int32)).to(dev)
+    launches = obs.counter("kernel.unpack_bitpacked.launches").read()
+    got = unpack_bitpacked_words(t, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unpack_bitpacked_plain(t, w))
+    assert obs.counter("kernel.unpack_bitpacked.launches").read() \
+        == launches + 1
+
+
+@pytest.mark.cuda
+def test_unpack_bitpacked_entry_point_on_the_card():
+    _card()
+    stream = np.random.default_rng(3).integers(0, 2**32, 16 * 1000,
+                                               dtype=np.uint32)
+    got = unpack_bitpacked(stream, 16, 1000)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), unpack_bitpacked(stream, 16, 1000,
+                                                   device="cpu"))
+    assert not unpack_bitpacked(stream, 0, 1000).any()
+
+
+def _minmax_case(f, r, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(f, r)).astype(np.float32)
+    m = rng.random((f, r)) > 0.1
+    v[0, :] = 0.0
+    v[0, ::2] = -0.0
+    if f > 1:
+        v[1, r // 2] = np.nan
+        m[1, r // 2] = True
+    if f > 2:
+        m[2, :] = False
+    if f > 3:
+        v[3, :] = np.inf
+        v[3, -1] = -np.inf
+    return torch.from_numpy(v), torch.from_numpy(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,r", [(1, 1), (9, 129), (4, 16384), (4, 16385),
+                                 (20, 500_000), (70_000, 3)])
+def test_segmented_minmax_kernel_matches_plain(f, r):
+    dev = _card()
+    v, m = _minmax_case(f, r, seed=f + r)
+    launches = obs.counter("kernel.segmented_minmax.launches").read()
+    got = segmented_minmax(v.to(dev), m.to(dev))
+    torch.cuda.synchronize()
+    want = segmented_minmax_plain(v, m)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    assert obs.counter("kernel.segmented_minmax.launches").read() \
+        == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_parts", [(0, 1), (7, 1), (1000, 9),
+                                       (600_000, 8)])
+def test_checkpoint_aggregate_on_card_equals_host(n, n_parts):
+    dev = _card()
+    rng = np.random.default_rng(n)
+    lanes = [rng.integers(-2**40, 2**40, n) for _ in range(3)]
+    lanes.append(rng.integers(0, 5, n))
+    valids = [rng.random(n) > 0.2 for _ in range(3)] + [np.ones(n, bool)]
+    part_of = np.sort(rng.integers(0, n_parts, n)).astype(np.int32)
+    assert np.array_equal(
+        checkpoint_stats_block(lanes, valids, part_of, n_parts, 5, dev),
+        host_stats_block(lanes, valids, part_of, n_parts, 5))
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_on_the_card_equals_cpu(tmp_path):
+    import glob
+    import json
+    import shutil
+    import time
+
+    from delta_tpu_torch.config import settings
+    from delta_tpu_torch.log.checkpointer import write_checkpoint
+
+    _card()
+    src = str(tmp_path / "src")
+    truth = synth_delta_log(src, 40, 100, seed=8, checkpoint_version=30,
+                            now_ms=7 * 86_400_000)
+    # commit 40 removes five live files under the real clock: three a day
+    # ago (retained), two eight days ago (past the 7-day window); the
+    # generator's own tombstones carry commit indexes and are all past it
+    now_ms = int(time.time() * 1000)
+    gone = truth.live_paths[:5]
+    ages = [1, 1, 1, 8, 8]
+    with open(f"{src}/_delta_log/{40:020d}.json", "w") as f:
+        for p, days in zip(gone, ages):
+            f.write(json.dumps({"remove": {
+                "path": p, "deletionTimestamp": now_ms - days * 86_400_000,
+                "dataChange": True}}) + "\n")
+    settings.checkpoint_part_size = 500
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            p = str(tmp_path / device)
+            shutil.copytree(src, p)
+            eng = TorchEngine(device)
+            write_checkpoint(eng, Table.for_path(p, engine=eng)
+                             .latest_snapshot())
+            parts = sorted(glob.glob(f"{p}/_delta_log/*40.checkpoint*"))
+            out[device] = [open(x, "rb").read() for x in parts]
+    finally:
+        settings.checkpoint_part_size = None
+    assert out["cuda"] == out["cpu"] and len(out["cuda"]) > 1
+    st = Table.for_path(str(tmp_path / "cuda"), engine=TorchEngine()) \
+        .latest_snapshot().state
+    assert st.file_actions.version.min() == 40  # through the new checkpoint
+    assert sorted(a.path for a in st.add_files) == truth.live_paths[5:]
+    assert sorted(t.path for t in st.tombstones) == sorted(gone[:3])
