@@ -25,16 +25,32 @@
    every counter set to 0 just before. The live files, their size and the
    tombstones must equal the generator's truth; the parse must have run
    on the device with no fallback; K1 and K2 must have launched.
-6. Kernel phase K3: `hybrid_extract` against its plain version on the run
-   and lane plan of a real part of the headline checkpoint and on edge
-   plans (widths 0, 1, 31, 32, shift 0, an RLE value with bit 31 set,
-   h_total 1 and 1025, a bit-packed run ending in the lane's last bytes);
-   timed on the real plan beside its plain version and its bound.
+6. Kernel phase K3: `hybrid_extract` against its plain version on the
+   run, tile and lane plan of every part of the headline checkpoint (as
+   the checkpoint-and-tail load plans them) and on edge plans (widths 0,
+   1, 31, 32, shift 0, an RLE value with bit 31 set, h_total 1 and 1025,
+   a bit-packed run ending in the lane's last bytes, runs of 0 values, a
+   run one position longer than a tile, positions past a run's count, a
+   lane at an address that is not 16-byte aligned); timed on the first
+   file-action part per call (CUDA events around 50 calls of the wrapper)
+   and on the card alone (`device_ms`, the kernel's own duration from
+   torch.profiler), beside its plain version and its bound, and summed
+   over all parts as the load launches it.
 7. Checkpoint path, the slice's main path: the checkpoint put back, the
    same load runs through it (the checkpoint parts, then the 9 tail
    commits), counters from 0; the truth must hold again, every part must
    have decoded on the device (no fallback), K3 must have launched once
    per part and K1 and K2 at least once. Prints the phase split.
+   Then the load's degradation ladder on a copy of that log (hard links),
+   counters from 0 before each load: a torn commit after the newest one
+   serves the newest intact version, the generator's truth, through the
+   checkpoint (`snapshot.torn_commit_fallbacks` and `log.torn_commits` 1,
+   K3 once per part on each of the two attempts); every part cut to half
+   its bytes rebuilds from the JSON commits alone to the truth
+   (`snapshot.checkpoint_fallbacks` 1, K3 not launched), and in the same
+   load a `.crc` of the newest version that lies about the file count and
+   size is quarantined (`snapshot.crc_quarantined` 1) and reseeded from
+   the state.
 8. Checkpoint-write path, BASELINE config 2's write half: the latest
    snapshot of the headline log loaded on the card, then, counters from
    0, `log/checkpointer.py::write_checkpoint(engine, snapshot)` with
@@ -96,7 +112,9 @@
     same stats.
 
 Prints a metrics line per phase, a `kernels` JSON line (K1-K6, each with
-its launches, times, bound and share of the bound), the card's
+its launches, its time per call (`ms`, CUDA events around back-to-back
+calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
+its bound and both shares of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
 as the last line `{"ok": true, "device": {...}}`. Any failed phase exits
 non-zero and prints no result; so does a run without a CUDA device.
@@ -148,6 +166,40 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int, kernels, per_call: int = 1) -> float:
+    """Device milliseconds per call of the kernels whose names hold one of
+    `kernels`, each launched `per_call` times a call: the sum over those
+    kernels of their mean duration in a torch.profiler trace of `reps`
+    calls (after a warm-up step, so that tracing is on when they start).
+    The kernels' own time on the card, without the host work between
+    launches that `_time_ms` counts. The tracer may miss launches, a few
+    at its start or (seen once) a whole trace: the mean is over those it
+    saw, and a trace that saw fewer than half is taken again, up to
+    three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        rows = [r for r in _device_rows(prof)
+                if any(k in r[1] for k in kernels)]
+        seen.append([r[2] for r in rows])
+        if rows and all(2 * c >= reps * per_call for _, _, c in rows):
+            return sum(us / c for us, _, c in rows) * per_call / 1e3
+    _check(False, f"the profiler saw {seen} launches of {kernels} in "
+           f"{reps} calls, three times")
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -185,6 +237,7 @@ def kernel_phase(window: torch.Tensor, n_rows: int, dev) -> dict:
     torch.cuda.synchronize()
     n1 = window.numel()
     k1_ms = _time_ms(lambda: byte_class(window), 50)
+    k1_dev = _device_ms(lambda: byte_class(window), 50, ("byte_class",))
     k1_plain = _time_ms(lambda: byte_class_plain(window), 10)
     k1_bound, k1_by = _bound_ms(2.0 * n1, 12.0 * n1)
 
@@ -207,7 +260,8 @@ def kernel_phase(window: torch.Tensor, n_rows: int, dev) -> dict:
             "name": "byte_class", "route": "cuda", "ok": True,
             "source": "delta_tpu_torch/csrc/byte_class.cu",
             "replaces": "delta_tpu/ops/pallas_kernels.py:203",
-            "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain,
+            "max_abs_err": err1, "ms": k1_ms, "device_ms": k1_dev,
+            "plain_ms": k1_plain,
             "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
             "shape": f"u8[{n1}]"},
     }
@@ -245,6 +299,8 @@ def winner_pack_phase(state) -> dict:
     _check(torch.equal(got, want), "winner_pack != plain on the main path")
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     ms = _time_ms(lambda: winner_pack(skey, sidx, n), 50)
+    dev_ms = _device_ms(lambda: winner_pack(skey, sidx, n), 50,
+                        ("winner_pack_kernel",))
     plain = _time_ms(lambda: winner_pack_plain(skey, sidx, n), 10)
     nbytes, winners = _winner_pack_bytes(skey)
     bound, by = _bound_ms(nbytes, 2.0 * n)
@@ -252,14 +308,18 @@ def winner_pack_phase(state) -> dict:
         "name": "winner_pack", "route": "cuda", "ok": True,
         "source": "delta_tpu_torch/csrc/winner_pack.cu",
         "replaces": "delta_tpu/ops/replay.py:183",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "shape": f"i64[{n}]+i32[{n}]", "winners": winners,
         "bound_bytes": nbytes}
 
 
-def _edge_plans(real_lane: torch.Tensor):
-    """(name, lane, runs, h_total) edge cases of K3's plan space."""
+def _edge_plans(real_lane: torch.Tensor, dev):
+    """(name, lane, runs, h_total) edge cases of K3's plan space, on
+    `dev` (runs None: the real plan's)."""
+    from delta_tpu_torch.ops.page_decode import TILE
+
     g = np.random.default_rng(11)
     lane = g.integers(0, 256, 4096, dtype=np.uint8)
     plans = []
@@ -278,57 +338,200 @@ def _edge_plans(real_lane: torch.Tensor):
                   [(0, 10, 0, 3, 0, 0),
                    (10, tail_n, lane.size * 8 - tail_n * tail_w, tail_w,
                     0, 0)], 10 + tail_n))
-    out = [(name, torch.from_numpy(ln), torch.tensor(r, dtype=torch.int32), h)
+    plans.append(("runs of 0 values", lane,
+                  [(0, 0, 0, 5, 0, 0), (0, 40, 3, 5, 0, 0),
+                   (40, 0, 0, 9, 1, 7), (40, 60, 900, 9, 0, 0)], 100))
+    plans.append(("a run one longer than TILE, past its count", lane,
+                  [(0, 3, 0, 4, 0, 0), (3, TILE + 1, 16, 8, 0, 0)],
+                  3 * TILE))
+    out = [(name, torch.from_numpy(ln).to(dev),
+            torch.tensor(r, dtype=torch.int32, device=dev), h)
            for name, ln, r, h in plans]
+    # the same lane at an address that is not 16-byte aligned
+    shifted = torch.from_numpy(np.concatenate([[0], lane]).astype(np.uint8))
+    out.append(("unaligned lane", shifted.to(dev)[1:], out[1][2], out[1][3]))
     return out + [("real lane, h_total=1025", real_lane, None, 1025)]
 
 
-def hybrid_extract_phase(part_path: str, dev) -> dict:
-    """K3 against its plain version on a real part's plan and on edge
-    plans; timed on the real plan."""
+def _k3_bound(plan) -> tuple[float, float]:
+    """(bytes, operations) K3 must spend on a plan: 4 B written per
+    position, the packed lane bytes and the 24-byte run rows read once."""
+    from delta_tpu_torch.ops.page_decode import R_N, R_RLE, R_W
+
+    r = plan.runs.astype("int64")
+    packed = r[:, R_RLE] == 0
+    lane_bytes = int(((r[packed, R_N] * r[packed, R_W] + 7) // 8).sum())
+    h = plan.h_total
+    return 4.0 * h + lane_bytes + 24.0 * r.shape[0], 16.0 * h
+
+
+def hybrid_extract_phase(part_paths: list, dev) -> dict:
+    """K3 against its plain version on the plan of every part of the
+    checkpoint, as the checkpoint-and-tail load plans them, and on edge
+    plans; timed per call and on the card alone on the first file-action
+    part, and summed over all parts as the load launches it."""
     from delta_tpu_torch.log.page_decode import (
         _VALUE_COLUMNS, build_part_plan)
     from delta_tpu_torch.log.parquet_footer import read_footer
     from delta_tpu_torch.ops.page_decode import (
-        R_N, R_RLE, R_W, hybrid_extract, hybrid_extract_plain)
+        hybrid_extract, hybrid_extract_plain, tile_plan)
 
-    with open(part_path, "rb") as f:
-        data = f.read()
-    footer = read_footer(data)
-    # the main path's plan: with tail commits the path keys are not planned
-    plan, _, _, _ = build_part_plan(
-        footer, data, [c for c in _VALUE_COLUMNS if c in footer.index], [])
-    lane = torch.from_numpy(plan.lane).to(dev)
-    runs = torch.from_numpy(plan.runs).to(dev)
+    calls, err = [], 0
+    for path in part_paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        footer = read_footer(data)
+        # the main path's plan: with tail commits the keys are not planned
+        plan, _, _, _ = build_part_plan(
+            footer, data, [c for c in _VALUE_COLUMNS if c in footer.index],
+            [])
+        lane, runs, tiles, _ = plan.views(
+            torch.from_numpy(plan.host).to(dev))
+        got = hybrid_extract(lane, runs, plan.h_total, tiles)
+        torch.cuda.synchronize()
+        want = hybrid_extract_plain(lane, runs, plan.h_total)
+        _check(torch.equal(got, want),
+               f"hybrid_extract != plain on {os.path.basename(path)}")
+        if got.numel():
+            err = max(err, int((got.to(torch.int64)
+                                - want.to(torch.int64)).abs().max()))
+        calls.append((plan, lane, runs, tiles))
+    plan, lane, runs, tiles = calls[1 if len(calls) > 1 else 0]
     h = plan.h_total
-    got = hybrid_extract(lane, runs, h)
-    torch.cuda.synchronize()
-    want = hybrid_extract_plain(lane, runs, h)
-    _check(torch.equal(got, want), "hybrid_extract != plain on a real part")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    for name, ln, r, total in _edge_plans(lane):
-        ln = ln.to(dev)
-        r = runs if r is None else r.to(dev)
-        _check(torch.equal(hybrid_extract(ln, r, total),
+    for name, ln, r, total in _edge_plans(lane, dev):
+        r = runs if r is None else r
+        t = torch.from_numpy(tile_plan(r.cpu().numpy(), total)).to(dev)
+        _check(torch.equal(hybrid_extract(ln, r, total, t),
                            hybrid_extract_plain(ln, r, total)),
                f"hybrid_extract != plain on the edge plan '{name}'")
         torch.cuda.synchronize()
-    ms = _time_ms(lambda: hybrid_extract(lane, runs, h), 50)
+
+    def one():
+        return hybrid_extract(lane, runs, h, tiles)
+
+    def every_part():
+        for p, ln, r, t in calls:
+            hybrid_extract(ln, r, p.h_total, t)
+
+    ms = _time_ms(one, 50)
+    dev_ms = _device_ms(one, 50, ("hybrid_extract_kernel",))
     plain = _time_ms(lambda: hybrid_extract_plain(lane, runs, h), 10)
-    r = plan.runs.astype("int64")
-    packed = r[:, R_RLE] == 0
-    lane_bytes = int(((r[packed, R_N] * r[packed, R_W] + 7) // 8).sum())
-    nbytes = 4.0 * h + lane_bytes + 24.0 * r.shape[0]
-    ops = h * (max(1, int(r.shape[0]).bit_length()) + 16.0)
+    nbytes, ops = _k3_bound(plan)
     bound, by = _bound_ms(nbytes, ops)
+    all_ms = _time_ms(every_part, 20)
+    all_dev = _device_ms(every_part, 20, ("hybrid_extract_kernel",),
+                         per_call=len(calls))
+    all_bytes, all_ops = map(sum, zip(*(_k3_bound(c[0]) for c in calls)))
+    all_bound, _ = _bound_ms(all_bytes, all_ops)
     return {
         "name": "hybrid_extract", "route": "cuda", "ok": True,
         "source": "delta_tpu_torch/csrc/hybrid_extract.cu",
         "replaces": "delta_tpu/ops/pallas_kernels.py:357",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain,
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": f"u8[{plan.lane.size}]+i32[{r.shape[0]},6]->u32[{h}]",
-        "bound_bytes": nbytes}
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "shape": f"u8[{plan.lane_bytes}]+i32[{plan.n_runs},6]"
+                 f"+i32[{plan.n_tiles},2]->u32[{h}]",
+        "bound_bytes": nbytes,
+        "all_parts": {"parts": len(calls), "ms": all_ms,
+                      "device_ms": all_dev, "bound_ms": all_bound,
+                      "share": all_bound / all_ms,
+                      "device_share": all_bound / all_dev,
+                      "positions": sum(c[0].h_total for c in calls)}}
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:  # a file system without hard links
+        shutil.copy2(src, dst)
+
+
+def _replace(path: str, data: bytes) -> None:
+    """Write `path` as a new file: never through a hard link, so that the
+    original log keeps its bytes."""
+    os.remove(path)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def ladder_phase(path: str, truth, parts: list, Table, TorchEngine, obs,
+                 card: str) -> dict:
+    """The snapshot's degradation ladder and `.crc` quarantine on the
+    card, on a copy of the checkpoint-and-tail log (hard links; a damaged
+    file is a new file). Counters from 0 before each load:
+    - a torn tip: a commit after the newest, cut inside its add line,
+      serves the newest intact version, the generator's truth, through
+      the checkpoint (K3 once per part on each of the two attempts);
+    - every part of the checkpoint cut to half its bytes: the load
+      rebuilds from the JSON commits alone to the truth, K3 never
+      launched;
+    - a `.crc` of the newest version that lies about the file count and
+      size: the load quarantines it and reseeds it from the state."""
+    from delta_tpu_torch.log.checksum import (
+        read_checksum, write_checksum_from_state)
+
+    copy = path + "_ladder"
+    shutil.copytree(path, copy, copy_function=_link_or_copy)
+    log = os.path.join(copy, "_delta_log")
+    out = {}
+    try:
+        tip = os.path.join(log, f"{truth.version + 1:020d}.json")
+        with open(tip, "wb") as f:
+            f.write(b'{"commitInfo":{"timestamp":1,"operation":"WRITE"}}\n'
+                    b'{"add":{"path":"part-torn.parquet","partitionVal')
+        state, counts, _, load_s, _ = _timed_load(copy, Table, TorchEngine,
+                                                  obs)
+        _truth_checks(state, truth, "torn tip")
+        _check(counts.get("snapshot.torn_commit_fallbacks", 0) == 1
+               and counts.get("log.torn_commits", 0) == 1,
+               "torn tip: one torn commit, one fallback")
+        _check(counts.get("snapshot.checkpoint_fallbacks", 0) == 0,
+               "torn tip: no checkpoint fallback")
+        _check(counts.get("kernel.hybrid_extract.launches", 0)
+               == 2 * len(parts), "torn tip: K3 once per part per attempt")
+        _check(counts.get("decode.device_fallbacks", 0) == 0,
+               "torn tip: every part decoded on the card")
+        out["torn_tip"] = {"load_s": load_s, "counters": counts}
+        os.remove(tip)
+
+        # the .crc of the newest version, then made to lie
+        crc_path = os.path.join(log, f"{truth.version:020d}.crc")
+        write_checksum_from_state(TorchEngine().fs, log, state)
+        with open(crc_path) as f:
+            doc = json.load(f)
+        doc["numFiles"] += 7
+        doc["tableSizeBytes"] += 999
+        _replace(crc_path, json.dumps(doc).encode())
+        del state
+
+        for p in parts:
+            cut = os.path.join(log, os.path.basename(p))
+            with open(cut, "rb") as f:
+                data = f.read()
+            _replace(cut, data[:len(data) // 2])
+        state, counts, _, load_s, _ = _timed_load(copy, Table, TorchEngine,
+                                                  obs)
+        _truth_checks(state, truth, "half-length checkpoint")
+        _check(counts.get("snapshot.checkpoint_fallbacks", 0) == 1,
+               "half-length checkpoint: one checkpoint fallback")
+        _check(counts.get("kernel.hybrid_extract.launches", 0) == 0,
+               "half-length checkpoint: K3 not launched on the JSON rebuild")
+        _check(counts.get("parse.device_windows", 0) >= 1
+               and counts.get("parse.device_fallbacks", 0) == 0,
+               "half-length checkpoint: the commits parsed on the card")
+        _check(counts.get("snapshot.crc_quarantined", 0) == 1,
+               "the lying .crc quarantined")
+        crc = read_checksum(TorchEngine().fs, log, truth.version)
+        _check(crc.numFiles == len(truth.live_paths)
+               and crc.tableSizeBytes == truth.size_in_bytes,
+               "the lying .crc reseeded from the state")
+        out["half_checkpoint"] = {"load_s": load_s, "counters": counts}
+        del state
+    finally:
+        shutil.rmtree(copy, ignore_errors=True)
+    out["card"] = card
+    return out
 
 
 def _set_aside(log: str, side: str) -> list:
@@ -361,6 +564,19 @@ def _truth_checks(state, truth, what: str) -> str:
     return sha
 
 
+_LADDER_COUNTERS = ("snapshot.torn_commit_fallbacks",
+                    "snapshot.checkpoint_fallbacks",
+                    "snapshot.crc_quarantined")
+
+
+def _ladder_idle(counts: dict, what: str) -> None:
+    """A main-path load took no fallback: no torn tip served around, no
+    checkpoint rebuilt past, no `.crc` reseeded."""
+    _check(not any(counts.get(k, 0) for k in _LADDER_COUNTERS),
+           f"{what}: the degradation ladder stayed idle "
+           f"{ {k: counts.get(k, 0) for k in _LADDER_COUNTERS} }")
+
+
 def _timed_load(path: str, Table, TorchEngine, obs, **engine_kw):
     """One load with every counter at 0 just before; returns (state,
     counters, list seconds, load seconds, peak device bytes)."""
@@ -378,10 +594,11 @@ def _timed_load(path: str, Table, TorchEngine, obs, **engine_kw):
             torch.cuda.max_memory_allocated())
 
 
-def _device_time(prof):
-    """(device busy seconds, the 15 largest device rows as dicts) of a
-    torch.profiler trace: device-side events only (kernels, copies), since
-    an operator's row repeats the time of the kernels it launched."""
+def _device_rows(prof) -> list:
+    """(device microseconds, name, count) of every device-side row of a
+    torch.profiler trace (kernels, copies, memsets), largest first; an
+    operator's row is left out, since it repeats the time of the kernels
+    it launched."""
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -390,10 +607,53 @@ def _device_time(prof):
               or getattr(e, "self_cuda_time_total", 0))
         if us:
             rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def _device_time(prof):
+    """(device busy seconds, the 15 largest device rows as dicts) of a
+    torch.profiler trace."""
+    rows = _device_rows(prof)
     return (sum(r[0] for r in rows) / 1e6,
             [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
              for us, k, c in rows[:15]])
+
+
+def profile_decode(parts: list) -> None:
+    """The checkpoint read of cell 2, part by part as the load reads it
+    (the device decode of the hot columns, the host leaf reader for the
+    rest), warm, under torch.profiler: the device split of the decode
+    phase into K3, the torch ops of `ops/page_decode.py::decode_part` and
+    the copies each way, beside the wall seconds of its phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from delta_tpu_torch.log.page_decode import read_checkpoint_part
+    from delta_tpu_torch.replay.columnar import _wanted_leaf
+
+    dev = torch.device("cuda", 0)
+    datas = []
+    for p in parts:
+        with open(p, "rb") as f:
+            datas.append(f.read())
+    read_checkpoint_part(datas[-1], dev, _wanted_leaf, want_keys=False)
+    torch.cuda.synchronize()
+    phases: dict = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for data in datas:
+            read_checkpoint_part(data, dev, _wanted_leaf, want_keys=False,
+                                 phases=phases)
+        torch.cuda.synchronize()
+    split = {"k3": 0.0, "h2d": 0.0, "d2h": 0.0, "torch_ops": 0.0}
+    for us, name, _ in _device_rows(prof):
+        key = ("k3" if "hybrid_extract" in name else
+               "h2d" if "HtoD" in name else
+               "d2h" if "DtoH" in name else "torch_ops")
+        split[key] += us / 1e3
+    busy_s, top = _device_time(prof)
+    print("profile decode: " + json.dumps({
+        "parts": len(parts), "phase_s": phases, "device_ms": split,
+        "device_busy_s": busy_s, "top_device": top}), flush=True)
 
 
 def profile_load(path: str, Table, TorchEngine) -> None:
@@ -481,6 +741,8 @@ def interleave_phase(ranks: torch.Tensor, dev) -> dict:
         torch.cuda.synchronize()
     k, n = ranks.shape
     ms = _time_ms(lambda: interleave_bits(ranks, 32), 50)
+    dev_ms = _device_ms(lambda: interleave_bits(ranks, 32), 50,
+                        ("interleave_fixed", "interleave_generic"))
     plain = _time_ms(lambda: interleave_bits_plain(ranks, 32), 3)
     w = n_words(k, 32)
     nbytes = 4.0 * (k + w) * n
@@ -489,7 +751,8 @@ def interleave_phase(ranks: torch.Tensor, dev) -> dict:
         "name": "interleave_bits", "route": "cuda", "ok": True,
         "source": "delta_tpu_torch/csrc/interleave_bits.cu",
         "replaces": "delta_tpu/ops/pallas_kernels.py:73",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "shape": f"u32[{k},{n}]->u32[{w},{n}]", "bound_bytes": nbytes}
 
@@ -573,6 +836,7 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
            "optimize: the hook checkpointed version 10")
     before = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
     _check(before.state.num_files == len(appends), "optimize: input files")
+    _ladder_idle(obs.counters(), "optimize: the appends and their reload")
     bytes_in = before.state.size_in_bytes
     n_rows = sum(len(c["k1"]) for c in appends)
 
@@ -590,6 +854,7 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     _check(k4 >= 1, "interleave_bits launched on the OPTIMIZE path")
 
     after = Table.for_path(path, engine=TorchEngine()).latest_snapshot().state
+    _ladder_idle(obs.counters(), "optimize: the command and its reload")
     n_out = max(1, -(-bytes_in // OPTIMIZE_MAX_FILE))
     _check(after.version == len(appends) == m.version,
            "optimize: committed the next version")
@@ -800,6 +1065,8 @@ def unpack_phase(dev) -> dict:
             continue
         _check(False, f"the width guard refuses w={bad!r}")
     ms = _time_ms(lambda: unpack_bitpacked_words(packed, UNPACK_W), 50)
+    dev_ms = _device_ms(lambda: unpack_bitpacked_words(packed, UNPACK_W),
+                        50, ("unpack_kernel",))
     plain = _time_ms(lambda: unpack_bitpacked_plain(packed, UNPACK_W), 5)
     nbytes = (4.0 * UNPACK_W + 128.0) * g
     bound, by = _bound_ms(nbytes, 4.0 * 32 * g)
@@ -808,7 +1075,7 @@ def unpack_phase(dev) -> dict:
         "source": "delta_tpu_torch/csrc/unpack_bitpacked.cu",
         "replaces": "delta_tpu/ops/pallas_kernels.py:258",
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
         "library_ms": None,
         "shape": f"u32[{UNPACK_W},{g}]->u32[{g * 32}]",
         "bound_bytes": nbytes}
@@ -879,6 +1146,8 @@ def minmax_phase(appends: list, dev) -> dict:
         err = max(err, float((got[0] - want[0]).abs().nan_to_num(0).max()))
     mt = torch.from_numpy(masks[1]).to(dev)
     ms = _time_ms(lambda: segmented_minmax(v, mt), 50)
+    dev_ms = _device_ms(lambda: segmented_minmax(v, mt), 50,
+                        ("minmax_partial", "minmax_final"))
     plain = _time_ms(lambda: segmented_minmax_plain(v, mt), 10)
     yardstick = _time_ms(
         lambda: torch.aminmax(torch.where(mt, v, torch.inf), dim=1), 20)
@@ -888,7 +1157,7 @@ def minmax_phase(appends: list, dev) -> dict:
         "source": "delta_tpu_torch/csrc/segmented_minmax.cu",
         "replaces": "delta_tpu/ops/pallas_kernels.py:125",
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
         "library_ms": None, "where_aminmax_ms": yardstick,
         "shape": f"f32[{f},{r}]+bool[{f},{r}]->f32[{f}]x2+i32[{f}]",
         "bound_bytes": 5.0 * f * r}
@@ -918,8 +1187,10 @@ def checkpoint_write_phase(path: str, truth, card: str) -> dict:
     hint_path = filenames.last_checkpoint_file(log)
     with open(hint_path, "rb") as fh:
         old_hint = fh.read()
+    obs.reset()
     snap = Table.for_path(path, engine=eng).latest_snapshot()
     state = snap.state
+    _ladder_idle(obs.counters(), "checkpoint write: the load it writes")
     live = state.num_files
     # the tombstones a checkpoint written now keeps, computed here from
     # the loaded state (the generator's timestamps are commit indexes)
@@ -972,6 +1243,7 @@ def checkpoint_write_phase(path: str, truth, card: str) -> dict:
                                                   obs)
     _check(reload.file_actions.version.min() == truth.version,
            "checkpoint write: the reload reads the new checkpoint alone")
+    _ladder_idle(rcounts, "checkpoint write: the reload")
     _check(rcounts.get("decode.device_parts", 0) == m.parts
            and rcounts.get("decode.device_fallbacks", 0) == 0,
            "checkpoint write: every part decoded on the card")
@@ -1072,6 +1344,7 @@ def main(argv=None) -> int:
             path, Table, TorchEngine, obs)
         n_actions = state.file_actions.num_rows
         _truth_checks(state, truth, "commit-only load")
+        _ladder_idle(counts, "commit-only load")
         _check(n_actions == truth.num_actions, "action count")
         windows = counts.get("parse.device_windows", 0)
         _check(windows >= 1, "parse.device_windows >= 1")
@@ -1098,11 +1371,10 @@ def main(argv=None) -> int:
         del state
         _put_back(log, side, aside)
 
-        # K3 on a real part of the headline checkpoint, then edge plans
+        # K3 on every part of the headline checkpoint, then edge plans
         parts = sorted(os.path.join(log, n) for n in aside
                        if n.endswith(".parquet"))
-        kernels["hybrid_extract"] = hybrid_extract_phase(
-            parts[1 if len(parts) > 1 else 0], dev)
+        kernels["hybrid_extract"] = hybrid_extract_phase(parts, dev)
         print("hybrid_extract phase: " + json.dumps(
             kernels["hybrid_extract"]), flush=True)
 
@@ -1110,13 +1382,14 @@ def main(argv=None) -> int:
         state, counts, list_s, load_s, peak = _timed_load(
             path, Table, TorchEngine, obs)
         _truth_checks(state, truth, "checkpoint load")
+        _ladder_idle(counts, "checkpoint load")
         n_parts = len(parts)
         _check(counts.get("decode.device_parts", 0) == n_parts,
                "decode.device_parts == the part count")
         _check(counts.get("decode.device_fallbacks", 0) == 0,
                "decode.device_fallbacks == 0")
         k3 = counts.get("kernel.hybrid_extract.launches", 0)
-        _check(k3 >= n_parts, "hybrid_extract launched once per part")
+        _check(k3 == n_parts, "hybrid_extract launched once per part")
         ck1 = counts.get("kernel.byte_class.launches", 0)
         ck2 = counts.get("kernel.winner_pack.launches", 0)
         _check(ck1 >= 1, "byte_class launched on the tail commits")
@@ -1137,6 +1410,10 @@ def main(argv=None) -> int:
             "peak_device_bytes": peak, "card": card}), flush=True)
         del state
 
+        # the load's degradation ladder and .crc quarantine on the card
+        print("ladder: " + json.dumps(ladder_phase(
+            path, truth, parts, Table, TorchEngine, obs, card)), flush=True)
+
         # the checkpoint write (the slice's main path), counters from 0
         cw = checkpoint_write_phase(path, truth, card)
         kernels["hybrid_extract"]["launches_checkpoint_write_reload"] = \
@@ -1150,6 +1427,7 @@ def main(argv=None) -> int:
         h_state, h_counts, _, h_s, _ = _timed_load(
             small, Table, TorchEngine, obs)
         _truth_checks(h_state, h_truth, "handoff load")
+        _ladder_idle(h_counts, "handoff load")
         _check(h_counts.get("decode.handoff_launches", 0) >= 1,
                "decode.handoff_launches >= 1")
         _check(h_counts.get("decode.device_fallbacks", 0) == 0,
@@ -1162,10 +1440,12 @@ def main(argv=None) -> int:
         small = os.path.join(work, "small")
         synth_delta_log(small, 300, 100, seed=args.seed + 1,
                         checkpoint_version=290, now_ms=WEEK_MS)
+        obs.reset()
         on_card = Table.for_path(small, engine=TorchEngine(
             parse_window_bytes=1 << 20)).latest_snapshot().state
         on_cpu = Table.for_path(small, engine=TorchEngine(
             "cpu", parse_window_bytes=1 << 20)).latest_snapshot().state
+        _ladder_idle(obs.counters(), "small checkpointed log")
         _check(torch.equal(on_card.live_mask.cpu(), on_cpu.live_mask)
                and torch.equal(on_card.tombstone_mask.cpu(),
                                on_cpu.tombstone_mask)
@@ -1198,6 +1478,7 @@ def main(argv=None) -> int:
         optimize_card_vs_cpu(work)
         print("small optimize, both curves: card == cpu", flush=True)
         if args.profile:
+            profile_decode(parts)
             profile_load(path, Table, TorchEngine)
             profile_checkpoint_write(path, truth.version - 1)
             profile_optimize(os.path.join(work, "optimize"))
@@ -1206,6 +1487,7 @@ def main(argv=None) -> int:
 
     for k in kernels.values():
         k["share"] = k["bound_ms"] / k["ms"]
+        k["device_share"] = k["bound_ms"] / k["device_ms"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {

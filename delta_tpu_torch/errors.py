@@ -41,6 +41,16 @@ class LogCorruptedError(DeltaError):
     error_class = "DELTA_LOG_FILE_MALFORMED"
 
 
+class TornCommitError(LogCorruptedError):
+    """The newest commit file ends in a torn (partially written) JSON
+    line, every earlier line of it intact: the mark of an interrupted
+    writer on a store without atomic puts, not of damage below the tip.
+    `context["version"]` is the torn version; the snapshot serves the one
+    before it."""
+
+    error_class = "DELTA_TORN_COMMIT"
+
+
 class CorruptLogError(DeltaError):
     """The listing cannot form a segment (a gap in the commit versions)."""
 

@@ -21,7 +21,8 @@ device decodes the projected hot columns (`_VALUE_COLUMNS`, and the path
 columns as replay keys while they are dictionary-coded) and the host leaf
 reader (`log/parquet_host.py`) reads the rest, where the reference reads
 them with Arrow. A part outside the plan's scope (`DecodeUnsupported`)
-reads every leaf on the host, as the reference's whole-part Arrow read.
+reads every leaf on the host, as the reference's whole-part Arrow read;
+damaged bytes (`DecodeCorrupt`) go to no other reader: they propagate.
 
 Scope of the plan: data page v1, SNAPPY or uncompressed, non-repeated
 columns, PLAIN / RLE_DICTIONARY values of INT32 / INT64 / DOUBLE /
@@ -30,7 +31,6 @@ BOOLEAN, and dictionary-coded BYTE_ARRAY for the two path columns.
 
 from __future__ import annotations
 
-import struct
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -38,11 +38,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from delta_tpu_torch.log.parquet_footer import (
+    ENCODINGS,
+    DecodeCorrupt,
     DecodeUnsupported,
     Footer,
     Leaf,
     _Thrift,
     read_footer,
+    thrift_field,
 )
 from delta_tpu_torch.ops.page_decode import (
     KEY_ADD,
@@ -80,29 +83,37 @@ class PageInfo:
     payload_start: int  # offset of the (compressed) payload in the chunk
 
 
-def split_pages(chunk: bytes) -> List[PageInfo]:
-    """Host page splitting: walk the chunk's PageHeaders."""
+def split_pages(chunk: bytes, max_values: int) -> List[PageInfo]:
+    """Host page splitting: walk the chunk's PageHeaders. No page of a
+    sound chunk holds more than the chunk's `max_values` (its metadata's
+    num_values)."""
     pages = []
     pos = 0
     while pos < len(chunk):
         t = _Thrift(chunk, pos)
         hdr = t.read_struct()
-        ptype = hdr.get(1)
+        ptype = thrift_field(hdr, 1, int)
         if ptype is None:
             break
-        if ptype == _PAGE_DATA:
-            dph = hdr.get(5) or {}
-            nv, enc = dph.get(1, 0), dph.get(2, _ENC_PLAIN)
-        elif ptype == _PAGE_DICT:
-            dph = hdr.get(7) or {}
-            nv, enc = dph.get(1, 0), dph.get(2, _ENC_PLAIN)
+        if ptype in (_PAGE_DATA, _PAGE_DICT):
+            dph = thrift_field(hdr, 5 if ptype == _PAGE_DATA else 7, dict,
+                               {})
+            nv = thrift_field(dph, 1, int, 0)
+            enc = thrift_field(dph, 2, int, _ENC_PLAIN)
         elif ptype == _PAGE_DATA_V2:
             raise DecodeUnsupported("data page v2")
         else:
             nv, enc = 0, _ENC_PLAIN
-        pages.append(PageInfo(ptype, hdr.get(2, 0), hdr.get(3, 0),
-                              nv, enc, t.pos))
-        pos = t.pos + hdr.get(3, 0)
+        if enc not in ENCODINGS:
+            raise DecodeCorrupt(f"page encoding {enc!r} is no Parquet "
+                                f"encoding")
+        sizes = (thrift_field(hdr, 2, int, 0), thrift_field(hdr, 3, int, 0),
+                 nv)
+        if not all(0 <= v < 1 << 31 for v in sizes) or nv > max_values:
+            raise DecodeCorrupt(f"page header sizes {sizes!r} (the chunk "
+                                f"holds {max_values} values)")
+        pages.append(PageInfo(ptype, sizes[0], sizes[1], nv, enc, t.pos))
+        pos = t.pos + sizes[1]
     return pages
 
 
@@ -137,7 +148,7 @@ def parse_hybrid(data: bytes, pos: int, w: int, n: int,
     """Parse the RLE/bit-packed hybrid stream for `n` values at bit
     width `w` starting at `pos`. Returns (runs, next_pos)."""
     if not isinstance(w, int) or not 0 <= w <= 32:
-        raise DecodeUnsupported(f"hybrid bit width {w!r} outside [0, 32]")
+        raise DecodeCorrupt(f"hybrid bit width {w!r} outside [0, 32]")
     runs = HybridRuns(n, w)
     out = 0
     byte_w = (w + 7) // 8
@@ -163,7 +174,7 @@ def parse_hybrid(data: bytes, pos: int, w: int, n: int,
             runs.rle.append((out, min(count, n - out), value))
             out += count
     if out < n:
-        raise DecodeUnsupported(f"hybrid stream ended early ({out}/{n})")
+        raise DecodeCorrupt(f"hybrid stream ended early ({out}/{n})")
     return runs, t.pos
 
 
@@ -240,7 +251,7 @@ def _plan_hybrid(st: _PlanState, base_off: int, data: bytes, pos: int,
     ends before `n` values (dictionary-index and boolean streams carry
     only the page's present values, a count the host never computes)."""
     if not isinstance(w, int) or not 0 <= w <= 32:
-        raise DecodeUnsupported(f"hybrid bit width {w!r} outside [0, 32]")
+        raise DecodeCorrupt(f"hybrid bit width {w!r} outside [0, 32]")
     h0 = st.h
     out = 0
     byte_w = (w + 7) // 8
@@ -248,6 +259,8 @@ def _plan_hybrid(st: _PlanState, base_off: int, data: bytes, pos: int,
     t = _Thrift(data, pos)
     while out < n and t.pos < limit:
         header = t.varint()
+        if header >> 1 >= 1 << 28:  # a count past the int32 plan lanes
+            raise DecodeCorrupt(f"hybrid run header {header}")
         if header & 1:
             groups8 = header >> 1
             nvals = groups8 * 8
@@ -265,9 +278,24 @@ def _plan_hybrid(st: _PlanState, base_off: int, data: bytes, pos: int,
             st.runs.append((h0 + out, count, 0, w, 1, v32))
             out += count
     if strict and out < n:
-        raise DecodeUnsupported(f"hybrid stream ended early ({out}/{n})")
+        raise DecodeCorrupt(f"hybrid stream ended early ({out}/{n})")
     st.h = h0 + n
     return t.pos
+
+
+def _length_prefix(payload: bytes, pos: int) -> int:
+    return int.from_bytes(payload[pos:pos + 4], "little", signed=True)
+
+
+def level_stream_length(payload: bytes, pos: int) -> int:
+    """The 4-byte length before a v1 page's level stream at `pos`,
+    checked to lie within the page."""
+    if pos + 4 > len(payload):
+        raise DecodeCorrupt("page ends before its level stream's length")
+    ln = _length_prefix(payload, pos)
+    if not 0 <= ln <= len(payload) - pos - 4:
+        raise DecodeCorrupt(f"level stream of {ln} bytes past the page")
+    return ln
 
 
 def _parse_byte_array_dict(payload: bytes, num_values: int) -> List[bytes]:
@@ -276,17 +304,17 @@ def _parse_byte_array_dict(payload: bytes, num_values: int) -> List[bytes]:
     out = []
     pos = 0
     for _ in range(num_values):
-        (ln,) = struct.unpack_from("<i", payload, pos)
+        ln = _length_prefix(payload, pos) if pos + 4 <= len(payload) else -1
         pos += 4
         if ln < 0 or pos + ln > len(payload):
-            raise DecodeUnsupported("corrupt byte-array dictionary")
+            raise DecodeCorrupt("corrupt byte-array dictionary")
         out.append(payload[pos:pos + ln])
         pos += ln
     return out
 
 
-def _plan_column_chunk(st: _PlanState, chunk: bytes, phys: str,
-                       codec: str, max_def: int, key: int,
+def _plan_column_chunk(st: _PlanState, chunk: bytes, max_values: int,
+                       phys: str, codec: str, max_def: int, key: int,
                        part_dict: Dict[bytes, int],
                        uniq: List[bytes]) -> None:
     """Plan one column chunk's pages into the lane. For key columns the
@@ -296,7 +324,7 @@ def _plan_column_chunk(st: _PlanState, chunk: bytes, phys: str,
     dict_b = dict_n = 0
     have_dict = False
     item = 4 if key else _PHYS_ITEM[phys]
-    for page in split_pages(chunk):
+    for page in split_pages(chunk, max_values):
         if page.type == _PAGE_DICT:
             payload = decompress_page(chunk, page, codec)
             if key:
@@ -326,7 +354,7 @@ def _plan_column_chunk(st: _PlanState, chunk: bytes, phys: str,
                 # bit_length(max_def); a value is present only at the
                 # full definition level
                 dw = max(1, int(max_def).bit_length())
-                (dl_len,) = struct.unpack_from("<i", payload, pos)
+                dl_len = level_stream_length(payload, pos)
                 pos += 4
                 def_h = st.h
                 _plan_hybrid(st, off, payload, pos, dw, n,
@@ -334,10 +362,13 @@ def _plan_column_chunk(st: _PlanState, chunk: bytes, phys: str,
                 pos += dl_len
             if page.encoding in (_ENC_RLE_DICT, _ENC_PLAIN_DICT):
                 if not have_dict:
-                    raise DecodeUnsupported("dict-encoded page without dict")
+                    raise DecodeCorrupt("dict-encoded page without dict")
+                if pos >= len(payload):
+                    raise DecodeCorrupt("dict-encoded page without its "
+                                        "index width")
                 w = payload[pos]
                 if w > 32:
-                    raise DecodeUnsupported(f"index width {w}")
+                    raise DecodeCorrupt(f"index width {w}")
                 aux_h = st.h
                 _plan_hybrid(st, off, payload, pos + 1, w, n, strict=False)
                 kind, val_b = KIND_DICT, 0
@@ -400,14 +431,12 @@ def _plan_column(st: _PlanState, footer: Footer, data: bytes, col_idx: int,
     elif phys not in _PHYS_ITEM:
         raise DecodeUnsupported(f"physical {phys}")
     row_start = st.rows
-    try:
-        for rg in range(len(footer.row_groups)):
-            chunk, codec = footer.chunk(data, rg, col_idx)
-            _plan_column_chunk(st, chunk, phys, codec,
-                               leaf.max_definition_level, key,
-                               part_dict, uniq)
-    except (IndexError, struct.error) as e:
-        raise DecodeUnsupported(f"corrupt page stream: {e}") from e
+    for rg in range(len(footer.row_groups)):
+        chunk, codec = footer.chunk(data, rg, col_idx)
+        _plan_column_chunk(st, chunk,
+                           footer.row_groups[rg].columns[col_idx].num_values,
+                           phys, codec, leaf.max_definition_level, key,
+                           part_dict, uniq)
     return _ColSpan(leaf.path, phys, row_start, st.rows - row_start, key)
 
 
@@ -456,12 +485,15 @@ def build_part_plan(footer: Footer, data: bytes, value_cols: List[str],
 
 
 def _pack_plan(st: _PlanState, has_keys: bool) -> PartPlan:
-    """The accumulated plan state as arrays, unpadded."""
-    lane = np.frombuffer(b"".join(st.segs), np.uint8).copy()
-    runs = np.asarray(st.runs, np.int32).reshape(-1, RUN_F)
-    pages = np.asarray(st.pages, np.int32).reshape(-1, PAGE_F)
-    return PartPlan(lane=lane, runs=runs, pages=pages, h_total=st.h,
-                    n_rows=st.rows, has_keys=has_keys)
+    """The accumulated plan state, unpadded, in the one host buffer that
+    `PartPlan.pack` lays out with K3's tile table."""
+    lane = np.frombuffer(b"".join(st.segs), np.uint8)
+    try:
+        runs = np.asarray(st.runs, np.int32).reshape(-1, RUN_F)
+        pages = np.asarray(st.pages, np.int32).reshape(-1, PAGE_F)
+    except OverflowError as e:  # positions or rows past int32
+        raise DecodeCorrupt(f"plan past int32: {e}") from e
+    return PartPlan.pack(lane, runs, pages, st.h, st.rows, has_keys)
 
 
 @dataclass

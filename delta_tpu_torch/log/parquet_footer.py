@@ -18,7 +18,17 @@ from typing import Dict, List, Optional, Tuple
 
 
 class DecodeUnsupported(Exception):
-    """A file, page or encoding outside what this reader decodes."""
+    """A file, page or encoding outside what this reader decodes (a
+    codec, data page v2, an encoding, a repeated or nested column): the
+    bytes may be sound; this reader does not read them."""
+
+
+class DecodeCorrupt(Exception):
+    """Bytes that no sound Parquet file holds: no PAR1 magic, a bad footer
+    length or footer, a level or index stream that ends early, values
+    past their page, a broken dictionary or snappy stream. Deliberately
+    not a DecodeUnsupported: a caller that routes an out-of-scope part to
+    another reader must not route damage there."""
 
 
 _CT_STOP = 0
@@ -39,18 +49,31 @@ _CT_STRUCT = 12
 class _Thrift:
     """Minimal thrift compact-protocol reader: varints, zigzag ints,
     struct field iteration, lists, maps; every struct becomes a dict of
-    field id -> value."""
+    field id -> value. A read past the buffer's end, or nesting deeper
+    than any Parquet struct, raises DecodeCorrupt; `thrift_field` checks the
+    type of what a caller takes out."""
+
+    _MAX_DEPTH = 32
 
     def __init__(self, buf: bytes, pos: int = 0):
         self.buf = buf
         self.pos = pos
+        self._depth = 0
+
+    def _take(self, n: int) -> int:
+        """Advance past `n` bytes, returning where they start."""
+        at = self.pos
+        if n < 0 or at + n > len(self.buf):
+            raise DecodeCorrupt(f"thrift stream ends inside a value "
+                                f"({at} + {n} of {len(self.buf)} bytes)")
+        self.pos = at + n
+        return at
 
     def varint(self) -> int:
         out = 0
         shift = 0
         while True:
-            b = self.buf[self.pos]
-            self.pos += 1
+            b = self.buf[self._take(1)]
             out |= (b & 0x7F) << shift
             if not b & 0x80:
                 return out
@@ -61,12 +84,16 @@ class _Thrift:
         return (v >> 1) ^ -(v & 1)
 
     def read_struct(self) -> dict:
+        self._depth += 1
+        if self._depth > self._MAX_DEPTH:
+            raise DecodeCorrupt("thrift structs nested past any Parquet "
+                                "struct")
         out = {}
         fid = 0
         while True:
-            head = self.buf[self.pos]
-            self.pos += 1
+            head = self.buf[self._take(1)]
             if head == _CT_STOP:
+                self._depth -= 1
                 return out
             delta = head >> 4
             ctype = head & 0x0F
@@ -76,30 +103,22 @@ class _Thrift:
     def _read_value(self, ctype: int, in_list: bool = False):
         if ctype in (_CT_TRUE, _CT_FALSE):
             if in_list:  # a list element carries its bool in a byte
-                v = self.buf[self.pos]
-                self.pos += 1
-                return v == _CT_TRUE
+                return self.buf[self._take(1)] == _CT_TRUE
             return ctype == _CT_TRUE
         if ctype == _CT_BYTE:
-            v = self.buf[self.pos]
-            self.pos += 1
-            return v
+            return self.buf[self._take(1)]
         if ctype in (_CT_I16, _CT_I32, _CT_I64):
             return self.zigzag()
         if ctype == _CT_DOUBLE:
-            v = struct.unpack_from("<d", self.buf, self.pos)[0]
-            self.pos += 8
-            return v
+            return struct.unpack_from("<d", self.buf, self._take(8))[0]
         if ctype == _CT_BINARY:
             n = self.varint()
-            v = self.buf[self.pos:self.pos + n]
-            self.pos += n
-            return v
+            at = self._take(n)
+            return self.buf[at:at + n]
         if ctype == _CT_STRUCT:
             return self.read_struct()
         if ctype in (_CT_LIST, _CT_SET):
-            head = self.buf[self.pos]
-            self.pos += 1
+            head = self.buf[self._take(1)]
             size = head >> 4
             elem = head & 0x0F
             if size == 15:
@@ -109,12 +128,32 @@ class _Thrift:
             size = self.varint()
             if size == 0:
                 return {}
-            kv = self.buf[self.pos]
-            self.pos += 1
+            kv = self.buf[self._take(1)]
             kt, vt = kv >> 4, kv & 0x0F
+            if kt in (_CT_LIST, _CT_SET, _CT_MAP, _CT_STRUCT):
+                raise DecodeCorrupt(f"thrift map keyed by type {kt}")
             return {self._read_value(kt, True): self._read_value(vt, True)
                     for _ in range(size)}
-        raise DecodeUnsupported(f"thrift type {ctype}")
+        raise DecodeCorrupt(f"thrift type {ctype}")
+
+
+def thrift_field(st: dict, fid: int, kind: type, default=None):
+    """Field `fid` of a thrift struct, checked to be a `kind` (int, bytes,
+    list or dict; a bool is no int here); absent gives `default`. Bytes
+    of the wrong shape decode to a value of another type: DecodeCorrupt."""
+    v = st.get(fid, default)
+    if v is not default and type(v) is not kind:
+        raise DecodeCorrupt(f"thrift field {fid} holds a "
+                            f"{type(v).__name__} where a {kind.__name__} "
+                            f"belongs")
+    return v
+
+
+def _utf8(b: bytes) -> str:
+    try:
+        return b.decode("utf-8")
+    except UnicodeDecodeError as e:
+        raise DecodeCorrupt(f"a schema name is not UTF-8: {e}") from e
 
 
 PHYSICAL_TYPES = {0: "BOOLEAN", 1: "INT32", 2: "INT64", 3: "INT96",
@@ -198,66 +237,91 @@ class Footer:
 def _schema_leaves(elements: List[dict]) -> List[Leaf]:
     """Depth-first walk of the flattened SchemaElement list (element 0 is
     the root and does not count toward the levels)."""
+    if not elements or not all(type(el) is dict for el in elements):
+        raise DecodeCorrupt("schema is not a list of SchemaElements")
     leaves: List[Leaf] = []
     pos = 1
 
     def walk(n_children: int, parts, defs, reps):
         nonlocal pos
         for _ in range(n_children):
+            if pos >= len(elements):
+                raise DecodeCorrupt(f"schema claims children past its "
+                                    f"{len(elements)} elements")
             el = elements[pos]
             pos += 1
-            name = el.get(4, b"").decode("utf-8")
-            rep = el.get(3, REQUIRED)
+            name = _utf8(thrift_field(el, 4, bytes, b""))
+            rep = thrift_field(el, 3, int, REQUIRED)
             d = (defs[-1] if defs else 0) + (rep != REQUIRED)
             r = (reps[-1] if reps else 0) + (rep == REPEATED)
             p, dd, rr = parts + (name,), defs + (d,), reps + (r,)
-            kids = el.get(5, 0)
+            kids = thrift_field(el, 5, int, 0)
             if kids:
                 walk(kids, p, dd, rr)
             else:
-                leaves.append(Leaf(".".join(p), p,
-                                   PHYSICAL_TYPES.get(el.get(1), "UNKNOWN"),
-                                   dd, rr, el.get(6), el.get(10)))
+                phys = thrift_field(el, 1, int)
+                if phys not in PHYSICAL_TYPES:
+                    raise DecodeCorrupt(f"physical type id {phys!r}")
+                leaves.append(Leaf(".".join(p), p, PHYSICAL_TYPES[phys],
+                                   dd, rr, thrift_field(el, 6, int),
+                                   thrift_field(el, 10, dict)))
 
-    walk(elements[0].get(5, 0), (), (), ())
+    walk(thrift_field(elements[0], 5, int, 0), (), (), ())
     return leaves
 
 
 def read_footer(data: bytes) -> Footer:
-    """Parse a whole Parquet file's footer. Raises DecodeUnsupported when
-    the bytes are not a plain (unencrypted) Parquet file."""
+    """Parse a whole Parquet file's footer. Raises DecodeCorrupt when the
+    bytes are not a sound Parquet file, DecodeUnsupported when a column
+    chunk keeps its metadata elsewhere."""
     n = len(data)
     if n < 12 or data[-4:] != b"PAR1" or data[:4] != b"PAR1":
-        raise DecodeUnsupported("not a Parquet file (no PAR1 magic)")
+        raise DecodeCorrupt("not a Parquet file (no PAR1 magic)")
     (flen,) = struct.unpack_from("<I", data, n - 8)
     if flen <= 0 or flen > n - 12:
-        raise DecodeUnsupported(f"bad footer length {flen}")
-    try:
-        md = _Thrift(data, n - 8 - flen).read_struct()
-        leaves = _schema_leaves(md.get(2) or [{}])
-        groups = []
-        for rg in md.get(4) or []:
-            cols = []
-            for cc in rg.get(1) or []:
-                cm = cc.get(3)
-                if cm is None:
-                    raise DecodeUnsupported("column chunk without metadata")
-                cols.append(ColumnChunk(
-                    path=".".join(p.decode("utf-8") for p in cm.get(3, [])),
-                    codec=CODECS.get(cm.get(4, 0), f"codec{cm.get(4)}"),
-                    encodings=tuple(ENCODINGS.get(e, f"enc{e}")
-                                    for e in cm.get(2, [])),
-                    num_values=cm.get(5, 0),
-                    data_page_offset=cm.get(9, 0),
-                    dictionary_page_offset=cm.get(11),
-                    total_compressed_size=cm.get(7, 0),
-                    total_uncompressed_size=cm.get(6, 0)))
-            if len(cols) != len(leaves):
-                raise DecodeUnsupported("row group does not cover the schema")
-            groups.append(RowGroup(rg.get(3, 0), tuple(cols)))
-    except (IndexError, struct.error, UnicodeDecodeError) as e:
-        raise DecodeUnsupported(f"corrupt footer: {e}") from e
-    created = md.get(6)
-    return Footer(tuple(leaves), tuple(groups), md.get(3, 0),
-                  created.decode("utf-8", "replace") if created else None,
+        raise DecodeCorrupt(f"bad footer length {flen}")
+    md = _Thrift(data, n - 8 - flen).read_struct()
+    if not all(k in md for k in (1, 2, 3, 4)):
+        # version, schema, num_rows and row_groups are required
+        raise DecodeCorrupt("footer lacks FileMetaData's required fields")
+    leaves = _schema_leaves(thrift_field(md, 2, list))
+    groups = []
+    for rg in thrift_field(md, 4, list):
+        if type(rg) is not dict:
+            raise DecodeCorrupt("a row group is not a struct")
+        cols = []
+        for cc in thrift_field(rg, 1, list, []):
+            if type(cc) is not dict:
+                raise DecodeCorrupt("a column chunk is not a struct")
+            cm = thrift_field(cc, 3, dict)
+            if cm is None and 1 in cc:
+                raise DecodeUnsupported("column chunk kept in another file")
+            if cm is None:
+                raise DecodeCorrupt("column chunk without metadata")
+            codec = thrift_field(cm, 4, int, 0)
+            if codec not in CODECS:
+                raise DecodeCorrupt(f"codec id {codec!r}")
+            path = thrift_field(cm, 3, list, [])
+            encodings = thrift_field(cm, 2, list, [])
+            if not all(type(p) is bytes for p in path) or not all(
+                    type(e) is int for e in encodings):
+                raise DecodeCorrupt("column chunk path or encodings of "
+                                    "the wrong type")
+            cols.append(ColumnChunk(
+                path=".".join(_utf8(p) for p in path),
+                codec=CODECS[codec],
+                encodings=tuple(ENCODINGS.get(e, f"enc{e}")
+                                for e in encodings),
+                num_values=thrift_field(cm, 5, int, 0),
+                data_page_offset=thrift_field(cm, 9, int, 0),
+                dictionary_page_offset=thrift_field(cm, 11, int),
+                total_compressed_size=thrift_field(cm, 7, int, 0),
+                total_uncompressed_size=thrift_field(cm, 6, int, 0)))
+        if len(cols) != len(leaves):
+            raise DecodeCorrupt("row group does not cover the schema")
+        groups.append(RowGroup(thrift_field(rg, 3, int, 0), tuple(cols)))
+    created = thrift_field(md, 6, bytes)
+    created = created.decode("utf-8", "replace") if created else None
+    return Footer(tuple(leaves), tuple(groups), thrift_field(md, 3, int),
+                  created,
                   {leaf.path: i for i, leaf in enumerate(leaves)})

@@ -16,14 +16,14 @@ structs, and the protocol, metaData, txn and domainMetadata rows. Scope:
 
 Definition and repetition levels decode through `materialize_runs`; the
 PLAIN BYTE_ARRAY walk runs in the host library (`csrc/parquet_host.cpp`).
-Anything else raises DecodeUnsupported. Strings stay as (buffer, starts,
+Anything else raises DecodeUnsupported; damaged bytes raise
+DecodeCorrupt. Strings stay as (buffer, starts,
 lengths) until a caller materializes a row.
 """
 
 from __future__ import annotations
 
 import ctypes
-import struct
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Dict, List, Optional, Sequence
@@ -37,11 +37,17 @@ from delta_tpu_torch.log.page_decode import (
     _PAGE_DATA,
     _PAGE_DICT,
     decompress_page,
+    level_stream_length,
     materialize_runs,
     parse_hybrid,
     split_pages,
 )
-from delta_tpu_torch.log.parquet_footer import DecodeUnsupported, Footer, Leaf
+from delta_tpu_torch.log.parquet_footer import (
+    DecodeCorrupt,
+    DecodeUnsupported,
+    Footer,
+    Leaf,
+)
 from delta_tpu_torch.ops import cuda_build
 
 _FIXED = {"INT32": np.int32, "INT64": np.int64, "FLOAT": np.float32,
@@ -50,7 +56,7 @@ _FIXED = {"INT32": np.int32, "INT64": np.int64, "FLOAT": np.float32,
 
 def byte_array_offsets(buf: np.ndarray, start: int, count: int):
     """(starts, lens, end) of `count` PLAIN BYTE_ARRAY values in `buf`
-    from `start`; raises DecodeUnsupported when the buffer ends early."""
+    from `start`; raises DecodeCorrupt when the buffer ends early."""
     buf = np.ascontiguousarray(buf, np.uint8)
     starts = np.empty(count, np.int64)
     lens = np.empty(count, np.int64)
@@ -62,7 +68,7 @@ def byte_array_offsets(buf: np.ndarray, start: int, count: int):
     end = fn(buf.ctypes.data, buf.size, start, count, starts.ctypes.data,
              lens.ctypes.data)
     if end < 0:
-        raise DecodeUnsupported("corrupt PLAIN BYTE_ARRAY values")
+        raise DecodeCorrupt("corrupt PLAIN BYTE_ARRAY values")
     return starts, lens, int(end)
 
 
@@ -231,7 +237,7 @@ class HostLeaf:
 def _levels(payload: bytes, pos: int, max_level: int, n: int):
     """One v1 level stream: 4-byte length, then the hybrid at
     bit_length(max_level). Returns (levels int32 [n], next_pos)."""
-    (ln,) = struct.unpack_from("<i", payload, pos)
+    ln = level_stream_length(payload, pos)
     pos += 4
     runs, _ = parse_hybrid(payload, pos, max(1, int(max_level).bit_length()),
                            n, end=pos + ln)
@@ -245,7 +251,7 @@ def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int):
     if phys == "BOOLEAN":
         nb = -(-count // 8)
         if pos + nb > buf.size:
-            raise DecodeUnsupported("PLAIN booleans past the page")
+            raise DecodeCorrupt("PLAIN booleans past the page")
         return np.unpackbits(buf[pos:pos + nb],
                              bitorder="little")[:count].astype(bool)
     dt = _FIXED.get(phys)
@@ -253,7 +259,7 @@ def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int):
         raise DecodeUnsupported(f"physical type {phys}")
     size = np.dtype(dt).itemsize * count
     if pos + size > buf.size:
-        raise DecodeUnsupported("PLAIN values past the page")
+        raise DecodeCorrupt("PLAIN values past the page")
     vals = np.frombuffer(buf[pos:pos + size].tobytes(), dt)
     return vals.astype(np.int64) if dt == np.int32 else vals
 
@@ -283,47 +289,47 @@ def read_leaf(footer: Footer, data: bytes, col: int) -> HostLeaf:
     phys = leaf.physical_type
     max_def, max_rep = leaf.max_definition_level, leaf.max_repetition_level
     defs, reps, values = [], [], []
-    try:
-        for rg in range(len(footer.row_groups)):
-            chunk, codec = footer.chunk(data, rg, col)
-            dictionary = None
-            for page in split_pages(chunk):
-                if page.type not in (_PAGE_DICT, _PAGE_DATA):
-                    continue
-                payload = np.frombuffer(
-                    decompress_page(chunk, page, codec), np.uint8)
-                if page.type == _PAGE_DICT:
-                    dictionary = _plain_values(phys, payload, 0,
-                                               page.num_values)
-                    continue
-                raw = payload.tobytes()
-                n = page.num_values
-                pos = 0
-                if max_rep:
-                    r, pos = _levels(raw, pos, max_rep, n)
-                    reps.append(r)
-                if max_def:
-                    d, pos = _levels(raw, pos, max_def, n)
-                else:
-                    d = np.zeros(n, np.int32)
-                defs.append(d)
-                count = int((d == max_def).sum())
-                if page.encoding in (_ENC_RLE_DICT, _ENC_PLAIN_DICT):
-                    if dictionary is None:
-                        raise DecodeUnsupported("dict page missing")
-                    w = raw[pos]
-                    runs, _ = parse_hybrid(raw, pos + 1, w, count)
-                    idx = materialize_runs(runs).astype(np.int64)
-                    if count and int(idx.max()) >= len(dictionary):
-                        raise DecodeUnsupported("dictionary index past end")
-                    values.append(_take(dictionary, idx))
-                elif page.encoding == _ENC_PLAIN:
-                    values.append(_plain_values(phys, payload, pos, count))
-                else:
-                    raise DecodeUnsupported(
-                        f"{leaf.path}: encoding {page.encoding}")
-    except (IndexError, struct.error) as e:
-        raise DecodeUnsupported(f"{leaf.path}: corrupt pages: {e}") from e
+    for rg in range(len(footer.row_groups)):
+        chunk, codec = footer.chunk(data, rg, col)
+        dictionary = None
+        for page in split_pages(
+                chunk, footer.row_groups[rg].columns[col].num_values):
+            if page.type not in (_PAGE_DICT, _PAGE_DATA):
+                continue
+            payload = np.frombuffer(
+                decompress_page(chunk, page, codec), np.uint8)
+            if page.type == _PAGE_DICT:
+                dictionary = _plain_values(phys, payload, 0,
+                                           page.num_values)
+                continue
+            raw = payload.tobytes()
+            n = page.num_values
+            pos = 0
+            if max_rep:
+                r, pos = _levels(raw, pos, max_rep, n)
+                reps.append(r)
+            if max_def:
+                d, pos = _levels(raw, pos, max_def, n)
+            else:
+                d = np.zeros(n, np.int32)
+            defs.append(d)
+            count = int((d == max_def).sum())
+            if page.encoding in (_ENC_RLE_DICT, _ENC_PLAIN_DICT):
+                if dictionary is None:
+                    raise DecodeCorrupt("dict page missing")
+                if pos >= len(raw):
+                    raise DecodeCorrupt("dict-encoded page without its "
+                                        "index width")
+                runs, _ = parse_hybrid(raw, pos + 1, raw[pos], count)
+                idx = materialize_runs(runs).astype(np.int64)
+                if count and int(idx.max()) >= len(dictionary):
+                    raise DecodeCorrupt("dictionary index past end")
+                values.append(_take(dictionary, idx))
+            elif page.encoding == _ENC_PLAIN:
+                values.append(_plain_values(phys, payload, pos, count))
+            else:
+                raise DecodeUnsupported(
+                    f"{leaf.path}: encoding {page.encoding}")
     return HostLeaf(
         leaf,
         np.concatenate(defs) if defs else np.zeros(0, np.int32),

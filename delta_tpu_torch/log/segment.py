@@ -49,9 +49,15 @@ class LogSegment:
 
 
 def build_log_segment(fs, log_path: str,
-                      target_version: Optional[int] = None) -> LogSegment:
+                      target_version: Optional[int] = None,
+                      max_checkpoint_version: Optional[int] = None
+                      ) -> LogSegment:
     """LIST the log and assemble the segment of its latest version, or of
-    `target_version`."""
+    `target_version`. `max_checkpoint_version` caps which checkpoints may
+    anchor it: the snapshot's fallback after the checkpoint at V proved
+    unreadable rebuilds with V - 1, replaying from the previous complete
+    checkpoint or from the JSON commits alone; the commits of the dropped
+    checkpoints' versions stay in the segment."""
     try:
         # commits skip the stat (the reader learns their sizes as it reads
         # them); only the newest commit's mtime is needed (stat'd below)
@@ -75,7 +81,9 @@ def build_log_segment(fs, log_path: str,
                 deltas.append((v, fstat))
         elif filenames.CHECKPOINT_FILE_RE.match(name) and fstat.size > 0:
             ci = CheckpointInstance.parse(fstat.path)
-            if ci is not None and (last is None or ci.version <= last):
+            if (ci is not None and (last is None or ci.version <= last)
+                    and (max_checkpoint_version is None
+                         or ci.version <= max_checkpoint_version)):
                 checkpoints.append(ci)
         elif filenames.COMPACTED_DELTA_FILE_RE.match(name):
             lo_hi = filenames.compacted_delta_versions(fstat.path)

@@ -12,7 +12,7 @@ import ctypes
 
 import numpy as np
 
-from delta_tpu_torch.log.parquet_footer import DecodeUnsupported
+from delta_tpu_torch.log.parquet_footer import DecodeCorrupt
 from delta_tpu_torch.ops import cuda_build
 
 _P = ctypes.c_void_p
@@ -26,13 +26,13 @@ def _fn(symbol, argtypes):
 
 def decompress(raw: bytes, expected: int) -> bytes:
     """Decompress one snappy page payload of `expected` bytes; raises
-    DecodeUnsupported when the stream is corrupt or of another length."""
+    DecodeCorrupt when the stream is corrupt or of another length."""
     src = np.frombuffer(raw, np.uint8)
     dst = np.empty(max(expected, 1), np.uint8)
     got = _fn("snappy_decompress", [_P, _I64, _P, _I64])(
         src.ctypes.data, src.size, dst.ctypes.data, expected)
     if got != expected:
-        raise DecodeUnsupported(
+        raise DecodeCorrupt(
             f"corrupt snappy page ({got} of {expected} bytes)")
     return dst[:expected].tobytes()
 
@@ -85,10 +85,10 @@ def decompress_py(raw: bytes) -> bytes:
             off = int.from_bytes(raw[pos:pos + nb], "little")
             pos += nb
         if off == 0 or off > len(out):
-            raise DecodeUnsupported("corrupt snappy back-reference")
+            raise DecodeCorrupt("corrupt snappy back-reference")
         for _ in range(n):  # byte by byte: a copy may overlap its output
             out.append(out[-off])
     if len(out) != length:
-        raise DecodeUnsupported(
+        raise DecodeCorrupt(
             f"snappy stream gave {len(out)} of {length} bytes")
     return bytes(out)

@@ -116,14 +116,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 def function(name: str, symbol: str, argtypes,
              restype=ctypes.c_int) -> ctypes._CFuncPtr:
-    """The C entry point `symbol` of library `name`, built on first use.
-    Every kernel entry point returns the CUDA error code of its launch."""
+    """The C entry point `symbol` of library `name`, built on first use
+    (RuntimeError when it cannot be built or loaded). Every kernel entry
+    point returns the CUDA error code of its launch."""
     fn = _FUNCS.get((name, symbol))
     if fn is None:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            try:
+                build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                # a library that cannot be built or loaded is a failure of
+                # the program, not of the bytes it reads: a RuntimeError,
+                # which no fallback of the snapshot load absorbs
+                raise RuntimeError(f"native library {name}: {e}") from e
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = restype

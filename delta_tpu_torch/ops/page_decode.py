@@ -7,7 +7,9 @@ lanes; here one decode per part turns them into values:
 1. kernel K3 `hybrid_extract` (`csrc/hybrid_extract.cu`, the port of the
    TPU kernel B1 `shift_extract_tiled`, fused with the run lookup, the
    5-byte gather and the RLE select of `_decode_stage_hybrid`) decodes
-   every hybrid position: definition levels, dictionary indices, booleans;
+   every hybrid position: definition levels, dictionary indices, booleans.
+   The plan carries a tile table built on the host (`tile_plan`), one
+   block per tile, so the device searches nothing;
 2. torch ops do the rest, as jnp does in the reference: the per-row
    definition-level lookup, the present-rank cumsum, the PLAIN and
    dictionary byte gathers and, when the path columns are dictionary-coded,
@@ -17,6 +19,10 @@ Plan layout (all int32), the reference's column for column:
 
 run_plan[R, 6]   per hybrid run: hybrid start, value count, absolute lane
                  bit offset, bit width, is_rle, rle value (u32 bit pattern).
+tile_plan[T, 2]  per K3 tile: run id, first hybrid position. Tiles cover
+                 [0, h_total) in order, each inside one run's positions
+                 and one TILE-aligned chunk of the output (so at most TILE
+                 positions); a tile ends where the next begins.
 page_plan[P, 11] per data page: output row start, row count, max def
                  level, def-stream hybrid start, kind (PLAIN/BOOL/DICT),
                  value byte offset, item size, aux hybrid start
@@ -24,8 +30,10 @@ page_plan[P, 11] per data page: output row start, row count, max def
                  dictionary size, key column (0 none / 1 add.path /
                  2 remove.path).
 
-The port does not pad to buckets. u32 values travel as int64 (torch has no
-u32 shifts on the CPU); the kernel's output is int32 bit patterns.
+The port does not pad to buckets. The byte lane and the three plans travel
+to the device in ONE host-to-device copy (`PartPlan.host`). u32 values
+travel as int64 (torch has no u32 shifts on the CPU); the kernel's output
+is int32 bit patterns.
 
 `launch_checkpoint_handoff` is the port of the reference's handoff: a
 checkpoint-only load whose parts are all keyed replays straight from the
@@ -49,6 +57,10 @@ from delta_tpu_torch.ops.u32 import U32, to_i32_bits, widen_u32
 # run_plan columns
 R_H, R_N, R_BIT, R_W, R_RLE, R_VAL = range(6)
 RUN_F = 6
+# tile_plan columns; TILE is kTile of csrc/hybrid_extract.cu
+T_RUN, T_FIRST = range(2)
+TILE_F = 2
+TILE = 1024
 # page_plan columns
 (PG_OUT, PG_N, PG_MAXDEF, PG_DEFH, PG_KIND, PG_VALB, PG_ITEM, PG_AUXH,
  PG_DICTB, PG_DICTN, PG_KEY) = range(11)
@@ -68,19 +80,87 @@ _FAR = 0x3FFFFFFF  # the reference's clip bound for in-page offsets
 MAX_LANE_BYTES = 192 << 20
 
 LAUNCHES = obs.counter("kernel.hybrid_extract.launches")
+# (K3's C entry point, the current-stream getter), bound at first launch
+_LAUNCH = None
 _OBS_HANDOFFS = obs.counter("decode.handoff_launches")
+
+
+def tile_plan(runs: np.ndarray, h_total: int) -> np.ndarray:
+    """K3's tile table, int32[T, TILE_F]: the positions [0, h_total) cut at
+    every multiple of TILE and at every run start, each piece with the run
+    that the plain version's lookup (the last run whose start <= h,
+    clipped to the table) gives its positions. Empty when there is nothing
+    to extract."""
+    if h_total <= 0 or runs.shape[0] == 0:
+        return np.zeros((0, TILE_F), np.int32)
+    starts = runs[:, R_H].astype(np.int64)
+    first = np.unique(np.concatenate([
+        np.arange(0, h_total, TILE, dtype=np.int64),
+        starts[(starts > 0) & (starts < h_total)]]))
+    rid = np.clip(np.searchsorted(starts, first, side="right") - 1, 0,
+                  starts.shape[0] - 1)
+    return np.stack([rid, first], 1).astype(np.int32)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 @dataclass
 class PartPlan:
-    """Host-built decode plan for one checkpoint part."""
+    """Host-built decode plan for one checkpoint part: the byte lane and
+    the run, tile and page plans laid out in one host buffer, so that one
+    copy takes them all to the device. `lane`, `runs`, `tiles`, `pages`
+    are views of it."""
 
-    lane: np.ndarray       # uint8[B]
-    runs: np.ndarray       # int32[R, RUN_F]
-    pages: np.ndarray      # int32[P, PAGE_F]
+    host: np.ndarray       # uint8: lane | runs | tiles | pages, 16-aligned
+    lane_bytes: int        # B
+    n_runs: int            # R
+    n_tiles: int           # T
+    n_pages: int           # P
     h_total: int           # hybrid positions
     n_rows: int            # output rows across all planned columns
     has_keys: bool         # any KEY_ADD/KEY_REMOVE pages present
+
+    @staticmethod
+    def pack(lane: np.ndarray, runs: np.ndarray, pages: np.ndarray,
+             h_total: int, n_rows: int, has_keys: bool) -> "PartPlan":
+        tiles = tile_plan(runs, h_total)
+        words = np.concatenate([runs.ravel(), tiles.ravel(), pages.ravel()]
+                               ).astype(np.int32)
+        off = _align16(lane.size)
+        host = np.zeros(off + words.nbytes, np.uint8)
+        host[:lane.size] = lane
+        host[off:] = words.view(np.uint8)
+        return PartPlan(host, lane.size, runs.shape[0], tiles.shape[0],
+                        pages.shape[0], h_total, n_rows, has_keys)
+
+    def views(self, buf):
+        """(lane, runs, tiles, pages) as views of `buf`, this plan's host
+        buffer or its copy on a device (numpy or torch)."""
+        off = _align16(self.lane_bytes)
+        i32 = np.int32 if isinstance(buf, np.ndarray) else torch.int32
+        words = buf[off:].view(i32)
+        r = self.n_runs * RUN_F
+        t = r + self.n_tiles * TILE_F
+        return (buf[:self.lane_bytes], words[:r].reshape(-1, RUN_F),
+                words[r:t].reshape(-1, TILE_F), words[t:].reshape(-1, PAGE_F))
+
+    @property
+    def lane(self) -> np.ndarray:
+        return self.views(self.host)[0]
+
+    @property
+    def runs(self) -> np.ndarray:
+        return self.views(self.host)[1]
+
+    @property
+    def tiles(self) -> np.ndarray:
+        return self.views(self.host)[2]
+
+    @property
+    def pages(self) -> np.ndarray:
+        return self.views(self.host)[3]
 
 
 @dataclass
@@ -130,37 +210,56 @@ def hybrid_extract_plain(lane: torch.Tensor, runs: torch.Tensor,
     return to_i32_bits(out)
 
 
-def hybrid_extract(lane: torch.Tensor, runs: torch.Tensor,
-                   h_total: int) -> torch.Tensor:
+def hybrid_extract(lane: torch.Tensor, runs: torch.Tensor, h_total: int,
+                   tiles: torch.Tensor) -> torch.Tensor:
     """The u32 value at every hybrid position of a part: int32[h_total]
-    bit patterns. lane: uint8[B]; runs: int32[R, 6] sorted by hybrid start.
+    bit patterns. lane: uint8[B]; runs: int32[R, 6] sorted by hybrid
+    start; tiles: int32[T, 2], the runs' `tile_plan`.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K3 on the
-    current stream, or raises."""
-    if lane.dtype != torch.uint8 or lane.dim() != 1:
-        raise ValueError(f"hybrid_extract takes a 1-D uint8 lane, got "
-                         f"{lane.dtype} {tuple(lane.shape)}")
-    if runs.dtype != torch.int32 or runs.dim() != 2 or runs.shape[1] != RUN_F:
-        raise ValueError(f"hybrid_extract takes int32 [R, {RUN_F}] runs, "
-                         f"got {runs.dtype} {tuple(runs.shape)}")
-    if lane.device != runs.device:
-        raise ValueError("hybrid_extract: lane and runs on different devices")
-    if lane.device.type == "cpu":
+    A CPU tensor takes the plain version (which needs no tiles); a CUDA
+    tensor launches K3 on the current stream, one block per tile, or
+    raises. Host work per call is fixed and small: the checks, one
+    `torch.empty`, one C call."""
+    global _LAUNCH
+    if (lane.dtype != torch.uint8 or runs.dtype != torch.int32
+            or tiles.dtype != torch.int32 or lane.dim() != 1
+            or runs.dim() != 2 or tiles.dim() != 2
+            or runs.shape[1] != RUN_F or tiles.shape[1] != TILE_F):
+        raise ValueError(
+            f"hybrid_extract takes a uint8 lane, int32 [R, {RUN_F}] runs and "
+            f"int32 [T, {TILE_F}] tiles, got {lane.dtype} "
+            f"{tuple(lane.shape)}, {runs.dtype} {tuple(runs.shape)}, "
+            f"{tiles.dtype} {tuple(tiles.shape)}")
+    index = lane.get_device()  # -1 on the CPU
+    if runs.get_device() != index or tiles.get_device() != index:
+        raise ValueError("hybrid_extract: lane, runs and tiles on different "
+                         "devices")
+    if not lane.is_cuda:
+        if lane.device.type != "cpu":
+            raise ValueError(f"hybrid_extract: unsupported device "
+                             f"{lane.device}")
         return hybrid_extract_plain(lane, runs, h_total)
-    if lane.device.type != "cuda":
-        raise ValueError(f"hybrid_extract: unsupported device {lane.device}")
-    if h_total == 0 or runs.shape[0] == 0:
-        return torch.zeros(h_total, dtype=torch.int32, device=lane.device)
-    out = torch.empty(h_total, dtype=torch.int32, device=lane.device)
-    lane = lane.contiguous()
-    runs = runs.contiguous()
-    fn = cuda_build.function(
-        "hybrid_extract", "hybrid_extract_launch",
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(lane.device).cuda_stream
-    code = fn(lane.data_ptr(), lane.numel(), runs.data_ptr(), runs.shape[0],
-              h_total, out.data_ptr(), lane.device.index, stream)
+    if not (lane.is_contiguous() and runs.is_contiguous()
+            and tiles.is_contiguous()):
+        raise ValueError("hybrid_extract: lane, runs and tiles must be "
+                         "contiguous")
+    n_tiles = tiles.shape[0]
+    if n_tiles == 0:
+        if h_total and runs.shape[0]:
+            raise ValueError("hybrid_extract: no tiles for a non-empty plan")
+        return torch.zeros(h_total, dtype=torch.int32, device=index)
+    if _LAUNCH is None:
+        _LAUNCH = (cuda_build.function(
+            "hybrid_extract", "hybrid_extract_launch",
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+            torch._C._cuda_getCurrentRawStream)
+    launch, raw_stream = _LAUNCH
+    out = torch.empty(h_total, dtype=torch.int32, device=index)
+    code = launch(lane.data_ptr(), lane.shape[0], runs.data_ptr(),
+                  tiles.data_ptr(), n_tiles, h_total, out.data_ptr(), index,
+                  raw_stream(index))
     cuda_build.check_launch(code, "hybrid_extract")
     LAUNCHES.inc()
     return out
@@ -173,10 +272,10 @@ def decode_part(plan: PartPlan, device
     row space (lo/hi int64 holding u32 values) and the device-resident
     PartKeys (None when the plan carries no key pages). Port of the
     reference's `_decode_fn` / `decode_part`."""
-    lane = torch.from_numpy(plan.lane).to(device)
-    runs = torch.from_numpy(plan.runs).to(device)
-    pages = torch.from_numpy(plan.pages).to(device).to(torch.int64)
-    hyb = widen_u32(hybrid_extract(lane, runs, plan.h_total))
+    lane, runs, tiles, pages = plan.views(
+        torch.from_numpy(plan.host).to(device))
+    pages = pages.to(torch.int64)
+    hyb = widen_u32(hybrid_extract(lane, runs, plan.h_total, tiles))
     if hyb.numel() == 0:
         hyb = torch.zeros(1, dtype=torch.int64, device=lane.device)
     h_max = hyb.shape[0] - 1

@@ -511,7 +511,10 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
     the device with counts that agree with the host's rows and no
     deletion vector."""
     from delta_tpu_torch.log.page_decode import read_checkpoint_part
-    from delta_tpu_torch.log.parquet_footer import DecodeUnsupported
+    from delta_tpu_torch.log.parquet_footer import (
+        DecodeCorrupt,
+        DecodeUnsupported,
+    )
     from delta_tpu_torch.log.parquet_host import assemble
     from delta_tpu_torch.ops.page_decode import launch_checkpoint_handoff
 
@@ -557,6 +560,10 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
             raise UnsupportedLogError(
                 f"checkpoint part {fstat.path}: {e}",
                 error_class="DELTA_UNSUPPORTED_CHECKPOINT") from e
+        except DecodeCorrupt as e:
+            raise LogCorruptedError(
+                f"checkpoint part {fstat.path} is damaged: {e}",
+                version=cp, path=fstat.path) from e
         (_OBS_DECODE_PARTS if read.on_device else _OBS_DECODE_FALLBACKS).inc()
         part = _CkptPart(read, np.flatnonzero(_present(read, "add")),
                          np.flatnonzero(_present(read, "remove")))

@@ -19,13 +19,16 @@ from urllib.parse import unquote
 import numpy as np
 import torch
 
-from delta_tpu_torch.errors import LogCorruptedError
+from delta_tpu_torch import obs
+from delta_tpu_torch.errors import LogCorruptedError, TornCommitError
 from delta_tpu_torch.models.actions import (
     AddFile,
     DeletionVectorDescriptor,
     RemoveFile,
 )
 from delta_tpu_torch.replay.columnar import FileActions, ParsedCommits
+
+_TORN_COMMITS = obs.counter("log.torn_commits")
 
 
 def line_tags(line_starts: torch.Tensor, file_starts: torch.Tensor,
@@ -147,9 +150,10 @@ def parse_commits_host(buf, file_starts: np.ndarray,
         try:
             row = json.loads(mv[s:e].tobytes())
         except ValueError as err:
-            raise LogCorruptedError(
+            _raise_commit_parse_error(
+                buf, file_starts, file_versions,
                 f"commit {int(versions[ln])} line {int(orders[ln])} is not "
-                f"valid JSON: {err}", version=int(versions[ln])) from err
+                f"valid JSON: {err}", int(versions[ln]), err)
         if not isinstance(row, dict):
             raise LogCorruptedError(
                 f"commit {int(versions[ln])} line {int(orders[ln])} is not "
@@ -187,3 +191,35 @@ def parse_commits_host(buf, file_starts: np.ndarray,
         rows=DictRows(bodies),
     )
     return ParsedCommits(file_actions=fa, others=others)
+
+
+def _json_line_ok(line: bytes) -> bool:
+    try:
+        json.loads(line)
+        return True
+    except ValueError:
+        return False
+
+
+def _raise_commit_parse_error(buf, file_starts: np.ndarray,
+                              file_versions: np.ndarray, detail: str,
+                              version: int, cause: Exception):
+    """Diagnose a commit that fails to parse before raising (port of the
+    reference's `_raise_commit_parse_error`). A writer that crashed on a
+    store without atomic puts leaves the NEWEST commit of the buffer
+    ending in a torn line, every earlier line of it intact: that shape
+    raises `TornCommitError` with the newest version (the snapshot can
+    serve the version before it). Anything else is damage the log's
+    history depends on: `LogCorruptedError`."""
+    tip = int(np.argmax(file_versions))
+    # each file is followed by one newline in the buffer
+    blob = bytes(buf[int(file_starts[tip]):int(file_starts[tip + 1]) - 1])
+    lines = [ln for ln in blob.split(b"\n") if ln.strip()]
+    if (lines and not _json_line_ok(lines[-1])
+            and all(_json_line_ok(ln) for ln in lines[:-1])):
+        _TORN_COMMITS.inc()
+        tip_v = int(file_versions[tip])
+        raise TornCommitError(
+            f"commit {tip_v} ends with a torn JSON line (interrupted "
+            f"write); earlier lines are intact", version=tip_v) from cause
+    raise LogCorruptedError(detail, version=version) from cause

@@ -23,8 +23,10 @@ from delta_tpu_torch.ops.interleave import (
     interleave_bits_plain,
 )
 from delta_tpu_torch.ops.page_decode import (
+    TILE,
     hybrid_extract,
     hybrid_extract_plain,
+    tile_plan,
 )
 from delta_tpu_torch.ops.replay import winner_pack, winner_pack_plain
 from delta_tpu_torch.ops.stats import checkpoint_stats_block, host_stats_block
@@ -119,21 +121,99 @@ def random_hybrid_plan(rng, n_runs: int, lane_bytes: int):
     return lane, np.asarray(rows, np.int32), h
 
 
+def edge_hybrid_plans():
+    """(name, lane, runs, h_total) plan shapes K3's tiling must get right:
+    runs of 0 values, a run one position longer than TILE, widths 0 and
+    32, a bit-packed run ending in the lane's last 4 bytes, positions past
+    the last run's count."""
+    lane = np.random.default_rng(11).integers(0, 256, 4096, dtype=np.uint8)
+    t = TILE
+    tail_w, tail_n = 17, 64
+    plans = [
+        ("runs of 0 values",
+         [(0, 0, 0, 5, 0, 0), (0, 40, 3, 5, 0, 0), (40, 0, 0, 9, 1, 7),
+          (40, 0, 0, 9, 0, 0), (40, 60, 900, 9, 0, 0)], 100),
+        ("a run one position longer than TILE",
+         [(0, 3, 0, 4, 0, 0), (3, t + 1, 16, 8, 0, 0),
+          (t + 4, t + 1, 0, 2, 1, -3)], 2 * t + 5),
+        ("w = 0 and w = 32",
+         [(0, 700, 0, 0, 0, 0), (700, 900, 13, 32, 0, 0)], 1600),
+        ("a bit-packed run ending in the lane's last 4 bytes",
+         [(0, 10, 0, 3, 0, 0),
+          (10, tail_n, lane.size * 8 - tail_n * tail_w, tail_w, 0, 0)],
+         10 + tail_n),
+        ("positions past the last run's count", [(0, 5, 8, 7, 0, 0)], 3 * t),
+    ]
+    return [(name, lane, np.asarray(r, np.int32), h) for name, r, h in plans]
+
+
+def _k3_both(lane, runs, total, dev):
+    """K3 on the card and its plain version on the same plan."""
+    lane_t = torch.from_numpy(lane).to(dev)
+    runs_t = torch.from_numpy(runs).to(dev)
+    tiles_t = torch.from_numpy(tile_plan(runs, total)).to(dev)
+    got = hybrid_extract(lane_t, runs_t, total, tiles_t)
+    torch.cuda.synchronize()
+    return got, hybrid_extract_plain(lane_t, runs_t, total)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,n_runs", [(0, 1), (1, 7), (2, 64), (3, 999)])
 def test_hybrid_extract_kernel_matches_plain(seed, n_runs):
     dev = _card()
     rng = np.random.default_rng(seed)
     lane, runs, h = random_hybrid_plan(rng, n_runs, 4096 + seed)
-    lane_t = torch.from_numpy(lane).to(dev)
-    runs_t = torch.from_numpy(runs).to(dev)
     launches = obs.counter("kernel.hybrid_extract.launches").read()
     for total in (h, 1, min(h, 1025)):
-        assert torch.equal(hybrid_extract(lane_t, runs_t, total),
-                           hybrid_extract_plain(lane_t, runs_t, total))
-    torch.cuda.synchronize()
+        got, want = _k3_both(lane, runs, total, dev)
+        assert torch.equal(got, want)
     assert obs.counter("kernel.hybrid_extract.launches").read() \
         == launches + 3
+
+
+@pytest.mark.cuda
+def test_hybrid_extract_kernel_on_edge_plans():
+    dev = _card()
+    for name, lane, runs, h in edge_hybrid_plans():
+        for total in (h, 1, h + TILE + 3):
+            got, want = _k3_both(lane, runs, total, dev)
+            assert torch.equal(got, want), (name, total)
+        # a lane whose address is not 16-byte aligned
+        ln = torch.from_numpy(np.concatenate([[0], lane]).astype(np.uint8)) \
+            .to(dev)[1:]
+        runs_t = torch.from_numpy(runs).to(dev)
+        got = hybrid_extract(ln, runs_t, h,
+                             torch.from_numpy(tile_plan(runs, h)).to(dev))
+        assert torch.equal(got, hybrid_extract_plain(ln, runs_t, h)), name
+
+
+@pytest.mark.cuda
+def test_hybrid_extract_kernel_on_every_part_of_a_checkpoint(tmp_path):
+    """K3 == plain on the plan of every part of a generated multi-part
+    checkpoint, as the load plans them (value columns; with the keys too,
+    as a checkpoint-only load does)."""
+    from delta_tpu_torch.log.page_decode import (
+        _KEY_COLUMNS, _VALUE_COLUMNS, build_part_plan)
+    from delta_tpu_torch.log.parquet_footer import read_footer
+
+    dev = _card()
+    truth = synth_delta_log(str(tmp_path), 60, 100, seed=9,
+                            checkpoint_version=50, now_ms=7 * 86_400_000)
+    log = tmp_path / "_delta_log"
+    parts = sorted(str(p) for p in log.glob("*.checkpoint.*parquet"))
+    assert len(parts) == truth.checkpoint["parts"] > 2
+    for path in parts:
+        data = open(path, "rb").read()
+        ft = read_footer(data)
+        for keys in ([], [c for c in _KEY_COLUMNS if c in ft.index]):
+            plan, _, _, _ = build_part_plan(
+                ft, data, [c for c in _VALUE_COLUMNS if c in ft.index], keys)
+            lane, runs, tiles, _ = plan.views(
+                torch.from_numpy(plan.host).to(dev))
+            got = hybrid_extract(lane, runs, plan.h_total, tiles)
+            torch.cuda.synchronize()
+            assert torch.equal(
+                got, hybrid_extract_plain(lane, runs, plan.h_total)), path
 
 
 @pytest.mark.cuda
@@ -333,3 +413,34 @@ def test_checkpoint_written_on_the_card_equals_cpu(tmp_path):
     assert st.file_actions.version.min() == 40  # through the new checkpoint
     assert sorted(a.path for a in st.add_files) == truth.live_paths[5:]
     assert sorted(t.path for t in st.tombstones) == sorted(gone[:3])
+
+@pytest.mark.cuda
+def test_ladder_on_the_card(tmp_path):
+    """A torn tip commit and a half-length checkpoint load on the card to
+    the generator's truth."""
+    _card()
+    truth = synth_delta_log(str(tmp_path), 40, 100, seed=6,
+                            checkpoint_version=30, now_ms=7 * 86_400_000)
+    log = tmp_path / "_delta_log"
+    parts = truth.checkpoint["parts"]
+    tip = log / f"{truth.version + 1:020d}.json"
+    tip.write_bytes(b'{"commitInfo":{"timestamp":1}}\n{"add":{"path":"x')
+    obs.reset()
+    state = Table.for_path(str(tmp_path), engine=TorchEngine()) \
+        .latest_snapshot().state
+    counts = obs.counters()
+    assert state.version == truth.version
+    assert sorted(a.path for a in state.add_files) == truth.live_paths
+    assert counts["snapshot.torn_commit_fallbacks"] == 1
+    assert counts["kernel.hybrid_extract.launches"] == 2 * parts
+    tip.unlink()
+    for part in log.glob("*.checkpoint.*parquet"):
+        part.write_bytes(part.read_bytes()[:part.stat().st_size // 2])
+    obs.reset()
+    state = Table.for_path(str(tmp_path), engine=TorchEngine()) \
+        .latest_snapshot().state
+    counts = obs.counters()
+    assert sorted(a.path for a in state.add_files) == truth.live_paths
+    assert counts["snapshot.checkpoint_fallbacks"] == 1
+    assert counts["kernel.hybrid_extract.launches"] == 0
+    assert counts["parse.device_windows"] >= 1

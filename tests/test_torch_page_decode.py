@@ -32,7 +32,11 @@ from delta_tpu.ops.replay import pad_bucket
 from delta_tpu.table import Table as RefTable
 from delta_tpu_torch.log import page_decode as port_plan
 from delta_tpu_torch.log import parquet_host, snappy
-from delta_tpu_torch.log.parquet_footer import DecodeUnsupported, read_footer
+from delta_tpu_torch.log.parquet_footer import (
+    DecodeCorrupt,
+    DecodeUnsupported,
+    read_footer,
+)
 from delta_tpu_torch.ops import page_decode as port_ops
 from delta_tpu_torch.utils.synth import synth_delta_log
 
@@ -189,9 +193,10 @@ def test_footer_matches_pyarrow_metadata(parts):
 
 
 def test_footer_refuses_what_is_not_parquet():
-    with pytest.raises(DecodeUnsupported):
+    """Bytes that are not Parquet are damage, not an unsupported form."""
+    with pytest.raises(DecodeCorrupt):
         read_footer(b"PAR1")
-    with pytest.raises(DecodeUnsupported):
+    with pytest.raises(DecodeCorrupt):
         read_footer(b"not a parquet file at all")
 
 
@@ -225,7 +230,7 @@ def test_snappy_agrees_with_pyarrow_both_ways(kind):
 
 def test_snappy_refuses_a_corrupt_stream():
     bad = snappy.compress(b"hello hello hello hello")[:-3]
-    with pytest.raises(DecodeUnsupported):
+    with pytest.raises(DecodeCorrupt):
         snappy.decompress(bad, 23)
 
 
@@ -351,12 +356,77 @@ def test_hybrid_extract_plain_equals_reference_hybrid_stage(
 def test_hybrid_extract_takes_cpu_tensors_to_the_plain_version():
     lane, runs, h = _random_plan(6, 5, 256)
     lane_t, runs_t = torch.from_numpy(lane), torch.from_numpy(runs)
-    assert torch.equal(port_ops.hybrid_extract(lane_t, runs_t, h),
+    tiles_t = torch.from_numpy(port_ops.tile_plan(runs, h))
+    assert torch.equal(port_ops.hybrid_extract(lane_t, runs_t, h, tiles_t),
                        port_ops.hybrid_extract_plain(lane_t, runs_t, h))
     with pytest.raises(ValueError):
-        port_ops.hybrid_extract(lane_t.to(torch.int32), runs_t, h)
+        port_ops.hybrid_extract(lane_t.to(torch.int32), runs_t, h, tiles_t)
     with pytest.raises(ValueError):
-        port_ops.hybrid_extract(lane_t, runs_t[:, :5].contiguous(), h)
+        port_ops.hybrid_extract(lane_t, runs_t[:, :5].contiguous(), h,
+                                tiles_t)
+    with pytest.raises(ValueError):
+        port_ops.hybrid_extract(lane_t, runs_t, h, tiles_t[:, :1])
+
+
+def _check_tiles(runs, h_total):
+    tiles = port_ops.tile_plan(runs, h_total)
+    T = port_ops.TILE
+    if h_total == 0 or runs.shape[0] == 0:
+        assert tiles.shape == (0, 2)
+        return tiles
+    first = tiles[:, port_ops.T_FIRST].astype(np.int64)
+    end = np.append(first[1:], h_total)
+    # consecutive from 0 to h_total: every position exactly once
+    assert first[0] == 0 and (end > first).all()
+    assert (end - first <= T).all()
+    assert ((end - 1) // T == first // T).all()  # one aligned chunk each
+    starts = runs[:, port_ops.R_H].astype(np.int64)
+    for s in starts.tolist():  # no run starts strictly inside a tile
+        assert not ((first < s) & (s < end)).any()
+    hh = np.arange(h_total)
+    rid = np.clip(np.searchsorted(starts, hh, side="right") - 1, 0,
+                  starts.size - 1)
+    tile_of = np.searchsorted(first, hh, side="right") - 1
+    assert np.array_equal(tiles[tile_of, port_ops.T_RUN], rid)
+    return tiles
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_tile_plan_covers_every_position_once_within_one_run(seed):
+    """K3's tile table over random run plans, the edge plans and totals
+    below and past the plan: every hybrid position in exactly one tile,
+    each tile inside one run's positions (the run the plain version's
+    lookup gives) and at most TILE positions."""
+    rng = np.random.default_rng(seed)
+    from test_torch_cuda import edge_hybrid_plans
+
+    plans = list(edge_hybrid_plans())
+    lane, runs, h = _random_plan(seed, int(rng.integers(1, 60)),
+                                 int(rng.integers(64, 5000)))
+    plans.append(("random", lane, runs, h))
+    for name, lane, runs, h in plans:
+        for total in (h, 1, max(1, h - 7), h + port_ops.TILE + 3, 0):
+            tiles = _check_tiles(runs, total)
+            lane_t, runs_t = torch.from_numpy(lane), torch.from_numpy(runs)
+            assert torch.equal(
+                port_ops.hybrid_extract(lane_t, runs_t, total,
+                                        torch.from_numpy(tiles)),
+                port_ops.hybrid_extract_plain(lane_t, runs_t, total)), name
+    assert _check_tiles(np.zeros((0, 6), np.int32), 50).shape == (0, 2)
+
+
+def test_part_plan_carries_its_tiles_in_one_buffer(parts):
+    """The plan's lane, runs, tiles and pages are views of one host
+    buffer, so one copy takes them to the device."""
+    for name in _decodable(parts):
+        _, (pp, _, _, _) = _plan_both(parts[name])
+        assert np.array_equal(pp.tiles, port_ops.tile_plan(pp.runs,
+                                                          pp.h_total)), name
+        for view in (pp.lane, pp.runs, pp.tiles, pp.pages):
+            assert view.base is not None and np.shares_memory(view, pp.host)
+        dev = pp.views(torch.from_numpy(pp.host))
+        for a, b in zip(dev, (pp.lane, pp.runs, pp.tiles, pp.pages)):
+            assert np.array_equal(a.numpy(), b), name
 
 
 def test_hybrid_extract_plain_on_real_plans_equals_reference(parts):

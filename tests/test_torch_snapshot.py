@@ -169,13 +169,26 @@ def test_complex_lines_hand_the_buffer_to_the_host(tmp_path):
 
 
 def test_malformed_control_line_falls_back_then_raises(tmp_path):
-    from delta_tpu_torch.errors import LogCorruptedError
+    """The device parse hands a malformed line to the host parser. In the
+    newest commit, as its only line, it is a torn tip: the snapshot serves
+    the version before it, as the reference does. Below the tip it raises
+    LogCorruptedError, not the torn-tip error."""
+    from delta_tpu_torch.errors import LogCorruptedError, TornCommitError
 
     path = _write_log(tmp_path, [[_PROTO, _META, _add("a")],
                                  ['{"commitInfo":{"timestamp":1']])
     obs.reset()
-    with pytest.raises(LogCorruptedError):
+    got = _load(path)
+    assert got.version == 0
+    _assert_matches_reference(path, got)
+    assert obs.counters()["parse.device_fallbacks"] == 1
+    assert obs.counters()["snapshot.torn_commit_fallbacks"] == 1
+    with open(os.path.join(path, "_delta_log", f"{2:020d}.json"), "w") as f:
+        f.write(_add("b") + "\n")
+    obs.reset()
+    with pytest.raises(LogCorruptedError) as ei:
         _load(path)
+    assert not isinstance(ei.value, TornCommitError)
     assert obs.counters()["parse.device_fallbacks"] == 1
 
 
