@@ -19,7 +19,10 @@
 4. Kernel phase K1/K2: each against its plain PyTorch version on the
    card, at the main path's shapes, exact (`torch.equal`), then timed with
    CUDA events beside its plain version and its bound. K1 is timed on a
-   real parse window; K2 on the commit-only load's own sorted replay keys.
+   real parse window; K2 on inputs of the main path's size: the
+   commit-only load's own sorted replay keys, the same keys with their
+   path codes put through a seeded random permutation before the sort
+   (the order a table of random file names gives).
 5. Commit-only path: the checkpoint files set aside, the log loads with
    `Table.for_path(p, engine=TorchEngine()).latest_snapshot().state`, with
    every counter set to 0 just before. The live files, their size and the
@@ -88,8 +91,8 @@
     seeded 10% null mask, counters from 0, against numpy; the kernel
     against its plain version bit for bit there and on edge shapes (F = 1,
     9; R = 1, 129; NaN, signed zeros, infinities, an empty file); timed
-    beside its plain version, `torch.where` + `torch.aminmax`, and its
-    bound.
+    (one kernel per call) beside its plain version, `torch.where` +
+    `torch.aminmax`, and its bound.
 14. OPTIMIZE path, BASELINE config 4 (`benchmarks/workloads.py:162-203`):
     the port's `write_table` builds a table of 20 appends of 500,000 rows
     (k1, k2, k3 int64 uniform in [0, 2^30), payload float64 normal; 10M
@@ -280,39 +283,69 @@ def _winner_pack_bytes(skey: torch.Tensor) -> tuple[float, int]:
     return 8.0 * n + 32.0 * sectors + 4.0 * -(-n // 32), int(winner.sum())
 
 
-def winner_pack_phase(state) -> dict:
-    """K2 against its plain version on the main path's own inputs: the
-    replay key of the loaded rows, sorted as the load sorts it; then timed
-    beside its plain version and its bound on those inputs."""
-    from delta_tpu_torch.ops.replay import (
-        chrono_ok, combine_key_lanes, winner_pack, winner_pack_plain)
+def _winner_pack_times(skey: torch.Tensor, sidx: torch.Tensor) -> dict:
+    """K2 on one sorted input: checked against its plain version, then
+    timed beside it and its bound. `device_ms` is the call's work on the
+    card, the kernel and the memset that fills its words;
+    `kernel_device_ms` the kernel alone. The bound is the function's own
+    bytes: the fill is the design's, and part of its gap to the bound."""
+    from delta_tpu_torch.ops.replay import winner_pack, winner_pack_plain
 
-    fa = state.file_actions
-    _check(chrono_ok(fa.version, fa.order), "main-path rows are chronological")
-    skey, sidx = torch.sort(combine_key_lanes([fa.path_code, fa.dv_code]),
-                            stable=True)
-    sidx = sidx.to(torch.int32)
     n = skey.numel()
     got = winner_pack(skey, sidx, n)
     torch.cuda.synchronize()
     want = winner_pack_plain(skey, sidx, n)
-    _check(torch.equal(got, want), "winner_pack != plain on the main path")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    ms = _time_ms(lambda: winner_pack(skey, sidx, n), 50)
-    dev_ms = _device_ms(lambda: winner_pack(skey, sidx, n), 50,
-                        ("winner_pack_kernel",))
-    plain = _time_ms(lambda: winner_pack_plain(skey, sidx, n), 10)
+    _check(torch.equal(got, want), "winner_pack != plain")
+    call = lambda: winner_pack(skey, sidx, n)  # noqa: E731
     nbytes, winners = _winner_pack_bytes(skey)
     bound, by = _bound_ms(nbytes, 2.0 * n)
     return {
+        "max_abs_err": int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()),
+        "ms": _time_ms(call, 50),
+        "device_ms": _device_ms(call, 50, ("winner_pack_kernel", "Memset")),
+        "kernel_device_ms": _device_ms(call, 50, ("winner_pack_kernel",)),
+        "plain_ms": _time_ms(lambda: winner_pack_plain(skey, sidx, n), 10),
+        "bound_ms": bound, "bound_by": by, "winners": winners,
+        "bound_bytes": nbytes}
+
+
+def winner_pack_phase(state, seed: int) -> dict:
+    """K2 on inputs of the main path's size: (1) the replay key of the
+    commit-only load's rows, sorted as the load sorts it (its path codes
+    rank the paths' bytes as little-endian 8-byte words, so the
+    generator's names, ascending with the file id, sort by the id's last
+    digits first and land far from their rows); (2) the same keys with
+    their path codes put through a seeded random permutation before the
+    sort, the order that a table of random file names gives. Each against
+    its plain version, timed beside it and its bound; the row's numbers
+    are input 1's, input 2's sit beside."""
+    from delta_tpu_torch.ops.replay import chrono_ok, combine_key_lanes
+
+    fa = state.file_actions
+    _check(chrono_ok(fa.version, fa.order), "main-path rows are chronological")
+    dev = fa.path_code.device
+    n_codes = int(fa.path_code.max()) + 1
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shuffle = torch.randperm(n_codes, generator=g).to(dev)
+    inputs = {}
+    for name, codes in (("main_path", fa.path_code),
+                        ("random_names", shuffle[fa.path_code])):
+        skey, sidx = torch.sort(combine_key_lanes([codes, fa.dv_code]),
+                                stable=True)
+        inputs[name] = _winner_pack_times(skey, sidx.to(torch.int32))
+    n = fa.path_code.numel()
+    row = dict(inputs["main_path"])
+    row.update({
         "name": "winner_pack", "route": "cuda", "ok": True,
         "source": "delta_tpu_torch/csrc/winner_pack.cu",
-        "replaces": "delta_tpu/ops/replay.py:183",
-        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-        "plain_ms": plain,
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": f"i64[{n}]+i32[{n}]", "winners": winners,
-        "bound_bytes": nbytes}
+        "replaces": "delta_tpu/ops/replay.py:183", "library_ms": None,
+        "shape": f"i64[{n}]+i32[{n}]",
+        "random_names": inputs["random_names"]})
+    other = row["random_names"]
+    other["share"] = other["bound_ms"] / other["ms"]
+    other["device_share"] = other["bound_ms"] / other["device_ms"]
+    return row
 
 
 def _edge_plans(real_lane: torch.Tensor, dev):
@@ -1147,7 +1180,7 @@ def minmax_phase(appends: list, dev) -> dict:
     mt = torch.from_numpy(masks[1]).to(dev)
     ms = _time_ms(lambda: segmented_minmax(v, mt), 50)
     dev_ms = _device_ms(lambda: segmented_minmax(v, mt), 50,
-                        ("minmax_partial", "minmax_final"))
+                        ("segmented_minmax_kernel",))
     plain = _time_ms(lambda: segmented_minmax_plain(v, mt), 10)
     yardstick = _time_ms(
         lambda: torch.aminmax(torch.where(mt, v, torch.inf), dim=1), 20)
@@ -1355,7 +1388,7 @@ def main(argv=None) -> int:
         _check(k1 >= windows, "byte_class launched once per window")
         _check(k2 >= 1, "winner_pack launched")
         kernels["byte_class"]["launches"] = k1
-        kernels["winner_pack"] = winner_pack_phase(state)
+        kernels["winner_pack"] = winner_pack_phase(state, args.seed + 3)
         kernels["winner_pack"]["launches"] = k2
         print("winner_pack on the main path's keys: " + json.dumps(
             kernels["winner_pack"]), flush=True)

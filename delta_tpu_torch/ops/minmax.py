@@ -39,11 +39,7 @@ QUIET_NAN_BITS = 0x7FC00000
 _LOW31 = 0x7FFFFFFF
 _KEY_POS_INF = 0x7F800000                 # the key of +inf
 _KEY_NEG_INF = (0xFF800000 ^ _LOW31) - (1 << 32)  # the key of -inf
-CHUNK = 16384  # entries of a row per block of K6's first pass (kChunk)
-
-
-def chunks_per_row(r: int) -> int:
-    return max(1, -(-r // CHUNK))
+_LAUNCH = None  # (K6's C entry point, the raw-stream getter), on first use
 
 
 def _check(values: torch.Tensor, valid: torch.Tensor) -> None:
@@ -79,7 +75,9 @@ def segmented_minmax_plain(values: torch.Tensor, valid: torch.Tensor):
 def segmented_minmax(values: torch.Tensor, valid: torch.Tensor):
     """(min f32 [F], max f32 [F], valid count int32 [F]) of each row of
     `values` over `valid`. A CPU tensor takes the plain version; a CUDA
-    tensor launches K6, or raises."""
+    tensor launches K6 (one kernel, one C call, one `torch.empty` viewed
+    as the three results), or raises."""
+    global _LAUNCH
     _check(values, valid)
     if values.device.type == "cpu":
         return segmented_minmax_plain(values, valid)
@@ -87,27 +85,29 @@ def segmented_minmax(values: torch.Tensor, valid: torch.Tensor):
         raise ValueError(f"segmented_minmax: unsupported device "
                          f"{values.device}")
     f, r = values.shape
-    dev = values.device
-    mn = torch.empty(f, dtype=torch.float32, device=dev)
-    mx = torch.empty(f, dtype=torch.float32, device=dev)
-    count = torch.empty(f, dtype=torch.int32, device=dev)
+    index = values.get_device()
+    out = torch.empty(3 * f, dtype=torch.int32, device=index)
+    results = (out[:f].view(torch.float32), out[f:2 * f].view(torch.float32),
+               out[2 * f:])
     if f == 0:
-        return mn, mx, count
-    values, valid = values.contiguous(), valid.contiguous()
-    n_chunks = chunks_per_row(r)
-    scratch = torch.empty(4 * f * n_chunks, dtype=torch.int32, device=dev)
-    fn = cuda_build.function(
-        "segmented_minmax", "segmented_minmax_launch",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(values.data_ptr(), valid.data_ptr(), f, r, n_chunks,
-              scratch.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-              count.data_ptr(), dev.index, stream)
+        return results
+    if not values.is_contiguous():
+        values = values.contiguous()
+    if not valid.is_contiguous():
+        valid = valid.contiguous()
+    if _LAUNCH is None:
+        _LAUNCH = (cuda_build.function(
+            "segmented_minmax", "segmented_minmax_launch",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]),
+            torch._C._cuda_getCurrentRawStream)
+    launch, raw_stream = _LAUNCH
+    code = launch(values.data_ptr(), valid.data_ptr(), f, r, out.data_ptr(),
+                  index, raw_stream(index))
     cuda_build.check_launch(code, "segmented_minmax")
     LAUNCHES.inc()
-    return mn, mx, count
+    return results
 
 
 def batched_file_stats(values: np.ndarray, valid: np.ndarray, device=None):

@@ -34,6 +34,7 @@ from delta_tpu_torch import obs
 from delta_tpu_torch.ops import cuda_build
 
 LAUNCHES = obs.counter("kernel.winner_pack.launches")
+_LAUNCH = None  # (K2's C entry point, the raw-stream getter), on first use
 
 
 def chrono_ok(version: torch.Tensor, order: torch.Tensor) -> bool:
@@ -85,7 +86,10 @@ def winner_pack(skey: torch.Tensor, sidx: torch.Tensor, n: int) -> torch.Tensor:
     word r // 32 set when row r is the newest action of its key.
 
     A CPU tensor takes the plain version; a CUDA tensor launches K2 on the
-    current stream, or raises."""
+    current stream, or raises. Host work per call is fixed and small: the
+    checks, one `torch.empty`, one C call (which fills the words and
+    launches)."""
+    global _LAUNCH
     if (skey.dtype != torch.int64 or sidx.dtype != torch.int32
             or skey.shape != (n,) or sidx.shape != (n,)):
         raise ValueError(
@@ -98,18 +102,23 @@ def winner_pack(skey: torch.Tensor, sidx: torch.Tensor, n: int) -> torch.Tensor:
         return winner_pack_plain(skey, sidx, n)
     if skey.device.type != "cuda":
         raise ValueError(f"winner_pack: unsupported device {skey.device}")
-    skey = skey.contiguous()
-    sidx = sidx.contiguous()
-    words = torch.zeros(-(-n // 32), dtype=torch.int32, device=skey.device)
+    if not skey.is_contiguous():
+        skey = skey.contiguous()
+    if not sidx.is_contiguous():
+        sidx = sidx.contiguous()
+    index = skey.get_device()
+    words = torch.empty(-(-n // 32), dtype=torch.int32, device=index)
     if n == 0:
         return words
-    fn = cuda_build.function(
-        "winner_pack", "winner_pack_launch",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(skey.device).cuda_stream
-    code = fn(skey.data_ptr(), sidx.data_ptr(), n, words.data_ptr(),
-              skey.device.index, stream)
+    if _LAUNCH is None:
+        _LAUNCH = (cuda_build.function(
+            "winner_pack", "winner_pack_launch",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+            torch._C._cuda_getCurrentRawStream)
+    launch, raw_stream = _LAUNCH
+    code = launch(skey.data_ptr(), sidx.data_ptr(), n, words.data_ptr(),
+                  index, raw_stream(index))
     cuda_build.check_launch(code, "winner_pack")
     LAUNCHES.inc()
     return words

@@ -345,6 +345,13 @@ def _decode_path(raw: str) -> str:
     return unquote(raw) if "%" in raw else raw
 
 
+def _check_ascending(idx: np.ndarray, what: str) -> None:
+    """The row stores cut `idx` by position: rows out of order would take
+    each other's values, so they are refused."""
+    if len(idx) > 1 and bool((np.diff(idx) < 0).any()):
+        raise ValueError(f"{what}: row indices must be ascending")
+
+
 @dataclass
 class _CkptPart:
     read: object           # log.page_decode.PartRead
@@ -367,6 +374,7 @@ class CheckpointRows:
     def blocks(self, idx: np.ndarray):
         """(part, is_add, part rows) per block that `idx` (ascending)
         touches, in order."""
+        _check_ascending(idx, "CheckpointRows.blocks")
         blk = np.searchsorted(self.bounds, idx, side="right") - 1
         for k in np.unique(blk).tolist():
             local = idx[blk == k] - self.bounds[k]
@@ -617,6 +625,8 @@ class CompositeRows:
         self.first, self.n_first, self.second = first, n_first, second
 
     def split(self, idx: np.ndarray):
+        """`idx` (ascending) cut into first-store and second-store rows."""
+        _check_ascending(idx, "CompositeRows.split")
         cut = int(np.searchsorted(idx, self.n_first))
         return idx[:cut], idx[cut:] - self.n_first
 

@@ -321,8 +321,8 @@ def path_codes(windows, paths_of, device) -> torch.Tensor:
     `windows` (in order): each has `path_bytes` (uint8 [rows, width], zero
     past each length), `path_len` and `has_percent`. One `torch.unique`
     over the byte rows and lengths codes the raw paths; when any raw path
-    holds a '%', `paths_of(row indices)` gives the decoded paths of one
-    row per raw path, and those are coded."""
+    holds a '%', `paths_of(row indices, ascending)` gives the decoded
+    paths of one row per raw path, and those are coded."""
     if sum(int(w.path_len.shape[0]) for w in windows) == 0:
         return torch.zeros(0, dtype=torch.int64, device=device)
     width = max(w.path_bytes.shape[1] for w in windows)
@@ -342,9 +342,14 @@ def path_codes(windows, paths_of, device) -> torch.Tensor:
     n = codes.shape[0]
     first = torch.full((u,), n, dtype=torch.int64, device=device) \
         .scatter_reduce_(0, codes, torch.arange(n, device=device), "amin")
+    # the row stores serve rows in ascending order: ask in that order,
+    # then put each path back at its raw key's slot
+    first = first.cpu().numpy()
+    asc = np.argsort(first)
+    paths = np.empty(u, object)
+    paths[asc] = paths_of(first[asc])
     decoded: dict = {}
-    remap = np.fromiter((decoded.setdefault(p, len(decoded))
-                         for p in paths_of(first.cpu().numpy())),
+    remap = np.fromiter((decoded.setdefault(p, len(decoded)) for p in paths),
                         np.int64, u)
     return torch.from_numpy(remap).to(device)[codes]
 

@@ -79,6 +79,64 @@ def test_winner_pack_kernel_matches_plain(n):
     torch.cuda.synchronize()
 
 
+def _sorted_replay(n, order, seed):
+    """(sorted int64 keys, int32 original row of each sorted row) as numpy:
+    `near` puts most rows back near their sorted position (paths named in
+    write order, a fifth of the winners elsewhere), `random` is a random
+    permutation; keys are runs of 1-3 rows, all equal, or all distinct."""
+    rng = np.random.default_rng(seed)
+    if order == "equal":
+        keys = np.zeros(n, np.int64)
+    elif order == "distinct":
+        keys = np.arange(n, dtype=np.int64) * 3 - n
+    else:
+        keys = np.cumsum(rng.random(n) < 0.6).astype(np.int64)
+    if order == "near":
+        idx = np.arange(n)
+        far = np.flatnonzero(rng.random(n) < 0.2)
+        idx[far] = idx[rng.permutation(far)]
+    else:
+        idx = rng.permutation(n)
+    return keys, idx.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["near", "random", "equal", "distinct"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4099, 100_003, 1_000_003])
+def test_winner_pack_kernel_on_row_orders(n, order):
+    dev = _card()
+    keys, idx = _sorted_replay(n, order, seed=n)
+    skey, sidx = torch.from_numpy(keys).to(dev), torch.from_numpy(idx).to(dev)
+    launches = obs.counter("kernel.winner_pack.launches").read()
+    got = winner_pack(skey, sidx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, winner_pack_plain(skey, sidx, n))
+    assert obs.counter("kernel.winner_pack.launches").read() == launches + 1
+    winners = int(np.unpackbits(got.cpu().numpy().view(np.uint8)).sum())
+    if order == "equal":
+        assert winners == 1
+    if order == "distinct":
+        assert winners == n  # every row wins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_at,idx_at", [(1, 0), (0, 1), (1, 3)])
+@pytest.mark.parametrize("n", [33, 100_003])
+def test_winner_pack_kernel_on_unaligned_views(n, key_at, idx_at):
+    """Views whose data does not start 16-byte aligned (`buf[1:]`) take
+    the kernel's row-by-row loads."""
+    dev = _card()
+    keys, idx = _sorted_replay(n, "near", seed=n + 1)
+    kbuf = torch.zeros(n + key_at, dtype=torch.int64, device=dev)
+    ibuf = torch.zeros(n + idx_at, dtype=torch.int32, device=dev)
+    kbuf[key_at:] = torch.from_numpy(keys)
+    ibuf[idx_at:] = torch.from_numpy(idx)
+    skey, sidx = kbuf[key_at:], ibuf[idx_at:]
+    got = winner_pack(skey, sidx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, winner_pack_plain(skey, sidx, n))
+
+
 @pytest.mark.cuda
 def test_card_load_equals_cpu_load(tmp_path):
     _card()
@@ -236,6 +294,80 @@ def test_checkpointed_card_load_equals_cpu_load(tmp_path):
     assert sorted(a.path for a in on_card.add_files) == truth.live_paths
 
 
+def _percent_log(root, commits) -> str:
+    """A log whose commits are, per version, ("add" | "remove", raw path)
+    pairs; tombstones inside the retention window."""
+    import json
+    import os
+    import time
+
+    now_ms = int(time.time() * 1000)
+    log = os.path.join(root, "_delta_log")
+    os.makedirs(log)
+    for v, actions in enumerate(commits):
+        lines = [] if v else [
+            {"protocol": {"minReaderVersion": 1, "minWriterVersion": 2}},
+            {"metaData": {"id": "pct", "format": {"provider": "parquet",
+                                                  "options": {}},
+                          "schemaString": "{}", "partitionColumns": [],
+                          "configuration": {}}}]
+        for j, (kind, path) in enumerate(actions):
+            size = 100 * v + j + 1
+            lines.append(
+                {"add": {"path": path, "partitionValues": {}, "size": size,
+                         "modificationTime": 1, "dataChange": True}}
+                if kind == "add" else
+                {"remove": {"path": path, "deletionTimestamp": now_ms,
+                            "dataChange": True, "size": size}})
+        with open(os.path.join(log, f"{v:020d}.json"), "w") as f:
+            f.write("\n".join(json.dumps(x) for x in lines) + "\n")
+    return str(root)
+
+
+# The two smallest checkpoint-plus-tail logs over a '%' path, with the
+# live files and tombstones that the reference's HostEngine serves for
+# them (tests/test_torch_percent_paths.py holds the port's CPU load of
+# both to the reference).
+PERCENT_LOGS = {
+    "live_file_behind_the_checkpoint": (
+        [[("add", "f%25g")], [("add", "c"), ("add", "b")]],
+        ["b", "c", "f%g"], []),
+    "file_removed_after_the_checkpoint": (
+        [[("add", "f%25g"), ("add", "b")], [("remove", "f%25g"), ("add", "c")]],
+        ["b", "c"], ["f%g"]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("writer", ["cpu", "cuda"])
+@pytest.mark.parametrize("case", sorted(PERCENT_LOGS))
+def test_percent_paths_across_a_checkpoint_on_the_card(tmp_path, case,
+                                                       writer):
+    """The path codes' remap branch on CUDA tensors: a checkpoint at 0
+    (the port's writer, on the CPU or the card) and a tail over a path
+    that needs percent-decoding load on the card as on the CPU and as the
+    reference serves them."""
+    _card()
+    commits, live, tombstones = PERCENT_LOGS[case]
+    root = _percent_log(str(tmp_path), commits)
+    Table.for_path(root, engine=TorchEngine(writer)).checkpoint(version=0)
+    on_card = Table.for_path(root, engine=TorchEngine()) \
+        .latest_snapshot().state
+    on_cpu = Table.for_path(root, engine=TorchEngine("cpu")) \
+        .latest_snapshot().state
+    assert on_card.live_mask.device.type == "cuda"
+    assert sorted(a.path for a in on_card.add_files) == live
+    assert sorted(r.path for r in on_card.tombstones) == tombstones
+    assert (on_card.version, on_card.num_files, on_card.size_in_bytes) \
+        == (on_cpu.version, on_cpu.num_files, on_cpu.size_in_bytes)
+    assert sorted((a.path, a.size) for a in on_card.add_files) \
+        == sorted((a.path, a.size) for a in on_cpu.add_files)
+    assert sorted((r.path, r.size, r.deletionTimestamp)
+                  for r in on_card.tombstones) \
+        == sorted((r.path, r.size, r.deletionTimestamp)
+                  for r in on_cpu.tombstones)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n_bits,n", [
     (1, 16, 1), (1, 32, 31), (2, 16, 33), (2, 32, 1023), (3, 32, 1025),
@@ -338,9 +470,37 @@ def _minmax_case(f, r, seed):
     return torch.from_numpy(v), torch.from_numpy(m)
 
 
+def _card_kernels(fn, calls: int) -> dict:
+    """{kernel name: launches} that torch.profiler saw on the card in
+    `calls` calls of `fn` (after a warm-up step, so that tracing is on).
+    The tracer may miss a whole trace: one that saw nothing is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))
+                and (getattr(e, "self_device_time_total", 0)
+                     or getattr(e, "self_cuda_time_total", 0))}
+        if seen:
+            return seen
+    return {}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("f,r", [(1, 1), (9, 129), (4, 16384), (4, 16385),
-                                 (20, 500_000), (70_000, 3)])
+@pytest.mark.parametrize("f,r", [(1, 1), (9, 129), (4, 15), (4, 17),
+                                 (4, 16384), (4, 16385), (20, 500_000),
+                                 (3, 1_000_001), (70_000, 3)])
 def test_segmented_minmax_kernel_matches_plain(f, r):
     dev = _card()
     v, m = _minmax_case(f, r, seed=f + r)
@@ -352,6 +512,29 @@ def test_segmented_minmax_kernel_matches_plain(f, r):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
     assert obs.counter("kernel.segmented_minmax.launches").read() \
         == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v_at,m_at", [(1, 1), (0, 1), (1, 0), (3, 7)])
+@pytest.mark.parametrize("f,r", [(9, 129), (20, 500_000), (1000, 17)])
+def test_segmented_minmax_kernel_on_unaligned_views(f, r, v_at, m_at):
+    """Contiguous views that start off 16-byte alignment
+    (`buf[k:].view(F, R)`), values and mask alike or apart: bit for bit,
+    one kernel per call."""
+    dev = _card()
+    v, m = _minmax_case(f, r, seed=f + r + v_at)
+    vbuf = torch.zeros(f * r + v_at, dtype=torch.float32, device=dev)
+    mbuf = torch.zeros(f * r + m_at, dtype=torch.bool, device=dev)
+    vbuf[v_at:] = v.reshape(-1).to(dev)
+    mbuf[m_at:] = m.reshape(-1).to(dev)
+    vt, mt = vbuf[v_at:].view(f, r), mbuf[m_at:].view(f, r)
+    got = segmented_minmax(vt, mt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, segmented_minmax_plain(v, m)):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    seen = _card_kernels(lambda: segmented_minmax(vt, mt), calls=5)
+    assert len(seen) == 1 and "segmented_minmax_kernel" in next(iter(seen))
+    assert 1 <= next(iter(seen.values())) <= 5
 
 
 @pytest.mark.cuda
