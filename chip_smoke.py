@@ -54,6 +54,23 @@
    load a `.crc` of the newest version that lies about the file count and
    size is quarantined (`snapshot.crc_quarantined` 1) and reseeded from
    the state.
+   Then the snapshot's life after the load on a copy of that log (hard
+   links): a cold load on the card, 10 new commits of the generator's
+   shape (100 files each, 20% removes of live files, one re-add of a
+   removed path, one path that needs percent-decoding, removed later by
+   its decoded spelling) and, counters from 0, `Table.update()`: one
+   LIST, the 10 new commits read and parsed (K1) and replayed on top of
+   the retained state (K2), K3 not launched, no full replay; the
+   advanced state equals a cold `snapshot_at` of the new head bit for
+   bit (lanes and masks, the key codes a bijection) and the appended
+   live set. Then a no-change poll (one LIST, no read), `metadata` on a
+   fresh Table by the small read and then from a `.crc` (no part
+   decoded), an append through `write_table`'s own steps on the Table
+   holding the advanced snapshot (its commit advances the cache; the
+   checkpoint hook at that version writes from it, no full replay), a
+   `write_table` on a fresh Table (metadata from the `.crc`), and a
+   reload through the hook's checkpoint to the expected live set.
+   Prints each wall time beside the cold load's, with the counters.
 8. Checkpoint-write path, BASELINE config 2's write half: the latest
    snapshot of the headline log loaded on the card, then, counters from
    0, `log/checkpointer.py::write_checkpoint(engine, snapshot)` with
@@ -564,6 +581,237 @@ def ladder_phase(path: str, truth, parts: list, Table, TorchEngine, obs,
     finally:
         shutil.rmtree(copy, ignore_errors=True)
     out["card"] = card
+    return out
+
+
+UPDATE_COMMITS = 10
+
+
+def append_commits(log: str, state, first: int, seed: int):
+    """Append `UPDATE_COMMITS` commits of the generator's shape after the
+    loaded `state` (100 files each: 20 removes of live files, 80 adds with
+    stats): commit 5 re-adds a path commit 2 removed, commit 3 adds a path
+    that needs percent-decoding, commit 7 removes it by its decoded
+    spelling. Returns (the decoded paths added, those removed) as sets."""
+    rng = np.random.default_rng(seed)
+    live = torch.nonzero(state.live_mask).squeeze(1).cpu().numpy()
+    pick = np.sort(rng.choice(live, 20 * UPDATE_COMMITS, replace=False))
+    gone = state.file_actions.rows.paths(pick)
+    rng.shuffle(gone)
+    added, removed = set(), set()
+    for k in range(UPDATE_COMMITS):
+        v = first + k
+        rms = list(gone[20 * k:20 * (k + 1)])
+        adds = [f"part-u{v:010d}-{j:03d}-{int(u):016x}.parquet"
+                for j, u in enumerate(rng.integers(0, 1 << 60, 80))]
+        if k == 3:
+            adds[0] = f"part-u{v:010d}-pct%20name.parquet"
+        if k == 5:
+            adds[1] = gone[20 * 2]  # re-added after commit 2 removed it
+        if k == 7:
+            rms[0] = f"part-u{first + 3:010d}-pct name.parquet"
+        lines = [f'{{"remove":{{"path":"{p}","deletionTimestamp":{v},'
+                 f'"dataChange":true}}}}' for p in rms]
+        for j, p in enumerate(adds):
+            lo, hi = (j + 1) * 1000, (j + 2) * 1000
+            lines.append(
+                f'{{"add":{{"path":"{p}","partitionValues":{{}},'
+                f'"size":1048576,"modificationTime":{v},"dataChange":true,'
+                f'"stats":"{{\\"numRecords\\":1000,'
+                f'\\"minValues\\":{{\\"x\\":{lo}}},'
+                f'\\"maxValues\\":{{\\"x\\":{hi}}},'
+                f'\\"nullCount\\":{{\\"x\\":0}}}}"}}}}')
+        with open(os.path.join(log, f"{v:020d}.json"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        for p in rms:
+            added.discard(p.replace("%20", " "))
+            removed.add(p.replace("%20", " "))
+        for p in adds:
+            removed.discard(p.replace("%20", " "))
+            added.add(p.replace("%20", " "))
+    return added, removed
+
+
+def _same_lanes(a, b, what: str) -> None:
+    """Two states of one segment bit for bit on the card: lanes and masks
+    equal, the two numberings of the replay key a bijection."""
+    fa, fb = a.file_actions, b.file_actions
+    for lane in ("is_add", "version", "order", "size"):
+        _check(torch.equal(getattr(fa, lane), getattr(fb, lane)),
+               f"{what}: the {lane} lanes equal")
+    _check(torch.equal(a.live_mask, b.live_mask)
+           and torch.equal(a.tombstone_mask, b.tombstone_mask),
+           f"{what}: live and tombstone masks equal")
+    ka = torch.stack([fa.path_code, fa.dv_code])
+    kb = torch.stack([fb.path_code, fb.dv_code])
+    n_pairs = torch.unique(torch.cat([ka, kb]), dim=1).shape[1]
+    _check(n_pairs == torch.unique(ka, dim=1).shape[1]
+           == torch.unique(kb, dim=1).shape[1],
+           f"{what}: the replay keys' codes a bijection")
+
+
+def _live_sha(state) -> str:
+    idx = torch.nonzero(state.live_mask).squeeze(1).cpu().numpy()
+    paths = sorted(state.file_actions.rows.paths(idx))
+    return hashlib.sha256("\n".join(paths).encode()).hexdigest()
+
+
+def update_phase(path: str, truth, card: str, seed: int) -> dict:
+    """The snapshot's life after the load, on a hard-linked copy of the
+    checkpoint-and-tail log: a cold load on the card, then
+    `UPDATE_COMMITS` new commits (`append_commits`) and, counters from 0,
+    `Table.update()`, which must list once, read only the new commits,
+    launch K1 and K2 and not K3, replay nothing in full, and equal a cold
+    `snapshot_at` of the new head bit for bit and the expected live set;
+    then a no-change poll (one LIST, no read), `metadata` on a fresh
+    Table (the small read, then from a `.crc`; no part decoded), and an
+    append through `write_table`'s own steps on the Table that holds the
+    advanced snapshot, whose commit advances it and whose checkpoint hook
+    writes from it (no full replay), then a `write_table` on a fresh
+    Table."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.log.checksum import write_checksum_from_state
+    from delta_tpu_torch.log.last_checkpoint import read_last_checkpoint
+    from delta_tpu_torch.models.batch import Batch, as_column
+    from delta_tpu_torch.models.schema import schema_from_json
+    from delta_tpu_torch.utils import filenames
+    from delta_tpu_torch.write.writer import write_data_files
+
+    copy = path + "_update"
+    shutil.copytree(path, copy, copy_function=_link_or_copy)
+    log = os.path.join(copy, "_delta_log")
+    out = {"card": card, "new_commits": UPDATE_COMMITS}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        obs.reset()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, obs.counters()
+
+    try:
+        table = Table.for_path(copy, engine=TorchEngine())
+        prior, out["cold_load_s"], counts = timed(
+            lambda: table.latest_snapshot().state)
+        _truth_checks(prior, truth, "update: the cold load")
+        _ladder_idle(counts, "update: the cold load")
+        head = truth.version + UPDATE_COMMITS
+        added, removed = append_commits(log, prior, truth.version + 1,
+                                        seed)
+        want = (set(truth.live_paths) - removed) | added
+        want_sha = hashlib.sha256(
+            "\n".join(sorted(want)).encode()).hexdigest()
+
+        def advance():
+            snap = table.update()
+            snap.state
+            return snap
+
+        snap, out["update_s"], counts = timed(advance)
+        out["update_counters"] = counts
+        adv = snap.state
+        out["update_phase_s"] = adv.phase_seconds
+        _check(snap.version == head, "update: advanced to the new head")
+        _check(counts.get("replay.advances", 0) == 1
+               and counts.get("replay.reconstructs", 0) == 0,
+               "update: one advance, no full replay")
+        _check(counts.get("log.commit_reads", 0) == UPDATE_COMMITS,
+               "update: read the new commits alone")
+        _check(counts.get("kernel.byte_class.launches", 0) >= 1
+               and counts.get("kernel.winner_pack.launches", 0) >= 1,
+               "update: K1 parsed and K2 replayed the new commits")
+        _check(counts.get("kernel.hybrid_extract.launches", 0) == 0
+               and counts.get("decode.device_parts", 0) == 0,
+               "update: K3 not launched, no part decoded")
+        _check(adv.num_files == len(want)
+               and adv.size_in_bytes == 1048576 * len(want)
+               and _live_sha(adv) == want_sha,
+               "update: the advanced state's live files as appended")
+
+        cold, out["cold_head_load_s"], counts = timed(
+            lambda: Table.for_path(copy, engine=TorchEngine())
+            .snapshot_at(head).state)
+        out["cold_head_counters"] = counts
+        _same_lanes(adv, cold, "update: advanced vs cold snapshot_at")
+        del cold
+
+        same, out["poll_s"], counts = timed(table.update)
+        out["poll_counters"] = counts
+        _check(same is snap and counts.get("storage.list_calls", 0) == 1
+               and counts.get("storage.read_calls", 0) == 0
+               and counts.get("log.commit_reads", 0) == 0,
+               "update: a no-change poll lists once and reads nothing")
+
+        meta, out["metadata_small_s"], counts = timed(
+            lambda: Table.for_path(copy, engine=TorchEngine())
+            .latest_snapshot().metadata)
+        out["metadata_small_counters"] = counts
+        _check(meta.id == "bench" and counts.get("replay.small_loads") == 1
+               and counts.get("replay.reconstructs", 0) == 0
+               and counts.get("decode.device_parts", 0) == 0
+               and counts.get("kernel.hybrid_extract.launches", 0) == 0,
+               "update: metadata by the small read, no part decoded")
+        write_checksum_from_state(TorchEngine().fs, log, adv)
+        meta, out["metadata_crc_s"], counts = timed(
+            lambda: Table.for_path(copy, engine=TorchEngine())
+            .latest_snapshot().metadata)
+        out["metadata_crc_counters"] = counts
+        _check(meta.id == "bench" and counts.get("snapshot.pm_from_crc") == 1
+               and counts.get("replay.small_loads", 0) == 0
+               and counts.get("replay.reconstructs", 0) == 0
+               and counts.get("log.commit_reads", 0) == 0,
+               "update: metadata from the .crc alone")
+
+        def append_on_table():
+            txn = table.create_transaction_builder().build()
+            meta = txn.metadata()
+            txn.add_files(write_data_files(
+                table.engine, table.path,
+                Batch({"x": as_column(np.arange(1000))}),
+                schema_from_json(meta.schemaString), [],
+                meta.configuration))
+            return txn.commit().version
+
+        v, out["append_cached_s"], counts = timed(append_on_table)
+        out["append_cached_counters"] = counts
+        _check(v == head + 1 and v % 10 == 0, "update: the append's version")
+        _check(counts.get("table.notify_advances") == 1
+               and counts.get("replay.reconstructs", 0) == 0
+               and counts.get("log.commit_reads", 0) == 0
+               and counts.get("kernel.hybrid_extract.launches", 0) == 0,
+               "update: the append advanced the cache, the hooks replayed "
+               "nothing in full")
+        _check(read_last_checkpoint(TorchEngine().fs, log).version == v
+               and not any(n for k, n in counts.items()
+                           if k.startswith("hooks.")),
+               "update: the checkpoint hook wrote from the advanced state")
+        v2, out["write_table_s"], counts = timed(lambda: write_table(
+            copy, {"x": np.arange(1000)}, engine=TorchEngine()))
+        out["write_table_counters"] = counts
+        _check(v2 == v + 1 and counts.get("replay.reconstructs", 0) == 0
+               and counts.get("snapshot.pm_from_crc", 0) == 1,
+               "update: write_table read its metadata from the .crc")
+        final, out["reload_s"], counts = timed(
+            lambda: Table.for_path(copy, engine=TorchEngine())
+            .latest_snapshot().state)
+        _check(final.file_actions.version.min() == v,
+               "update: the reload reads the hook's checkpoint")
+        _check(counts.get("kernel.hybrid_extract.launches", 0)
+               == counts.get("decode.device_parts", -1) >= 1,
+               "update: the reload decodes each part of it with K3")
+        new_paths = set()
+        for ver in (v, v2):
+            with open(filenames.delta_file(log, ver)) as fh:
+                new_paths |= {json.loads(ln)["add"]["path"] for ln in fh
+                              if ln.startswith('{"add"')}
+        _check(final.num_files == len(want) + 2
+               and _live_sha(final) == hashlib.sha256("\n".join(
+                   sorted(want | new_paths)).encode()).hexdigest(),
+               "update: the hook's checkpoint holds the advanced state")
+    finally:
+        shutil.rmtree(copy, ignore_errors=True)
     return out
 
 
@@ -1442,6 +1690,17 @@ def main(argv=None) -> int:
             "actions_per_s": n_rows / load_s,
             "peak_device_bytes": peak, "card": card}), flush=True)
         del state
+
+        # the snapshot's life after the load: update(), a poll, P&M, an
+        # append whose hooks take the advanced state; counters from 0
+        upd = update_phase(path, truth, card, args.seed + 5)
+        for name, key in (("byte_class", "kernel.byte_class.launches"),
+                          ("winner_pack", "kernel.winner_pack.launches")):
+            kernels[name]["launches_update"] = \
+                upd["update_counters"].get(key, 0)
+        kernels["hybrid_extract"]["launches_update"] = \
+            upd["update_counters"].get("kernel.hybrid_extract.launches", 0)
+        print("update: " + json.dumps(upd), flush=True)
 
         # the load's degradation ladder and .crc quarantine on the card
         print("ladder: " + json.dumps(ladder_phase(

@@ -11,7 +11,11 @@ LIST -> checkpoint parts (own footer reader and snappy; device page decode,
 kernel K3, the hybrid bit-field extract; host leaf reader for the rest) ->
 tail commits (parallel read, device JSON parse, kernel K1, byte classes)
 -> device replay (stable sort + kernel K2, the winner pass) -> live-file
-and tombstone masks on the card.
+and tombstone masks on the card. The table keeps that snapshot:
+`Table.update()` replays only the commits past it (K1, K2), a commit of
+this package hands its own bytes over (`Table.notify_commit`), metadata
+comes from the `.crc` or the checkpoint's small-action columns, and
+`Table.history()` / `snapshot_as_of_timestamp()` travel in time.
 
 It writes to an unpartitioned table (`api.write_table`) and runs OPTIMIZE
 (`Table.optimize()`: compaction, Z-order and Hilbert clustering) with its

@@ -109,6 +109,11 @@ SYMLINK_MANIFEST_ENABLED = TableConfig(
     "delta.compatibility.symlinkFormatManifest.enabled", False, _parse_bool)
 
 
+# every table property this package parses, by key (`Snapshot.get_config`)
+TABLE_CONFIGS: Dict[str, TableConfig] = {
+    c.key: c for c in globals().values() if isinstance(c, TableConfig)}
+
+
 def get_table_config(configuration: Dict[str, str], cfg: TableConfig):
     raw = configuration.get(cfg.key)
     if raw is None:

@@ -162,5 +162,17 @@ class ChecksumMismatchError(DeltaError):
     error_class = "DELTA_CHECKSUM_MISMATCH"
 
 
+class TimestampEarlierThanCommitRetentionError(DeltaError):
+    """Time travel to a timestamp before the earliest commit."""
+
+    error_class = "DELTA_TIMESTAMP_EARLIER_THAN_COMMIT_RETENTION"
+
+
+class TimestampLaterThanLatestCommitError(DeltaError):
+    """Time travel to a timestamp after the newest commit."""
+
+    error_class = "DELTA_TIMESTAMP_GREATER_THAN_COMMIT"
+
+
 class CheckpointError(DeltaError):
     error_class = "DELTA_CHECKPOINT_NON_EXIST_TABLE"

@@ -12,6 +12,10 @@ commit, but bumps `hooks.<name>.failures` and is logged, so that nothing
 swallows it unseen. The reference's Iceberg/Hudi and symlink-manifest
 hooks are not ported; a table whose configuration asks for them is
 refused before the commit (`txn/transaction.py::check_write_supported`).
+
+A hook that needs the state takes `_snapshot_for_hook`: the table's cached
+snapshot, which the commit's own bytes advanced (`Table.notify_commit`),
+so that it replays nothing in full.
 """
 
 from __future__ import annotations
@@ -32,6 +36,21 @@ AUTO_COMPACT_MIN_FILES = 50
 AUTO_COMPACT_MAX_FILE_SIZE = 128 * 1024 * 1024
 
 
+def _snapshot_for_hook(table, version: int):
+    """The snapshot at the just-committed `version`: `table.update()`,
+    which serves it from the advanced cache without reading the log; the
+    snapshot at `version` when that fails or another writer has moved
+    past it."""
+    try:
+        snap = table.update()
+        if snap.version == version:
+            return snap
+    except Exception as e:  # the cache only saves a load
+        _log.debug("update() for the hooks at version %d failed (%s); "
+                   "loading the snapshot at that version", version, e)
+    return table.snapshot_at(version)
+
+
 def checksum_hook(table, txn, version: int, metadata) -> None:
     from delta_tpu_torch.log.checksum import write_checksum_for_commit
 
@@ -43,8 +62,7 @@ def checkpoint_hook(table, txn, version: int, metadata) -> None:
     if interval > 0 and version > 0 and version % interval == 0:
         from delta_tpu_torch.log.checkpointer import write_checkpoint
 
-        # at `version` even when another writer has moved past it
-        write_checkpoint(table.engine, table.snapshot_at(version))
+        write_checkpoint(table.engine, _snapshot_for_hook(table, version))
 
 
 def auto_compact_hook(table, txn, version: int, metadata) -> None:
@@ -54,7 +72,7 @@ def auto_compact_hook(table, txn, version: int, metadata) -> None:
         return
     if txn.operation == "OPTIMIZE" or not txn._adds:
         return
-    state = table.snapshot_at(version).state
+    state = _snapshot_for_hook(table, version).state
     sizes = state.file_actions.size[state.live_mask]
     if int((sizes < AUTO_COMPACT_MAX_FILE_SIZE).sum()) < AUTO_COMPACT_MIN_FILES:
         return

@@ -560,9 +560,8 @@ def _file_block(store, idx: np.ndarray, root: str) -> Block:
     from delta_tpu_torch.replay.host_parse import DictRows, decode_path
 
     if isinstance(store, CompositeRows):
-        a, b = store.split(idx)
-        return _concat_blocks(root, [_file_block(store.first, a, root),
-                                    _file_block(store.second, b, root)])
+        return _concat_blocks(root, [_file_block(st, local, root)
+                                     for st, local in store.pieces(idx)])
     if isinstance(store, CheckpointRows):
         return _concat_blocks(root, [
             _part_block(part.read, root, rows)

@@ -1,10 +1,14 @@
 """LogSegment: the checkpoint and commit files that reproduce a version.
 
-Counterpart of `delta_tpu/log/segment.py::_build_log_segment`, for the
-latest version or a target version at or below it:
+Counterpart of `delta_tpu/log/segment.py`, for the latest version or a
+target version at or below it:
 
-1. LIST `_delta_log` (lexicographic order is version order); with a
-   target version, commits and checkpoints past it are left out.
+1. LIST `_delta_log` (lexicographic order is version order) from the
+   `_last_checkpoint` hint's version when the caller gives one, else from
+   version 0; with a target version, commits and checkpoints past it are
+   left out. A hinted listing that cannot assemble a contiguous segment
+   (the hinted checkpoint lost a part) is retried from version 0 and
+   counted (`log.hint_discarded`).
 2. Partition the listing into commits, checkpoints and compacted deltas.
 3. The newest complete checkpoint anchors the segment: single-part or
    multi-part classic Parquet. A V2 checkpoint (UUID-named, JSON or
@@ -15,14 +19,22 @@ latest version or a target version at or below it:
    timestamp is the last commit's mtime, as in the reference.
 
 A target version that the listing cannot reach raises
-`VersionNotFoundError`. Time travel by timestamp comes with a later slice.
+`VersionNotFoundError`.
+
+`extend_log_segment` is the incremental half (`Snapshot.update()`): it
+LISTs only past a segment's version and appends the new commits, or
+raises `_IncrementalUnavailable` when the segment a cold load would build
+starts elsewhere (a newer checkpoint or compacted delta) or the new
+versions have a gap.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from delta_tpu_torch import obs
 from delta_tpu_torch.errors import (
     CorruptLogError,
     TableNotFoundError,
@@ -48,26 +60,105 @@ class LogSegment:
     last_commit_timestamp: int = 0
 
 
-def build_log_segment(fs, log_path: str,
-                      target_version: Optional[int] = None,
-                      max_checkpoint_version: Optional[int] = None
-                      ) -> LogSegment:
-    """LIST the log and assemble the segment of its latest version, or of
-    `target_version`. `max_checkpoint_version` caps which checkpoints may
-    anchor it: the snapshot's fallback after the checkpoint at V proved
-    unreadable rebuilds with V - 1, replaying from the previous complete
-    checkpoint or from the JSON commits alone; the commits of the dropped
-    checkpoints' versions stay in the segment."""
+_HINT_DISCARDED = obs.counter("log.hint_discarded")
+
+
+class _IncrementalUnavailable(Exception):
+    """The segment cannot be extended incrementally: a checkpoint or
+    compacted delta landed past it, or the new versions have a gap. The
+    caller falls back to a full load; a control-flow signal, never a
+    user-facing error."""
+
+
+def _list(fs, log_path: str, start: int):
+    """The listing of `log_path` from version `start`; commits skip the
+    stat (the reader learns their sizes as it reads them)."""
     try:
-        # commits skip the stat (the reader learns their sizes as it reads
-        # them); only the newest commit's mtime is needed (stat'd below)
-        listing = fs.list_from(
-            filenames.listing_prefix(log_path, 0),
+        return fs.list_from(
+            filenames.listing_prefix(log_path, start),
             skip_stat=lambda name: filenames.DELTA_FILE_RE.match(name)
             is not None)
     except FileNotFoundError:
         raise TableNotFoundError(f"no _delta_log at {log_path}",
                                  error_class="DELTA_EMPTY_DIRECTORY")
+
+
+def extend_log_segment(fs, prev: LogSegment):
+    """LIST only the log files past `prev.version` and append the new
+    commits to the segment. Returns None when nothing is new (one
+    listing, no read), else `(new segment, new commit FileStatuses)`; the
+    newest commit's mtime is the new segment's timestamp. Raises
+    `_IncrementalUnavailable` when a checkpoint or compacted delta newer
+    than `prev.version` appeared (a cold load would start from it) or the
+    new versions are not contiguous from `prev.version + 1`."""
+    start = prev.version + 1
+    new: List[tuple] = []
+    for fstat in _list(fs, prev.log_path, start):
+        name = filenames.file_name(fstat.path)
+        if filenames.DELTA_FILE_RE.match(name):
+            v = int(name.split(".", 1)[0])
+            if v >= start:
+                new.append((v, fstat))
+        elif filenames.CHECKPOINT_FILE_RE.match(name) and fstat.size > 0:
+            ci = CheckpointInstance.parse(fstat.path)
+            if ci is not None and ci.version > prev.version:
+                raise _IncrementalUnavailable(
+                    f"checkpoint appeared at version {ci.version}")
+        elif filenames.COMPACTED_DELTA_FILE_RE.match(name):
+            _, hi = filenames.compacted_delta_versions(fstat.path)
+            if hi > prev.version:
+                raise _IncrementalUnavailable(
+                    f"compacted delta appeared covering up to {hi}")
+    if not new:
+        return None
+    new.sort(key=lambda t: t[0])
+    versions = [v for v, _ in new]
+    if versions != list(range(start, versions[-1] + 1)):
+        raise _IncrementalUnavailable(
+            f"non-contiguous new commits {versions[:5]}..., expected "
+            f"[{start}, {versions[-1]}]")
+    files = [f for _, f in new]
+    ts = prev.last_commit_timestamp
+    try:
+        ts = max(ts, fs.file_status(files[-1].path).modification_time)
+    except FileNotFoundError:
+        pass
+    seg = dataclasses.replace(prev, version=versions[-1],
+                              deltas=list(prev.deltas) + files,
+                              last_commit_timestamp=ts)
+    return seg, files
+
+
+def build_log_segment(fs, log_path: str,
+                      target_version: Optional[int] = None,
+                      max_checkpoint_version: Optional[int] = None,
+                      checkpoint_hint: Optional[int] = None) -> LogSegment:
+    """LIST the log and assemble the segment of its latest version, or of
+    `target_version`. `max_checkpoint_version` caps which checkpoints may
+    anchor it: the snapshot's fallback after the checkpoint at V proved
+    unreadable rebuilds with V - 1, replaying from the previous complete
+    checkpoint or from the JSON commits alone; the commits of the dropped
+    checkpoints' versions stay in the segment. `checkpoint_hint` (the
+    `_last_checkpoint` version) starts the listing there; a segment that
+    cannot be assembled from it is listed again from version 0."""
+    try:
+        return _build_log_segment(fs, log_path, target_version,
+                                  max_checkpoint_version, checkpoint_hint)
+    except CorruptLogError:
+        if checkpoint_hint is None:
+            raise
+        # the hint only speeds the listing up: a window that cannot be
+        # assembled from it (the hinted checkpoint lost a part) may still
+        # be assembled from a full listing anchored earlier
+        _HINT_DISCARDED.inc()
+        return _build_log_segment(fs, log_path, target_version,
+                                  max_checkpoint_version, None)
+
+
+def _build_log_segment(fs, log_path: str, target_version: Optional[int],
+                       max_checkpoint_version: Optional[int],
+                       checkpoint_hint: Optional[int]) -> LogSegment:
+    listing = _list(fs, log_path, checkpoint_hint or 0)
 
     deltas: List[tuple] = []
     checkpoints: List[CheckpointInstance] = []

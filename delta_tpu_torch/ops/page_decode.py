@@ -362,9 +362,10 @@ def _decoded_paths(raw: Sequence[bytes]) -> Optional[List[str]]:
 
 def launch_checkpoint_handoff(parts: Sequence[PartKeys], device):
     """Launch the replay of a checkpoint-only load straight from the parts'
-    device code lanes. Returns (ReplayPending, path codes int64 [n]) or
-    None when the parts disqualify (a null path in a present action, a
-    part without a code lane, non-UTF-8 paths).
+    device code lanes. Returns (ReplayPending, path codes int64 [n], the
+    decoded paths in code order) or None when the parts disqualify (a null
+    path in a present action, a part without a code lane, non-UTF-8
+    paths).
 
     Host work is O(unique paths): the part dictionaries unify into one
     code space and only the small remap tables go to the device. Row
@@ -396,4 +397,5 @@ def launch_checkpoint_handoff(parts: Sequence[PartKeys], device):
     skey, sidx = torch.sort(key, stable=True)
     words = winner_pack(skey, sidx.to(torch.int32), n)
     _OBS_HANDOFFS.inc()
-    return ReplayPending(words, torch.cat(is_add), n, None), key
+    return ReplayPending(words, torch.cat(is_add), n, None), key, \
+        list(global_codes)

@@ -17,6 +17,11 @@ a surviving `add` is a live file, a surviving `remove` a tombstone.
 4. The winner words split into live (`winner & add`) and tombstone
    (`winner & ~add`) masks, which stay on the device.
 
+`advance_masks` is `Snapshot.update()`'s replay: the new commits alone
+through the same sort and K2, then a device search that clears the prior
+rows whose keys they touch (the JAX package's `delta_winner_masks` and
+its candidate check, which run on the host there).
+
 The JAX package ships keys over a slow host link as first-appearance
 flag bits; that packed transfer is not ported here. Keys stay on the
 device from the parse on.
@@ -198,6 +203,34 @@ def replay_select(
     file (dictionary codes). version/order: the chronological coordinate of
     each row."""
     return replay_select_launch(key_lanes, version, order, is_add).finish()
+
+
+def advance_masks(prev_path: torch.Tensor, prev_dv: torch.Tensor,
+                  prev_live: torch.Tensor, prev_tomb: torch.Tensor,
+                  d_path: torch.Tensor, d_dv: torch.Tensor,
+                  d_version: torch.Tensor, d_order: torch.Tensor,
+                  d_is_add: torch.Tensor, n_dv: int):
+    """(live, tombstone) masks over a prior state's rows followed by a
+    delta's, after the delta's commits replay on top of the prior state.
+    The delta's key lanes are already coded in the prior's space
+    (`replay/keys.py::KeySpace.absorb`); dv codes are below `n_dv`.
+
+    The delta replays alone (stable `torch.sort` + K2, as a load does);
+    every prior row whose exact `(path, dv)` key the delta touches loses
+    its mask bits, since a newer action of its key exists. The prior
+    lanes stay on the device: the delta's distinct keys are sorted and
+    each prior key is found by `torch.searchsorted`, one pass over the
+    prior rows."""
+    d_live, d_tomb = replay_select([d_path, d_dv], d_version, d_order,
+                                   d_is_add)
+    if d_path.shape[0] == 0:
+        return prev_live, prev_tomb
+    touched = torch.unique(d_path * n_dv + d_dv)  # sorted
+    pk = prev_path * n_dv + prev_dv if n_dv > 1 else prev_path
+    at = torch.searchsorted(touched, pk).clamp_(max=touched.shape[0] - 1)
+    hit = touched[at] == pk
+    return (torch.cat([prev_live & ~hit, d_live]),
+            torch.cat([prev_tomb & ~hit, d_tomb]))
 
 
 def python_replay_reference(

@@ -31,7 +31,11 @@ Either way the result is a `FileActions`:
 
 The small actions (protocol, metaData, txn, domainMetadata, commitInfo)
 resolve host-side, latest (version, order) wins; the checkpoint's rows
-come before every commit's.
+come before every commit's. A `small_only` read resolves them alone, from
+the checkpoint's small-action columns (no add or remove leaf read, no
+device decode) and the tail's control lines: the P&M fast path.
+`columnarize_commit_blobs` takes commits already in memory (the bytes a
+transaction just wrote) through the same parse as commits read from disk.
 """
 
 from __future__ import annotations
@@ -62,10 +66,12 @@ from delta_tpu_torch.models.actions import (
     RemoveFile,
     SetTransaction,
 )
+from delta_tpu_torch.replay.keys import KeySpace
 from delta_tpu_torch.utils import filenames
 
 _OBS_DECODE_PARTS = obs.counter("decode.device_parts")
 _OBS_DECODE_FALLBACKS = obs.counter("decode.device_fallbacks")
+_OBS_COMMIT_READS = obs.counter("log.commit_reads")
 
 
 @dataclass
@@ -80,6 +86,7 @@ class FileActions:
     path_code: torch.Tensor  # int64 [n]
     dv_code: torch.Tensor    # int64 [n], 0 = no deletion vector
     rows: object             # .add_files(idx) / .remove_files(idx)
+    keys: object = None      # the codes' replay.keys.KeySpace
 
     @property
     def num_rows(self) -> int:
@@ -95,6 +102,7 @@ class ParsedCommits:
     file_actions: FileActions
     others: List[Tuple[int, int, dict]]  # (version, order, control action)
     path_keys: Optional[list] = None
+    on_device: bool = False  # parsed by the device route
 
 
 def _prune_nones(d):
@@ -158,7 +166,7 @@ class _SmallActionTracker:
 class ColumnarActions:
     """Output of columnarization for one log segment."""
 
-    file_actions: FileActions
+    file_actions: Optional[FileActions]  # None for a small-only read
     protocol: Optional[Protocol] = None
     metadata: Optional[Metadata] = None
     set_transactions: Dict[str, SetTransaction] = field(default_factory=dict)
@@ -193,6 +201,7 @@ def _read_commits_buffer(
     workers = max(1, min(max_workers, os.cpu_count() or 1, n // 64))
 
     def read_file(path: str) -> bytes:
+        _OBS_COMMIT_READS.inc()
         try:
             fd = os.open(path, os.O_RDONLY)
         except FileNotFoundError as e:
@@ -492,7 +501,7 @@ class CheckpointActions:
     path_rows: List[_PathRows]
     dv_ids: Dict[int, str]
     others: List[Tuple[int, int, dict]]
-    handoff: Optional[tuple] = None  # (ReplayPending, path codes)
+    handoff: Optional[tuple] = None  # (ReplayPending, codes, paths)
 
     @property
     def n(self) -> int:
@@ -508,6 +517,45 @@ def _read_part_bytes(path: str, version: int) -> bytes:
             f"couldn't find all part files of the checkpoint at version "
             f"{version}: {path} is missing",
             error_class="DELTA_MISSING_PART_FILES") from e
+
+
+def _small_actions(segment) -> List[Tuple[int, int, dict]]:
+    """The protocol, metaData, txn and domainMetadata rows of the
+    segment's checkpoint, read by the host leaf reader from those columns
+    alone: no add or remove leaf is read and nothing is decoded on the
+    device (the reference's `small_only` projection)."""
+    from delta_tpu_torch.log.page_decode import PartRead
+    from delta_tpu_torch.log.parquet_footer import (
+        DecodeCorrupt,
+        DecodeUnsupported,
+        read_footer,
+    )
+    from delta_tpu_torch.log.parquet_host import assemble, read_leaves
+
+    cp = segment.checkpoint_version
+    others: List[Tuple[int, int, dict]] = []
+    for fstat in segment.checkpoints:
+        data = _read_part_bytes(fstat.path, cp)
+        try:
+            footer = read_footer(data)
+            read = PartRead(footer.num_rows, footer, read_leaves(
+                footer, data, [leaf.path for leaf in footer.leaves
+                               if leaf.parts[0] in _SMALL_ROOTS]),
+                {}, None, False)
+            for root in _SMALL_ROOTS:
+                at = np.flatnonzero(_present(read, root))
+                if at.size:
+                    others += [(cp, int(r), {root: b}) for r, b in zip(
+                        at.tolist(), assemble(read.leaves, root, at))]
+        except DecodeUnsupported as e:
+            raise UnsupportedLogError(
+                f"checkpoint part {fstat.path}: {e}",
+                error_class="DELTA_UNSUPPORTED_CHECKPOINT") from e
+        except DecodeCorrupt as e:
+            raise LogCorruptedError(
+                f"checkpoint part {fstat.path} is damaged: {e}",
+                version=cp, path=fstat.path) from e
+    return others
 
 
 def _read_checkpoint(engine, segment, phases: Dict[str, float]
@@ -619,34 +667,60 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
 
 
 class CompositeRows:
-    """Row store over checkpoint rows followed by commit rows."""
+    """Row store over several stores' rows, one after another: a
+    checkpoint's rows, then its tail commits', then (after
+    `Snapshot.update()`) each advance's commits'."""
 
     def __init__(self, first, n_first: int, second):
-        self.first, self.n_first, self.second = first, n_first, second
+        self.stores = [first, second]
+        self.starts = np.array([0, n_first], np.int64)
+
+    @staticmethod
+    def chain(prev, n_prev: int, store) -> "CompositeRows":
+        """`prev`'s `n_prev` rows, then `store`'s; a composite `prev` is
+        extended flat rather than nested."""
+        if not isinstance(prev, CompositeRows):
+            return CompositeRows(prev, n_prev, store)
+        out = CompositeRows(None, 0, None)
+        out.stores = prev.stores + [store]
+        out.starts = np.append(prev.starts, n_prev)
+        return out
+
+    def pieces(self, idx: np.ndarray):
+        """(store, its local rows) for each store, `idx` ascending."""
+        _check_ascending(idx, "CompositeRows.pieces")
+        cuts = np.searchsorted(idx, self.starts[1:])
+        bounds = np.concatenate([[0], cuts, [len(idx)]])
+        return [(st, idx[lo:hi] - base) for st, base, lo, hi in zip(
+            self.stores, self.starts, bounds[:-1], bounds[1:])]
 
     def split(self, idx: np.ndarray):
-        """`idx` (ascending) cut into first-store and second-store rows."""
-        _check_ascending(idx, "CompositeRows.split")
-        cut = int(np.searchsorted(idx, self.n_first))
-        return idx[:cut], idx[cut:] - self.n_first
+        """`idx` (ascending) cut into first-store and second-store rows (a
+        composite of two stores)."""
+        (_, a), (_, b) = self.pieces(idx)
+        return a, b
+
+    def _each(self, idx: np.ndarray, method: str) -> list:
+        out: list = []
+        for st, local in self.pieces(idx):
+            if len(local):
+                out += getattr(st, method)(local)
+        return out
 
     def paths(self, idx: np.ndarray) -> List[str]:
-        a, b = self.split(idx)
-        return self.first.paths(a) + self.second.paths(b)
+        return self._each(idx, "paths")
 
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
-        a, b = self.split(idx)
-        return self.first.add_files(a) + self.second.add_files(b)
+        return self._each(idx, "add_files")
 
     def remove_files(self, idx: np.ndarray) -> List[RemoveFile]:
-        a, b = self.split(idx)
-        return self.first.remove_files(a) + self.second.remove_files(b)
+        return self._each(idx, "remove_files")
 
 
 def _dv_codes(ck: CheckpointActions, commit_fa: Optional[FileActions],
-              device) -> torch.Tensor:
+              device):
     """Exact codes (0 = none) of the deletion-vector ids of checkpoint and
-    commit rows together."""
+    commit rows together, and the table {id: code} (None is 0)."""
     table: Dict[Optional[str], int] = {None: 0}
     ck_codes = np.zeros(ck.n, np.int64)
     for r, dv in ck.dv_ids.items():
@@ -663,36 +737,98 @@ def _dv_codes(ck: CheckpointActions, commit_fa: Optional[FileActions],
                 remap[u] = table.setdefault(dv, len(table))
             local = remap[local]
         lanes.append(torch.from_numpy(local).to(device))
-    return torch.cat(lanes)
+    return torch.cat(lanes), table
 
 
-def columnarize_log_segment(engine, segment) -> ColumnarActions:
+def _parse_commit_buffer(engine, buf, starts: np.ndarray,
+                        versions: np.ndarray) -> ParsedCommits:
+    """Parse one commit buffer: the device parse first, the host parser
+    when the device parse hands the buffer back."""
+    from delta_tpu_torch.replay import device_parse, host_parse
+
+    parsed = device_parse.parse_commits_device(
+        buf, starts, versions, engine.device, engine.parse_window_bytes)
+    if parsed is None:
+        return host_parse.parse_commits_host(buf, starts, versions,
+                                             engine.device)
+    parsed.on_device = True
+    return parsed
+
+
+def _small_columnar(tracker: "_SmallActionTracker", fa: FileActions,
+                    **kw) -> ColumnarActions:
+    latest_ci = None
+    if tracker.commit_infos:
+        latest_ci = tracker.commit_infos[max(tracker.commit_infos)]
+    return ColumnarActions(
+        file_actions=fa,
+        protocol=tracker.protocol[2],
+        metadata=tracker.metadata[2],
+        set_transactions={k: t[2] for k, t in tracker.txns.items()},
+        domain_metadata={k: t[2] for k, t in tracker.domains.items()},
+        latest_commit_info=latest_ci,
+        commit_infos=tracker.commit_infos,
+        **kw)
+
+
+def columnarize_commit_blobs(engine, blobs: Sequence[Tuple[int, bytes]]
+                             ) -> ColumnarActions:
+    """Commits already in memory, `[(version, bytes)]` ascending, through
+    the same parse as commits read from disk (the device parse, kernel
+    K1, first): the post-commit handoff, where a transaction hands over
+    the bytes it just wrote, so that its commit is never listed or read
+    back."""
+    n = len(blobs)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter((len(b) + 1 for _, b in blobs), np.int64, n),
+              out=starts[1:])
+    buf = bytearray(b"\n").join([b for _, b in blobs] + [b""])
+    versions = np.array([v for v, _ in blobs], dtype=np.int64)
+    parsed = _parse_commit_buffer(engine, buf, starts, versions)
+    tracker = _SmallActionTracker()
+    tracker.scan_pylist(parsed.others)
+    return _small_columnar(tracker, parsed.file_actions,
+                           parsed_on_device=parsed.on_device)
+
+
+def columnarize_log_segment(engine, segment, small_only: bool = False
+                            ) -> ColumnarActions:
     """Read the segment's checkpoint parts and commits and produce its
     ColumnarActions. Commits take the device parse first, the host parser
     when the device parse hands the buffer back
     (`parse.device_fallbacks` counts those). Returns, besides, the
-    handoff's launched replay (`ColumnarActions.pending`) when one ran."""
+    handoff's launched replay (`ColumnarActions.pending`) when one ran.
+
+    `small_only` resolves only the small actions: the checkpoint's
+    protocol, metaData, txn and domainMetadata columns alone (no add or
+    remove leaf, no device decode) and the tail commits' control lines;
+    its `file_actions` is None."""
     from delta_tpu_torch.replay import device_parse, host_parse
 
     phases: Dict[str, float] = {}
+    if small_only:
+        tracker = _SmallActionTracker()
+        rows = _small_actions(segment) if segment.checkpoints else []
+        if segment.deltas:
+            buf, starts, versions = _read_commits_buffer(
+                [(filenames.delta_version(f.path), f.path)
+                 for f in segment.deltas])
+            rows += host_parse.parse_commits_host(buf, starts, versions,
+                                                  "cpu").others
+        tracker.scan_pylist(rows)
+        return _small_columnar(tracker, None)
     ck = None
     if segment.checkpoints:
         ck = _read_checkpoint(engine, segment, phases)
         engine.synchronize()
     parsed = None
-    on_device = False
     if segment.deltas:
         t0 = time.perf_counter()
         buf, starts, versions = _read_commits_buffer(
             [(filenames.delta_version(f.path), f.path)
              for f in segment.deltas])
         t1 = time.perf_counter()
-        parsed = device_parse.parse_commits_device(
-            buf, starts, versions, engine.device, engine.parse_window_bytes)
-        on_device = parsed is not None
-        if parsed is None:
-            parsed = host_parse.parse_commits_host(buf, starts, versions,
-                                                   engine.device)
+        parsed = _parse_commit_buffer(engine, buf, starts, versions)
         engine.synchronize()
         phases["read"] = t1 - t0
         phases["parse"] = time.perf_counter() - t1
@@ -716,35 +852,27 @@ def columnarize_log_segment(engine, segment) -> ColumnarActions:
                      for k, v in lanes.items()}
         store = (ck.rows if commit_fa is None
                  else CompositeRows(ck.rows, n_ck, commit_fa.rows))
+        dv_code, dv_ids = _dv_codes(ck, commit_fa, dev)
         if ck.handoff is not None:
-            pending, path_code = ck.handoff
+            pending, path_code, names = ck.handoff
+            keys = KeySpace.of_strings(names, dev, dv_ids)
         else:
-            keys = list(ck.path_rows)
+            windows = list(ck.path_rows)
             if commit_fa is not None:
-                keys += (parsed.path_keys if parsed.path_keys is not None
-                         else [commit_fa.rows.path_rows(dev)])
-            path_code = device_parse.path_codes(keys, store.paths, dev)
-        fa = FileActions(path_code=path_code,
-                         dv_code=_dv_codes(ck, commit_fa, dev),
-                         rows=store, **lanes)
+                windows += (parsed.path_keys if parsed.path_keys is not None
+                            else [commit_fa.rows.path_rows(dev)])
+            path_code, keys = device_parse.path_codes(windows, store.paths,
+                                                      dev)
+            keys.dv_ids = dv_ids
+        fa = FileActions(path_code=path_code, dv_code=dv_code, rows=store,
+                         keys=keys, **lanes)
         engine.synchronize()
         phases["codes"] = time.perf_counter() - t2
 
     tracker = _SmallActionTracker()
     tracker.scan_pylist((ck.others if ck is not None else [])
                         + (parsed.others if parsed is not None else []))
-    latest_ci = None
-    if tracker.commit_infos:
-        latest_ci = tracker.commit_infos[max(tracker.commit_infos)]
-    return ColumnarActions(
-        file_actions=fa,
-        protocol=tracker.protocol[2],
-        metadata=tracker.metadata[2],
-        set_transactions={k: t[2] for k, t in tracker.txns.items()},
-        domain_metadata={k: t[2] for k, t in tracker.domains.items()},
-        latest_commit_info=latest_ci,
-        commit_infos=tracker.commit_infos,
-        parsed_on_device=on_device,
-        phase_seconds=phases,
-        pending=pending,
-    )
+    return _small_columnar(
+        tracker, fa,
+        parsed_on_device=parsed is not None and parsed.on_device,
+        phase_seconds=phases, pending=pending)

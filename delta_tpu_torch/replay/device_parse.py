@@ -46,6 +46,7 @@ from delta_tpu_torch.ops.json_parse import (
 )
 from delta_tpu_torch.replay.columnar import FileActions, ParsedCommits
 from delta_tpu_torch.replay.host_parse import decode_path, line_tags
+from delta_tpu_torch.replay.keys import KeySpace, key_rows
 
 _OBS_WINDOWS = obs.counter("parse.device_windows")
 _OBS_FALLBACKS = obs.counter("parse.device_fallbacks")
@@ -316,29 +317,31 @@ def _parse_one_window(buf: np.ndarray, base: int, file_starts: np.ndarray,
         has_percent=has_percent, host=host, others=others)
 
 
-def path_codes(windows, paths_of, device) -> torch.Tensor:
+def path_codes(windows, paths_of, device):
     """Exact dictionary codes of the decoded paths of all rows of
-    `windows` (in order): each has `path_bytes` (uint8 [rows, width], zero
-    past each length), `path_len` and `has_percent`. One `torch.unique`
-    over the byte rows and lengths codes the raw paths; when any raw path
-    holds a '%', `paths_of(row indices, ascending)` gives the decoded
-    paths of one row per raw path, and those are coded."""
+    `windows` (in order), and their `KeySpace` (`replay/keys.py`): each
+    window has `path_bytes` (uint8 [rows, width], zero past each length),
+    `path_len` and `has_percent`. One `torch.unique` over the byte rows
+    and lengths codes the raw paths; when any raw path holds a '%',
+    `paths_of(row indices, ascending)` gives the decoded paths of one row
+    per raw path, and those are coded."""
     if sum(int(w.path_len.shape[0]) for w in windows) == 0:
-        return torch.zeros(0, dtype=torch.int64, device=device)
+        return (torch.zeros(0, dtype=torch.int64, device=device),
+                KeySpace.of_strings([], device))
     width = max(w.path_bytes.shape[1] for w in windows)
     mats = [torch.nn.functional.pad(w.path_bytes,
                                     (0, width - w.path_bytes.shape[1]))
             for w in windows]
-    words = torch.cat(mats).view(torch.int64)  # width % 8 == 0
-    keys = torch.cat([words, torch.cat([w.path_len for w in windows])[:, None]],
-                     1)
-    del mats, words
+    keys = key_rows(torch.cat(mats), torch.cat([w.path_len for w in windows]))
+    del mats
     uniq, codes = torch.unique(keys, dim=0, return_inverse=True)
+    u = uniq.shape[0]
     if not any(w.has_percent for w in windows):
-        return codes
+        # no '%': each raw path is its decoded path
+        return codes, KeySpace.of_rows(
+            uniq, torch.arange(u, dtype=torch.int64, device=device), u)
     # percent-decoding may map two raw spellings to one path: decode each
     # unique raw path once and code the decoded strings
-    u = uniq.shape[0]
     n = codes.shape[0]
     first = torch.full((u,), n, dtype=torch.int64, device=device) \
         .scatter_reduce_(0, codes, torch.arange(n, device=device), "amin")
@@ -351,7 +354,8 @@ def path_codes(windows, paths_of, device) -> torch.Tensor:
     decoded: dict = {}
     remap = np.fromiter((decoded.setdefault(p, len(decoded)) for p in paths),
                         np.int64, u)
-    return torch.from_numpy(remap).to(device)[codes]
+    return (torch.from_numpy(remap).to(device)[codes],
+            KeySpace.of_strings(list(decoded), device))
 
 
 def parse_commits_device(buf, file_starts: np.ndarray,
@@ -386,14 +390,16 @@ def parse_commits_device(buf, file_starts: np.ndarray,
     store = SpanRows(arr, {k: np.concatenate([w.host[k] for w in windows])
                            for k in _HOST_LANES})
     n = sum(int(w.is_add.shape[0]) for w in windows)
+    codes, keys = path_codes(windows, store.paths, device)
     fa = FileActions(
         is_add=torch.cat([w.is_add for w in windows]),
         version=torch.cat([w.version for w in windows]),
         order=torch.cat([w.order for w in windows]),
         size=torch.cat([w.size for w in windows]),
-        path_code=path_codes(windows, store.paths, device),
+        path_code=codes,
         dv_code=torch.zeros(n, dtype=torch.int64, device=device),
         rows=store,
+        keys=keys,
     )
     return ParsedCommits(file_actions=fa,
                          others=[r for w in windows for r in w.others],

@@ -27,6 +27,7 @@ from delta_tpu_torch.models.actions import (
     RemoveFile,
 )
 from delta_tpu_torch.replay.columnar import FileActions, ParsedCommits
+from delta_tpu_torch.replay.keys import KeySpace
 
 _TORN_COMMITS = obs.counter("log.torn_commits")
 
@@ -189,6 +190,7 @@ def parse_commits_host(buf, file_starts: np.ndarray,
         path_code=lane(pc),
         dv_code=lane(dc),
         rows=DictRows(bodies),
+        keys=KeySpace.of_strings(list(path_codes), device, dv_codes),
     )
     return ParsedCommits(file_actions=fa, others=others)
 

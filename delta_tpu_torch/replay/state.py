@@ -12,6 +12,13 @@ Counterpart of `delta_tpu/replay/state.py`:
    stay on the device.
 3. Aggregates (`num_files`, `size_in_bytes`) reduce on the device; the
    `AddFile` / `RemoveFile` lists materialize on first access.
+
+`reconstruct_small_state` resolves the small actions alone (the P&M fast
+path: no file action is decoded); `advance_state` replays a batch of new
+commits on top of a retained state (`Snapshot.update()`), bit for bit the
+state a cold load of the new version builds from the same checkpoint.
+Counters: `replay.reconstructs` (full loads), `replay.small_loads`,
+`replay.advances`.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from delta_tpu_torch import obs
 from delta_tpu_torch.errors import LogCorruptedError, UnsupportedTableFeatureError
 from delta_tpu_torch.models.actions import (
     AddFile,
@@ -33,12 +41,21 @@ from delta_tpu_torch.models.actions import (
     RemoveFile,
     SetTransaction,
 )
-from delta_tpu_torch.ops.replay import python_replay_reference, replay_select
+from delta_tpu_torch.ops.replay import (
+    advance_masks,
+    python_replay_reference,
+    replay_select,
+)
 from delta_tpu_torch.replay.columnar import (
     ColumnarActions,
+    CompositeRows,
     FileActions,
     columnarize_log_segment,
 )
+
+_RECONSTRUCTS = obs.counter("replay.reconstructs")
+_SMALL_LOADS = obs.counter("replay.small_loads")
+_ADVANCES = obs.counter("replay.advances")
 
 
 @dataclass(eq=False)
@@ -138,14 +155,55 @@ def check_read_supported(protocol: Protocol) -> None:
         raise UnsupportedTableFeatureError(unsupported)
 
 
-def reconstruct_state(engine, segment) -> SnapshotState:
-    """Full state reconstruction of a log segment."""
-    columnar = columnarize_log_segment(engine, segment)
+def _require_pm(columnar: ColumnarActions, version: int,
+                error_class: Optional[str] = None) -> None:
     if columnar.protocol is None or columnar.metadata is None:
         raise LogCorruptedError(
-            f"log segment for version {segment.version} has no "
-            f"{'protocol' if columnar.protocol is None else 'metadata'} action")
+            f"log segment for version {version} has no "
+            f"{'protocol' if columnar.protocol is None else 'metadata'} "
+            f"action", error_class=error_class)
     check_read_supported(columnar.protocol)
+
+
+@dataclass
+class SmallState:
+    """Protocol, metadata, txns, domains and commitInfos WITHOUT the file
+    replay: the checkpoint's small-action columns alone and the tail's
+    control lines (the reference's P&M fast path), for metadata-only
+    readers of a large table."""
+
+    version: int
+    protocol: Protocol
+    metadata: Metadata
+    set_transactions: Dict[str, SetTransaction]
+    domain_metadata: Dict[str, DomainMetadata]
+    latest_commit_info: Optional[CommitInfo] = None
+    commit_infos: Dict[int, CommitInfo] = field(default_factory=dict)
+    timestamp_ms: int = 0
+
+
+def reconstruct_small_state(engine, segment) -> SmallState:
+    """Small-action-only reconstruction (see SmallState)."""
+    _SMALL_LOADS.inc()
+    columnar = columnarize_log_segment(engine, segment, small_only=True)
+    _require_pm(columnar, segment.version, "DELTA_STATE_RECOVER_ERROR")
+    return SmallState(
+        version=segment.version,
+        protocol=columnar.protocol,
+        metadata=columnar.metadata,
+        set_transactions=columnar.set_transactions,
+        domain_metadata=columnar.domain_metadata,
+        latest_commit_info=columnar.latest_commit_info,
+        commit_infos=columnar.commit_infos,
+        timestamp_ms=segment.last_commit_timestamp,
+    )
+
+
+def reconstruct_state(engine, segment) -> SnapshotState:
+    """Full state reconstruction of a log segment."""
+    _RECONSTRUCTS.inc()
+    columnar = columnarize_log_segment(engine, segment)
+    _require_pm(columnar, segment.version)
     t0 = time.perf_counter()
     if columnar.pending is not None:  # the checkpoint handoff's replay
         live, tomb = columnar.pending.finish()
@@ -168,3 +226,63 @@ def reconstruct_state(engine, segment) -> SnapshotState:
         phase_seconds=phases,
     )
 
+
+
+def advance_state(engine, prev: SnapshotState, delta: ColumnarActions,
+                  new_segment) -> SnapshotState:
+    """Replay a batch of new commits on top of a retained state (the
+    incremental half of `Snapshot.update()`). The new state's lanes are
+    the prior lanes followed by the delta's, its row store the prior's
+    followed by the delta's; the delta's keys are coded into the prior's
+    code space exactly (`KeySpace.absorb`), the delta replays on the
+    device and every prior row whose key it touches loses its mask bits
+    (`ops/replay.py::advance_masks`). Bit for bit the masks a cold load of
+    the new segment computes from the same checkpoint.
+
+    The caller handles a protocol change in the delta before this (a full
+    load): a new protocol can change how earlier actions are read."""
+    _ADVANCES.inc()
+    t0 = time.perf_counter()
+    pfa, dfa = prev.file_actions, delta.file_actions
+    n_prev, m = pfa.num_rows, dfa.num_rows
+    if m == 0:
+        fa, live, tomb = pfa, prev.live_mask, prev.tombstone_mask
+    else:
+        d_path, d_dv, keys = pfa.keys.absorb(dfa.keys, dfa.path_code,
+                                             dfa.dv_code)
+        live, tomb = advance_masks(
+            pfa.path_code, pfa.dv_code, prev.live_mask, prev.tombstone_mask,
+            d_path, d_dv, dfa.version, dfa.order, dfa.is_add,
+            len(keys.dv_ids))
+        fa = FileActions(
+            is_add=torch.cat([pfa.is_add, dfa.is_add]),
+            version=torch.cat([pfa.version, dfa.version]),
+            order=torch.cat([pfa.order, dfa.order]),
+            size=torch.cat([pfa.size, dfa.size]),
+            path_code=torch.cat([pfa.path_code, d_path]),
+            dv_code=torch.cat([pfa.dv_code, d_dv]),
+            rows=CompositeRows.chain(pfa.rows, n_prev, dfa.rows),
+            keys=keys)
+    engine.synchronize()
+    set_txns = dict(prev.set_transactions)
+    set_txns.update(delta.set_transactions)
+    domains = dict(prev.domain_metadata)
+    domains.update(delta.domain_metadata)
+    commit_infos = dict(prev.commit_infos)
+    commit_infos.update(delta.commit_infos)
+    return SnapshotState(
+        version=new_segment.version,
+        protocol=delta.protocol or prev.protocol,
+        metadata=delta.metadata or prev.metadata,
+        set_transactions=set_txns,
+        domain_metadata=domains,
+        file_actions=fa,
+        live_mask=live,
+        tombstone_mask=tomb,
+        latest_commit_info=(delta.latest_commit_info
+                            or prev.latest_commit_info),
+        commit_infos=commit_infos,
+        timestamp_ms=new_segment.last_commit_timestamp,
+        phase_seconds=dict(delta.phase_seconds,
+                           advance=time.perf_counter() - t0),
+    )

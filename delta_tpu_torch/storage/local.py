@@ -8,7 +8,9 @@ then linked under the final name; `os.link` fails when the name exists,
 so exactly one of two racing writers of `N.json` wins and the other gets
 FileExistsError, and no reader ever sees a partial file. With `overwrite` the temporary
 file replaces the target by rename. The commit reader
-(`replay/columnar.py`) opens the listed commit files itself.
+(`replay/columnar.py`) opens the listed commit files itself and counts
+them (`log.commit_reads`); this store counts its listings
+(`storage.list_calls`) and whole-file reads (`storage.read_calls`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ import os
 import uuid
 from dataclasses import dataclass
 from typing import Callable, List, Optional
+
+from delta_tpu_torch import obs
+
+_LIST_CALLS = obs.counter("storage.list_calls")
+_READ_CALLS = obs.counter("storage.read_calls")
 
 
 @dataclass(frozen=True)
@@ -39,6 +46,7 @@ class LocalLogStore:
         stat each (one stat per commit file is a syscall the commit reader
         does without). Raises
         FileNotFoundError when the parent directory does not exist."""
+        _LIST_CALLS.inc()
         parent = os.path.dirname(path)
         name = os.path.basename(path)
         if not os.path.isdir(parent):
@@ -65,6 +73,7 @@ class LocalLogStore:
         return FileStatus(path, st.st_size, int(st.st_mtime * 1000))
 
     def read_file(self, path: str) -> bytes:
+        _READ_CALLS.inc()
         with open(path, "rb") as f:
             return f.read()
 

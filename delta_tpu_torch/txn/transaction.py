@@ -9,7 +9,8 @@ OPTIMIZE and a plain append need:
     result = txn.commit()
 
 The commit serializes the actions (commitInfo first), writes `N+1.json`
-with a put-if-absent, and on `FileExistsError` reads the winning
+with a put-if-absent (and hands the bytes to the table's cached snapshot,
+`Table.notify_commit`), and on `FileExistsError` reads the winning
 commits: a winner carrying our own `txnId` is our own landed commit;
 otherwise `check_conflicts` either raises a typed
 `ConcurrentModificationError` or the transaction rebases and retries at
@@ -276,14 +277,12 @@ class Transaction:
     def metadata(self) -> Optional[Metadata]:
         if self._new_metadata is not None:
             return self._new_metadata
-        return self.read_snapshot.state.metadata if self.read_snapshot \
-            else None
+        return self.read_snapshot.metadata if self.read_snapshot else None
 
     def protocol(self) -> Optional[Protocol]:
         if self._new_protocol is not None:
             return self._new_protocol
-        return self.read_snapshot.state.protocol if self.read_snapshot \
-            else None
+        return self.read_snapshot.protocol if self.read_snapshot else None
 
     def scan_files(self, filter=None) -> List[AddFile]:
         """Every live file of the read snapshot; records a whole-table
@@ -305,8 +304,7 @@ class Transaction:
         self._read_app_ids.add(app_id)
         if self.read_snapshot is None:
             return None
-        st = self.read_snapshot.state.set_transactions.get(app_id)
-        return st.version if st is not None else None
+        return self.read_snapshot.set_transaction_version(app_id)
 
     # -- staging --------------------------------------------------------
 
@@ -454,6 +452,10 @@ class Transaction:
             try:
                 fs.write(filenames.delta_file(log_path, attempt_version), data,
                          overwrite=False)
+                # hand the bytes to the table's cached snapshot before the
+                # hooks run, so that they and the next update() advance
+                # without reading this commit back
+                self._table.notify_commit(attempt_version, data)
             except FileExistsError:
                 latest = self._latest_version(fs, log_path, attempt_version)
                 winners = [WinningCommit(v, actions_from_commit_bytes(

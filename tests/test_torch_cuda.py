@@ -627,3 +627,152 @@ def test_ladder_on_the_card(tmp_path):
     assert counts["snapshot.checkpoint_fallbacks"] == 1
     assert counts["kernel.hybrid_extract.launches"] == 0
     assert counts["parse.device_windows"] >= 1
+
+
+# Logs that `Snapshot.update()` and the post-commit handoff advance on the
+# card: the prior commits, the version of a checkpoint written by the
+# port (None: commit-only), the new commits, and the live files and
+# tombstones that the reference's HostEngine serves at the head
+# (tests/test_torch_update.py holds them to it). Each load route of the
+# prior state appears (commit-only, checkpoint and tail, the handoff of a
+# checkpoint at the head), and the new commits name files of the prior
+# state by another spelling of their path (C5's rule: `x%20y` is `x y`).
+_PRIOR = [[("add", "a"), ("add", "x y"), ("add", "f%25g")],
+          [("add", "b"), ("remove", "a")],
+          [("add", "d/e"), ("add", "a")],
+          [("add", "h"), ("remove", "b")]]
+_NEW = [[("remove", "x%20y"), ("add", "c"), ("remove", "f%g")],
+        [("add", "x%20y"), ("add", "i%2Fj"), ("remove", "h")]]
+UPDATE_LOGS = {
+    "commit_only": (_PRIOR, None, _NEW, ["a", "c", "d/e", "i/j", "x y"],
+                    ["b", "f%g", "h"]),
+    "checkpoint_tail": (_PRIOR, 2, _NEW, ["a", "c", "d/e", "i/j", "x y"],
+                        ["b", "f%g", "h"]),
+    "handoff": (_PRIOR, 3, _NEW, ["a", "c", "d/e", "i/j", "x y"],
+                ["b", "f%g", "h"]),
+    "other_spelling_removed": ([[("add", "x y"), ("add", "b")]], 0,
+                               [[("remove", "x%20y"), ("add", "c")]],
+                               ["b", "c"], ["x y"]),
+    "percent_file_behind_the_checkpoint": (
+        [[("add", "f%25g")], [("add", "c"), ("add", "b")]], 0,
+        [[("remove", "f%g"), ("add", "x%20y")]], ["b", "c", "x y"],
+        ["f%g"]),
+    "percent_file_removed_then_readded": (
+        [[("add", "f%25g"), ("add", "b")], [("remove", "f%25g"),
+                                            ("add", "c")]], 0,
+        [[("add", "f%g")]], ["b", "c", "f%g"], []),
+}
+
+
+def update_log(root, commits, start=0) -> str:
+    """Commits `start`, `start + 1`, ... of a log, each a list of ("add" |
+    "remove", raw path); commit 0 carries the protocol and metadata;
+    tombstones inside the retention window."""
+    import json
+    import os
+    import time
+
+    now_ms = int(time.time() * 1000)
+    log = os.path.join(root, "_delta_log")
+    os.makedirs(log, exist_ok=True)
+    for v, actions in enumerate(commits, start):
+        lines = [{"commitInfo": {"timestamp": now_ms, "operation": "WRITE"}}]
+        if v == 0:
+            lines += [
+                {"protocol": {"minReaderVersion": 1, "minWriterVersion": 2}},
+                {"metaData": {
+                    "id": "upd", "format": {"provider": "parquet",
+                                            "options": {}},
+                    "schemaString": '{"type":"struct","fields":[]}',
+                    "partitionColumns": [], "configuration": {}}}]
+        for j, (kind, path) in enumerate(actions):
+            size = 100 * v + j + 1
+            lines.append(
+                {"add": {"path": path, "partitionValues": {}, "size": size,
+                         "modificationTime": 1, "dataChange": True}}
+                if kind == "add" else
+                {"remove": {"path": path, "deletionTimestamp": now_ms,
+                            "dataChange": True, "size": size}})
+        with open(os.path.join(log, f"{v:020d}.json"), "w") as f:
+            f.write("\n".join(json.dumps(x) for x in lines) + "\n")
+    return str(root)
+
+
+def commit_actions(table, actions) -> int:
+    """One transaction of the port on `table` staging `actions`."""
+    import time
+
+    from delta_tpu_torch.models.actions import AddFile, RemoveFile
+
+    txn = table.create_transaction_builder().build()
+    for j, (kind, path) in enumerate(actions):
+        if kind == "add":
+            txn.add_file(AddFile(path=path, size=j + 1, modificationTime=1,
+                                 dataChange=True))
+        else:
+            txn.remove_file(RemoveFile(
+                path=path, deletionTimestamp=int(time.time() * 1000),
+                dataChange=True, size=j + 1))
+    return txn.commit().version
+
+
+def same_as_cold(state, root, engine) -> None:
+    """`state` equals a cold load of its version on `engine` bit for bit:
+    lanes and masks equal, the two numberings of the keys a bijection,
+    the materialized actions equal."""
+    cold = Table.for_path(root, engine=engine).snapshot_at(state.version) \
+        .state
+    a, c = state.file_actions, cold.file_actions
+    for lane in ("is_add", "version", "order", "size"):
+        assert torch.equal(getattr(a, lane).cpu(), getattr(c, lane).cpu())
+    assert torch.equal(state.live_mask.cpu(), cold.live_mask.cpu())
+    assert torch.equal(state.tombstone_mask.cpu(), cold.tombstone_mask.cpu())
+    pairs = set(zip(a.path_code.tolist(), a.dv_code.tolist(),
+                    c.path_code.tolist(), c.dv_code.tolist()))
+    assert len({p[:2] for p in pairs}) == len({p[2:] for p in pairs}) \
+        == len(pairs)
+    assert state.add_files == cold.add_files
+    assert state.tombstones == cold.tombstones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("by", ["update", "notify_commit"])
+@pytest.mark.parametrize("case", sorted(UPDATE_LOGS))
+def test_update_on_the_card(tmp_path, case, by):
+    """The cached state on the card, loaded by each route, advances by
+    the new commits (read and listed, or handed over by the port's own
+    transactions): K1 parses them, K2 replays them, K3 does not launch,
+    nothing is replayed in full; the result equals the cold card load
+    bit for bit, the CPU's and the reference's answer."""
+    _card()
+    prior, cp, new, live, tombstones = UPDATE_LOGS[case]
+    root = update_log(str(tmp_path), prior)
+    if cp is not None:
+        Table.for_path(root, engine=TorchEngine("cpu")).checkpoint(
+            version=cp)
+    table = Table.for_path(root, engine=TorchEngine())
+    table.latest_snapshot().state
+    before = obs.counters()
+    if by == "update":
+        update_log(root, new, start=len(prior))
+    else:
+        for actions in new:
+            commit_actions(table, actions)
+    snap = table.update()
+    moved = {k: v - before.get(k, 0) for k, v in obs.counters().items()}
+    assert snap.version == len(prior) + len(new) - 1
+    assert moved.get("replay.advances") == (1 if by == "update"
+                                            else len(new))
+    assert moved.get("replay.reconstructs", 0) == 0
+    assert moved.get("kernel.hybrid_extract.launches", 0) == 0
+    assert moved.get("kernel.byte_class.launches", 0) >= 1
+    assert moved.get("kernel.winner_pack.launches", 0) >= 1
+    if by == "notify_commit":
+        assert moved.get("table.notify_advances") == len(new)
+        assert moved.get("log.commit_reads", 0) == 0
+    state = snap.state
+    assert state.live_mask.device.type == "cuda"
+    assert sorted(a.path for a in state.add_files) == live
+    assert sorted(r.path for r in state.tombstones) == tombstones
+    same_as_cold(state, root, TorchEngine())
+    same_as_cold(state, root, TorchEngine("cpu"))
