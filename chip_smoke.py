@@ -54,8 +54,21 @@
    load a `.crc` of the newest version that lies about the file count and
    size is quarantined (`snapshot.crc_quarantined` 1) and reseeded from
    the state.
+   Then scan planning on that log's snapshot (every live file with stats
+   on x in [(fid+1)*1000, (fid+2)*1000]), counters from 0: five filtered
+   `Snapshot.scan`s (a range selecting 1% of the files, an OR of two
+   ranges, IN with 16 values, IS NULL, NOT of a range), each surviving
+   set equal to the generator's truth computed in numpy; the first
+   builds the resident stats index (`scan.stats_index_builds` 1), the
+   others reuse it (`scan.stats_index_reuses` 4), each plans on the card
+   (`scan.device_plans` 5) through kernel K7 (`skip_mask`, 5 launches).
+   K7 is held to its plain version on every predicate's atom block and
+   timed on the range's beside its plain version and its bound (device
+   time with L2 flushed between calls, and warm); prints
+   `stats_index_build_s` (cold, with its split), `plan_s` (warm).
    Then the snapshot's life after the load on a copy of that log (hard
-   links): a cold load on the card, 10 new commits of the generator's
+   links): a cold load on the card, a filtered scan that builds its stats
+   index, 10 new commits of the generator's
    shape (100 files each, 20% removes of live files, one re-add of a
    removed path, one path that needs percent-decoding, removed later by
    its decoded spelling) and, counters from 0, `Table.update()`: one
@@ -63,7 +76,9 @@
    the retained state (K2), K3 not launched, no full replay; the
    advanced state equals a cold `snapshot_at` of the new head bit for
    bit (lanes and masks, the key codes a bijection) and the appended
-   live set. Then a no-change poll (one LIST, no read), `metadata` on a
+   live set; the advance released the prior stats index, and the
+   advanced snapshot's first scan rebuilds it (one build, one K7 launch)
+   and equals the cold snapshot's scan. Then a no-change poll (one LIST, no read), `metadata` on a
    fresh Table by the small read and then from a `.crc` (no part
    decoded), an append through `write_table`'s own steps on the Table
    holding the advanced snapshot (its commit advances the cache; the
@@ -125,13 +140,18 @@
     `.crc` per version, the OPTIMIZE commit's validating against the
     reloaded state, no hook failure; the ZCube tags are checked on the
     OPTIMIZE commit file's own adds (the checkpoint, like the reference's,
-    has no add.tags column). Prints the phase split, rows/s of the
-    command and of `zorder_sort_indices` alone, and peak device memory.
+    has no add.tags column). Then the row read, counters from 0:
+    `api.read_table(table, filter=(k1 < 2^28) & (k2 >= 2^29),
+    columns=["k1", "payload"])` on the card (K7 once) must return the
+    rows the same filter selects in numpy from the 20 appends, as a
+    multiset of row hashes. Prints the phase split, rows/s of the
+    command and of `zorder_sort_indices` alone, the read's wall seconds
+    and table rows/s, and peak device memory.
 15. A 20,000-row table optimized along both curves on the card and on the
     CPU (plain versions): the same output rows in the same order and the
     same stats.
 
-Prints a metrics line per phase, a `kernels` JSON line (K1-K6, each with
+Prints a metrics line per phase, a `kernels` JSON line (K1-K7, each with
 its launches, its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
 its bound and both shares of the bound), the card's
@@ -193,9 +213,13 @@ def _device_ms(fn, reps: int, kernels, per_call: int = 1) -> float:
     calls (after a warm-up step, so that tracing is on when they start).
     The kernels' own time on the card, without the host work between
     launches that `_time_ms` counts. The tracer may miss launches, a few
-    at its start or (seen once) a whole trace: the mean is over those it
-    saw, and a trace that saw fewer than half is taken again, up to
-    three times."""
+    at its start or whole traces (once it loses events it tends to see
+    none again in that process): the
+    mean is over those it saw, and a trace that saw fewer than half is
+    taken again, up to three times; then the time comes from
+    `_stalled_ms` instead, which counts every device operation of a call
+    (a fill, a copy) beside the kernels, and the miss is recorded in
+    `DEVICE_MS_BY_EVENTS`, which the run prints."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     seen = []
@@ -216,8 +240,47 @@ def _device_ms(fn, reps: int, kernels, per_call: int = 1) -> float:
         seen.append([r[2] for r in rows])
         if rows and all(2 * c >= reps * per_call for _, _, c in rows):
             return sum(us / c for us, _, c in rows) * per_call / 1e3
-    _check(False, f"the profiler saw {seen} launches of {kernels} in "
-           f"{reps} calls, three times")
+    ms = _stalled_ms(fn, reps)
+    DEVICE_MS_BY_EVENTS.append({"kernels": list(kernels), "seen": seen,
+                                "reps": reps, "ms": ms})
+    return ms
+
+
+DEVICE_MS_BY_EVENTS: list = []
+STALL_CYCLES = 50_000_000   # about 25 ms at the H100's clocks
+
+
+def _stalled_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of `fn` with the host's gaps taken
+    out: the stream is held by a spin kernel (`torch.cuda._sleep`) while
+    the host enqueues `reps` calls between two events, so the events
+    time the calls' device work back to back. `fn` must not synchronize;
+    a host that enqueues slower than the spin lasts is caught (the spin
+    is then lengthened, up to three times)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = STALL_CYCLES
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event(enable_timing=True)
+        head = torch.cuda.Event(enable_timing=True)
+        head.record()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < head.elapsed_time(spun):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    _check(False, f"the host enqueued {reps} calls slower than a spin of "
+           f"{cycles // 4} cycles")
 
 
 def _check(cond: bool, what: str) -> None:
@@ -584,6 +647,152 @@ def ladder_phase(path: str, truth, parts: list, Table, TorchEngine, obs,
     return out
 
 
+SCAN_IN_VALUES = 16
+
+
+def _fids(paths) -> np.ndarray:
+    """The generator's file ids of `part-<fid:010d>-...` paths."""
+    return np.array([int(p[5:15]) for p in paths], np.int64)
+
+
+def _k7_bytes(block, n_rows: int, n_files: int) -> float:
+    """K7's bound bytes: per file, 8 B of every distinct value row and
+    1 B of every distinct validity row the block's atoms need, and 1 B
+    out."""
+    nr = n_rows - 1
+    rows = set()
+    for mn, op in zip(block.rows_mn.tolist(), block.ops.tolist()):
+        rows |= {0: {mn, mn + 2, nr}, 1: {mn, mn + 2, nr},
+                 2: {mn + 1, mn + 2, nr}, 3: {mn + 1, mn + 2, nr},
+                 6: {mn + 2}}.get(op, {mn, mn + 1, mn + 2, nr})
+    return float(n_files * (9 * len(rows) + 1))
+
+
+def scan_phase(path: str, truth, card: str, dev) -> tuple:
+    """Scan planning on cell 2's snapshot (the checkpoint-plus-tail log,
+    every live file with stats on x in [(fid+1)*1000, (fid+2)*1000]): the
+    snapshot loaded on the card, then, counters from 0, five filtered
+    scans (a range of 1% of the files, an OR of two ranges, IN with 16
+    values, IS NULL, NOT of a range), each surviving set equal to the
+    generator's truth computed in numpy from those bounds; the first
+    builds the stats index (cold), the rest reuse it; every scan launches
+    K7 once. Then K7 against its plain version on the card for each
+    predicate's atom block, and K7 timed on the range's block beside its
+    plain version and its bound. Returns (metrics line, K7's kernels
+    entry)."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.expressions import col, lit, split_conjuncts
+    from delta_tpu_torch.ops.skipping import skip_mask_block, skip_mask_plain
+    from delta_tpu_torch.stats.device_index import compile_conjuncts
+
+    fids = _fids(truth.live_paths)
+    lo, hi = (fids + 1) * 1000, (fids + 2) * 1000
+    top = int(fids.max())
+    a = top // 3
+    b = a + max(1, top // 100)
+    range_lo, range_hi = (a + 1) * 1000 + 500, (b + 1) * 1000 + 500
+    or_lo = (top // 200 + 1) * 1000
+    or_hi = (top - top // 200 + 1) * 1000
+    cut = (top // 2 + 1) * 1000 + 250
+    in_vals = np.sort(np.random.default_rng(17).integers(
+        1000, (top + 2) * 1000, SCAN_IN_VALUES))
+    x = col("x")
+    cases = [
+        ("range_1pct", (x >= lit(range_lo)) & (x < lit(range_hi)),
+         (hi >= range_lo) & (lo < range_hi)),
+        ("or_of_ranges", (x < lit(or_lo)) | (x > lit(or_hi)),
+         (lo < or_lo) | (hi > or_hi)),
+        ("in_16", x.is_in(*(int(v) for v in in_vals)),
+         ((lo[:, None] <= in_vals) & (in_vals <= hi[:, None])).any(1)),
+        ("is_null", x.is_null(), np.zeros(len(fids), bool)),
+        ("not_range", ~(x < lit(cut)), hi >= cut),
+    ]
+    snap = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
+    state = snap.state
+    n = state.num_files
+    _check(n == len(fids), "scan: the snapshot's live files")
+    out = {"card": card, "files": n, "scans": {}}
+    torch.cuda.synchronize()
+    obs.reset()
+    for name, pred, want in cases:
+        t0 = time.perf_counter()
+        sc = snap.scan(filter=pred)
+        paths = sc.file_paths()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check(np.array_equal(np.sort(_fids(paths)), np.sort(fids[want])),
+               f"scan {name}: the survivors are the generator's truth")
+        _check(sc.skipped_by_stats == n - int(want.sum())
+               and sc.partition_pruned == 0,
+               f"scan {name}: skipped_by_stats")
+        out["scans"][name] = {"s": wall, "survivors": len(paths),
+                              "skipped_by_stats": sc.skipped_by_stats}
+    counts = obs.counters()
+    out["counters"] = {k: v for k, v in counts.items()
+                       if k.startswith("scan.") or "skip_mask" in k}
+    launches = counts.get("kernel.skip_mask.launches", 0)
+    _check(counts.get("scan.device_plans", 0) == len(cases)
+           and launches == len(cases)
+           and counts.get("scan.stats_index_builds", 0) == 1
+           and counts.get("scan.stats_index_reuses", 0) == len(cases) - 1
+           and counts.get("scan.device_fallbacks", 0) == 0,
+           f"scan: every plan on the card through K7, one index build "
+           f"({out['counters']})")
+    rs = state.stats_index
+    out["stats_index_build_s"] = sum(rs.phase_seconds.values())
+    out["stats_index_phase_s"] = dict(rs.phase_seconds)
+    out["cold_plan_s"] = out["scans"]["range_1pct"]["s"]
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap.scan(filter=cases[0][1]).file_paths()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    out["plan_s"] = sorted(warm)[1]
+    vals, valid = rs.device_lanes()
+    out["lane_bytes"] = rs.device_bytes
+
+    # K7 against its plain version on every predicate's block
+    for name, pred, _ in cases:
+        block, rest = compile_conjuncts(split_conjuncts(pred), rs)
+        _check(block is not None and not rest, f"scan {name}: compiled")
+        got = skip_mask_block(vals, valid, block, n)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, skip_mask_plain(vals, valid, block, n)),
+               f"skip_mask != plain on the {name} block")
+    block, _ = compile_conjuncts(split_conjuncts(cases[0][1]), rs)
+    ms = _time_ms(lambda: skip_mask_block(vals, valid, block, n), 50)
+    # the lanes (22 MB) fit in the 50 MB L2: a scan after other work finds
+    # them in device memory, so the device time is taken with L2 flushed
+    # (a 64 MiB fill between calls) and, beside it, warm
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def cold():
+        flush.fill_(1)
+        return skip_mask_block(vals, valid, block, n)
+
+    dev_ms = _device_ms(cold, 50, ("skip_mask_kernel",))
+    dev_ms_warm = _device_ms(lambda: skip_mask_block(vals, valid, block, n),
+                             50, ("skip_mask_kernel",))
+    del flush
+    plain = _time_ms(lambda: skip_mask_plain(vals, valid, block, n), 10)
+    nbytes = _k7_bytes(block, vals.shape[0], n)
+    bound, by = _bound_ms(nbytes, 8.0 * n * block.n_atoms)
+    k7 = {
+        "name": "skip_mask", "route": "cuda", "ok": True,
+        "source": "delta_tpu_torch/csrc/skip_mask.cu",
+        "replaces": "delta_tpu/ops/skipping.py:88",
+        "launches": launches, "max_abs_err": 0, "ms": ms,
+        "device_ms": dev_ms, "device_ms_l2_warm": dev_ms_warm,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "shape": f"i64[{vals.shape[0]},{n}]+bool[{vals.shape[0]},{n}], "
+                 f"{block.n_atoms} atoms in {block.n_groups} groups",
+        "bound_bytes": nbytes}
+    return out, k7
+
+
 UPDATE_COMMITS = 10
 
 
@@ -668,9 +877,13 @@ def update_phase(path: str, truth, card: str, seed: int) -> dict:
     append through `write_table`'s own steps on the Table that holds the
     advanced snapshot, whose commit advances it and whose checkpoint hook
     writes from it (no full replay), then a `write_table` on a fresh
-    Table."""
+    Table. Before the new commits a filtered scan builds the prior
+    version's stats index; the advance releases it, and the advanced
+    snapshot's first scan rebuilds it (one build, one K7 launch) and
+    equals the cold snapshot's scan."""
     from delta_tpu_torch import Table, TorchEngine, obs
     from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.expressions import col, lit
     from delta_tpu_torch.log.checksum import write_checksum_from_state
     from delta_tpu_torch.log.last_checkpoint import read_last_checkpoint
     from delta_tpu_torch.models.batch import Batch, as_column
@@ -691,12 +904,23 @@ def update_phase(path: str, truth, card: str, seed: int) -> dict:
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0, obs.counters()
 
+    pred = col("x") < lit(40_500)
+    held = {}
+
+    def load(key, fn):
+        held[key] = fn()
+        return held[key].state
+
     try:
         table = Table.for_path(copy, engine=TorchEngine())
         prior, out["cold_load_s"], counts = timed(
-            lambda: table.latest_snapshot().state)
+            lambda: load("prior", table.latest_snapshot))
         _truth_checks(prior, truth, "update: the cold load")
         _ladder_idle(counts, "update: the cold load")
+        # a scan of the prior version builds its stats index
+        held["prior"].scan(filter=pred).file_paths()
+        _check(prior.stats_index is not None,
+               "update: the prior version's stats index")
         head = truth.version + UPDATE_COMMITS
         added, removed = append_commits(log, prior, truth.version + 1,
                                         seed)
@@ -731,11 +955,28 @@ def update_phase(path: str, truth, card: str, seed: int) -> dict:
                "update: the advanced state's live files as appended")
 
         cold, out["cold_head_load_s"], counts = timed(
-            lambda: Table.for_path(copy, engine=TorchEngine())
-            .snapshot_at(head).state)
+            lambda: load("cold", lambda: Table.for_path(
+                copy, engine=TorchEngine()).snapshot_at(head)))
         out["cold_head_counters"] = counts
         _same_lanes(adv, cold, "update: advanced vs cold snapshot_at")
+        # the advance released the prior lanes; the advanced snapshot's
+        # first scan rebuilds them and equals a cold snapshot's scan
+        _check(prior.stats_index is None,
+               "update: the advance released the prior stats index")
+        got, out["scan_after_update_s"], counts = timed(
+            lambda: sorted(snap.scan(filter=pred).file_paths()))
+        out["scan_after_update_counters"] = {
+            k: v for k, v in counts.items()
+            if k.startswith("scan.") or "skip_mask" in k}
+        _check(counts.get("scan.stats_index_builds", 0) == 1
+               and counts.get("scan.stats_index_reuses", 0) == 0
+               and counts.get("kernel.skip_mask.launches", 0) == 1,
+               "update: the advanced snapshot's scan rebuilt its index")
+        _check(got == sorted(held["cold"].scan(filter=pred).file_paths()),
+               "update: the advanced scan equals the cold scan")
+        out["scan_after_update_survivors"] = len(got)
         del cold
+        held.pop("cold")
 
         same, out["poll_s"], counts = timed(table.update)
         out["poll_counters"] = counts
@@ -966,6 +1207,8 @@ ZORDER_COLS = ("k1", "k2", "k3")
 OPTIMIZE_APPENDS = 20       # BASELINE config 4: 20 appends
 CONFIG4_ROWS = 10_000_000   # of 500,000 rows each
 OPTIMIZE_MAX_FILE = 256 << 20  # the default max_file_size
+READ_K1 = 1 << 28           # the row read's filter over the cell's table:
+READ_K2 = 1 << 29           # k1 < 2^28 and k2 >= 2^29
 
 
 def config4_appends(seed: int) -> list:
@@ -1177,6 +1420,40 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     check_optimized_rows(inp, out, dev)
     del out
 
+    # the row read over the optimized table, counters from 0: the filter
+    # applied in numpy to the 20 appends is the truth, compared as a
+    # multiset of row hashes
+    from delta_tpu_torch.api import read_table
+    from delta_tpu_torch.expressions import col, lit
+
+    torch.cuda.synchronize()
+    obs.reset()
+    t0 = time.perf_counter()
+    got = read_table(path, filter=(col("k1") < lit(READ_K1))
+                     & (col("k2") >= lit(READ_K2)),
+                     columns=["k1", "payload"], engine=TorchEngine())
+    read_s = time.perf_counter() - t0
+    read_counts = obs.counters()
+    sel = (inp["k1"] < READ_K1) & (inp["k2"] >= READ_K2)
+    zero = np.zeros(int(sel.sum()), np.int64)
+    _check(got.column_names == ["k1", "payload"]
+           and got.num_rows == int(sel.sum()),
+           "read_table: the projection and the row count")
+    _check(np.array_equal(
+        np.sort(_row_hash(inp["k1"][sel], zero, zero, inp["payload"][sel])),
+        np.sort(_row_hash(np.ascontiguousarray(got.column("k1").values),
+                          zero, zero,
+                          np.ascontiguousarray(got.column("payload").values)))),
+        "read_table: the rows are the numpy filter's, as a multiset")
+    _check(read_counts.get("kernel.skip_mask.launches", 0) == 1
+           and read_counts.get("scan.device_plans", 0) == 1,
+           "read_table: the scan planned on the card through K7")
+    del got
+    sc = Table.for_path(path, engine=TorchEngine()).latest_snapshot().scan(
+        filter=(col("k1") < lit(READ_K1)) & (col("k2") >= lit(READ_K2)))
+    read_files = {"read": len(sc.file_paths()),
+                  "skipped_by_stats": sc.skipped_by_stats}
+
     # the curve key alone (config 4's second metric), warm
     cols = [inp[c] for c in ZORDER_COLS]
     zorder_sort_indices(cols, device=dev)
@@ -1196,6 +1473,12 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
         "phase_s": m.phase_seconds,
         "curve_key_s": curve_s, "curve_key_rows_per_s": n_rows / curve_s[1],
         "read_back_s": read_back_s, "peak_device_bytes": peak,
+        "read_table_s": read_s, "read_table_rows_out": int(sel.sum()),
+        "read_table_files": read_files,
+        "read_table_rows_per_s": n_rows / read_s,
+        "read_table_counters": {k: v for k, v in read_counts.items()
+                                if k.startswith("scan.")
+                                or "skip_mask" in k},
         "counters": counts, "launches": k4, "hook_failures": hook_failures,
         "card": card}
 
@@ -1691,9 +1974,20 @@ def main(argv=None) -> int:
             "peak_device_bytes": peak, "card": card}), flush=True)
         del state
 
+        # scan planning on the checkpoint-plus-tail snapshot: the stats
+        # index, K7 on every filtered scan; counters from 0
+        scan, kernels["skip_mask"] = scan_phase(path, truth, card, dev)
+        print("scan: " + json.dumps(scan), flush=True)
+        print("skip_mask phase: " + json.dumps(kernels["skip_mask"]),
+              flush=True)
+
         # the snapshot's life after the load: update(), a poll, P&M, an
-        # append whose hooks take the advanced state; counters from 0
+        # append whose hooks take the advanced state, a scan of the
+        # advanced snapshot; counters from 0
         upd = update_phase(path, truth, card, args.seed + 5)
+        kernels["skip_mask"]["launches_update"] = \
+            upd["scan_after_update_counters"].get(
+                "kernel.skip_mask.launches", 0)
         for name, key in (("byte_class", "kernel.byte_class.launches"),
                           ("winner_pack", "kernel.winner_pack.launches")):
             kernels[name]["launches_update"] = \
@@ -1765,6 +2059,8 @@ def main(argv=None) -> int:
         # the OPTIMIZE path, counters from 0
         opt = optimize_phase(work, appends, card, dev)
         kernels["interleave_bits"]["launches"] = opt["launches"]
+        kernels["skip_mask"]["launches_read_table"] = \
+            opt["read_table_counters"].get("kernel.skip_mask.launches", 0)
         print("optimize zorder: " + json.dumps(opt), flush=True)
         del appends
         optimize_card_vs_cpu(work)
@@ -1780,6 +2076,9 @@ def main(argv=None) -> int:
     for k in kernels.values():
         k["share"] = k["bound_ms"] / k["ms"]
         k["device_share"] = k["bound_ms"] / k["device_ms"]
+    if DEVICE_MS_BY_EVENTS:
+        print("device_ms by stalled events (the profiler missed): "
+              + json.dumps(DEVICE_MS_BY_EVENTS))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {

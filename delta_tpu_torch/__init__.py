@@ -17,6 +17,11 @@ this package hands its own bytes over (`Table.notify_commit`), metadata
 comes from the `.crc` or the checkpoint's small-action columns, and
 `Table.history()` / `snapshot_as_of_timestamp()` travel in time.
 
+Scans (`Snapshot.scan(filter, columns)`, `api.read_table`) prune
+partitions and skip files by their stats: a resident int64 lane matrix
+per version on the card and one launch of kernel K7 (the skip mask) per
+filtered scan; the row read applies the residual filter and projection.
+
 It writes to an unpartitioned table (`api.write_table`) and runs OPTIMIZE
 (`Table.optimize()`: compaction, Z-order and Hilbert clustering) with its
 own data-file reader and writer and an optimistic transaction; the curve

@@ -1,9 +1,12 @@
-"""Writing rows to a table: the counterpart of `delta_tpu/api.py::write_table`
-for an unpartitioned table.
+"""Writing rows to a table and reading them back: the counterparts of
+`delta_tpu/api.py::write_table` (for an unpartitioned table) and
+`read_table`.
 
-    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.expressions import col, lit
     write_table(path, {"k": np.arange(10), "s": np.array(["a"] * 10)})
     write_table(path, {"k": (values, valid)}, mode="append")
+    batch = read_table(path, filter=col("k") < lit(5), columns=["s"])
 
 `columns` maps names to numpy arrays, (values, valid) pairs, or
 `models.batch.Column`s; a new table's schema comes from their dtypes
@@ -15,9 +18,13 @@ properties, in the same commit as the data, as the reference does
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-from delta_tpu_torch.errors import PathExistsError, UnsupportedTableError
+from delta_tpu_torch.errors import (
+    PathExistsError,
+    TimeTravelArgumentError,
+    UnsupportedTableError,
+)
 from delta_tpu_torch.models.batch import Batch, as_column
 from delta_tpu_torch.models.schema import (
     StructField,
@@ -61,3 +68,33 @@ def write_table(path: str, columns, mode: str = "append", engine=None,
         table.engine, table.path, batch, schema_from_json(meta.schemaString),
         meta.partitionColumns, meta.configuration))
     return txn.commit().version
+
+
+def read_table(path: str, filter=None, columns: Optional[List[str]] = None,
+               version: Optional[int] = None,
+               timestamp_ms: Optional[int] = None, engine=None) -> Batch:
+    """The table's rows (at `version`, or as of `timestamp_ms`, else the
+    latest) that `filter` selects, with `columns` (all when None), as one
+    `Batch`: scan planning with partition pruning and data skipping, then
+    the row read (`Scan.to_batch()`). The snapshot's stats index is
+    released at the end: this one-shot read's Table dies with the call."""
+    if version is not None and timestamp_ms is not None:
+        raise TimeTravelArgumentError(
+            "provide either version or timestamp_ms, not both",
+            error_class="DELTA_ONEOF_IN_TIMETRAVEL")
+    table = Table.for_path(path, engine)
+    if version is not None:
+        snap = table.snapshot_at(version)
+    elif timestamp_ms is not None:
+        snap = table.snapshot_as_of_timestamp(timestamp_ms)
+    else:
+        snap = table.latest_snapshot()
+    try:
+        return snap.scan(filter=filter, columns=columns).to_batch()
+    finally:
+        if snap._state is not None:
+            from delta_tpu_torch.stats.device_index import (
+                release_state_stats_index,
+            )
+
+            release_state_stats_index(snap._state)

@@ -8,8 +8,14 @@ Counterpart of `delta_tpu/commands/optimize.py:30-368`
         .execute_zorder_by("k1", "k2", "k3", curve="zorder" | "hilbert")
     Table.for_path(p, engine=TorchEngine()).optimize()
         .execute_compaction(min_file_size=..., max_file_size=...)
+    Table.for_path(p, engine=TorchEngine()).optimize()
+        .where(col("k") < lit(10)).execute_compaction()
 
-A SnapshotIsolation transaction reads every live file; compaction packs
+A SnapshotIsolation transaction reads every live file, or with
+`where(predicate)` the files the predicate may match
+(`txn.scan_files(filter=)`: partition pruning and data skipping, the
+predicate recorded for the conflict check and in the commit's
+`predicate` operation parameter); compaction packs
 the files under `min_file_size` into bins of at most `max_file_size`
 bytes (`bin_pack_by_size`) and rewrites each bin of two or more; Z-order
 rewrites every file as one bin, its rows ordered along the curve by
@@ -19,8 +25,10 @@ counts; the removes carry dataChange=false; every add of an explicit
 Z-order carries one set of ZCube tags per command.
 
 Unpartitioned tables without column mapping or deletion vectors only;
-a partitioned, column-mapped or clustered table, deletion vectors and a
-`where(...)` predicate raise `UnsupportedTableError`. `OptimizeMetrics`
+a partitioned, column-mapped or clustered table and deletion vectors
+raise `UnsupportedTableError`; a predicate on a clustered table raises
+`OptimizeArgumentError` (DELTA_CLUSTERING_WITH_PARTITION_PREDICATE), as
+in the reference, before that. `OptimizeMetrics`
 also carries `phase_seconds`, the wall seconds of the command's phases:
 snapshot, scan, read, keys, the curve permutation's h2d, rank,
 interleave, sort and d2h, take, write, commit.
@@ -35,7 +43,12 @@ from typing import Dict, List, Optional, Sequence
 
 from delta_tpu_torch.clustering import clustering_columns, new_zcube_tags
 from delta_tpu_torch.obs import PhaseTimer
-from delta_tpu_torch.errors import OptimizeArgumentError, UnsupportedTableError
+from delta_tpu_torch.errors import (
+    InvalidArgumentError,
+    OptimizeArgumentError,
+    UnsupportedTableError,
+)
+from delta_tpu_torch.expressions.tree import Expression
 from delta_tpu_torch.models.actions import AddFile
 from delta_tpu_torch.models.batch import Batch
 from delta_tpu_torch.models.schema import schema_from_json
@@ -90,18 +103,22 @@ class OptimizeBuilder:
 
     def __init__(self, table):
         self._table = table
+        self._filter = None
 
     def where(self, predicate) -> "OptimizeBuilder":
-        if predicate is not None:
-            raise UnsupportedTableError(
-                "OPTIMIZE with a predicate is not supported yet",
-                feature="predicate")
+        """Optimize only the files `predicate` may match (None: all)."""
+        if predicate is not None and not isinstance(predicate, Expression):
+            raise InvalidArgumentError(
+                f"OPTIMIZE ... WHERE takes an expression, got "
+                f"{type(predicate).__name__}")
+        self._filter = predicate
         return self
 
     def execute_compaction(self, min_file_size: int = DEFAULT_MIN_FILE_SIZE,
                            max_file_size: int = DEFAULT_MAX_FILE_SIZE,
                            ) -> OptimizeMetrics:
-        return _run_optimize(self._table, None, max_file_size, min_file_size)
+        return _run_optimize(self._table, None, max_file_size, min_file_size,
+                             filter=self._filter)
 
     def execute_zorder_by(self, *columns: str, curve: str = "zorder",
                           max_file_size: int = DEFAULT_MAX_FILE_SIZE,
@@ -111,18 +128,25 @@ class OptimizeBuilder:
                 "ZORDER BY requires at least one column",
                 error_class="DELTA_ZORDER_REQUIRES_COLUMN")
         return _run_optimize(self._table, list(columns), max_file_size,
-                             None, curve)
+                             None, curve, filter=self._filter)
 
 
 def _run_optimize(table, zorder_by: Optional[List[str]], max_file_size: int,
-                  min_file_size: Optional[int],
-                  curve: str = "zorder") -> OptimizeMetrics:
+                  min_file_size: Optional[int], curve: str = "zorder",
+                  filter=None) -> OptimizeMetrics:
     mark = PhaseTimer(table.engine.synchronize)
     txn = table.create_transaction_builder(Operation.OPTIMIZE).build()
     txn.isolation = IsolationLevel.SNAPSHOT_ISOLATION
     state = txn.read_snapshot.state
     meta = state.metadata
     if clustering_columns(state):
+        if zorder_by is None and filter is not None:
+            # clustered tables cluster the whole table, never a slice
+            # (`DeltaErrors.clusteringWithPartitionPredicatesException`)
+            raise OptimizeArgumentError(
+                "predicates are not supported when optimizing a clustered "
+                "table",
+                error_class="DELTA_CLUSTERING_WITH_PARTITION_PREDICATE")
         raise UnsupportedTableError(
             "OPTIMIZE of a clustered table is not supported yet",
             feature="clustered table")
@@ -150,7 +174,7 @@ def _run_optimize(table, zorder_by: Optional[List[str]], max_file_size: int,
                     "delta.dataSkippingNumIndexedCols)",
                     error_class="DELTA_ZORDERING_ON_COLUMN_WITHOUT_STATS")
 
-    files = txn.scan_files()
+    files = txn.scan_files(filter=filter)
     if any(f.deletionVector is not None for f in files):
         raise UnsupportedTableError(
             "OPTIMIZE of files with deletion vectors is not supported yet",
@@ -186,7 +210,7 @@ def _run_optimize(table, zorder_by: Optional[List[str]], max_file_size: int,
         txn.remove_file(f.remove(deletion_timestamp=now_ms, data_change=False))
     txn.add_files(new_adds)
     txn.set_operation_parameters({
-        "predicate": "[]",
+        "predicate": repr(filter) if filter is not None else "[]",
         "zOrderBy": list(zorder_by) if zorder_by else [],
         "clusterBy": [],
         "auto": False,

@@ -91,6 +91,10 @@ class OptimizeArgumentError(DeltaError):
     error_class = "DELTA_OPTIMIZE_INVALID_ARGUMENT"
 
 
+class TimeTravelArgumentError(DeltaError):
+    error_class = "DELTA_INVALID_TIME_TRAVEL_SPEC"
+
+
 class PathExistsError(DeltaError):
     error_class = "DELTA_PATH_EXISTS"
 

@@ -1,0 +1,324 @@
+"""Host evaluation of expressions over a `models.batch.Batch`, with SQL
+three-valued logic.
+
+Counterpart of `delta_tpu/expressions/eval.py:35-95`
+(`evaluate_predicate_host`), which evaluates with Arrow compute. Here every
+intermediate is a `Values`: a kind, numpy data and a validity mask (False
+= NULL). Comparisons involving NULL are NULL; AND and OR are Kleene (false
+wins over NULL in AND, true wins in OR); NOT keeps NULL; IS [NOT] NULL and
+IN give definite booleans. `evaluate_predicate` turns NULL into False
+(WHERE semantics).
+
+Comparisons follow Arrow's kernel rules, so that both packages accept and
+refuse the same operand types: numbers compare with numbers (an integer
+beside a float compares as float64), booleans with booleans, strings with
+strings (by code point, which is UTF-8 byte order), dates and timestamps
+with each other as microseconds, except a zone-less timestamp with a zoned
+one, which Arrow refuses; a NULL-typed operand gives NULL against
+anything; any other pair raises `UnsupportedComparison`. IN casts its
+values to the column's kind first, as Arrow's `is_in` casts its value set
+(an integer to a float, a date string to a date; a number never to a
+string). A `datetime64[us]`
+column of a Batch holds a Delta `timestamp`, UTC instants: it is zoned
+(Arrow's `timestamp[us, tz=UTC]`), and compares with a zoned `datetime`
+literal (at its UTC instant) or a date, not with a naive `datetime`.
+"""
+
+from __future__ import annotations
+
+import datetime
+import operator
+import re
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+
+from delta_tpu_torch.expressions.tree import (
+    And,
+    Column,
+    Comparison,
+    Expression,
+    In,
+    IsNotNull,
+    IsNull,
+    Literal,
+    Not,
+    Or,
+    StartsWith,
+)
+from delta_tpu_torch.utils.timestamps import string_to_us
+
+_EPOCH = datetime.datetime(1970, 1, 1)
+_EPOCH_UTC = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+_US = datetime.timedelta(microseconds=1)
+
+
+class UnsupportedComparison(TypeError):
+    """No Arrow comparison kernel matches the two operand kinds."""
+
+
+@dataclass
+class Values:
+    """One operand: `kind` is one of null, bool, int, float, string, date
+    (int64 days), ts (int64 microseconds, zone-less), tsz (int64
+    microseconds of a UTC instant, zoned), other;
+    `data` a numpy array (object of str for string); `valid` bool."""
+
+    kind: str
+    data: np.ndarray
+    valid: np.ndarray
+
+    def __len__(self) -> int:
+        return int(self.valid.shape[0])
+
+
+@dataclass
+class Kleene:
+    """A nullable boolean array: `value` where `known`, NULL elsewhere
+    (value is False where unknown)."""
+
+    value: np.ndarray
+    known: np.ndarray
+
+    def __and__(self, o: "Kleene") -> "Kleene":
+        false = (self.known & ~self.value) | (o.known & ~o.value)
+        known = false | (self.known & o.known)
+        return Kleene(known & ~false, known)
+
+    def __or__(self, o: "Kleene") -> "Kleene":
+        true = (self.known & self.value) | (o.known & o.value)
+        known = true | (self.known & o.known)
+        return Kleene(true, known)
+
+    def __invert__(self) -> "Kleene":
+        return Kleene(self.known & ~self.value, self.known)
+
+    def filled(self, default: bool) -> np.ndarray:
+        return np.where(self.known, self.value, default)
+
+
+def scalar_kind(value) -> Tuple[str, object]:
+    """(kind, encoded value) of a Python literal, as `pa.scalar` types
+    it; ("other", value) for a type no comparison here accepts."""
+    if value is None:
+        return "null", None
+    if isinstance(value, (bool, np.bool_)):
+        return "bool", bool(value)
+    if isinstance(value, (int, np.integer)):
+        v = int(value)
+        return ("int", v) if -(1 << 63) <= v < (1 << 63) else ("other", v)
+    if isinstance(value, (float, np.floating)):
+        return "float", float(value)
+    if isinstance(value, str):
+        return "string", value
+    if isinstance(value, datetime.datetime):
+        if value.tzinfo is not None:
+            return "tsz", (value - _EPOCH_UTC) // _US
+        return "ts", (value - _EPOCH) // _US
+    if isinstance(value, datetime.date):
+        return "date", (value - datetime.date(1970, 1, 1)).days
+    return "other", value
+
+
+def literal_values(value, n: int) -> Values:
+    kind, v = scalar_kind(value)
+    if kind == "null":
+        return Values("null", np.zeros(n, bool), np.zeros(n, bool))
+    if kind in ("string", "other"):
+        data = np.empty(n, object)
+        data[:] = [v] * n
+    else:
+        data = np.full(n, v, dtype={"bool": bool, "int": np.int64,
+                                    "float": np.float64}.get(kind, np.int64))
+    return Values(kind, data, np.ones(n, bool))
+
+
+def column_values(values: np.ndarray, valid) -> Values:
+    """A Batch column as Values."""
+    n = values.shape[0]
+    valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+    k = values.dtype.kind
+    if k == "b":
+        return Values("bool", values, valid)
+    if k in "iu":
+        return Values("int", values.astype(np.int64, copy=False), valid)
+    if k == "f":
+        return Values("float", values.astype(np.float64, copy=False), valid)
+    if k == "O":
+        return Values("string", values, valid)
+    if k == "M":
+        unit = np.datetime_data(values.dtype)[0]
+        if unit == "D":
+            return Values("date", values.view(np.int64), valid)
+        return Values("tsz", values.astype("datetime64[us]").view(np.int64),
+                      valid)
+    return Values("other", values, valid)
+
+
+_TEMPORAL = ("date", "ts", "tsz")
+_DATE_RE = re.compile(r"\d{4}-\d{2}-\d{2}")
+_OPS = {
+    "=": np.equal, "!=": np.not_equal, "<": np.less, "<=": np.less_equal,
+    ">": np.greater, ">=": np.greater_equal,
+}
+_PY_OPS = {
+    "=": operator.eq, "!=": operator.ne, "<": operator.lt,
+    "<=": operator.le, ">": operator.gt, ">=": operator.ge,
+}
+
+
+def _common(a: Values, b: Values):
+    """The two operands' data in one comparable domain, or raise."""
+    ka, kb = a.kind, b.kind
+    if ka == kb and ka in ("bool", "int", "float", "date", "ts", "tsz"):
+        return a.data, b.data
+    if {ka, kb} == {"int", "float"}:
+        return a.data.astype(np.float64), b.data.astype(np.float64)
+    if ka in _TEMPORAL and kb in _TEMPORAL and {ka, kb} != {"ts", "tsz"}:
+        to_us = (lambda v: v.data * 86_400_000_000 if v.kind == "date"
+                 else v.data)
+        return to_us(a), to_us(b)
+    if ka == kb == "string":
+        return a.data, b.data
+    raise UnsupportedComparison(f"no comparison of {ka} with {kb}")
+
+
+def compare(op: str, a: Values, b: Values) -> Kleene:
+    """`a op b` elementwise, NULL where either side is NULL."""
+    n = len(a)
+    if a.kind == "null" or b.kind == "null":
+        return Kleene(np.zeros(n, bool), np.zeros(n, bool))
+    x, y = _common(a, b)
+    known = a.valid & b.valid
+    if x.dtype == object or y.dtype == object:
+        fn = _PY_OPS[op]
+        value = np.zeros(n, bool)
+        idx = np.nonzero(known)[0]
+        value[idx] = [fn(x[i], y[i]) for i in idx.tolist()]
+    else:
+        value = _OPS[op](x, y) & known
+    return Kleene(value, known)
+
+
+def _resolve_column(batch, name_path: Tuple[str, ...]) -> Values:
+    if name_path[0] not in batch.column_names or len(name_path) != 1:
+        raise KeyError(f"column {'.'.join(name_path)} not in batch")
+    c = batch.column(name_path[0])
+    return column_values(c.values, c.valid)
+
+
+def _cast_to(kind: str, v):
+    """One IN-list value cast to the child's kind, as Arrow's `is_in`
+    casts its value set (a safe cast: raise where it would lose)."""
+    k, enc = scalar_kind(v)
+    if k == kind:
+        return enc
+    if kind == "float" and k == "int":
+        return float(enc)
+    if kind == "int" and k == "float" and enc.is_integer():
+        return int(enc)
+    if kind == "date" and k == "string" and _DATE_RE.fullmatch(enc):
+        try:
+            return (datetime.date.fromisoformat(enc)
+                    - datetime.date(1970, 1, 1)).days
+        except ValueError:
+            pass
+    if kind in ("ts", "tsz") and k == "date":
+        return enc * 86_400_000_000
+    if kind == "ts" and k == "string":
+        us = string_to_us(enc)
+        if us is not None:
+            return us
+    raise UnsupportedComparison(f"cannot cast {v!r} to {kind}")
+
+
+def _is_in(child: Values, values: tuple) -> Kleene:
+    n = len(child)
+    has_null = any(v is None for v in values)
+    present = [v for v in values if v is not None]
+    out = np.zeros(n, bool)
+    if present and child.kind != "null":
+        if child.kind not in ("bool", "int", "float", "string", "date", "ts",
+                              "tsz"):
+            raise UnsupportedComparison(f"IN over a {child.kind} column")
+        kinds = {scalar_kind(v)[0] for v in present}
+        if len(kinds) > 1 and kinds != {"int", "float"}:
+            raise UnsupportedComparison(f"IN list of mixed kinds {kinds}")
+        wanted = [_cast_to(child.kind, v) for v in present]
+        out = np.isin(child.data, np.array(wanted, dtype=child.data.dtype))
+    out = np.where(child.valid, out, has_null)
+    return Kleene(out, np.ones(n, bool))
+
+
+def _eval(expr: Expression, batch):
+    """Values for a column or literal, Kleene for a predicate."""
+    n = batch.num_rows
+    if isinstance(expr, Column):
+        return _resolve_column(batch, expr.name_path)
+    if isinstance(expr, Literal):
+        return literal_values(expr.value, n)
+    if isinstance(expr, Comparison):
+        return compare(expr.op, _as_values(_eval(expr.left, batch)),
+                       _as_values(_eval(expr.right, batch)))
+    if isinstance(expr, And):
+        return _as_kleene(_eval(expr.left, batch)) \
+            & _as_kleene(_eval(expr.right, batch))
+    if isinstance(expr, Or):
+        return _as_kleene(_eval(expr.left, batch)) \
+            | _as_kleene(_eval(expr.right, batch))
+    if isinstance(expr, Not):
+        return ~_as_kleene(_eval(expr.child, batch))
+    if isinstance(expr, (IsNull, IsNotNull)):
+        child = _eval(expr.child, batch)
+        valid = child.known if isinstance(child, Kleene) else child.valid
+        if isinstance(child, Values) and child.kind == "null":
+            valid = np.zeros(n, bool)
+        value = ~valid if isinstance(expr, IsNull) else valid.copy()
+        return Kleene(value, np.ones(n, bool))
+    if isinstance(expr, In):
+        return _is_in(_as_values(_eval(expr.child, batch)),
+                      tuple(expr.values))
+    if isinstance(expr, StartsWith):
+        child = _as_values(_eval(expr.child, batch))
+        if child.kind == "null":
+            return Kleene(np.zeros(n, bool), np.zeros(n, bool))
+        if child.kind != "string":
+            raise UnsupportedComparison(
+                f"STARTS WITH over a {child.kind} column")
+        value = np.zeros(n, bool)
+        idx = np.nonzero(child.valid)[0]
+        value[idx] = [child.data[i].startswith(expr.prefix)
+                      for i in idx.tolist()]
+        return Kleene(value, child.valid.copy())
+    from delta_tpu_torch.errors import InvalidArgumentError
+
+    raise InvalidArgumentError(
+        f"cannot evaluate {expr!r}",
+        error_class="DELTA_CANNOT_EVALUATE_EXPRESSION")
+
+
+def _as_values(v) -> Values:
+    if isinstance(v, Kleene):
+        return Values("bool", v.value, v.known)
+    return v
+
+
+def _as_kleene(v) -> Kleene:
+    if isinstance(v, Kleene):
+        return v
+    if v.kind == "null":
+        return Kleene(np.zeros(len(v), bool), np.zeros(len(v), bool))
+    if v.kind != "bool":
+        raise UnsupportedComparison(f"a {v.kind} operand is not a predicate")
+    return Kleene(v.data & v.valid, v.valid.copy())
+
+
+def evaluate(expr: Expression, batch) -> Kleene:
+    """The predicate `expr` over `batch`, NULLs kept."""
+    return _as_kleene(_eval(expr, batch))
+
+
+def evaluate_predicate(expr: Expression, batch) -> np.ndarray:
+    """Boolean selection with NULL -> False (WHERE semantics)."""
+    return evaluate(expr, batch).filled(False).astype(bool)

@@ -107,11 +107,16 @@ def _as_numpy(kind: str, values) -> np.ndarray:
     return np.asarray(values).astype(_DTYPES[kind], copy=False)
 
 
-def read_data_file(data: bytes) -> Batch:
-    """Every column of a flat data file, in file order."""
+def read_data_file(data: bytes, columns=None) -> Batch:
+    """The columns of a flat data file, in file order: every column, or
+    those named in `columns` that the file has (the counterpart of
+    `read_parquet_files(columns=)`; the other leaves are not decoded)."""
     footer = read_footer(data)
+    wanted = None if columns is None else set(columns)
     cols = {}
     for i, leaf in enumerate(footer.leaves):
+        if wanted is not None and leaf.parts[0] not in wanted:
+            continue
         if len(leaf.parts) != 1 or leaf.max_repetition_level:
             raise DecodeUnsupported(f"{leaf.path}: not a flat column")
         kind = _kind(leaf)
@@ -134,6 +139,6 @@ def read_data_file(data: bytes) -> Batch:
     return Batch(cols, footer.num_rows)
 
 
-def read_data_file_path(path: str) -> Batch:
+def read_data_file_path(path: str, columns=None) -> Batch:
     with open(path, "rb") as f:
-        return read_data_file(f.read())
+        return read_data_file(f.read(), columns)

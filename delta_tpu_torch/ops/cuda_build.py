@@ -35,6 +35,7 @@ SOURCES = {
     "interleave_bits": "interleave_bits.cu",
     "unpack_bitpacked": "unpack_bitpacked.cu",
     "segmented_minmax": "segmented_minmax.cu",
+    "skip_mask": "skip_mask.cu",
     "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

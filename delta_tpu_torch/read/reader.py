@@ -1,12 +1,19 @@
-"""Reading one data file of a table as logical rows.
+"""Reading a table's data files as logical rows.
 
-Counterpart of `delta_tpu/read/reader.py:21-124`
-(`read_add_file_logical`), the read half of every file-rewrite command:
-the file's columns in file order, kept when the table schema names them
-and cast up where the file predates a widening (int32 -> int64, float32
--> float64); a schema column the file lacks reads as null. A missing file
-raises `FileNotFoundInLogError`; a deletion vector, column mapping or a
-partitioned table raises `UnsupportedTableError`.
+Counterpart of `delta_tpu/read/reader.py:21-202`:
+
+- `read_add_file_logical`, the read half of every file-rewrite command:
+  one file's columns in file order, kept when the table schema names them
+  and cast up where the file predates a widening (int32 -> int64, float32
+  -> float64); a schema column the file lacks reads as null;
+- `read_scan`, the row read of a scan (`Scan.to_batch()`): each surviving
+  file reads only the needed columns (the projection plus the residual
+  filter's references), aligns to the logical schema, then the filter
+  applies to all rows (NULL drops the row) and the projection last. No
+  surviving file gives the schema's (or the projection's) columns, empty.
+
+A missing file raises `FileNotFoundInLogError`; a deletion vector, column
+mapping or a partitioned table raises `UnsupportedTableError`.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import numpy as np
 from delta_tpu_torch.config import COLUMN_MAPPING_MODE, get_table_config
 from delta_tpu_torch.errors import FileNotFoundInLogError, UnsupportedTableError
 from delta_tpu_torch.log.parquet_data import read_data_file
-from delta_tpu_torch.models.batch import Batch, Column
+from delta_tpu_torch.models.batch import Batch, Column, zeros
 from delta_tpu_torch.models.schema import schema_from_json
 
 
@@ -26,7 +33,9 @@ def absolute_path(table_path: str, file_path: str) -> str:
     return f"{table_path}/{file_path}"
 
 
-def _align_to_logical(batch: Batch, schema) -> Batch:
+def _align_to_logical(batch: Batch, schema, needed=None) -> Batch:
+    """Schema columns only, widened; a schema column the file lacks reads
+    as null (only those in `needed`, when given)."""
     known = {f.name: f for f in schema.fields}
     cols = {}
     for name in batch.column_names:
@@ -40,13 +49,12 @@ def _align_to_logical(batch: Batch, schema) -> Batch:
             col = Column(col.values.astype(want), col.valid)
         cols[name] = col
     for f in schema.fields:
-        if f.name not in cols:
+        if f.name not in cols and (needed is None or f.name in needed):
             cols[f.name] = Column.nulls(f.numpy_dtype, batch.num_rows)
     return Batch(cols, batch.num_rows)
 
 
-def read_add_file_logical(engine, table_path: str, metadata, add) -> Batch:
-    """Read one AddFile's rows in the table's logical schema."""
+def _check_readable(metadata, add) -> None:
     if metadata.partitionColumns:
         raise UnsupportedTableError(
             "reading a partitioned table's files is not supported yet",
@@ -58,11 +66,69 @@ def read_add_file_logical(engine, table_path: str, metadata, add) -> Batch:
         raise UnsupportedTableError(
             f"{add.path} has a deletion vector; deletion vectors are not "
             "supported yet", feature="deletion vectors")
+
+
+def _read_bytes(engine, table_path: str, add) -> bytes:
     try:
-        data = engine.fs.read_file(absolute_path(table_path, add.path))
+        return engine.fs.read_file(absolute_path(table_path, add.path))
     except FileNotFoundError as e:
         raise FileNotFoundInLogError(
             f"data file referenced by the log is missing: {add.path} "
             "(removed by VACUUM, or the log is ahead of storage)") from e
-    return _align_to_logical(read_data_file(data),
+
+
+def read_add_file_logical(engine, table_path: str, metadata, add) -> Batch:
+    """Read one AddFile's rows in the table's logical schema."""
+    _check_readable(metadata, add)
+    return _align_to_logical(read_data_file(_read_bytes(engine, table_path,
+                                                        add)),
                              schema_from_json(metadata.schemaString))
+
+
+def _empty(schema, names) -> Batch:
+    cols = {}
+    for c in names:
+        dtype = schema[c].numpy_dtype if c in schema else np.dtype(object)
+        cols[c] = Column(zeros(dtype, 0))
+    return Batch(cols, 0)
+
+
+def read_scan(scan) -> Batch:
+    """The rows of a scan's surviving files (module docstring)."""
+    snapshot = scan.snapshot
+    engine = snapshot.engine
+    metadata = snapshot.metadata
+    schema = schema_from_json(metadata.schemaString)
+    files = scan.add_files()
+    for add in files:
+        _check_readable(metadata, add)
+    requested = scan.columns
+    needed = requested
+    if requested is not None and scan.filter is not None:
+        # columns the filter references are read even when not projected
+        refs = [r[0] for r in scan.filter.references()]
+        needed = requested + [c for c in dict.fromkeys(refs)
+                              if c not in requested]
+    batches = []
+    for add in files:
+        part = read_data_file(_read_bytes(engine, snapshot.table_path, add),
+                              needed)
+        batches.append(_align_to_logical(part, schema, needed))
+    if not batches:
+        return _empty(schema, requested if requested is not None
+                      else schema.field_names())
+    order = batches[0].column_names
+    result = Batch.concat([Batch({c: b.columns[c] for c in order},
+                                 b.num_rows) for b in batches])
+    if scan.filter is not None:
+        from delta_tpu_torch.expressions.eval import evaluate_predicate
+
+        try:
+            keep = evaluate_predicate(scan.filter, result)
+            result = result.take(np.nonzero(keep)[0])
+        except KeyError:
+            pass  # the filter references a column the table lacks
+    if requested is not None:
+        result = Batch({c: result.columns[c] for c in requested
+                        if c in result.columns}, result.num_rows)
+    return result

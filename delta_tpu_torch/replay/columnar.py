@@ -399,6 +399,13 @@ class CheckpointRows:
             out += [_decode_path(p) for p in raw]
         return out
 
+    def stats(self, idx: np.ndarray) -> List[Optional[str]]:
+        out: List[Optional[str]] = []
+        for part, is_add, rows in self.blocks(idx):
+            out += _python(part.read, ("add" if is_add else "remove")
+                           + ".stats", rows)
+        return out
+
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         out: List[AddFile] = []
         for part, is_add, rows in self.blocks(idx):
@@ -709,6 +716,9 @@ class CompositeRows:
 
     def paths(self, idx: np.ndarray) -> List[str]:
         return self._each(idx, "paths")
+
+    def stats(self, idx: np.ndarray) -> List[Optional[str]]:
+        return self._each(idx, "stats")
 
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         return self._each(idx, "add_files")

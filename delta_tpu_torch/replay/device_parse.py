@@ -172,6 +172,9 @@ class SpanRows:
         return [decode_path(p) for p in
                 self.strings(idx, "path", np.ones(len(idx), bool))]
 
+    def stats(self, idx: np.ndarray) -> List[Optional[str]]:
+        return self.strings(idx, "stats", self.lanes["stats_present"][idx])
+
     def _common(self, idx):
         a = self.lanes
         stats = self.strings(idx, "stats", a["stats_present"][idx])

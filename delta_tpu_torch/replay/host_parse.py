@@ -64,6 +64,9 @@ class DictRows:
     def paths(self, idx: np.ndarray) -> List[str]:
         return [decode_path(self.bodies[i]["path"]) for i in idx.tolist()]
 
+    def stats(self, idx: np.ndarray) -> List[Optional[str]]:
+        return [self.bodies[i].get("stats") for i in idx.tolist()]
+
     def dv_ids(self, idx: np.ndarray) -> List[Optional[str]]:
         return [_dv_unique_id(self.bodies[i].get("deletionVector"))
                 for i in idx.tolist()]

@@ -23,11 +23,13 @@ Counters: `replay.reconstructs` (full loads), `replay.small_loads`,
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from delta_tpu_torch import obs
@@ -73,6 +75,11 @@ class SnapshotState:
     timestamp_ms: int = 0
     # wall seconds of the load's phases (ckpt_*, read, parse, codes, replay)
     phase_seconds: Dict[str, float] = field(default_factory=dict)
+    # the resident stats index (stats/device_index.py), built on the first
+    # filtered scan under its own lock (not shared with anything else)
+    stats_index: Optional[object] = field(default=None, repr=False)
+    stats_index_lock: object = field(default_factory=threading.Lock,
+                                     repr=False)
 
     @property
     def num_files(self) -> int:
@@ -83,10 +90,20 @@ class SnapshotState:
         return int(self.file_actions.size[self.live_mask].sum())
 
     @cached_property
+    def live_rows(self) -> np.ndarray:
+        """Row indices of the live files, ascending (the order of
+        `add_files`, of a scan's files and of the stats index)."""
+        return torch.nonzero(self.live_mask).squeeze(1).cpu().numpy()
+
+    @cached_property
     def add_files(self) -> List[AddFile]:
         """Live files, in row order (materialized once)."""
-        idx = torch.nonzero(self.live_mask).squeeze(1).cpu().numpy()
-        return self.file_actions.rows.add_files(idx)
+        return self.file_actions.rows.add_files(self.live_rows)
+
+    def live_stats(self) -> List[Optional[str]]:
+        """The live files' stats strings, in row order, without
+        materializing their actions."""
+        return self.file_actions.rows.stats(self.live_rows)
 
     @cached_property
     def tombstones(self) -> List[RemoveFile]:
@@ -270,7 +287,7 @@ def advance_state(engine, prev: SnapshotState, delta: ColumnarActions,
     domains.update(delta.domain_metadata)
     commit_infos = dict(prev.commit_infos)
     commit_infos.update(delta.commit_infos)
-    return SnapshotState(
+    new_state = SnapshotState(
         version=new_segment.version,
         protocol=delta.protocol or prev.protocol,
         metadata=delta.metadata or prev.metadata,
@@ -286,3 +303,14 @@ def advance_state(engine, prev: SnapshotState, delta: ColumnarActions,
         phase_seconds=dict(delta.phase_seconds,
                            advance=time.perf_counter() - t0),
     )
+    with prev.stats_index_lock:
+        stats_index, prev.stats_index = prev.stats_index, None
+    if stats_index is not None:
+        if m == 0:
+            # no file action: the live files are unchanged, so the index
+            # is still exact and moves to the new state
+            new_state.stats_index = stats_index
+        else:
+            # stale lanes: free them now; the next scan rebuilds
+            stats_index.release()
+    return new_state

@@ -1,8 +1,9 @@
 """Snapshot: an immutable view of the table at one version.
 
-Counterpart of `delta_tpu/snapshot.py`, without scans: state is
-reconstructed on first access, through the reference's degradation ladder
-and `.crc` quarantine, and cached on the object.
+Counterpart of `delta_tpu/snapshot.py`: state is reconstructed on first
+access, through the reference's degradation ladder and `.crc`
+quarantine, and cached on the object; `scan(filter, columns)` plans a
+read over it (`scan.py`).
 
 - Metadata accessors (`protocol`, `metadata`, `schema`, `timestamp_ms`,
   ...) take the P&M fast path (`_pm_state`): the full state when loaded,
@@ -95,6 +96,14 @@ class Snapshot:
     @property
     def log_segment(self) -> LogSegment:
         return self._segment
+
+    @property
+    def table_path(self) -> str:
+        return self._table.path
+
+    @property
+    def engine(self):
+        return self._table.engine
 
     @property
     def state(self) -> SnapshotState:
@@ -387,6 +396,23 @@ class Snapshot:
             last_commit_timestamp=ts)
         return self._advanced(advance_state(engine, self._state, delta,
                                             segment), segment)
+
+    # -- scans -----------------------------------------------------------
+
+    def scan_builder(self):
+        from delta_tpu_torch.scan import ScanBuilder
+
+        return ScanBuilder(self)
+
+    def scan(self, filter=None, columns=None):
+        """A scan of this version: partition pruning and data skipping by
+        `filter`, the rows of `columns` (all when None) on read."""
+        b = self.scan_builder()
+        if filter is not None:
+            b = b.with_filter(filter)
+        if columns is not None:
+            b = b.with_columns(columns)
+        return b.build()
 
     def __repr__(self):
         return f"Snapshot(path={self._table.path!r}, version={self.version})"

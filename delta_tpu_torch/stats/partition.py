@@ -1,0 +1,105 @@
+"""Partition values as typed columns, for partition pruning.
+
+Counterpart of `delta_tpu/stats/partition.py:40-134`. Partition values are
+serialized as strings in `add.partitionValues` (PROTOCOL.md, Partition
+Value Serialization; null for NULL); this module turns them back into
+typed `models.batch.Batch` columns that `expressions/eval.py` evaluates a
+partition predicate over. The types come from the table schema's JSON
+(any type name, not only the ones this package writes).
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+import json
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from delta_tpu_torch.models.batch import Batch, Column
+
+_NUMPY = {
+    "long": np.int64, "integer": np.int32, "short": np.int16,
+    "byte": np.int8, "double": np.float64, "float": np.float32,
+    "boolean": bool, "date": "datetime64[D]",
+    "timestamp": "datetime64[us]", "timestamp_ntz": "datetime64[us]",
+}
+
+
+def deserialize_partition_value(s: Optional[str], type_name: str):
+    """A partition-value string as a Python value of the column's type."""
+    if s is None:
+        return None
+    if type_name == "string":
+        return s
+    if type_name in ("long", "integer", "short", "byte"):
+        return int(s)
+    if type_name in ("double", "float"):
+        return float(s)
+    if type_name == "boolean":
+        return s.lower() == "true"
+    if type_name == "date":
+        return dt.date.fromisoformat(s)
+    if type_name in ("timestamp", "timestamp_ntz"):
+        try:
+            return dt.datetime.fromisoformat(s)
+        except ValueError:
+            return dt.datetime.strptime(s, "%Y-%m-%d %H:%M:%S.%f")
+    if type_name.startswith("decimal"):
+        import decimal
+
+        return decimal.Decimal(s)
+    return s
+
+
+def _partition_types(metadata) -> Dict[str, str]:
+    """Partition column -> its type name in the schema ("string" where
+    the schema does not give a primitive type)."""
+    fields = {}
+    if metadata is not None and metadata.schemaString:
+        for f in json.loads(metadata.schemaString).get("fields", []):
+            t = f.get("type")
+            fields[f.get("name")] = t if isinstance(t, str) else "string"
+    cols = metadata.partitionColumns if metadata is not None else []
+    return {c: fields.get(c, "string") for c in cols}
+
+
+def _typed_column(values: List[Optional[str]], type_name: str) -> Column:
+    n = len(values)
+    valid = np.fromiter((v is not None for v in values), bool, n)
+    py = [deserialize_partition_value(v, type_name) for v in values]
+    dtype = _NUMPY.get(type_name)
+    if dtype is None:
+        data = np.empty(n, object)
+        data[:] = ["" if v is None else v for v in py]
+        return Column(data, valid)
+    if type_name in ("date", "timestamp", "timestamp_ntz"):
+        data = np.array([np.datetime64(v) if v is not None
+                         else np.datetime64(0, "D") for v in py],
+                        dtype=dtype)
+    else:
+        data = np.array([0 if v is None else v for v in py], dtype=dtype)
+    return Column(data, valid)
+
+
+def partition_values_to_columns(pv_dicts: Sequence[Dict[str, Optional[str]]],
+                                metadata) -> Batch:
+    """One typed column per partition column over the files'
+    partitionValues maps (a missing key reads as NULL)."""
+    return Batch({c: _typed_column([d.get(c) for d in pv_dicts], t)
+                  for c, t in _partition_types(metadata).items()},
+                 len(pv_dicts))
+
+
+def partition_values_to_batch(pv_dicts: Sequence[Dict[str, Optional[str]]],
+                              partition_columns: List[str]) -> Batch:
+    """The conflict checker's small helper: the maps as string columns
+    (literals then compare as strings, as in the reference)."""
+    cols = {}
+    for c in partition_columns:
+        vals = [d.get(c) for d in pv_dicts]
+        data = np.empty(len(vals), object)
+        data[:] = ["" if v is None else v for v in vals]
+        cols[c] = Column(data, np.fromiter((v is not None for v in vals),
+                                           bool, len(vals)))
+    return Batch(cols, len(pv_dicts))

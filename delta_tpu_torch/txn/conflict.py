@@ -14,16 +14,23 @@ commits [v, latest] and checks, per winner, in order:
                                 -> ConcurrentTransactionError
 
 If nothing conflicts, the transaction rebases and retries at latest + 1.
-The port's transactions read either the whole table or nothing (a scan
-with a predicate is a later slice), so step 3 needs no predicate
-evaluation: with a whole-table read every checked add may match. The
-port writes no domain metadata, so no domain can conflict.
+Step 3 asks which of a winner's adds the transaction's read may have seen
+(`_matching_adds`): all of them after a whole-table read, none without a
+read, else those that some read predicate may match: a partition
+conjunct evaluated exactly over the add's partitionValues, a data
+conjunct through `stats/skipping.py::skipping_mask` over the winner's own
+stats strings (without a state: the ladder alone, never the snapshot's
+resident lanes); a conjunct that cannot be evaluated widens to "may
+match". The port writes no domain metadata, so no domain can conflict.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
-from typing import List, Sequence, Set
+from typing import List, Optional, Sequence, Set
+
+import numpy as np
 
 from delta_tpu_torch.errors import (
     ConcurrentAppendError,
@@ -41,7 +48,10 @@ from delta_tpu_torch.models.actions import (
     RemoveFile,
     SetTransaction,
 )
+from delta_tpu_torch.expressions.tree import split_conjuncts
 from delta_tpu_torch.txn.isolation import IsolationLevel
+
+_log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -62,11 +72,62 @@ class WinningCommit:
 class TransactionReadState:
     """What the losing transaction read and intends to write."""
 
+    read_predicates: list = field(default_factory=list)
     read_whole_table: bool = False
     read_files: Set[tuple] = field(default_factory=set)    # (path, dv_id)
     read_app_ids: Set[str] = field(default_factory=set)
     removed_keys: Set[tuple] = field(default_factory=set)  # (path, dv_id)
+    partition_columns: List[str] = field(default_factory=list)
     isolation: IsolationLevel = IsolationLevel.WRITE_SERIALIZABLE
+    metadata: Optional[Metadata] = None
+
+
+def _matching_adds(adds: Sequence[AddFile],
+                   state: TransactionReadState) -> np.ndarray:
+    """May-match mask over a winner's adds (reference
+    `txn/conflict.py:98-160`, `ConflictChecker.scala:584`). Per read
+    predicate, a conjunction: a file may match unless some conjunct is
+    disproved for it, exactly over partitionValues for a partition-only
+    conjunct, by min/max/nullCount stats for a data conjunct. A conjunct
+    that cannot be evaluated widens to true (over-approximating the match
+    set only adds conflicts); missing stats keep the file."""
+    n = len(adds)
+    if state.read_whole_table:
+        return np.ones(n, bool)
+    if not state.read_predicates:
+        return np.zeros(n, bool)
+    from delta_tpu_torch.expressions.eval import evaluate_predicate
+    from delta_tpu_torch.stats.partition import partition_values_to_batch
+    from delta_tpu_torch.stats.skipping import skipping_mask
+
+    pcols = set(state.partition_columns)
+    pbatch = None
+    stats = [a.stats for a in adds]
+    may = np.zeros(n, bool)
+    for pred in state.read_predicates:
+        alive = np.ones(n, bool)
+        for conj in split_conjuncts(pred):
+            refs = conj.references()
+            if refs and all(r[0] in pcols for r in refs):
+                if pbatch is None:
+                    pbatch = partition_values_to_batch(
+                        [a.partitionValues for a in adds],
+                        state.partition_columns)
+                try:
+                    alive &= evaluate_predicate(conj, pbatch)
+                except Exception as e:  # unevaluable: widen (sound)
+                    _log.debug("partition predicate unevaluable for the "
+                               "conflict check, widening: %s", e)
+            else:
+                try:
+                    alive &= skipping_mask(stats, [conj], state.metadata)
+                except Exception as e:  # unevaluable: widen (sound)
+                    _log.debug("stats predicate unevaluable for the "
+                               "conflict check, widening: %s", e)
+        may |= alive
+        if may.all():
+            break
+    return may
 
 
 def check_conflicts(state: TransactionReadState,
@@ -85,14 +146,16 @@ def check_conflicts(state: TransactionReadState,
             state.isolation == IsolationLevel.SERIALIZABLE
             or (state.isolation == IsolationLevel.WRITE_SERIALIZABLE
                 and not w.is_blind_append))
-        if check_appends and state.read_whole_table:
-            adds: List[AddFile] = [a for a in w.actions
-                                   if isinstance(a, AddFile)]
-            if adds:
+        adds: List[AddFile] = [a for a in w.actions
+                               if isinstance(a, AddFile)] \
+            if check_appends else []
+        if adds:
+            mask = _matching_adds(adds, state)
+            if mask.any():
                 raise ConcurrentAppendError(
                     f"files added by concurrent commit {w.version} may "
                     f"match this transaction's read predicate: "
-                    f"{adds[0].path}")
+                    f"{adds[int(mask.argmax())].path}")
         for a in w.actions:
             if isinstance(a, RemoveFile):
                 key = (a.path, a.dv_unique_id)

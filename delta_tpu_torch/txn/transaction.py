@@ -5,6 +5,7 @@ OPTIMIZE and a plain append need:
 
     txn = table.create_transaction_builder("OPTIMIZE").build()
     files = txn.scan_files()           # a whole-table read, tracked
+    files = txn.scan_files(filter=p)   # a predicate read, tracked
     txn.remove_file(...); txn.add_files([...])
     result = txn.commit()
 
@@ -264,6 +265,7 @@ class Transaction:
         self._op_parameters: Dict[str, object] = {}
         self._op_metrics: Dict[str, object] = {}
         self._read_whole_table = False
+        self._read_predicates: list = []
         self._read_files: set = set()
         self._read_app_ids: set = set()
         self._committed = False
@@ -285,16 +287,17 @@ class Transaction:
         return self.read_snapshot.protocol if self.read_snapshot else None
 
     def scan_files(self, filter=None) -> List[AddFile]:
-        """Every live file of the read snapshot; records a whole-table
-        read and the returned file keys for the conflict check."""
-        if filter is not None:
-            raise UnsupportedTableError(
-                "a scan with a predicate is not supported yet",
-                feature="predicate")
+        """The read snapshot's live files that `filter` may match (every
+        one when None: a whole-table read); records the predicate (or the
+        whole-table read) and the returned file keys for the conflict
+        check."""
         if self.read_snapshot is None:
             return []
-        files = list(self.read_snapshot.state.add_files)
-        self._read_whole_table = True
+        files = self.read_snapshot.scan(filter=filter).files()
+        if filter is None:
+            self._read_whole_table = True
+        else:
+            self._read_predicates.append(filter)
         for f in files:
             self._read_files.add((f.path, f.dv_unique_id))
         return files
@@ -414,8 +417,12 @@ class Transaction:
         return actions
 
     def _read_state(self) -> TransactionReadState:
+        meta = self.metadata()
         return TransactionReadState(
+            read_predicates=list(self._read_predicates),
             read_whole_table=self._read_whole_table,
+            partition_columns=list(meta.partitionColumns) if meta else [],
+            metadata=meta,
             read_files=set(self._read_files),
             read_app_ids=set(self._read_app_ids) | set(self._set_txns),
             removed_keys={(r.path, r.dv_unique_id) for r in self._removes},

@@ -2,8 +2,10 @@
 
 A snapshot load through `delta_tpu_torch` in a fresh interpreter, of a
 commit-only log and of a checkpointed one, a `write_table` plus OPTIMIZE
-(both curves, and compaction), and the checkpoint writes of the
-post-commit hooks and of `Table.checkpoint` must leave no `jax`,
+(both curves, and compaction), the checkpoint writes of the
+post-commit hooks and of `Table.checkpoint`, and a filtered `read_table`
+(scan planning with the stats index, the skip mask and the ladder, the
+row read) plus an OPTIMIZE with a predicate must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -62,6 +64,19 @@ assert st.version == 10 and st.file_actions.version.min() == 10
 assert obs.counters()["checkpoint.parts_written"] >= 3
 t.checkpoint(version=9)
 assert not any(v for k, v in obs.counters().items() if k.startswith("hooks."))
+# the read path: a filtered read_table and a predicate OPTIMIZE
+from delta_tpu_torch.api import read_table
+from delta_tpu_torch.expressions import col, lit
+obs.reset()
+b = read_table(d3, filter=(col("k") < lit(3)) & (col("s") > lit("v1")),
+               columns=["k"], engine=TorchEngine("cpu"))
+assert b.column_names == ["k"]
+assert obs.counters()["scan.device_plans"] == 1
+assert obs.counters()["scan.device_fallbacks"] == 1
+write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
+write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
+m = t.optimize().where(col("k") >= lit(0)).execute_compaction()
+assert m.num_files_removed >= 2
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))

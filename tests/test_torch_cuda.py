@@ -776,3 +776,91 @@ def test_update_on_the_card(tmp_path, case, by):
     assert sorted(r.path for r in state.tombstones) == tombstones
     same_as_cold(state, root, TorchEngine())
     same_as_cold(state, root, TorchEngine("cpu"))
+
+
+def _k7_block(rng, n_cols: int, n_atoms: int, n_groups: int):
+    from delta_tpu_torch.ops.skipping import AtomBlock
+
+    cols = rng.integers(0, n_cols, n_atoms)
+    rmn = (3 * cols).astype(np.int32)
+    return AtomBlock(
+        rows_mn=rmn, rows_mx=rmn + 1, rows_nc=rmn + 2,
+        ops=rng.integers(0, 8, n_atoms).astype(np.int32),
+        lits=rng.integers(-20, 21, n_atoms).astype(np.int64),
+        grp=rng.integers(0, max(n_groups, 1), n_atoms).astype(np.int32),
+        n_atoms=n_atoms, n_groups=n_groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,f,n_atoms,n_groups", [
+    (0, 1, 1, 1), (1, 255, 3, 5), (2, 257, 12, 4), (3, 100_003, 40, 30),
+    (4, 1000, 0, 0), (5, 1000, 0, 3), (6, 600_000, 20, 6)])
+def test_skip_mask_kernel_matches_plain(seed, f, n_atoms, n_groups):
+    """K7 equals its plain version bit for bit on random lanes and atom
+    blocks: empty groups (more groups than atoms fill), no atom at all,
+    lanes wider than the files scanned (an offset stride)."""
+    from delta_tpu_torch.ops.skipping import skip_mask_block, skip_mask_plain
+
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    n_cols = 3
+    r = 3 * n_cols + 1
+    width = f + (seed % 3) * 7
+    vals = rng.integers(-20, 21, (r, width)).astype(np.int64)
+    nr = rng.integers(0, 4, width)
+    vals[-1] = nr
+    for c in range(n_cols):
+        vals[3 * c + 2] = np.minimum(rng.integers(0, 5, width), nr)
+    valid = rng.random((r, width)) > 0.15
+    block = _k7_block(rng, n_cols, n_atoms, n_groups)
+    v = torch.from_numpy(vals).to(dev)
+    m = torch.from_numpy(valid).to(dev)
+    launches = obs.counter("kernel.skip_mask.launches").read()
+    got = skip_mask_block(v, m, block, f).cpu().numpy()
+    torch.cuda.synchronize()
+    assert obs.counter("kernel.skip_mask.launches").read() == launches + 1
+    want = skip_mask_plain(v, m, block, f).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    if n_atoms == 0:
+        assert got.all()
+
+
+@pytest.mark.cuda
+def test_scan_and_read_table_on_the_card_equal_cpu(tmp_path):
+    """A small table's filtered scans and `read_table` on the card (K7
+    launched once per filtered scan) equal `device="cpu"`."""
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.expressions import col, lit
+
+    _card()
+    path = str(tmp_path / "t")
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        k = np.arange(i * 100, i * 100 + 100)
+        write_table(path, {"k": k, "x": rng.normal(size=100),
+                           "s": np.array([f"s{v:04d}" for v in k])},
+                    engine=TorchEngine("cpu"))
+    preds = [col("k") >= lit(250), (col("k") < lit(120)) | (col("k") > lit(480)),
+             col("k").is_in(5, 305, 999), col("k").is_null(),
+             ~(col("k") < lit(400)), col("s") > lit("s0350")]
+    card = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
+    cpu = Table.for_path(path, engine=TorchEngine("cpu")).latest_snapshot()
+    obs.reset()
+    for p in preds:
+        a, b = card.scan(filter=p), cpu.scan(filter=p)
+        assert a.file_paths() == b.file_paths()
+        assert (a.skipped_by_stats, a.partition_pruned) \
+            == (b.skipped_by_stats, b.partition_pruned)
+    counts = obs.counters()
+    assert counts["kernel.skip_mask.launches"] == len(preds) - 1
+    assert counts["scan.stats_index_builds"] == 2
+    assert card.state.stats_index.device_lanes()[0].is_cuda
+    f = (col("k") >= lit(130)) & (col("x") > lit(0.0))
+    on_card = read_table(path, filter=f, columns=["s", "x"],
+                         engine=TorchEngine())
+    on_cpu = read_table(path, filter=f, columns=["s", "x"],
+                        engine=TorchEngine("cpu"))
+    assert on_card.column_names == on_cpu.column_names == ["s", "x"]
+    for c in ("s", "x"):
+        assert np.array_equal(on_card.column(c).values,
+                              on_cpu.column(c).values)

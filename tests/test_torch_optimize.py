@@ -39,6 +39,7 @@ from delta_tpu_torch.commands import optimize as port_opt
 from delta_tpu_torch.errors import (
     ConcurrentDeleteReadError,
     DeltaError,
+    InvalidArgumentError,
     UnsupportedTableError,
 )
 
@@ -371,8 +372,10 @@ def test_refuses_a_clustered_table(tmp_path):
 
 
 def test_refuses_a_predicate(tmp_path):
+    """A predicate that is not an expression is refused with a typed
+    error (an expression is ported: test_torch_conflict_predicates.py)."""
     table = _refusal(tmp_path)
-    with pytest.raises(UnsupportedTableError):
+    with pytest.raises(InvalidArgumentError):
         table.optimize().where(object())
     # where(None) is no predicate
     m = table.optimize().where(None).execute_zorder_by("k1")
