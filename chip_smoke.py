@@ -102,6 +102,24 @@
    the generator's live files, size and path digest, and to the
    tombstones retained under the real clock (computed from the loaded
    state). The new checkpoint is then removed again.
+   Then the log forms (`log_forms_phase`) on a copy of that log (hard
+   links), each load's counters from 0 just before it and read just
+   after, each held to the generator's truth: compacted deltas over the
+   tail and over 1,000 commit-only versions (K1 on their lines, with and
+   without the checkpoint); a V2 checkpoint at the head with cell 5's
+   part size (its file actions in 9 sidecars) and its reload alone (K3
+   once per sidecar, K2); two append-only commits and a second V2 write
+   with the first's hint (most sidecars reused; the counts printed); a
+   fresh sidecar deleted (one fallback, to the first V2); a struct-only
+   checkpoint (`writeStatsAsStruct` without JSON stats) and its reload,
+   whose re-serialized stats hash to the JSON-stats reload's, and cell
+   7's five filters on it (K7 once each); `cleanup_expired_logs` under a
+   clock 31 days ahead (the deleted files printed, no sidecar among
+   them; the load still meets the truth; `snapshot_at` of a deleted
+   version raises as the reference does); and C6 (`k < 1.5` keeps both
+   files of a table with a value past 2^53). Each write's seconds and
+   bytes, each reload's seconds with its split, the struct-only index
+   build and the cleanup print on lines of their own with the card.
 9. Handoff phase: a 200-commit log checkpointed at its head (its path
    dictionaries stay under 1 MiB, so the keys are dictionary-coded) must
    load through the handoff (`decode.handoff_launches` >= 1) to its truth.
@@ -152,7 +170,8 @@
     same stats.
 
 Prints a metrics line per phase, a `kernels` JSON line (K1-K7, each with
-its launches, its time per call (`ms`, CUDA events around back-to-back
+its launches (K1, K2, K3 and K7 also `launches_v2`,
+`launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
 its bound and both shares of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
@@ -668,6 +687,35 @@ def _k7_bytes(block, n_rows: int, n_files: int) -> float:
     return float(n_files * (9 * len(rows) + 1))
 
 
+def _scan_cases(fids: np.ndarray) -> list:
+    """Cell 7's five filters over files whose stats put x in
+    [(fid+1)*1000, (fid+2)*1000]: (name, predicate, the surviving files
+    as a mask over `fids`, from those bounds in numpy)."""
+    from delta_tpu_torch.expressions import col, lit
+
+    lo, hi = (fids + 1) * 1000, (fids + 2) * 1000
+    top = int(fids.max())
+    a = top // 3
+    b = a + max(1, top // 100)
+    range_lo, range_hi = (a + 1) * 1000 + 500, (b + 1) * 1000 + 500
+    or_lo = (top // 200 + 1) * 1000
+    or_hi = (top - top // 200 + 1) * 1000
+    cut = (top // 2 + 1) * 1000 + 250
+    in_vals = np.sort(np.random.default_rng(17).integers(
+        1000, (top + 2) * 1000, SCAN_IN_VALUES))
+    x = col("x")
+    return [
+        ("range_1pct", (x >= lit(range_lo)) & (x < lit(range_hi)),
+         (hi >= range_lo) & (lo < range_hi)),
+        ("or_of_ranges", (x < lit(or_lo)) | (x > lit(or_hi)),
+         (lo < or_lo) | (hi > or_hi)),
+        ("in_16", x.is_in(*(int(v) for v in in_vals)),
+         ((lo[:, None] <= in_vals) & (in_vals <= hi[:, None])).any(1)),
+        ("is_null", x.is_null(), np.zeros(len(fids), bool)),
+        ("not_range", ~(x < lit(cut)), hi >= cut),
+    ]
+
+
 def scan_phase(path: str, truth, card: str, dev) -> tuple:
     """Scan planning on cell 2's snapshot (the checkpoint-plus-tail log,
     every live file with stats on x in [(fid+1)*1000, (fid+2)*1000]): the
@@ -681,32 +729,12 @@ def scan_phase(path: str, truth, card: str, dev) -> tuple:
     plain version and its bound. Returns (metrics line, K7's kernels
     entry)."""
     from delta_tpu_torch import Table, TorchEngine, obs
-    from delta_tpu_torch.expressions import col, lit, split_conjuncts
+    from delta_tpu_torch.expressions import split_conjuncts
     from delta_tpu_torch.ops.skipping import skip_mask_block, skip_mask_plain
     from delta_tpu_torch.stats.device_index import compile_conjuncts
 
     fids = _fids(truth.live_paths)
-    lo, hi = (fids + 1) * 1000, (fids + 2) * 1000
-    top = int(fids.max())
-    a = top // 3
-    b = a + max(1, top // 100)
-    range_lo, range_hi = (a + 1) * 1000 + 500, (b + 1) * 1000 + 500
-    or_lo = (top // 200 + 1) * 1000
-    or_hi = (top - top // 200 + 1) * 1000
-    cut = (top // 2 + 1) * 1000 + 250
-    in_vals = np.sort(np.random.default_rng(17).integers(
-        1000, (top + 2) * 1000, SCAN_IN_VALUES))
-    x = col("x")
-    cases = [
-        ("range_1pct", (x >= lit(range_lo)) & (x < lit(range_hi)),
-         (hi >= range_lo) & (lo < range_hi)),
-        ("or_of_ranges", (x < lit(or_lo)) | (x > lit(or_hi)),
-         (lo < or_lo) | (hi > or_hi)),
-        ("in_16", x.is_in(*(int(v) for v in in_vals)),
-         ((lo[:, None] <= in_vals) & (in_vals <= hi[:, None])).any(1)),
-        ("is_null", x.is_null(), np.zeros(len(fids), bool)),
-        ("not_range", ~(x < lit(cut)), hi >= cut),
-    ]
+    cases = _scan_cases(fids)
     snap = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
     state = snap.state
     n = state.num_files
@@ -1837,6 +1865,346 @@ def checkpoint_write_phase(path: str, truth, card: str) -> dict:
         "card": card}
 
 
+_FORM_KERNELS = {"byte_class": "kernel.byte_class.launches",
+                 "winner_pack": "kernel.winner_pack.launches",
+                 "hybrid_extract": "kernel.hybrid_extract.launches",
+                 "skip_mask": "kernel.skip_mask.launches"}
+
+
+def _append_adds(log: str, live: list, first: int, n: int, next_fid: int,
+                 seed: int) -> tuple:
+    """`n` append-only commits after version `first - 1`, 100 new files
+    each, named and with stats as the generator names them (fids from
+    `next_fid` on). Returns the new live paths (sorted) and the next
+    fid."""
+    rng = np.random.default_rng(seed)
+    live = list(live)
+    for k in range(n):
+        v = first + k
+        lines = []
+        for u in rng.integers(0, 1 << 60, 100):
+            fid, next_fid = next_fid, next_fid + 1
+            p = f"part-{fid:010d}-{int(u):016x}.parquet"
+            live.append(p)
+            lo, hi = (fid + 1) * 1000, (fid + 2) * 1000
+            lines.append(
+                f'{{"add":{{"path":"{p}","partitionValues":{{}},'
+                f'"size":1048576,"modificationTime":{v},"dataChange":true,'
+                f'"stats":"{{\\"numRecords\\":1000,'
+                f'\\"minValues\\":{{\\"x\\":{lo}}},'
+                f'\\"maxValues\\":{{\\"x\\":{hi}}},'
+                f'\\"nullCount\\":{{\\"x\\":0}}}}"}}}}')
+        with open(os.path.join(log, f"{v:020d}.json"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return sorted(live), next_fid
+
+
+def _forms_load(copy: str, live: list, version: int, what: str) -> tuple:
+    """A cold load of `copy` on the card, counters from 0 just before and
+    read just after, held to the live paths `live` at `version` (1 MiB
+    files; the checkpoints the port writes keep no tombstone of the
+    generator's, whose deletion times are commit indexes); returns (the
+    snapshot, its counters, seconds)."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+
+    torch.cuda.synchronize()
+    obs.reset()
+    t0 = time.perf_counter()
+    snap = Table.for_path(copy, engine=TorchEngine()).latest_snapshot()
+    state = snap.state
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = obs.counters()
+    paths = sorted(_live_paths(state))
+    _check(state.version == version and paths == live
+           and state.size_in_bytes == 1048576 * len(live),
+           f"{what}: the load meets the generator's truth")
+    return snap, counts, secs
+
+
+def _live_paths(state) -> list:
+    """The live files' paths from the row stores (no AddFile built)."""
+    idx = np.flatnonzero(state.live_mask.cpu().numpy())
+    return state.file_actions.rows.paths(idx)
+
+
+def log_forms_phase(path: str, truth, card: str) -> tuple:
+    """The log forms of a later Delta on a hard-linked copy of cell 2's
+    log (600,020 live files), on the card, each load's counters from 0
+    just before it and read just after, each held to the generator's
+    truth:
+    - compacted deltas: `write_compacted_delta` over the tail (9991-9999)
+      and over 1,000 commit-only versions (1000-1999 at 10k commits); the
+      checkpoint
+      load takes the tail's, a load with the checkpoint set aside takes
+      both (K1 on their lines);
+    - V2: `write_checkpoint(policy="v2")` at the head with cell 5's part
+      size, so the file actions land in several sidecars; its reload
+      reads that checkpoint alone (no commit), one K3 launch per sidecar
+      and K2 (the handoff's where the sidecars' path dictionaries stay
+      under 1 MiB, else the replay's); two more commits and a second V2 write with
+      the first's hint reuses most sidecars; one of the second's fresh
+      sidecars deleted, the load falls back once, to the first V2 and
+      the two commits (append-only: a removal would shift every later
+      chunk);
+    - stats_parsed: a metaData commit sets writeStatsAsStruct=true and
+      writeStatsAsJson=false and a struct-only checkpoint is written at
+      it; its reload's 600k add stats strings (re-serialized from the
+      structs) hash (sha256, sorted by path) to those of the JSON-stats
+      V2 reload after both pass through `_stats_from_parsed`'s form
+      (`json.dumps(json.loads(s), separators=(",", ":"))`); then cell 7's
+      five filters, survivors equal to the generator's bounds, one K7
+      launch per filter;
+    - cleanup: `cleanup_expired_logs` under a clock 31 days ahead deletes
+      every commit, checksum, compacted delta and checkpoint below the
+      newest checkpoint, never a sidecar; the load still meets the truth
+      and `snapshot_at` of a deleted version raises TableNotFoundError
+      (DELTA_NO_COMMITS_FOUND), as the reference does;
+    - C6: a scan with `k < 1.5` over two files, one holding a value past
+      2^53, keeps both.
+    Returns (metrics, {kernel: {launches_v2, launches_stats_parsed,
+    launches_compacted}})."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.config import settings
+    from delta_tpu_torch.errors import TableNotFoundError
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.log.checkpointer import (
+        CheckpointMetrics, write_checkpoint)
+    from delta_tpu_torch.log.cleanup import (
+        cleanup_expired_logs, write_compacted_delta)
+    from delta_tpu_torch.log.last_checkpoint import read_last_checkpoint
+    from delta_tpu_torch.replay.columnar import CheckpointRows
+    from delta_tpu_torch.utils import filenames
+
+    copy = path + "_forms"
+    shutil.copytree(path, copy, copy_function=_link_or_copy)
+    log = os.path.join(copy, "_delta_log")
+    head = truth.version
+    live = list(truth.live_paths)
+    part_size = max(1, len(live) // 8)  # cell 5's, for every write here
+    out = {"card": card, "part_size": part_size}
+    launches = {k: {} for k in _FORM_KERNELS}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def write(snap, **kw):
+        m = CheckpointMetrics()
+        settings.checkpoint_part_size = part_size
+        try:
+            obs.reset()
+            info, secs = timed(lambda: write_checkpoint(
+                TorchEngine(), snap, metrics=m, **kw))
+        finally:
+            settings.checkpoint_part_size = None
+        return info, m, secs, obs.counters()
+
+    try:
+        # compacted deltas: the tail's, and 1,000 commit-only versions
+        table = Table.for_path(copy, engine=TorchEngine())
+        _, out["compact_tail_write_s"] = timed(
+            lambda: write_compacted_delta(table, head - 8, head))
+        run_lo = head // 10 + 1
+        run_hi = run_lo + min(1000, head // 5) - 1
+        _, out["compact_1000_write_s"] = timed(
+            lambda: write_compacted_delta(table, run_lo, run_hi))
+        base, c_ck, out["compacted_checkpoint_load_s"] = _forms_load(
+            copy, live, head, "compacted tail on the checkpoint")
+        seg = base.log_segment
+        _check(len(seg.compacted_deltas) == 1 and not seg.deltas,
+               "compacted: the checkpoint load takes the tail's range")
+        _ladder_idle(c_ck, "compacted: the checkpoint load")
+        side = os.path.join(copy, "_aside")
+        aside = _set_aside(log, side)
+        snap, c_co, out["compacted_commit_only_load_s"] = _forms_load(
+            copy, live, head, "compacted ranges, checkpoint set aside")
+        seg = snap.log_segment
+        _check(len(seg.compacted_deltas) == 2
+               and len(seg.deltas) == head + 1 - (run_hi - run_lo + 1) - 9,
+               "compacted: the commit-only load takes both ranges")
+        del snap
+        _put_back(log, side, aside)
+        for k in _FORM_KERNELS:
+            launches[k]["launches_compacted"] = (
+                c_ck.get(_FORM_KERNELS[k], 0) + c_co.get(_FORM_KERNELS[k], 0))
+        for k in ("byte_class", "winner_pack"):
+            _check(c_ck.get(_FORM_KERNELS[k], 0) >= 1
+                   and c_co.get(_FORM_KERNELS[k], 0) >= 1,
+                   f"compacted: {k} launched on both loads")
+        out["compacted_counters"] = {"checkpoint_load": c_ck,
+                                     "commit_only_load": c_co}
+
+        # V2 at the head (from that snapshot), cell 5's part size; a
+        # reload through it alone
+        info1, m1, out["v2_write_s"], _ = write(base, policy="v2")
+        n_side = m1.parts - 1
+        _check(n_side > 1 and info1.tag and info1.version == head,
+               "v2: the write put the file actions in several sidecars")
+        out["v2_write"] = {"sidecars": n_side, "rows": m1.rows,
+                           "bytes": m1.bytes_written,
+                           "phase_s": m1.phase_seconds}
+        del base
+        snap, c_v2, out["v2_reload_s"] = _forms_load(copy, live, head,
+                                                     "v2 reload")
+        seg = snap.log_segment
+        _check(seg.is_v2 and not seg.deltas and not seg.compacted_deltas,
+               "v2: the reload reads the V2 checkpoint alone")
+        _check(c_v2.get("decode.device_parts", 0) == n_side
+               and c_v2.get("decode.device_fallbacks", 0) == 0
+               and c_v2.get(_FORM_KERNELS["hybrid_extract"], 0) == n_side
+               and c_v2.get(_FORM_KERNELS["winner_pack"], 0) >= 1,
+               f"v2: K3 once per sidecar and K2 ({c_v2})")
+        _ladder_idle(c_v2, "v2 reload")
+        out["v2_reload_phase_s"] = snap.state.phase_seconds
+        out["v2_reload_handoff_launches"] = c_v2.get(
+            "decode.handoff_launches", 0)
+        rows = snap.state.file_actions.rows
+        idx = np.flatnonzero(snap.state.live_mask.cpu().numpy())
+        json_stats = sorted(zip(
+            rows.paths(idx),
+            (json.dumps(json.loads(x), separators=(",", ":"))
+             for x in rows.stats(idx))))
+        for k in _FORM_KERNELS:
+            launches[k]["launches_v2"] = c_v2.get(_FORM_KERNELS[k], 0)
+        del snap
+
+        # two more commits, a second V2 write reusing the first's parts
+        live2, _ = _append_adds(log, live, head + 1, 2,
+                                len(truth.live_paths) * 2, 23)
+        snap = Table.for_path(copy, engine=TorchEngine()).latest_snapshot()
+        info2, m2, out["v2_rewrite_s"], c_w2 = write(
+            snap, policy="v2", prev_info=read_last_checkpoint(
+                TorchEngine().fs, log))
+        written = m2.parts - m2.parts_reused - 1
+        out["v2_rewrite"] = {"reused": m2.parts_reused, "written": written,
+                             "bytes": m2.bytes_written,
+                             "phase_s": m2.phase_seconds}
+        print(f"v2 rewrite: {m2.parts_reused} sidecars reused, {written} "
+              f"written", flush=True)
+        _check(m2.parts_reused > written,
+               "v2: most sidecars reused by the second write")
+        del snap
+        old = {e["name"] for e in info1.partManifest["parts"]}
+        fresh = [e["name"] for e in info2.partManifest["parts"]
+                 if e["name"] not in old]
+        os.remove(os.path.join(filenames.sidecar_dir(log), fresh[-1]))
+        snap, c_fb, out["v2_fallback_load_s"] = _forms_load(
+            copy, live2, head + 2, "v2: a vanished sidecar")
+        _check(c_fb.get("snapshot.checkpoint_fallbacks", 0) == 1
+               and snap.log_segment.checkpoint_version == head,
+               "v2: a vanished sidecar falls back once, to the first V2")
+        del snap
+        os.remove(os.path.join(log, info2.tag))
+
+        # stats_parsed: a struct-only checkpoint, its reload, five scans
+        snap = Table.for_path(copy, engine=TorchEngine()).latest_snapshot()
+        meta = snap.metadata.to_dict()
+        meta["configuration"] = {
+            **meta["configuration"],
+            "delta.checkpoint.writeStatsAsStruct": "true",
+            "delta.checkpoint.writeStatsAsJson": "false"}
+        with open(filenames.delta_file(log, head + 3), "w") as f:
+            f.write(json.dumps({"metaData": meta}) + "\n")
+        del snap
+        snap = Table.for_path(copy, engine=TorchEngine()).latest_snapshot()
+        info3, m3, out["struct_write_s"], _ = write(snap)
+        out["struct_write"] = {"parts": m3.parts, "bytes": m3.bytes_written,
+                               "phase_s": m3.phase_seconds}
+        del snap
+        snap, c_sp, out["struct_reload_s"] = _forms_load(
+            copy, live2, head + 3, "struct-only reload")
+        _check(snap.log_segment.checkpoint_version == head + 3
+               and c_sp.get("decode.device_parts", 0) == m3.parts
+               and c_sp.get("decode.device_fallbacks", 0) == 0,
+               "stats_parsed: the reload decodes every part on the card")
+        state = snap.state
+        out["struct_reload_phase_s"] = state.phase_seconds
+        rows = state.file_actions.rows
+        ck = [st for st in getattr(rows, "stores", [rows])
+              if isinstance(st, CheckpointRows)]
+        _check(len(ck) == 1 and all(
+            p.data is not None for p in ck[0].parts if len(p.add_rows)),
+            "stats_parsed: every part's adds carry stats only as structs, "
+            "so the stats below come from stats_parsed")
+        t0 = time.perf_counter()
+        idx = np.flatnonzero(state.live_mask.cpu().numpy())
+        got = sorted(zip(state.file_actions.rows.paths(idx),
+                         state.file_actions.rows.stats(idx)))
+        out["struct_stats_s"] = time.perf_counter() - t0
+        both = set(live) & set(live2)
+        sha = hashlib.sha256("\n".join(
+            f"{p}\t{s}" for p, s in got if p in both).encode()).hexdigest()
+        want = hashlib.sha256("\n".join(
+            f"{p}\t{s}" for p, s in json_stats
+            if p in both).encode()).hexdigest()
+        _check(len(got) == len(live2) and sha == want
+               and all(s is not None for _, s in got),
+               "stats_parsed: the re-serialized stats equal the JSON "
+               "stats (sha256 of the sorted path/stats lines)")
+        fids = _fids(live2)
+        for name, pred, want_mask in _scan_cases(fids):
+            t0 = time.perf_counter()
+            paths = snap.scan(filter=pred).file_paths()
+            torch.cuda.synchronize()
+            out[f"struct_scan_{name}_s"] = time.perf_counter() - t0
+            _check(np.array_equal(np.sort(_fids(paths)),
+                                  np.sort(fids[want_mask])),
+                   f"stats_parsed scan {name}: the generator's survivors")
+        c_sp = obs.counters()
+        _check(c_sp.get(_FORM_KERNELS["skip_mask"], 0) == 5
+               and c_sp.get("scan.device_plans", 0) == 5,
+               "stats_parsed: one K7 launch per filter")
+        out["struct_index_build_s"] = sum(
+            state.stats_index.phase_seconds.values())
+        out["struct_index_phase_s"] = dict(state.stats_index.phase_seconds)
+        for k in _FORM_KERNELS:
+            launches[k]["launches_stats_parsed"] = c_sp.get(
+                _FORM_KERNELS[k], 0)
+        _check(all(launches[k]["launches_stats_parsed"] >= 1
+                   for k in ("winner_pack", "hybrid_extract", "skip_mask")),
+               "stats_parsed: K2, K3 and K7 launched")
+        del snap, state, got
+
+        # metadata cleanup under a clock 31 days ahead
+        table = Table.for_path(copy, engine=TorchEngine())
+        n_side_before = len(os.listdir(filenames.sidecar_dir(log)))
+        deleted, out["cleanup_s"] = timed(lambda: cleanup_expired_logs(
+            table, now_ms=int(time.time() * 1000) + 31 * 86_400_000))
+        out["cleanup_deleted"] = len(deleted)
+        print(f"cleanup deleted {len(deleted)} files, e.g. "
+              f"{[os.path.basename(p) for p in deleted[:3]]}", flush=True)
+        _check(len(deleted) >= head and len(os.listdir(
+            filenames.sidecar_dir(log))) == n_side_before,
+            "cleanup: every commit below the checkpoint, no sidecar")
+        snap, _, out["after_cleanup_load_s"] = _forms_load(
+            copy, live2, head + 3, "after cleanup")
+        del snap
+        try:
+            Table.for_path(copy, engine=TorchEngine()).snapshot_at(head // 2)
+            _check(False, "cleanup: snapshot_at of a deleted version")
+        except TableNotFoundError as e:
+            _check(e.error_class == "DELTA_NO_COMMITS_FOUND",
+                   "cleanup: a deleted version raises as the reference")
+
+        # C6: an int64 past 2^53 beside a float literal keeps both files
+        c6 = os.path.join(copy + "_c6")
+        for k in ([1, 2], [2 ** 53 + 1, 2 ** 53 + 3]):
+            write_table(c6, {"k": np.array(k, np.int64)},
+                        engine=TorchEngine())
+        kept = Table.for_path(c6, engine=TorchEngine()).latest_snapshot() \
+            .scan(filter=col("k") < lit(1.5)).file_paths()
+        _check(len(kept) == 2, "C6: k < 1.5 keeps both files")
+    finally:
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.rmtree(copy + "_c6", ignore_errors=True)
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -2005,6 +2373,26 @@ def main(argv=None) -> int:
         kernels["hybrid_extract"]["launches_checkpoint_write_reload"] = \
             cw["reload_counters"].get("kernel.hybrid_extract.launches", 0)
         print("checkpoint write: " + json.dumps(cw), flush=True)
+
+        # the log forms: compacted deltas, V2 with sidecars and reuse,
+        # stats_parsed, cleanup, C6; each load's counters from 0
+        forms, form_launches = log_forms_phase(path, truth, card)
+        for name, extra in form_launches.items():
+            kernels[name].update(extra)
+        print("log forms: " + json.dumps(forms), flush=True)
+        for key in ("v2_write", "v2_rewrite", "struct_write"):
+            print(f"log forms {key}: {forms[key + '_s']:.4f} s, "
+                  f"{forms[key]['bytes']} B; {card}", flush=True)
+        for key in ("compacted_checkpoint_load", "compacted_commit_only_load",
+                    "v2_reload", "v2_fallback_load", "struct_reload",
+                    "after_cleanup_load"):
+            print(f"log forms {key}: {forms[key + '_s']:.4f} s "
+                  f"{json.dumps(forms.get(key + '_phase_s', {}))}; {card}",
+                  flush=True)
+        for key in ("compact_tail_write", "compact_1000_write",
+                    "struct_stats", "struct_index_build", "cleanup"):
+            print(f"log forms {key}: {forms[key + '_s']:.4f} s; {card}",
+                  flush=True)
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")

@@ -89,7 +89,11 @@ ROW_TRACKING_ENABLED = TableConfig("delta.enableRowTracking", False,
                                    _parse_bool)
 COORDINATED_COMMITS_COORDINATOR = TableConfig(
     "delta.coordinatedCommits.commitCoordinator-preview", None, str)
-# checkpoints and post-commit hooks
+# checkpoints, metadata cleanup and post-commit hooks
+LOG_RETENTION = TableConfig("delta.logRetentionDuration", 30 * _DAY_MS,
+                            _parse_interval_ms)
+CHECKPOINT_RETENTION = TableConfig("delta.checkpointRetentionDuration",
+                                   2 * _DAY_MS, _parse_interval_ms)
 CHECKPOINT_INTERVAL = TableConfig("delta.checkpointInterval", 10, int)
 TOMBSTONE_RETENTION = TableConfig("delta.deletedFileRetentionDuration",
                                   7 * _DAY_MS, _parse_interval_ms)

@@ -11,7 +11,8 @@ IN give definite booleans. `evaluate_predicate` turns NULL into False
 
 Comparisons follow Arrow's kernel rules, so that both packages accept and
 refuse the same operand types: numbers compare with numbers (an integer
-beside a float compares as float64), booleans with booleans, strings with
+beside a float compares as float64, through Arrow's safe cast, which
+refuses the comparison when a valid integer lies past ±2^53), booleans with booleans, strings with
 strings (by code point, which is UTF-8 byte order), dates and timestamps
 with each other as microseconds, except a zone-less timestamp with a zoned
 one, which Arrow refuses; a NULL-typed operand gives NULL against
@@ -157,6 +158,7 @@ def column_values(values: np.ndarray, valid) -> Values:
 
 
 _TEMPORAL = ("date", "ts", "tsz")
+_F64_EXACT_INT = 1 << 53
 _DATE_RE = re.compile(r"\d{4}-\d{2}-\d{2}")
 _OPS = {
     "=": np.equal, "!=": np.not_equal, "<": np.less, "<=": np.less_equal,
@@ -168,13 +170,24 @@ _PY_OPS = {
 }
 
 
+def _as_float64(v: Values) -> np.ndarray:
+    """An int or float operand as float64; an int one by Arrow's safe
+    cast, which refuses when a valid value lies past ±2^53."""
+    d = v.data[v.valid] if v.kind == "int" else None
+    if d is not None and bool(((d > _F64_EXACT_INT)
+                               | (d < -_F64_EXACT_INT)).any()):
+        raise UnsupportedComparison(
+            "an integer past 2^53 does not cast exactly to a float")
+    return v.data.astype(np.float64)
+
+
 def _common(a: Values, b: Values):
     """The two operands' data in one comparable domain, or raise."""
     ka, kb = a.kind, b.kind
     if ka == kb and ka in ("bool", "int", "float", "date", "ts", "tsz"):
         return a.data, b.data
     if {ka, kb} == {"int", "float"}:
-        return a.data.astype(np.float64), b.data.astype(np.float64)
+        return _as_float64(a), _as_float64(b)
     if ka in _TEMPORAL and kb in _TEMPORAL and {ka, kb} != {"ts", "tsz"}:
         to_us = (lambda v: v.data * 86_400_000_000 if v.kind == "date"
                  else v.data)

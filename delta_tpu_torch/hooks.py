@@ -61,8 +61,12 @@ def checkpoint_hook(table, txn, version: int, metadata) -> None:
     interval = get_table_config(metadata.configuration, CHECKPOINT_INTERVAL)
     if interval > 0 and version > 0 and version % interval == 0:
         from delta_tpu_torch.log.checkpointer import write_checkpoint
+        from delta_tpu_torch.log.last_checkpoint import read_last_checkpoint
 
-        write_checkpoint(table.engine, _snapshot_for_hook(table, version))
+        # the previous hint's partManifest lets unchanged parts be reused
+        prev = read_last_checkpoint(table.engine.fs, table.log_path)
+        write_checkpoint(table.engine, _snapshot_for_hook(table, version),
+                         prev_info=prev)
 
 
 def auto_compact_hook(table, txn, version: int, metadata) -> None:

@@ -1,46 +1,62 @@
-"""Checkpoint writing: classic single-file and multi-part.
+"""Checkpoint writing: classic single-file, multi-part and V2.
 
 Counterpart of `delta_tpu/log/checkpointer.py` (`write_checkpoint` :520,
-`_write_checkpoint` :536, `_chunk_plan` :658,
-`_write_multipart_checkpoint` :795). A checkpoint holds the state at a
-version in the SingleAction layout, one non-null root struct per row:
+`_write_checkpoint` :536, `_chunk_plan` :658, `_writer_fp` :679,
+`_part_fp` :700, `_prev_part_index` :716, `_write_multipart_checkpoint`
+:795, `_sidecar_usable` :867, `_write_v2_checkpoint` :878). A checkpoint
+holds the state at a version in the SingleAction layout, one non-null
+root struct per row:
 
 - one protocol and one metaData row; one txn row per appId (those idle
   past `delta.setTransactionRetentionDuration` dropped); one
   domainMetadata row per domain;
 - every live add, and every remove tombstone whose deletionTimestamp is
   within `delta.deletedFileRetentionDuration` of now (real clock), both
-  with dataChange written false and stats as the JSON string.
+  with dataChange written false; the add's stats as the JSON string
+  (`delta.checkpoint.writeStatsAsJson`, on by default) and/or as the
+  typed `stats_parsed` struct (`writeStatsAsStruct`, `stats/parsed.py`).
 
 The columns are the reference's `ADD_STRUCT` / `REMOVE_STRUCT` (:70-97),
 so the add has no `tags` column, as there. A multi-part checkpoint
 (`settings.checkpoint_part_size` below the file-action count) puts the
 small actions alone in part 1 and fixed `part_size`-row chunks of
 [adds; removes] in the others (`part_layout`, which the synthetic
-checkpoint of `utils/synth.py` shares). The file actions come from the
-snapshot's row store by column (`_file_block`): checkpoint rows straight
-from the part's leaves, commit rows through their actions. Each part is
-encoded by `encode_part` (`utils/parquet_write.py` underneath) and
-written put-if-absent through `write/ckpt_pipeline.py`; a torn write
-deletes what this attempt created (`checkpoint.aborted_writes`) and
-leaves `_last_checkpoint` at the previous checkpoint. Then
-`_last_checkpoint` (`log/last_checkpoint.py`), without a `partManifest`.
+checkpoint of `utils/synth.py` shares). A V2 checkpoint
+(`delta.checkpointPolicy=v2`, or `policy="v2"`) puts those chunks in
+UUID-named `_sidecars/` files and writes a UUID-named Parquet top level
+of checkpointMetadata, sidecar pointers and the small actions. The file
+actions come from the snapshot's row store by column (`_file_block`):
+checkpoint rows straight from the part's leaves, commit rows through
+their actions. Each part is encoded by `encode_part`
+(`utils/parquet_write.py` underneath) and written put-if-absent through
+`write/ckpt_pipeline.py`; a torn write deletes what this attempt created
+(`checkpoint.aborted_writes`) and leaves `_last_checkpoint` at the
+previous checkpoint.
+
+Incremental checkpoints: each file-action part is fingerprinted
+(`_part_fp`, over the levels and values the encoder writes) and the
+fingerprints ride `_last_checkpoint` as `partManifest`. The next write
+with that hint as `prev_info` reuses the matched parts
+(`checkpoint.parts_reused`): a multi-part part is copied under the new
+name, a V2 sidecar is pointed at again. Append-only workloads rewrite
+only the tail part.
 
 The aggregate stage (`ops/stats.py`) reduces the add lanes (size,
 modification time, deletion-vector cardinality, partition codes) per
 part on the engine's device; a failure there raises. Its block yields
 the counters `checkpoint.logical_bytes`, `checkpoint.dv_cardinality` and
 `checkpoint.distinct_partition_values`, the facts of the reference's
-`checkpoint.aggregate` span. V2 checkpoints
-(`delta.checkpointPolicy=v2`) and `stats_parsed`
-(`delta.checkpoint.writeStatsAsStruct`) raise `UnsupportedTableError`.
+`checkpoint.aggregate` span.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
+import uuid
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -54,7 +70,7 @@ from delta_tpu_torch.config import (
     get_table_config,
     settings,
 )
-from delta_tpu_torch.errors import ChecksumMismatchError, UnsupportedTableError
+from delta_tpu_torch.errors import ChecksumMismatchError
 from delta_tpu_torch.log.last_checkpoint import (
     LastCheckpointInfo,
     write_last_checkpoint,
@@ -70,6 +86,7 @@ from delta_tpu_torch.write import ckpt_pipeline
 
 _BYTES_WRITTEN = obs.counter("checkpoint.bytes_written")
 _PARTS_WRITTEN = obs.counter("checkpoint.parts_written")
+_PARTS_REUSED = obs.counter("checkpoint.parts_reused")
 _ABORTED_WRITES = obs.counter("checkpoint.aborted_writes")
 _LOGICAL_BYTES = obs.counter("checkpoint.logical_bytes")
 _DV_CARDINALITY = obs.counter("checkpoint.dv_cardinality")
@@ -133,6 +150,60 @@ CHECKPOINT_SCHEMA = SchemaNode("schema", 0, (
          _leaf("defaultRowCommitVersion", "INT64")),
 ))
 _ROOTS = {node.name: node for node in CHECKPOINT_SCHEMA.children}
+
+# a V2 checkpoint's top level: its version and the sidecar pointers
+_CP_META = _grp("checkpointMetadata", _leaf("version", "INT64"))
+_SIDECAR = _grp("sidecar", _str("path"), _leaf("sizeInBytes", "INT64"),
+                _leaf("modificationTime", "INT64"))
+_ROOTS.update({n.name: n for n in (_CP_META, _SIDECAR)})
+
+# stats_parsed leaf kind -> (physical, converted, logical, timestamp)
+_STATS_LEAF = {
+    "int64": ("INT64", None, None, None),
+    "int32": ("INT32", None, None, None),
+    "float64": ("DOUBLE", None, None, None),
+    "float32": ("FLOAT", None, None, None),
+    "bool": ("BOOLEAN", None, None, None),
+    "string": ("BYTE_ARRAY", 0, 1, None),
+    "date32": ("INT32", 6, 6, None),
+    "ts_us_utc": ("INT64", 10, 8, (True, 2)),
+    "ts_s": ("INT64", None, 8, (False, 1)),  # seconds, written as millis
+    "null": ("INT32", None, 11, None),
+}
+
+
+def _stats_parsed_node(name: str, t) -> SchemaNode:
+    """The Parquet schema of a `stats/parsed.py::SType`."""
+    if t.kind == "struct":
+        return _grp(name, *(_stats_parsed_node(k, v)
+                            for k, v in t.fields.items()))
+    phys, conv, logical, ts = _STATS_LEAF[t.kind]
+    return SchemaNode(name, 1, physical=phys, converted=conv,
+                      logical=logical, timestamp=ts or (True, 2))
+
+
+def _stats_parsed_cols(col, prefix=("stats_parsed",)) -> dict:
+    """Block columns of a parsed `stats_parsed` column."""
+    out: Dict[tuple, object] = {prefix: col.valid}
+    for name, c in col.fields.items():
+        path = prefix + (name,)
+        if c.type.kind == "struct":
+            out.update(_stats_parsed_cols(c, path))
+            continue
+        kind, data, valid = c.type.kind, c.data, c.valid
+        if kind == "string":
+            vals = [v if ok else "" for v, ok in zip(data.tolist(),
+                                                     valid.tolist())]
+            try:
+                data = Strings.from_list(vals)
+            except ValueError:  # a NUL byte
+                data = Strings.from_bytes([v.encode("utf-8") for v in vals])
+        elif kind == "ts_s":
+            data = np.asarray(data, np.int64) * 1000
+        elif kind == "null":
+            data = np.zeros(len(valid), np.int32)
+        out[path] = (data, valid)
+    return out
 
 
 # ------------------------------------------------------------- blocks --
@@ -355,12 +426,20 @@ def _repeated_leaves(node, path, block, lvl, alive, max_def):
     return out
 
 
-def encode_part(blocks: Sequence[Block]) -> bytes:
+_PHYS_DTYPE = {"INT32": np.int32, "INT64": np.int64, "FLOAT": np.float32,
+               "DOUBLE": np.float64, "BOOLEAN": bool}
+
+
+def encode_part(blocks: Sequence[Block],
+                roots: Optional[Sequence[SchemaNode]] = None) -> bytes:
     """One checkpoint Parquet file holding `blocks` (row ranges, in
-    order; each row has exactly one non-null root)."""
+    order; each row has exactly one non-null root), with the root structs
+    `roots` (the SingleAction schema's by default)."""
     n_rows = sum(b.n for b in blocks)
     columns = []
-    for root in CHECKPOINT_SCHEMA.children:
+    schema = (CHECKPOINT_SCHEMA if roots is None
+              else SchemaNode("schema", 0, tuple(roots)))
+    for root in schema.children:
         per_block = [_block_leaves(root, b) if b.root == root.name else None
                      for b in blocks]
         template = _block_leaves(root, Block(root.name, 0))
@@ -378,14 +457,14 @@ def encode_part(blocks: Sequence[Block]) -> bytes:
             if phys == "BYTE_ARRAY":
                 values = Strings.concat(vals) if vals else _empty_strings()
             else:
-                values = (np.concatenate(vals) if vals
-                          else np.zeros(0, np.int64))
+                values = np.asarray(np.concatenate(vals) if vals
+                                    else np.zeros(0), _PHYS_DTYPE[phys])
             columns.append(LeafColumn(
                 (root.name,) + path, phys,
                 np.concatenate(defs) if defs else np.zeros(0, np.int32),
                 (np.concatenate(reps) if reps else np.zeros(0, np.int32))
                 if max_rep else None, max_def, max_rep, values))
-    return write_parquet(CHECKPOINT_SCHEMA, columns, n_rows)
+    return write_parquet(schema, columns, n_rows)
 
 
 def _chunk_plan(n_add: int, n_rem: int, part_size: int) -> List[tuple]:
@@ -422,6 +501,14 @@ class PartLayout:
             sizeInBytes=size_in_bytes, numOfAddFiles=self.num_adds)
 
 
+def _data_change_false(block: Block) -> Block:
+    """`block` with dataChange written false on every row, as every
+    checkpoint writes its file actions."""
+    cols = dict(block.cols)
+    cols[("dataChange",)] = (np.zeros(block.n, bool), np.ones(block.n, bool))
+    return Block(block.root, block.n, cols)
+
+
 def part_layout(log_path: str, version: int, small: Sequence[Block],
                 adds: Block, tombs: Block,
                 part_size: Optional[int]) -> PartLayout:
@@ -430,10 +517,7 @@ def part_layout(log_path: str, version: int, small: Sequence[Block],
     every add and remove: one classic file, or, when `part_size` is
     given and the file actions exceed it, the small actions alone in part
     1 and `_chunk_plan` chunks of [adds; tombs] in the others."""
-    adds = Block(adds.root, adds.n, dict(adds.cols))
-    tombs = Block(tombs.root, tombs.n, dict(tombs.cols))
-    for b in (adds, tombs):
-        b.cols[("dataChange",)] = (np.zeros(b.n, bool), np.ones(b.n, bool))
+    adds, tombs = _data_change_false(adds), _data_change_false(tombs)
     small = list(small)
     if part_size is not None and adds.n + tombs.n > part_size:
         plan = _chunk_plan(adds.n, tombs.n, part_size)
@@ -490,10 +574,13 @@ def _decode_paths(strings: Strings) -> Strings:
     return Strings.from_list([unquote(p) if "%" in p else p for p in raw])
 
 
-def _part_block(read, root: str, rows: np.ndarray) -> Block:
-    """The `root` file actions at part `rows`, column by column."""
+def _part_block(part, root: str, rows: np.ndarray) -> Block:
+    """The `root` file actions at part `rows`, column by column (the add
+    stats of a part that holds them only as `stats_parsed` re-serialized,
+    as the snapshot reads them)."""
     from delta_tpu_torch.replay.columnar import leaf_column
 
+    read = part.read
     cols: Dict[tuple, object] = {}
 
     def walk(node, prefix):
@@ -519,6 +606,8 @@ def _part_block(read, root: str, rows: np.ndarray) -> Block:
     if ("path",) in cols:
         v, ok = cols[("path",)]
         cols[("path",)] = (_decode_paths(v), ok)
+    if root == "add" and part.data is not None:
+        cols[("stats",)] = _strings(part.stats(rows))
     return Block(root, len(rows), cols)
 
 
@@ -564,7 +653,7 @@ def _file_block(store, idx: np.ndarray, root: str) -> Block:
                                      for st, local in store.pieces(idx)])
     if isinstance(store, CheckpointRows):
         return _concat_blocks(root, [
-            _part_block(part.read, root, rows)
+            _part_block(part, root, rows)
             for part, _, rows in store.blocks(idx)])
     if isinstance(store, SpanRows):
         return _span_block(store, idx, root)
@@ -685,23 +774,135 @@ def _publish_aggregates(block: np.ndarray, n_lanes: int) -> None:
 
 # -------------------------------------------------------------- write --
 
+def _strings_list(col) -> List[Optional[str]]:
+    """(Strings, valid) -> Python strings, None where null."""
+    vals, ok = col
+    return [vals.raw(i).decode("utf-8") if v else None
+            for i, v in enumerate(ok.tolist())]
+
+
+def _add_stats_parsed(state, conf, adds: Block) -> Optional[SchemaNode]:
+    """Parse the adds' stats strings into `stats_parsed` columns of
+    `adds` (the reference's `_parse_stats_structs` against
+    `_stats_parsed_schema`); returns the add struct's schema with the
+    field, or None when nothing parsed."""
+    from delta_tpu_torch.stats.parsed import (
+        parse_stats_structs,
+        stats_parsed_schema,
+    )
+
+    stats = adds.cols.get(("stats",))
+    if stats is None:
+        return None
+    meta = state.metadata
+    explicit = stats_parsed_schema(meta.schemaString, conf,
+                                   list(meta.partitionColumns or []))
+    parsed = parse_stats_structs(_strings_list(stats), explicit)
+    if parsed is None:
+        return None
+    adds.cols.update(_stats_parsed_cols(parsed))
+    return _grp("add", *(_ROOTS["add"].children
+                         + (_stats_parsed_node("stats_parsed", parsed.type),)))
+
+
+def _writer_fp(policy: str, part_size: Optional[int], stats_as_json: bool,
+               stats_as_struct: bool, schema_string: Optional[str]) -> str:
+    """Fingerprint of what shapes a part's bytes besides its rows (the
+    reference's `_writer_fp`): a part is reused only from a manifest of
+    an identically configured writer. The layout tag is this package's
+    own, so that a manifest of the other package's writer, whose part
+    fingerprints hash other bytes, is never consulted."""
+    blob = json.dumps({
+        "layout": "torch-1",
+        "policy": policy,
+        "partSize": part_size,
+        "statsAsJson": bool(stats_as_json),
+        "statsAsStruct": bool(stats_as_struct),
+        "schema": hashlib.sha1((schema_string or "").encode()).hexdigest(),
+    }, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+def _part_fp(writer_fp: str, add_node: SchemaNode, adds: Block,
+             tombs: Block) -> str:
+    """Content fingerprint of one part's file-action rows: sha1 over the
+    levels and values the encoder writes for them (absent and null
+    columns alike), so equal rows give equal fingerprints whichever row
+    store they came from."""
+    h = hashlib.sha1(writer_fp.encode())
+    for node, block in ((add_node, adds), (_ROOTS["remove"], tombs)):
+        h.update(f"{node.name}:{block.n};".encode())
+        for path, _, defs, reps, vals, _, _ in _block_leaves(node, block):
+            h.update(".".join(path).encode())
+            h.update(np.ascontiguousarray(defs).tobytes())
+            if reps is not None:
+                h.update(np.ascontiguousarray(reps).tobytes())
+            if isinstance(vals, Strings):
+                h.update(np.ascontiguousarray(vals.lens).tobytes())
+                idx = (np.repeat(vals.starts, vals.lens)
+                       + ragged_arange(vals.lens))
+                h.update(vals.buf[idx].tobytes())
+            else:
+                h.update(np.ascontiguousarray(vals).tobytes())
+    return h.hexdigest()[:20]
+
+
+def _prev_part_index(prev_info: Optional[LastCheckpointInfo],
+                     writer_fp: str) -> Dict[str, dict]:
+    """fingerprint -> manifest entry of the previous checkpoint's
+    file-action parts; empty unless an identically configured writer made
+    the manifest (an unknown or absent one means a full write, never a
+    wrong reuse)."""
+    if prev_info is None:
+        return {}
+    pm = prev_info.partManifest
+    if not isinstance(pm, dict) or pm.get("writerFp") != writer_fp:
+        return {}
+    return {e["fp"]: e for e in pm.get("parts") or []
+            if isinstance(e, dict) and e.get("fp") and e.get("name")}
+
+
+def _reusing(fs, prev_path: str, fresh: Callable[[], bytes]
+             ) -> Callable[[], bytes]:
+    """A multi-part part's build from a fingerprint-matched previous part:
+    its bytes copied under the new name (the old part may be cleaned up
+    once shadowed); a part that is gone or unreadable is encoded anew."""
+
+    def build() -> bytes:
+        try:
+            data = fs.read_file(prev_path)
+        except OSError:
+            return fresh()
+        _PARTS_REUSED.inc()
+        return data
+
+    return build
+
+
 @dataclass
 class CheckpointMetrics:
     """What one `write_checkpoint` did: wall seconds by phase
-    ("rows", "retention", "aggregate", "encode", "put", "hint"), and the
-    parts, rows and bytes written."""
+    ("rows", "retention", "aggregate", "encode", "put", "hint"), the
+    parts, rows and bytes written, and the parts reused."""
 
     phase_seconds: Dict[str, float] = field(default_factory=dict)
     parts: int = 0
     rows: int = 0
     bytes_written: int = 0
+    parts_reused: int = 0
 
 
 def write_checkpoint(engine, snapshot,
-                     metrics: Optional[CheckpointMetrics] = None
+                     metrics: Optional[CheckpointMetrics] = None,
+                     policy: Optional[str] = None,
+                     prev_info: Optional[LastCheckpointInfo] = None,
                      ) -> LastCheckpointInfo:
     """Write a checkpoint of `snapshot` and point `_last_checkpoint` at
-    it; returns the hint written. `metrics`, when given, is filled in."""
+    it; returns the hint written. `policy` ("classic" or "v2") defaults
+    to `delta.checkpointPolicy`. `prev_info`, the previous hint, lets
+    parts of an identically configured writer be reused: a multi-part
+    part copied, a V2 sidecar pointed at again. `metrics`, when given, is
+    filled in."""
     from delta_tpu_torch.ops import stats
 
     m = metrics if metrics is not None else CheckpointMetrics()
@@ -717,22 +918,20 @@ def write_checkpoint(engine, snapshot,
 
     state = snapshot.state
     conf = state.metadata.configuration
-    if get_table_config(conf, CHECKPOINT_POLICY) == "v2":
-        raise UnsupportedTableError(
-            "V2 checkpoints (delta.checkpointPolicy=v2) are not written yet",
-            feature="v2 checkpoints")
-    if get_table_config(conf, CHECKPOINT_WRITE_STATS_AS_STRUCT):
-        raise UnsupportedTableError(
-            "stats_parsed checkpoint columns "
-            "(delta.checkpoint.writeStatsAsStruct) are not written yet",
-            feature="stats_parsed")
+    if policy is None:
+        policy = get_table_config(conf, CHECKPOINT_POLICY)
+    stats_as_json = get_table_config(conf, CHECKPOINT_WRITE_STATS_AS_JSON)
+    stats_as_struct = get_table_config(conf, CHECKPOINT_WRITE_STATS_AS_STRUCT)
     now_ms = int(time.time() * 1000)
     store = state.file_actions.rows
     live = np.flatnonzero(state.live_mask.cpu().numpy())
     dead = np.flatnonzero(state.tombstone_mask.cpu().numpy())
     adds = _file_block(store, live, "add")
     tombs = _file_block(store, dead, "remove")
-    if not get_table_config(conf, CHECKPOINT_WRITE_STATS_AS_JSON):
+    add_node = _ROOTS["add"]
+    if stats_as_struct:
+        add_node = _add_stats_parsed(state, conf, adds) or add_node
+    if not stats_as_json:
         adds.cols.pop(("stats",), None)
     mark("rows")
     tombs = retained(tombs, now_ms, get_table_config(conf,
@@ -748,41 +947,177 @@ def write_checkpoint(engine, snapshot,
             error_class="DELTA_CHECKPOINT_SNAPSHOT_MISMATCH")
     log_path = snapshot._table.log_path
     version = snapshot.version
-    layout = part_layout(log_path, version, small, adds, tombs,
-                         settings.checkpoint_part_size)
+    part_size = settings.checkpoint_part_size
+    n_files = adds.n + tombs.n
+    if policy == "v2":
+        route = "v2"
+        plan = _chunk_plan(adds.n, tombs.n, part_size or max(n_files, 1))
+    else:
+        layout = part_layout(log_path, version, small, adds, tombs,
+                             part_size)
+        route = "multipart" if len(layout.paths) > 1 else "classic"
+        plan = layout.plan
     mark("rows")
 
-    lanes, valids, part_of, n_codes = _checkpoint_lanes(state, adds,
-                                                        layout.plan)
-    block = stats.checkpoint_stats_block(lanes, valids, part_of,
-                                         len(layout.plan), n_codes,
-                                         engine.device)
+    lanes, valids, part_of, n_codes = _checkpoint_lanes(state, adds, plan)
+    block = stats.checkpoint_stats_block(lanes, valids, part_of, len(plan),
+                                         n_codes, engine.device)
     _publish_aggregates(block, len(lanes))
     mark("aggregate")
 
-    tasks = [ckpt_pipeline.WriteTask(p, lambda blocks=blocks:
-                                     encode_part(blocks))
-             for p, blocks in zip(layout.paths, layout.contents)]
+    writer_fp = _writer_fp(policy, part_size, stats_as_json,
+                           stats_as_struct, state.metadata.schemaString)
+    prev_parts = (_prev_part_index(prev_info, writer_fp)
+                  if route != "classic" else {})
+    reused0 = _PARTS_REUSED.read()
+    roots = [add_node if r.name == "add" else r
+             for r in CHECKPOINT_SCHEMA.children]
     try:
-        results = ckpt_pipeline.run_write_tasks(engine.fs, tasks, ph)
+        if route == "v2":
+            info = _write_v2(engine.fs, log_path, version, small, adds,
+                             tombs, plan, roots, add_node, writer_fp,
+                             prev_parts, ph, m)
+        else:
+            info = _write_parts(engine.fs, log_path, version, layout,
+                                roots, add_node, writer_fp, prev_parts,
+                                ph, m)
     except ckpt_pipeline.CheckpointWriteError as e:
         _ABORTED_WRITES.inc()
         _cleanup_orphans(engine.fs, e.touched_paths)
         raise
+    m.parts_reused = _PARTS_REUSED.read() - reused0
     t = time.perf_counter()
+    write_last_checkpoint(engine.fs, log_path, info)
+    mark("hint")
+    return info
+
+
+def _count_written(results, m: CheckpointMetrics) -> None:
     for r in results:
         if r.created:
             _PARTS_WRITTEN.inc()
             _BYTES_WRITTEN.inc(r.nbytes)
-    whole = all(r.status is not None for r in results)
-    total = sum(r.status.size for r in results if r.status is not None)
+    m.bytes_written += sum(r.nbytes for r in results)
+
+
+def _write_parts(fs, log_path, version, layout: PartLayout, roots, add_node,
+                 writer_fp, prev_parts, ph, m) -> LastCheckpointInfo:
+    """A classic or multi-part checkpoint; a multi-part one reuses the
+    fingerprint-matched parts of `prev_parts` by copy and publishes a
+    `partManifest` of its file-action parts."""
+    multi = len(layout.paths) > 1
+    prev_parts = dict(prev_parts)
+    tasks, fps = [], []
+    for k, (p, blocks) in enumerate(zip(layout.paths, layout.contents)):
+        fresh = (lambda blocks=blocks: encode_part(blocks, roots))
+        fp = None
+        if multi and k > 0:
+            fp = _part_fp(writer_fp, add_node, *blocks)
+            # pop, not get: one old part must not serve two new ones
+            prev = prev_parts.pop(fp, None)
+            if prev is not None:
+                fresh = _reusing(fs, f"{log_path}/{prev['name']}", fresh)
+        tasks.append(ckpt_pipeline.WriteTask(p, fresh))
+        fps.append(fp)
+    results = ckpt_pipeline.run_write_tasks(fs, tasks, ph)
+    _count_written(results, m)
     m.parts = len(layout.paths)
     m.rows = layout.rows
-    m.bytes_written = sum(r.nbytes for r in results)
+    whole = all(r.status is not None for r in results)
+    total = sum(r.status.size for r in results if r.status is not None)
     info = layout.hint(version, total if whole else None)
-    write_last_checkpoint(engine.fs, log_path, info)
-    mark("hint")
+    if multi and whole:
+        info.partManifest = {"writerFp": writer_fp, "parts": [
+            {"name": filenames.file_name(r.task.path), "fp": fp,
+             "rows": sum(b.n for b in blocks), "bytes": r.status.size,
+             "mtime": r.status.modification_time}
+            for r, fp, blocks in zip(results, fps, layout.contents)
+            if fp is not None]}
     return info
+
+
+def _sidecar_usable(fs, log_path: str, entry: dict) -> bool:
+    """A previous sidecar is pointed at again only if it still exists (one
+    lost to a manual delete is written anew, never left dangling)."""
+    try:
+        fs.file_status(f"{filenames.sidecar_dir(log_path)}/{entry['name']}")
+        return True
+    except OSError:
+        return False
+
+
+def _write_v2(fs, log_path, version, small, adds, tombs, plan, roots,
+              add_node, writer_fp, prev_parts, ph, m) -> LastCheckpointInfo:
+    """A V2 checkpoint (the reference's `_write_v2_checkpoint`): the file
+    actions in `_sidecars/<uuid>.parquet`, one per `plan` chunk, and a
+    UUID-named Parquet top level holding checkpointMetadata, the sidecar
+    pointers and the small actions. A fingerprint-matched previous
+    sidecar is pointed at again, not copied: sidecars parse to no version,
+    so log cleanup never deletes them. A failed top-level write deletes
+    only this attempt's fresh sidecars."""
+    adds, tombs = _data_change_false(adds), _data_change_false(tombs)
+    prev_parts = dict(prev_parts)
+    tasks: List[ckpt_pipeline.WriteTask] = []
+    slots, fps, rows = [], [], []
+    for a0, a1, r0, r1 in plan:
+        blocks = [adds.take(np.arange(a0, a1)), tombs.take(np.arange(r0, r1))]
+        fp = _part_fp(writer_fp, add_node, *blocks)
+        fps.append(fp)
+        rows.append(a1 - a0 + r1 - r0)
+        prev = prev_parts.pop(fp, None)
+        if prev is not None and _sidecar_usable(fs, log_path, prev):
+            _PARTS_REUSED.inc()
+            slots.append(("reuse", prev["name"], prev.get("bytes"),
+                          prev.get("mtime")))
+            continue
+        name = f"{uuid.uuid4()}.parquet"
+        tasks.append(ckpt_pipeline.WriteTask(
+            f"{filenames.sidecar_dir(log_path)}/{name}",
+            lambda blocks=blocks: encode_part(blocks, roots)))
+        slots.append(("task", len(tasks) - 1, name))
+    results = ckpt_pipeline.run_write_tasks(fs, tasks, ph)
+    _count_written(results, m)
+    sidecars = []
+    for slot in slots:
+        if slot[0] == "reuse":
+            sidecars.append(slot[1:])
+        else:
+            st = results[slot[1]].status
+            sidecars.append((slot[2], st.size, st.modification_time))
+    top = [rows_block("checkpointMetadata", [{"version": version}]),
+           rows_block("sidecar", [
+               {"path": p, "sizeInBytes": b, "modificationTime": t}
+               for p, b, t in sidecars])] + list(small)
+    present = {b.root for b in small}
+    top_roots = [_CP_META, _SIDECAR] + [
+        r for r in CHECKPOINT_SCHEMA.children
+        if r.name in present]
+    top_path = filenames.top_level_v2_checkpoint_file(log_path, version)
+    try:
+        t0 = time.perf_counter()
+        data = encode_part(top, top_roots)
+        t1 = time.perf_counter()
+        fs.write(top_path, data, overwrite=False)
+        st = fs.file_status(top_path)
+        ph["encode"] = ph.get("encode", 0.0) + (t1 - t0)
+        ph["put"] = ph.get("put", 0.0) + (time.perf_counter() - t1)
+    except Exception as e:
+        fresh = [r.task.path for r in results if r.created]
+        raise ckpt_pipeline.CheckpointWriteError(e, fresh + [top_path]) from e
+    _PARTS_WRITTEN.inc()
+    _BYTES_WRITTEN.inc(len(data))
+    m.bytes_written += len(data)
+    n_top = sum(b.n for b in top)
+    m.parts = len(slots) + 1  # every sidecar, reused or fresh, and the top
+    m.rows = n_top + adds.n + tombs.n
+    total = sum(b or 0 for _, b, _ in sidecars) + st.size
+    return LastCheckpointInfo(
+        version=version, size=n_top + adds.n + tombs.n,
+        sizeInBytes=total or None, numOfAddFiles=adds.n,
+        tag=filenames.file_name(top_path),
+        partManifest={"writerFp": writer_fp, "parts": [
+            {"name": p, "fp": fp, "rows": n, "bytes": b, "mtime": t}
+            for (p, b, t), fp, n in zip(sidecars, fps, rows)]})
 
 
 def _cleanup_orphans(fs, paths) -> None:

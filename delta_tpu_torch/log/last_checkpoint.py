@@ -5,9 +5,12 @@ naming the newest checkpoint (PROTOCOL.md `_last_checkpoint`), so that a
 reader can start its listing there. It is a hint: a missing or corrupt
 one reads as None, and a failed write is counted
 (`log.hint_write_failures`) and logged, never raised, since the
-checkpoint it points at is already durable. The port writes no
-`partManifest` (the reference's part-reuse rider); it reads one back
-untouched.
+checkpoint it points at is already durable. A multi-part or V2
+checkpoint's hint carries `partManifest` (the reference's part-reuse
+rider): `{"writerFp": ..., "parts": [{"name", "fp", "rows", "bytes",
+"mtime"}, ...]}`, one entry per file-action part or sidecar, which the
+next write reads back to reuse them (`log/checkpointer.py`); a V2 hint
+also names its top level in `tag`.
 """
 
 from __future__ import annotations

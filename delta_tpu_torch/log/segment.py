@@ -5,18 +5,22 @@ target version at or below it:
 
 1. LIST `_delta_log` (lexicographic order is version order) from the
    `_last_checkpoint` hint's version when the caller gives one, else from
-   version 0; with a target version, commits and checkpoints past it are
-   left out. A hinted listing that cannot assemble a contiguous segment
-   (the hinted checkpoint lost a part) is retried from version 0 and
-   counted (`log.hint_discarded`).
+   version 0; with a target version, commits, checkpoints and compacted
+   deltas past it are left out. A hinted listing that cannot assemble a
+   contiguous segment (the hinted checkpoint lost a part) is retried from
+   version 0 and counted (`log.hint_discarded`).
 2. Partition the listing into commits, checkpoints and compacted deltas.
 3. The newest complete checkpoint anchors the segment: single-part or
-   multi-part classic Parquet. A V2 checkpoint (UUID-named, JSON or
-   Parquet top level, sidecars) raises `UnsupportedLogError`, as does a
-   compacted delta the reference would use: neither is ported yet.
+   multi-part classic Parquet, or a V2 checkpoint (a UUID-named JSON or
+   Parquet top level whose sidecars the reader resolves).
 4. Keep the commits after the checkpoint and verify they are contiguous
-   up to the latest version. At checkpoint-at-head the snapshot's
-   timestamp is the last commit's mtime, as in the reference.
+   up to the version. Then the compacted deltas inside the window
+   replace the runs of single commits they cover (`_apply_compaction`,
+   the reference's greedy choice: by first version, widest first, no
+   overlap, every covered commit listed).
+   The snapshot's timestamp is the mtime of the last single commit kept,
+   or, when none is kept, of the commit at the version (also at
+   checkpoint-at-head), as in the reference.
 
 A target version that the listing cannot reach raises
 `VersionNotFoundError`.
@@ -38,7 +42,6 @@ from delta_tpu_torch import obs
 from delta_tpu_torch.errors import (
     CorruptLogError,
     TableNotFoundError,
-    UnsupportedLogError,
     VersionNotFoundError,
 )
 from delta_tpu_torch.storage.local import FileStatus
@@ -49,6 +52,8 @@ from delta_tpu_torch.utils.filenames import (
     group_complete_checkpoints,
 )
 
+_V2_FORMATS = (CheckpointFormat.V2_JSON, CheckpointFormat.V2_PARQUET)
+
 
 @dataclass
 class LogSegment:
@@ -56,8 +61,15 @@ class LogSegment:
     version: int
     deltas: List[FileStatus] = field(default_factory=list)  # ascending version
     checkpoints: List[FileStatus] = field(default_factory=list)  # one checkpoint's parts
+    compacted_deltas: List[FileStatus] = field(default_factory=list)  # chosen ranges
     checkpoint_version: Optional[int] = None
     last_commit_timestamp: int = 0
+
+    @property
+    def is_v2(self) -> bool:
+        """The anchoring checkpoint is a V2 checkpoint."""
+        return any(CheckpointInstance.parse(f.path).fmt in _V2_FORMATS
+                   for f in self.checkpoints)
 
 
 _HINT_DISCARDED = obs.counter("log.hint_discarded")
@@ -129,16 +141,44 @@ def extend_log_segment(fs, prev: LogSegment):
     return seg, files
 
 
+def _apply_compaction(deltas: List[FileStatus], compacted: List[FileStatus],
+                      start: int, target: int):
+    """Substitute compacted deltas for runs of single commits inside
+    [start, target] (the reference's `_apply_compaction`): ranges by
+    first version, widest first; a range is taken when it overlaps no
+    range taken and every commit it covers is listed. Returns (the single
+    commits kept, the compacted deltas chosen)."""
+    if not compacted:
+        return deltas, []
+    by_version = {filenames.delta_version(f.path): f for f in deltas}
+    chosen: List[FileStatus] = []
+    covered: set = set()
+    ranges = sorted(((filenames.compacted_delta_versions(f.path), f)
+                     for f in compacted),
+                    key=lambda t: (t[0][0], -(t[0][1] - t[0][0])))
+    for (lo, hi), f in ranges:
+        if lo < start or hi > target:
+            continue
+        rng = set(range(lo, hi + 1))
+        if rng & covered or not rng <= set(by_version):
+            continue
+        chosen.append(f)
+        covered |= rng
+    singles = [f for v, f in sorted(by_version.items()) if v not in covered]
+    return singles, chosen
+
+
 def build_log_segment(fs, log_path: str,
                       target_version: Optional[int] = None,
                       max_checkpoint_version: Optional[int] = None,
                       checkpoint_hint: Optional[int] = None) -> LogSegment:
     """LIST the log and assemble the segment of its latest version, or of
-    `target_version`. `max_checkpoint_version` caps which checkpoints may
-    anchor it: the snapshot's fallback after the checkpoint at V proved
-    unreadable rebuilds with V - 1, replaying from the previous complete
-    checkpoint or from the JSON commits alone; the commits of the dropped
-    checkpoints' versions stay in the segment. `checkpoint_hint` (the
+    `target_version`; compacted deltas stand in for the commits they
+    cover. `max_checkpoint_version` caps which
+    checkpoints may anchor it: the snapshot's fallback after the
+    checkpoint at V proved unreadable rebuilds with V - 1, replaying from
+    the previous complete checkpoint or from the JSON commits alone; the
+    commits of the dropped checkpoints' versions stay in the segment. `checkpoint_hint` (the
     `_last_checkpoint` version) starts the listing there; a segment that
     cannot be assembled from it is listed again from version 0."""
     try:
@@ -162,7 +202,7 @@ def _build_log_segment(fs, log_path: str, target_version: Optional[int],
 
     deltas: List[tuple] = []
     checkpoints: List[CheckpointInstance] = []
-    compacted: List[tuple] = []
+    compacted: List[FileStatus] = []
     last = target_version
     for fstat in listing:
         name = filenames.file_name(fstat.path)
@@ -177,9 +217,9 @@ def _build_log_segment(fs, log_path: str, target_version: Optional[int],
                          or ci.version <= max_checkpoint_version)):
                 checkpoints.append(ci)
         elif filenames.COMPACTED_DELTA_FILE_RE.match(name):
-            lo_hi = filenames.compacted_delta_versions(fstat.path)
-            if last is None or lo_hi[1] <= last:
-                compacted.append(lo_hi)
+            _, hi = filenames.compacted_delta_versions(fstat.path)
+            if last is None or hi <= last:
+                compacted.append(fstat)
     if not deltas and not checkpoints:
         raise TableNotFoundError(f"no commits found in {log_path}",
                                  error_class="DELTA_NO_COMMITS_FOUND")
@@ -187,20 +227,7 @@ def _build_log_segment(fs, log_path: str, target_version: Optional[int],
     complete = group_complete_checkpoints(checkpoints)
     chosen = complete[-1] if complete else []
     cp_version = chosen[0].version if chosen else None
-    if chosen and chosen[0].fmt in (CheckpointFormat.V2_JSON,
-                                    CheckpointFormat.V2_PARQUET):
-        raise UnsupportedLogError(
-            f"{log_path}: the newest checkpoint ({filenames.file_name(chosen[0].path)}) "
-            f"is a V2 checkpoint; this package reads classic single- and "
-            f"multi-part checkpoints, V2 checkpoints with sidecars are a "
-            f"later slice of the port", checkpoint_version=cp_version)
     start = cp_version + 1 if cp_version is not None else 0
-    used = [c for c in compacted if c[0] >= start]
-    if used:
-        raise UnsupportedLogError(
-            f"{log_path} has compacted deltas {used[:3]}; this package "
-            f"replays single JSON commits, compacted deltas are a later "
-            f"slice of the port", compacted=used)
 
     tail = [(v, f) for v, f in deltas if v >= start]
     versions = [v for v, _ in tail]
@@ -220,9 +247,15 @@ def _build_log_segment(fs, log_path: str, target_version: Optional[int],
 
     by_path = {f.path: f for f in listing}
     parts = [by_path[ci.path] for ci in chosen]
-    # the snapshot's timestamp is the newest commit's mtime, also at
-    # checkpoint-at-head (the checkpoint is written after its commit)
-    head = tail[-1][1] if tail else next(
+    singles = [f for _, f in tail]
+    chosen_compacted: List[FileStatus] = []
+    if compacted:
+        singles, chosen_compacted = _apply_compaction(singles, compacted,
+                                                      start, version)
+    # the snapshot's timestamp is the mtime of the last single commit the
+    # segment keeps, or, with none kept, of the commit at the version
+    # (also at checkpoint-at-head: the checkpoint is written after it)
+    head = singles[-1] if singles else next(
         (f for v, f in deltas if v == version), None)
     ts = 0
     if head is not None:
@@ -230,13 +263,14 @@ def _build_log_segment(fs, log_path: str, target_version: Optional[int],
             ts = fs.file_status(head.path).modification_time
         except FileNotFoundError:
             ts = 0
-    if ts == 0 and not tail:
+    if ts == 0 and not singles:
         ts = max((f.modification_time for f in parts), default=0)
     return LogSegment(
         log_path=log_path,
         version=version,
-        deltas=[f for _, f in tail],
+        deltas=singles,
         checkpoints=parts,
+        compacted_deltas=chosen_compacted,
         checkpoint_version=cp_version,
         last_commit_timestamp=ts,
     )

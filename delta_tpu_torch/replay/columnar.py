@@ -2,17 +2,27 @@
 
 Counterpart of `delta_tpu/replay/columnar.py`. Two halves:
 
-- Checkpoint parts (`_read_checkpoint`): each part reads through
+- Checkpoint parts (`_read_checkpoint`): each Parquet part, and each
+  sidecar a V2 checkpoint names (`_sidecars/<name>`, or the name itself
+  when it holds a '/'), reads through
   `log/page_decode.py::read_checkpoint_part`: the device decode (kernel
   K3) for the projected hot columns, the host leaf reader for the rest,
   the whole part on the host when the plan is out of scope
-  (`decode.device_parts` / `decode.device_fallbacks` count them).
-  Checkpoint rows come first, with `version = checkpoint_version` and
-  `order = arange`, part by part, each part's adds before its removes.
-- JSON commits: read in parallel into ONE buffer (`_read_commits_buffer`);
-  the device parse (`replay/device_parse.py`) turns it into per-row lanes
-  in line order, or, when the JAX package's ladder sends the buffer back
-  to the host, the host parser (`replay/host_parse.py`) does.
+  (`decode.device_parts` / `decode.device_fallbacks` count the parts that
+  hold file-action columns). Checkpoint rows come first, with `version =
+  checkpoint_version` and `order = arange`, part by part (a part's
+  sidecars right after it), each part's adds before its removes. A part
+  whose add stats exist only as `stats_parsed` structs gets them
+  re-serialized to JSON on first access (`stats/parsed.py`), as the
+  reference's `_stats_from_parsed` does.
+- JSON files: a V2 checkpoint's JSON top level (at the checkpoint's
+  version), the compacted deltas (each at its last version) and the
+  single commits, read in parallel into ONE buffer
+  (`_read_commits_buffer`); the device parse (`replay/device_parse.py`,
+  kernel K1) turns it into per-row lanes in line order, or, when the JAX
+  package's ladder sends the buffer back to the host, the host parser
+  (`replay/host_parse.py`) does. A JSON top level is parsed before the
+  checkpoint's Parquet, since its `sidecar` lines name the sidecars.
 
 Either way the result is a `FileActions`:
 
@@ -36,6 +46,12 @@ the checkpoint's small-action columns (no add or remove leaf read, no
 device decode) and the tail's control lines: the P&M fast path.
 `columnarize_commit_blobs` takes commits already in memory (the bytes a
 transaction just wrote) through the same parse as commits read from disk.
+
+A sidecar or part that vanished after the listing raises
+`LogCorruptedError` (DELTA_MISSING_PART_FILES), damage
+(`DecodeCorrupt`) `LogCorruptedError`, and a part outside what the
+readers decode (`DecodeUnsupported`: a ZSTD part or sidecar)
+`UnsupportedLogError`.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ from delta_tpu_torch import obs
 from delta_tpu_torch.errors import (
     CorruptLogError,
     LogCorruptedError,
+    TornCommitError,
     UnsupportedLogError,
 )
 from delta_tpu_torch.models.actions import (
@@ -185,8 +202,10 @@ _READ_CHUNK = 1 << 20
 def _read_commits_buffer(
     commits: Sequence[Tuple[int, str]],
     max_workers: int = 8,
+    first: Sequence[Tuple[int, bytes]] = (),
 ) -> tuple[bytearray, np.ndarray, np.ndarray]:
-    """Parallel-read commit files into ONE buffer.
+    """Parallel-read commit files into ONE buffer, after the files already
+    read, `first` ((version, bytes), a V2 checkpoint's JSON top level).
 
     commits: (version, local path) in version order. Each file is followed
     by a newline (an empty line between files is ignored by both parsers).
@@ -227,11 +246,14 @@ def _read_commits_buffer(
         with ThreadPoolExecutor(workers) as pool:
             blobs = [b for part in pool.map(read_range, range(workers))
                      for b in part]
+    blobs = [b for _, b in first] + blobs
+    n = len(blobs)
     starts = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.fromiter((len(b) + 1 for b in blobs), np.int64, n),
               out=starts[1:])
     buf = bytearray(b"\n").join(blobs + [b""])
-    versions = np.array([v for v, _ in commits], dtype=np.int64)
+    versions = np.array([v for v, _ in first] + [v for v, _ in commits],
+                        dtype=np.int64)
     return buf, starts, versions
 
 
@@ -366,6 +388,23 @@ class _CkptPart:
     read: object           # log.page_decode.PartRead
     add_rows: np.ndarray   # part rows holding an add, ascending
     rem_rows: np.ndarray
+    data: Optional[bytes] = None  # kept while stats_parsed is unread
+    _parsed_stats: Optional[np.ndarray] = None
+
+    def stats(self, rows: np.ndarray) -> List[Optional[str]]:
+        """The add stats strings at part `rows`: the `stats` leaf, or,
+        for a part whose adds carry stats only as `stats_parsed` structs,
+        those re-serialized (once, for the whole part)."""
+        if self.data is None:
+            return _python(self.read, "add.stats", rows)
+        if self._parsed_stats is None:
+            from delta_tpu_torch.stats.parsed import stats_from_parsed
+
+            out = np.full(self.read.n_rows, None, object)
+            out[self.add_rows] = stats_from_parsed(
+                self.read.footer, self.data, self.add_rows)
+            self._parsed_stats = out
+        return self._parsed_stats[rows].tolist()
 
 
 class CheckpointRows:
@@ -402,23 +441,26 @@ class CheckpointRows:
     def stats(self, idx: np.ndarray) -> List[Optional[str]]:
         out: List[Optional[str]] = []
         for part, is_add, rows in self.blocks(idx):
-            out += _python(part.read, ("add" if is_add else "remove")
-                           + ".stats", rows)
+            out += (part.stats(rows) if is_add
+                    else _python(part.read, "remove.stats", rows))
         return out
 
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         out: List[AddFile] = []
         for part, is_add, rows in self.blocks(idx):
-            out += (self._adds if is_add else self._removes)(part.read, rows)
+            out += (self._adds(part, rows) if is_add
+                    else self._removes(part.read, rows))
         return out
 
     remove_files = add_files  # rows decide which action they hold
 
     @staticmethod
-    def _adds(read, rows) -> list:
+    def _adds(part, rows) -> list:
+        read = part.read
         c = {f: _python(read, "add." + f, rows) for f in (
-            "path", "size", "modificationTime", "dataChange", "stats",
+            "path", "size", "modificationTime", "dataChange",
             "baseRowId", "defaultRowCommitVersion", "clusteringProvider")}
+        c["stats"] = part.stats(rows)
         pv = _map(read, "add.partitionValues", rows)
         tags = _map(read, "add.tags", rows)
         dvs, _ = _dvs(read, "add", rows)
@@ -526,11 +568,12 @@ def _read_part_bytes(path: str, version: int) -> bytes:
             error_class="DELTA_MISSING_PART_FILES") from e
 
 
-def _small_actions(segment) -> List[Tuple[int, int, dict]]:
+def _small_actions(segment, parts) -> List[Tuple[int, int, dict]]:
     """The protocol, metaData, txn and domainMetadata rows of the
-    segment's checkpoint, read by the host leaf reader from those columns
-    alone: no add or remove leaf is read and nothing is decoded on the
-    device (the reference's `small_only` projection)."""
+    segment's checkpoint `parts` (Parquet; a V2 top level, whose sidecars
+    hold file actions only, is read alone), by the host leaf reader from
+    those columns alone: no add or remove leaf is read and nothing is
+    decoded on the device (the reference's `small_only` projection)."""
     from delta_tpu_torch.log.page_decode import PartRead
     from delta_tpu_torch.log.parquet_footer import (
         DecodeCorrupt,
@@ -541,7 +584,7 @@ def _small_actions(segment) -> List[Tuple[int, int, dict]]:
 
     cp = segment.checkpoint_version
     others: List[Tuple[int, int, dict]] = []
-    for fstat in segment.checkpoints:
+    for fstat in parts:
         data = _read_part_bytes(fstat.path, cp)
         try:
             footer = read_footer(data)
@@ -565,14 +608,35 @@ def _small_actions(segment) -> List[Tuple[int, int, dict]]:
     return others
 
 
-def _read_checkpoint(engine, segment, phases: Dict[str, float]
+def _sidecar_path(log_path: str, name: str) -> str:
+    """Where a sidecar pointer leads: `_sidecars/<name>`, or the name
+    itself when it holds a '/' (the reference's resolution)."""
+    return name if "/" in name else f"{filenames.sidecar_dir(log_path)}/{name}"
+
+
+def _has_file_columns(footer) -> bool:
+    return any(lf.parts[0] in ("add", "remove") for lf in footer.leaves)
+
+
+def _stats_only_parsed(read) -> bool:
+    """The part's adds carry stats only as `stats_parsed` structs (the
+    `stats` strings are all null, as with writeStatsAsJson=false)."""
+    if not any(lf.parts[:2] == ("add", "stats_parsed")
+               for lf in read.footer.leaves):
+        return False
+    stats = _python(read, "add.stats", np.flatnonzero(_present(read, "add")))
+    return bool(stats) and all(s is None for s in stats)
+
+
+def _read_checkpoint(engine, segment, parts: Sequence, sidecars: Sequence[str],
+                     phases: Dict[str, float], want_handoff: bool
                      ) -> CheckpointActions:
-    """Read every part of the segment's checkpoint (port of the reference's
+    """Read the checkpoint's Parquet `parts` and the sidecars they name,
+    and the `sidecars` a JSON top level named (port of the reference's
     `_consume_parts_device`, `_consume_checkpoint_table` and
-    `_track_handoff`). The handoff is wanted when the checkpoint is the
-    only source of file actions; it stays on while every part is keyed on
-    the device with counts that agree with the host's rows and no
-    deletion vector."""
+    `_track_handoff`). The handoff, when wanted, stays on while every
+    part and sidecar is keyed on the device with counts that agree with
+    the host's rows and no deletion vector."""
     from delta_tpu_torch.log.page_decode import read_checkpoint_part
     from delta_tpu_torch.log.parquet_footer import (
         DecodeCorrupt,
@@ -582,17 +646,18 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
     from delta_tpu_torch.ops.page_decode import launch_checkpoint_handoff
 
     cp = segment.checkpoint_version
-    want_handoff = not segment.deltas
     handoff_ok = want_handoff
     keyed = []
-    parts: List[_CkptPart] = []
+    read_parts: List[_CkptPart] = []
     others: List[Tuple[int, int, dict]] = []
     dv_ids: Dict[int, str] = {}
     is_add, size = [], []
     n = 0
-    for fstat in segment.checkpoints:
+
+    def consume(path: str) -> None:
+        nonlocal n, handoff_ok
         t0 = time.perf_counter()
-        data = _read_part_bytes(fstat.path, cp)
+        data = _read_part_bytes(path, cp)
         phases["ckpt_read"] = phases.get("ckpt_read", 0.0) + (
             time.perf_counter() - t0)
         try:
@@ -600,37 +665,30 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
                                         want_keys=want_handoff,
                                         phases=phases)
             t1 = time.perf_counter()
-            if any(lf.parts[:2] == ("add", "stats_parsed")
-                   for lf in read.footer.leaves):
-                stats = _python(read, "add.stats",
-                                np.flatnonzero(_present(read, "add")))
-                if stats and all(s is None for s in stats):
-                    raise UnsupportedLogError(
-                        f"{fstat.path} carries add stats only as "
-                        f"stats_parsed structs; reading them is a later "
-                        f"slice of the port")
-            if _present(read, "sidecar").any():
-                raise UnsupportedLogError(
-                    f"{fstat.path} is a V2 checkpoint with sidecars; they "
-                    f"are a later slice of the port")
+            struct_stats = _stats_only_parsed(read)
             for root in _SMALL_ROOTS:
                 at = np.flatnonzero(_present(read, root))
                 if at.size:
                     bodies = assemble(read.leaves, root, at)
-                    others += [(cp, int(r), {root: b})
-                               for r, b in zip(at.tolist(), bodies)]
+                    others.extend((cp, int(r), {root: b})
+                                  for r, b in zip(at.tolist(), bodies))
+            at = np.flatnonzero(_present(read, "sidecar"))
+            names = _python(read, "sidecar.path", at) if at.size else []
         except DecodeUnsupported as e:
             raise UnsupportedLogError(
-                f"checkpoint part {fstat.path}: {e}",
+                f"checkpoint part {path}: {e}",
                 error_class="DELTA_UNSUPPORTED_CHECKPOINT") from e
         except DecodeCorrupt as e:
             raise LogCorruptedError(
-                f"checkpoint part {fstat.path} is damaged: {e}",
-                version=cp, path=fstat.path) from e
-        (_OBS_DECODE_PARTS if read.on_device else _OBS_DECODE_FALLBACKS).inc()
+                f"checkpoint part {path} is damaged: {e}",
+                version=cp, path=path) from e
+        if _has_file_columns(read.footer):
+            (_OBS_DECODE_PARTS if read.on_device
+             else _OBS_DECODE_FALLBACKS).inc()
         part = _CkptPart(read, np.flatnonzero(_present(read, "add")),
-                         np.flatnonzero(_present(read, "remove")))
-        parts.append(part)
+                         np.flatnonzero(_present(read, "remove")),
+                         data if struct_stats else None)
+        read_parts.append(part)
         for root, rows in (("add", part.add_rows), ("remove", part.rem_rows)):
             _, ids = _dvs(read, root, rows)
             dv_ids.update({n + k: v for k, v in ids.items()})
@@ -652,14 +710,22 @@ def _read_checkpoint(engine, segment, phases: Dict[str, float]
                 keyed.append(keys)
         phases["ckpt_rows"] = phases.get("ckpt_rows", 0.0) + (
             time.perf_counter() - t1)
+        for name in names:
+            if name is not None:
+                consume(_sidecar_path(segment.log_path, name))
+
+    for fstat in parts:
+        consume(fstat.path)
+    for name in sidecars:
+        consume(_sidecar_path(segment.log_path, name))
     t2 = time.perf_counter()
-    rows = CheckpointRows(parts)
+    rows = CheckpointRows(read_parts)
     handoff = None
     if handoff_ok and keyed:
         handoff = launch_checkpoint_handoff(keyed, engine.device)
     path_rows = []
     if handoff is None:
-        for part in parts:
+        for part in read_parts:
             for root, r in (("add", part.add_rows), ("remove", part.rem_rows)):
                 if len(r):
                     path_rows.append(_path_rows(part.read, root, r,
@@ -801,54 +867,94 @@ def columnarize_commit_blobs(engine, blobs: Sequence[Tuple[int, bytes]]
                            parsed_on_device=parsed.on_device)
 
 
+def _json_files(segment) -> Tuple[list, List[Tuple[int, str]]]:
+    """The segment's JSON inputs in buffer order: the V2 JSON top levels
+    as `(version, bytes)` (read here, so that a vanished one reads as a
+    missing part), then `(version, path)` of the compacted deltas (at
+    their last version, ahead of the singles, as in the reference) and
+    the single commits."""
+    cp = segment.checkpoint_version
+    tops = [(cp, _read_part_bytes(f.path, cp)) for f in segment.checkpoints
+            if f.path.endswith(".json")]
+    files = [(filenames.compacted_delta_versions(f.path)[1], f.path)
+             for f in segment.compacted_deltas]
+    files += [(filenames.delta_version(f.path), f.path)
+              for f in segment.deltas]
+    return tops, files
+
+
 def columnarize_log_segment(engine, segment, small_only: bool = False
                             ) -> ColumnarActions:
-    """Read the segment's checkpoint parts and commits and produce its
-    ColumnarActions. Commits take the device parse first, the host parser
-    when the device parse hands the buffer back
-    (`parse.device_fallbacks` counts those). Returns, besides, the
-    handoff's launched replay (`ColumnarActions.pending`) when one ran.
+    """Read the segment's checkpoint parts and JSON files and produce its
+    ColumnarActions. JSON takes the device parse first, the host parser
+    when the device parse hands the buffer back (`parse.device_fallbacks`
+    counts those). Returns, besides, the handoff's launched replay
+    (`ColumnarActions.pending`) when one ran.
 
     `small_only` resolves only the small actions: the checkpoint's
     protocol, metaData, txn and domainMetadata columns alone (no add or
-    remove leaf, no device decode) and the tail commits' control lines;
-    its `file_actions` is None."""
+    remove leaf, no sidecar, no device decode) and the JSON files'
+    control lines; its `file_actions` is None."""
     from delta_tpu_torch.replay import device_parse, host_parse
 
     phases: Dict[str, float] = {}
+    parquet = [f for f in segment.checkpoints if not f.path.endswith(".json")]
+    tops, files = _json_files(segment)
     if small_only:
         tracker = _SmallActionTracker()
-        rows = _small_actions(segment) if segment.checkpoints else []
-        if segment.deltas:
-            buf, starts, versions = _read_commits_buffer(
-                [(filenames.delta_version(f.path), f.path)
-                 for f in segment.deltas])
+        rows = _small_actions(segment, parquet) if parquet else []
+        if tops or files:
+            buf, starts, versions = _read_commits_buffer(files, first=tops)
             rows += host_parse.parse_commits_host(buf, starts, versions,
                                                   "cpu").others
         tracker.scan_pylist(rows)
         return _small_columnar(tracker, None)
-    ck = None
-    if segment.checkpoints:
-        ck = _read_checkpoint(engine, segment, phases)
-        engine.synchronize()
-    parsed = None
-    if segment.deltas:
+
+    def parse_json():
         t0 = time.perf_counter()
-        buf, starts, versions = _read_commits_buffer(
-            [(filenames.delta_version(f.path), f.path)
-             for f in segment.deltas])
+        buf, starts, versions = _read_commits_buffer(files, first=tops)
         t1 = time.perf_counter()
-        parsed = _parse_commit_buffer(engine, buf, starts, versions)
+        try:
+            out = _parse_commit_buffer(engine, buf, starts, versions)
+        except TornCommitError as e:
+            if files:
+                raise
+            # the buffer holds only the checkpoint's top level: a torn
+            # line there is a damaged checkpoint, not a torn commit
+            raise LogCorruptedError(
+                f"the V2 checkpoint at version {segment.checkpoint_version} "
+                f"is damaged: {e}", version=segment.checkpoint_version) from e
         engine.synchronize()
         phases["read"] = t1 - t0
         phases["parse"] = time.perf_counter() - t1
+        return out
+
+    # a JSON top level names the sidecars: parse the JSON side first then
+    parsed = parse_json() if tops else None
+    ck = None
+    if segment.checkpoints:
+        cp = segment.checkpoint_version
+        sidecars = [] if parsed is None else [
+            row["sidecar"].get("path") for v, _, row in parsed.others
+            if v == cp and isinstance(row.get("sidecar"), dict)]
+        want_handoff = not files and (
+            parsed is None or parsed.file_actions.num_rows == 0)
+        ck = _read_checkpoint(engine, segment, parquet,
+                              [p for p in sidecars if p is not None],
+                              phases, want_handoff)
+        engine.synchronize()
+    if parsed is None and files:
+        parsed = parse_json()
 
     t2 = time.perf_counter()
     pending = None
     dev = engine.device
+    commit_fa = parsed.file_actions if parsed is not None else None
     if ck is None:
-        fa = parsed.file_actions
+        fa = commit_fa
     else:
+        if commit_fa is not None and commit_fa.num_rows == 0:
+            commit_fa = None  # a top level of small actions and sidecars
         n_ck = ck.n
         lanes = dict(
             is_add=torch.from_numpy(ck.is_add).to(dev),
@@ -856,7 +962,6 @@ def columnarize_log_segment(engine, segment, small_only: bool = False
                                dtype=torch.int64, device=dev),
             order=torch.arange(n_ck, dtype=torch.int32, device=dev),
             size=torch.from_numpy(ck.size).to(dev))
-        commit_fa = parsed.file_actions if parsed is not None else None
         if commit_fa is not None:
             lanes = {k: torch.cat([v, getattr(commit_fa, k)])
                      for k, v in lanes.items()}

@@ -319,7 +319,7 @@ class Snapshot:
         snapshot's retained state. Returns `self` when nothing is new (one
         LIST, no read), a new Snapshot when commits appended cleanly, or
         None when the advance is unavailable (a checkpoint or compacted
-        delta past this version, a listing gap, a protocol change): the
+        delta past this version, a listing gap, or a protocol change): the
         caller then loads in full. The advanced state is the state a cold
         load of the new segment builds."""
         engine = self._table.engine
@@ -346,7 +346,7 @@ class Snapshot:
         from delta_tpu_torch.replay.columnar import columnarize_log_segment
 
         delta_seg = dataclasses.replace(new_segment, deltas=new_deltas,
-                                        checkpoints=[],
+                                        checkpoints=[], compacted_deltas=[],
                                         checkpoint_version=None)
         delta = columnarize_log_segment(engine, delta_seg)
         if delta.protocol is not None:

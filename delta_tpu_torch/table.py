@@ -152,7 +152,8 @@ class Table:
         return get_history(self, limit)
 
     def checkpoint(self, version: Optional[int] = None) -> None:
-        """Write a checkpoint of `version` (default: the latest), then
+        """Write a checkpoint of `version` (default: the latest), reusing
+        the unchanged parts the previous `_last_checkpoint` names, then
         reseed the `.crc` chain from the checkpointed state; a failed
         reseed is counted (`checkpoint.checksum_reseed_failures`), the
         checkpoint stands."""
@@ -165,7 +166,8 @@ class Table:
         except TableNotFoundError as e:
             raise CheckpointError(
                 f"cannot checkpoint a non-existent table: {e}") from e
-        write_checkpoint(self.engine, snap)
+        write_checkpoint(self.engine, snap, prev_info=read_last_checkpoint(
+            self.engine.fs, self.log_path))
         try:
             write_checksum_from_state(self.engine.fs, self.log_path,
                                       snap.state)

@@ -4,21 +4,25 @@ Counterpart of `delta_tpu/utils/filenames.py`. Commit files are
 ``%020d.json``; classic checkpoints ``%020d.checkpoint.parquet``,
 multi-part ones ``%020d.checkpoint.%010d.%010d.parquet``, V2 ones
 ``%020d.checkpoint.<uuid>.{json,parquet}``; compacted ranges
-``%020d.%020d.compacted.json``; version checksums ``%020d.crc``. Zero padding makes a lexicographic listing
-return files in version order.
+``%020d.%020d.compacted.json``; version checksums ``%020d.crc``; V2
+sidecars ``_sidecars/<uuid>.parquet``. Zero padding makes a lexicographic
+listing return files in version order.
 """
 
 from __future__ import annotations
 
 import re
+import uuid as _uuid
 from dataclasses import dataclass
 from enum import Enum
 from typing import List, Optional, Sequence
 
 LOG_DIR_NAME = "_delta_log"
+SIDECAR_SUBDIR = "_sidecars"
 
 DELTA_FILE_RE = re.compile(r"^(\d+)\.json$")
 COMPACTED_DELTA_FILE_RE = re.compile(r"^(\d+)\.(\d+)\.compacted\.json$")
+CHECKSUM_FILE_RE = re.compile(r"^(\d+)\.crc$")
 CHECKPOINT_FILE_RE = re.compile(
     r"^(\d+)\.checkpoint((\.\d+\.\d+)?\.parquet|\.[^.]+\.(json|parquet))$"
 )
@@ -61,6 +65,36 @@ def checkpoint_file_with_parts(log_path: str, version: int,
                                num_parts: int) -> List[str]:
     return [f"{log_path}/{version:020d}.checkpoint.{i:010d}.{num_parts:010d}"
             f".parquet" for i in range(1, num_parts + 1)]
+
+
+def top_level_v2_checkpoint_file(log_path: str, version: int,
+                                 fmt: str = "parquet",
+                                 uuid: Optional[str] = None) -> str:
+    """A V2 checkpoint's top-level file, named by a fresh UUID unless one
+    is given."""
+    if fmt not in ("json", "parquet"):
+        raise ValueError(f"V2 checkpoint format {fmt!r}")
+    u = uuid if uuid is not None else str(_uuid.uuid4())
+    return f"{log_path}/{version:020d}.checkpoint.{u}.{fmt}"
+
+
+def sidecar_dir(log_path: str) -> str:
+    """Where a V2 checkpoint's sidecar files live."""
+    return f"{log_path}/{SIDECAR_SUBDIR}"
+
+
+def compacted_delta_file(log_path: str, from_version: int,
+                         to_version: int) -> str:
+    return (f"{log_path}/{from_version:020d}.{to_version:020d}"
+            f".compacted.json")
+
+
+def checksum_version(path: str) -> int:
+    return int(file_name(path).split(".")[0])
+
+
+def checkpoint_version(path: str) -> int:
+    return int(file_name(path).split(".")[0])
 
 
 def last_checkpoint_file(log_path: str) -> str:

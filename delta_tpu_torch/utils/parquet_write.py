@@ -8,7 +8,9 @@ parquet-cpp's fallback to PLAIN pages once the dictionary passes
 `DICT_LIMIT` bytes (1 MiB), PLAIN booleans, and snappy pages
 (`log/snappy.py`). The footer is written with a thrift compact-protocol
 writer. Physical types: BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY;
-logical annotations STRING, DATE and TIMESTAMP (micros, UTC).
+logical annotations STRING, DATE, TIMESTAMP (micros or millis, adjusted
+to UTC or not) and UNKNOWN (an all-null column of Arrow's null type);
+optional groups nest to any depth (a checkpoint's `add.stats_parsed`).
 
 `write_data_file` writes one data file of a table from a
 `models.batch.Batch` (an OPTIONAL column per nullable field, REQUIRED
@@ -115,7 +117,9 @@ class SchemaNode:
     physical: Optional[str] = None
     converted: Optional[int] = None  # 0 UTF8, 1 MAP, 3 LIST, 6 DATE, ...
     logical: Optional[int] = None    # LogicalType: 1 STRING, 6 DATE,
-                                     # 8 TIMESTAMP (micros, UTC)
+                                     # 8 TIMESTAMP, 11 UNKNOWN (null)
+    timestamp: Tuple[bool, int] = (True, 2)  # TIMESTAMP: adjusted to
+                                             # UTC; unit 1 ms, 2 us
 
 
 @dataclass
@@ -310,10 +314,10 @@ def _schema(t: _Thrift, node: SchemaNode, top: bool = False) -> None:
     if node.logical is not None:
         t.begin(10)
         t.begin(node.logical)
-        if node.logical == 8:  # TimestampType: adjusted to UTC, MICROS
-            t.boolean(1, True)
+        if node.logical == 8:  # TimestampType: isAdjustedToUTC, unit
+            t.boolean(1, node.timestamp[0])
             t.begin(2)
-            t.begin(2)
+            t.begin(node.timestamp[1])
             t.end()
             t.end()
         t.end()

@@ -1,6 +1,6 @@
-"""Arrow's two readings of a date-time string, reproduced.
+"""Arrow's three readings of a date-time string, reproduced.
 
-The JAX package leans on Arrow in two places where a string becomes a
+The JAX package leans on Arrow in three places where a string becomes a
 timestamp, with different rules; the port reproduces each:
 
 - `parse_timestamp_s`: the JSON reader's type inference (the stats
@@ -11,6 +11,10 @@ timestamp, with different rules; the port reproduces each:
   predicate literal against timestamp stats, an IN value against a
   timestamp column): the same date-time with up to six digits of
   fraction and no zone. Epoch microseconds, or None (Arrow refuses).
+- `json_to_us`: the JSON reader's conversion to an explicit
+  `timestamp[us]` field (a checkpoint's `stats_parsed`): the inference's
+  date-time with up to six digits of fraction after the seconds, before
+  the zone. Epoch microseconds, or None (Arrow fails the parse).
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ _TS_RE = re.compile(
 _CAST_RE = re.compile(
     r"(\d{4})-(\d{2})-(\d{2})"
     r"(?:[T ](\d{2})(?::(\d{2})(?::(\d{2})(?:\.(\d{1,6}))?)?)?)?")
+_JSON_RE = re.compile(
+    r"(\d{4}-\d{2}-\d{2}(?:[T ]\d{2}(?::\d{2}(?::\d{2})?)?)?)"
+    r"(?:\.(\d{1,6}))?(Z|[+-]\d{2}(?::?\d{2})?)?")
 _DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
 
 
@@ -80,3 +87,16 @@ def string_to_us(s: str) -> Optional[int]:
         return None
     return secs * 1_000_000 + (0 if frac is None
                                else int((frac + "00000")[:6]))
+
+
+def json_to_us(s: str) -> Optional[int]:
+    """Epoch microseconds of `s` as Arrow's JSON reader converts it to an
+    explicit timestamp[us] field, or None where the parse fails."""
+    m = _JSON_RE.fullmatch(s)
+    if m is None or (m[2] is not None and m[1].count(":") != 2):
+        return None  # a fraction only after the seconds
+    secs = parse_timestamp_s(m[1] + (m[3] or ""))
+    if secs is None:
+        return None
+    return secs * 1_000_000 + (0 if m[2] is None
+                               else int((m[2] + "00000")[:6]))

@@ -5,7 +5,9 @@ commit-only log and of a checkpointed one, a `write_table` plus OPTIMIZE
 (both curves, and compaction), the checkpoint writes of the
 post-commit hooks and of `Table.checkpoint`, and a filtered `read_table`
 (scan planning with the stats index, the skip mask and the ladder, the
-row read) plus an OPTIMIZE with a predicate must leave no `jax`,
+row read) plus an OPTIMIZE with a predicate, and the log forms (a V2
+checkpoint with struct-only stats read back and scanned, a compacted
+delta, metadata cleanup of `log/cleanup.py`) must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -77,6 +79,31 @@ write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
 write_table(d3, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
 m = t.optimize().where(col("k") >= lit(0)).execute_compaction()
 assert m.num_files_removed >= 2
+# the log forms: a V2 checkpoint with struct-only stats, its reload and a
+# scan over it, a compacted delta, metadata cleanup
+from delta_tpu_torch.log.checkpointer import write_checkpoint
+from delta_tpu_torch.log.cleanup import (cleanup_expired_logs,
+                                         write_compacted_delta)
+d4 = d + "/forms"
+settings.checkpoint_part_size = 2
+for i in range(4):
+    write_table(d4, {"k": np.arange(5) + 10 * i}, engine=TorchEngine("cpu"),
+                properties={"delta.checkpoint.writeStatsAsStruct": "true",
+                            "delta.checkpoint.writeStatsAsJson": "false"})
+t4 = Table.for_path(d4, engine=TorchEngine("cpu"))
+write_checkpoint(t4.engine, t4.latest_snapshot(), policy="v2")
+obs.reset()
+b = read_table(d4, filter=col("k") >= lit(25), engine=TorchEngine("cpu"))
+assert sorted(b.column("k").values.tolist()) == [30, 31, 32, 33, 34]
+assert obs.counters()["decode.device_parts"] == 2  # the two sidecars
+write_table(d4, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
+write_table(d4, {"k": np.arange(5)}, engine=TorchEngine("cpu"))
+write_compacted_delta(t4, 4, 5)
+assert Table.for_path(d4, engine=TorchEngine("cpu")).latest_snapshot() \
+    .log_segment.compacted_deltas
+assert cleanup_expired_logs(t4, retention_ms=0) != []
+assert Table.for_path(d4, engine=TorchEngine("cpu")).latest_snapshot() \
+    .state.num_files == 6
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))

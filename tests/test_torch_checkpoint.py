@@ -90,8 +90,31 @@ def test_golden_checkpointed_logs_match_reference(fixture):
 
 @pytest.mark.parametrize("fixture", ["v2_sidecars", "compacted"])
 def test_v2_and_compacted_logs_are_refused(fixture):
-    with pytest.raises(UnsupportedLogError):
-        _load(os.path.join(REPO, "tests", "golden_fixtures", fixture))
+    """These forms were refused until the port read them; the golden V2
+    checkpoint (a JSON top level naming two sidecars) and the compacted
+    delta now load to their hand-written `expected.json` and to the
+    reference's state."""
+    path = os.path.join(REPO, "tests", "golden_fixtures", fixture)
+    with open(os.path.join(path, "expected.json")) as f:
+        want = json.load(f)
+    obs.reset()
+    got = _load(path)
+    live = sorted(f"{a.path}|{a.dv_unique_id or ''}" for a in got.add_files)
+    dead = sorted(f"{r.path}|{r.dv_unique_id or ''}" for r in got.tombstones)
+    assert (got.version, got.num_files, got.size_in_bytes, live, dead,
+            got.metadata.id) == (want["version"], want["num_live"],
+                                 want["live_bytes"], want["live_keys"],
+                                 want["tombstone_keys"],
+                                 want["metadata_id"])
+    assert {k: v for k, v in got.protocol.to_dict().items()
+            if v is not None} == want["protocol"]
+    seg = build_log_segment(LocalLogStore(), os.path.join(path, "_delta_log"))
+    if fixture == "v2_sidecars":
+        assert obs.counters()["decode.device_parts"] == 2  # one per sidecar
+    else:
+        assert [os.path.basename(f.path) for f in seg.compacted_deltas] == [
+            f"{1:020d}.{2:020d}.compacted.json"]
+    assert_matches_reference(path, got)
 
 
 @pytest.mark.parametrize("checkpoint_version", [2, 4])

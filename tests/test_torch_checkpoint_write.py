@@ -9,7 +9,8 @@ HostEngine load of the port's checkpoint equals the port's state and a
 port load of the JAX checkpoint equals the JAX state. Also: tombstone and
 txn retention under a fixed clock, the row-count check, a torn multi-part
 write, the aggregate block against the reference's jitted body and host
-twin, `Table.checkpoint`, `snapshot_at`, and the refused policies.
+twin, `Table.checkpoint`, `snapshot_at`, and the V2 and stats_parsed
+policies (with `tests/test_torch_log_forms.py`).
 """
 
 import glob
@@ -35,7 +36,6 @@ from delta_tpu_torch.config import settings
 from delta_tpu_torch.errors import (
     CheckpointError,
     ChecksumMismatchError,
-    UnsupportedTableError,
     VersionNotFoundError,
 )
 from delta_tpu_torch.log import checkpointer
@@ -272,15 +272,24 @@ def test_collision_with_a_whole_part_counts_as_written(tmp_path):
 @pytest.mark.parametrize("prop", ["delta.checkpointPolicy",
                                   "delta.checkpoint.writeStatsAsStruct"])
 def test_v2_and_stats_struct_are_refused(tmp_path, prop):
-    root = str(tmp_path)
-    synth_delta_log(root, 3, 5, seed=0)
-    state = _load(root)
-    state.metadata.configuration[prop] = \
-        "v2" if prop.endswith("Policy") else "true"
-    snap = Table.for_path(root, engine=CPU).latest_snapshot()
-    snap._state = state
-    with pytest.raises(UnsupportedTableError):
-        checkpointer.write_checkpoint(CPU, snap)
+    """Both were refused until the port wrote them: with the table
+    property set, the two packages' checkpoints now hold the same rows
+    (a V2 top level and its sidecars; stats_parsed beside the stats), and
+    the reference loads the port's to the port's state."""
+    from test_torch_log_forms import _rows as _all_rows
+
+    a, b = _copies(tmp_path, "bench")
+    for root in (a, b):
+        _set_conf(root, {prop: "v2" if prop.endswith("Policy") else "true"})
+    _write_both(a, b, 40)
+    assert _all_rows(a) == _all_rows(b)
+    log = os.path.join(b, "_delta_log")
+    if prop.endswith("Policy"):
+        assert len(os.listdir(os.path.join(log, "_sidecars"))) > 1
+        assert read_last_checkpoint(LocalLogStore(), log).tag
+    else:
+        assert all("stats_parsed" in r for r in _all_rows(b)["add"])
+    assert_matches_reference(b, _load(b))
 
 
 def test_stats_written_as_json_can_be_turned_off(tmp_path):

@@ -864,3 +864,74 @@ def test_scan_and_read_table_on_the_card_equal_cpu(tmp_path):
     for c in ("s", "x"):
         assert np.array_equal(on_card.column(c).values,
                               on_cpu.column(c).values)
+
+
+def _forms_log(root, form):
+    """A small synthetic log in one of the later forms: a V2 checkpoint
+    with sidecars, a struct-only checkpoint (`stats_parsed` alone), or
+    compacted deltas in its tail; written by the port on the CPU."""
+    import json
+
+    from delta_tpu_torch.config import settings
+    from delta_tpu_torch.log.checkpointer import write_checkpoint
+    from delta_tpu_torch.log.cleanup import write_compacted_delta
+
+    synth_delta_log(root, 40, 100, seed=11, checkpoint_version=30,
+                    now_ms=7 * 86_400_000)
+    cpu = TorchEngine("cpu")
+    table = Table.for_path(root, engine=cpu)
+    if form == "compacted":
+        write_compacted_delta(table, 31, 35)
+        write_compacted_delta(table, 36, 39)
+        return
+    if form == "struct_only":
+        meta = table.latest_snapshot().metadata.to_dict()
+        meta["configuration"] = {
+            **meta["configuration"],
+            "delta.checkpoint.writeStatsAsStruct": "true",
+            "delta.checkpoint.writeStatsAsJson": "false"}
+        with open(f"{root}/_delta_log/{40:020d}.json", "w") as f:
+            f.write(json.dumps({"metaData": meta}) + "\n")
+    settings.checkpoint_part_size = 700
+    try:
+        write_checkpoint(cpu, table.latest_snapshot(),
+                         policy="v2" if form == "v2" else None)
+    finally:
+        settings.checkpoint_part_size = None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["v2", "struct_only", "compacted"])
+def test_log_forms_load_on_the_card_equal_cpu(tmp_path, form):
+    """A V2 (sidecars decoded by K3, the handoff's K2), a struct-only
+    (K3, the stats re-serialized) and a compacted (K1) log load on the
+    card to the CPU engine's state; a filtered scan of each plans through
+    K7 to the CPU's survivors."""
+    from delta_tpu_torch.expressions import col, lit
+
+    _card()
+    root = str(tmp_path / form)
+    _forms_log(root, form)
+    obs.reset()
+    card = Table.for_path(root, engine=TorchEngine()).latest_snapshot()
+    st = card.state
+    counts = obs.counters()
+    cpu = Table.for_path(root, engine=TorchEngine("cpu")).latest_snapshot()
+    assert torch.equal(st.live_mask.cpu(), cpu.state.live_mask)
+    assert torch.equal(st.tombstone_mask.cpu(), cpu.state.tombstone_mask)
+    assert st.add_files == cpu.state.add_files
+    if form == "compacted":
+        assert counts["kernel.byte_class.launches"] >= 1
+        assert len(card.log_segment.compacted_deltas) == 2
+    else:
+        assert counts["kernel.hybrid_extract.launches"] == \
+            counts["decode.device_parts"] >= 2
+        assert counts["decode.device_fallbacks"] == 0
+        assert counts["kernel.winner_pack.launches"] >= 1
+        # the checkpoint is at the head: its parts' keys go to K2 directly
+        assert counts["decode.handoff_launches"] == 1
+    pred = col("x") < lit(500_000)
+    obs.reset()
+    assert card.scan(filter=pred).file_paths() == \
+        cpu.scan(filter=pred).file_paths()
+    assert obs.counters()["kernel.skip_mask.launches"] == 1

@@ -18,11 +18,7 @@ import bench
 from delta_tpu.engine.host import HostEngine
 from delta_tpu.table import Table as RefTable
 from delta_tpu_torch import Table, TorchEngine, obs
-from delta_tpu_torch.errors import (
-    CorruptLogError,
-    TableNotFoundError,
-    UnsupportedLogError,
-)
+from delta_tpu_torch.errors import CorruptLogError, TableNotFoundError
 from delta_tpu_torch.utils.synth import synth_delta_log
 
 
@@ -193,21 +189,26 @@ def test_malformed_control_line_falls_back_then_raises(tmp_path):
 
 
 def test_checkpointed_or_compacted_log_is_refused(tmp_path):
-    """A V2 checkpoint (UUID-named) and a compacted delta are not read
-    yet; classic checkpoints are (tests/test_torch_checkpoint.py)."""
+    """Both forms were refused until the port read them. A damaged V2
+    top level (UUID-named) now takes the ladder back to the JSON log, and
+    a compacted delta stands in for the commits it covers; both as in the
+    reference."""
     path = _write_log(tmp_path, [[_PROTO, _META, _add("a")], [_add("b")]])
     log = os.path.join(path, "_delta_log")
     v2 = os.path.join(log, f"{1:020d}.checkpoint.3f2a-uuid.parquet")
     with open(v2, "wb") as f:
         f.write(b"PAR1")
-    with pytest.raises(UnsupportedLogError):
-        Table.for_path(path, engine=TorchEngine("cpu")).latest_snapshot()
+    obs.reset()
+    got = _load(path)
+    assert obs.counters()["snapshot.checkpoint_fallbacks"] == 1
+    _assert_matches_reference(path, got)
     os.remove(v2)
     with open(os.path.join(log, f"{0:020d}.{1:020d}.compacted.json"),
               "w") as f:
-        f.write(_add("a") + "\n")
-    with pytest.raises(UnsupportedLogError):
-        Table.for_path(path, engine=TorchEngine("cpu")).latest_snapshot()
+        f.write(_PROTO + "\n" + _META + "\n" + _add("a") + "\n")
+    got = _load(path)
+    assert sorted(a.path for a in got.add_files) == ["a"]
+    _assert_matches_reference(path, got)
 
 
 def test_listing_errors(tmp_path):

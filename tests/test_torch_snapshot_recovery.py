@@ -363,7 +363,9 @@ def test_unreadable_crc_counts_as_none(tmp_path, body):
 # ------------------------------------------------ what is not absorbed --
 
 def test_out_of_scope_checkpoint_still_refuses(twelve):
-    """A zstd part and a sidecar row are typed refusals, not damage."""
+    """A zstd part, and a sidecar row naming a zstd sidecar, are typed
+    refusals, not damage (the sidecar itself is read since the port reads
+    V2 checkpoints; its codec is not)."""
     cp = _log(twelve, 10, "checkpoint.parquet")
     tbl = pq.read_table(cp)
     pq.write_table(tbl, cp, compression="zstd")
@@ -377,6 +379,9 @@ def test_out_of_scope_checkpoint_still_refuses(twelve):
                          "modificationTime": 1}]
                        + [None] * (tbl.num_rows - 1), sidecar_t)
     pq.write_table(tbl.append_column("sidecar", sidecar), cp)
+    side = os.path.join(str(twelve), "_delta_log", "_sidecars")
+    os.makedirs(side)
+    pq.write_table(tbl, os.path.join(side, "x.parquet"), compression="zstd")
     with pytest.raises(UnsupportedLogError):
         Table.for_path(str(twelve), engine=TorchEngine("cpu")) \
             .latest_snapshot().state
