@@ -168,8 +168,24 @@
 15. A 20,000-row table optimized along both curves on the card and on the
     CPU (plain versions): the same output rows in the same order and the
     same stats.
+16. DML path (cell 10, `dml_phase`): the OPTIMIZE cell's 20 appends
+    written by the port to a table created with
+    delta.enableDeletionVectors, then, each step's counters from 0 and
+    its rows against numpy as a multiset of row hashes: a sparse DELETE
+    `k1 < 2^22` (a DV of array containers on every file), a read filtered
+    on k2 (K7 plans, K8 decodes each DV), a dense DELETE `payload >
+    1.2816` (about 10%: the union with each DV, bitmap containers that
+    K8 packs), a read of every row, an UPDATE of three rows' payload (three
+    files copied), OPTIMIZE compaction (every DV purged), a reload and a
+    read. Each step's K8 pack and decode launches and
+    `parse.device_fallbacks` (K1 hands a window with a DV line to the
+    host) must be the expected ones (`DML_EXPECT`), and print with the
+    step's wall time. After each DELETE, K8 against its plain version on
+    every DV's decode and pack lanes, and each DV re-serialized on the
+    card to its stored bytes. K8 is timed on one file's dense DV, decode
+    and pack, beside its plain version, its bound and one `scatter_add_`.
 
-Prints a metrics line per phase, a `kernels` JSON line (K1-K7, each with
+Prints a metrics line per phase, a `kernels` JSON line (K1-K8, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
@@ -1610,6 +1626,308 @@ def optimize_card_vs_cpu(work: str) -> None:
                    f"{curve}: card rows == CPU rows ({c})")
 
 
+DML_SPARSE_K1 = 1 << 22     # DELETE k1 < 2^22: ~0.4% of the rows, arrays
+DML_DENSE_PAYLOAD = 1.2816  # DELETE payload > 1.2816: ~10%, bitmaps
+DML_READ_K2 = 1 << 29       # the first read's filter: k2 >= 2^29
+DML_UPDATE_FILES = (2, 9, 15)  # appends whose one k1 the UPDATE sets
+DML_OPTIMIZE_MAX_FILE = 1 << 30  # Delta's default maxFileSize for OPTIMIZE:
+                                 # one bin takes every file (at 256 MiB the
+                                 # largest file may sit alone in a bin, which
+                                 # is not rewritten, and keep its DV)
+DML_K8 = ("kernel.dv_bits.pack_launches", "kernel.dv_bits.decode_launches")
+# per step on the card: (K8 pack launches, K8 decode launches, parse
+# fallbacks). K8 decodes once per DV'd file read (20 candidates, 17 DV'd
+# files in OPTIMIZE's bins after the UPDATE rewrote 3) and packs once per
+# DV with a bitmap container; K1 hands every commit window that holds a
+# line with a DV to the host parse (one fallback): the commit handoff of
+# each command, and every load with such a commit past its checkpoint
+# (the hook checkpoints version 20, the sparse DELETE)
+DML_EXPECT = {"delete_sparse": (0, 0, 1), "read_filtered": (0, 20, 0),
+              "delete_dense": (20, 20, 1), "read": (0, 20, 1),
+              "update": (0, 20, 1), "optimize": (0, 17, 1),
+              "reload": (0, 0, 1), "read_after": (0, 0, 1)}
+
+
+def _dv_blobs(path: str, state, eng) -> list:
+    """The DV blob of every live file that has one."""
+    from delta_tpu_torch.dv.descriptor import _load_blob
+
+    return [_load_blob(eng, path, a.deletionVector.to_dict())[0]
+            for a in state.add_files if a.deletionVector is not None]
+
+
+def _k8_lanes(blob: bytes, n_rows: int, dev):
+    """K8's decode lanes of one DV blob for a file of `n_rows` rows, on
+    `dev`, as `dv/roaring.py::decode_delta_mask` builds them."""
+    from delta_tpu_torch.dv.roaring import _mask_plan
+
+    bit_idx, bm_words, bm_base, _ = _mask_plan(blob)
+    n_words = -(-n_rows // 32)
+    below = bm_base < n_words
+    return (torch.from_numpy(bit_idx).to(dev),
+            torch.from_numpy(bm_words.reshape(-1, 2048)[below].reshape(-1)
+                             .view(np.int32)).to(dev),
+            torch.from_numpy(bm_base[below].astype(np.int32)).to(dev),
+            n_words)
+
+
+def _k8_flat(values: np.ndarray, dev):
+    """K8's pack lanes of a DV's values (one 32-bit bucket), as
+    `RoaringBitmapArray._serialize32` builds them: the bits of its bitmap
+    containers, container-relative; None when it has no bitmap
+    container."""
+    high = values >> np.uint64(16)
+    _, counts = np.unique(high, return_counts=True)
+    bitmap = counts > 4096
+    if not bitmap.any():
+        return None
+    rank = np.cumsum(bitmap) - 1
+    sel = np.repeat(bitmap, counts)
+    flat = (np.repeat(rank, counts)[sel].astype(np.int64) * 65536
+            + (values[sel] & np.uint64(0xFFFF)).astype(np.int64))
+    return torch.from_numpy(flat).to(dev), int(bitmap.sum())
+
+
+def _k8_against_plain(path: str, state, eng, rows_per_file: int, dev) -> int:
+    """K8 against its plain version on every DV of the table: the decode
+    lanes of each blob, and the pack lanes of each DV with a bitmap
+    container, re-serialized on the card to the stored bytes. Returns
+    the number of DVs held."""
+    from delta_tpu_torch.dv.roaring import RoaringBitmapArray
+    from delta_tpu_torch.ops.dv_bits import (
+        decode_mask_words, decode_mask_words_plain, pack_bitmap_words,
+        pack_bitmap_words_plain)
+
+    held = 0
+    for blob in _dv_blobs(path, state, eng):
+        lanes = _k8_lanes(blob, rows_per_file, dev)
+        _check(torch.equal(decode_mask_words(*lanes),
+                           decode_mask_words_plain(*lanes)),
+               "dml: K8 decode != plain on a DV")
+        bm = RoaringBitmapArray.deserialize_delta(blob)
+        packed = _k8_flat(bm.values, dev)
+        if packed is not None:
+            _check(torch.equal(pack_bitmap_words(*packed),
+                               pack_bitmap_words_plain(*packed)),
+                   "dml: K8 pack != plain on a DV")
+        _check(bm.serialize_delta(dev) == blob,
+               "dml: a DV re-serialized on the card != its blob")
+        held += 1
+    eng.synchronize()
+    return held
+
+
+def _dml_rows_check(got, truth: dict, sel: np.ndarray, what: str) -> None:
+    """The rows read are the numpy truth's selected rows, as a multiset of
+    row hashes."""
+    cols = ("k1", "k2", "k3", "payload")
+    _check(got.num_rows == int(sel.sum()),
+           f"{what}: {got.num_rows} rows, numpy {int(sel.sum())}")
+    want = np.sort(_row_hash(*(truth[c][sel] for c in cols)))
+    have = np.sort(_row_hash(*(np.ascontiguousarray(got.column(c).values)
+                               for c in cols)))
+    _check(np.array_equal(want, have), f"{what}: the rows are numpy's")
+
+
+def dml_phase(work: str, appends: list, card: str, dev) -> tuple:
+    """Cell 10: DML on a deletion-vector table, on `dev`. The OPTIMIZE
+    cell's 20 appends written by the port to a table created with
+    delta.enableDeletionVectors, then, each step's counters from 0: a
+    sparse DELETE (array containers), a filtered read (K8 decodes), a
+    dense DELETE (bitmap containers: K8 packs), a read, an UPDATE of
+    three rows' payload, OPTIMIZE compaction (no DV left), a reload.
+    Every step's rows against numpy; K8 against its plain version on
+    every DV after each DELETE. Returns (the metrics line, K8's timed
+    inputs)."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.expressions import col, lit
+
+    path = os.path.join(work, "dml")
+    eng = TorchEngine(dev.type)
+    per = len(appends[0]["k1"])
+    truth = {c: np.concatenate([a[c] for a in appends])
+             for c in ("k1", "k2", "k3", "payload")}
+    alive = np.ones(len(truth["k1"]), bool)
+    sync = eng.synchronize
+    obs.reset()
+    t0 = time.perf_counter()
+    for i, cols in enumerate(appends):
+        write_table(path, cols, engine=eng, properties=None if i else {
+            "delta.enableDeletionVectors": "true"})
+    out = {"rows": len(alive), "write_appends_s": time.perf_counter() - t0,
+           "card": card}
+    table = Table.for_path(path, engine=eng)
+    table.latest_snapshot().state
+    steps = {}
+
+    def step(name, fn):
+        sync()
+        obs.reset()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = obs.counters()
+        _ladder_idle(counts, f"dml {name}")
+        steps[name] = {
+            "s": seconds,
+            "k8_pack": counts.get(DML_K8[0], 0),
+            "k8_decode": counts.get(DML_K8[1], 0),
+            "k7": counts.get("kernel.skip_mask.launches", 0),
+            "k1": counts.get("kernel.byte_class.launches", 0),
+            "k2": counts.get("kernel.winner_pack.launches", 0),
+            "k3": counts.get("kernel.hybrid_extract.launches", 0),
+            "parse_device_windows": counts.get("parse.device_windows", 0),
+            "parse_device_fallbacks": counts.get("parse.device_fallbacks", 0),
+            "decode_device_parts": counts.get("decode.device_parts", 0)}
+        s = steps[name]
+        _check(dev.type != "cuda" or (s["k8_pack"], s["k8_decode"],
+                                      s["parse_device_fallbacks"])
+               == DML_EXPECT[name],
+               f"dml {name}: K8 launches and parse fallbacks {s}, expected "
+               f"{DML_EXPECT[name]}")
+        return result
+
+    # 1. a sparse DELETE: every file keeps a DV of array containers
+    m = step("delete_sparse", lambda: delete(
+        table, col("k1") < lit(DML_SPARSE_K1)))
+    hit = alive & (truth["k1"] < DML_SPARSE_K1)
+    _check(m.num_rows_deleted == int(hit.sum())
+           and m.num_dvs_written == len(appends)
+           and m.num_files_removed_fully == 0,
+           f"dml: the sparse DELETE's metrics {m}")
+    alive &= ~hit
+    st = table.latest_snapshot().state
+    steps["delete_sparse"]["dvs_held_to_plain"] = _k8_against_plain(
+        path, st, eng, per, dev)
+    # 2. a filtered read: K7 plans, K8 decodes each file's DV
+    got = step("read_filtered", lambda: read_table(
+        path, filter=col("k2") >= lit(DML_READ_K2), engine=eng))
+    _dml_rows_check(got, truth, alive & (truth["k2"] >= DML_READ_K2),
+                    "dml read_filtered")
+    del got
+    # 3. a dense DELETE: the union with each file's DV, bitmap containers
+    m = step("delete_dense", lambda: delete(
+        table, col("payload") > lit(DML_DENSE_PAYLOAD)))
+    hit = alive & (truth["payload"] > DML_DENSE_PAYLOAD)
+    _check(m.num_rows_deleted == int(hit.sum())
+           and m.num_dvs_written == len(appends),
+           f"dml: the dense DELETE's metrics {m}")
+    alive &= ~hit
+    st = table.latest_snapshot().state
+    steps["delete_dense"]["dvs_held_to_plain"] = _k8_against_plain(
+        path, st, eng, per, dev)
+    # K8's timed inputs, at the main path's shapes: one file's dense DV
+    blob = _dv_blobs(path, st, eng)[0]
+    from delta_tpu_torch.dv.roaring import RoaringBitmapArray
+
+    k8_inputs = (_k8_lanes(blob, per, dev), _k8_flat(
+        RoaringBitmapArray.deserialize_delta(blob).values, dev))
+    # 4. a read of every row
+    got = step("read", lambda: read_table(path, engine=eng))
+    _dml_rows_check(got, truth, alive, "dml read")
+    del got
+    # 5. an UPDATE of three rows, one in each of three files (their k1
+    # unique in the table): copy-on-write of those files
+    uniq, counts = np.unique(truth["k1"], return_counts=True)
+    once = set(uniq[counts == 1].tolist())
+    keys = []
+    for f in DML_UPDATE_FILES:
+        rows = np.arange(f * per, (f + 1) * per)
+        keys.append(next(int(truth["k1"][r]) for r in rows
+                         if alive[r] and int(truth["k1"][r]) in once))
+    m = step("update", lambda: update(table, {"payload": lit(0.0)},
+                                      col("k1").is_in(*keys)))
+    hit = alive & np.isin(truth["k1"], keys)
+    _check(m.num_rows_updated == 3 == int(hit.sum())
+           and m.num_files_rewritten == 3, f"dml: the UPDATE's metrics {m}")
+    truth["payload"] = np.where(hit, 0.0, truth["payload"])
+    # 6. OPTIMIZE compaction: every bin's DVs purged
+    m = step("optimize", lambda: table.optimize().execute_compaction(
+        max_file_size=DML_OPTIMIZE_MAX_FILE))
+    st = table.latest_snapshot().state
+    _check(m.num_files_removed == len(appends)
+           and not any(a.deletionVector for a in st.add_files),
+           f"dml: OPTIMIZE left no DV ({m.num_files_removed} removed)")
+    # 7. a reload from scratch, then every row
+    st = step("reload", lambda: Table.for_path(
+        path, engine=eng).latest_snapshot().state)
+    _check(st.num_files == m.num_files_added
+           and not any(a.deletionVector for a in st.add_files),
+           "dml: the reload's live files")
+    got = step("read_after", lambda: read_table(path, engine=eng))
+    _dml_rows_check(got, truth, alive, "dml read_after")
+    del got
+    out.update({"steps": steps, "rows_alive": int(alive.sum()),
+                "output_files": st.num_files})
+    return out, k8_inputs
+
+
+def dv_bits_row(decode_lanes, pack_lanes, launches: int) -> dict:
+    """K8 on one file's dense DV of cell 10 (the decode lanes of its blob,
+    and the pack lanes of its bitmap containers): against its plain
+    version, timed beside it, beside its bound and beside one
+    `scatter_add_` over precomputed word and bit lanes."""
+    from delta_tpu_torch.ops.dv_bits import (
+        decode_mask_words, decode_mask_words_plain, pack_bitmap_words,
+        pack_bitmap_words_plain)
+    from delta_tpu_torch.ops.u32 import to_i32_bits
+
+    bit_idx, bm_words, bm_base, n_words = decode_lanes
+    got = decode_mask_words(*decode_lanes)
+    want = decode_mask_words_plain(*decode_lanes)
+    _check(torch.equal(got, want), "dv_bits decode != plain")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    flat, n_c = pack_lanes
+    _check(torch.equal(pack_bitmap_words(flat, n_c),
+                       pack_bitmap_words_plain(flat, n_c)),
+           "dv_bits pack != plain")
+    decode = lambda: decode_mask_words(*decode_lanes)  # noqa: E731
+    pack = lambda: pack_bitmap_words(flat, n_c)        # noqa: E731
+    names = ("dv_bits_kernel", "Memset")
+    n_idx, n_bm = bit_idx.shape[0], bm_words.shape[0]
+    bound, by = _bound_ms(8.0 * n_idx + 4.0 * n_bm + 4.0 * bm_base.shape[0]
+                          + 4.0 * n_words, float(n_idx + n_bm))
+    p_words = n_c * 2048
+    p_bound, p_by = _bound_ms(8.0 * flat.shape[0] + 4.0 * p_words,
+                              float(flat.shape[0]))
+    # the library call: one scatter_add_ of precomputed int32 bit values
+    # at precomputed word indexes (equal to the OR for unique bits; the
+    # bitmap words' positions expanded from their containers' offsets,
+    # those past the words dropped, outside the timing)
+    idx = bit_idx[bit_idx < n_words * 32]
+    bm_pos = (bm_base.to(torch.int64)[:, None] + torch.arange(
+        2048, device=bm_base.device)).reshape(-1)
+    keep = bm_pos < n_words
+    word = torch.cat([idx >> 5, bm_pos[keep]])
+    val = torch.cat([to_i32_bits(torch.ones_like(idx) << (idx & 31)),
+                     bm_words[keep]])
+    buf = torch.zeros(n_words, dtype=torch.int32, device=bit_idx.device)
+    buf.scatter_add_(0, word, val)
+    _check(torch.equal(buf, got), "scatter_add_ != K8 on the DV's lanes")
+    return {
+        "name": "dv_bits", "route": "cuda",
+        "source": "delta_tpu_torch/csrc/dv_bits.cu",
+        "replaces": "delta_tpu/ops/stats.py:279",
+        "replaces_pack": "delta_tpu/ops/stats.py:231",
+        "launches": launches, "max_abs_err": err,
+        "ms": _time_ms(decode, 50),
+        "device_ms": _device_ms(decode, 50, names),
+        "plain_ms": _time_ms(lambda: decode_mask_words_plain(*decode_lanes),
+                             3),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lambda: buf.scatter_add_(0, word, val), 50),
+        "shape": f"idx i64[{n_idx}] + words i32[{n_bm}] -> i32[{n_words}]",
+        "pack_ms": _time_ms(pack, 50),
+        "pack_device_ms": _device_ms(pack, 50, names),
+        "pack_plain_ms": _time_ms(
+            lambda: pack_bitmap_words_plain(flat, n_c), 3),
+        "pack_bound_ms": p_bound, "pack_bound_by": p_by,
+        "pack_shape": f"idx i64[{flat.shape[0]}] -> i32[{p_words}]"}
+
+
 UNPACK_W = 16               # device_merit.py:491-506: w = 16, random words
 UNPACK_VALUES = 10_000_000  # BASELINE config 2's scale
 
@@ -2450,7 +2768,27 @@ def main(argv=None) -> int:
         kernels["skip_mask"]["launches_read_table"] = \
             opt["read_table_counters"].get("kernel.skip_mask.launches", 0)
         print("optimize zorder: " + json.dumps(opt), flush=True)
+        # DML on a deletion-vector table (cell 10), each step's counters
+        # from 0; K8 on one of its DVs
+        dml, k8_inputs = dml_phase(work, appends, card, dev)
         del appends
+        steps = dml["steps"]
+        kernels["dv_bits"] = dv_bits_row(*k8_inputs, launches=sum(
+            s["k8_pack"] + s["k8_decode"] for s in steps.values()))
+        del k8_inputs
+        kernels["dv_bits"]["launches_per_step"] = {
+            k: {"pack": s["k8_pack"], "decode": s["k8_decode"]}
+            for k, s in steps.items()}
+        for name, key in (("skip_mask", "k7"), ("byte_class", "k1"),
+                          ("winner_pack", "k2"), ("hybrid_extract", "k3")):
+            kernels[name]["launches_dml"] = sum(s[key] for s in
+                                                steps.values())
+        print("dml: " + json.dumps(dml), flush=True)
+        for name, s in steps.items():
+            print(f"dml {name}: {s['s']:.4f} s, K8 pack {s['k8_pack']} "
+                  f"decode {s['k8_decode']}, parse.device_fallbacks "
+                  f"{s['parse_device_fallbacks']}; {card}", flush=True)
+        print("dv_bits phase: " + json.dumps(kernels["dv_bits"]), flush=True)
         optimize_card_vs_cpu(work)
         print("small optimize, both curves: card == cpu", flush=True)
         if args.profile:

@@ -28,7 +28,10 @@ own data-file reader and writer and an optimistic transaction; the curve
 permutation runs on the card (kernel K4, the bit interleave). Every commit
 runs the post-commit hooks (`hooks.py`: a `.crc` per version, a classic
 or multi-part checkpoint every `delta.checkpointInterval` commits,
-auto-compaction); `Table.checkpoint()` writes one on demand. The last two
+auto-compaction); `Table.checkpoint()` writes one on demand. DELETE and
+UPDATE (`commands/dml.py`) write deletion vectors or copy the survivors;
+a deletion vector is packed and decoded on the card (kernel K8, the
+roaring bit scatter), and the row read and OPTIMIZE apply it. The last two
 TPU kernels have entry points of their own: `ops/unpack.py` (kernel K5,
 Parquet bit-packed groups) and `ops/minmax.py` (kernel K6, per-file min,
 max and null count).

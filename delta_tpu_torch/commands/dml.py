@@ -1,0 +1,295 @@
+"""DML: DELETE and UPDATE, by deletion vectors or copy-on-write.
+
+Counterpart of `delta_tpu/commands/dml.py:94-336` (Delta's
+`DeleteCommand.scala`, `UpdateCommand.scala` and
+`DMLWithDeletionVectorsHelper.scala`):
+
+    from delta_tpu_torch.commands.dml import delete, update
+    table = Table.for_path(p, engine=TorchEngine())
+    delete(table, predicate=col("k") < lit(10))      # None: every row
+    update(table, {"x": lit(0.0), "y": lambda batch: ...},
+           predicate=col("k") >= lit(10))
+
+1. The candidates are the files the predicate may match
+   (`txn.scan_files(filter=)`: data skipping, K7 on the card; no
+   predicate reads the whole table), each read in file order with its
+   deletion vector decoded on the engine's device (K8 on the card).
+2. Per candidate, the predicate over its visible rows:
+   - no row matches: the file stays;
+   - DELETE of every visible row: the file is removed;
+   - DELETE on a table with `delta.enableDeletionVectors`: the file is
+     removed and re-added with a deletion vector of the old and the new
+     deleted rows (one `.bin` per command, its bitmap containers packed
+     on the engine's device);
+   - otherwise copy-on-write: the surviving rows (DELETE), or the
+     untouched rows then the updated ones (UPDATE), go to a new file,
+     and the old one is removed. UPDATE always copies.
+3. One commit with the reference's operation parameters and metrics;
+   nothing matched commits nothing.
+
+A SET value is a constant (converted as Arrow converts a Python value to
+the column's type), an `Expression` (a column, a literal or a predicate,
+cast to the column's type as Arrow's unsafe cast does) or a callable
+taking the matched rows as a `Batch` and returning the new values
+(an array, a (values, valid) pair or a `Column`), cast the same way;
+`expressions/eval.py::cast_values`.
+
+Refused as in the reference: an append-only table
+(`AppendOnlyTableError`), an UPDATE of an identity column
+(`IdentityColumnError`), a SET of a column the table lacks
+(`InvalidArgumentError`). Refused before anything is written
+(`UnsupportedTableError`): what `check_write_supported` refuses, and a
+table with the change data feed on (its CDC files are not ported).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from delta_tpu_torch.config import (
+    APPEND_ONLY,
+    CHANGE_DATA_FEED,
+    DELETION_VECTORS_ENABLED,
+    get_table_config,
+)
+from delta_tpu_torch.dv.descriptor import write_deletion_vector_file
+from delta_tpu_torch.dv.roaring import RoaringBitmapArray
+from delta_tpu_torch.errors import (
+    AppendOnlyTableError,
+    IdentityColumnError,
+    InvalidArgumentError,
+    MissingTransactionLogError,
+    UnsupportedTableError,
+)
+from delta_tpu_torch.expressions.eval import (
+    cast_values,
+    column_values,
+    constant_values,
+    evaluate_predicate,
+    evaluate_values,
+)
+from delta_tpu_torch.expressions.tree import Expression
+from delta_tpu_torch.models.actions import AddFile
+from delta_tpu_torch.models.batch import Batch, Column, as_column
+from delta_tpu_torch.models.schema import schema_from_json
+from delta_tpu_torch.read.reader import deleted_row_mask, read_add_file_logical
+from delta_tpu_torch.txn.transaction import Operation, check_write_supported
+from delta_tpu_torch.write.writer import write_data_files
+
+_IDENTITY_KEYS = ("delta.identity.start", "delta.identity.step")
+
+
+@dataclass
+class DMLMetrics:
+    num_files_scanned: int = 0
+    num_files_rewritten: int = 0
+    num_files_removed_fully: int = 0
+    num_dvs_written: int = 0
+    num_rows_deleted: int = 0
+    num_rows_updated: int = 0
+    num_rows_copied: int = 0
+    version: Optional[int] = None
+
+
+def _open(table, operation: str, what: str):
+    """The command's transaction, after the reference's refusals."""
+    txn = table.create_transaction_builder(operation).build()
+    snapshot = txn.read_snapshot
+    if snapshot is None:
+        raise MissingTransactionLogError(f"no table at {table.path}")
+    if get_table_config(snapshot.metadata.configuration, APPEND_ONLY):
+        raise AppendOnlyTableError(f"cannot {what} an append-only table")
+    return txn, snapshot
+
+
+def _check_writable(snapshot) -> None:
+    meta = snapshot.metadata
+    check_write_supported(snapshot.protocol, meta)
+    if get_table_config(meta.configuration, CHANGE_DATA_FEED):
+        raise UnsupportedTableError(
+            "DML on a table with the change data feed is not supported yet "
+            "(its CDC files are not ported)", feature="change data feed")
+
+
+def _read_physical(table, snapshot, add: AddFile) -> Batch:
+    """Every row of the file in file order, its deletion vector NOT
+    applied: DML computes row indexes against the file's own order."""
+    return read_add_file_logical(table.engine, table.path, snapshot.metadata,
+                                 add, apply_dv=False)
+
+
+def _num_records(add: AddFile) -> int:
+    try:
+        return int(json.loads(add.stats).get("numRecords") or 0)
+    except (TypeError, ValueError, AttributeError):
+        return 0
+
+
+def delete(table, predicate: Optional[Expression] = None) -> DMLMetrics:
+    """DELETE FROM table WHERE predicate (None: every row)."""
+    txn, snapshot = _open(table, Operation.DELETE, "DELETE from")
+    _check_writable(snapshot)
+    now_ms = int(time.time() * 1000)
+    metrics = DMLMetrics()
+    candidates = txn.scan_files(filter=predicate)
+    metrics.num_files_scanned = len(candidates)
+
+    if predicate is None:
+        for f in candidates:
+            txn.remove_file(f.remove(deletion_timestamp=now_ms))
+            metrics.num_files_removed_fully += 1
+            metrics.num_rows_deleted += _num_records(f)
+        txn.set_operation_parameters({"predicate": "true"})
+        metrics.version = txn.commit().version
+        return metrics
+
+    delete_matching_rows(txn, table, snapshot, predicate, metrics,
+                         now_ms=now_ms, candidates=candidates)
+    if not txn._adds and not txn._removes:
+        return metrics  # nothing matched; no commit
+    txn.set_operation_parameters({"predicate": repr(predicate)})
+    txn.set_operation_metrics({
+        "numDeletedRows": metrics.num_rows_deleted,
+        "numRemovedFiles": (metrics.num_files_removed_fully
+                            + metrics.num_files_rewritten
+                            + metrics.num_dvs_written),
+        "numCopiedRows": metrics.num_rows_copied,
+        "numDeletionVectorsAdded": metrics.num_dvs_written,
+    })
+    metrics.version = txn.commit().version
+    return metrics
+
+
+def delete_matching_rows(txn, table, snapshot, predicate: Expression,
+                         metrics: DMLMetrics, now_ms: int,
+                         candidates: List[AddFile]) -> None:
+    """Stage on an open transaction the removal of every row `predicate`
+    matches in `candidates`: full removes, deletion vectors or
+    copy-on-write rewrites."""
+    meta = snapshot.metadata
+    use_dv = get_table_config(meta.configuration, DELETION_VECTORS_ENABLED)
+    schema = schema_from_json(meta.schemaString)
+    dv_writes = []
+    for add in candidates:
+        data = _read_physical(table, snapshot, add)
+        existing = deleted_row_mask(table.engine, table.path, add,
+                                    data.num_rows)
+        visible = (~existing if existing is not None
+                   else np.ones(data.num_rows, dtype=bool))
+        matches = evaluate_predicate(predicate, data) & visible
+        n_match = int(matches.sum())
+        if n_match == 0:
+            continue
+        metrics.num_rows_deleted += n_match
+        if n_match == int(visible.sum()):
+            txn.remove_file(add.remove(deletion_timestamp=now_ms))
+            metrics.num_files_removed_fully += 1
+        elif use_dv:
+            deleted = matches if existing is None else matches | existing
+            dv_writes.append((add, np.nonzero(deleted)[0].astype(np.uint64)))
+        else:
+            survivors = data.take(np.nonzero(visible & ~matches)[0])
+            metrics.num_rows_copied += survivors.num_rows
+            txn.add_files(write_data_files(
+                table.engine, table.path, survivors, schema,
+                meta.partitionColumns, meta.configuration))
+            txn.remove_file(add.remove(deletion_timestamp=now_ms))
+            metrics.num_files_rewritten += 1
+    if not dv_writes:
+        return
+    descriptors = write_deletion_vector_file(
+        table.engine, table.path,
+        [RoaringBitmapArray(idx) for _, idx in dv_writes])
+    for (add, _), desc in zip(dv_writes, descriptors):
+        txn.remove_file(add.remove(deletion_timestamp=now_ms))
+        new_add = dataclasses.replace(add, deletionVector=desc,
+                                      dataChange=True)
+        new_add.extra = dict(add.extra)
+        txn.add_file(new_add)
+        metrics.num_dvs_written += 1
+
+
+def update(table, assignments: Dict[str, object],
+           predicate: Optional[Expression] = None) -> DMLMetrics:
+    """UPDATE table SET column = value, ... WHERE predicate (None: every
+    row); the values as the module docstring says."""
+    txn, snapshot = _open(table, Operation.UPDATE, "UPDATE")
+    meta = snapshot.metadata
+    schema = schema_from_json(meta.schemaString)
+    identity = {f.name for f in schema.fields
+                if any(k in f.metadata for k in _IDENTITY_KEYS)}
+    hit = sorted(identity & set(assignments))
+    if hit:
+        # values are system-allocated; an UPDATE would break uniqueness
+        raise IdentityColumnError(
+            f"UPDATE on IDENTITY column(s) {hit} is not supported",
+            error_class="DELTA_IDENTITY_COLUMNS_UPDATE_NOT_SUPPORTED")
+    _check_writable(snapshot)
+    now_ms = int(time.time() * 1000)
+    metrics = DMLMetrics()
+    candidates = txn.scan_files(filter=predicate)
+    metrics.num_files_scanned = len(candidates)
+    for add in candidates:
+        data = _read_physical(table, snapshot, add)
+        existing = deleted_row_mask(table.engine, table.path, add,
+                                    data.num_rows)
+        if existing is not None:
+            data = data.take(np.nonzero(~existing)[0])
+        matches = (evaluate_predicate(predicate, data)
+                   if predicate is not None
+                   else np.ones(data.num_rows, dtype=bool))
+        n_match = int(matches.sum())
+        if n_match == 0:
+            continue
+        updated = _apply_assignments(data.take(np.nonzero(matches)[0]),
+                                     assignments, schema)
+        untouched = data.take(np.nonzero(~matches)[0])
+        metrics.num_rows_updated += n_match
+        metrics.num_rows_copied += untouched.num_rows
+        txn.add_files(write_data_files(
+            table.engine, table.path, Batch.concat([untouched, updated]),
+            schema, meta.partitionColumns, meta.configuration))
+        txn.remove_file(add.remove(deletion_timestamp=now_ms))
+        metrics.num_files_rewritten += 1
+    if not txn._adds and not txn._removes:
+        return metrics
+    txn.set_operation_parameters(
+        {"predicate": repr(predicate) if predicate is not None else "true"})
+    txn.set_operation_metrics({
+        "numUpdatedRows": metrics.num_rows_updated,
+        "numCopiedRows": metrics.num_rows_copied,
+        "numRemovedFiles": metrics.num_files_rewritten,
+    })
+    metrics.version = txn.commit().version
+    return metrics
+
+
+def _apply_assignments(matched: Batch, assignments: Dict[str, object],
+                       schema) -> Batch:
+    """The matched rows with each SET applied in order (a later value sees
+    the earlier ones)."""
+    out = matched
+    for name, value in assignments.items():
+        if name not in out.columns:
+            raise InvalidArgumentError(f"unknown column in SET: {name}",
+                                       error_class="DELTA_MISSING_SET_COLUMN")
+        type_name = schema[name].type_name
+        if isinstance(value, Expression):
+            values, valid = cast_values(evaluate_values(value, out),
+                                        type_name)
+        elif callable(value):
+            c = as_column(value(out))
+            values, valid = cast_values(column_values(c.values, c.valid),
+                                        type_name)
+        else:
+            values, valid = constant_values(value, type_name, out.num_rows)
+        cols = dict(out.columns)
+        cols[name] = Column(values, None if valid.all() else valid)
+        out = Batch(cols, out.num_rows)
+    return out

@@ -22,16 +22,18 @@ rewrites every file as one bin, its rows ordered along the curve by
 `ops/zorder.py` on the engine's device (kernel K4 on the card). A bin
 becomes ceil(sum of its file sizes / max_file_size) files of equal row
 counts; the removes carry dataChange=false; every add of an explicit
-Z-order carries one set of ZCube tags per command.
+Z-order carries one set of ZCube tags per command. A bin's files are
+read with their deletion vectors applied (decoded on the engine's
+device, K8 on the card), so the rows they delete are purged: the new
+files carry none, and the removes carry the old descriptors.
 
-Unpartitioned tables without column mapping or deletion vectors only;
-a partitioned, column-mapped or clustered table and deletion vectors
-raise `UnsupportedTableError`; a predicate on a clustered table raises
-`OptimizeArgumentError` (DELTA_CLUSTERING_WITH_PARTITION_PREDICATE), as
-in the reference, before that. `OptimizeMetrics`
-also carries `phase_seconds`, the wall seconds of the command's phases:
-snapshot, scan, read, keys, the curve permutation's h2d, rank,
-interleave, sort and d2h, take, write, commit.
+Unpartitioned tables without column mapping only; a partitioned,
+column-mapped or clustered table raises `UnsupportedTableError`; a
+predicate on a clustered table raises `OptimizeArgumentError`
+(DELTA_CLUSTERING_WITH_PARTITION_PREDICATE), as in the reference,
+before that. `OptimizeMetrics` also carries `phase_seconds`, the wall
+seconds of the command's phases: snapshot, scan, read, keys, the curve
+permutation's h2d, rank, interleave, sort and d2h, take, write, commit.
 """
 
 from __future__ import annotations
@@ -175,10 +177,6 @@ def _run_optimize(table, zorder_by: Optional[List[str]], max_file_size: int,
                     error_class="DELTA_ZORDERING_ON_COLUMN_WITHOUT_STATS")
 
     files = txn.scan_files(filter=filter)
-    if any(f.deletionVector is not None for f in files):
-        raise UnsupportedTableError(
-            "OPTIMIZE of files with deletion vectors is not supported yet",
-            feature="deletion vectors")
     mark("scan")
     metrics = OptimizeMetrics(phase_seconds=mark.seconds)
     tags = new_zcube_tags(zorder_by, curve) if zorder_by else None

@@ -82,6 +82,8 @@ RANDOMIZE_FILE_PREFIXES = TableConfig("delta.randomizeFilePrefixes", False,
 RANDOM_PREFIX_LENGTH = TableConfig("delta.randomPrefixLength", 2, int)
 DELETION_VECTORS_ENABLED = TableConfig("delta.enableDeletionVectors", False,
                                        _parse_bool)
+CHANGE_DATA_FEED = TableConfig("delta.enableChangeDataFeed", False,
+                               _parse_bool)
 COLUMN_MAPPING_MODE = TableConfig("delta.columnMapping.mode", "none", str)
 IN_COMMIT_TIMESTAMPS = TableConfig("delta.enableInCommitTimestamps", False,
                                    _parse_bool)

@@ -1,0 +1,26 @@
+"""Deletion vectors: roaring-bitmap soft deletes.
+
+Counterpart of `delta_tpu/dv/`: `roaring.py` holds the bitmap set, its
+serialization (RoaringFormatSpec 32-bit plus the 64-bit portable form)
+and the decode of a stored blob to a row mask through K8;
+`descriptor.py` the Delta wire formats (the magic-prefixed blob, the
+versioned DV file, inline base85 descriptors, 'u' paths).
+"""
+
+from delta_tpu_torch.dv.descriptor import (
+    absolute_dv_path,
+    inline_descriptor,
+    load_deletion_vector,
+    load_deletion_vector_mask,
+    write_deletion_vector_file,
+)
+from delta_tpu_torch.dv.roaring import RoaringBitmapArray
+
+__all__ = [
+    "RoaringBitmapArray",
+    "absolute_dv_path",
+    "inline_descriptor",
+    "load_deletion_vector",
+    "load_deletion_vector_mask",
+    "write_deletion_vector_file",
+]

@@ -69,12 +69,12 @@ class UnsupportedLogError(DeltaError):
 
 class UnsupportedTableError(DeltaError):
     """The table or the request needs a write-path feature this package
-    does not implement yet (a partitioned table, deletion vectors, column
-    mapping, a clustered table, a predicate, in-commit timestamps, row
-    tracking, coordinated or group commit, domain writes, writer features
-    beyond appendOnly and invariants, a type outside the flat primitive
-    set). The command stops before it writes anything a commit would
-    reference."""
+    does not implement yet (a partitioned table, column mapping, a
+    clustered table, in-commit timestamps, row tracking, coordinated or
+    group commit, domain writes, DML on a change-data-feed table, writer
+    features beyond appendOnly, invariants and deletionVectors, a type
+    outside the flat primitive set). The command stops before it writes
+    anything a commit would reference."""
 
     error_class = "DELTA_UNSUPPORTED_FEATURES_FOR_WRITE"
 
@@ -180,3 +180,25 @@ class TimestampLaterThanLatestCommitError(DeltaError):
 
 class CheckpointError(DeltaError):
     error_class = "DELTA_CHECKPOINT_NON_EXIST_TABLE"
+
+
+class MissingTransactionLogError(DeltaError):
+    error_class = "DELTA_MISSING_TRANSACTION_LOG"
+
+
+class AppendOnlyTableError(DeltaError):
+    """DELETE or UPDATE on a delta.appendOnly table."""
+
+    error_class = "DELTA_CANNOT_MODIFY_APPEND_ONLY"
+
+
+class IdentityColumnError(DeltaError):
+    error_class = "DELTA_IDENTITY_COLUMNS_ILLEGAL_OPERATION"
+
+
+class DeletionVectorError(DeltaError):
+    """A deletion vector that cannot be read as its descriptor says: a bad
+    magic or cookie, a checksum, size or cardinality mismatch, or a
+    storage type with no path."""
+
+    error_class = "DELTA_DELETION_VECTOR_INVALID"

@@ -28,6 +28,7 @@ literal (at its UTC instant) or a date, not with a naive `datetime`.
 from __future__ import annotations
 
 import datetime
+import math
 import operator
 import re
 from dataclasses import dataclass
@@ -35,6 +36,7 @@ from typing import Tuple
 
 import numpy as np
 
+from delta_tpu_torch.errors import InvalidArgumentError
 from delta_tpu_torch.expressions.tree import (
     And,
     Column,
@@ -48,6 +50,7 @@ from delta_tpu_torch.expressions.tree import (
     Or,
     StartsWith,
 )
+from delta_tpu_torch.models.batch import zeros
 from delta_tpu_torch.utils.timestamps import string_to_us
 
 _EPOCH = datetime.datetime(1970, 1, 1)
@@ -59,16 +62,29 @@ class UnsupportedComparison(TypeError):
     """No Arrow comparison kernel matches the two operand kinds."""
 
 
+class UnsupportedCast(InvalidArgumentError):
+    """A SET value that Arrow refuses for its column type (`cast_values`,
+    `constant_values`): a type pair with no cast, or a value out of the
+    type's range (CAST_INVALID_INPUT for a string that does not parse)."""
+
+    error_class = "DELTA_UPDATE_SCHEMA_MISMATCH_EXPRESSION"
+
+
 @dataclass
 class Values:
     """One operand: `kind` is one of null, bool, int, float, string, date
     (int64 days), ts (int64 microseconds, zone-less), tsz (int64
     microseconds of a UTC instant, zoned), other;
-    `data` a numpy array (object of str for string); `valid` bool."""
+    `data` a numpy array (object of str for string); `valid` bool;
+    `zone` the tzinfo of a zoned literal whose zone is not UTC (Arrow
+    prints its local time); `float32` True for the values of a float32
+    column (Arrow prints their shortest float32 digits)."""
 
     kind: str
     data: np.ndarray
     valid: np.ndarray
+    zone: object = None
+    float32: bool = False
 
     def __len__(self) -> int:
         return int(self.valid.shape[0])
@@ -132,7 +148,9 @@ def literal_values(value, n: int) -> Values:
     else:
         data = np.full(n, v, dtype={"bool": bool, "int": np.int64,
                                     "float": np.float64}.get(kind, np.int64))
-    return Values(kind, data, np.ones(n, bool))
+    zone = value.tzinfo if kind == "tsz" and str(value.tzinfo) != "UTC" \
+        else None
+    return Values(kind, data, np.ones(n, bool), zone)
 
 
 def column_values(values: np.ndarray, valid) -> Values:
@@ -145,7 +163,8 @@ def column_values(values: np.ndarray, valid) -> Values:
     if k in "iu":
         return Values("int", values.astype(np.int64, copy=False), valid)
     if k == "f":
-        return Values("float", values.astype(np.float64, copy=False), valid)
+        return Values("float", values.astype(np.float64, copy=False), valid,
+                      float32=values.dtype == np.float32)
     if k == "O":
         return Values("string", values, valid)
     if k == "M":
@@ -335,3 +354,242 @@ def evaluate(expr: Expression, batch) -> Kleene:
 def evaluate_predicate(expr: Expression, batch) -> np.ndarray:
     """Boolean selection with NULL -> False (WHERE semantics)."""
     return evaluate(expr, batch).filled(False).astype(bool)
+
+
+# ---------------------------------------------------------------- SET values
+
+_INT_RE = re.compile(r"-?\d+")
+_FLOAT_RE = re.compile(r"[+-]?((\d+\.?\d*|\.\d+)([eE][+-]?\d+)?|nan|inf|"
+                       r"infinity)", re.IGNORECASE)
+_BOOL_STRINGS = {"true": True, "false": False, "1": True, "0": False}
+_US_PER_DAY = 86_400_000_000
+_NUMPY = {"long": np.int64, "integer": np.int32, "double": np.float64,
+          "float": np.float32, "boolean": bool}
+
+
+def _int_bounds(type_name: str) -> Tuple[int, int]:
+    bits = 64 if type_name == "long" else 32
+    return -(1 << (bits - 1)), 1 << (bits - 1)
+
+
+def _parse_each(v: Values, parse) -> list:
+    """`parse` of every valid string (0 for a NULL row); a string it
+    refuses raises UnsupportedCast."""
+    out = []
+    for s, ok in zip(v.data.tolist(), v.valid.tolist()):
+        x = parse(s) if ok else 0
+        if x is None:
+            raise UnsupportedCast(f"cannot cast {s!r}",
+                                  error_class="CAST_INVALID_INPUT")
+        out.append(x)
+    return out
+
+
+def _parse_int(type_name: str):
+    lo, hi = _int_bounds(type_name)
+
+    def parse(s):
+        x = int(s) if _INT_RE.fullmatch(s) else None
+        return x if x is not None and lo <= x < hi else None
+    return parse
+
+
+def _parse_date(s: str):
+    if not _DATE_RE.fullmatch(s):
+        return None
+    try:
+        return (datetime.date.fromisoformat(s)
+                - datetime.date(1970, 1, 1)).days
+    except ValueError:
+        return None
+
+
+def _float_str(x: float, float32: bool) -> str:
+    """A float as Arrow's cast to string prints it: the shortest digits
+    that read back as the same float (float32 or float64), in fixed
+    notation for a decimal exponent in [-6, 10), else as
+    `<digits>e<sign><exponent>`; nan, inf, -inf and -0 by name."""
+    if math.isnan(x):
+        return "nan"
+    if math.isinf(x):
+        return "inf" if x > 0 else "-inf"
+    f = np.float32(x) if float32 else np.float64(x)
+    digits, exp = np.format_float_scientific(
+        f, unique=True, trim="-").split("e")
+    if -6 <= int(exp) < 10:
+        return np.format_float_positional(f, unique=True, trim="-")
+    return f"{digits}e{int(exp):+d}"
+
+
+def _local_us(v: Values) -> Tuple[np.ndarray, list]:
+    """Timestamps as the microseconds of their local wall time (a zoned
+    literal's zone applied, else as they are), and the zone's offset at
+    each (empty without a zone)."""
+    us = v.data.astype(np.int64)
+    if v.zone is None:
+        return us, []
+    offsets = [(_EPOCH_UTC + x * _US).astimezone(v.zone).utcoffset()
+               for x in us.tolist()]
+    return us + np.array([o // _US for o in offsets], np.int64), offsets
+
+
+def _ts_strings(v: Values) -> list:
+    """Timestamps as Arrow's cast to string prints them:
+    `YYYY-MM-DD HH:MM:SS.ffffff`; a zoned one in its zone's local time,
+    followed by `Z` for UTC or the offset as `+HHMM`."""
+    us, offsets = _local_us(v)
+    suffix = [""] * len(us)
+    if v.kind == "tsz" and v.zone is None:
+        suffix = ["Z"] * len(us)
+    elif v.kind == "tsz":
+        minutes = [o // datetime.timedelta(minutes=1) for o in offsets]
+        suffix = [f"{'-' if m < 0 else '+'}{abs(m) // 60:02d}{abs(m) % 60:02d}"
+                  for m in minutes]
+    years = us.astype("datetime64[us]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+    if len(years) and (years.min() < -32767 or years.max() > 32767):
+        raise UnsupportedCast("cannot print a timestamp past the year 32767")
+    # numpy's `<year>-MM-DDTHH:MM:SS.ffffff`, its year written as Arrow
+    # writes it: four digits, or five with the sign of a year before 0
+    text = np.datetime_as_string(us.astype("datetime64[us]"), unit="us")
+    return [f"{y:0{5 if y < 0 else 4}d}{t[-22:].replace('T', ' ')}{z}"
+            for y, t, z in zip(years.tolist(), text.tolist(), suffix)]
+
+
+def evaluate_values(expr: Expression, batch) -> Values:
+    """A SET value over `batch`: a column, a literal (typed as `pa.scalar`
+    types it) or a predicate (bool, NULL rows invalid)."""
+    return _as_values(_eval(expr, batch))
+
+
+def cast_values(v: Values, type_name: str) -> Tuple[np.ndarray, np.ndarray]:
+    """`v` cast to the Delta type `type_name` as Arrow's unsafe cast
+    (`cast(..., safe=False)`) does: integers wrap; floats truncate toward
+    zero, NaN and values out of range giving the type's minimum; numbers
+    become booleans as `!= 0`; booleans become 0/1 and 'true'/'false';
+    strings parse strictly (an integer as `-?digits`, a float also with a
+    sign, fraction, exponent, nan or inf, a boolean from true/false/1/0 in
+    any case, a date as YYYY-MM-DD); a timestamp becomes its microseconds
+    or its date (UTC, or a zoned literal's local date), a date midnight
+    or its day number (as an integer);
+    an integer becomes a timestamp of that many microseconds; a float or
+    a timestamp becomes a string as Arrow prints it (`_float_str`,
+    `_ts_strings`). Returns (values, valid), NULL rows holding the
+    dtype's zero. A pair that Arrow refuses raises UnsupportedCast."""
+    k, d, n = v.kind, v.data, len(v)
+    t = type_name
+    dtype = (np.dtype("datetime64[D]") if t == "date" else
+             np.dtype("datetime64[us]") if t == "timestamp" else
+             np.dtype(object) if t == "string" else np.dtype(_NUMPY[t]))
+    if k == "null":
+        return zeros(dtype, n), np.zeros(n, bool)
+    out = None
+    if t in ("long", "integer"):
+        lo, hi = _int_bounds(t)
+        if k in ("int", "bool"):
+            out = d.astype(_NUMPY[t])  # wraps
+        elif k == "float":
+            ok = np.isfinite(d) & (d >= lo) & (d < hi)
+            out = np.full(n, lo, _NUMPY[t])
+            out[ok] = np.trunc(d[ok])
+        elif k == "string":
+            out = np.array(_parse_each(v, _parse_int(t)), _NUMPY[t])
+        elif (k in ("ts", "tsz") and t == "long"
+              or k == "date" and t == "integer"):
+            out = d.astype(_NUMPY[t])
+    elif t in ("double", "float"):
+        if k in ("int", "bool", "float"):
+            with np.errstate(over="ignore"):  # past float32: inf, as Arrow
+                out = d.astype(_NUMPY[t])
+        elif k == "string":
+            out = np.array(_parse_each(
+                v, lambda s: float(s) if _FLOAT_RE.fullmatch(s) else None),
+                _NUMPY[t])
+    elif t == "boolean":
+        if k in ("int", "float"):
+            out = d != 0
+        elif k == "bool":
+            out = d.astype(bool)
+        elif k == "string":
+            out = np.array(_parse_each(
+                v, lambda s: _BOOL_STRINGS.get(s.lower())), bool)
+    elif t == "string":
+        if k == "string":
+            out = d
+        elif k in ("float", "ts", "tsz"):
+            text = ([_float_str(x, v.float32) for x in d.tolist()]
+                    if k == "float" else _ts_strings(v))
+            out = np.empty(n, object)
+            out[:] = [x if ok else "" for x, ok
+                      in zip(text, v.valid.tolist())]
+        elif k in ("int", "bool", "date"):
+            fmt = {"int": str, "bool": lambda x: "true" if x else "false",
+                   "date": lambda x: str(datetime.date(1970, 1, 1)
+                                         + datetime.timedelta(days=x))}[k]
+            out = np.empty(n, object)
+            out[:] = [fmt(x) if ok else "" for x, ok
+                      in zip(d.tolist(), v.valid.tolist())]
+    elif t == "date":
+        if k == "date":
+            out = d
+        elif k in ("ts", "tsz"):
+            out = np.floor_divide(_local_us(v)[0], _US_PER_DAY)
+        elif k == "string":
+            out = np.array(_parse_each(v, _parse_date), np.int64)
+    elif t == "timestamp":
+        if k in ("ts", "tsz", "int"):
+            out = d
+        elif k == "date":
+            out = d * _US_PER_DAY
+    if out is None:
+        raise UnsupportedCast(f"no cast of {k} to {t}")
+    if t in ("date", "timestamp"):
+        out = np.asarray(out, np.int64).astype(dtype)
+    out = np.array(out, dtype)
+    out[~v.valid] = zeros(dtype, 1)[0]
+    return out, v.valid.copy()
+
+
+def constant_values(value, type_name: str, n: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """A Python constant as `n` values of the Delta type `type_name`, as
+    Arrow converts it (`pa.array([value] * n, type)`): None is NULL; an
+    integer fits the type's range (a float type: exactly, |v| <= 2^53 for
+    double and 2^24 for float); a float truncates toward zero into an
+    integer type in range; a bool becomes 1.0 in a float type and is
+    refused by an integer type; a number (a float truncated toward zero)
+    becomes a date of that many days (in int32's range) or a timestamp of
+    that many microseconds (in int64's); a datetime becomes its own
+    calendar date (its zone ignored) or its instant (a naive one read as
+    UTC); a string, a bool and a date go only to their own kind. Anything
+    else raises UnsupportedCast."""
+    kind, enc = scalar_kind(value)
+    if kind == "null":
+        return cast_values(literal_values(None, n), type_name)
+    t = type_name
+    x = None
+    if t in ("long", "integer", "date", "timestamp") and kind in ("int",
+                                                                "float"):
+        lo, hi = _int_bounds({"date": "integer", "timestamp": "long"}.get(
+            t, t))
+        x = enc if kind == "int" else (math.trunc(enc) if math.isfinite(enc)
+                                       else None)
+        x = x if x is not None and lo <= x < hi else None
+    elif t == "date" and kind in ("date", "ts", "tsz"):
+        x = enc if kind == "date" else (value.date()
+                                        - datetime.date(1970, 1, 1)).days
+    elif t in ("double", "float"):
+        exact = 1 << (53 if t == "double" else 24)
+        if kind == "int" and -exact <= enc <= exact or kind == "float":
+            x = float(enc)
+        elif kind == "bool":
+            x = float(enc)
+    elif kind == {"boolean": "bool", "string": "string"}.get(t) or (
+            t == "timestamp" and kind in ("ts", "tsz")):
+        x = enc
+    if x is None:
+        raise UnsupportedCast(f"cannot convert {value!r} to {t}")
+    v = literal_values(x, n)
+    if t in ("date", "timestamp"):
+        v = Values("date" if t == "date" else "tsz", v.data, v.valid)
+    return cast_values(v, t)

@@ -5,15 +5,20 @@ Counterpart of `delta_tpu/read/reader.py:21-202`:
 - `read_add_file_logical`, the read half of every file-rewrite command:
   one file's columns in file order, kept when the table schema names them
   and cast up where the file predates a widening (int32 -> int64, float32
-  -> float64); a schema column the file lacks reads as null;
+  -> float64); a schema column the file lacks reads as null; the rows its
+  deletion vector deletes dropped (DML reads with `apply_dv=False`: it
+  computes row indexes against the file's own order);
 - `read_scan`, the row read of a scan (`Scan.to_batch()`): each surviving
   file reads only the needed columns (the projection plus the residual
-  filter's references), aligns to the logical schema, then the filter
-  applies to all rows (NULL drops the row) and the projection last. No
-  surviving file gives the schema's (or the projection's) columns, empty.
+  filter's references), drops its deleted rows, aligns to the logical
+  schema, then the filter applies to all rows (NULL drops the row) and the
+  projection last. No surviving file gives the schema's (or the
+  projection's) columns, empty.
 
-A missing file raises `FileNotFoundInLogError`; a deletion vector, column
-mapping or a partitioned table raises `UnsupportedTableError`.
+A deletion vector decodes on the engine's device (K8 on the card,
+`dv/descriptor.py::load_deletion_vector_mask`). A missing file raises
+`FileNotFoundInLogError`; column mapping or a partitioned table raises
+`UnsupportedTableError`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 from delta_tpu_torch.config import COLUMN_MAPPING_MODE, get_table_config
+from delta_tpu_torch.dv.descriptor import load_deletion_vector_mask
 from delta_tpu_torch.errors import FileNotFoundInLogError, UnsupportedTableError
 from delta_tpu_torch.log.parquet_data import read_data_file
 from delta_tpu_torch.models.batch import Batch, Column, zeros
@@ -54,7 +60,21 @@ def _align_to_logical(batch: Batch, schema, needed=None) -> Batch:
     return Batch(cols, batch.num_rows)
 
 
-def _check_readable(metadata, add) -> None:
+def deleted_row_mask(engine, table_path: str, add, num_rows: int):
+    """Bool mask [num_rows] of the rows a file's deletion vector deletes
+    (None: the file has none)."""
+    if add.deletionVector is None:
+        return None
+    return load_deletion_vector_mask(engine, table_path,
+                                     add.deletionVector.to_dict(), num_rows)
+
+
+def _drop_deleted(engine, table_path: str, add, batch: Batch) -> Batch:
+    deleted = deleted_row_mask(engine, table_path, add, batch.num_rows)
+    return batch if deleted is None else batch.take(np.flatnonzero(~deleted))
+
+
+def _check_readable(metadata) -> None:
     if metadata.partitionColumns:
         raise UnsupportedTableError(
             "reading a partitioned table's files is not supported yet",
@@ -62,10 +82,6 @@ def _check_readable(metadata, add) -> None:
     if get_table_config(metadata.configuration, COLUMN_MAPPING_MODE) != "none":
         raise UnsupportedTableError(
             "column mapping is not supported yet", feature="column mapping")
-    if add.deletionVector is not None:
-        raise UnsupportedTableError(
-            f"{add.path} has a deletion vector; deletion vectors are not "
-            "supported yet", feature="deletion vectors")
 
 
 def _read_bytes(engine, table_path: str, add) -> bytes:
@@ -77,12 +93,15 @@ def _read_bytes(engine, table_path: str, add) -> bytes:
             "(removed by VACUUM, or the log is ahead of storage)") from e
 
 
-def read_add_file_logical(engine, table_path: str, metadata, add) -> Batch:
-    """Read one AddFile's rows in the table's logical schema."""
-    _check_readable(metadata, add)
-    return _align_to_logical(read_data_file(_read_bytes(engine, table_path,
-                                                        add)),
-                             schema_from_json(metadata.schemaString))
+def read_add_file_logical(engine, table_path: str, metadata, add,
+                          apply_dv: bool = True) -> Batch:
+    """Read one AddFile's rows in the table's logical schema (its deleted
+    rows dropped unless `apply_dv` is False)."""
+    _check_readable(metadata)
+    batch = read_data_file(_read_bytes(engine, table_path, add))
+    if apply_dv:
+        batch = _drop_deleted(engine, table_path, add, batch)
+    return _align_to_logical(batch, schema_from_json(metadata.schemaString))
 
 
 def _empty(schema, names) -> Batch:
@@ -100,8 +119,8 @@ def read_scan(scan) -> Batch:
     metadata = snapshot.metadata
     schema = schema_from_json(metadata.schemaString)
     files = scan.add_files()
-    for add in files:
-        _check_readable(metadata, add)
+    if files:
+        _check_readable(metadata)
     requested = scan.columns
     needed = requested
     if requested is not None and scan.filter is not None:
@@ -111,8 +130,8 @@ def read_scan(scan) -> Batch:
                               if c not in requested]
     batches = []
     for add in files:
-        part = read_data_file(_read_bytes(engine, snapshot.table_path, add),
-                              needed)
+        part = _drop_deleted(engine, snapshot.table_path, add, read_data_file(
+            _read_bytes(engine, snapshot.table_path, add), needed))
         batches.append(_align_to_logical(part, schema, needed))
     if not batches:
         return _empty(schema, requested if requested is not None

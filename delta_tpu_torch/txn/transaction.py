@@ -23,10 +23,10 @@ a failing hook is counted and logged, and the commit stands.
 
 Refused with `UnsupportedTableError`, before anything is written: group
 commit, coordinated commits, in-commit timestamps, row tracking, domain
-writes, a scan with a predicate, partitioned tables, protocol writer
-features beyond appendOnly and invariants (which also covers deletion
-vectors and column mapping), and tables that ask for the UniForm
-(Iceberg/Hudi) or symlink-manifest hooks, which are not ported.
+writes, partitioned tables, column mapping, protocol writer features
+beyond appendOnly, invariants and deletionVectors (`features.py`), and
+tables that ask for the UniForm (Iceberg/Hudi) or symlink-manifest hooks,
+which are not ported.
 """
 
 from __future__ import annotations
@@ -41,13 +41,11 @@ from delta_tpu_torch.config import (
     APPEND_ONLY,
     COLUMN_MAPPING_MODE,
     COORDINATED_COMMITS_COORDINATOR,
-    DELETION_VECTORS_ENABLED,
     IN_COMMIT_TIMESTAMPS,
     ISOLATION_LEVEL,
     ROW_TRACKING_ENABLED,
     SYMLINK_MANIFEST_ENABLED,
     UNIFORM_ENABLED_FORMATS,
-    _parse_bool,
     get_table_config,
 )
 from delta_tpu_torch.errors import (
@@ -57,6 +55,7 @@ from delta_tpu_torch.errors import (
     TableNotFoundError,
     UnsupportedTableError,
 )
+from delta_tpu_torch import features
 from delta_tpu_torch.hooks import run_post_commit_hooks
 from delta_tpu_torch.models.actions import (
     AddFile,
@@ -79,15 +78,6 @@ from delta_tpu_torch.utils import filenames
 
 ENGINE_INFO = "delta-tpu-torch"
 MAX_COMMIT_RETRIES = 200
-SUPPORTED_WRITER_FEATURES = frozenset({"appendOnly", "invariants"})
-# properties that would turn on a table feature beyond appendOnly
-_FEATURE_FLAGS = ("delta.enableChangeDataFeed", "delta.enableDeletionVectors",
-                  "delta.enableRowTracking", "delta.enableTypeWidening",
-                  "delta.enableIcebergCompatV1", "delta.enableIcebergCompatV2",
-                  "delta.enableInCommitTimestamps",
-                  "delta.enableChangeDataCapture")
-_PROTOCOL_PROPS = ("delta.minReaderVersion", "delta.minWriterVersion",
-                   "delta.ignoreProtocolDefaults")
 _INVALID_NAME_CHARS = " ,;{}()\n\t="
 
 
@@ -95,6 +85,8 @@ class Operation:
     WRITE = "WRITE"
     CREATE_TABLE = "CREATE TABLE"
     OPTIMIZE = "OPTIMIZE"
+    DELETE = "DELETE"
+    UPDATE = "UPDATE"
 
 
 @dataclass
@@ -109,7 +101,7 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
     package does not have."""
     if protocol.minWriterVersion >= 7:
         unsupported = (set(protocol.writerFeatures or [])
-                       - SUPPORTED_WRITER_FEATURES)
+                       - features.SUPPORTED_WRITER_FEATURES)
     elif protocol.minWriterVersion > 2:
         unsupported = {f"writerVersion={protocol.minWriterVersion}"}
     else:
@@ -119,8 +111,7 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
             f"writer features not supported yet: {sorted(unsupported)}",
             feature="writer features", features=sorted(unsupported))
     conf = metadata.configuration
-    for cfg, what in ((DELETION_VECTORS_ENABLED, "deletion vectors"),
-                      (IN_COMMIT_TIMESTAMPS, "in-commit timestamps"),
+    for cfg, what in ((IN_COMMIT_TIMESTAMPS, "in-commit timestamps"),
                       (ROW_TRACKING_ENABLED, "row tracking")):
         if get_table_config(conf, cfg):
             raise UnsupportedTableError(f"{what} are not supported yet",
@@ -145,23 +136,6 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
             "symlink-manifest post-commit hook, which is not ported yet",
             feature="symlink manifest")
     schema_from_json(metadata.schemaString)  # raises on an unsupported type
-
-
-def protocol_for_new_table(properties: Dict[str, str]) -> Protocol:
-    """The protocol a new table gets: (1, 2), which carries appendOnly
-    and invariants. A property that would need more raises."""
-    needs = [k for k in _FEATURE_FLAGS if _parse_bool(properties.get(k, ""))]
-    needs += [k for k in properties
-              if k in _PROTOCOL_PROPS or k.startswith("delta.constraints.")]
-    if properties.get("delta.columnMapping.mode", "none") != "none":
-        needs.append("delta.columnMapping.mode")
-    if properties.get("delta.checkpointPolicy", "classic") != "classic":
-        needs.append("delta.checkpointPolicy")
-    if needs:
-        raise UnsupportedTableError(
-            f"table properties {sorted(needs)} need table features this "
-            "package does not write yet", feature="table properties")
-    return Protocol(1, 2)
 
 
 def _check_metadata(metadata: Metadata) -> None:
@@ -242,7 +216,7 @@ class TransactionBuilder:
                 createdTime=int(time.time() * 1000),
             )
             txn.update_metadata(metadata)
-            txn.update_protocol(protocol_for_new_table(props))
+            txn.update_protocol(features.protocol_for_new_table(props))
         if self._txn_app_id is not None:
             txn.set_transaction_id(self._txn_app_id, self._txn_version)
         return txn

@@ -7,7 +7,9 @@ post-commit hooks and of `Table.checkpoint`, and a filtered `read_table`
 (scan planning with the stats index, the skip mask and the ladder, the
 row read) plus an OPTIMIZE with a predicate, and the log forms (a V2
 checkpoint with struct-only stats read back and scanned, a compacted
-delta, metadata cleanup of `log/cleanup.py`) must leave no `jax`,
+delta, metadata cleanup of `log/cleanup.py`), and deletion vectors (a DV
+DELETE, a read that decodes them, an UPDATE, an OPTIMIZE that purges
+them) must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -104,6 +106,24 @@ assert Table.for_path(d4, engine=TorchEngine("cpu")).latest_snapshot() \
 assert cleanup_expired_logs(t4, retention_ms=0) != []
 assert Table.for_path(d4, engine=TorchEngine("cpu")).latest_snapshot() \
     .state.num_files == 6
+# deletion vectors: a DV DELETE (one packed through the bitmap-container
+# path), a read that decodes them, an UPDATE and an OPTIMIZE that purges
+from delta_tpu_torch.commands.dml import delete, update
+d5 = d + "/dv"
+write_table(d5, {"k": np.arange(9000), "x": rng.normal(size=9000)},
+            engine=TorchEngine("cpu"),
+            properties={"delta.enableDeletionVectors": "true"})
+write_table(d5, {"k": np.arange(9000, 9100), "x": np.zeros(100)},
+            engine=TorchEngine("cpu"))
+t5 = Table.for_path(d5, engine=TorchEngine("cpu"))
+assert delete(t5, col("k") < lit(5000)).num_dvs_written == 1
+assert delete(t5, col("k") >= lit(9050)).num_dvs_written == 1
+b = read_table(d5, filter=col("k") >= lit(0), engine=TorchEngine("cpu"))
+assert sorted(b.column("k").values.tolist()) == list(range(5000, 9050))
+assert update(t5, {"x": lit(1.0)}, col("k") < lit(6000)).num_rows_updated \
+    == 1000
+assert t5.optimize().execute_compaction().num_files_removed == 2
+assert read_table(d5, engine=TorchEngine("cpu")).num_rows == 4050
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))

@@ -8,6 +8,8 @@ repo's conftest imports jax, hence:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -935,3 +937,110 @@ def test_log_forms_load_on_the_card_equal_cpu(tmp_path, form):
     assert card.scan(filter=pred).file_paths() == \
         cpu.scan(filter=pred).file_paths()
     assert obs.counters()["kernel.skip_mask.launches"] == 1
+
+
+def _dv_lanes(seed: int, n_words: int, n_idx: int, n_bm: int):
+    """Seeded K8 lanes over `n_words` words: indexes (some repeated, some
+    sentinels and past the end), `n_bm` bitmap containers of 2048 words
+    at word offsets (some repeated, some past the end, most running
+    past it), bit 31 set in many."""
+    rng = np.random.default_rng(seed)
+    n_bits = n_words * 32
+    idx = rng.integers(0, max(n_bits, 1), n_idx)
+    idx[::7] |= 31
+    if n_idx:
+        idx[-1] = n_bits            # the sentinel
+        idx[0] = n_bits - 1         # the last word's bit 31
+    if n_idx > 3:
+        idx[1] = idx[2]             # a repeated bit: OR, not add
+        idx[3] = 1 << 40            # far past the end
+    words = rng.integers(-(1 << 31), 1 << 31, n_bm * 2048).astype(np.int32)
+    pos = rng.integers(0, max(n_words, 1), n_bm).astype(np.int32)
+    if n_bm > 2:
+        pos[-1] = n_words           # the sentinel position
+        pos[1] = pos[0]
+    return (torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(words),
+            torch.from_numpy(pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words,n_idx,n_bm", [
+    (1, 0, 0), (1, 1, 0), (1, 0, 1), (33, 100, 5), (2048, 0, 1),
+    (4096, 65536, 2), (312_500, 1_000_000, 20)])
+def test_dv_bits_kernel_matches_plain(n_words, n_idx, n_bm):
+    from delta_tpu_torch.ops.dv_bits import (
+        decode_mask_words, decode_mask_words_plain, pack_bitmap_words,
+        pack_bitmap_words_plain)
+
+    dev = _card()
+    idx, words, pos = _dv_lanes(n_words + n_idx, n_words, n_idx, n_bm)
+    want = decode_mask_words_plain(idx, words, pos, n_words)
+    launches = obs.counter("kernel.dv_bits.decode_launches").read()
+    got = decode_mask_words(idx.to(dev), words.to(dev), pos.to(dev), n_words)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert obs.counter("kernel.dv_bits.decode_launches").read() \
+        == launches + 1
+    # lanes at addresses that are not 16-byte aligned
+    pad_i = torch.cat([torch.zeros(1, dtype=torch.int64), idx]).to(dev)[1:]
+    pad_w = torch.cat([torch.zeros(1, dtype=torch.int32), words]).to(dev)[1:]
+    pad_p = torch.cat([torch.zeros(3, dtype=torch.int32), pos]).to(dev)[3:]
+    assert torch.equal(decode_mask_words(pad_i, pad_w, pad_p, n_words).cpu(),
+                       want)
+    # pack: container-relative bits, a full 65,536-bit container among them
+    n_c = max(1, n_words // 2048)
+    flat = torch.cat([idx[(idx >= 0) & (idx < n_c * 65536)],
+                      torch.arange(65536, dtype=torch.int64)])
+    assert torch.equal(pack_bitmap_words(flat.to(dev), n_c).cpu(),
+                       pack_bitmap_words_plain(flat, n_c))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dml_on_the_card_equals_cpu(tmp_path):
+    """DELETE (array and bitmap containers), the reads that decode the
+    DVs, UPDATE and an OPTIMIZE that purges them, on the card (K8 packs
+    and decodes) and on the CPU: the same DV blobs, rows and metrics."""
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.dv.descriptor import _load_blob
+    from delta_tpu_torch.expressions import col, lit
+
+    _card()
+    rng = np.random.default_rng(4)
+    src = str(tmp_path / "src")
+    for n in (70_000, 500, 9_000):
+        write_table(src, {"k": rng.integers(0, 1 << 30, n),
+                          "x": rng.normal(size=n)}, engine=TorchEngine("cpu"),
+                    properties={"delta.enableDeletionVectors": "true"})
+    runs = {}
+    obs.reset()
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / dev)
+        shutil.copytree(src, path)
+        eng = TorchEngine(dev)
+        t = Table.for_path(path, engine=eng)
+        out = [delete(t, col("k") < lit(1 << 24)),       # sparse: arrays
+               delete(t, col("x") > lit(0.3))]           # dense: bitmaps
+        blobs = sorted(_load_blob(eng, path, a.deletionVector.to_dict())[0]
+                       for a in t.latest_snapshot().state.add_files
+                       if a.deletionVector is not None)
+        rows = read_table(path, filter=col("x") < lit(0.0), engine=eng)
+        out.append(update(t, {"x": lit(0.5)}, col("k") < lit(1 << 27)))
+        out.append(t.optimize().execute_compaction())
+        after = read_table(path, engine=eng)
+        runs[dev] = (out, blobs, np.sort(rows.column("k").values),
+                     np.sort(after.column("k").values),
+                     np.sort(after.column("x").values))
+        if dev == "cuda":
+            counts = obs.counters()
+            assert counts["kernel.dv_bits.pack_launches"] >= 1
+            assert counts["kernel.dv_bits.decode_launches"] >= 3
+    (a_out, a_blobs, *a_rows), (b_out, b_blobs, *b_rows) = \
+        runs["cuda"], runs["cpu"]
+    strip = lambda m: {k: v for k, v in vars(m).items()  # noqa: E731
+                       if k != "phase_seconds"}
+    assert [strip(m) for m in a_out] == [strip(m) for m in b_out]
+    assert a_blobs == b_blobs and len(a_blobs) == 3
+    for x, y in zip(a_rows, b_rows):
+        assert np.array_equal(x, y)

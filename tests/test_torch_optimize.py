@@ -343,14 +343,38 @@ def _refusal(tmp_path, **table_kw):
     return Table.for_path(port_path, engine=TorchEngine("cpu"))
 
 
+def _optimize_both_like_reference(ref_path, port_path, fn, zorder):
+    """OPTIMIZE `fn` on both copies, equal to the reference's: metrics,
+    the commit, the rows, the host snapshot; no add carries a DV."""
+    rm, pm = _run_both(ref_path, port_path, fn)
+    _assert_same_metrics(rm, pm)
+    ref_actions = _commit(ref_path, rm.version)
+    port_actions = _commit(port_path, pm.version)
+    _assert_same_commit(ref_actions, port_actions, zorder)
+    _assert_same_rows(_rows(ref_path, _split(ref_actions)["add"]),
+                      _rows(port_path, _split(port_actions)["add"]))
+    _assert_same_host_snapshot(ref_path, port_path)
+    assert not any("deletionVector" in a
+                   for a in _split(port_actions)["add"])
+    return pm
+
+
 @pytest.mark.parametrize("kind", ["partitioned", "deletion vectors",
                                   "column mapping"])
 def test_refuses_unsupported_tables(tmp_path, kind):
+    """Partitioned and column-mapped tables are refused; a table with
+    deletion vectors enabled (none written yet) optimizes as in the
+    reference."""
     kw = {"partitioned": dict(partition_by=["b"]),
           "deletion vectors": dict(properties={
               "delta.enableDeletionVectors": "true"}),
           "column mapping": dict(properties={
               "delta.columnMapping.mode": "name"})}[kind]
+    if kind == "deletion vectors":
+        _optimize_both_like_reference(
+            *_make_table(tmp_path, n_appends=2, **kw),
+            lambda o: o.execute_zorder_by("k1"), True)
+        return
     table = _refusal(tmp_path, **kw)
     before = sorted(os.listdir(table.path))
     for run in (lambda o: o.execute_zorder_by("k1"),
@@ -383,16 +407,26 @@ def test_refuses_a_predicate(tmp_path):
 
 
 def test_refuses_deletion_vector_files(tmp_path):
+    """Files with deletion vectors (the reference's DELETE on one copy of
+    the table, hence on both) optimize as in the reference: their deleted
+    rows purged, the removes carrying their descriptors."""
     from delta_tpu.commands.dml import delete
     from delta_tpu.expressions.tree import col, lit
 
-    _, port_path = _make_table(tmp_path, n_appends=2, properties={
+    ref_path, port_path = _make_table(tmp_path, n_appends=3, properties={
         "delta.enableDeletionVectors": "true"})
-    delete(RefTable.for_path(port_path, engine=HostEngine()),
+    delete(RefTable.for_path(ref_path, engine=HostEngine()),
            predicate=col("k3") < lit(0))
-    table = Table.for_path(port_path, engine=TorchEngine("cpu"))
-    with pytest.raises(UnsupportedTableError):
-        table.optimize().execute_zorder_by("k1")
+    shutil.rmtree(port_path)
+    shutil.copytree(ref_path, port_path)
+    dv_adds = [a for a in _split(_commit(port_path, 3))["add"]
+               if a.get("deletionVector")]
+    assert len(dv_adds) == 3  # every file carries a DV
+    pm = _optimize_both_like_reference(
+        ref_path, port_path, lambda o: o.execute_compaction(), False)
+    assert pm.num_files_removed == 3 and pm.num_files_added == 1
+    assert len(_rows(port_path, _split(_commit(port_path, 4))["add"])) \
+        == dta.read_table(ref_path, engine=HostEngine()).num_rows
 
 
 def test_optimize_fills_a_column_older_files_lack(tmp_path):

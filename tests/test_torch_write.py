@@ -279,6 +279,22 @@ def test_write_table_checks_schema_and_not_null(tmp_path):
     {"delta.minWriterVersion": "7"},
 ])
 def test_write_table_refuses_feature_properties(tmp_path, props):
+    """Feature properties the port does not write are refused before
+    anything is written; deletion vectors are written: the protocol and
+    the rows as the reference's."""
+    if props == {"delta.enableDeletionVectors": "true"}:
+        port, ref = str(tmp_path / "t"), str(tmp_path / "r")
+        assert write_table(port, {"a": np.arange(3)}, engine=_cpu(),
+                           properties=props) == 0
+        dta.write_table(ref, pa.table({"a": np.arange(3)}),
+                        engine=HostEngine(), properties=props)
+        protocols = [RefTable.for_path(p, engine=HostEngine())
+                     .latest_snapshot().protocol for p in (port, ref)]
+        assert protocols[0] == protocols[1]
+        assert protocols[0].writerFeatures == ["deletionVectors"]
+        assert dta.read_table(port, engine=HostEngine()).column(
+            "a").to_pylist() == [0, 1, 2]
+        return
     with pytest.raises(UnsupportedTableError):
         write_table(str(tmp_path / "t"), {"a": np.arange(3)}, engine=_cpu(),
                     properties=props)
