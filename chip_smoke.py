@@ -173,17 +173,22 @@
     delta.enableDeletionVectors, then, each step's counters from 0 and
     its rows against numpy as a multiset of row hashes: a sparse DELETE
     `k1 < 2^22` (a DV of array containers on every file), a read filtered
-    on k2 (K7 plans, K8 decodes each DV), a dense DELETE `payload >
-    1.2816` (about 10%: the union with each DV, bitmap containers that
-    K8 packs), a read of every row, an UPDATE of three rows' payload (three
-    files copied), OPTIMIZE compaction (every DV purged), a reload and a
-    read. Each step's K8 pack and decode launches and
-    `parse.device_fallbacks` (K1 hands a window with a DV line to the
-    host) must be the expected ones (`DML_EXPECT`), and print with the
-    step's wall time. After each DELETE, K8 against its plain version on
-    every DV's decode and pack lanes, and each DV re-serialized on the
-    card to its stored bytes. K8 is timed on one file's dense DV, decode
-    and pack, beside its plain version, its bound and one `scatter_add_`.
+    on k2 (K7 plans, K8 decodes every DV in one launch), a dense DELETE
+    `payload > 1.2816` (about 10%: the union with each DV, bitmap
+    containers that K8 packs in one launch), a read of every row, an
+    UPDATE of three rows' payload (three files copied), OPTIMIZE
+    compaction (every DV purged), a reload and a read. Each step's K8
+    pack and decode launches and `parse.device_fallbacks` (K1 hands a
+    window with a DV line to the host) must be the expected ones
+    (`DML_EXPECT`: 6 K8 launches in all), and print with the step's wall
+    time, the DVs its decode covered and its DV host path (plan, upload,
+    launch, copy back, split). After each DELETE, K8 against its plain
+    version over every DV's decode tiles and pack tiles in one batch, the
+    masks on the card against the CPU's, and the DVs re-serialized on the
+    card to their stored bytes. K8 is timed at two shapes, decode and
+    pack: (a) the dense DELETE's 20 DVs, (b) the same blobs ×50 (1,000
+    DVs), each beside its plain version (on the CPU), its bound and one
+    `scatter_add_` over precomputed lanes.
 
 Prints a metrics line per phase, a `kernels` JSON line (K1-K8, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
@@ -1635,17 +1640,19 @@ DML_OPTIMIZE_MAX_FILE = 1 << 30  # Delta's default maxFileSize for OPTIMIZE:
                                  # largest file may sit alone in a bin, which
                                  # is not rewritten, and keep its DV)
 DML_K8 = ("kernel.dv_bits.pack_launches", "kernel.dv_bits.decode_launches")
+DML_DV_HOST = ("plan", "upload", "launch", "d2h", "split")
 # per step on the card: (K8 pack launches, K8 decode launches, parse
-# fallbacks). K8 decodes once per DV'd file read (20 candidates, 17 DV'd
-# files in OPTIMIZE's bins after the UPDATE rewrote 3) and packs once per
-# DV with a bitmap container; K1 hands every commit window that holds a
-# line with a DV to the host parse (one fallback): the commit handoff of
-# each command, and every load with such a commit past its checkpoint
-# (the hook checkpoints version 20, the sparse DELETE)
-DML_EXPECT = {"delete_sparse": (0, 0, 1), "read_filtered": (0, 20, 0),
-              "delete_dense": (20, 20, 1), "read": (0, 20, 1),
-              "update": (0, 20, 1), "optimize": (0, 17, 1),
+# fallbacks). K8 decodes every DV a command reads in one launch (a read,
+# a DML command's candidates, OPTIMIZE's one bin) and packs every bitmap
+# container of a command's DV file in one; K1 hands every commit window
+# that holds a line with a DV to the host parse (one fallback): the
+# commit handoff of each command, and every load with such a commit past
+# its checkpoint (the hook checkpoints version 20, the sparse DELETE)
+DML_EXPECT = {"delete_sparse": (0, 0, 1), "read_filtered": (0, 1, 0),
+              "delete_dense": (1, 1, 1), "read": (0, 1, 1),
+              "update": (0, 1, 1), "optimize": (0, 1, 1),
               "reload": (0, 0, 1), "read_after": (0, 0, 1)}
+K8_REPEAT = 50  # shape (b): the dense step's 20 DVs ×50, 1,000 DVs
 
 
 def _dv_blobs(path: str, state, eng) -> list:
@@ -1656,65 +1663,42 @@ def _dv_blobs(path: str, state, eng) -> list:
             for a in state.add_files if a.deletionVector is not None]
 
 
-def _k8_lanes(blob: bytes, n_rows: int, dev):
-    """K8's decode lanes of one DV blob for a file of `n_rows` rows, on
-    `dev`, as `dv/roaring.py::decode_delta_mask` builds them."""
-    from delta_tpu_torch.dv.roaring import _mask_plan
-
-    bit_idx, bm_words, bm_base, _ = _mask_plan(blob)
-    n_words = -(-n_rows // 32)
-    below = bm_base < n_words
-    return (torch.from_numpy(bit_idx).to(dev),
-            torch.from_numpy(bm_words.reshape(-1, 2048)[below].reshape(-1)
-                             .view(np.int32)).to(dev),
-            torch.from_numpy(bm_base[below].astype(np.int32)).to(dev),
-            n_words)
-
-
-def _k8_flat(values: np.ndarray, dev):
-    """K8's pack lanes of a DV's values (one 32-bit bucket), as
-    `RoaringBitmapArray._serialize32` builds them: the bits of its bitmap
-    containers, container-relative; None when it has no bitmap
-    container."""
-    high = values >> np.uint64(16)
-    _, counts = np.unique(high, return_counts=True)
-    bitmap = counts > 4096
-    if not bitmap.any():
-        return None
-    rank = np.cumsum(bitmap) - 1
-    sel = np.repeat(bitmap, counts)
-    flat = (np.repeat(rank, counts)[sel].astype(np.int64) * 65536
-            + (values[sel] & np.uint64(0xFFFF)).astype(np.int64))
-    return torch.from_numpy(flat).to(dev), int(bitmap.sum())
-
-
 def _k8_against_plain(path: str, state, eng, rows_per_file: int, dev) -> int:
-    """K8 against its plain version on every DV of the table: the decode
-    lanes of each blob, and the pack lanes of each DV with a bitmap
-    container, re-serialized on the card to the stored bytes. Returns
-    the number of DVs held."""
-    from delta_tpu_torch.dv.roaring import RoaringBitmapArray
+    """K8 against its plain version over every DV of the table in one
+    batch: the decode tiles of all their blobs, and the pack tiles of all
+    their bitmap containers; the masks decoded on the card equal the
+    CPU's, and the DVs re-serialized on the card (one pack) equal the
+    stored bytes. Returns the number of DVs held."""
+    from delta_tpu_torch.dv.roaring import (
+        RoaringBitmapArray, _pack_plan, _plan, decode_delta_masks,
+        serialize_deltas)
     from delta_tpu_torch.ops.dv_bits import (
-        decode_mask_words, decode_mask_words_plain, pack_bitmap_words,
-        pack_bitmap_words_plain)
+        BITMAP_WORDS, dv_tiles, dv_tiles_plain, pack_tiles, upload)
 
-    held = 0
-    for blob in _dv_blobs(path, state, eng):
-        lanes = _k8_lanes(blob, rows_per_file, dev)
-        _check(torch.equal(decode_mask_words(*lanes),
-                           decode_mask_words_plain(*lanes)),
-               "dml: K8 decode != plain on a DV")
-        bm = RoaringBitmapArray.deserialize_delta(blob)
-        packed = _k8_flat(bm.values, dev)
-        if packed is not None:
-            _check(torch.equal(pack_bitmap_words(*packed),
-                               pack_bitmap_words_plain(*packed)),
-                   "dml: K8 pack != plain on a DV")
-        _check(bm.serialize_delta(dev) == blob,
-               "dml: a DV re-serialized on the card != its blob")
-        held += 1
+    blobs = _dv_blobs(path, state, eng)
+    rows = [rows_per_file] * len(blobs)
+    tiles, lows, bm, n_words, _ = _plan(blobs, rows)
+    _check(torch.equal(dv_tiles(*upload((tiles, lows, bm), dev),
+                                n_words).cpu(),
+                       dv_tiles_plain(*upload((tiles, lows, bm), "cpu"),
+                                      n_words)),
+           "dml: K8 decode != plain over the table's DVs")
+    for (m, c), (mc, cc) in zip(decode_delta_masks(blobs, rows, dev),
+                                decode_delta_masks(blobs, rows, "cpu")):
+        _check(c == cc and np.array_equal(m, mc),
+               "dml: a DV's mask on the card != the CPU's")
+    bitmaps = [RoaringBitmapArray.deserialize_delta(b) for b in blobs]
+    _, p_lows, lens = _pack_plan(bitmaps)
+    p_in = (pack_tiles(lens), p_lows, np.zeros((0, BITMAP_WORDS), np.int32))
+    p_words = len(lens) * BITMAP_WORDS
+    _check(torch.equal(dv_tiles(*upload(p_in, dev), p_words,
+                                pack=True).cpu(),
+                       dv_tiles_plain(*upload(p_in, "cpu"), p_words)),
+           "dml: K8 pack != plain over the table's DVs")
+    _check(serialize_deltas(bitmaps, dev) == blobs,
+           "dml: the DVs re-serialized on the card != their blobs")
     eng.synchronize()
-    return held
+    return len(blobs)
 
 
 def _dml_rows_check(got, truth: dict, sel: np.ndarray, what: str) -> None:
@@ -1779,6 +1763,9 @@ def dml_phase(work: str, appends: list, card: str, dev) -> tuple:
             "k1": counts.get("kernel.byte_class.launches", 0),
             "k2": counts.get("kernel.winner_pack.launches", 0),
             "k3": counts.get("kernel.hybrid_extract.launches", 0),
+            "k8_decode_dvs": counts.get("kernel.dv_bits.decode_dvs", 0),
+            "dv_host_s": {k: counts.get(f"dv.decode_{k}_ns", 0) / 1e9
+                          for k in DML_DV_HOST},
             "parse_device_windows": counts.get("parse.device_windows", 0),
             "parse_device_fallbacks": counts.get("parse.device_fallbacks", 0),
             "decode_device_parts": counts.get("decode.device_parts", 0)}
@@ -1819,12 +1806,8 @@ def dml_phase(work: str, appends: list, card: str, dev) -> tuple:
     st = table.latest_snapshot().state
     steps["delete_dense"]["dvs_held_to_plain"] = _k8_against_plain(
         path, st, eng, per, dev)
-    # K8's timed inputs, at the main path's shapes: one file's dense DV
-    blob = _dv_blobs(path, st, eng)[0]
-    from delta_tpu_torch.dv.roaring import RoaringBitmapArray
-
-    k8_inputs = (_k8_lanes(blob, per, dev), _k8_flat(
-        RoaringBitmapArray.deserialize_delta(blob).values, dev))
+    # K8's timed inputs, at the main path's shape: the step's 20 DVs
+    k8_inputs = (_dv_blobs(path, st, eng), per)
     # 4. a read of every row
     got = step("read", lambda: read_table(path, engine=eng))
     _dml_rows_check(got, truth, alive, "dml read")
@@ -1865,67 +1848,85 @@ def dml_phase(work: str, appends: list, card: str, dev) -> tuple:
     return out, k8_inputs
 
 
-def dv_bits_row(decode_lanes, pack_lanes, launches: int) -> dict:
-    """K8 on one file's dense DV of cell 10 (the decode lanes of its blob,
-    and the pack lanes of its bitmap containers): against its plain
-    version, timed beside it, beside its bound and beside one
-    `scatter_add_` over precomputed word and bit lanes."""
-    from delta_tpu_torch.ops.dv_bits import (
-        decode_mask_words, decode_mask_words_plain, pack_bitmap_words,
-        pack_bitmap_words_plain)
-    from delta_tpu_torch.ops.u32 import to_i32_bits
+def _k8_batch(tiles, lows, bm, n_words: int, dev, pack: bool) -> dict:
+    """K8 over one batch of tiles on the card: against its plain version
+    (on the CPU), timed beside it, beside its bound and beside one
+    `scatter_add_` of precomputed word indexes and int32 values (bits and
+    bitmap words) over the same batch."""
+    from delta_tpu_torch.ops.dv_bits import dv_tiles, dv_tiles_plain, upload
 
-    bit_idx, bm_words, bm_base, n_words = decode_lanes
-    got = decode_mask_words(*decode_lanes)
-    want = decode_mask_words_plain(*decode_lanes)
-    _check(torch.equal(got, want), "dv_bits decode != plain")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    flat, n_c = pack_lanes
-    _check(torch.equal(pack_bitmap_words(flat, n_c),
-                       pack_bitmap_words_plain(flat, n_c)),
-           "dv_bits pack != plain")
-    decode = lambda: decode_mask_words(*decode_lanes)  # noqa: E731
-    pack = lambda: pack_bitmap_words(flat, n_c)        # noqa: E731
-    names = ("dv_bits_kernel", "Memset")
-    n_idx, n_bm = bit_idx.shape[0], bm_words.shape[0]
-    bound, by = _bound_ms(8.0 * n_idx + 4.0 * n_bm + 4.0 * bm_base.shape[0]
-                          + 4.0 * n_words, float(n_idx + n_bm))
-    p_words = n_c * 2048
-    p_bound, p_by = _bound_ms(8.0 * flat.shape[0] + 4.0 * p_words,
-                              float(flat.shape[0]))
-    # the library call: one scatter_add_ of precomputed int32 bit values
-    # at precomputed word indexes (equal to the OR for unique bits; the
-    # bitmap words' positions expanded from their containers' offsets,
-    # those past the words dropped, outside the timing)
-    idx = bit_idx[bit_idx < n_words * 32]
-    bm_pos = (bm_base.to(torch.int64)[:, None] + torch.arange(
-        2048, device=bm_base.device)).reshape(-1)
-    keep = bm_pos < n_words
-    word = torch.cat([idx >> 5, bm_pos[keep]])
-    val = torch.cat([to_i32_bits(torch.ones_like(idx) << (idx & 31)),
-                     bm_words[keep]])
-    buf = torch.zeros(n_words, dtype=torch.int32, device=bit_idx.device)
+    on = upload((tiles, lows, bm), dev)
+    run = lambda: dv_tiles(*on, n_words, pack=pack)  # noqa: E731
+    got = run().cpu()
+    t0 = time.perf_counter()
+    want = dv_tiles_plain(*upload((tiles, lows, bm), "cpu"), n_words)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _check(torch.equal(got, want), f"dv_bits {'pack' if pack else 'decode'}"
+           " != plain")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if n_words else 0
+    t = tiles.astype(np.int64)
+    off, valid, bm_at, lo, hi = t.T
+    has = bm_at >= 0
+    # bytes: 2 B per low, 4 B per valid bitmap word, 20 B per tile, 4 B
+    # per output word; operations: one OR per low
+    bound, by = _bound_ms(2.0 * len(lows) + 4.0 * valid[has].sum()
+                          + 20.0 * len(t) + 4.0 * n_words, float(len(lows)))
+    # the library call's lanes, built outside its timing
+    n = hi - lo
+    tile_of = np.repeat(np.arange(len(t)), n)
+    low = lows.view(np.uint16).astype(np.int64)
+    keep = (low >> 5) < valid[tile_of]
+    j = np.arange(bm.shape[1])
+    sel = j < valid[has, None]
+    word = np.concatenate([(off[tile_of] + (low >> 5))[keep],
+                           (off[has, None] + j)[sel]])
+    val = np.concatenate([(np.int64(1) << (low & 31))[keep].astype(
+        np.uint32).view(np.int32), bm[bm_at[has]][sel]])
+    word, val = torch.from_numpy(word).to(dev), torch.from_numpy(val).to(dev)
+    buf = torch.zeros(n_words, dtype=torch.int32, device=dev)
     buf.scatter_add_(0, word, val)
-    _check(torch.equal(buf, got), "scatter_add_ != K8 on the DV's lanes")
+    _check(torch.equal(buf.cpu(), got), "scatter_add_ != K8 on the lanes")
     return {
-        "name": "dv_bits", "route": "cuda",
-        "source": "delta_tpu_torch/csrc/dv_bits.cu",
-        "replaces": "delta_tpu/ops/stats.py:279",
-        "replaces_pack": "delta_tpu/ops/stats.py:231",
-        "launches": launches, "max_abs_err": err,
-        "ms": _time_ms(decode, 50),
-        "device_ms": _device_ms(decode, 50, names),
-        "plain_ms": _time_ms(lambda: decode_mask_words_plain(*decode_lanes),
-                             3),
+        "max_abs_err": err, "ms": _time_ms(run, 50),
+        "device_ms": _device_ms(run, 50, ("dv_tiles_kernel",)),
+        "plain_ms": plain_ms, "plain_device": "cpu",
         "bound_ms": bound, "bound_by": by,
         "library_ms": _time_ms(lambda: buf.scatter_add_(0, word, val), 50),
-        "shape": f"idx i64[{n_idx}] + words i32[{n_bm}] -> i32[{n_words}]",
-        "pack_ms": _time_ms(pack, 50),
-        "pack_device_ms": _device_ms(pack, 50, names),
-        "pack_plain_ms": _time_ms(
-            lambda: pack_bitmap_words_plain(flat, n_c), 3),
-        "pack_bound_ms": p_bound, "pack_bound_by": p_by,
-        "pack_shape": f"idx i64[{flat.shape[0]}] -> i32[{p_words}]"}
+        "shape": f"{len(t)} tiles ({int(has.sum())} bitmap), {len(lows)} "
+                 f"lows -> i32[{n_words}]"}
+
+
+def dv_bits_row(blobs: list, rows: int, dev, launches: int) -> dict:
+    """K8 at two shapes: (a) the dense DELETE's DVs of cell 10, one file
+    each, the main path's batch; (b) the same blobs ×K8_REPEAT (1,000
+    DVs), where bytes and not the launch set the bound. Decode (the tiles
+    `decode_delta_masks` builds) and pack (the tiles `serialize_deltas`
+    builds) at each; the row's own keys are (a)'s decode."""
+    from delta_tpu_torch.dv.roaring import (
+        RoaringBitmapArray, _pack_plan, _plan)
+    from delta_tpu_torch.ops.dv_bits import BITMAP_WORDS, pack_tiles
+
+    bitmaps = [RoaringBitmapArray.deserialize_delta(b) for b in blobs]
+    shapes = {}
+    for name, k in (("a", 1), ("b", K8_REPEAT)):
+        tiles, lows, bm, n_words, _ = _plan(blobs * k, [rows] * len(blobs)
+                                            * k)
+        shapes[f"{name}_decode"] = _k8_batch(tiles, lows, bm, n_words, dev,
+                                             pack=False)
+        shapes[f"{name}_decode"]["dvs"] = len(blobs) * k
+        _, p_lows, lens = _pack_plan(bitmaps * k)
+        shapes[f"{name}_pack"] = _k8_batch(
+            pack_tiles(lens), p_lows, np.zeros((0, BITMAP_WORDS), np.int32),
+            len(lens) * BITMAP_WORDS, dev, pack=True)
+        shapes[f"{name}_pack"]["dvs"] = len(blobs) * k
+    for s in shapes.values():
+        s["device_share"] = s["bound_ms"] / s["device_ms"]
+    return {"name": "dv_bits", "route": "cuda",
+            "source": "delta_tpu_torch/csrc/dv_bits.cu",
+            "replaces": "delta_tpu/ops/stats.py:279",
+            "replaces_pack": "delta_tpu/ops/stats.py:231",
+            "launches": launches, **shapes["a_decode"], "shapes": shapes}
 
 
 UNPACK_W = 16               # device_merit.py:491-506: w = 16, random words
@@ -2769,15 +2770,16 @@ def main(argv=None) -> int:
             opt["read_table_counters"].get("kernel.skip_mask.launches", 0)
         print("optimize zorder: " + json.dumps(opt), flush=True)
         # DML on a deletion-vector table (cell 10), each step's counters
-        # from 0; K8 on one of its DVs
+        # from 0; K8 on its DVs at two shapes
         dml, k8_inputs = dml_phase(work, appends, card, dev)
         del appends
         steps = dml["steps"]
-        kernels["dv_bits"] = dv_bits_row(*k8_inputs, launches=sum(
+        kernels["dv_bits"] = dv_bits_row(*k8_inputs, dev, launches=sum(
             s["k8_pack"] + s["k8_decode"] for s in steps.values()))
         del k8_inputs
         kernels["dv_bits"]["launches_per_step"] = {
-            k: {"pack": s["k8_pack"], "decode": s["k8_decode"]}
+            k: {"pack": s["k8_pack"], "decode": s["k8_decode"],
+                "decode_dvs": s["k8_decode_dvs"]}
             for k, s in steps.items()}
         for name, key in (("skip_mask", "k7"), ("byte_class", "k1"),
                           ("winner_pack", "k2"), ("hybrid_extract", "k3")):
@@ -2786,8 +2788,10 @@ def main(argv=None) -> int:
         print("dml: " + json.dumps(dml), flush=True)
         for name, s in steps.items():
             print(f"dml {name}: {s['s']:.4f} s, K8 pack {s['k8_pack']} "
-                  f"decode {s['k8_decode']}, parse.device_fallbacks "
-                  f"{s['parse_device_fallbacks']}; {card}", flush=True)
+                  f"decode {s['k8_decode']} ({s['k8_decode_dvs']} DVs), DV "
+                  f"host path {json.dumps(s['dv_host_s'])}, "
+                  f"parse.device_fallbacks {s['parse_device_fallbacks']}; "
+                  f"{card}", flush=True)
         print("dv_bits phase: " + json.dumps(kernels["dv_bits"]), flush=True)
         optimize_card_vs_cpu(work)
         print("small optimize, both curves: card == cpu", flush=True)

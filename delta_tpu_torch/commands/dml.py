@@ -12,15 +12,19 @@ Counterpart of `delta_tpu/commands/dml.py:94-336` (Delta's
 
 1. The candidates are the files the predicate may match
    (`txn.scan_files(filter=)`: data skipping, K7 on the card; no
-   predicate reads the whole table), each read in file order with its
-   deletion vector decoded on the engine's device (K8 on the card).
+   predicate reads the whole table), each read in file order. Their
+   deletion vectors are decoded on the engine's device in one batch
+   before the loop (one K8 launch on the card), each file sized by its
+   `numRecords` statistic, which the protocol requires of a file with a
+   DV; a file without it, or whose read disagrees with it, is decoded
+   alone after its read (`dml.dv_single_decodes`).
 2. Per candidate, the predicate over its visible rows:
    - no row matches: the file stays;
    - DELETE of every visible row: the file is removed;
    - DELETE on a table with `delta.enableDeletionVectors`: the file is
      removed and re-added with a deletion vector of the old and the new
-     deleted rows (one `.bin` per command, its bitmap containers packed
-     on the engine's device);
+     deleted rows (one `.bin` per command, all its bitmap containers
+     packed in one K8 launch on the engine's device);
    - otherwise copy-on-write: the surviving rows (DELETE), or the
      untouched rows then the updated ones (UPDATE), go to a new file,
      and the old one is removed. UPDATE always copies.
@@ -52,6 +56,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from delta_tpu_torch import obs
 from delta_tpu_torch.config import (
     APPEND_ONLY,
     CHANGE_DATA_FEED,
@@ -78,11 +83,16 @@ from delta_tpu_torch.expressions.tree import Expression
 from delta_tpu_torch.models.actions import AddFile
 from delta_tpu_torch.models.batch import Batch, Column, as_column
 from delta_tpu_torch.models.schema import schema_from_json
-from delta_tpu_torch.read.reader import deleted_row_mask, read_add_file_logical
+from delta_tpu_torch.read.reader import (
+    deleted_row_mask,
+    deleted_row_masks,
+    read_add_file_logical,
+)
 from delta_tpu_torch.txn.transaction import Operation, check_write_supported
 from delta_tpu_torch.write.writer import write_data_files
 
 _IDENTITY_KEYS = ("delta.identity.start", "delta.identity.step")
+_DV_SINGLE = obs.counter("dml.dv_single_decodes")
 
 
 @dataclass
@@ -124,11 +134,44 @@ def _read_physical(table, snapshot, add: AddFile) -> Batch:
                                  add, apply_dv=False)
 
 
-def _num_records(add: AddFile) -> int:
+def _records(add: AddFile) -> Optional[int]:
+    """The file's numRecords statistic (None: it has none)."""
     try:
-        return int(json.loads(add.stats).get("numRecords") or 0)
+        n = json.loads(add.stats).get("numRecords")
+        return None if n is None else int(n)
     except (TypeError, ValueError, AttributeError):
-        return 0
+        return None
+
+
+def _num_records(add: AddFile) -> int:
+    return _records(add) or 0
+
+
+def _presized_masks(table, candidates: List[AddFile]) -> Dict[int, tuple]:
+    """{candidate index: (its numRecords, its deleted-row mask)} for the
+    candidates with a deletion vector and the statistic, decoded in one
+    batch. A statistic outside [0, 2^31) sizes nothing (the log is
+    outside input): that file is decoded after its read."""
+    sized = [(i, a, _records(a)) for i, a in enumerate(candidates)
+             if a.deletionVector is not None]
+    sized = [s for s in sized if s[2] is not None and 0 <= s[2] < 1 << 31]
+    masks = deleted_row_masks(table.engine, table.path,
+                              [a for _, a, _ in sized],
+                              [n for _, _, n in sized])
+    return {i: (n, m) for (i, _, n), m in zip(sized, masks)}
+
+
+def _existing_mask(table, presized: Dict[int, tuple], i: int, add: AddFile,
+                   num_rows: int):
+    """Candidate i's deleted-row mask (None: no DV): the batch's, or its
+    own decode when it has no statistic or its rows disagree with it."""
+    if add.deletionVector is None:
+        return None
+    n, mask = presized.get(i, (None, None))
+    if n == num_rows:
+        return mask
+    _DV_SINGLE.inc()
+    return deleted_row_mask(table.engine, table.path, add, num_rows)
 
 
 def delete(table, predicate: Optional[Expression] = None) -> DMLMetrics:
@@ -176,10 +219,10 @@ def delete_matching_rows(txn, table, snapshot, predicate: Expression,
     use_dv = get_table_config(meta.configuration, DELETION_VECTORS_ENABLED)
     schema = schema_from_json(meta.schemaString)
     dv_writes = []
-    for add in candidates:
+    presized = _presized_masks(table, candidates)
+    for i, add in enumerate(candidates):
         data = _read_physical(table, snapshot, add)
-        existing = deleted_row_mask(table.engine, table.path, add,
-                                    data.num_rows)
+        existing = _existing_mask(table, presized, i, add, data.num_rows)
         visible = (~existing if existing is not None
                    else np.ones(data.num_rows, dtype=bool))
         matches = evaluate_predicate(predicate, data) & visible
@@ -235,10 +278,10 @@ def update(table, assignments: Dict[str, object],
     metrics = DMLMetrics()
     candidates = txn.scan_files(filter=predicate)
     metrics.num_files_scanned = len(candidates)
-    for add in candidates:
+    presized = _presized_masks(table, candidates)
+    for i, add in enumerate(candidates):
         data = _read_physical(table, snapshot, add)
-        existing = deleted_row_mask(table.engine, table.path, add,
-                                    data.num_rows)
+        existing = _existing_mask(table, presized, i, add, data.num_rows)
         if existing is not None:
             data = data.take(np.nonzero(~existing)[0])
         matches = (evaluate_predicate(predicate, data)

@@ -55,7 +55,7 @@ from delta_tpu_torch.models.actions import AddFile
 from delta_tpu_torch.models.batch import Batch
 from delta_tpu_torch.models.schema import schema_from_json
 from delta_tpu_torch.ops.zorder import zorder_sort_indices
-from delta_tpu_torch.read.reader import read_add_file_logical
+from delta_tpu_torch.read.reader import read_add_files_logical
 from delta_tpu_torch.stats.collection import stats_columns
 from delta_tpu_torch.txn.isolation import IsolationLevel
 from delta_tpu_torch.txn.transaction import Operation, check_write_supported
@@ -234,8 +234,8 @@ def _rewrite_bin(table, meta, schema, bin_files: List[AddFile],
     """Read the bin's rows, order them along the curve (Z-order), and
     write them back as ceil(bin bytes / max_file_size) files."""
     engine = table.engine
-    data = Batch.concat([read_add_file_logical(engine, table.path, meta, f)
-                         for f in bin_files])
+    data = Batch.concat(read_add_files_logical(engine, table.path, meta,
+                                               bin_files))
     mark("read")
     if zorder_by:
         cols = []

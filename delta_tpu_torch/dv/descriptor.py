@@ -16,9 +16,11 @@ alphabet (Python's `base64.b85*`), as the reference writes it.
 A blob read from a file is checked against its CRC, and against the
 descriptor's `sizeInBytes` and `cardinality`; a mismatch raises
 `DeletionVectorError` with the reference's error class. The mask route
-(`load_deletion_vector_mask`) decodes on the engine's device through K8
-(`dv/roaring.py::decode_delta_mask`); the values route
-(`load_deletion_vector`) on the host.
+(`load_deletion_vector_masks`) reads each DV file of a batch once and
+decodes every blob of the batch in one K8 launch on the engine's device
+(`dv/roaring.py::decode_delta_masks`); the values route
+(`load_deletion_vector`) decodes on the host. `write_deletion_vector_file`
+packs every bitmap container of its DVs in one K8 launch.
 """
 
 from __future__ import annotations
@@ -26,14 +28,15 @@ from __future__ import annotations
 import base64
 import struct
 import uuid as _uuid
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from delta_tpu_torch.dv.roaring import (
     RoaringBitmapArray,
     checksum,
-    decode_delta_mask,
+    decode_delta_masks,
+    serialize_deltas,
 )
 from delta_tpu_torch.errors import DeletionVectorError
 from delta_tpu_torch.models.actions import DeletionVectorDescriptor
@@ -65,17 +68,21 @@ def absolute_dv_path(table_path: str, descriptor_row: Dict) -> str:
         error_class="DELTA_CANNOT_RECONSTRUCT_PATH_FROM_URI")
 
 
-def _load_blob(engine, table_path: str, descriptor_row: Dict
+def _load_blob(engine, table_path: str, descriptor_row: Dict,
+               files: Optional[Dict[str, bytes]] = None
                ) -> tuple[bytes, str]:
     """Descriptor -> (the blob, checked against its CRC and declared size;
-    where it was read)."""
+    where it was read). `files` caches DV files by path across a batch."""
     if descriptor_row["storageType"] == "i":
         blob = base64.b85decode(
             descriptor_row["pathOrInlineDv"].encode("ascii"))
         where = "<inline>"
     else:
         where = absolute_dv_path(table_path, descriptor_row)
-        data = engine.fs.read_file(where)
+        files = {} if files is None else files
+        data = files.get(where)
+        if data is None:
+            data = files[where] = engine.fs.read_file(where)
         offset = descriptor_row.get("offset") or 0
         (size,) = struct.unpack_from(">i", data, offset)
         blob = data[offset + 4:offset + 4 + size]
@@ -110,28 +117,39 @@ def load_deletion_vector(engine, table_path: str,
     return values
 
 
+def load_deletion_vector_masks(engine, table_path: str,
+                               rows: Sequence[Tuple[Dict, int]]
+                               ) -> List[np.ndarray]:
+    """[(descriptor, the file's rows)] -> each file's bool deleted-row
+    mask: each DV file read once, every blob checked, all decoded in one
+    K8 launch on the engine's device."""
+    files: Dict[str, bytes] = {}
+    loaded = [_load_blob(engine, table_path, d, files) for d, _ in rows]
+    decoded = decode_delta_masks([b for b, _ in loaded],
+                                 [n for _, n in rows], engine.device)
+    for (d, _), (_, where), (_, card) in zip(rows, loaded, decoded):
+        _check_cardinality(d, card, where)
+    return [mask for mask, _ in decoded]
+
+
 def load_deletion_vector_mask(engine, table_path: str, descriptor_row: Dict,
                               num_rows: int) -> np.ndarray:
-    """Descriptor -> bool deleted-row mask [num_rows], decoded on the
-    engine's device (K8 on the card)."""
-    blob, where = _load_blob(engine, table_path, descriptor_row)
-    mask, card = decode_delta_mask(blob, num_rows, engine.device)
-    _check_cardinality(descriptor_row, card, where)
-    return mask
+    """Descriptor -> bool deleted-row mask [num_rows]: a batch of one."""
+    return load_deletion_vector_masks(engine, table_path,
+                                      [(descriptor_row, num_rows)])[0]
 
 
 def write_deletion_vector_file(engine, table_path: str,
                                bitmaps: List[RoaringBitmapArray]
                                ) -> List[DeletionVectorDescriptor]:
     """Write one `deletion_vector_<uuid>.bin` at the table root holding
-    `bitmaps` (serialized on the engine's device); returns their 'u'
-    descriptors, which share the file."""
+    `bitmaps` (serialized on the engine's device, one pack launch for
+    all); returns their 'u' descriptors, which share the file."""
     u = _uuid.uuid4()
     path = f"{table_path}/deletion_vector_{u}.bin"
     body = bytearray([DV_FILE_VERSION])
     descriptors = []
-    for bm in bitmaps:
-        blob = bm.serialize_delta(engine.device)
+    for bm, blob in zip(bitmaps, serialize_deltas(bitmaps, engine.device)):
         offset = len(body)
         body += struct.pack(">i", len(blob))
         body += blob

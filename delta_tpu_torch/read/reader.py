@@ -2,12 +2,13 @@
 
 Counterpart of `delta_tpu/read/reader.py:21-202`:
 
-- `read_add_file_logical`, the read half of every file-rewrite command:
-  one file's columns in file order, kept when the table schema names them
-  and cast up where the file predates a widening (int32 -> int64, float32
-  -> float64); a schema column the file lacks reads as null; the rows its
-  deletion vector deletes dropped (DML reads with `apply_dv=False`: it
-  computes row indexes against the file's own order);
+- `read_add_files_logical`, the read half of every file-rewrite command:
+  each file's columns in file order, kept when the table schema names
+  them and cast up where the file predates a widening (int32 -> int64,
+  float32 -> float64); a schema column the file lacks reads as null; the
+  rows its deletion vector deletes dropped (`read_add_file_logical` reads
+  one file; DML reads with `apply_dv=False`: it computes row indexes
+  against the file's own order);
 - `read_scan`, the row read of a scan (`Scan.to_batch()`): each surviving
   file reads only the needed columns (the projection plus the residual
   filter's references), drops its deleted rows, aligns to the logical
@@ -15,8 +16,10 @@ Counterpart of `delta_tpu/read/reader.py:21-202`:
   projection last. No surviving file gives the schema's (or the
   projection's) columns, empty.
 
-A deletion vector decodes on the engine's device (K8 on the card,
-`dv/descriptor.py::load_deletion_vector_mask`). A missing file raises
+Both read every file first, then decode the deletion vectors of all of
+them in one batch on the engine's device (`deleted_row_masks`: one K8
+launch on the card, `dv/descriptor.py::load_deletion_vector_masks`), then
+drop each file's deleted rows. A missing file raises
 `FileNotFoundInLogError`; column mapping or a partitioned table raises
 `UnsupportedTableError`.
 """
@@ -26,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 
 from delta_tpu_torch.config import COLUMN_MAPPING_MODE, get_table_config
-from delta_tpu_torch.dv.descriptor import load_deletion_vector_mask
+from delta_tpu_torch.dv.descriptor import load_deletion_vector_masks
 from delta_tpu_torch.errors import FileNotFoundInLogError, UnsupportedTableError
 from delta_tpu_torch.log.parquet_data import read_data_file
 from delta_tpu_torch.models.batch import Batch, Column, zeros
@@ -60,18 +63,30 @@ def _align_to_logical(batch: Batch, schema, needed=None) -> Batch:
     return Batch(cols, batch.num_rows)
 
 
+def deleted_row_masks(engine, table_path: str, adds, row_counts) -> list:
+    """Bool masks of the rows each file's deletion vector deletes (None
+    for a file with none), decoded in one batch."""
+    has = [i for i, a in enumerate(adds) if a.deletionVector is not None]
+    out = [None] * len(adds)
+    if has:
+        masks = load_deletion_vector_masks(engine, table_path, [
+            (adds[i].deletionVector.to_dict(), row_counts[i]) for i in has])
+        for i, m in zip(has, masks):
+            out[i] = m
+    return out
+
+
 def deleted_row_mask(engine, table_path: str, add, num_rows: int):
     """Bool mask [num_rows] of the rows a file's deletion vector deletes
-    (None: the file has none)."""
-    if add.deletionVector is None:
-        return None
-    return load_deletion_vector_mask(engine, table_path,
-                                     add.deletionVector.to_dict(), num_rows)
+    (None: the file has none): a batch of one."""
+    return deleted_row_masks(engine, table_path, [add], [num_rows])[0]
 
 
-def _drop_deleted(engine, table_path: str, add, batch: Batch) -> Batch:
-    deleted = deleted_row_mask(engine, table_path, add, batch.num_rows)
-    return batch if deleted is None else batch.take(np.flatnonzero(~deleted))
+def _drop_deleted(engine, table_path: str, adds, batches) -> list:
+    masks = deleted_row_masks(engine, table_path, adds,
+                              [b.num_rows for b in batches])
+    return [b if m is None else b.take(np.flatnonzero(~m))
+            for b, m in zip(batches, masks)]
 
 
 def _check_readable(metadata) -> None:
@@ -93,14 +108,26 @@ def _read_bytes(engine, table_path: str, add) -> bytes:
             "(removed by VACUUM, or the log is ahead of storage)") from e
 
 
+def read_add_files_logical(engine, table_path: str, metadata, adds
+                           ) -> list:
+    """Read AddFiles' rows in the table's logical schema, one Batch each,
+    their deleted rows dropped (the DVs decoded in one batch)."""
+    _check_readable(metadata)
+    schema = schema_from_json(metadata.schemaString)
+    batches = [read_data_file(_read_bytes(engine, table_path, a))
+               for a in adds]
+    return [_align_to_logical(b, schema)
+            for b in _drop_deleted(engine, table_path, adds, batches)]
+
+
 def read_add_file_logical(engine, table_path: str, metadata, add,
                           apply_dv: bool = True) -> Batch:
     """Read one AddFile's rows in the table's logical schema (its deleted
     rows dropped unless `apply_dv` is False)."""
+    if apply_dv:
+        return read_add_files_logical(engine, table_path, metadata, [add])[0]
     _check_readable(metadata)
     batch = read_data_file(_read_bytes(engine, table_path, add))
-    if apply_dv:
-        batch = _drop_deleted(engine, table_path, add, batch)
     return _align_to_logical(batch, schema_from_json(metadata.schemaString))
 
 
@@ -128,11 +155,10 @@ def read_scan(scan) -> Batch:
         refs = [r[0] for r in scan.filter.references()]
         needed = requested + [c for c in dict.fromkeys(refs)
                               if c not in requested]
-    batches = []
-    for add in files:
-        part = _drop_deleted(engine, snapshot.table_path, add, read_data_file(
-            _read_bytes(engine, snapshot.table_path, add), needed))
-        batches.append(_align_to_logical(part, schema, needed))
+    parts = [read_data_file(_read_bytes(engine, snapshot.table_path, add),
+                            needed) for add in files]
+    batches = [_align_to_logical(part, schema, needed) for part in
+               _drop_deleted(engine, snapshot.table_path, files, parts)]
     if not batches:
         return _empty(schema, requested if requested is not None
                       else schema.field_names())

@@ -996,6 +996,119 @@ def test_dv_bits_kernel_matches_plain(n_words, n_idx, n_bm):
     torch.cuda.synchronize()
 
 
+def _run_blob(key: int, runs) -> bytes:
+    """A Delta blob of one run container (key, (start, length - 1) pairs)
+    in bucket 0, as other writers emit them."""
+    import struct
+
+    card = sum(n + 1 for _, n in runs)
+    body = struct.pack("<H", len(runs)) + b"".join(
+        struct.pack("<HH", s, n) for s, n in runs)
+    blob32 = struct.pack("<I", 12347) + b"\x01" + struct.pack(
+        "<HH", key, card - 1) + body
+    return struct.pack("<iqI", 1681511377, 1, 0) + blob32
+
+
+def _dv_pool(seed: int, n: int, rows: int):
+    """`n` DV blobs of files of `rows` rows: arrays (sparse), bitmaps
+    (dense, as after cell 10's dense DELETE), an empty window between
+    containers, a bucket above 0, a run container."""
+    from delta_tpu_torch.dv.roaring import RoaringBitmapArray
+
+    rng = np.random.default_rng(seed)
+    blobs = []
+    for i in range(n):
+        kind = i % 5
+        if kind == 0:
+            v = rng.choice(rows, max(1, rows // 250), replace=False)
+        elif kind == 1:
+            v = np.flatnonzero(rng.random(rows) < 0.104)
+        elif kind == 2:
+            v = np.concatenate([rng.choice(65536, 5000, replace=False),
+                                (2 << 16) + rng.choice(65536, 30,
+                                                       replace=False)])
+        elif kind == 3:
+            v = np.concatenate([rng.choice(rows, 100, replace=False),
+                                (np.int64(1) << 32) + np.arange(9)])
+        else:
+            blobs.append(_run_blob(1, [(3, 9), (40_000, 25_535)]))
+            continue
+        blobs.append(RoaringBitmapArray(v).serialize_delta("cpu"))
+    return blobs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dvs,distinct,rows", [
+    (1, 1, 500_000), (20, 20, 500_000), (1000, 50, 500_000),
+    (7, 7, 70_001)])
+def test_dv_tiles_kernel_on_batches(n_dvs, distinct, rows):
+    """K8 over one batch of real DV blobs (the tiles `decode_delta_masks`
+    builds) equals its plain version word for word, pads included, in one
+    launch; the masks and cardinalities equal the CPU's; the batch's
+    bitmaps serialized on the card equal the CPU's bytes, in one pack."""
+    from delta_tpu_torch.dv.roaring import (
+        RoaringBitmapArray, _plan, decode_delta_masks, serialize_deltas)
+    from delta_tpu_torch.ops.dv_bits import dv_tiles, dv_tiles_plain, upload
+
+    dev = _card()
+    blobs = _dv_pool(n_dvs, distinct, rows) * (n_dvs // distinct)
+    counts = [rows - 37 * (i % 3) for i in range(n_dvs)]
+    tiles, lows, bm, n_words, _ = _plan(blobs, counts)
+    want = dv_tiles_plain(*upload((tiles, lows, bm), "cpu"), n_words)
+    before = obs.counters()
+    got = dv_tiles(*upload((tiles, lows, bm), dev), n_words)
+    torch.cuda.synchronize()
+    after = obs.counters()
+    assert torch.equal(got.cpu(), want)
+    assert after["kernel.dv_bits.decode_launches"] \
+        == before.get("kernel.dv_bits.decode_launches", 0) + 1
+    if n_dvs <= 20:
+        for (m, c), (mc, cc) in zip(decode_delta_masks(blobs, counts, dev),
+                                    decode_delta_masks(blobs, counts, "cpu")):
+            assert c == cc and np.array_equal(m, mc)
+    bitmaps = [RoaringBitmapArray.deserialize_delta(b) for b in blobs]
+    dense = any(np.unique(b.values >> np.uint64(16), return_counts=True)[1]
+                .max(initial=0) > 4096 for b in bitmaps)
+    packs = obs.counter("kernel.dv_bits.pack_launches").read()
+    assert serialize_deltas(bitmaps, dev) == serialize_deltas(bitmaps, "cpu")
+    assert obs.counter("kernel.dv_bits.pack_launches").read() \
+        == packs + dense
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned_bitmaps", [False, True])
+def test_dv_tiles_kernel_on_unaligned_tiles(unaligned_bitmaps):
+    """Hand-made tiles at word offsets that are not multiples of 4, with
+    valid counts that are not either: zero, bitmap, lows and bitmap plus
+    lows tiles (lows past the valid words drop), and bitmap words at an
+    address off 16-byte alignment."""
+    from delta_tpu_torch.ops.dv_bits import dv_tiles, dv_tiles_plain
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    valids = [5, 2048, 1, 2047, 3, 1000, 2048, 7, 2046, 6]
+    offs = np.cumsum([0] + valids[:-1])
+    bm = rng.integers(-(1 << 31), 1 << 31, (4, 2048)).astype(np.int32)
+    rows, lows, at = [], [], 0
+    for t, (o, v) in enumerate(zip(offs, valids)):
+        kind = t % 4   # zero, bitmap, lows, both
+        k = 0 if kind < 2 else int(rng.integers(1, 3000))
+        lows.append(np.sort(rng.integers(0, 65536, k)).astype(np.uint16))
+        rows.append([o, v, t % 4 if kind in (1, 3) else -1, at, at + k])
+        at += k
+    tiles = torch.tensor(rows, dtype=torch.int32)
+    low = torch.from_numpy(np.concatenate(lows).view(np.int16))
+    words = torch.from_numpy(bm)
+    want = dv_tiles_plain(tiles, low, words, sum(valids))
+    d_words = words.to(dev)
+    if unaligned_bitmaps:
+        d_words = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                             d_words.reshape(-1)])[1:].view(4, 2048)
+    got = dv_tiles(tiles.to(dev), low.to(dev), d_words, sum(valids))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.cuda
 def test_dml_on_the_card_equals_cpu(tmp_path):
     """DELETE (array and bitmap containers), the reads that decode the

@@ -22,7 +22,9 @@ unknown column refused, OPTIMIZE purging DVs, a checkpoint of a DV table
 written by either package and read back by both, `Table.update()`
 advancing over a DELETE equal to the cold load, concurrent DELETEs of
 one file (the same conflict class), a DV table created by the port's
-`write_table`, and UPDATE's SET casts against Arrow's.
+`write_table`, UPDATE's SET casts against Arrow's, one call of K8's
+wrapper per command for all the DVs it reads (and one per DV file it
+writes), and a candidate without a true `numRecords` decoded alone.
 """
 
 import dataclasses
@@ -237,6 +239,70 @@ def test_dense_delete_packs_bitmap_containers(tmp_path):
     # a second DELETE unions with the decoded masks
     rm, pm = _delete_both(ref, port, lambda E: E.col("k") < E.lit(66_000))
     _check_same(ref, port, rm, pm)
+
+
+def _spy_dv_tiles(monkeypatch) -> list:
+    """Record each call the DV codec makes of K8's wrapper, "pack" or
+    "decode"."""
+    import delta_tpu_torch.dv.roaring as port_roaring
+
+    calls, launch = [], port_roaring.dv_tiles
+
+    def spy(*args, **kw):
+        calls.append("pack" if kw.get("pack") else "decode")
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(port_roaring, "dv_tiles", spy)
+    return calls
+
+
+def test_each_command_decodes_its_dvs_in_one_call(tmp_path, monkeypatch):
+    """On a 5-file DV table (the first file dense: bitmap containers),
+    read_table, a DELETE over every DV'd file, an UPDATE and OPTIMIZE
+    each call K8's wrapper once to decode every DV they read, and each
+    DELETE's DV file packs its bitmap containers in one call; the rows
+    stay the reference's."""
+    ref, port = _make(tmp_path, DV, rows=(70_000, 300, 300, 300, 300))
+    calls = _spy_dv_tiles(monkeypatch)
+
+    def step(fn):
+        calls.clear()
+        fn()
+        return list(calls)
+
+    assert step(lambda: _delete_both(
+        ref, port, lambda E: E.col("x") > E.lit(0.0))) == ["pack"]
+    assert _rows_port(port) == _rows_ref(ref)
+    assert step(lambda: read_table(port, engine=TorchEngine("cpu"))) \
+        == ["decode"]
+    assert step(lambda: _delete_both(ref, port, lambda E: E.col("b"))) \
+        == ["decode", "pack"]
+    assert step(lambda: (
+        ref_dml.update(_ref_table(ref), {"x": 0.5}, RE.col("k") < RE.lit(9)),
+        port_dml.update(_port_table(port), {"x": 0.5},
+                        PE.col("k") < PE.lit(9)))) == ["decode"]
+    assert step(lambda: (_ref_table(ref).optimize().execute_compaction(),
+                         _port_table(port).optimize().execute_compaction())
+                ) == ["decode"]
+    rows = _rows_ref(ref)
+    assert _rows_ref(port) == _rows_port(ref) == _rows_port(port) == rows
+
+
+@pytest.mark.parametrize("stat", ["missing", "wrong"])
+def test_a_dv_file_without_a_true_num_records_decodes_alone(
+        tmp_path, monkeypatch, stat):
+    """DML sizes its one batch of DV decodes by each file's numRecords;
+    a file whose statistic is missing or disagrees with its read is
+    decoded alone after the read, with the same result."""
+    ref, port = _make(tmp_path, DV)
+    _check_same(ref, port, *_delete_both(ref, port, _some_and_all))
+    monkeypatch.setattr(port_dml, "_records",
+                        lambda add: None if stat == "missing" else 7)
+    alone = obs.counter("dml.dv_single_decodes")
+    before = alone.read()
+    rm, pm = _delete_both(ref, port, lambda E: E.col("b"))
+    _check_same(ref, port, rm, pm)
+    assert alone.read() - before == 1  # file 0, the one DV'd file left
 
 
 def _refusal(ref_fn, port_fn):

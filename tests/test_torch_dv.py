@@ -20,7 +20,15 @@ Spark's does). Compared:
   package writes read by the other;
 - a blob with a bit past 2^31 (the reference declines its device decode
   and expands on the host; the port counts the lanes past the file's
-  rows on the host).
+  rows on the host);
+- K8's batched form (`dv_tiles_plain` over the tiles of one batch of 1,
+  7 and 50 DVs: array, run and bitmap containers, an empty window, rows
+  ending inside a container, a bucket above 0) against the reference
+  body per DV; one batched pack against `_pack_fn_cached` per bucket and
+  the reference's blobs; `load_deletion_vector_masks` against the
+  reference's loads per descriptor, one read of the shared DV file, and
+  a bad CRC or cardinality inside a batch raising the reference's
+  error class; the plain version's clamps and refusals.
 """
 
 import base64
@@ -44,6 +52,8 @@ from delta_tpu_torch.errors import DeletionVectorError
 from delta_tpu_torch.ops.dv_bits import (
     BITMAP_WORDS,
     decode_mask_words,
+    dv_tiles,
+    dv_tiles_plain,
     decode_mask_words_plain,
     pack_bitmap_words,
     pack_bitmap_words_plain,
@@ -433,3 +443,197 @@ def test_inline_has_no_path():
         port_desc.absolute_dv_path("/t", row)
     assert p.value.error_class == r.value.error_class \
         == "DELTA_CANNOT_RECONSTRUCT_PATH_FROM_URI"
+
+
+# ------------------------------------------------ the batched K8 (tiles)
+
+
+def _gap_set():
+    """Containers in windows 0 and 2 of bucket 0, window 1 empty."""
+    rng = np.random.default_rng(3)
+    return np.concatenate([rng.choice(65536, 5000, replace=False),
+                           (2 << 16) + rng.choice(65536, 40, replace=False)])
+
+
+def _pool(n_dvs: int, seed: int = 0):
+    """`n_dvs` DV blobs drawn from array, bitmap and run containers, an
+    empty window between containers, a bucket above 0 and a bit past
+    2^31, with the row counts of their files (some ending inside a
+    container, one at 0)."""
+    sets = [SETS[k] for k in ("mixed", "array_only", "bitmap_only",
+                              "high_bucket", "one", "empty", "bit_31",
+                              "full_container")] + [_gap_set()]
+    kinds = [PortBitmap(np.asarray(s).astype(np.uint64)).serialize_delta(CPU)
+             for s in sets] + [RUN_BLOBS[k] for k in sorted(RUN_BLOBS)]
+    rng = np.random.default_rng(seed)
+    picks = rng.permutation(np.resize(np.arange(len(kinds)), n_dvs))
+    rows = rng.choice([1, 1000, 65_536, 70_001, 131_073, 200_000, 300_000],
+                      n_dvs)
+    if n_dvs > 1:
+        rows[-1] = 0
+    return [kinds[i] for i in picks], [int(r) for r in rows]
+
+
+def _reference_words(blob: bytes, n_words: int) -> np.ndarray:
+    """The reference's `_decode_fn_cached` body on a blob's lanes over
+    `n_words` words (past 2^26 words its wrapper declines the device and
+    expands on the host: the body then takes the values below the words
+    as indexes)."""
+    plan = ref_roaring._mask_plan(blob)
+    if plan is None:
+        idx = RefBitmap.deserialize_delta(blob).values.astype(np.int64)
+        words, pos = np.empty(0, np.uint32), np.empty(0, np.int64)
+    else:
+        idx, words, pos, _ = plan
+    idx = idx[idx < n_words * 32]
+    i_pad, w_pad = _pad(len(idx) + 1), _pad(len(words) + 1)
+    lane_idx = np.full(i_pad, n_words * 32, np.int64)
+    lane_idx[:len(idx)] = idx
+    lane_w = np.zeros(w_pad, np.uint32)
+    lane_w[:len(words)] = words
+    lane_p = np.full(w_pad, n_words, np.int32)
+    lane_p[:len(pos)] = np.minimum(pos, n_words)
+    with jax.enable_x64(True):
+        return np.asarray(ref_stats._decode_fn_cached(i_pad, w_pad, n_words)(
+            lane_idx, lane_w, lane_p))
+
+
+@pytest.mark.parametrize("n_dvs", [1, 7, 50])
+def test_batched_tiles_plain_equals_reference_body_per_dv(n_dvs):
+    """One batch's tiles through `dv_tiles_plain`: each DV's segment (at
+    a 16-byte aligned start) equals the reference body's words for that
+    DV alone, and the tiles cover every output word once."""
+    blobs, rows = _pool(n_dvs, seed=n_dvs)
+    tiles, lows, bm, n_words, segs = port_roaring._plan(blobs, rows)
+    cover = np.zeros(n_words, np.int64)
+    for off, valid, *_ in tiles.tolist():
+        cover[off:off + valid] += 1
+    assert (cover == 1).all()
+    got = dv_tiles_plain(*(torch.from_numpy(a) for a in (tiles, lows, bm)),
+                         n_words).numpy().view(np.uint32)
+    for blob, (start, n_w, n, _) in zip(blobs, segs):
+        assert start % 4 == 0 and n_w == -(-n // 32)
+        assert np.array_equal(got[start:start + n_w],
+                              _reference_words(blob, n_w))
+
+
+@pytest.mark.parametrize("n_dvs", [1, 3, 7])
+def test_batched_pack_equals_reference_body_per_dv(monkeypatch, n_dvs):
+    """`serialize_deltas` packs every bitmap container of a batch in one
+    call of K8's wrapper: each 32-bit bucket's containers equal the
+    reference body `_pack_fn_cached` on that bucket's bits, and every blob
+    equals the reference's bytes."""
+    keys = ["bitmap_only", "mixed", "high_bucket", "full_container",
+            "array_only", "one", "empty"]
+    sets = [np.asarray(SETS[keys[i % len(keys)]]).astype(np.uint64)
+            for i in range(n_dvs)]
+    calls, launch = [], port_roaring.dv_tiles
+
+    def spy(*args, **kw):
+        calls.append((args, kw, launch(*args, **kw)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(port_roaring, "dv_tiles", spy)
+    blobs = port_roaring.serialize_deltas([PortBitmap(s) for s in sets], CPU)
+    assert blobs == [RefBitmap(s).serialize_delta() for s in sets]
+    assert len(calls) == 1 and calls[0][1] == {"pack": True}
+    words = calls[0][2].numpy().view(np.uint32).reshape(-1, BITMAP_WORDS)
+    c = 0
+    for s in sets:
+        v = np.unique(s)
+        for bucket in np.unique(v >> np.uint64(32)):
+            low = (v[(v >> np.uint64(32)) == bucket]
+                   & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            high, counts = np.unique(low >> 16, return_counts=True)
+            dense = counts > 4096
+            if not dense.any():
+                continue
+            flat = np.concatenate([
+                r * 65536 + (low[(low >> 16) == h] & 0xFFFF)
+                for r, h in enumerate(high[dense])])
+            n_c = int(dense.sum())
+            lane = np.full(_pad(len(flat)), n_c * 65536, np.int64)
+            lane[:len(flat)] = flat
+            with jax.enable_x64(True):
+                want = np.asarray(ref_stats._pack_fn_cached(
+                    len(lane), n_c * BITMAP_WORDS)(lane))
+            assert np.array_equal(words[c:c + n_c].reshape(-1), want)
+            c += n_c
+    assert c == len(words)
+
+
+def _batch_rows(tmp_path):
+    """A DV file the reference writes (several DVs) and an inline DV with
+    bits past 2^31, each with a file row count: [(descriptor row, n)]."""
+    sets = [SETS["mixed"], SETS["array_only"], SETS["bitmap_only"],
+            SETS["high_bucket"], SETS["empty"], _gap_set()]
+    descs = ref_desc.write_deletion_vector_file(
+        HostEngine(), str(tmp_path), [RefBitmap(s) for s in sets])
+    past = np.array([0, 5, 1 << 31, (1 << 31) + 7, 3 << 40], np.uint64)
+    blob = PortBitmap(past).serialize_delta(CPU)
+    inline = {"storageType": "i", "sizeInBytes": len(blob), "cardinality": 5,
+              "pathOrInlineDv": base64.b85encode(blob).decode("ascii")}
+    ns = [70_001, 1_000_000, 196_608, 300_000, 10, 131_073]
+    return [(d.to_dict(), n) for d, n in zip(descs, ns)] + [(inline, 100)]
+
+
+def test_batched_masks_equal_reference_loads(tmp_path):
+    """`load_deletion_vector_masks` on a batch equals the reference's
+    `load_deletion_vector_mask` per descriptor (the bit past 2^31 with
+    its cardinality among them), reading the shared DV file once."""
+    rows = _batch_rows(tmp_path)
+    eng = TorchEngine("cpu")
+    reads = []
+    read_file = eng.fs.read_file
+    eng.fs.read_file = lambda p: reads.append(p) or read_file(p)
+    got = port_desc.load_deletion_vector_masks(eng, str(tmp_path), rows)
+    assert len(reads) == 1
+    for (d, n), mask in zip(rows, got):
+        assert np.array_equal(mask, ref_desc.load_deletion_vector_mask(
+            HostEngine(), str(tmp_path), d, n))
+    masks = port_roaring.decode_delta_masks(
+        [port_desc._load_blob(eng, str(tmp_path), d)[0] for d, _ in rows],
+        [n for _, n in rows], CPU)
+    assert [c for _, c in masks] == [d["cardinality"] for d, _ in rows]
+
+
+@pytest.mark.parametrize("case", ["crc", "cardinality"])
+def test_a_bad_descriptor_inside_a_batch_raises_the_reference_error(
+        tmp_path, case):
+    rows = _batch_rows(tmp_path)
+    bad = rows[2][0]
+    if case == "crc":
+        path = next(tmp_path.glob("*.bin"))
+        data = bytearray(path.read_bytes())
+        data[bad["offset"] + 4 + 30] ^= 0xFF
+        path.write_bytes(bytes(data))
+    else:
+        rows[2] = (dict(bad, cardinality=bad["cardinality"] + 1), rows[2][1])
+    with pytest.raises(RefDeltaError) as r:
+        ref_desc.load_deletion_vector_mask(HostEngine(), str(tmp_path),
+                                           rows[2][0], rows[2][1])
+    with pytest.raises(DeletionVectorError) as p:
+        port_desc.load_deletion_vector_masks(TorchEngine("cpu"),
+                                             str(tmp_path), rows)
+    assert p.value.error_class == r.value.error_class
+
+
+def test_plain_tiles_clamp_and_refuse_what_the_kernel_does():
+    """Tile fields outside their ranges clamp as the kernel clamps them;
+    the plain version takes CPU tensors only, and the wrapper checks
+    its inputs' types and shapes."""
+    tiles = torch.tensor([[0, 5000, 9, -3, 2], [2048, 4, -1, 1, 99],
+                          [-4, 4, 0, 0, 1], [4000, 4, 0, 0, 1]],
+                         dtype=torch.int32)
+    lows = torch.tensor([0, 33, 200, -1], dtype=torch.int16)  # -1: 65535
+    got = dv_tiles_plain(tiles, lows, torch.full((1, BITMAP_WORDS), 7,
+                                                 dtype=torch.int32), 2052)
+    want = np.zeros(2052, np.uint32)
+    want[0], want[1] = 1, 2          # lows 0 and 33 (the bitmap index 9
+    want[2048 + 1] = 2               # is out of range: none); low 33 again
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    for bad in ((tiles.to(torch.int64), lows), (tiles, lows.to(torch.int32)),
+                (tiles[:, :4], lows)):
+        with pytest.raises(ValueError):
+            dv_tiles(*bad, torch.zeros((0, BITMAP_WORDS), dtype=torch.int32),
+                     2052)
