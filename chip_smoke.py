@@ -189,8 +189,25 @@
     pack: (a) the dense DELETE's 20 DVs, (b) the same blobs ×50 (1,000
     DVs), each beside its plain version (on the CPU), its bound and one
     `scatter_add_` over precomputed lanes.
+17. MERGE path (cell 11, `merge_phase`): a target of 10M rows (id
+    0..10M-1, v normal from the seed, month "01".."12" time-ordered by
+    id; `benchmarks/workloads.py`'s MergeBenchmark source shape and
+    TpcdsLite's monthly partitions) written as 20 appends with
+    `partition_by=["month"]`, then, each step's counters from 0 and its
+    rows against numpy as a multiset: an upsert of a 1M-row source (half
+    ids drawn from months 11-12, half new ids in month 12) ON id and
+    month, WHEN MATCHED UPDATE SET v, WHEN NOT MATCHED INSERT *; a
+    delete-merge of 1,000 rows into month 01 (WHEN MATCHED AND source.v
+    < 0 DELETE); a read filtered on month 12; OPTIMIZE ZORDER BY id
+    where month 12; a reload and a full read. The MergeMetrics must be
+    the counts numpy gives (files scanned by the source's bounds and the
+    partitions, rewritten, rows copied), K9 launched once per MERGE.
+    K9 against its plain version on the card at the upsert's own sorted
+    join lanes and at a skewed shape (one key with 150,000 target rows,
+    insert-only), timed beside its plain version, its bound and
+    `torch.unique_consecutive`; the longest run printed.
 
-Prints a metrics line per phase, a `kernels` JSON line (K1-K8, each with
+Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
@@ -1929,6 +1946,306 @@ def dv_bits_row(blobs: list, rows: int, dev, launches: int) -> dict:
             "launches": launches, **shapes["a_decode"], "shapes": shapes}
 
 
+MERGE_ROWS = 10_000_000     # cell 11's target: ids 0..10M-1, time-ordered
+MERGE_APPENDS = 20          # written as 20 appends of 500k rows
+MERGE_SOURCE = 1_000_000    # MergeBenchmark's 10% source
+MERGE_DELETE_SOURCE = 1_000
+MERGE_SKEW_TARGET = 150_000  # the skewed shape: one key's target rows
+MONTHS = np.array([f"{m:02d}" for m in range(1, 13)], object)
+# per step on the card: K9 launches (the upsert's and the delete-merge's
+# joins take the device route: over DEVICE_JOIN_MIN_ROWS rows, no
+# residual conjunct)
+MERGE_EXPECT_K9 = {"upsert": 1, "delete_merge": 1, "read_month": 0,
+                   "optimize_month": 0, "reload": 0, "read_all": 0}
+
+
+def _month_index(ids: np.ndarray) -> np.ndarray:
+    """The month (0-11) of each id: time-ordered, ids past the target's
+    in the last month."""
+    return np.minimum(ids * 12 // MERGE_ROWS, 11)
+
+
+def merge_appends(seed: int) -> list:
+    """Cell 11's 20 appends: id, v (normal from the seed), month."""
+    rng = np.random.default_rng(seed)
+    per = MERGE_ROWS // MERGE_APPENDS
+    out = []
+    for k in range(MERGE_APPENDS):
+        ids = np.arange(k * per, (k + 1) * per, dtype=np.int64)
+        out.append({"id": ids, "v": rng.normal(size=per),
+                    "month": MONTHS[_month_index(ids)]})
+    return out
+
+
+def _merge_files() -> list:
+    """(append, month index, first id, last id, rows) of every file the
+    appends write: one per append and month, ids in order."""
+    per = MERGE_ROWS // MERGE_APPENDS
+    out = []
+    for k in range(MERGE_APPENDS):
+        m = _month_index(np.arange(k * per, (k + 1) * per))
+        for mi in np.unique(m).tolist():
+            ids = np.nonzero(m == mi)[0] + k * per
+            out.append((k, mi, int(ids[0]), int(ids[-1]), len(ids)))
+    return out
+
+
+def _merge_expected(files, src_ids, src_month_idx, hit_ids, n_hit) -> dict:
+    """The candidates (files in the source's month range whose id range
+    meets the source's) and the touched ones (holding a matched id): the
+    scanned, rewritten and copied counts."""
+    lo, hi = int(src_ids.min()), int(src_ids.max())
+    m_lo, m_hi = int(src_month_idx.min()), int(src_month_idx.max())
+    cand = [f for f in files if m_lo <= f[1] <= m_hi
+            and f[2] <= hi and f[3] >= lo]
+    touched = [f for f in cand if np.any((hit_ids >= f[2])
+                                         & (hit_ids <= f[3]))]
+    return {"scanned": len(cand), "rewritten": len(touched),
+            "copied": sum(f[4] for f in touched) - n_hit}
+
+
+def _merge_rows_check(got, ids, v, alive, what: str) -> None:
+    """The rows read are the truth's alive rows as a multiset of (id, v)
+    hashes, each with its id's month."""
+    _check(got.num_rows == int(alive.sum()),
+           f"{what}: {got.num_rows} rows, numpy {int(alive.sum())}")
+    zero = np.zeros(int(alive.sum()), np.int64)
+    gid = np.ascontiguousarray(got.column("id").values)
+    want = np.sort(_row_hash(ids[alive], zero, zero, v[alive]))
+    have = np.sort(_row_hash(gid, zero, zero,
+                             np.ascontiguousarray(got.column("v").values)))
+    _check(np.array_equal(want, have), f"{what}: the rows are numpy's")
+    _check(np.array_equal(got.column("month").values,
+                          MONTHS[_month_index(gid)]),
+           f"{what}: every row in its id's month")
+
+
+def merge_phase(work: str, card: str, seed: int, dev) -> tuple:
+    """Cell 11: MERGE into a partitioned table, on the card. The target
+    (10M rows, 20 appends, partitioned by month), then, each step's
+    counters from 0: an upsert of a 1M-row source (half matched ids of
+    months 11-12, half new ids in month 12), a delete-merge of 1,000 rows
+    into month 01, a read filtered on month 12, OPTIMIZE ZORDER BY id
+    where month 12, a reload and a full read. Every step's rows and
+    MergeMetrics against numpy; K9 launched once per MERGE. Returns (the
+    metrics line, the upsert's sorted join lanes for K9's row)."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.commands.merge import merge
+    from delta_tpu_torch.expressions import col, lit
+    import delta_tpu_torch.ops.join as join_mod
+
+    path = os.path.join(work, "merge")
+    eng = TorchEngine(dev.type)
+    sync = eng.synchronize
+    rng = np.random.default_rng(seed)
+    appends = merge_appends(seed)
+    n_new = MERGE_SOURCE // 2
+    ids = np.arange(MERGE_ROWS + n_new, dtype=np.int64)
+    v = np.concatenate([a["v"] for a in appends] + [np.zeros(n_new)])
+    alive = np.arange(len(ids)) < MERGE_ROWS
+    files = _merge_files()
+    obs.reset()
+    t0 = time.perf_counter()
+    for cols in appends:
+        write_table(path, cols, partition_by=["month"], engine=eng)
+    sync()
+    out = {"rows": MERGE_ROWS, "files": len(files), "card": card,
+           "write_appends_s": time.perf_counter() - t0}
+    del appends
+    table = Table.for_path(path, engine=eng)
+    _check(table.latest_snapshot().state.num_files == len(files),
+           "merge: one file per append and month")
+    steps = {}
+
+    def step(name, fn):
+        sync()
+        obs.reset()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = obs.counters()
+        _ladder_idle(counts, f"merge {name}")
+        steps[name] = {
+            "s": seconds,
+            "k9": counts.get("kernel.merge_join.launches", 0),
+            "device_joins": counts.get("join.device_joins", 0),
+            **{k: counts.get(f"kernel.{n}.launches", 0) for k, n in (
+                ("k1", "byte_class"), ("k2", "winner_pack"),
+                ("k3", "hybrid_extract"), ("k4", "interleave_bits"),
+                ("k7", "skip_mask"))},
+            "k8_decode": counts.get("kernel.dv_bits.decode_launches", 0),
+            "hook_failures": sum(v for k, v in counts.items()
+                                 if k.startswith("hooks."))}
+        s = steps[name]
+        _check(dev.type != "cuda" or s["k9"] == MERGE_EXPECT_K9[name],
+               f"merge {name}: K9 launches {s['k9']}, expected "
+               f"{MERGE_EXPECT_K9[name]}")
+        _check(s["hook_failures"] == 0, f"merge {name}: a hook failed")
+        return result
+
+    on = (col("target.id") == col("source.id")) \
+        & (col("target.month") == col("source.month"))
+    # 1. the upsert: matched ids drawn from months 11-12, new ids in 12
+    first11 = int(np.nonzero(_month_index(ids[:MERGE_ROWS]) == 10)[0][0])
+    old = rng.choice(np.arange(first11, MERGE_ROWS), MERGE_SOURCE - n_new,
+                     replace=False)
+    src_ids = np.concatenate([old, np.arange(MERGE_ROWS,
+                                             MERGE_ROWS + n_new)])
+    src_v = rng.normal(size=MERGE_SOURCE)
+    src_m = _month_index(src_ids)
+    source = {"id": src_ids, "v": src_v, "month": MONTHS[src_m]}
+    want = _merge_expected(files, src_ids, src_m, old, len(old))
+    lanes = {}
+    tail = join_mod.join_tail
+
+    def capture(s_code, s_pos, nt, ns):
+        lanes["upsert"] = (s_code.clone(), s_pos.clone(), nt, ns)
+        return tail(s_code, s_pos, nt, ns)
+
+    join_mod.join_tail = capture
+    try:
+        m = step("upsert", lambda: merge(table, source, on)
+                 .when_matched_update(set={"v": col("source.v")})
+                 .when_not_matched_insert_all().execute())
+    finally:
+        join_mod.join_tail = tail
+    _check((m.num_target_rows_updated, m.num_target_rows_inserted,
+            m.num_target_rows_deleted, m.num_target_rows_copied,
+            m.num_target_files_scanned, m.num_target_files_rewritten,
+            m.num_source_rows)
+           == (len(old), n_new, 0, want["copied"], want["scanned"],
+               want["rewritten"], MERGE_SOURCE),
+           f"merge upsert: metrics {m}, expected {want}")
+    _check(dev.type != "cuda" or "upsert" in lanes,
+           "merge upsert: the join's tail ran on the device route")
+    steps["upsert"]["metrics"] = {k: v_ for k, v_ in vars(m).items()
+                                  if k != "phase_seconds"}
+    steps["upsert"]["phase_s"] = m.phase_seconds
+    v[src_ids] = src_v
+    alive[src_ids] = True
+    # 2. the delete-merge: 1,000 ids of month 01, those with v < 0 go
+    first02 = int(np.nonzero(_month_index(ids[:MERGE_ROWS]) == 1)[0][0])
+    d_ids = rng.choice(first02, MERGE_DELETE_SOURCE, replace=False)
+    d_v = rng.normal(size=MERGE_DELETE_SOURCE)
+    dsrc = {"id": d_ids, "v": d_v, "month": MONTHS[_month_index(d_ids)]}
+    gone = d_ids[d_v < 0]
+    want = _merge_expected(files, d_ids, _month_index(d_ids), gone,
+                           len(gone))
+    m = step("delete_merge", lambda: merge(table, dsrc, on)
+             .when_matched_delete(condition=col("source.v") < lit(0.0))
+             .execute())
+    _check((m.num_target_rows_deleted, m.num_target_rows_updated,
+            m.num_target_rows_inserted, m.num_target_rows_copied,
+            m.num_target_files_scanned, m.num_target_files_rewritten)
+           == (len(gone), 0, 0, want["copied"], want["scanned"],
+               want["rewritten"]),
+           f"merge delete_merge: metrics {m}, expected {want}")
+    steps["delete_merge"]["metrics"] = {k: v_ for k, v_ in vars(m).items()
+                                        if k != "phase_seconds"}
+    steps["delete_merge"]["phase_s"] = m.phase_seconds
+    alive[gone] = False
+    # 3. a read of month 12
+    got = step("read_month", lambda: read_table(
+        path, filter=col("month") == lit("12"), engine=eng))
+    _merge_rows_check(got, ids, v, alive & (_month_index(ids) == 11),
+                      "merge read_month")
+    del got
+    # 4. OPTIMIZE ZORDER BY id within month 12 (K4 once)
+    m = step("optimize_month", lambda: table.optimize().where(
+        col("month") == lit("12")).execute_zorder_by("id"))
+    _check(m.partitions_optimized == 1 and m.num_bins == 1
+           and steps["optimize_month"]["k4"] == (dev.type == "cuda"),
+           f"merge optimize_month: {m.partitions_optimized} partitions, "
+           f"{m.num_bins} bins, K4 {steps['optimize_month']['k4']}")
+    steps["optimize_month"]["files_removed"] = m.num_files_removed
+    # 5. a reload, then every row
+    st = step("reload", lambda: Table.for_path(
+        path, engine=eng).latest_snapshot().state)
+    _check(all(a.path.startswith(f"month={a.partitionValues['month']}/")
+               for a in st.add_files), "merge reload: files in their "
+           "partitions' directories")
+    got = step("read_all", lambda: read_table(path, engine=eng))
+    _merge_rows_check(got, ids, v, alive, "merge read_all")
+    del got
+    out.update({"steps": steps, "rows_alive": int(alive.sum()),
+                "output_files": st.num_files})
+    return out, lanes.get("upsert")
+
+
+def _skewed_lanes(dev):
+    """The skewed shape: one key with MERGE_SKEW_TARGET target rows and
+    three source rows (an insert-only MERGE's duplicate keys), beside
+    unique keys; sorted on the card as the join sorts."""
+    from delta_tpu_torch.ops.join import sort_codes
+
+    rng = np.random.default_rng(5)
+    nt = MERGE_SKEW_TARGET + 850_000
+    t = np.concatenate([np.zeros(MERGE_SKEW_TARGET, np.int64),
+                        np.arange(1, 850_001)])
+    s = np.concatenate([np.zeros(3, np.int64),
+                        rng.integers(1, 2_000_000, MERGE_SOURCE - 3)])
+    codes = torch.from_numpy(np.concatenate([rng.permutation(t),
+                                             rng.permutation(s)])
+                             .astype(np.int32)).to(dev)
+    s_code, s_pos = sort_codes(codes, nt)
+    return s_code, s_pos, nt, len(s)
+
+
+def _k9_times(s_code, s_pos, nt: int, ns: int) -> dict:
+    """K9 on one set of sorted lanes: against its plain version on the
+    card, timed beside it and its bound, and beside
+    `torch.unique_consecutive` (run ids and lengths: the nearest single
+    call, a part of the function)."""
+    from delta_tpu_torch.ops.join import join_tail, join_tail_plain, n_words
+
+    got = join_tail(s_code, s_pos, nt, ns)
+    torch.cuda.synchronize()
+    want = join_tail_plain(s_code, s_pos, nt, ns)
+    _check(torch.equal(got, want), "merge_join != plain")
+    n = nt + ns
+    runs = torch.unique_consecutive(s_code, return_counts=True)[1]
+    call = lambda: join_tail(s_code, s_pos, nt, ns)  # noqa: E731
+    # bytes: the code and position of every row read once, match_src and
+    # the words written once; operations: a comparison or two per row
+    nbytes = 8.0 * n + 4.0 * nt + 4.0 * n_words(ns) + 4.0
+    bound, by = _bound_ms(nbytes, 2.0 * n)
+    return {
+        "max_abs_err": int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()),
+        "ms": _time_ms(call, 50),
+        "device_ms": _device_ms(call, 50, ("merge_join_kernel", "Memset",
+                                           "FillFunctor")),
+        "kernel_device_ms": _device_ms(call, 50, ("merge_join_kernel",)),
+        "plain_ms": _time_ms(lambda: join_tail_plain(s_code, s_pos, nt, ns),
+                             10),
+        "plain_device": "cuda",
+        "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+        "closest_call": "torch.unique_consecutive(return_counts=True)",
+        "closest_call_ms": _time_ms(lambda: torch.unique_consecutive(
+            s_code, return_counts=True), 50),
+        "longest_run": int(runs.max()), "runs": int(runs.numel()),
+        "shape": f"u32[{n}]+i32[{n}] ({nt} target, {ns} source rows)"}
+
+
+def merge_join_row(lanes, dev, launches: int) -> dict:
+    """K9 at the upsert's shape (the main path's own sorted lanes) and at
+    the skewed shape; the row's own keys are the upsert's."""
+    _check(lanes is not None, "merge: the upsert's join lanes")
+    upsert = _k9_times(*lanes)
+    skewed = _k9_times(*_skewed_lanes(dev))
+    _check(skewed["longest_run"] >= MERGE_SKEW_TARGET,
+           "merge_join: the skewed shape's longest run")
+    for s in (upsert, skewed):
+        s["share"] = s["bound_ms"] / s["ms"]
+        s["device_share"] = s["bound_ms"] / s["device_ms"]
+    return {"name": "merge_join", "route": "cuda",
+            "source": "delta_tpu_torch/csrc/merge_join.cu",
+            "replaces": "delta_tpu/ops/join.py:41", "launches": launches,
+            "library_ms": None, **upsert, "skewed": skewed}
+
+
 UNPACK_W = 16               # device_merit.py:491-506: w = 16, random words
 UNPACK_VALUES = 10_000_000  # BASELINE config 2's scale
 
@@ -2793,6 +3110,28 @@ def main(argv=None) -> int:
                   f"parse.device_fallbacks {s['parse_device_fallbacks']}; "
                   f"{card}", flush=True)
         print("dv_bits phase: " + json.dumps(kernels["dv_bits"]), flush=True)
+        # MERGE into a partitioned table (cell 11), each step's counters
+        # from 0; K9 at the upsert's shape and a skewed one
+        mrg, lanes = merge_phase(work, card, args.seed + 7, dev)
+        steps = mrg["steps"]
+        kernels["merge_join"] = merge_join_row(lanes, dev, launches=sum(
+            s["k9"] for s in steps.values()))
+        del lanes
+        kernels["merge_join"]["launches_per_step"] = {
+            k: s["k9"] for k, s in steps.items()}
+        for name, key in (("skip_mask", "k7"), ("byte_class", "k1"),
+                          ("winner_pack", "k2"), ("hybrid_extract", "k3"),
+                          ("interleave_bits", "k4")):
+            kernels[name]["launches_merge"] = sum(s[key] for s in
+                                                  steps.values())
+        print("merge: " + json.dumps(mrg), flush=True)
+        for name, s in steps.items():
+            split = {k: v for k, v in s.get("phase_s", {}).items()
+                     if k.startswith("join")}
+            print(f"merge {name}: {s['s']:.4f} s, K9 {s['k9']}, join split "
+                  f"{json.dumps(split)}; {card}", flush=True)
+        print("merge_join phase: " + json.dumps(kernels["merge_join"]),
+              flush=True)
         optimize_card_vs_cpu(work)
         print("small optimize, both curves: card == cpu", flush=True)
         if args.profile:

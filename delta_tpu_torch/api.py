@@ -1,24 +1,25 @@
 """Writing rows to a table and reading them back: the counterparts of
-`delta_tpu/api.py::write_table` (for an unpartitioned table) and
-`read_table`.
+`delta_tpu/api.py::write_table` and `read_table`.
 
     from delta_tpu_torch.api import read_table, write_table
     from delta_tpu_torch.expressions import col, lit
     write_table(path, {"k": np.arange(10), "s": np.array(["a"] * 10)})
     write_table(path, {"k": (values, valid)}, mode="append")
+    write_table(path, cols, partition_by=["month"], target_rows_per_file=n)
     batch = read_table(path, filter=col("k") < lit(5), columns=["s"])
 
 `columns` maps names to numpy arrays, (values, valid) pairs, or
 `models.batch.Column`s; a new table's schema comes from their dtypes
 (`models/schema.py::type_name_of`). The first write
 creates the table: protocol (1, 2) and metadata with the given
-properties, in the same commit as the data, as the reference does
+properties and `partition_by` columns (ignored once the table exists, as
+in the reference), in the same commit as the data, as the reference does
 (`delta_tpu/api.py:24`). Returns the committed version.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from delta_tpu_torch.errors import (
     PathExistsError,
@@ -42,10 +43,13 @@ def schema_of(batch: Batch) -> StructType:
                        for name, c in batch.columns.items()])
 
 
-def write_table(path: str, columns, mode: str = "append", engine=None,
-                properties: Optional[Dict[str, str]] = None) -> int:
+def write_table(path: str, columns, mode: str = "append",
+                partition_by: Optional[Sequence[str]] = None, engine=None,
+                properties: Optional[Dict[str, str]] = None,
+                target_rows_per_file: Optional[int] = None) -> int:
     """Append `columns` to the table at `path` (creating it), or with
-    mode="error" create it and fail if it exists."""
+    mode="error" create it and fail if it exists; files of at most
+    `target_rows_per_file` rows."""
     if mode not in ("append", "error"):
         raise UnsupportedTableError(f"write mode {mode!r} is not supported "
                                     "yet", feature=f"mode {mode}")
@@ -59,6 +63,8 @@ def write_table(path: str, columns, mode: str = "append", engine=None,
         Operation.WRITE if exists else Operation.CREATE_TABLE)
     if not exists:
         builder = builder.with_schema(schema_of(batch))
+        if partition_by:
+            builder = builder.with_partition_columns(partition_by)
         if properties:
             builder = builder.with_table_properties(properties)
     txn = builder.build()
@@ -66,7 +72,8 @@ def write_table(path: str, columns, mode: str = "append", engine=None,
     check_write_supported(txn.protocol(), meta)
     txn.add_files(write_data_files(
         table.engine, table.path, batch, schema_from_json(meta.schemaString),
-        meta.partitionColumns, meta.configuration))
+        meta.partitionColumns, meta.configuration,
+        target_rows_per_file=target_rows_per_file))
     return txn.commit().version
 
 

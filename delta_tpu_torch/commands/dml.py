@@ -31,6 +31,12 @@ Counterpart of `delta_tpu/commands/dml.py:94-336` (Delta's
 3. One commit with the reference's operation parameters and metrics;
    nothing matched commits nothing.
 
+On a partitioned table each candidate's rows carry its partition
+columns (`read/reader.py`), so a predicate and a SET may name them, and
+the rewritten rows go back through the partitioned writer (an UPDATE of
+a partition column moves its rows to their new partition); a DELETE
+whose predicate matches every row of a file removes it whole.
+
 A SET value is a constant (converted as Arrow converts a Python value to
 the column's type), an `Expression` (a column, a literal or a predicate,
 cast to the column's type as Arrow's unsafe cast does) or a callable
@@ -128,8 +134,9 @@ def _check_writable(snapshot) -> None:
 
 
 def _read_physical(table, snapshot, add: AddFile) -> Batch:
-    """Every row of the file in file order, its deletion vector NOT
-    applied: DML computes row indexes against the file's own order."""
+    """Every row of the file in file order, partition columns spliced in,
+    its deletion vector NOT applied: DML computes row indexes against the
+    file's own order."""
     return read_add_file_logical(table.engine, table.path, snapshot.metadata,
                                  add, apply_dv=False)
 

@@ -15,11 +15,14 @@ A SnapshotIsolation transaction reads every live file, or with
 `where(predicate)` the files the predicate may match
 (`txn.scan_files(filter=)`: partition pruning and data skipping, the
 predicate recorded for the conflict check and in the commit's
-`predicate` operation parameter); compaction packs
-the files under `min_file_size` into bins of at most `max_file_size`
-bytes (`bin_pack_by_size`) and rewrites each bin of two or more; Z-order
-rewrites every file as one bin, its rows ordered along the curve by
-`ops/zorder.py` on the engine's device (kernel K4 on the card). A bin
+`predicate` operation parameter). The files are grouped by their
+partition values (bins never span partitions; `partitions_optimized`
+counts the partitions that got a bin). Within a partition, compaction
+packs the files under `min_file_size` into bins of at most
+`max_file_size` bytes (`bin_pack_by_size`) and rewrites each bin of two
+or more; Z-order rewrites every file of the partition as one bin, its
+rows ordered along the curve by `ops/zorder.py` on the engine's device
+(kernel K4 on the card, one launch per partition). A bin
 becomes ceil(sum of its file sizes / max_file_size) files of equal row
 counts; the removes carry dataChange=false; every add of an explicit
 Z-order carries one set of ZCube tags per command. A bin's files are
@@ -27,8 +30,7 @@ read with their deletion vectors applied (decoded on the engine's
 device, K8 on the card), so the rows they delete are purged: the new
 files carry none, and the removes carry the old descriptors.
 
-Unpartitioned tables without column mapping only; a partitioned,
-column-mapped or clustered table raises `UnsupportedTableError`; a
+A column-mapped or clustered table raises `UnsupportedTableError`; a
 predicate on a clustered table raises `OptimizeArgumentError`
 (DELTA_CLUSTERING_WITH_PARTITION_PREDICATE), as in the reference,
 before that. `OptimizeMetrics` also carries `phase_seconds`, the wall
@@ -180,27 +182,34 @@ def _run_optimize(table, zorder_by: Optional[List[str]], max_file_size: int,
     mark("scan")
     metrics = OptimizeMetrics(phase_seconds=mark.seconds)
     tags = new_zcube_tags(zorder_by, curve) if zorder_by else None
-    if zorder_by is None:
-        small = [f for f in files if f.size < min_file_size]
-        bins = [b for b in bin_pack_by_size(small, max_file_size)
-                if len(b) > 1]
-    else:
-        bins = [files] if files else []
+    by_partition: Dict[tuple, List[AddFile]] = {}
+    for f in files:
+        key = tuple(sorted((f.partitionValues or {}).items()))
+        by_partition.setdefault(key, []).append(f)
 
     now_ms = int(time.time() * 1000)
     new_adds: List[AddFile] = []
     removed: List[AddFile] = []
-    for bin_files in bins:
-        adds = _rewrite_bin(table, meta, schema, bin_files, zorder_by, curve,
-                            max_file_size, mark)
-        if tags is not None:
-            adds = [dataclasses.replace(a, tags={**(a.tags or {}), **tags})
-                    for a in adds]
-        new_adds.extend(adds)
-        removed.extend(bin_files)
-        metrics.num_bins += 1
-    if bins:
-        metrics.partitions_optimized = 1
+    # partitions in the reference's order, the null value first
+    for _, part_files in sorted(by_partition.items(), key=lambda kv: [
+            (k, v is not None, v or "") for k, v in kv[0]]):
+        if zorder_by is None:
+            small = [f for f in part_files if f.size < min_file_size]
+            bins = [b for b in bin_pack_by_size(small, max_file_size)
+                    if len(b) > 1]
+        else:
+            bins = [part_files]
+        for bin_files in bins:
+            adds = _rewrite_bin(table, meta, schema, bin_files, zorder_by,
+                                curve, max_file_size, mark)
+            if tags is not None:
+                adds = [dataclasses.replace(
+                    a, tags={**(a.tags or {}), **tags}) for a in adds]
+            new_adds.extend(adds)
+            removed.extend(bin_files)
+            metrics.num_bins += 1
+        if bins:
+            metrics.partitions_optimized += 1
     if not removed:
         return metrics  # nothing to do; no commit
 

@@ -1,4 +1,5 @@
-"""Host evaluation of expressions over a `models.batch.Batch`, with SQL
+"""Host evaluation of expressions over a `models.batch.Batch` (or a
+`NamespacedBatch`, whose columns are named `space.column`), with SQL
 three-valued logic.
 
 Counterpart of `delta_tpu/expressions/eval.py:35-95`
@@ -50,7 +51,7 @@ from delta_tpu_torch.expressions.tree import (
     Or,
     StartsWith,
 )
-from delta_tpu_torch.models.batch import zeros
+from delta_tpu_torch.models.batch import NamespacedBatch, zeros
 from delta_tpu_torch.utils.timestamps import string_to_us
 
 _EPOCH = datetime.datetime(1970, 1, 1)
@@ -234,9 +235,15 @@ def compare(op: str, a: Values, b: Values) -> Kleene:
 
 
 def _resolve_column(batch, name_path: Tuple[str, ...]) -> Values:
-    if name_path[0] not in batch.column_names or len(name_path) != 1:
+    """A one-part path names a column of a `Batch`; a two-part path
+    `space.name` a column of one batch of a `NamespacedBatch`."""
+    name = name_path
+    if isinstance(batch, NamespacedBatch) and len(name) == 2:
+        batch, name = batch.spaces.get(name[0]), name[1:]
+    if batch is None or isinstance(batch, NamespacedBatch) \
+            or len(name) != 1 or name[0] not in batch.column_names:
         raise KeyError(f"column {'.'.join(name_path)} not in batch")
-    c = batch.column(name_path[0])
+    c = batch.column(name[0])
     return column_values(c.values, c.valid)
 
 

@@ -96,6 +96,24 @@ class Batch:
                      sum(p.num_rows for p in parts))
 
 
+class NamespacedBatch:
+    """Batches of equal length side by side under names: MERGE's rows as
+    `target` and `source` (the counterpart of the reference's struct
+    columns, `delta_tpu/commands/merge.py:224`). An expression reads a
+    column of one as `target.<name>` (`expressions/eval.py`)."""
+
+    def __init__(self, spaces: Dict[str, Batch]):
+        self.spaces = dict(spaces)
+        lens = {b.num_rows for b in self.spaces.values()}
+        if len(lens) != 1:
+            raise ValueError(f"namespaces of unequal length: {sorted(lens)}")
+        self.num_rows = lens.pop()
+
+    @property
+    def column_names(self) -> List[str]:
+        return list(self.spaces)
+
+
 def as_column(v) -> Column:
     """A Column from a Column, a (values, valid) pair, or an array-like
     (a str array becomes an object array of str)."""

@@ -37,6 +37,7 @@ SOURCES = {
     "segmented_minmax": "segmented_minmax.cu",
     "skip_mask": "skip_mask.cu",
     "dv_bits": "dv_bits.cu",
+    "merge_join": "merge_join.cu",
     "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

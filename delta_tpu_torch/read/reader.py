@@ -4,24 +4,27 @@ Counterpart of `delta_tpu/read/reader.py:21-202`:
 
 - `read_add_files_logical`, the read half of every file-rewrite command:
   each file's columns in file order, kept when the table schema names
-  them and cast up where the file predates a widening (int32 -> int64,
-  float32 -> float64); a schema column the file lacks reads as null; the
-  rows its deletion vector deletes dropped (`read_add_file_logical` reads
+  them (a partition column the file holds is dropped) and cast up where
+  the file predates a widening (int32 -> int64, float32 -> float64); a
+  schema column the file lacks reads as null; the rows its deletion
+  vector deletes dropped; then the partition columns, typed, from the
+  file's `partitionValues` (`_append_partition_columns`, after the data
+  columns, as the reference appends them); `read_add_file_logical` reads
   one file; DML reads with `apply_dv=False`: it computes row indexes
-  against the file's own order);
+  against the file's own order;
 - `read_scan`, the row read of a scan (`Scan.to_batch()`): each surviving
-  file reads only the needed columns (the projection plus the residual
-  filter's references), drops its deleted rows, aligns to the logical
-  schema, then the filter applies to all rows (NULL drops the row) and the
-  projection last. No surviving file gives the schema's (or the
+  file reads only the needed data columns (the projection plus the
+  residual filter's references), drops its deleted rows, aligns to the
+  logical schema, takes its needed partition columns, then the filter
+  applies to all rows (NULL drops the row; partition columns included)
+  and the projection last. No surviving file gives the schema's (or the
   projection's) columns, empty.
 
 Both read every file first, then decode the deletion vectors of all of
 them in one batch on the engine's device (`deleted_row_masks`: one K8
 launch on the card, `dv/descriptor.py::load_deletion_vector_masks`), then
 drop each file's deleted rows. A missing file raises
-`FileNotFoundInLogError`; column mapping or a partitioned table raises
-`UnsupportedTableError`.
+`FileNotFoundInLogError`; column mapping raises `UnsupportedTableError`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from delta_tpu_torch.errors import FileNotFoundInLogError, UnsupportedTableError
 from delta_tpu_torch.log.parquet_data import read_data_file
 from delta_tpu_torch.models.batch import Batch, Column, zeros
 from delta_tpu_torch.models.schema import schema_from_json
+from delta_tpu_torch.stats.partition import partition_column
 
 
 def absolute_path(table_path: str, file_path: str) -> str:
@@ -42,10 +46,13 @@ def absolute_path(table_path: str, file_path: str) -> str:
     return f"{table_path}/{file_path}"
 
 
-def _align_to_logical(batch: Batch, schema, needed=None) -> Batch:
-    """Schema columns only, widened; a schema column the file lacks reads
-    as null (only those in `needed`, when given)."""
-    known = {f.name: f for f in schema.fields}
+def _align_to_logical(batch: Batch, schema, partition_columns=(),
+                      needed=None) -> Batch:
+    """Schema columns only, widened, partition columns left out; a schema
+    column the file lacks reads as null (only those in `needed`, when
+    given)."""
+    known = {f.name: f for f in schema.fields
+             if f.name not in partition_columns}
     cols = {}
     for name in batch.column_names:
         f = known.get(name)
@@ -57,10 +64,31 @@ def _align_to_logical(batch: Batch, schema, needed=None) -> Batch:
                                                     "safe"):
             col = Column(col.values.astype(want), col.valid)
         cols[name] = col
-    for f in schema.fields:
+    for f in known.values():
         if f.name not in cols and (needed is None or f.name in needed):
             cols[f.name] = Column.nulls(f.numpy_dtype, batch.num_rows)
     return Batch(cols, batch.num_rows)
+
+
+def _append_partition_columns(batch: Batch, add, schema, partition_columns,
+                              needed=None) -> Batch:
+    """The file's partition values (strings in `partitionValues`) spliced
+    in as typed columns after the data columns."""
+    cols = dict(batch.columns)
+    pv = add.partitionValues or {}
+    for c in partition_columns:
+        if needed is not None and c not in needed:
+            continue
+        type_name = schema[c].type_name if c in schema else "string"
+        cols[c] = partition_column(pv.get(c), type_name, batch.num_rows)
+    return Batch(cols, batch.num_rows)
+
+
+def _logical(batch: Batch, add, schema, partition_columns,
+             needed=None) -> Batch:
+    return _append_partition_columns(
+        _align_to_logical(batch, schema, partition_columns, needed), add,
+        schema, partition_columns, needed)
 
 
 def deleted_row_masks(engine, table_path: str, adds, row_counts) -> list:
@@ -90,10 +118,6 @@ def _drop_deleted(engine, table_path: str, adds, batches) -> list:
 
 
 def _check_readable(metadata) -> None:
-    if metadata.partitionColumns:
-        raise UnsupportedTableError(
-            "reading a partitioned table's files is not supported yet",
-            feature="partitioned table")
     if get_table_config(metadata.configuration, COLUMN_MAPPING_MODE) != "none":
         raise UnsupportedTableError(
             "column mapping is not supported yet", feature="column mapping")
@@ -116,8 +140,8 @@ def read_add_files_logical(engine, table_path: str, metadata, adds
     schema = schema_from_json(metadata.schemaString)
     batches = [read_data_file(_read_bytes(engine, table_path, a))
                for a in adds]
-    return [_align_to_logical(b, schema)
-            for b in _drop_deleted(engine, table_path, adds, batches)]
+    return [_logical(b, a, schema, metadata.partitionColumns) for a, b in
+            zip(adds, _drop_deleted(engine, table_path, adds, batches))]
 
 
 def read_add_file_logical(engine, table_path: str, metadata, add,
@@ -128,7 +152,8 @@ def read_add_file_logical(engine, table_path: str, metadata, add,
         return read_add_files_logical(engine, table_path, metadata, [add])[0]
     _check_readable(metadata)
     batch = read_data_file(_read_bytes(engine, table_path, add))
-    return _align_to_logical(batch, schema_from_json(metadata.schemaString))
+    return _logical(batch, add, schema_from_json(metadata.schemaString),
+                    metadata.partitionColumns)
 
 
 def _empty(schema, names) -> Batch:
@@ -157,8 +182,9 @@ def read_scan(scan) -> Batch:
                               if c not in requested]
     parts = [read_data_file(_read_bytes(engine, snapshot.table_path, add),
                             needed) for add in files]
-    batches = [_align_to_logical(part, schema, needed) for part in
-               _drop_deleted(engine, snapshot.table_path, files, parts)]
+    batches = [_logical(part, add, schema, metadata.partitionColumns, needed)
+               for add, part in zip(files, _drop_deleted(
+                   engine, snapshot.table_path, files, parts))]
     if not batches:
         return _empty(schema, requested if requested is not None
                       else schema.field_names())

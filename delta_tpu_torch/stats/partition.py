@@ -1,11 +1,15 @@
-"""Partition values as typed columns, for partition pruning.
+"""Partition values: serialized on write, typed columns on read.
 
-Counterpart of `delta_tpu/stats/partition.py:40-134`. Partition values are
+Counterpart of `delta_tpu/stats/partition.py:25-141`. Partition values are
 serialized as strings in `add.partitionValues` (PROTOCOL.md, Partition
-Value Serialization; null for NULL); this module turns them back into
-typed `models.batch.Batch` columns that `expressions/eval.py` evaluates a
-partition predicate over. The types come from the table schema's JSON
-(any type name, not only the ones this package writes).
+Value Serialization; null for NULL): `serialize_partition_value` writes
+them and `partition_path` names a file's Hive-style directory from them;
+the rest of this module turns them back into typed `models.batch.Batch`
+columns, for partition pruning (`expressions/eval.py` evaluates a
+partition predicate over them) and for the row read, which splices them
+into every file's rows (`partition_column`). The types come from the
+table schema's JSON (any type name, not only the ones this package
+writes).
 """
 
 from __future__ import annotations
@@ -24,6 +28,47 @@ _NUMPY = {
     "boolean": bool, "date": "datetime64[D]",
     "timestamp": "datetime64[us]", "timestamp_ntz": "datetime64[us]",
 }
+
+
+def serialize_partition_value(value) -> Optional[str]:
+    """A Python or numpy value as its partition-value string (None stays
+    None, the null partition): booleans as true/false, timestamps as
+    `%Y-%m-%d %H:%M:%S.%f` (UTC), dates as ISO dates, numbers as `str`
+    gives them (a float32 as numpy prints it, as the reference's numpy
+    values do)."""
+    if value is None:
+        return None
+    if isinstance(value, (bool, np.bool_)):
+        return "true" if value else "false"
+    if isinstance(value, np.datetime64):
+        if np.isnat(value):
+            return None
+        value = value.astype(
+            "datetime64[D]" if value.dtype == np.dtype("datetime64[D]")
+            else "datetime64[us]").item()
+    if isinstance(value, dt.datetime):
+        return value.strftime("%Y-%m-%d %H:%M:%S.%f")
+    if isinstance(value, dt.date):
+        return value.isoformat()
+    if isinstance(value, bytes):
+        return value.decode("utf-8", errors="replace")
+    return str(value)
+
+
+def partition_path(partition_values: Dict[str, Optional[str]],
+                   partition_columns: List[str]) -> str:
+    """The Hive-style directory `col1=v1/col2=v2/` of a file with these
+    partition values (empty when unpartitioned): each value
+    percent-encoded (`quote(v, safe="")`: '%', '/', '=', spaces and
+    non-ASCII escaped), the null partition `__HIVE_DEFAULT_PARTITION__`."""
+    from urllib.parse import quote
+
+    parts = []
+    for c in partition_columns:
+        v = partition_values.get(c)
+        ev = "__HIVE_DEFAULT_PARTITION__" if v is None else quote(v, safe="")
+        parts.append(f"{c}={ev}")
+    return "/".join(parts) + ("/" if parts else "")
 
 
 def deserialize_partition_value(s: Optional[str], type_name: str):
@@ -80,6 +125,14 @@ def _typed_column(values: List[Optional[str]], type_name: str) -> Column:
     else:
         data = np.array([0 if v is None else v for v in py], dtype=dtype)
     return Column(data, valid)
+
+
+def partition_column(s: Optional[str], type_name: str, n: int) -> Column:
+    """`n` rows of one file's partition value `s` as a typed column (the
+    row read's splice; `_typed_column` converts the value once)."""
+    one = _typed_column([s], type_name)
+    return Column(np.repeat(one.values, n),
+                  None if s is not None else np.zeros(n, bool))
 
 
 def partition_values_to_columns(pv_dicts: Sequence[Dict[str, Optional[str]]],

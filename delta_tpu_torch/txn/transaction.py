@@ -23,7 +23,7 @@ a failing hook is counted and logged, and the commit stands.
 
 Refused with `UnsupportedTableError`, before anything is written: group
 commit, coordinated commits, in-commit timestamps, row tracking, domain
-writes, partitioned tables, column mapping, protocol writer features
+writes, column mapping, protocol writer features
 beyond appendOnly, invariants and deletionVectors (`features.py`), and
 tables that ask for the UniForm (Iceberg/Hudi) or symlink-manifest hooks,
 which are not ported.
@@ -87,6 +87,7 @@ class Operation:
     OPTIMIZE = "OPTIMIZE"
     DELETE = "DELETE"
     UPDATE = "UPDATE"
+    MERGE = "MERGE"
 
 
 @dataclass
@@ -122,9 +123,6 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
     if get_table_config(conf, COORDINATED_COMMITS_COORDINATOR) is not None:
         raise UnsupportedTableError("coordinated commits are not supported "
                                     "yet", feature="coordinated commits")
-    if metadata.partitionColumns:
-        raise UnsupportedTableError("partitioned tables are not supported "
-                                    "yet", feature="partitioned table")
     if get_table_config(conf, UNIFORM_ENABLED_FORMATS):
         raise UnsupportedTableError(
             "UniForm (delta.universalFormat.enabledFormats) needs the "
@@ -144,6 +142,20 @@ def _check_metadata(metadata: Metadata) -> None:
         raise InvalidArgumentError(
             "Data used in creating the Delta table doesn't have any columns.",
             error_class="DELTA_EMPTY_DATA")
+    pcols = list(metadata.partitionColumns or [])
+    # partition columns name schema fields, once each, and leave one out
+    missing = [c for c in pcols if c not in schema]
+    if missing:
+        raise InvalidArgumentError(
+            f"partition column(s) {missing} not found in schema "
+            f"{sorted(schema.field_names())}",
+            error_class="DELTA_INVALID_PARTITION_COLUMN")
+    if len(set(pcols)) != len(pcols):
+        raise InvalidArgumentError(f"duplicate partition columns: {pcols}")
+    if pcols and len(pcols) == len(schema.fields):
+        raise InvalidArgumentError(
+            "cannot use all columns for partition columns",
+            error_class="DELTA_CANNOT_USE_ALL_COLUMNS_FOR_PARTITION")
     bad = [f.name for f in schema.fields
            if any(c in f.name for c in _INVALID_NAME_CHARS)]
     if bad:
@@ -177,12 +189,19 @@ class TransactionBuilder:
         self._table = table
         self._operation = operation
         self._schema: Optional[StructType] = None
+        self._partition_columns: List[str] = []
         self._table_properties: Optional[Dict[str, str]] = None
         self._txn_app_id: Optional[str] = None
         self._txn_version: Optional[int] = None
 
     def with_schema(self, schema: StructType) -> "TransactionBuilder":
         self._schema = schema
+        return self
+
+    def with_partition_columns(self, cols: Sequence[str]
+                               ) -> "TransactionBuilder":
+        """Partition columns of a table this transaction creates."""
+        self._partition_columns = list(cols)
         return self
 
     def with_table_properties(self, props: Dict[str, str]
@@ -211,7 +230,7 @@ class TransactionBuilder:
             metadata = Metadata(
                 id=str(uuid.uuid4()),
                 schemaString=schema_to_json(self._schema),
-                partitionColumns=[],
+                partitionColumns=list(self._partition_columns),
                 configuration=props,
                 createdTime=int(time.time() * 1000),
             )

@@ -1,13 +1,25 @@
-"""Transactional data-file writing for an unpartitioned table.
+"""Transactional data-file writing.
 
-Counterpart of `delta_tpu/write/writer.py:32-178, 222-228`: a `Batch`
-goes in; Parquet data files (`part-<uuid>.parquet`, under a random
-prefix directory when `delta.randomizeFilePrefixes` is on) and their
-`AddFile` actions (size, modification time, stats JSON) come out, ready
-to stage on a transaction. Rows split into files of at most
-`target_rows_per_file` rows. The schema check and the NOT NULL check run
-before any file is written. A partitioned table, column mapping and CHECK
-constraints raise `UnsupportedTableError`.
+Counterpart of `delta_tpu/write/writer.py:32-228`: a `Batch` goes in;
+Parquet data files (`part-<uuid>.parquet`) and their `AddFile` actions
+(partition values, size, modification time, stats JSON) come out, ready
+to stage on a transaction. A partitioned table's rows are grouped by
+their partition values (`_partition_groups`, groups in order of first
+appearance, a NaN or null value the null partition); each group's files
+go in its Hive-style directory (`stats/partition.py::partition_path`:
+`month=12/`, values percent-encoded, null `__HIVE_DEFAULT_PARTITION__`)
+or, with `delta.randomizeFilePrefixes`, in a random prefix directory
+instead, and carry the group's `partitionValues`; the partition columns
+are left out of the file and of its stats. An AddFile's path is a URI
+(PROTOCOL.md): the path the reference writes, holding the values' '%'
+escapes, while the file lies where the decoded URI points (`x=a%25b/`
+names the directory `x=a%b`), so that a reader, which percent-decodes
+every path, finds it. (The reference puts the file at the undecoded
+name, where neither package's reader looks.) Rows split into files of at
+most `target_rows_per_file` rows. The schema check and the NOT NULL check
+run before any file is written. Column mapping, CHECK constraints and a
+partition value that holds a percent-escape (`a%20b`, ROADMAP C7) raise
+`UnsupportedTableError`.
 """
 
 from __future__ import annotations
@@ -15,6 +27,9 @@ from __future__ import annotations
 import time
 import uuid
 from typing import Dict, List, Optional, Sequence
+from urllib.parse import unquote
+
+import numpy as np
 
 from delta_tpu_torch.config import (
     COLUMN_MAPPING_MODE,
@@ -31,6 +46,10 @@ from delta_tpu_torch.models.actions import AddFile
 from delta_tpu_torch.models.batch import Batch
 from delta_tpu_torch.models.schema import StructType
 from delta_tpu_torch.stats.collection import collect_stats
+from delta_tpu_torch.stats.partition import (
+    partition_path,
+    serialize_partition_value,
+)
 from delta_tpu_torch.utils.parquet_write import write_data_file
 
 _CDC_COLUMNS = {"_change_type", "_commit_version", "_commit_timestamp"}
@@ -76,16 +95,54 @@ def _split_rows(data: Batch, target_rows: Optional[int]) -> List[Batch]:
             for start in range(0, data.num_rows, target_rows)]
 
 
+def _partition_groups(data: Batch, partition_columns: Sequence[str]
+                      ) -> List[tuple]:
+    """[(partitionValues, the group's rows)] in order of each group's
+    first row (the reference's order); a null or NaN value is the null
+    partition."""
+    n = data.num_rows
+    codes = np.zeros(n, np.int64)
+    valid = {}
+    for c in partition_columns:
+        if c not in data.columns:
+            raise SchemaMismatchError(
+                f"partition column {c} missing from data",
+                error_class="DELTA_MISSING_PARTITION_COLUMN")
+        col = data.columns[c]
+        values = col.values
+        ok = np.ones(n, bool) if col.valid is None else col.valid.copy()
+        if values.dtype.kind == "f":
+            ok &= ~np.isnan(values)
+        elif values.dtype.kind == "O":
+            values = values.astype(str)
+        valid[c] = ok
+        inv = np.where(ok, np.unique(values, return_inverse=True)[1]
+                       .reshape(-1) + 1, 0)
+        # a running radix over the columns, kept dense
+        codes = np.unique(codes * (int(inv.max(initial=0)) + 1) + inv,
+                          return_inverse=True)[1].reshape(-1)
+    _, first, inv = np.unique(codes, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    group = rank[inv.reshape(-1)]
+    rows = np.argsort(group, kind="stable")
+    bounds = np.cumsum(np.bincount(group, minlength=len(order)))
+    out = []
+    for g, idx in enumerate(np.split(rows, bounds[:-1])):
+        head = int(first[order[g]])
+        pv = {c: serialize_partition_value(data.columns[c].values[head])
+              if valid[c][head] else None for c in partition_columns}
+        out.append((pv, data.take(idx) if len(order) > 1 else data))
+    return out
+
+
 def write_data_files(engine, table_path: str, data: Batch,
                      schema: StructType, partition_columns: Sequence[str],
                      configuration: Dict[str, str], data_change: bool = True,
                      target_rows_per_file: Optional[int] = None,
                      ) -> List[AddFile]:
     """Write `data` under `table_path`; returns the AddFile actions."""
-    if partition_columns:
-        raise UnsupportedTableError(
-            "writing a partitioned table is not supported yet",
-            feature="partitioned table")
     if get_table_config(configuration, COLUMN_MAPPING_MODE) != "none":
         raise UnsupportedTableError(
             "writing a table with column mapping is not supported yet",
@@ -96,25 +153,44 @@ def write_data_files(engine, table_path: str, data: Batch,
             feature="check constraints")
     _validate_schema(data, schema)
     _check_invariants(data, schema)
+    partition_columns = list(partition_columns)
+    groups = (_partition_groups(data, partition_columns)
+              if partition_columns and data.num_rows else [({}, data)])
     now_ms = int(time.time() * 1000)
     randomize = get_table_config(configuration, RANDOMIZE_FILE_PREFIXES)
     prefix_len = max(1, get_table_config(configuration, RANDOM_PREFIX_LENGTH))
-    file_schema = StructType([schema[c] for c in data.column_names])
     adds: List[AddFile] = []
-    for chunk in _split_rows(data, target_rows_per_file):
-        if chunk.num_rows == 0:
-            continue
-        fname = f"part-{uuid.uuid4()}.parquet"
-        rel_path = (f"{uuid.uuid4().hex[:prefix_len]}/{fname}" if randomize
-                    else fname)
-        status = write_data_file(f"{table_path}/{rel_path}", chunk,
-                                 file_schema, engine.fs)
-        adds.append(AddFile(
-            path=rel_path,
-            partitionValues={},
-            size=status.size,
-            modificationTime=status.modification_time or now_ms,
-            dataChange=data_change,
-            stats=collect_stats(chunk, schema, configuration, []),
-        ))
+    for pv, _ in groups:
+        directory = unquote(partition_path(pv, partition_columns))
+        if unquote(directory) != directory:
+            # a decoded path that still decodes: a command re-emitting
+            # it would lose the file (ROADMAP C7)
+            raise UnsupportedTableError(
+                f"partition values {pv} hold a percent-escape, which the "
+                "package cannot yet carry through a remove or a "
+                "checkpoint", feature="escaped partition value")
+    for pv, part in groups:
+        file_data = Batch({c: v for c, v in part.columns.items()
+                           if c not in partition_columns}, part.num_rows)
+        file_schema = StructType([schema[c] for c in file_data.column_names])
+        for chunk in _split_rows(file_data, target_rows_per_file):
+            if chunk.num_rows == 0:
+                continue
+            fname = f"part-{uuid.uuid4()}.parquet"
+            # a random prefix directory INSTEAD of the partition
+            # directories: the values live in the AddFile only
+            rel_path = (f"{uuid.uuid4().hex[:prefix_len]}/{fname}"
+                        if randomize
+                        else partition_path(pv, partition_columns) + fname)
+            status = write_data_file(f"{table_path}/{unquote(rel_path)}",
+                                     chunk, file_schema, engine.fs)
+            adds.append(AddFile(
+                path=rel_path,
+                partitionValues=dict(pv),
+                size=status.size,
+                modificationTime=status.modification_time or now_ms,
+                dataChange=data_change,
+                stats=collect_stats(chunk, schema, configuration,
+                                    partition_columns),
+            ))
     return adds

@@ -9,7 +9,8 @@ row read) plus an OPTIMIZE with a predicate, and the log forms (a V2
 checkpoint with struct-only stats read back and scanned, a compacted
 delta, metadata cleanup of `log/cleanup.py`), and deletion vectors (a DV
 DELETE, a read that decodes them, an UPDATE, an OPTIMIZE that purges
-them) must leave no `jax`,
+them), and a partitioned write, a filtered read of it and a MERGE
+through the device join must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -124,6 +125,26 @@ assert update(t5, {"x": lit(1.0)}, col("k") < lit(6000)).num_rows_updated \
     == 1000
 assert t5.optimize().execute_compaction().num_files_removed == 2
 assert read_table(d5, engine=TorchEngine("cpu")).num_rows == 4050
+# partitioned tables and MERGE: a partitioned write, a read filtered on
+# the partition, an upsert through the device join (its plain version)
+import delta_tpu_torch.commands.merge as merge_mod
+d6 = d + "/merge"
+write_table(d6, {"id": np.arange(100), "v": np.zeros(100),
+                 "m": np.array([f"m{i % 3}" for i in range(100)])},
+            partition_by=["m"], engine=TorchEngine("cpu"))
+assert read_table(d6, filter=col("m") == lit("m1"),
+                  engine=TorchEngine("cpu")).num_rows == 33
+merge_mod.DEVICE_JOIN_MIN_ROWS = 0
+obs.reset()
+m = (merge_mod.merge(Table.for_path(d6, engine=TorchEngine("cpu")),
+                     {"id": np.array([1, 200]), "v": np.ones(2),
+                      "m": np.array(["m1", "m2"])},
+                     (col("target.id") == col("source.id"))
+                     & (col("target.m") == col("source.m")))
+     .when_matched_update(set={"v": col("source.v")})
+     .when_not_matched_insert_all().execute())
+assert (m.num_target_rows_updated, m.num_target_rows_inserted) == (1, 1)
+assert obs.counters()["join.device_joins"] == 1
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))

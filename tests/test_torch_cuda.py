@@ -1157,3 +1157,107 @@ def test_dml_on_the_card_equals_cpu(tmp_path):
     assert a_blobs == b_blobs and len(a_blobs) == 3
     for x, y in zip(a_rows, b_rows):
         assert np.array_equal(x, y)
+
+
+def _join_lanes(nt: int, ns: int, keys: int, seed: int, skew: int = 0):
+    """Codes of nt target rows then ns source rows, `skew` target rows
+    (and as many source rows, up to 5) on one key."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, keys, nt)
+    s = rng.integers(0, keys, ns)
+    if skew:
+        t[:skew] = keys
+        s[:min(5, ns)] = keys
+    return torch.from_numpy(np.concatenate([rng.permutation(t),
+                                            rng.permutation(s)])
+                            .astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt,ns,keys,skew", [
+    (1, 1, 1, 0), (31, 33, 8, 0), (1000, 1, 10, 0), (0, 70, 3, 0),
+    (70, 0, 3, 0), (5000, 1200, 3000, 0), (1_000_003, 300_001, 700_000, 0),
+    (200_000, 50_000, 1000, 150_000), (4097, 4097, 1, 0)])
+def test_merge_join_kernel_matches_plain(nt, ns, keys, skew):
+    """K9 against its plain version on the same sorted lanes (the sort
+    on the card), bit for bit, one launch per call."""
+    from delta_tpu_torch.ops.join import join_tail, join_tail_plain, sort_codes
+
+    dev = _card()
+    codes = _join_lanes(nt, ns, keys, seed=nt + ns, skew=skew)
+    s_code, s_pos = sort_codes(codes.to(dev), nt)
+    launches = obs.counter("kernel.merge_join.launches").read()
+    got = join_tail(s_code, s_pos, nt, ns)
+    torch.cuda.synchronize()
+    assert obs.counter("kernel.merge_join.launches").read() == \
+        launches + (nt + ns > 0)
+    want = join_tail_plain(s_code, s_pos, nt, ns)
+    assert torch.equal(got, want)
+    # and the lanes sorted on the CPU: the same order
+    c_code, c_pos = sort_codes(codes, nt)
+    assert torch.equal(s_code.cpu(), c_code) and torch.equal(s_pos.cpu(),
+                                                             c_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,distinct", [(1000, 3), (1 << 20, 1000),
+                                        (3_000_000, 10)])
+def test_sort_is_stable_on_int64(n, distinct):
+    """K9 takes a run's first source row as its smallest: torch.sort must
+    keep input order among equal int64 keys on the card."""
+    dev = _card()
+    rng = np.random.default_rng(n)
+    key = torch.from_numpy(rng.integers(0, distinct, n)).to(dev) << 1
+    s_key, perm = torch.sort(key, stable=True)
+    same = s_key[1:] == s_key[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())
+
+
+@pytest.mark.cuda
+def test_merge_on_the_card_equals_cpu(tmp_path, monkeypatch):
+    """A partitioned upsert and a delete-merge on the card (K9, one launch
+    each) and on the CPU: the same metrics and rows."""
+    import delta_tpu_torch.commands.merge as merge_mod
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.expressions import col, lit
+
+    _card()
+    monkeypatch.setattr(merge_mod, "DEVICE_JOIN_MIN_ROWS", 0)
+    rng = np.random.default_rng(8)
+    src = str(tmp_path / "src")
+    for i in range(4):
+        ids = np.arange(i * 5000, (i + 1) * 5000)
+        write_table(src, {"id": ids, "v": rng.normal(size=5000),
+                          "m": np.array([f"{x % 3}" for x in ids // 7000],
+                                        object)},
+                    partition_by=["m"], engine=TorchEngine("cpu"))
+    ids = np.concatenate([rng.choice(20_000, 3000, replace=False),
+                          np.arange(20_000, 21_000)])
+    source = {"id": ids, "v": rng.normal(size=len(ids)),
+              "m": np.array([f"{x % 3}" for x in ids // 7000], object)}
+    on = (col("target.id") == col("source.id")) & \
+        (col("target.m") == col("source.m"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / dev)
+        shutil.copytree(src, path)
+        t = Table.for_path(path, engine=TorchEngine(dev))
+        obs.reset()
+        up = (merge_mod.merge(t, source, on)
+              .when_matched_update(set={"v": col("source.v")})
+              .when_not_matched_insert_all().execute())
+        de = (merge_mod.merge(t, {k: v[:500] for k, v in source.items()}, on)
+              .when_matched_delete(condition=col("source.v") < lit(0))
+              .execute())
+        if dev == "cuda":
+            assert obs.counters()["kernel.merge_join.launches"] == 2
+        rows = read_table(path, engine=TorchEngine(dev))
+        order = np.argsort(rows.column("id").values, kind="stable")
+        runs[dev] = ([{k: v for k, v in vars(m).items()
+                       if k != "phase_seconds"} for m in (up, de)],
+                     rows.column("id").values[order],
+                     rows.column("v").values[order])
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert runs["cuda"][0][0]["num_target_rows_inserted"] == 1000
+    for x, y in zip(runs["cuda"][1:], runs["cpu"][1:]):
+        assert np.array_equal(x, y)

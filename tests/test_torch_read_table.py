@@ -163,9 +163,26 @@ def test_file_without_stats_and_index_release(tmp_path):
 
 
 def test_partitioned_read_is_refused(tmp_path):
-    from delta_tpu_torch.errors import UnsupportedTableError
-
+    """Refused before partitioned tables were ported; now the rows, with
+    the partition column spliced in after the data columns, equal the
+    reference's, whole and under seeded predicates with a partition
+    conjunct (`tests/test_torch_partitioned.py` holds the rest)."""
     path = str(tmp_path / "p")
     write_typed_table(path, seed=23, appends=2, partition_by=["p"])
-    with pytest.raises(UnsupportedTableError):
-        read_table(path, engine=TorchEngine("cpu"))
+    ref, port = _both(path)
+    assert ref == port and ref[0][-1] == "p" and len(ref[1]) == 87
+    rng = np.random.default_rng(23)
+    checked = 0
+    for _ in range(12):
+        spec = ("and", ("cmp", "!=", "p", "p1", False),
+                random_spec(rng, list(TYPES) + ["p"]))
+        try:
+            ref, port = _both(path, spec)
+        except Exception:  # a refused comparison: both packages refuse
+            with pytest.raises(Exception):
+                read_table(path, filter=build(spec, PE),
+                           engine=TorchEngine("cpu"))
+            continue
+        assert ref == port
+        checked += 1
+    assert checked >= 6
