@@ -203,9 +203,10 @@
     the counts numpy gives (files scanned by the source's bounds and the
     partitions, rewritten, rows copied), K9 launched once per MERGE.
     K9 against its plain version on the card at the upsert's own sorted
-    join lanes and at a skewed shape (one key with 150,000 target rows,
-    insert-only), timed beside its plain version, its bound and
-    `torch.unique_consecutive`; the longest run printed.
+    join lanes, at a skewed shape (one key with 150,000 target rows,
+    insert-only) and at an all-one-key shape (1,000,000 target and
+    1,000,000 source rows on one code), timed beside its plain version,
+    its bound and `torch.unique_consecutive`; the longest run printed.
 
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
@@ -1951,6 +1952,7 @@ MERGE_APPENDS = 20          # written as 20 appends of 500k rows
 MERGE_SOURCE = 1_000_000    # MergeBenchmark's 10% source
 MERGE_DELETE_SOURCE = 1_000
 MERGE_SKEW_TARGET = 150_000  # the skewed shape: one key's target rows
+MERGE_ONE_KEY = 1_000_000   # the all-one-key shape: rows a side
 MONTHS = np.array([f"{m:02d}" for m in range(1, 13)], object)
 # per step on the card: K9 launches (the upsert's and the delete-merge's
 # joins take the device route: over DEVICE_JOIN_MIN_ROWS rows, no
@@ -2193,6 +2195,16 @@ def _skewed_lanes(dev):
     return s_code, s_pos, nt, len(s)
 
 
+def _one_key_lanes(dev):
+    """The all-one-key shape: MERGE_ONE_KEY target and MERGE_ONE_KEY
+    source rows on one code, sorted on the card as the join sorts."""
+    from delta_tpu_torch.ops.join import sort_codes
+
+    codes = torch.zeros(2 * MERGE_ONE_KEY, dtype=torch.int32, device=dev)
+    s_code, s_pos = sort_codes(codes, MERGE_ONE_KEY)
+    return s_code, s_pos, MERGE_ONE_KEY, MERGE_ONE_KEY
+
+
 def _k9_times(s_code, s_pos, nt: int, ns: int) -> dict:
     """K9 on one set of sorted lanes: against its plain version on the
     card, timed beside it and its bound, and beside
@@ -2215,9 +2227,8 @@ def _k9_times(s_code, s_pos, nt: int, ns: int) -> dict:
         "max_abs_err": int((got.to(torch.int64) - want.to(torch.int64))
                            .abs().max()),
         "ms": _time_ms(call, 50),
-        "device_ms": _device_ms(call, 50, ("merge_join_kernel", "Memset",
-                                           "FillFunctor")),
-        "kernel_device_ms": _device_ms(call, 50, ("merge_join_kernel",)),
+        # the memset of its status words, merge_join_ahead and _resolve
+        "device_ms": _device_ms(call, 50, ("merge_join", "Memset")),
         "plain_ms": _time_ms(lambda: join_tail_plain(s_code, s_pos, nt, ns),
                              10),
         "plain_device": "cuda",
@@ -2230,20 +2241,24 @@ def _k9_times(s_code, s_pos, nt: int, ns: int) -> dict:
 
 
 def merge_join_row(lanes, dev, launches: int) -> dict:
-    """K9 at the upsert's shape (the main path's own sorted lanes) and at
-    the skewed shape; the row's own keys are the upsert's."""
+    """K9 at the upsert's shape (the main path's own sorted lanes), the
+    skewed shape and the all-one-key shape; the row's own keys are the
+    upsert's."""
     _check(lanes is not None, "merge: the upsert's join lanes")
     upsert = _k9_times(*lanes)
     skewed = _k9_times(*_skewed_lanes(dev))
     _check(skewed["longest_run"] >= MERGE_SKEW_TARGET,
            "merge_join: the skewed shape's longest run")
-    for s in (upsert, skewed):
+    one_key = _k9_times(*_one_key_lanes(dev))
+    _check(one_key["runs"] == 1, "merge_join: the all-one-key shape's run")
+    for s in (upsert, skewed, one_key):
         s["share"] = s["bound_ms"] / s["ms"]
         s["device_share"] = s["bound_ms"] / s["device_ms"]
     return {"name": "merge_join", "route": "cuda",
             "source": "delta_tpu_torch/csrc/merge_join.cu",
             "replaces": "delta_tpu/ops/join.py:41", "launches": launches,
-            "library_ms": None, **upsert, "skewed": skewed}
+            "library_ms": None, **upsert, "skewed": skewed,
+            "one_key": one_key}
 
 
 UNPACK_W = 16               # device_merit.py:491-506: w = 16, random words

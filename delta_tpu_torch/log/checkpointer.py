@@ -27,7 +27,11 @@ UUID-named `_sidecars/` files and writes a UUID-named Parquet top level
 of checkpointMetadata, sidecar pointers and the small actions. The file
 actions come from the snapshot's row store by column (`_file_block`):
 checkpoint rows straight from the part's leaves, commit rows through
-their actions. Each part is encoded by `encode_part`
+their actions. Each row keeps its path as the log held it, the URI that
+the load percent-decoded once to the snapshot's path, so the next load
+decodes it once to the same path whatever form another writer gave it
+(`p=a%2520b/` stays, where the decoded `p=a%20b/` would decode again to
+`p=a b/`). Each part is encoded by `encode_part`
 (`utils/parquet_write.py` underneath) and written put-if-absent through
 `write/ckpt_pipeline.py`; a torn write deletes what this attempt created
 (`checkpoint.aborted_writes`) and leaves `_last_checkpoint` at the
@@ -564,16 +568,6 @@ def _part_map(read, path: str, rows: np.ndarray) -> Optional[Repeated]:
                     .astype(np.int64), items, item_valid, key_strings)
 
 
-def _decode_paths(strings: Strings) -> Strings:
-    """Percent-decode path URIs (a snapshot's paths are decoded)."""
-    if not (strings.buf == 37).any():
-        return strings
-    from urllib.parse import unquote
-
-    raw = [strings.raw(i).decode("utf-8") for i in range(len(strings))]
-    return Strings.from_list([unquote(p) if "%" in p else p for p in raw])
-
-
 def _part_block(part, root: str, rows: np.ndarray) -> Block:
     """The `root` file actions at part `rows`, column by column (the add
     stats of a part that holds them only as `stats_parsed` re-serialized,
@@ -603,9 +597,6 @@ def _part_block(part, root: str, rows: np.ndarray) -> Block:
                     cols[path] = c
 
     walk(_ROOTS[root], ())
-    if ("path",) in cols:
-        v, ok = cols[("path",)]
-        cols[("path",)] = (_decode_paths(v), ok)
     if root == "add" and part.data is not None:
         cols[("stats",)] = _strings(part.stats(rows))
     return Block(root, len(rows), cols)
@@ -617,8 +608,10 @@ def _span_block(store, idx: np.ndarray, root: str) -> Block:
     empty or absent partitionValues map)."""
     a = store.lanes
     n = len(idx)
+    ones = np.ones(n, bool)
     cols: Dict[tuple, object] = {
-        ("path",): (Strings.from_list(store.paths(idx)), np.ones(n, bool)),
+        ("path",): (Strings.from_list(store.strings(idx, "path", ones)),
+                    ones),
         ("partitionValues",): Repeated(
             a["pv_present"][idx], np.zeros(n + 1, np.int64),
             _empty_strings(), np.zeros(0, bool), _empty_strings()),
@@ -646,7 +639,7 @@ def _file_block(store, idx: np.ndarray, root: str) -> Block:
     JSON bodies."""
     from delta_tpu_torch.replay.columnar import CheckpointRows, CompositeRows
     from delta_tpu_torch.replay.device_parse import SpanRows
-    from delta_tpu_torch.replay.host_parse import DictRows, decode_path
+    from delta_tpu_torch.replay.host_parse import DictRows
 
     if isinstance(store, CompositeRows):
         return _concat_blocks(root, [_file_block(st, local, root)
@@ -658,9 +651,7 @@ def _file_block(store, idx: np.ndarray, root: str) -> Block:
     if isinstance(store, SpanRows):
         return _span_block(store, idx, root)
     if isinstance(store, DictRows):
-        return rows_block(root, [
-            dict(store.bodies[i], path=decode_path(store.bodies[i]["path"]))
-            for i in idx.tolist()])
+        return rows_block(root, [store.bodies[i] for i in idx.tolist()])
     raise TypeError(f"no file actions from a {type(store).__name__}")
 
 

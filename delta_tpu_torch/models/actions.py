@@ -9,6 +9,10 @@ lists follow the Delta protocol's action definitions.
   round-trip unchanged.
 - `AddFile.stats` stays a raw JSON string.
 - The replay identity of a logical file is `(path, dv_unique_id)`.
+- A file action's path is a URI in the log and decoded in memory:
+  `from_dict` percent-decodes it once (`decode_path`), `to_dict` encodes
+  it (`encode_path`), so whatever form a path was read in, the path a
+  command writes back decodes once to the path the snapshot holds.
 - `actions_to_commit_bytes` / `actions_from_commit_bytes` write and read
   a commit file (one wrapped JSON object per line); what they write
   parses to the same dicts as the reference's.
@@ -18,6 +22,24 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 from typing import Any, ClassVar, Dict, Iterable, List, Optional
+from urllib.parse import quote, unquote
+
+# RFC 3986's path characters besides the unreserved ones: '/' and pchar's
+# sub-delims, ':' and '@'. '%', spaces, '#', '?' and non-ASCII are escaped.
+_PATH_SAFE = "/:@!$&'()*+,;="
+
+
+def decode_path(raw: str) -> str:
+    """Percent-decode a path URI from the log (the snapshot's path);
+    untouched when no '%' appears."""
+    return unquote(raw) if "%" in raw else raw
+
+
+def encode_path(path: str) -> str:
+    """The log's form of a decoded path: `decode_path(encode_path(p)) ==
+    p` for every `p`, and a path of unreserved characters, '/', '=' and
+    ':' comes out unchanged."""
+    return quote(path, safe=_PATH_SAFE)
 
 
 def _prune(d: Dict[str, Any]) -> Dict[str, Any]:
@@ -241,7 +263,7 @@ class AddFile:
     def to_dict(self) -> Dict[str, Any]:
         d = _prune(
             {
-                "path": self.path,
+                "path": encode_path(self.path),
                 "partitionValues": dict(self.partitionValues),
                 "size": self.size,
                 "modificationTime": self.modificationTime,
@@ -275,7 +297,7 @@ class AddFile:
             "clusteringProvider",
         }
         return AddFile(
-            path=d["path"],
+            path=decode_path(d["path"]),
             partitionValues=dict(d.get("partitionValues") or {}),
             size=int(d.get("size") or 0),
             modificationTime=int(d.get("modificationTime") or 0),
@@ -316,7 +338,7 @@ class RemoveFile:
     def to_dict(self) -> Dict[str, Any]:
         d = _prune(
             {
-                "path": self.path,
+                "path": encode_path(self.path),
                 "deletionTimestamp": self.deletionTimestamp,
                 "dataChange": self.dataChange,
                 "extendedFileMetadata": self.extendedFileMetadata,
@@ -350,7 +372,7 @@ class RemoveFile:
             "defaultRowCommitVersion",
         }
         return RemoveFile(
-            path=d["path"],
+            path=decode_path(d["path"]),
             deletionTimestamp=d.get("deletionTimestamp"),
             dataChange=bool(d.get("dataChange", True)),
             extendedFileMetadata=d.get("extendedFileMetadata"),

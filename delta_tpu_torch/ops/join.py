@@ -19,7 +19,9 @@ is the same whichever code a key gets), then:
    source row, whether its run holds a target row, as bit words; and the
    number of target rows whose run holds more than one source row
    (`n_multi`, all MERGE's cardinality rule needs). On a CUDA tensor it
-   launches K9 (`csrc/merge_join.cu`), or raises; on a CPU tensor it runs
+   launches K9 (`csrc/merge_join.cu`: two single-pass launches over
+   1024-row tiles whose carries go by decoupled look-back; no thread
+   walks a key's run), or raises; on a CPU tensor it runs
    `join_tail_plain`, the same function in torch ops;
 4. one copy of the packed result back (D2H).
 
@@ -163,12 +165,20 @@ def join_tail_plain(s_code: torch.Tensor, s_pos: torch.Tensor, nt: int,
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous and 16-byte aligned, as K9's vector loads take it (a
+    view that starts off alignment is copied)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def join_tail(s_code: torch.Tensor, s_pos: torch.Tensor, nt: int,
               ns: int) -> torch.Tensor:
     """The join tail over sorted lanes (module docstring), in the layout
     of `join_tail_plain`, on the lanes' device. A CPU tensor takes the
-    plain version; a CUDA tensor launches K9 (one fill of the words and
-    the count, one kernel, no synchronization), or raises."""
+    plain version; a CUDA tensor launches K9 (its kernels write every
+    output word and take their scratch from here, no synchronization), or
+    raises."""
     global _LAUNCH
     _check(s_code, s_pos, nt, ns)
     if s_code.device.type == "cpu":
@@ -178,22 +188,27 @@ def join_tail(s_code: torch.Tensor, s_pos: torch.Tensor, nt: int,
     index = s_code.get_device()
     w = n_words(ns)
     out = torch.empty(nt + w + 1, dtype=torch.int32, device=index)
-    out[nt:].zero_()
     if nt + ns == 0:
-        return out
-    s_code, s_pos = s_code.contiguous(), s_pos.contiguous()
+        return out.zero_()
+    s_code, s_pos = _aligned(s_code), _aligned(s_pos)
     if _LAUNCH is None:
         _LAUNCH = (cuda_build.function(
             "merge_join", "merge_join_launch",
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]),
+            cuda_build.function(
+            "merge_join", "merge_join_scratch_bytes",
+            [ctypes.c_longlong, ctypes.c_longlong], ctypes.c_longlong),
             torch._C._cuda_getCurrentRawStream)
-    launch, raw_stream = _LAUNCH
+    launch, scratch_bytes, raw_stream = _LAUNCH
+    scratch = torch.empty(scratch_bytes(nt, ns), dtype=torch.uint8,
+                          device=index)
     base, item = out.data_ptr(), out.element_size()
     code = launch(s_code.data_ptr(), s_pos.data_ptr(), nt, ns, base,
-                  base + item * nt, base + item * (nt + w), index,
-                  raw_stream(index))
+                  base + item * nt, base + item * (nt + w),
+                  scratch.data_ptr(), index, raw_stream(index))
     cuda_build.check_launch(code, "merge_join")
     LAUNCHES.inc()
     return out

@@ -61,7 +61,6 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
-from urllib.parse import unquote
 
 import numpy as np
 import torch
@@ -82,6 +81,7 @@ from delta_tpu_torch.models.actions import (
     Protocol,
     RemoveFile,
     SetTransaction,
+    decode_path,
 )
 from delta_tpu_torch.replay.keys import KeySpace
 from delta_tpu_torch.utils import filenames
@@ -371,11 +371,6 @@ def _dvs(read, root: str, rows: np.ndarray):
     return descs, ids
 
 
-def _decode_path(raw: str) -> str:
-    """Percent-decode a path URI, as every replay key is."""
-    return unquote(raw) if "%" in raw else raw
-
-
 def _check_ascending(idx: np.ndarray, what: str) -> None:
     """The row stores cut `idx` by position: rows out of order would take
     each other's values, so they are refused."""
@@ -435,7 +430,7 @@ class CheckpointRows:
         for part, is_add, rows in self.blocks(idx):
             raw = _python(part.read, ("add" if is_add else "remove")
                           + ".path", rows)
-            out += [_decode_path(p) for p in raw]
+            out += [decode_path(p) for p in raw]
         return out
 
     def stats(self, idx: np.ndarray) -> List[Optional[str]]:
@@ -465,7 +460,7 @@ class CheckpointRows:
         tags = _map(read, "add.tags", rows)
         dvs, _ = _dvs(read, "add", rows)
         return [AddFile(
-            path=_decode_path(c["path"][j]),
+            path=decode_path(c["path"][j]),
             partitionValues=pv[j] or {},
             size=c["size"][j] or 0,
             modificationTime=c["modificationTime"][j] or 0,
@@ -488,7 +483,7 @@ class CheckpointRows:
         tags = _map(read, "remove.tags", rows)
         dvs, _ = _dvs(read, "remove", rows)
         return [RemoveFile(
-            path=_decode_path(c["path"][j]),
+            path=decode_path(c["path"][j]),
             deletionTimestamp=c["deletionTimestamp"][j],
             dataChange=bool(c["dataChange"][j]),
             extendedFileMetadata=c["extendedFileMetadata"][j],

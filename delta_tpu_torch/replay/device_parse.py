@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from delta_tpu_torch import obs
-from delta_tpu_torch.models.actions import AddFile, RemoveFile
+from delta_tpu_torch.models.actions import AddFile, RemoveFile, decode_path
 from delta_tpu_torch.ops.json_parse import (
     FLAG_NAMES,
     TAIL_PAD,
@@ -45,7 +45,7 @@ from delta_tpu_torch.ops.json_parse import (
     window_eligible,
 )
 from delta_tpu_torch.replay.columnar import FileActions, ParsedCommits
-from delta_tpu_torch.replay.host_parse import decode_path, line_tags
+from delta_tpu_torch.replay.host_parse import line_tags
 from delta_tpu_torch.replay.keys import KeySpace, key_rows
 
 _OBS_WINDOWS = obs.counter("parse.device_windows")

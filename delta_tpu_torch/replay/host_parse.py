@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import json
 from typing import List, Optional
-from urllib.parse import unquote
 
 import numpy as np
 import torch
@@ -25,6 +24,7 @@ from delta_tpu_torch.models.actions import (
     AddFile,
     DeletionVectorDescriptor,
     RemoveFile,
+    decode_path,
 )
 from delta_tpu_torch.replay.columnar import FileActions, ParsedCommits
 from delta_tpu_torch.replay.keys import KeySpace
@@ -45,11 +45,6 @@ def line_tags(line_starts: torch.Tensor, file_starts: torch.Tensor,
     orders = (torch.arange(line_starts.shape[0], device=line_starts.device)
               - first_line[file_of_line]).to(torch.int32)
     return versions, orders
-
-
-def decode_path(raw: str) -> str:
-    """Percent-decode a path URI; untouched when no '%' appears."""
-    return unquote(raw) if "%" in raw else raw
 
 
 class DictRows:

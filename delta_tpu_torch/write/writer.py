@@ -6,20 +6,18 @@ Parquet data files (`part-<uuid>.parquet`) and their `AddFile` actions
 to stage on a transaction. A partitioned table's rows are grouped by
 their partition values (`_partition_groups`, groups in order of first
 appearance, a NaN or null value the null partition); each group's files
-go in its Hive-style directory (`stats/partition.py::partition_path`:
-`month=12/`, values percent-encoded, null `__HIVE_DEFAULT_PARTITION__`)
-or, with `delta.randomizeFilePrefixes`, in a random prefix directory
+go in its Hive-style directory (`stats/partition.py::partition_path`
+decoded: `month=12/`, null `__HIVE_DEFAULT_PARTITION__`) or, with `delta.randomizeFilePrefixes`, in a random prefix directory
 instead, and carry the group's `partitionValues`; the partition columns
-are left out of the file and of its stats. An AddFile's path is a URI
-(PROTOCOL.md): the path the reference writes, holding the values' '%'
-escapes, while the file lies where the decoded URI points (`x=a%25b/`
-names the directory `x=a%b`), so that a reader, which percent-decodes
-every path, finds it. (The reference puts the file at the undecoded
-name, where neither package's reader looks.) Rows split into files of at
-most `target_rows_per_file` rows. The schema check and the NOT NULL check
-run before any file is written. Column mapping, CHECK constraints and a
-partition value that holds a percent-escape (`a%20b`, ROADMAP C7) raise
-`UnsupportedTableError`.
+are left out of the file and of its stats. The file lies in that
+directory (`x=a%b/` for the value `a%b`) and its AddFile holds that
+decoded path, as a loaded snapshot's do; the log gets the path as a URI
+(`models/actions.py::encode_path`: `x=a%25b/`), which every reader
+percent-decodes once back to where the file lies. (The reference puts
+the file at the undecoded name, where neither package's reader looks.)
+Rows split into files of at most `target_rows_per_file` rows. The schema
+check and the NOT NULL check run before any file is written. Column
+mapping and CHECK constraints raise `UnsupportedTableError`.
 """
 
 from __future__ import annotations
@@ -160,15 +158,6 @@ def write_data_files(engine, table_path: str, data: Batch,
     randomize = get_table_config(configuration, RANDOMIZE_FILE_PREFIXES)
     prefix_len = max(1, get_table_config(configuration, RANDOM_PREFIX_LENGTH))
     adds: List[AddFile] = []
-    for pv, _ in groups:
-        directory = unquote(partition_path(pv, partition_columns))
-        if unquote(directory) != directory:
-            # a decoded path that still decodes: a command re-emitting
-            # it would lose the file (ROADMAP C7)
-            raise UnsupportedTableError(
-                f"partition values {pv} hold a percent-escape, which the "
-                "package cannot yet carry through a remove or a "
-                "checkpoint", feature="escaped partition value")
     for pv, part in groups:
         file_data = Batch({c: v for c, v in part.columns.items()
                            if c not in partition_columns}, part.num_rows)
@@ -180,9 +169,10 @@ def write_data_files(engine, table_path: str, data: Batch,
             # a random prefix directory INSTEAD of the partition
             # directories: the values live in the AddFile only
             rel_path = (f"{uuid.uuid4().hex[:prefix_len]}/{fname}"
-                        if randomize
-                        else partition_path(pv, partition_columns) + fname)
-            status = write_data_file(f"{table_path}/{unquote(rel_path)}",
+                        if randomize else
+                        unquote(partition_path(pv, partition_columns))
+                        + fname)
+            status = write_data_file(f"{table_path}/{rel_path}",
                                      chunk, file_schema, engine.fs)
             adds.append(AddFile(
                 path=rel_path,

@@ -329,7 +329,9 @@ def _percent_log(root, commits) -> str:
 # The two smallest checkpoint-plus-tail logs over a '%' path, with the
 # live files and tombstones that the reference's HostEngine serves for
 # them (tests/test_torch_percent_paths.py holds the port's CPU load of
-# both to the reference).
+# both to the reference), and one whose decoded path still holds an
+# escape: the checkpoint must keep `a%2520b`, which decodes once to the
+# tail's remove (tests/test_torch_snapshot.py holds such logs on the CPU).
 PERCENT_LOGS = {
     "live_file_behind_the_checkpoint": (
         [[("add", "f%25g")], [("add", "c"), ("add", "b")]],
@@ -337,6 +339,10 @@ PERCENT_LOGS = {
     "file_removed_after_the_checkpoint": (
         [[("add", "f%25g"), ("add", "b")], [("remove", "f%25g"), ("add", "c")]],
         ["b", "c"], ["f%g"]),
+    "escape_removed_after_the_checkpoint": (
+        [[("add", "a%2520b"), ("add", "b")],
+         [("remove", "a%2520b"), ("add", "c")]],
+        ["b", "c"], ["a%20b"]),
 }
 
 
@@ -701,13 +707,15 @@ def update_log(root, commits, start=0) -> str:
 
 
 def commit_actions(table, actions) -> int:
-    """One transaction of the port on `table` staging `actions`."""
+    """One transaction of the port on `table` staging `actions` (an
+    action in memory holds the decoded path; the commit encodes it)."""
     import time
 
-    from delta_tpu_torch.models.actions import AddFile, RemoveFile
+    from delta_tpu_torch.models.actions import AddFile, RemoveFile, decode_path
 
     txn = table.create_transaction_builder().build()
-    for j, (kind, path) in enumerate(actions):
+    for j, (kind, raw) in enumerate(actions):
+        path = decode_path(raw)
         if kind == "add":
             txn.add_file(AddFile(path=path, size=j + 1, modificationTime=1,
                                  dataChange=True))
@@ -1173,18 +1181,77 @@ def _join_lanes(nt: int, ns: int, keys: int, seed: int, skew: int = 0):
                             .astype(np.int32))
 
 
+# K9's adversarial shapes: per key in code order, (target rows, source
+# rows), so that the sorted rows hold the runs in this order. K9 reads
+# 1024-row tiles in 128-row warp segments: `tile_edges` puts block starts
+# (a new key, or a key's first source row) on a tile's first row and one
+# row either side of it, `segment_edges` on 128-row segments.
+JOIN_SHAPES = {
+    "one_code": [(3000, 2500)],
+    "one_code_targets_only": [(4100, 0)],
+    "one_code_sources_only": [(0, 4100)],
+    "every_code_distinct": [(1, 0), (0, 1)] * 1500,
+    "one_target_one_source_each": [(1, 1)] * 2600,
+    "target_and_source_only_runs": [(700, 0), (3, 5), (0, 1500), (2, 0),
+                                    (0, 2), (1025, 1)],
+    "tile_edges": [(1023, 0), (0, 1), (512, 512), (1, 2048), (3071, 1),
+                   (1, 1024), (1023, 2), (5, 0), (0, 3), (2, 2)],
+    "segment_edges": [(127, 1), (0, 128), (1, 127), (128, 0), (129, 2),
+                      (0, 126), (3, 1)] * 3,
+    "few_sources": [(50, 3), (40, 0), (10, 4)],
+    "ns_31": [(900, 31), (200, 0)],
+}
+
+
+def join_shape(name: str, seed: int = 0):
+    """(target codes, source codes) of a JOIN_SHAPES entry, int64, each
+    side in a random input order."""
+    runs = JOIN_SHAPES[name]
+    keys = 3 * np.arange(len(runs), dtype=np.int64) + 1
+    rng = np.random.default_rng(seed)
+    t = np.repeat(keys, [nt for nt, _ in runs])
+    s = np.repeat(keys, [ns for _, ns in runs])
+    return rng.permutation(t), rng.permutation(s)
+
+
+def _shape_lanes(name: str):
+    t, s = join_shape(name)
+    return torch.from_numpy(np.concatenate([t, s]).astype(np.int32)), len(t)
+
+
+JOIN_CASES = {
+    **{f"random_{nt}_{ns}_{keys}_{skew}":
+       (lambda nt=nt, ns=ns, keys=keys, skew=skew:
+        (_join_lanes(nt, ns, keys, seed=nt + ns, skew=skew), nt))
+       for nt, ns, keys, skew in [
+           (1, 1, 1, 0), (31, 33, 8, 0), (1000, 1, 10, 0), (0, 70, 3, 0),
+           (70, 0, 3, 0), (5000, 1200, 3000, 0),
+           (1_000_003, 300_001, 700_000, 0),
+           (200_000, 50_000, 1000, 150_000), (4097, 4097, 1, 0),
+           # 4,883 tiles of 1,024 rows, more than the card runs at once
+           (3_000_000, 2_000_000, 2_500_000, 0)]},
+    **{name: (lambda name=name: _shape_lanes(name)) for name in JOIN_SHAPES},
+    # the all-one-key shape `chip_smoke.py` times, and one whose run
+    # spans more tiles than the card runs at once (look-backs over tiles
+    # that have not started)
+    "one_code_1m_1m": lambda: (torch.zeros(2_000_000, dtype=torch.int32),
+                               1_000_000),
+    "one_code_3m_2m": lambda: (torch.zeros(5_000_000, dtype=torch.int32),
+                               3_000_000),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nt,ns,keys,skew", [
-    (1, 1, 1, 0), (31, 33, 8, 0), (1000, 1, 10, 0), (0, 70, 3, 0),
-    (70, 0, 3, 0), (5000, 1200, 3000, 0), (1_000_003, 300_001, 700_000, 0),
-    (200_000, 50_000, 1000, 150_000), (4097, 4097, 1, 0)])
-def test_merge_join_kernel_matches_plain(nt, ns, keys, skew):
+@pytest.mark.parametrize("case", sorted(JOIN_CASES))
+def test_merge_join_kernel_matches_plain(case):
     """K9 against its plain version on the same sorted lanes (the sort
-    on the card), bit for bit, one launch per call."""
+    on the card), bit for bit, one launch per call; also on a view that
+    starts off 16-byte alignment."""
     from delta_tpu_torch.ops.join import join_tail, join_tail_plain, sort_codes
 
     dev = _card()
-    codes = _join_lanes(nt, ns, keys, seed=nt + ns, skew=skew)
+    codes, nt = JOIN_CASES[case]()
+    ns = codes.numel() - nt
     s_code, s_pos = sort_codes(codes.to(dev), nt)
     launches = obs.counter("kernel.merge_join.launches").read()
     got = join_tail(s_code, s_pos, nt, ns)
@@ -1193,6 +1260,11 @@ def test_merge_join_kernel_matches_plain(nt, ns, keys, skew):
         launches + (nt + ns > 0)
     want = join_tail_plain(s_code, s_pos, nt, ns)
     assert torch.equal(got, want)
+    # the same lanes one int32 past an aligned start
+    pad_code = torch.cat([s_code[:1], s_code])[1:]
+    pad_pos = torch.cat([s_pos[:1], s_pos])[1:]
+    assert pad_code.data_ptr() % 16 != 0
+    assert torch.equal(join_tail(pad_code, pad_pos, nt, ns), want)
     # and the lanes sorted on the CPU: the same order
     c_code, c_pos = sort_codes(codes, nt)
     assert torch.equal(s_code.cpu(), c_code) and torch.equal(s_pos.cpu(),

@@ -24,6 +24,7 @@ from delta_tpu.ops.join import equi_join_device as ref_device
 from delta_tpu.ops.replay import pad_bucket
 from delta_tpu_torch import obs
 from delta_tpu_torch.ops import join as J
+from test_torch_cuda import JOIN_SHAPES, join_shape
 
 
 def _reference_tail(t, s):
@@ -81,6 +82,22 @@ def test_tail_with_one_skewed_key():
     m, _, n_multi = _same_tail(rng.permutation(t).astype(np.uint32),
                                rng.permutation(s).astype(np.uint32))
     assert n_multi >= 3000
+
+
+@pytest.mark.parametrize("shape", sorted(JOIN_SHAPES))
+def test_tail_on_the_kernels_adversarial_shapes(shape):
+    """The shapes the card test holds K9 to its plain version on (one
+    code, every code distinct, runs of one side only, block starts on
+    and beside K9's tile and segment edges, n off the tile, ns < 32):
+    the plain version equals the reference kernel."""
+    t, s = join_shape(shape)
+    m, words, n_multi = _same_tail(t.astype(np.uint32), s.astype(np.uint32))
+    runs = JOIN_SHAPES[shape]
+    # from the runs alone: matched targets, multi-matched ones, sources
+    assert int((m >= 0).sum()) == sum(a for a, b in runs if b)
+    assert n_multi == sum(a for a, b in runs if b > 1)
+    matched = np.unpackbits(words.view(np.uint8), bitorder="little")
+    assert int(matched.sum()) == sum(b for a, b in runs if a)
 
 
 def test_sort_keeps_input_order_within_a_side():

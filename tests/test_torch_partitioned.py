@@ -23,9 +23,10 @@ checks on partition columns.
 
 import dataclasses
 import datetime
+import json
 import os
 import shutil
-from urllib.parse import unquote
+from urllib.parse import quote, unquote
 
 import jax
 import numpy as np
@@ -39,11 +40,15 @@ import delta_tpu.expressions.tree as RE
 import delta_tpu.ops.pallas_kernels as ref_pk
 from delta_tpu.engine.host import HostEngine
 from delta_tpu.table import Table as RefTable
+from delta_tpu.replay.columnar import clear_parse_cache
 import delta_tpu_torch.commands.dml as port_dml
+import delta_tpu_torch.commands.merge as port_merge
 import delta_tpu_torch.expressions.tree as PE
 from delta_tpu_torch import Table, TorchEngine
 from delta_tpu_torch.api import read_table, write_table
+from delta_tpu_torch.config import settings
 from delta_tpu_torch.errors import InvalidArgumentError, SchemaMismatchError
+from delta_tpu_torch.log.checkpointer import write_checkpoint
 from delta_tpu_torch.stats.partition import (
     partition_path,
     serialize_partition_value,
@@ -273,18 +278,123 @@ def test_partition_column_checks(tmp_path):
         assert not os.path.exists(p / "_delta_log")
 
 
-def test_a_value_holding_a_percent_escape_is_refused(tmp_path):
-    """`a%20b` names the directory `p=a%20b`, which a remove or a
-    checkpoint would carry as a path that decodes again (ROADMAP C7):
-    refused before any file is written."""
-    from delta_tpu_torch.errors import UnsupportedTableError
+# Partition values whose directory holds an escape once decoded (`a%20b`,
+# `x%25y`, `%2F`) beside ones that decode to no escape (ROADMAP C7).
+ESCAPED = ["a%20b", "x%25y", "%2F", "a%b", "50%", "e f"]
 
-    path = tmp_path / "t"
-    with pytest.raises(UnsupportedTableError):
-        write_table(str(path), {"k": np.arange(2),
-                                "p": np.array(["ok", "a%20b"], object)},
-                    partition_by=["p"], engine=CPU)
-    assert not os.path.exists(path)
+
+def _spark_form(path):
+    """A URI of `path` in another writer's form: every segment escaped
+    but for '=' (so `p=a%20b/` is `p=a%2520b/`), '-' escaped too."""
+    return "/".join(quote(seg, safe="=").replace("-", "%2D")
+                    for seg in path.split("/"))
+
+
+def _to_spark_form(path, version):
+    """Rewrite the add paths of commit `version` into `_spark_form`."""
+    name = os.path.join(path, "_delta_log", f"{version:020d}.json")
+    with open(name) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    for d in lines:
+        if "add" in d:
+            d["add"]["path"] = _spark_form(unquote(d["add"]["path"]))
+            assert d["add"]["path"] != quote(unquote(d["add"]["path"]))
+    with open(name, "w") as f:
+        f.write("\n".join(json.dumps(d) for d in lines) + "\n")
+
+
+def _assert_truth(path, truth, gone):
+    """The port's reload of `path` holds exactly the rows of `truth` (k ->
+    (x, p)) in live files that lie at their paths in their partitions'
+    directories, none of them a file an earlier step removed; the
+    reference's load of the same log has the same live files. Returns
+    the live paths."""
+    clear_parse_cache()
+    state = Table.for_path(path, engine=CPU).latest_snapshot().state
+    live = sorted(a.path for a in state.add_files)
+    ref = RefTable.for_path(path, engine=HostEngine()).latest_snapshot()
+    assert sorted(a.path for a in ref.state.add_files()) == live
+    assert not set(live) & gone
+    for a in state.add_files:
+        assert a.path.startswith(f"p={a.partitionValues['p']}/")
+        assert os.path.isfile(os.path.join(path, a.path))
+    want = sorted(((k, x, p) for k, (x, p) in truth.items()), key=repr)
+    assert _rows_port(path, ["k", "x", "p"]) == want
+    return set(live)
+
+
+@pytest.mark.parametrize("dv", [False, True], ids=["cow", "dv"])
+@pytest.mark.parametrize("origin", ["port", "spark_form"])
+def test_escaped_partition_values_survive_every_step(tmp_path, monkeypatch,
+                                                     origin, dv):
+    """A value whose directory still holds an escape is written, and no
+    removed file comes back through a DELETE (deletion vectors or
+    copy-on-write), an UPDATE, a MERGE, an OPTIMIZE, or a classic,
+    multi-part or V2 checkpoint with commands after each; `spark_form`
+    first rewrites the adds' paths as another writer forms its URIs."""
+    path = str(tmp_path / "t")
+    k = np.arange(60)
+    write_table(path, {"k": k, "x": k / 4.0,
+                       "p": np.array([ESCAPED[j % 6] for j in k], object)},
+                partition_by=["p"], target_rows_per_file=4, engine=CPU,
+                properties=DV if dv else None)
+    if origin == "spark_form":
+        _to_spark_form(path, 0)
+    truth = {int(j): (j / 4.0, ESCAPED[j % 6]) for j in k}
+    live, gone = _assert_truth(path, truth, set()), set()
+    assert len(live) == 18 and any("p=a%20b/" in p for p in live)
+
+    def step(run, *, keep=lambda j, x, p: True,
+             set_x=lambda j, x, p: x, insert=()):
+        nonlocal live
+        run(Table.for_path(path, engine=CPU))
+        for j, (x, p) in list(truth.items()):
+            if keep(j, x, p):
+                truth[j] = (set_x(j, x, p), p)
+            else:
+                del truth[j]
+        truth.update(insert)
+        now = _assert_truth(path, truth, gone)
+        gone.update(live - now)
+        live = now
+
+    def between(lo, hi):
+        return (PE.col("k") >= PE.lit(lo)) & (PE.col("k") < PE.lit(hi))
+
+    step(lambda t: port_dml.delete(t, between(10, 14)),
+         keep=lambda j, x, p: not 10 <= j < 14)
+    step(lambda t: port_dml.delete(t, PE.col("p") == PE.lit("%2F")),
+         keep=lambda j, x, p: p != "%2F")
+    step(lambda t: port_dml.update(t, {"x": PE.lit(-1.0)}, between(40, 46)),
+         set_x=lambda j, x, p: -1.0 if 40 <= j < 46 else x)
+    src = {"k": np.array([1, 27, 100, 101]),
+           "x": np.array([0.5, 0.25, 9.0, 8.0]),
+           "p": np.array(["x%25y", "a%b", "a%20b", "x%25y"], object)}
+    step(lambda t: port_merge.merge(
+            t, src, on=PE.col("target.k") == PE.col("source.k"))
+         .when_matched_update(set={"x": PE.col("source.x")})
+         .when_not_matched_insert_all().execute(),
+         set_x=lambda j, x, p: {1: 0.5, 27: 0.25}.get(j, x),
+         insert={100: (9.0, "a%20b"), 101: (8.0, "x%25y")})
+    step(lambda t: t.optimize().execute_compaction())
+    assert all(p.startswith(("p=a%20b/", "p=x%25y/", "p=a%b/", "p=50%/",
+                             "p=e f/")) for p in live)
+    step(lambda t: t.checkpoint())
+    step(lambda t: port_dml.delete(t, between(30, 34)),
+         keep=lambda j, x, p: not 30 <= j < 34)
+    monkeypatch.setattr(settings, "checkpoint_part_size", 2)
+    step(lambda t: t.checkpoint())
+    step(lambda t: port_dml.update(t, {"x": PE.lit(7.0)},
+                                   PE.col("p") == PE.lit("a%20b")),
+         set_x=lambda j, x, p: 7.0 if p == "a%20b" else x)
+    step(lambda t: write_checkpoint(CPU, t.latest_snapshot(), policy="v2"))
+    step(lambda t: port_dml.delete(t, PE.col("p") == PE.lit("x%25y")),
+         keep=lambda j, x, p: p != "x%25y")
+    monkeypatch.setattr(settings, "checkpoint_part_size", None)
+    step(lambda t: t.checkpoint())
+    step(lambda t: port_dml.delete(t, between(0, 9)),
+         keep=lambda j, x, p: not 0 <= j < 9)
+    assert len(gone) > 10 and len(truth) == 31
 
 
 # ------------------------------------------------------------- OPTIMIZE

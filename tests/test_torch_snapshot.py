@@ -9,6 +9,7 @@ dictionary coding, fallback ladder and materialization to the reference.
 
 import json
 import os
+from urllib.parse import unquote
 
 import numpy as np
 import pytest
@@ -19,6 +20,12 @@ from delta_tpu.engine.host import HostEngine
 from delta_tpu.table import Table as RefTable
 from delta_tpu_torch import Table, TorchEngine, obs
 from delta_tpu_torch.errors import CorruptLogError, TableNotFoundError
+from delta_tpu_torch.models.actions import (
+    RemoveFile,
+    action_to_json,
+    decode_path,
+    encode_path,
+)
 from delta_tpu_torch.utils.synth import synth_delta_log
 
 
@@ -140,6 +147,83 @@ def test_readds_escapes_and_percent_paths(tmp_path):
     # "x%20y" and "x y" are one file after percent-decoding
     assert "x y" not in {a.path for a in got.add_files}
     assert got.latest_commit_info.operation == "CREATE"
+
+
+@pytest.mark.parametrize("path", [
+    "plain/part-0001.snappy.parquet", "month=12/x:y/f", "a%b", "a%20b",
+    "p=%2F/f", "e f/ü/é", "50%", "%", "%%2525", "q#r?s&t+u,v;w@x!y$z'()*",
+    "\t\n tab", "a/b=c=d/", "", "日本/データ"])
+def test_encode_path_decodes_once_to_the_path(path):
+    """The log's form of a decoded path (models/actions.py) decodes once
+    back to it, and a path of unreserved characters, '/', '=' and ':'
+    comes out unchanged."""
+    enc = encode_path(path)
+    assert unquote(enc) == path == decode_path(enc)
+    if all(c.isascii() and (c.isalnum() or c in "-._~/=:") for c in path):
+        assert enc == path
+    assert "%" not in path or "%25" in enc
+    assert json.loads(action_to_json(RemoveFile(path)))["remove"]["path"] \
+        == enc
+
+
+# A log in another writer's form: each decoded path still holds an escape
+# or needs one (ROADMAP C7), and the raw forms differ from the port's own.
+SPARK_FORM = {"p=a%2520b/f%2D1": "p=a%20b/f-1", "p=x%2525y/f2": "p=x%25y/f2",
+              "p=%252F/f3": "p=%2F/f3", "p=e%20f/f4": "p=e f/f4",
+              "p=50%25/f5": "p=50%/f5", "plain/f6": "plain/f6"}
+
+
+@pytest.mark.parametrize("form", ["classic", "multi_part", "v2"])
+def test_foreign_uris_decode_once_through_checkpoints_and_removes(
+        tmp_path, monkeypatch, form):
+    """A checkpoint of such a log, a commit that removes every file from
+    the checkpoint's rows, then a checkpoint of the tombstones: the port
+    and the reference load each version to the same files, and no
+    removed file comes back."""
+    from delta_tpu.replay.columnar import clear_parse_cache
+    from delta_tpu_torch.commands.dml import delete
+    from delta_tpu_torch.config import settings
+    from delta_tpu_torch.log.checkpointer import write_checkpoint
+
+    schema = {"type": "struct", "fields": [
+        {"name": "k", "type": "long", "nullable": True, "metadata": {}}]}
+    meta = _d({"metaData": {"id": "t", "format": {"provider": "parquet",
+                                                  "options": {}},
+                            "schemaString": json.dumps(schema),
+                            "partitionColumns": [], "configuration": {}}})
+    path = _write_log(tmp_path, [[_PROTO, meta] + [
+        _add(raw, size=i + 1) for i, raw in enumerate(SPARK_FORM)]])
+    monkeypatch.setattr(settings, "checkpoint_part_size",
+                        2 if form == "multi_part" else None)
+    cpu = TorchEngine("cpu")
+
+    def checkpoint():
+        table = Table.for_path(path, engine=cpu)
+        write_checkpoint(cpu, table.latest_snapshot(),
+                         policy="v2" if form == "v2" else "classic")
+
+    def load(version):
+        clear_parse_cache()
+        got = _load(path)
+        assert got.version == version
+        _assert_matches_reference(path, got)
+        return got
+
+    checkpoint()
+    assert sorted(a.path for a in load(0).add_files) == \
+        sorted(SPARK_FORM.values())
+    m = delete(Table.for_path(path, engine=cpu))
+    assert m.num_files_removed_fully == len(SPARK_FORM)
+    with open(os.path.join(path, "_delta_log", f"{1:020d}.json")) as f:
+        removes = [json.loads(ln)["remove"]["path"] for ln in f
+                   if '"remove"' in ln]
+    assert sorted(unquote(r) for r in removes) == sorted(SPARK_FORM.values())
+    for version in (1, 1):
+        got = load(version)
+        assert got.num_files == 0
+        assert sorted(r.path for r in got.tombstones) == \
+            sorted(SPARK_FORM.values())
+        checkpoint()
 
 
 def test_complex_lines_hand_the_buffer_to_the_host(tmp_path):
