@@ -208,6 +208,20 @@
     1,000,000 source rows on one code), timed beside its plain version,
     its bound and `torch.unique_consecutive`; the longest run printed.
 
+18. Parquet forms of other writers (`parquet_forms_phase`): every data
+    fixture under `tests/torch_fixtures/parquet_forms/` (written once by
+    Arrow's Parquet writer: INT96 timestamps, GZIP and ZSTD pages at levels 1 and 19 and
+    a multi-block frame, data page v2, the DELTA_*, BYTE_STREAM_SPLIT and
+    RLE-boolean encodings) read by `read_data_file` to the digests of its
+    `manifest.json` (each column's values and validity as Arrow read
+    them); each fixture log (a ZSTD, a GZIP and a v2 checkpoint part, each
+    with tail commits) loaded with `TorchEngine()`, counters from 0, to
+    the manifest's live files, with the ZSTD and GZIP parts decoded on the
+    card (`decode.device_parts` 1, K3 once) and the v2 part on the host
+    (`decode.device_fallbacks` 1, K3 not launched). Then the host decoders
+    timed in MB/s of output: ZSTD on the largest ZSTD page of the
+    fixtures, snappy on the same bytes recompressed by `log/snappy.py`.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
@@ -2856,6 +2870,130 @@ def log_forms_phase(path: str, truth, card: str) -> tuple:
     return out, launches
 
 
+FORMS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "torch_fixtures", "parquet_forms")
+
+
+def forms_digests(batch) -> dict:
+    """{column: [sha256 of the validity bytes, sha256 of the valid values]}
+    of a `read_data_file` Batch: long, integer, date (days) and timestamp
+    (microseconds) as int64, double and float as their raw bytes, booleans
+    as bytes, strings as [u32 length][UTF-8] each; the form
+    `tests/test_torch_parquet_forms.py::arrow_digests` gives Arrow's
+    read."""
+    out = {}
+    for name in batch.column_names:
+        col = batch.column(name)
+        valid = (np.ones(batch.num_rows, bool) if col.valid is None
+                 else col.valid)
+        v = col.values[valid]
+        if v.dtype == object:
+            payload = b"".join(len(b).to_bytes(4, "little") + b
+                               for b in (x.encode() for x in v))
+        elif v.dtype.kind in "iM":
+            payload = v.astype(np.int64).tobytes()
+        elif v.dtype == bool:
+            payload = v.astype(np.uint8).tobytes()
+        else:
+            payload = v.tobytes()
+        out[name] = [hashlib.sha256(valid.astype(np.uint8).tobytes())
+                     .hexdigest(), hashlib.sha256(payload).hexdigest()]
+    return out
+
+
+def _largest_zstd_page(data: bytes, best: tuple) -> tuple:
+    """(payload, its uncompressed size) of the largest ZSTD v1 page of a
+    file, or `best` when that is larger."""
+    from delta_tpu_torch.log.page_decode import _PAGE_DATA_V2, split_pages
+    from delta_tpu_torch.log.parquet_footer import read_footer
+
+    ft = read_footer(data)
+    for rg, group in enumerate(ft.row_groups):
+        for col, meta in enumerate(group.columns):
+            chunk, codec = ft.chunk(data, rg, col)
+            if codec != "ZSTD":
+                continue
+            for page in split_pages(chunk, meta.num_values):
+                if page.type != _PAGE_DATA_V2 and \
+                        page.uncompressed_size > best[1]:
+                    best = (chunk[page.payload_start:page.payload_start
+                                  + page.compressed_size],
+                            page.uncompressed_size)
+    return best
+
+
+def _mb_per_s(fn, nbytes: int) -> float:
+    fn()
+    reps, t0 = 0, time.perf_counter()
+    while reps < 5 or time.perf_counter() - t0 < 0.5:
+        fn()
+        reps += 1
+    return nbytes * reps / (time.perf_counter() - t0) / 1e6
+
+
+def parquet_forms_phase(root: str, device: str, card: str) -> dict:
+    """Step 18: the fixtures' digests, the fixture logs' live files and
+    routes (K3 once per device part on a card), and the host decoders'
+    MB/s."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.log import snappy, zstd
+    from delta_tpu_torch.log.parquet_data import read_data_file
+
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    largest = (b"", 0)
+    t0 = time.perf_counter()
+    for name, want in sorted(manifest["files"].items()):
+        with open(os.path.join(root, name), "rb") as f:
+            data = f.read()
+        _check(forms_digests(read_data_file(data)) == want,
+               f"parquet_forms {name}: digests equal the manifest")
+        largest = _largest_zstd_page(data, largest)
+    files_s = time.perf_counter() - t0
+    logs = {}
+    work = tempfile.mkdtemp(prefix="parquet_forms_")
+    try:
+        for name, want in sorted(manifest["logs"].items()):
+            copy = os.path.join(work, name)
+            shutil.copytree(os.path.join(root, name), copy)
+            obs.reset()
+            t0 = time.perf_counter()
+            state = Table.for_path(copy, engine=TorchEngine(device)) \
+                .latest_snapshot().state
+            load_s = time.perf_counter() - t0
+            counts = obs.counters()
+            live = sorted(a.path for a in state.add_files)
+            k3 = counts.get("kernel.hybrid_extract.launches", 0)
+            _check(state.version == want["version"] and len(live) ==
+                   want["live_files"] and hashlib.sha256(
+                       "\n".join(live).encode()).hexdigest() ==
+                   want["live_sha256"],
+                   f"parquet_forms {name}: live files equal the manifest")
+            for key in ("device_parts", "device_fallbacks"):
+                _check(counts.get(f"decode.{key}", 0) == want[key],
+                       f"parquet_forms {name}: decode.{key} == {want[key]}")
+            _check(k3 == (want["device_parts"] if device != "cpu" else 0),
+                   f"parquet_forms {name}: K3 once per device part")
+            logs[name] = {"load_s": load_s, "k3": k3,
+                          "device_parts": want["device_parts"],
+                          "device_fallbacks": want["device_fallbacks"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    payload, size = largest
+    _check(size > 0, "parquet_forms: a ZSTD page to time")
+    raw = zstd.decompress(payload, size)
+    packed = snappy.compress(raw)
+    return {"files": len(manifest["files"]), "files_s": files_s,
+            "logs": logs, "k3_launches": sum(v["k3"] for v in logs.values()),
+            "timed_bytes": size, "zstd_payload_bytes": len(payload),
+            "snappy_payload_bytes": len(packed),
+            "zstd_mb_s": _mb_per_s(lambda: zstd.decompress(payload, size),
+                                   size),
+            "snappy_mb_s": _mb_per_s(
+                lambda: snappy.decompress(packed, size), size),
+            "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -3044,6 +3182,16 @@ def main(argv=None) -> int:
                     "struct_stats", "struct_index_build", "cleanup"):
             print(f"log forms {key}: {forms[key + '_s']:.4f} s; {card}",
                   flush=True)
+
+        # other writers' Parquet forms: the committed fixtures' digests,
+        # their logs' live files and routes; counters from 0 per log
+        pforms = parquet_forms_phase(FORMS_DIR, "cuda", card)
+        kernels["hybrid_extract"]["launches_parquet_forms"] = \
+            pforms["k3_launches"]
+        print("parquet_forms: " + json.dumps(pforms), flush=True)
+        print(f"parquet_forms host decode: zstd {pforms['zstd_mb_s']:.1f} "
+              f"MB/s, snappy {pforms['snappy_mb_s']:.1f} MB/s on "
+              f"{pforms['timed_bytes']} B; {card}", flush=True)
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")

@@ -384,6 +384,25 @@ def _check_mergeable(snapshot, schema: StructType) -> None:
     check_write_supported(snapshot.protocol, meta)
 
 
+def _check_key_types(t_keys: List[str], s_keys: List[str],
+                     schema: StructType, source: Batch) -> None:
+    """Refuse an equi-key pair of a string column and a column of another
+    type, as the reference's join does ("You are trying to merge on str
+    and int64 columns"): coding both by their text would match "2" with 2
+    but not with 2.0. Pairs of numbers of mixed width or kind join by
+    value."""
+    for t_key, s_key in zip(t_keys, s_keys):
+        if t_key not in schema or s_key not in source.columns:
+            continue
+        t_type = schema[t_key].type_name
+        s_dtype = source.column(s_key).values.dtype
+        if (t_type == "string") != (s_dtype.kind in "OU"):
+            raise InvalidArgumentError(
+                f"MERGE cannot join target.{t_key} ({t_type}) with "
+                f"source.{s_key} ({s_dtype}): a string key joins only a "
+                "string key", error_class="DATATYPE_MISMATCH")
+
+
 def _check_assignments(clauses: List[MergeClause], source: Batch,
                        schema: StructType, has_star: bool,
                        schema_evolution: bool) -> None:
@@ -491,6 +510,7 @@ def _execute_merge(table, source: Batch, on: Expression,
     mark("snapshot")
 
     t_keys, s_keys, residual = _equi_keys(on)
+    _check_key_types(t_keys, s_keys, schema, source)
     # the source's key bounds prune the target's files (the reference's
     # dynamic pruning); only where no clause reads unmatched target rows
     scan_pred = (None if not_matched_by_source

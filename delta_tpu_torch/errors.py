@@ -58,10 +58,9 @@ class CorruptLogError(DeltaError):
 
 
 class UnsupportedLogError(DeltaError):
-    """The log needs a reader this package does not have yet: a V2
-    checkpoint (UUID-named, sidecars), a compacted delta in the segment, a
-    checkpoint part in a codec other than snappy or none (ZSTD among
-    them), or add stats held only as `stats_parsed` structs. The load
+    """The log needs a reader this package does not have yet: a
+    checkpoint part or sidecar in a codec the Parquet readers lack (LZ4,
+    LZ4_RAW, BROTLI, LZO) or with columns outside their scope. The load
     stops here instead of replaying around what it cannot read."""
 
     error_class = "DELTA_UNSUPPORTED_LOG_SEGMENT"
@@ -101,6 +100,15 @@ class PathExistsError(DeltaError):
 
 class FileNotFoundInLogError(DeltaError):
     error_class = "DELTA_FILE_NOT_FOUND_DETAILED"
+
+
+class DataFileCorruptedError(DeltaError):
+    """A data file the log references holds bytes that no sound Parquet
+    file holds (a truncated page, a broken footer or codec stream);
+    `context["path"]` names it. The reference surfaces Arrow's error
+    there."""
+
+    error_class = "FAILED_READ_FILE"
 
 
 class InvariantViolationError(DeltaError):

@@ -5,7 +5,8 @@ of the reference's (`split_pages`, `parse_hybrid`, `materialize_runs`,
 `_PlanState`, `_plan_hybrid`, `_parse_byte_array_dict`,
 `_plan_column_chunk`, `build_part_plan`), driven by the port's own footer
 reader (`log/parquet_footer.py`) instead of Arrow's metadata and by the
-port's snappy (`log/snappy.py`) instead of `pa.Codec`:
+port's codecs (`decompress`: `log/snappy.py`, `log/zstd.py`, zlib)
+instead of `pa.Codec`:
 
 - host: PageHeader parse, page decompression, and the varint run headers
   of every RLE/bit-packed hybrid stream: O(pages), nothing O(values);
@@ -24,7 +25,9 @@ them with Arrow. A part outside the plan's scope (`DecodeUnsupported`)
 reads every leaf on the host, as the reference's whole-part Arrow read;
 damaged bytes (`DecodeCorrupt`) go to no other reader: they propagate.
 
-Scope of the plan: data page v1, SNAPPY or uncompressed, non-repeated
+Scope of the plan: data page v1 (a v2 page sends the part to the host
+reader, as the reference routes it), SNAPPY, ZSTD, GZIP or uncompressed,
+non-repeated
 columns, PLAIN / RLE_DICTIONARY values of INT32 / INT64 / DOUBLE /
 BOOLEAN, and dictionary-coded BYTE_ARRAY for the two path columns.
 """
@@ -32,6 +35,7 @@ BOOLEAN, and dictionary-coded BYTE_ARRAY for the two path columns.
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -81,10 +85,21 @@ class PageInfo:
     num_values: int
     encoding: int
     payload_start: int  # offset of the (compressed) payload in the chunk
+    # data page v2 only: the byte lengths of the repetition and definition
+    # levels, which lead the payload uncompressed and without a length
+    # prefix, and whether the values after them are compressed
+    rep_len: int = 0
+    def_len: int = 0
+    is_compressed: bool = True
+
+    @property
+    def levels_len(self) -> int:
+        return self.rep_len + self.def_len
 
 
 def split_pages(chunk: bytes, max_values: int) -> List[PageInfo]:
-    """Host page splitting: walk the chunk's PageHeaders. No page of a
+    """Host page splitting: walk the chunk's PageHeaders (data page v1 and
+    v2, dictionary pages; other page types are skipped). No page of a
     sound chunk holds more than the chunk's `max_values` (its metadata's
     num_values)."""
     pages = []
@@ -95,39 +110,99 @@ def split_pages(chunk: bytes, max_values: int) -> List[PageInfo]:
         ptype = thrift_field(hdr, 1, int)
         if ptype is None:
             break
+        rep_len = def_len = 0
+        compressed = True
         if ptype in (_PAGE_DATA, _PAGE_DICT):
             dph = thrift_field(hdr, 5 if ptype == _PAGE_DATA else 7, dict,
                                {})
             nv = thrift_field(dph, 1, int, 0)
             enc = thrift_field(dph, 2, int, _ENC_PLAIN)
         elif ptype == _PAGE_DATA_V2:
-            raise DecodeUnsupported("data page v2")
+            # DataPageHeaderV2: 1 num_values, 4 encoding, 5/6 definition
+            # and repetition level byte lengths, 7 is_compressed
+            dph = thrift_field(hdr, 8, dict, {})
+            nv = thrift_field(dph, 1, int, 0)
+            enc = thrift_field(dph, 4, int, _ENC_PLAIN)
+            def_len = thrift_field(dph, 5, int, 0)
+            rep_len = thrift_field(dph, 6, int, 0)
+            compressed = thrift_field(dph, 7, bool, True)
         else:
             nv, enc = 0, _ENC_PLAIN
         if enc not in ENCODINGS:
             raise DecodeCorrupt(f"page encoding {enc!r} is no Parquet "
                                 f"encoding")
         sizes = (thrift_field(hdr, 2, int, 0), thrift_field(hdr, 3, int, 0),
-                 nv)
-        if not all(0 <= v < 1 << 31 for v in sizes) or nv > max_values:
+                 nv, rep_len, def_len)
+        if not all(0 <= v < 1 << 31 for v in sizes) or nv > max_values \
+                or rep_len + def_len > min(sizes[0], sizes[1]):
             raise DecodeCorrupt(f"page header sizes {sizes!r} (the chunk "
                                 f"holds {max_values} values)")
-        pages.append(PageInfo(ptype, sizes[0], sizes[1], nv, enc, t.pos))
+        pages.append(PageInfo(ptype, sizes[0], sizes[1], nv, enc, t.pos,
+                              rep_len, def_len, compressed))
         pos = t.pos + sizes[1]
     return pages
 
 
-def decompress_page(chunk: bytes, page: PageInfo, codec: str) -> bytes:
-    """Page payload bytes. Every codec but SNAPPY and uncompressed raises
-    DecodeUnsupported: the card's machine has no zstd or gzip library."""
-    from delta_tpu_torch.log import snappy
-
-    raw = chunk[page.payload_start:page.payload_start + page.compressed_size]
+def decompress(raw: bytes, expected: int, codec: str) -> bytes:
+    """`raw` in `codec`, decompressed to its `expected` bytes: SNAPPY
+    (`log/snappy.py`), ZSTD (`log/zstd.py`), GZIP (Python's zlib) or
+    none. A stream that is damaged or gives another length raises
+    DecodeCorrupt; LZ4, LZ4_RAW, BROTLI and LZO raise DecodeUnsupported."""
     if codec in ("UNCOMPRESSED", "NONE"):
-        return raw
-    if codec != "SNAPPY":
+        out = raw
+    elif codec == "SNAPPY":
+        from delta_tpu_torch.log import snappy
+
+        out = snappy.decompress(raw, expected)
+    elif codec == "ZSTD":
+        from delta_tpu_torch.log import zstd
+
+        out = zstd.decompress(raw, expected)
+    elif codec == "GZIP":
+        out = gunzip(raw, expected)
+    else:
         raise DecodeUnsupported(f"codec {codec}")
-    return snappy.decompress(raw, page.uncompressed_size)
+    if len(out) != expected:
+        raise DecodeCorrupt(f"{codec} page of {len(out)} bytes where its "
+                            f"header says {expected}")
+    return out
+
+
+def gunzip(raw: bytes, expected: int) -> bytes:
+    """GZIP (or zlib) members, concatenated: the codec Parquet calls
+    GZIP. Damage, a member cut short and any other total than `expected`
+    bytes raise DecodeCorrupt."""
+    out = bytearray()
+    rest = raw
+    while rest:
+        d = zlib.decompressobj(wbits=47)
+        try:
+            out += d.decompress(rest, expected - len(out) + 1)
+        except zlib.error as e:
+            raise DecodeCorrupt(f"corrupt GZIP page: {e}") from e
+        if not d.eof or len(out) > expected:
+            raise DecodeCorrupt("GZIP page ends inside a member, or holds "
+                                "more than its header says")
+        rest = d.unused_data
+    if len(out) != expected:
+        raise DecodeCorrupt(f"GZIP page gave {len(out)} of {expected} bytes")
+    return bytes(out)
+
+
+def decompress_page(chunk: bytes, page: PageInfo, codec: str) -> bytes:
+    """Page payload bytes (`decompress`). A v2 data page's levels lead it
+    uncompressed; only the values after them are compressed, and only
+    when the header's `is_compressed` holds."""
+    raw = chunk[page.payload_start:page.payload_start + page.compressed_size]
+    if len(raw) != page.compressed_size:
+        raise DecodeCorrupt("page runs past its column chunk")
+    if page.type != _PAGE_DATA_V2:
+        return decompress(raw, page.uncompressed_size, codec)
+    cut = page.levels_len
+    body = raw[cut:]
+    return raw[:cut] + decompress(
+        body, page.uncompressed_size - cut,
+        codec if page.is_compressed else "UNCOMPRESSED")
 
 
 # ------------------------------------------- RLE/bit-packed hybrid ----
@@ -343,6 +418,10 @@ def _plan_column_chunk(st: _PlanState, chunk: bytes, max_values: int,
                 dict_b = st.append(payload)
                 dict_n = page.num_values
             have_dict = True
+        elif page.type == _PAGE_DATA_V2:
+            # the reference's device plan takes v1 pages only; such a
+            # part reads on the host (one decode.device_fallbacks)
+            raise DecodeUnsupported("data page v2")
         elif page.type == _PAGE_DATA:
             payload = decompress_page(chunk, page, codec)
             off = st.append(payload)

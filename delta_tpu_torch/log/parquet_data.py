@@ -2,27 +2,35 @@
 
 The port's counterpart of `pq.read_table` in the JAX package's
 `HostEngine.read_parquet_files` (`delta_tpu/engine/host.py`), for what a
-Delta writer puts in a data file of a flat table: every row group; for
-each leaf, dictionary pages followed by RLE_DICTIONARY data pages, PLAIN
-pages, or both (parquet-cpp falls back to PLAIN mid-chunk once its
-dictionary passes 1 MiB); data page v1; snappy or uncompressed. Leaves
-are read by the host leaf reader of the checkpoint path
-(`log/parquet_host.py::read_leaf`).
+Delta writer, Spark or parquet-mr puts in a data file of a flat table:
+every row group; for each leaf, dictionary pages followed by
+RLE_DICTIONARY data pages, PLAIN pages, or both (parquet-cpp falls back
+to PLAIN mid-chunk once its dictionary passes 1 MiB), or the
+DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY,
+BYTE_STREAM_SPLIT and RLE-boolean encodings; data page v1 and v2;
+snappy, ZSTD, GZIP or uncompressed. Leaves are read by the host leaf
+reader of the checkpoint path (`log/parquet_host.py::read_leaf`).
 
 Types (physical type and logical annotation -> numpy): INT64 -> int64,
 INT32 -> int32, DOUBLE, FLOAT, BOOLEAN, BYTE_ARRAY annotated UTF8 ->
 object array of str, INT32 annotated DATE -> datetime64[D], INT64
-annotated TIMESTAMP (millis, micros or nanos) -> datetime64[us].
-Anything else (nested or repeated columns, INT96, unannotated
-BYTE_ARRAY, narrow integers, decimals, data page v2, other codecs) raises
-`DecodeUnsupported`. Null rows hold the dtype's zero.
+annotated TIMESTAMP (millis, micros or nanos) and INT96 (Spark's
+timestamps) -> datetime64[us], floored. Anything else (nested or repeated
+columns, unannotated BYTE_ARRAY, narrow integers, decimals, LZ4 and
+Brotli pages) raises `DecodeUnsupported`. Null rows hold the dtype's
+zero.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from delta_tpu_torch.log.parquet_footer import DecodeUnsupported, Leaf, read_footer
+from delta_tpu_torch.log.parquet_footer import (
+    DecodeCorrupt,
+    DecodeUnsupported,
+    Leaf,
+    read_footer,
+)
 from delta_tpu_torch.log.parquet_host import read_leaf
 from delta_tpu_torch.models.batch import Batch, Column, zeros
 
@@ -81,6 +89,8 @@ def _kind(leaf: Leaf) -> str:
             raise DecodeUnsupported(f"{leaf.path}: annotated INT64 "
                                     f"({conv}, {logical})")
         return "long"
+    if phys == "INT96":  # the host reader gives microseconds
+        return "timestamp-us"
     raise DecodeUnsupported(f"{leaf.path}: physical type {phys}")
 
 
@@ -93,9 +103,12 @@ def _as_numpy(kind: str, values) -> np.ndarray:
     if kind == "string":
         out = np.empty(len(values), object)
         buf = values.buf.tobytes()
-        for i, (s, ln) in enumerate(zip(values.starts.tolist(),
-                                        values.lens.tolist())):
-            out[i] = buf[s:s + ln].decode("utf-8")
+        try:
+            for i, (s, ln) in enumerate(zip(values.starts.tolist(),
+                                            values.lens.tolist())):
+                out[i] = buf[s:s + ln].decode("utf-8")
+        except UnicodeDecodeError as e:
+            raise DecodeCorrupt(f"a UTF8 value is not UTF-8: {e}") from e
         return out
     if kind.startswith("timestamp-"):
         unit = kind.split("-", 1)[1]
@@ -122,8 +135,8 @@ def read_data_file(data: bytes, columns=None) -> Batch:
         kind = _kind(leaf)
         hl = read_leaf(footer, data, i)
         n = hl.defs.shape[0]
-        if n != footer.num_rows:
-            raise DecodeUnsupported(
+        if n != footer.num_rows:  # a flat leaf has one entry per row
+            raise DecodeCorrupt(
                 f"{leaf.path}: {n} level entries for {footer.num_rows} rows")
         present = _as_numpy(kind, hl.values)
         if leaf.max_definition_level == 0:

@@ -18,15 +18,17 @@ from typing import Dict, List, Optional, Tuple
 
 
 class DecodeUnsupported(Exception):
-    """A file, page or encoding outside what this reader decodes (a
-    codec, data page v2, an encoding, a repeated or nested column): the
-    bytes may be sound; this reader does not read them."""
+    """A file, page or encoding outside what this reader decodes (an LZ4
+    or Brotli codec, a ZSTD dictionary, an encoding, a repeated or nested
+    column; data page v2 for the device plan): the bytes may be sound;
+    this reader does not read them."""
 
 
 class DecodeCorrupt(Exception):
     """Bytes that no sound Parquet file holds: no PAR1 magic, a bad footer
-    length or footer, a level or index stream that ends early, values
-    past their page, a broken dictionary or snappy stream. Deliberately
+    length or footer, a column chunk past the file, a level or index
+    stream that ends early, values past their page, a broken dictionary
+    or a broken snappy, ZSTD or GZIP stream. Deliberately
     not a DecodeUnsupported: a caller that routes an out-of-scope part to
     another reader must not route damage there."""
 
@@ -231,6 +233,10 @@ class Footer:
     def chunk(self, data: bytes, rg: int, col: int) -> Tuple[bytes, str]:
         """(the column chunk's bytes, its codec)."""
         c = self.row_groups[rg].columns[col]
+        if not 0 <= c.start <= c.start + c.total_compressed_size <= len(data):
+            raise DecodeCorrupt(f"column chunk {c.path} lies past the file "
+                                f"({c.start} + {c.total_compressed_size} of "
+                                f"{len(data)} bytes)")
         return data[c.start:c.start + c.total_compressed_size], c.codec
 
 
@@ -320,8 +326,11 @@ def read_footer(data: bytes) -> Footer:
         if len(cols) != len(leaves):
             raise DecodeCorrupt("row group does not cover the schema")
         groups.append(RowGroup(thrift_field(rg, 3, int, 0), tuple(cols)))
+    num_rows = thrift_field(md, 3, int)
+    if num_rows != sum(g.num_rows for g in groups):
+        raise DecodeCorrupt(f"footer counts {num_rows} rows, its row groups "
+                            f"{sum(g.num_rows for g in groups)}")
     created = thrift_field(md, 6, bytes)
     created = created.decode("utf-8", "replace") if created else None
-    return Footer(tuple(leaves), tuple(groups), thrift_field(md, 3, int),
-                  created,
+    return Footer(tuple(leaves), tuple(groups), num_rows, created,
                   {leaf.path: i for i, leaf in enumerate(leaves)})

@@ -8,17 +8,24 @@ structs, and the protocol, metaData, txn and domainMetadata rows. Scope:
 - flat leaves at any struct depth, and maps and lists with ONE repetition
   level (`partitionValues`, `tags`, `format.options`, `configuration`,
   `partitionColumns`, `readerFeatures`, `writerFeatures`);
-- INT32, INT64, BOOLEAN, FLOAT, DOUBLE and BYTE_ARRAY, PLAIN or
+- INT32, INT64, INT96, BOOLEAN, FLOAT, DOUBLE and BYTE_ARRAY, PLAIN or
   dictionary-coded, including a chunk whose dictionary pages are followed
   by PLAIN pages (a writer's fallback once the dictionary passes its size
-  limit);
-- data page v1, SNAPPY or uncompressed.
+  limit); and the encodings of parquet-mr's v2 writer and of Arrow's
+  `column_encoding=`: DELTA_BINARY_PACKED (INT32, INT64),
+  DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY (BYTE_ARRAY),
+  BYTE_STREAM_SPLIT (FLOAT, DOUBLE, INT32, INT64) and RLE (BOOLEAN);
+- data page v1 and v2, in any codec of `page_decode.py::decompress`
+  (SNAPPY, ZSTD, GZIP or uncompressed).
 
-Definition and repetition levels decode through `materialize_runs`; the
-PLAIN BYTE_ARRAY walk runs in the host library (`csrc/parquet_host.cpp`).
-Anything else raises DecodeUnsupported; damaged bytes raise
-DecodeCorrupt. Strings stay as (buffer, starts,
-lengths) until a caller materializes a row.
+INT96 values (nanoseconds of the day, then the Julian day) read as int64
+microseconds since the epoch, floored as Spark floors them. Definition
+and repetition levels decode through `materialize_runs`; the PLAIN
+BYTE_ARRAY walk and the DELTA_BYTE_ARRAY prefix chain run in the host
+library (`csrc/parquet_host.cpp`). Anything else (LZ4, LZ4_RAW, BROTLI
+pages, FIXED_LEN_BYTE_ARRAY) raises DecodeUnsupported; damaged bytes
+raise DecodeCorrupt. Strings stay as (buffer, starts, lengths) until a
+caller materializes a row.
 """
 
 from __future__ import annotations
@@ -33,8 +40,10 @@ import numpy as np
 from delta_tpu_torch.log.page_decode import (
     _ENC_PLAIN,
     _ENC_PLAIN_DICT,
+    _ENC_RLE,
     _ENC_RLE_DICT,
     _PAGE_DATA,
+    _PAGE_DATA_V2,
     _PAGE_DICT,
     decompress_page,
     level_stream_length,
@@ -47,11 +56,18 @@ from delta_tpu_torch.log.parquet_footer import (
     DecodeUnsupported,
     Footer,
     Leaf,
+    _Thrift,
 )
 from delta_tpu_torch.ops import cuda_build
 
 _FIXED = {"INT32": np.int32, "INT64": np.int64, "FLOAT": np.float32,
           "DOUBLE": np.float64}
+_ENC_DELTA_BINARY_PACKED = 5
+_ENC_DELTA_LENGTH_BYTE_ARRAY = 6
+_ENC_DELTA_BYTE_ARRAY = 7
+_ENC_BYTE_STREAM_SPLIT = 9
+_JULIAN_EPOCH = 2440588  # the Julian day of 1970-01-01
+_US_PER_DAY = 86_400_000_000
 
 
 def byte_array_offsets(buf: np.ndarray, start: int, count: int):
@@ -197,9 +213,13 @@ class HostLeaf:
     def _python(self, vi: np.ndarray) -> list:
         if isinstance(self.values, Strings):
             out: list = [None] * len(vi)
-            for k, v in enumerate(vi.tolist()):
-                if v >= 0:
-                    out[k] = self.values.raw(v).decode("utf-8")
+            try:
+                for k, v in enumerate(vi.tolist()):
+                    if v >= 0:
+                        out[k] = self.values.raw(v).decode("utf-8")
+            except UnicodeDecodeError as e:
+                raise DecodeCorrupt(f"{self.leaf.path}: a value is not "
+                                    f"UTF-8: {e}") from e
             return out
         if not len(self.values):
             return [None] * len(vi)
@@ -244,6 +264,29 @@ def _levels(payload: bytes, pos: int, max_level: int, n: int):
     return materialize_runs(runs).astype(np.int32), pos + ln
 
 
+def _levels_v2(payload: bytes, pos: int, length: int, max_level: int,
+               n: int) -> np.ndarray:
+    """One data page v2 level stream: the hybrid at bit_length(max_level)
+    in `length` bytes from `pos`, with no length prefix."""
+    runs, _ = parse_hybrid(payload, pos, max(1, int(max_level).bit_length()),
+                           n, end=pos + length)
+    return materialize_runs(runs).astype(np.int32)
+
+
+def _int96_micros(buf: np.ndarray, pos: int, count: int) -> np.ndarray:
+    """PLAIN INT96 timestamps -> int64 microseconds since the epoch: 8
+    bytes of nanoseconds of the day, then a 4-byte Julian day, little
+    endian. The nanoseconds floor to microseconds (a day's nanoseconds
+    are never negative, so the value floors too, before 1970 as after)."""
+    if pos + 12 * count > buf.size:
+        raise DecodeCorrupt("PLAIN INT96 values past the page")
+    rows = buf[pos:pos + 12 * count].reshape(count, 12)
+    nanos = np.ascontiguousarray(rows[:, :8]).view("<u8").reshape(-1)
+    days = np.ascontiguousarray(rows[:, 8:]).view("<i4").reshape(-1)
+    return ((days.astype(np.int64) - _JULIAN_EPOCH) * _US_PER_DAY
+            + (nanos // 1000).astype(np.int64))
+
+
 def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int):
     if phys == "BYTE_ARRAY":
         starts, lens, _ = byte_array_offsets(buf, pos, count)
@@ -254,6 +297,8 @@ def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int):
             raise DecodeCorrupt("PLAIN booleans past the page")
         return np.unpackbits(buf[pos:pos + nb],
                              bitorder="little")[:count].astype(bool)
+    if phys == "INT96":
+        return _int96_micros(buf, pos, count)
     dt = _FIXED.get(phys)
     if dt is None:
         raise DecodeUnsupported(f"physical type {phys}")
@@ -262,6 +307,173 @@ def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int):
         raise DecodeCorrupt("PLAIN values past the page")
     vals = np.frombuffer(buf[pos:pos + size].tobytes(), dt)
     return vals.astype(np.int64) if dt == np.int32 else vals
+
+
+def _bits_at(buf: np.ndarray, bit: np.ndarray, width: np.ndarray
+             ) -> np.ndarray:
+    """uint64 [n]: the `width[i]`-bit little-endian field (0 to 64 bits)
+    that starts at bit `bit[i]` of `buf`; bytes past the buffer read 0."""
+    out = np.zeros(bit.shape[0], np.uint64)
+    if not bit.shape[0]:
+        return out
+    padded = np.concatenate([buf, np.zeros(9, np.uint8)])
+    byte = bit >> 3
+    shift = (bit & 7).astype(np.uint64)
+    for k in range(8):
+        out |= padded[byte + k].astype(np.uint64) << np.uint64(8 * k)
+    out >>= shift
+    w = width.astype(np.uint64)
+    ninth = (shift + w > 64) & (shift > 0)  # a field that reaches byte 9
+    if ninth.any():
+        hi = padded[byte[ninth] + 8].astype(np.uint64)
+        out[ninth] |= hi << (np.uint64(64) - shift[ninth])
+    full = w >= 64
+    mask = (np.uint64(1) << np.where(full, 0, w).astype(np.uint64)) \
+        - np.uint64(1)
+    return np.where(full, out, out & mask)
+
+
+def delta_binary_packed(raw: bytes, pos: int, count: int, bits: int):
+    """(int64 [count] values, end position) of a DELTA_BINARY_PACKED
+    stream at `pos` for `bits`-bit integers (32 or 64): a header (block
+    size, miniblocks per block, value count, first value), then blocks of
+    a zig-zag minimum delta, one width byte per miniblock and the packed
+    miniblocks (a last block's unneeded miniblocks have widths but no
+    bytes). Arithmetic wraps at `bits` bits, as the writers' does."""
+    t = _Thrift(raw, pos)
+    block, n_mini, total = t.varint(), t.varint(), t.varint()
+    first = t.zigzag()
+    per = block // n_mini if n_mini else 0
+    if not (0 < block <= 1 << 20 and block % 128 == 0 and n_mini
+            and block % n_mini == 0 and per % 32 == 0):
+        raise DecodeCorrupt(f"DELTA_BINARY_PACKED block {block} with "
+                            f"{n_mini} miniblocks")
+    if total != count:
+        raise DecodeCorrupt(f"DELTA_BINARY_PACKED holds {total} values "
+                            f"where the page holds {count}")
+    starts, widths, mins = [], [], []
+    left = total - 1
+    while left > 0:
+        min_delta = t.zigzag() & 0xFFFFFFFFFFFFFFFF
+        at = t._take(n_mini)
+        for w in raw[at:at + n_mini]:
+            if left <= 0:
+                break
+            if w > bits:
+                raise DecodeCorrupt(f"DELTA_BINARY_PACKED width {w} for "
+                                    f"{bits}-bit values")
+            starts.append(t._take(per * w // 8))
+            widths.append(w)
+            mins.append(min_delta)
+            left -= per
+    if total == 0:
+        return np.zeros(0, np.int64), t.pos
+    k = np.arange(total - 1, dtype=np.int64)  # delta k: miniblock k // per
+    mb, lane = k // per, k % per
+    w = np.asarray(widths, np.int64)[mb]
+    bit = np.asarray(starts, np.int64)[mb] * 8 + lane * w
+    deltas = _bits_at(np.frombuffer(raw, np.uint8), bit, w)
+    deltas += np.asarray(mins, np.uint64)[mb]
+    values = np.empty(total, np.uint64)
+    values[0] = first & 0xFFFFFFFFFFFFFFFF
+    values[1:] = deltas
+    values = np.cumsum(values, dtype=np.uint64)  # wraps mod 2^64
+    if bits == 32:
+        return (values & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(
+            np.int32).astype(np.int64), t.pos
+    return values.view(np.int64), t.pos
+
+
+def _delta_lengths(raw: bytes, buf: np.ndarray, pos: int, count: int):
+    """(Strings, end) of DELTA_LENGTH_BYTE_ARRAY at `pos`: the lengths as
+    DELTA_BINARY_PACKED, then the values' bytes back to back."""
+    lens, pos = delta_binary_packed(raw, pos, count, 32)
+    if count and int(lens.min()) < 0:
+        raise DecodeCorrupt("DELTA_LENGTH_BYTE_ARRAY length below 0")
+    end = pos + int(lens.sum())
+    if end > buf.size:
+        raise DecodeCorrupt("DELTA_LENGTH_BYTE_ARRAY values past the page")
+    return Strings(buf, pos + np.cumsum(lens) - lens, lens), end
+
+
+def _delta_byte_array(raw: bytes, buf: np.ndarray, pos: int,
+                      count: int) -> Strings:
+    """DELTA_BYTE_ARRAY: prefix lengths (DELTA_BINARY_PACKED), then the
+    suffixes (DELTA_LENGTH_BYTE_ARRAY); value i is the first prefix[i]
+    bytes of value i - 1, then suffix i. The chain runs in the host
+    library."""
+    prefix, pos = delta_binary_packed(raw, pos, count, 32)
+    suffix, _ = _delta_lengths(raw, buf, pos, count)
+    lens = prefix + suffix.lens
+    # each prefix lies within the value before it (the first's is empty),
+    # checked before the output is sized
+    if count and (int(prefix.min()) < 0 or prefix[0] != 0
+                  or bool((prefix[1:] > lens[:-1]).any())):
+        raise DecodeCorrupt("DELTA_BYTE_ARRAY prefix longer than the "
+                            "value before it")
+    out = np.empty(max(int(lens.sum()), 1), np.uint8)
+    starts = np.cumsum(lens) - lens
+    fn = cuda_build.function(
+        "parquet_host", "delta_byte_array",
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_void_p], restype=ctypes.c_longlong)
+    prefix = np.ascontiguousarray(prefix, np.int64)
+    s_starts = np.ascontiguousarray(suffix.starts, np.int64)
+    s_lens = np.ascontiguousarray(suffix.lens, np.int64)
+    if fn(buf.ctypes.data, buf.size, prefix.ctypes.data,
+          s_starts.ctypes.data, s_lens.ctypes.data, count,
+          out.ctypes.data) < 0:
+        raise DecodeCorrupt("DELTA_BYTE_ARRAY prefix longer than the "
+                            "value before it")
+    return Strings(out, starts.astype(np.int64), lens.astype(np.int64))
+
+
+def _byte_stream_split(phys: str, buf: np.ndarray, pos: int, count: int):
+    """BYTE_STREAM_SPLIT: byte k of every value, then byte k + 1, ..."""
+    dt = _FIXED.get(phys)
+    if dt is None:
+        raise DecodeUnsupported(f"BYTE_STREAM_SPLIT of {phys}")
+    size = np.dtype(dt).itemsize
+    if pos + size * count > buf.size:
+        raise DecodeCorrupt("BYTE_STREAM_SPLIT values past the page")
+    vals = np.ascontiguousarray(
+        buf[pos:pos + size * count].reshape(size, count).T).view(
+            dt).reshape(-1)
+    return vals.astype(np.int64) if dt == np.int32 else vals
+
+
+def _page_values(leaf: Leaf, encoding: int, raw: bytes, buf: np.ndarray,
+                 pos: int, count: int, dictionary):
+    """The `count` present values of a data page, from `pos`."""
+    phys = leaf.physical_type
+    if encoding in (_ENC_RLE_DICT, _ENC_PLAIN_DICT):
+        if dictionary is None:
+            raise DecodeCorrupt("dict page missing")
+        if pos >= len(raw):
+            raise DecodeCorrupt("dict-encoded page without its "
+                                "index width")
+        runs, _ = parse_hybrid(raw, pos + 1, raw[pos], count)
+        idx = materialize_runs(runs).astype(np.int64)
+        if count and int(idx.max()) >= len(dictionary):
+            raise DecodeCorrupt("dictionary index past end")
+        return _take(dictionary, idx)
+    if encoding == _ENC_PLAIN:
+        return _plain_values(phys, buf, pos, count)
+    if encoding == _ENC_DELTA_BINARY_PACKED and phys in ("INT32", "INT64"):
+        return delta_binary_packed(raw, pos, count,
+                                   32 if phys == "INT32" else 64)[0]
+    if encoding == _ENC_DELTA_LENGTH_BYTE_ARRAY and phys == "BYTE_ARRAY":
+        return _delta_lengths(raw, buf, pos, count)[0]
+    if encoding == _ENC_DELTA_BYTE_ARRAY and phys == "BYTE_ARRAY":
+        return _delta_byte_array(raw, buf, pos, count)
+    if encoding == _ENC_BYTE_STREAM_SPLIT:
+        return _byte_stream_split(phys, buf, pos, count)
+    if encoding == _ENC_RLE and phys == "BOOLEAN":
+        ln = level_stream_length(raw, pos)
+        runs, _ = parse_hybrid(raw, pos + 4, 1, count, end=pos + 4 + ln)
+        return materialize_runs(runs).astype(bool)
+    raise DecodeUnsupported(f"{leaf.path}: encoding {encoding} of {phys}")
 
 
 def _take(values, idx: np.ndarray):
@@ -276,7 +488,7 @@ def _concat(parts: list, phys: str):
         return Strings.concat(parts)
     if not parts:
         return np.zeros(0, bool if phys == "BOOLEAN" else
-                        (np.int64 if phys in ("INT32", "INT64")
+                        (np.int64 if phys in ("INT32", "INT64", "INT96")
                          else _FIXED.get(phys, np.float64)))
     return np.concatenate(parts)
 
@@ -290,11 +502,12 @@ def read_leaf(footer: Footer, data: bytes, col: int) -> HostLeaf:
     max_def, max_rep = leaf.max_definition_level, leaf.max_repetition_level
     defs, reps, values = [], [], []
     for rg in range(len(footer.row_groups)):
+        first_def, first_rep = len(defs), len(reps)
         chunk, codec = footer.chunk(data, rg, col)
         dictionary = None
         for page in split_pages(
                 chunk, footer.row_groups[rg].columns[col].num_values):
-            if page.type not in (_PAGE_DICT, _PAGE_DATA):
+            if page.type not in (_PAGE_DICT, _PAGE_DATA, _PAGE_DATA_V2):
                 continue
             payload = np.frombuffer(
                 decompress_page(chunk, page, codec), np.uint8)
@@ -305,31 +518,31 @@ def read_leaf(footer: Footer, data: bytes, col: int) -> HostLeaf:
             raw = payload.tobytes()
             n = page.num_values
             pos = 0
-            if max_rep:
-                r, pos = _levels(raw, pos, max_rep, n)
-                reps.append(r)
-            if max_def:
-                d, pos = _levels(raw, pos, max_def, n)
+            if page.type == _PAGE_DATA_V2:
+                if max_rep:
+                    reps.append(_levels_v2(raw, 0, page.rep_len, max_rep, n))
+                d = (_levels_v2(raw, page.rep_len, page.def_len, max_def, n)
+                     if max_def else np.zeros(n, np.int32))
+                pos = page.levels_len
             else:
-                d = np.zeros(n, np.int32)
+                if max_rep:
+                    r, pos = _levels(raw, pos, max_rep, n)
+                    reps.append(r)
+                if max_def:
+                    d, pos = _levels(raw, pos, max_def, n)
+                else:
+                    d = np.zeros(n, np.int32)
             defs.append(d)
             count = int((d == max_def).sum())
-            if page.encoding in (_ENC_RLE_DICT, _ENC_PLAIN_DICT):
-                if dictionary is None:
-                    raise DecodeCorrupt("dict page missing")
-                if pos >= len(raw):
-                    raise DecodeCorrupt("dict-encoded page without its "
-                                        "index width")
-                runs, _ = parse_hybrid(raw, pos + 1, raw[pos], count)
-                idx = materialize_runs(runs).astype(np.int64)
-                if count and int(idx.max()) >= len(dictionary):
-                    raise DecodeCorrupt("dictionary index past end")
-                values.append(_take(dictionary, idx))
-            elif page.encoding == _ENC_PLAIN:
-                values.append(_plain_values(phys, payload, pos, count))
-            else:
-                raise DecodeUnsupported(
-                    f"{leaf.path}: encoding {page.encoding}")
+            values.append(_page_values(leaf, page.encoding, raw, payload,
+                                       pos, count, dictionary))
+        # the pages must hold the row group's rows: one entry a row, or
+        # one repetition level 0 a row
+        rows = (sum(int((r == 0).sum()) for r in reps[first_rep:]) if max_rep
+                else sum(d.shape[0] for d in defs[first_def:]))
+        if rows != footer.row_groups[rg].num_rows:
+            raise DecodeCorrupt(f"{leaf.path}: {rows} rows in row group "
+                                f"{rg} of {footer.row_groups[rg].num_rows}")
     return HostLeaf(
         leaf,
         np.concatenate(defs) if defs else np.zeros(0, np.int32),
@@ -371,6 +584,11 @@ def assemble(leaves: Dict[str, HostLeaf], root: str,
             vals = (mine[vpath].row_lists(rows) if vpath in mine
                     else [None if k is None else [None] * len(k)
                           for k in keys])
+            if any((k is None) != (v is None) or (k is not None and
+                                                  len(k) != len(v))
+                   for k, v in zip(keys, vals)):
+                raise DecodeCorrupt(f"{path}: keys and values of a map "
+                                    f"disagree")
             put(rel[:-2], [None if k is None else dict(zip(k, v))
                            for k, v in zip(keys, vals)])
         elif rel[-2:] == ("key_value", "value"):

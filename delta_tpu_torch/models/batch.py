@@ -16,6 +16,15 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import numpy as np
 
 
+def factorize_objects(values: np.ndarray) -> np.ndarray:
+    """Dense int64 codes of an object array by Python equality, in order
+    of first appearance. Not by `astype(str)`: numpy's fixed-width
+    strings drop trailing NULs, so "a" and "a\x00" would share a code."""
+    seen: dict = {}
+    return np.fromiter((seen.setdefault(v, len(seen)) for v in values),
+                       np.int64, len(values))
+
+
 @dataclass
 class Column:
     values: np.ndarray

@@ -4,7 +4,8 @@ Each CUDA source in `delta_tpu_torch/csrc/` has a plain C interface and is
 compiled on its own by `nvcc` for Hopper (`sm_90a`) into a shared library,
 then loaded with `ctypes`: seconds per kernel, where a build that includes
 PyTorch's headers takes minutes. The host library `parquet_host.cpp`
-(snappy and the PLAIN BYTE_ARRAY walk of the checkpoint reader) is built
+(snappy, ZSTD, the PLAIN BYTE_ARRAY walk and DELTA_BYTE_ARRAY's prefix
+chain of the Parquet readers) is built
 the same way by the host C++ compiler, so it also builds where there is
 no CUDA toolkit. Libraries land in `build/delta_tpu_torch/` beside the
 package (listed in `.gitignore`), named by a digest of source and flags,
@@ -61,7 +62,7 @@ def _cxx() -> str:
     path = shutil.which("c++") or shutil.which("g++")
     if path is None:
         raise RuntimeError("no host C++ compiler (c++ or g++) on PATH; "
-                           "the checkpoint reader's codec needs one")
+                           "the Parquet readers' codecs need one")
     return path
 
 

@@ -4,9 +4,10 @@ tail (kernel K9) on the engine's device.
 Counterpart of `delta_tpu/ops/join.py`: the jnp function `_join_kernel`
 (`:41`, queue B's B9), `equi_join_codes` (`:88`) and `equi_join_device`
 (`:114`). The join keys are dictionary-coded jointly over target and
-source (`joint_codes`: numpy's sorted `np.unique` codes where the
-reference numbers keys in order of first appearance; every output below
-is the same whichever code a key gets), then:
+source (`joint_codes`: numpy's sorted `np.unique` codes of numbers, and
+codes by Python equality of strings, where the reference numbers keys in
+order of first appearance; every output below is the same whichever code
+a key gets), then:
 
 1. the codes go to the device as one int32 lane (H2D);
 2. a stable `torch.sort` of the composite key `(code << 1) | side` (side
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from delta_tpu_torch import obs
+from delta_tpu_torch.models.batch import factorize_objects
 from delta_tpu_torch.ops import cuda_build
 
 LAUNCHES = obs.counter("kernel.merge_join.launches")
@@ -69,7 +71,7 @@ def _column_codes(both: np.ndarray) -> np.ndarray:
     values one code, every NaN one code of its own (Spark's NaN = NaN),
     -0.0 the code of 0.0."""
     if both.dtype == object:
-        both = both.astype(str)
+        return factorize_objects(both)
     if both.dtype.kind == "f":
         nan = np.isnan(both)
         if nan.any():

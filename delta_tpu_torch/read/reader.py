@@ -24,7 +24,11 @@ Both read every file first, then decode the deletion vectors of all of
 them in one batch on the engine's device (`deleted_row_masks`: one K8
 launch on the card, `dv/descriptor.py::load_deletion_vector_masks`), then
 drop each file's deleted rows. A missing file raises
-`FileNotFoundInLogError`; column mapping raises `UnsupportedTableError`.
+`FileNotFoundInLogError`; column mapping, and a data file in a form the
+Parquet reader does not decode (`DecodeUnsupported`: an LZ4 or Brotli
+page, a nested column), raise `UnsupportedTableError`; a damaged data
+file (`DecodeCorrupt`) raises `DataFileCorruptedError`. Both name the
+file.
 """
 
 from __future__ import annotations
@@ -33,8 +37,13 @@ import numpy as np
 
 from delta_tpu_torch.config import COLUMN_MAPPING_MODE, get_table_config
 from delta_tpu_torch.dv.descriptor import load_deletion_vector_masks
-from delta_tpu_torch.errors import FileNotFoundInLogError, UnsupportedTableError
+from delta_tpu_torch.errors import (
+    DataFileCorruptedError,
+    FileNotFoundInLogError,
+    UnsupportedTableError,
+)
 from delta_tpu_torch.log.parquet_data import read_data_file
+from delta_tpu_torch.log.parquet_footer import DecodeCorrupt, DecodeUnsupported
 from delta_tpu_torch.models.batch import Batch, Column, zeros
 from delta_tpu_torch.models.schema import schema_from_json
 from delta_tpu_torch.stats.partition import partition_column
@@ -132,14 +141,28 @@ def _read_bytes(engine, table_path: str, add) -> bytes:
             "(removed by VACUUM, or the log is ahead of storage)") from e
 
 
+def _read_file(engine, table_path: str, add, columns=None) -> Batch:
+    """One data file's columns (`read_data_file`), the reader's scope and
+    damage refusals typed and naming the file."""
+    data = _read_bytes(engine, table_path, add)
+    try:
+        return read_data_file(data, columns)
+    except DecodeUnsupported as e:
+        raise UnsupportedTableError(
+            f"data file {add.path}: {e}", feature="parquet form",
+            path=add.path) from e
+    except DecodeCorrupt as e:
+        raise DataFileCorruptedError(
+            f"data file {add.path} is damaged: {e}", path=add.path) from e
+
+
 def read_add_files_logical(engine, table_path: str, metadata, adds
                            ) -> list:
     """Read AddFiles' rows in the table's logical schema, one Batch each,
     their deleted rows dropped (the DVs decoded in one batch)."""
     _check_readable(metadata)
     schema = schema_from_json(metadata.schemaString)
-    batches = [read_data_file(_read_bytes(engine, table_path, a))
-               for a in adds]
+    batches = [_read_file(engine, table_path, a) for a in adds]
     return [_logical(b, a, schema, metadata.partitionColumns) for a, b in
             zip(adds, _drop_deleted(engine, table_path, adds, batches))]
 
@@ -151,7 +174,7 @@ def read_add_file_logical(engine, table_path: str, metadata, add,
     if apply_dv:
         return read_add_files_logical(engine, table_path, metadata, [add])[0]
     _check_readable(metadata)
-    batch = read_data_file(_read_bytes(engine, table_path, add))
+    batch = _read_file(engine, table_path, add)
     return _logical(batch, add, schema_from_json(metadata.schemaString),
                     metadata.partitionColumns)
 
@@ -180,8 +203,8 @@ def read_scan(scan) -> Batch:
         refs = [r[0] for r in scan.filter.references()]
         needed = requested + [c for c in dict.fromkeys(refs)
                               if c not in requested]
-    parts = [read_data_file(_read_bytes(engine, snapshot.table_path, add),
-                            needed) for add in files]
+    parts = [_read_file(engine, snapshot.table_path, add, needed)
+             for add in files]
     batches = [_logical(part, add, schema, metadata.partitionColumns, needed)
                for add, part in zip(files, _drop_deleted(
                    engine, snapshot.table_path, files, parts))]

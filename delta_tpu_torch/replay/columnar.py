@@ -50,8 +50,9 @@ transaction just wrote) through the same parse as commits read from disk.
 A sidecar or part that vanished after the listing raises
 `LogCorruptedError` (DELTA_MISSING_PART_FILES), damage
 (`DecodeCorrupt`) `LogCorruptedError`, and a part outside what the
-readers decode (`DecodeUnsupported`: a ZSTD part or sidecar)
-`UnsupportedLogError`.
+readers decode (`DecodeUnsupported`: an LZ4 or Brotli part or sidecar)
+`UnsupportedLogError`. ZSTD and GZIP parts decode through the device
+plan like snappy ones; a part with data page v2 reads on the host.
 """
 
 from __future__ import annotations

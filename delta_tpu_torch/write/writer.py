@@ -41,7 +41,7 @@ from delta_tpu_torch.errors import (
     UnsupportedTableError,
 )
 from delta_tpu_torch.models.actions import AddFile
-from delta_tpu_torch.models.batch import Batch
+from delta_tpu_torch.models.batch import Batch, factorize_objects
 from delta_tpu_torch.models.schema import StructType
 from delta_tpu_torch.stats.collection import collect_stats
 from delta_tpu_torch.stats.partition import (
@@ -111,11 +111,14 @@ def _partition_groups(data: Batch, partition_columns: Sequence[str]
         ok = np.ones(n, bool) if col.valid is None else col.valid.copy()
         if values.dtype.kind == "f":
             ok &= ~np.isnan(values)
-        elif values.dtype.kind == "O":
-            values = values.astype(str)
         valid[c] = ok
-        inv = np.where(ok, np.unique(values, return_inverse=True)[1]
-                       .reshape(-1) + 1, 0)
+        if values.dtype.kind == "O":
+            # by Python equality: "a" and "a\x00" stay two partitions
+            inv = np.where(ok, factorize_objects(
+                np.where(ok, values, "")) + 1, 0)
+        else:
+            inv = np.where(ok, np.unique(values, return_inverse=True)[1]
+                           .reshape(-1) + 1, 0)
         # a running radix over the columns, kept dense
         codes = np.unique(codes * (int(inv.max(initial=0)) + 1) + inv,
                           return_inverse=True)[1].reshape(-1)

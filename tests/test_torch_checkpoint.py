@@ -206,10 +206,17 @@ def test_missing_part_and_unsupported_codec(tmp_path):
     assert truth.checkpoint["parts"] > 2
     log = tmp_path / "_delta_log"
     parts = sorted(glob.glob(str(log / "*.parquet")))
-    # a zstd part: the device plan and the host reader both refuse it
     tbl = pq.read_table(parts[1])
+    # a zstd part loads as the reference loads it, through the device plan
     pq.write_table(tbl, parts[1], compression="zstd")
-    with pytest.raises(UnsupportedLogError):
+    obs.reset()
+    got = _load(str(tmp_path))
+    assert obs.counters()["decode.device_parts"] == truth.checkpoint["parts"]
+    assert obs.counters()["decode.device_fallbacks"] == 0
+    assert_matches_reference(str(tmp_path), got)
+    # an lz4 part: a codec the port does not read, refused by its name
+    pq.write_table(tbl, parts[1], compression="lz4")
+    with pytest.raises(UnsupportedLogError, match="LZ4"):
         _load(str(tmp_path))
     # a part that vanishes between LIST and read
     seg = build_log_segment(LocalLogStore(), str(log))
@@ -218,6 +225,60 @@ def test_missing_part_and_unsupported_codec(tmp_path):
 
     with pytest.raises(LogCorruptedError):
         columnarize_log_segment(TorchEngine("cpu"), seg)
+
+
+@pytest.fixture(scope="module")
+def two_part_log(tmp_path_factory):
+    """A cell-2-shaped log at a small size: 200 commits of 20 file actions,
+    a multi-part checkpoint by the JAX package's checkpointer at version
+    190 (the small actions, then the file actions in two parts), then 9
+    tail commits."""
+    from delta_tpu.config import settings
+
+    path = str(tmp_path_factory.mktemp("two_part") / "t")
+    synth_delta_log(path, 200, 20, seed=11)
+    ref = RefTable.for_path(path, engine=HostEngine())
+    state = ref.snapshot_at(190).state
+    old = settings.checkpoint_part_size
+    settings.checkpoint_part_size = (state.num_files
+                                     + len(state.tombstones())) // 2 + 1
+    try:
+        ref.checkpoint(version=190)
+    finally:
+        settings.checkpoint_part_size = old
+    assert len(glob.glob(os.path.join(path, "_delta_log", "*.parquet"))) == 3
+    return path
+
+
+@pytest.mark.parametrize("form,kw,on_device", [
+    ("zstd", {"compression": "zstd"}, True),
+    ("zstd-19", {"compression": "zstd", "compression_level": 19}, True),
+    ("gzip", {"compression": "gzip"}, True),
+    ("v2", {"data_page_version": "2.0"}, False),
+    ("v2-zstd", {"data_page_version": "2.0", "compression": "zstd"}, False),
+])
+def test_other_writers_checkpoint_parts_load_as_the_reference(
+        tmp_path, two_part_log, form, kw, on_device):
+    """Every part rewritten by pyarrow in another form: the state equals
+    the reference's. ZSTD and GZIP parts decode through the device plan
+    (K3 on the card), v2 pages on the host, one fallback per part, as the
+    reference routes them."""
+    import shutil
+
+    path = str(tmp_path / form)
+    shutil.copytree(two_part_log, path)
+    parts = sorted(glob.glob(os.path.join(path, "_delta_log", "*.parquet")))
+    for part in parts:
+        pq.write_table(pq.read_table(part), part, **kw)
+    from delta_tpu.replay.columnar import clear_parse_cache
+
+    clear_parse_cache()
+    obs.reset()
+    got = _load(path)
+    counts = obs.counters()
+    assert counts["decode.device_parts"] == (3 if on_device else 0)
+    assert counts["decode.device_fallbacks"] == (0 if on_device else 3)
+    assert_matches_reference(path, got)
 
 
 def test_segment_picks_the_newest_complete_checkpoint(tmp_path):

@@ -18,7 +18,7 @@ the same bytes, both ways:
 - `cleanup_expired_logs` and `write_compacted_delta` of both packages on
   copies under one fixed clock: the same files deleted, the same bytes;
 - `snapshot_at` inside and past a compacted range, history over it, a
-  vanished sidecar, a ZSTD sidecar, and a filtered scan over a
+  vanished sidecar, a ZSTD and an LZ4 sidecar, and a filtered scan over a
   struct-only checkpoint.
 """
 
@@ -277,13 +277,18 @@ def test_vanished_sidecar_takes_the_ladder(tmp_path):
 
 
 def test_zstd_sidecar_is_refused(tmp_path):
+    """Once refused, a ZSTD sidecar now loads as the reference loads it;
+    an LZ4 one, a codec the port does not read, is still refused."""
     path = str(tmp_path / "t")
     write_typed_table(path, seed=15, appends=3, rows=6)
     ref_write(HostEngine(), _ref_snap(path), policy="v2")
     side = glob.glob(os.path.join(path, "_delta_log", "_sidecars",
                                   "*.parquet"))[0]
-    pq.write_table(pq.read_table(side), side, compression="zstd")
-    with pytest.raises(UnsupportedLogError):
+    tbl = pq.read_table(side)
+    pq.write_table(tbl, side, compression="zstd")
+    assert_matches_reference(path, _load(path))
+    pq.write_table(tbl, side, compression="lz4")
+    with pytest.raises(UnsupportedLogError, match="LZ4"):
         _load(path)
 
 

@@ -574,3 +574,65 @@ def test_column_mapping_and_cdf_tables_are_refused(tmp_path, props, feature):
     _refused(path, lambda t: port_merge.merge(
         t, {"id": np.array([2]), "value": np.array([1.0])}, on=_on(PE))
         .when_matched_update_all(), feature)
+
+
+# ------------------------------------------------- C10 and C9: key codes
+
+
+@pytest.mark.parametrize("target_keys,source_keys", [
+    (["1", "2"], np.array([2, 3], np.int64)),
+    (["1.5", "2"], np.array([1.5])),
+    ([1, 2], np.array(["2", "3"], object)),
+], ids=["str-int", "str-float", "int-str"])
+def test_string_key_against_numeric_key_is_refused(tmp_path, monkeypatch,
+                                                    target_keys, source_keys):
+    """C10: a string key never joins a numeric one. The reference's join
+    raises; the port refuses with a typed error before it reads or writes
+    a file, and no commit is written."""
+    ref, port = _copies(tmp_path, [pa.table({
+        "k": pa.array(target_keys), "v": pa.array([1.0, 2.0])})])
+    src = _source(k=(source_keys, None),
+                  v=(np.full(len(source_keys), 9.0), None))
+
+    def build(m, t, s, E):
+        return (m(t, s, on=_on(E, "k")).when_matched_update(
+            set={"v": E.col("source.v")}).when_not_matched_insert_all())
+
+    with pytest.raises(Exception, match="merge on"):
+        build(ref_merge.merge, RefTable.for_path(ref, engine=HostEngine()),
+              src[0], RE).execute()
+    log = os.path.join(port, "_delta_log")
+    before = sorted(os.listdir(log))
+
+    def no_read(*a, **k):
+        raise AssertionError("a data file was read")
+
+    monkeypatch.setattr(port_merge, "read_add_files_logical", no_read)
+    with pytest.raises(DeltaError) as e:
+        build(port_merge.merge, Table.for_path(port, engine=CPU), src[1],
+              PE).execute()
+    assert e.value.error_class == "DATATYPE_MISMATCH"
+    assert sorted(os.listdir(log)) == before
+
+
+@pytest.mark.parametrize("device", [False, True], ids=["host", "device"])
+def test_trailing_nul_keys_stay_two_keys(tmp_path, monkeypatch, device):
+    """C9: "a" and "a\\x00" are two keys on both join routes, as on the
+    reference's host route: 1 row updated, 1 inserted."""
+    ref, port = _copies(tmp_path, [pa.table({
+        "k": pa.array(["a", "b"]), "v": pa.array([1.0, 2.0])})])
+    src = _source(k=(np.array(["a\x00", "b"], object), None),
+                  v=(np.array([10.0, 20.0]), None))
+
+    def build(m, t, s, E):
+        return (m(t, s, on=_on(E, "k")).when_matched_update(
+            set={"v": E.col("source.v")}).when_not_matched_insert_all())
+
+    if device:  # the port's device route against the reference's host one
+        monkeypatch.setattr(port_merge, "DEVICE_JOIN_MIN_ROWS", 0)
+    obs.reset()
+    m = _run_both(ref, port, src, build)
+    assert obs.counters().get("join.device_joins", 0) == int(device)
+    assert (m.num_target_rows_updated, m.num_target_rows_inserted) == (1, 1)
+    assert sorted(_rows(port, "port")) == [
+        ("a", 1.0), ("a\x00", 10.0), ("b", 20.0)]

@@ -541,14 +541,21 @@ def test_read_checkpoint_part_routes(parts):
 
 
 def test_zstd_part_is_refused_on_both_routes():
-    tbl = pa.table({"add": pa.array([{"path": "a", "size": 1}],
+    """Once refused, a ZSTD part now reads on both routes as the
+    reference reads it (pyarrow's codec): the device plan decodes
+    `add.size`, the host reader `add.path`."""
+    tbl = pa.table({"add": pa.array([{"path": "a", "size": 1},
+                                     {"path": "b", "size": 7}],
                                     pa.struct([("path", pa.string()),
                                                ("size", pa.int64())]))})
     sink = io.BytesIO()
     pq.write_table(tbl, sink, compression="zstd")
     data = sink.getvalue()
     ft = read_footer(data)
-    with pytest.raises(DecodeUnsupported):
-        port_plan.build_part_plan(ft, data, ["add.size"], [])
-    with pytest.raises(DecodeUnsupported):
-        parquet_host.read_leaves(ft, data, ["add.path"])
+    plan, spans, _, _ = port_plan.build_part_plan(ft, data, ["add.size"], [])
+    lo, hi, defined, _ = port_ops.decode_part(plan, torch.device("cpu"))
+    sl = slice(spans[0].row_start, spans[0].row_start + spans[0].n_rows)
+    assert port_plan._combine("INT64", lo[sl], hi[sl]).tolist() == [1, 7]
+    assert defined[sl].tolist() == [True, True]
+    leaf = parquet_host.read_leaves(ft, data, ["add.path"])["add.path"]
+    assert leaf.row_values(np.arange(2)) == ["a", "b"]

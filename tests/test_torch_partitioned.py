@@ -560,3 +560,22 @@ def test_delete_on_a_partition_predicate_removes_whole_files(tmp_path):
     _check(ref, port, rm, pm)
     assert pm.num_files_scanned == pm.num_files_removed_fully == 4
     assert pm.num_dvs_written == pm.num_files_rewritten == 0
+
+
+
+def test_trailing_nul_partition_values_stay_two_groups():
+    """C9 at the writer: `_partition_groups` keeps "a" and "a\x00" apart,
+    each group holding its own rows (the table's truth; the reference's
+    `pd.factorize` merges them, C8). No file system takes a NUL in a
+    directory name, in either package, so the groups are held directly."""
+    from delta_tpu_torch.models.batch import Batch, Column
+    from delta_tpu_torch.write.writer import _partition_groups
+
+    k = np.array(["a", "a\x00", "a", None, "b"], object)
+    data = Batch({"id": Column(np.arange(5)),
+                  "k": Column(k, np.array([True, True, True, False, True]))},
+                 5)
+    groups = [(pv["k"], g.column("id").values.tolist())
+              for pv, g in _partition_groups(data, ["k"])]
+    assert groups == [("a", [0, 2]), ("a\x00", [1]), (None, [3]),
+                      ("b", [4])]

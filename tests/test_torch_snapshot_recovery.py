@@ -363,12 +363,12 @@ def test_unreadable_crc_counts_as_none(tmp_path, body):
 # ------------------------------------------------ what is not absorbed --
 
 def test_out_of_scope_checkpoint_still_refuses(twelve):
-    """A zstd part, and a sidecar row naming a zstd sidecar, are typed
+    """An lz4 part, and a sidecar row naming a brotli sidecar, are typed
     refusals, not damage (the sidecar itself is read since the port reads
-    V2 checkpoints; its codec is not)."""
+    V2 checkpoints; its codec is not; ZSTD and GZIP are read)."""
     cp = _log(twelve, 10, "checkpoint.parquet")
     tbl = pq.read_table(cp)
-    pq.write_table(tbl, cp, compression="zstd")
+    pq.write_table(tbl, cp, compression="lz4")
     obs.reset()
     with pytest.raises(UnsupportedLogError):
         Table.for_path(str(twelve), engine=TorchEngine("cpu")) \
@@ -381,7 +381,8 @@ def test_out_of_scope_checkpoint_still_refuses(twelve):
     pq.write_table(tbl.append_column("sidecar", sidecar), cp)
     side = os.path.join(str(twelve), "_delta_log", "_sidecars")
     os.makedirs(side)
-    pq.write_table(tbl, os.path.join(side, "x.parquet"), compression="zstd")
+    pq.write_table(tbl, os.path.join(side, "x.parquet"),
+                   compression="brotli")
     with pytest.raises(UnsupportedLogError):
         Table.for_path(str(twelve), engine=TorchEngine("cpu")) \
             .latest_snapshot().state
@@ -490,14 +491,15 @@ def test_hybrid_stream_damage_and_scope_sites():
             np.frombuffer(b"\x09\x00\x00\x00abc", np.uint8), 0, 1)
     with pytest.raises(DecodeCorrupt, match="past the page"):
         parquet_host._plain_values("INT64", np.zeros(12, np.uint8), 0, 2)
-    # scope, not damage: a codec and a page form the reader lacks
+    # scope, not damage: a codec the reader lacks, and a page form the
+    # device plan lacks (the host reader reads it)
     page = port_plan.PageInfo(0, 4, 4, 1, 0, 0)
     with pytest.raises(DecodeUnsupported, match="codec"):
-        port_plan.decompress_page(b"abcd", page, "ZSTD")
+        port_plan.decompress_page(b"abcd", page, "LZ4")
     data = _part_bytes(data_page_version="2.0")
     ft = read_footer(data)
     with pytest.raises(DecodeUnsupported, match="v2"):
-        port_plan.split_pages(ft.chunk(data, 0, ft.index["add.size"])[0], 50)
+        port_plan.build_part_plan(ft, data, ["add.size"], [])
 
 
 def test_damaged_page_is_corruption_not_a_host_route():
