@@ -222,6 +222,21 @@
     timed in MB/s of output: ZSTD on the largest ZSTD page of the
     fixtures, snappy on the same bytes recompressed by `log/snappy.py`.
 
+19. Wider schema types (`wide_types_phase`): TPC-DS store_sales (23
+    columns, 12 of them decimal(7,2): INT32 in two fixture files, FIXED_LEN_BYTE_ARRAY
+    in two; one file with a DV written by the reference's DELETE) from
+    `tests/torch_fixtures/wide_types/`, each file hard linked 120 times
+    under one hand-written commit (2,880,000 rows, 480 adds: SF1's
+    2,880,404), loaded with `TorchEngine()` (K1, K2) and read: q3's
+    columns, one quarter of the sold dates (K7 keeps 120 files),
+    `ss_net_profit > 0` (a Decimal literal), all 23 columns; each read's
+    digests (valid count, sum and sum of squares mod 2^64 per column)
+    the manifest's times 120, K7 once per filtered read, K8 once per read
+    over the 120 shared DVs. Then the nested fixture (byte, short,
+    binary, timestamp_ntz, decimal(38,10), struct, array, map, nested in
+    each other, v1 and v2 pages) whole and projected, to the manifest's
+    row digests. Prints rows/s and seconds per read.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
@@ -2994,6 +3009,185 @@ def parquet_forms_phase(root: str, device: str, card: str) -> dict:
             "card": card}
 
 
+WIDE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_fixtures", "wide_types")
+# links of each store_sales fixture file: 4 files x 6,000 rows x 120 =
+# 2,880,000 rows in 480 adds, SF1's 2,880,404 to whole files
+WIDE_LINKS = 120
+# the reads of `tests/test_torch_wide_types.py::ss_reads`, kept here for
+# the card's machine (no Arrow, no test module): name -> (columns,
+# conjuncts); the range is the DV'd file's quarter of the sold dates
+WIDE_RANGE = (2451273, 2451730)
+WIDE_READS = {
+    "q3": (["ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"], []),
+    "range": (["ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"],
+              [("ss_sold_date_sk", ">=", WIDE_RANGE[0]),
+               ("ss_sold_date_sk", "<", WIDE_RANGE[1])]),
+    "profit": (["ss_item_sk", "ss_net_profit"],
+               [("ss_net_profit", ">", "Decimal:0.00")]),
+    "all": (None, []),
+}
+WIDE_NESTED_READS = {"all": None, "projected": ["k", "aos", "mal", "d38"]}
+
+
+def _wide_filter(spec):
+    import decimal
+
+    from delta_tpu_torch.expressions import tree
+
+    out = None
+    for c, op, v in spec:
+        if isinstance(v, str) and v.startswith("Decimal:"):
+            v = decimal.Decimal(v.split(":", 1)[1])
+        e = tree.Comparison(op, tree.col(c), tree.lit(v))
+        out = e if out is None else tree.And(out, e)
+    return out
+
+
+def wide_sums(batch) -> dict:
+    """{column: [valid count, sum mod 2^64, sum of squares mod 2^64]} of
+    an integer or decimal Batch's values (decimals unscaled): additive
+    over linked copies of a file; the form
+    `tests/test_torch_wide_types.py::arrow_sums` gives Arrow's read."""
+    out = {}
+    for name in batch.column_names:
+        c = batch.column(name)
+        v = c.values if c.valid is None else c.values[c.valid]
+        u = np.asarray(v, np.int64).view(np.uint64)
+        out[name] = [int(u.shape[0]), int(u.sum(dtype=np.uint64)),
+                     int((u * u).sum(dtype=np.uint64))]
+    return out
+
+
+def wide_rows_digest(batch) -> str:
+    """sha256 of the sorted reprs of a Batch's rows as Python values
+    (`Column.to_python()`), as `tests/test_torch_wide_types.py::
+    rows_digest` gives Arrow's."""
+    cols = [batch.column(c).to_python() for c in batch.column_names]
+    return hashlib.sha256("\n".join(sorted(
+        repr(tuple(r)) for r in zip(*cols))).encode()).hexdigest()
+
+
+def _wide_table(root: str, work: str, links: int) -> str:
+    """store_sales at `links` links of each fixture file: the files hard
+    linked (copied where links fail) under new names, the DV file
+    beside them, and one commit of the fixture's protocol and metaData
+    and an add per link (its stats, its DV descriptor) written by hand;
+    the port does not write these types."""
+    from delta_tpu_torch import Table, TorchEngine
+
+    src = os.path.join(root, "store_sales")
+    dst = os.path.join(work, "store_sales")
+    os.makedirs(os.path.join(dst, "_delta_log"))
+    snap = Table.for_path(src, engine=TorchEngine("cpu")).latest_snapshot()
+    for name in os.listdir(src):
+        if name.startswith("deletion_vector"):
+            _link_or_copy(os.path.join(src, name), os.path.join(dst, name))
+    lines = [json.dumps({"protocol": snap.protocol.to_dict()}),
+             json.dumps({"metaData": snap.metadata.to_dict()})]
+    for add in sorted(snap.state.add_files, key=lambda a: a.path):
+        stem = add.path[:-len(".parquet")]
+        for j in range(links):
+            name = f"{stem}-L{j:03d}.parquet"
+            _link_or_copy(os.path.join(src, add.path),
+                          os.path.join(dst, name))
+            d = add.to_dict()
+            d["path"] = name
+            lines.append(json.dumps({"add": d}))
+    with open(os.path.join(dst, "_delta_log", f"{0:020d}.json"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return dst
+
+
+def wide_types_phase(root: str, device: str, card: str,
+                     links: int = WIDE_LINKS) -> dict:
+    """Step 19: TPC-DS store_sales (12 decimal(7,2) money columns, INT32
+    in two files and FIXED_LEN_BYTE_ARRAY in two, one DV) at `links`
+    links of each fixture file, loaded and read with `TorchEngine(device)`:
+    q3's columns, a range of sold dates over one file's quarter (K7 keeps
+    a quarter of the files), `ss_net_profit > 0` (a decimal filter), all
+    23 columns; then the nested fixture table whole and projected. Each
+    read's digests equal the manifest's, scaled by `links`; the load's K1
+    and K2, and each read's K7 and K8 launches, are checked (0 on the
+    CPU)."""
+    from delta_tpu_torch import Table, TorchEngine, obs
+
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    card_run = device != "cpu"
+    work = tempfile.mkdtemp(prefix="wide_types_")
+    out = {"links": links, "card": card, "reads": {}}
+    try:
+        t0 = time.perf_counter()
+        path = _wide_table(root, work, links)
+        out["build_s"] = time.perf_counter() - t0
+        n_files = manifest["store_sales"]["files"] * links
+        obs.reset()
+        t0 = time.perf_counter()
+        snap = Table.for_path(path, engine=TorchEngine(device)) \
+            .latest_snapshot()
+        _check(len(snap.state.add_files) == n_files,
+               f"wide_types: {n_files} live files")
+        out["load_s"] = time.perf_counter() - t0
+        counts = obs.counters()
+        k1 = counts.get("kernel.byte_class.launches", 0)
+        k2 = counts.get("kernel.winner_pack.launches", 0)
+        _check((k1 >= 1 and k2 >= 1) if card_run else k1 == k2 == 0,
+               "wide_types load: K1 and K2 launched")
+        out["load_k1"], out["load_k2"] = k1, k2
+        for name, (cols, spec) in WIDE_READS.items():
+            want = manifest["store_sales"]["reads"][name]
+            obs.reset()
+            t0 = time.perf_counter()
+            sc = snap.scan(filter=_wide_filter(spec) if spec else None,
+                           columns=cols)
+            files = len(sc.add_files())
+            batch = sc.to_batch()
+            s = time.perf_counter() - t0
+            c = obs.counters()
+            scaled = {k: [v[0] * links, v[1] * links % (1 << 64),
+                          v[2] * links % (1 << 64)]
+                      for k, v in want["sums"].items()}
+            _check(batch.num_rows == want["rows"] * links and
+                   files == want["files"] * links and
+                   wide_sums(batch) == scaled,
+                   f"wide_types {name}: digests equal the manifest's")
+            k7 = c.get("kernel.skip_mask.launches", 0)
+            k8 = c.get("kernel.dv_bits.decode_launches", 0)
+            dvs = c.get("kernel.dv_bits.decode_dvs", 0)
+            _check(k7 == (int(bool(spec)) if card_run else 0),
+                   f"wide_types {name}: K7 launched once per filtered read")
+            _check((k8, dvs) == ((1, links) if card_run else (0, 0)),
+                   f"wide_types {name}: K8 once over the {links} DVs")
+            _check(c.get("kernel.byte_class.launches", 0) == 0 and
+                   c.get("kernel.winner_pack.launches", 0) == 0,
+                   f"wide_types {name}: no reload")
+            out["reads"][name] = {
+                "rows": batch.num_rows, "files": files, "s": s,
+                "rows_per_s": batch.num_rows / s,
+                "columns": len(batch.column_names), "k7": k7, "k8": k8,
+                "k8_dvs": dvs}
+        del snap, batch
+        nested = Table.for_path(os.path.join(root, "nested"),
+                                engine=TorchEngine(device)).latest_snapshot()
+        for name, cols in WIDE_NESTED_READS.items():
+            want = manifest["nested"]["reads"][name]
+            t0 = time.perf_counter()
+            batch = nested.scan(columns=cols).to_batch()
+            s = time.perf_counter() - t0
+            _check(batch.column_names == want["columns"] and
+                   batch.num_rows == want["rows"] and
+                   wide_rows_digest(batch) == want["sha256"],
+                   f"wide_types nested {name}: rows equal the manifest's")
+            out["reads"][f"nested_{name}"] = {
+                "rows": batch.num_rows, "files": 2, "s": s,
+                "rows_per_s": batch.num_rows / s,
+                "columns": len(batch.column_names)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -3193,6 +3387,21 @@ def main(argv=None) -> int:
               f"MB/s, snappy {pforms['snappy_mb_s']:.1f} MB/s on "
               f"{pforms['timed_bytes']} B; {card}", flush=True)
 
+        # the wider schema types: TPC-DS store_sales at SF1's row count
+        # and the nested fixture; counters from 0 per load and read
+        wide = wide_types_phase(WIDE_DIR, "cuda", card)
+        wide_reads = wide["reads"].values()
+        kernels["skip_mask"]["launches_wide_types"] = sum(
+            r.get("k7", 0) for r in wide_reads)
+        kernels["byte_class"]["launches_wide_types"] = wide["load_k1"]
+        kernels["winner_pack"]["launches_wide_types"] = wide["load_k2"]
+        wide_k8 = sum(r.get("k8", 0) for r in wide_reads)
+        print("wide_types: " + json.dumps(wide), flush=True)
+        for name, r in wide["reads"].items():
+            print(f"wide_types {name}: {r['rows']} rows, {r['columns']} "
+                  f"columns, {r['files']} files, {r['s']:.4f} s, "
+                  f"{r['rows_per_s']:.1f} rows/s; {card}", flush=True)
+
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
         h_truth = synth_delta_log(small, 200, 100, seed=args.seed + 2,
@@ -3257,6 +3466,7 @@ def main(argv=None) -> int:
         kernels["dv_bits"] = dv_bits_row(*k8_inputs, dev, launches=sum(
             s["k8_pack"] + s["k8_decode"] for s in steps.values()))
         del k8_inputs
+        kernels["dv_bits"]["launches_wide_types"] = wide_k8
         kernels["dv_bits"]["launches_per_step"] = {
             k: {"pack": s["k8_pack"], "decode": s["k8_decode"],
                 "decode_dvs": s["k8_decode_dvs"]}

@@ -39,7 +39,11 @@ from delta_tpu_torch.write.writer import write_data_files
 
 
 def schema_of(batch: Batch) -> StructType:
-    return StructType([StructField(name, type_name_of(c.values.dtype))
+    """The schema of a batch's columns: a column's own `data_type` where
+    it carries one (a decimal, binary, timestamp_ntz or nested column the
+    read gave, which the writer then refuses), else its dtype's."""
+    return StructType([StructField(name, c.data_type
+                                   or type_name_of(c.values))
                        for name, c in batch.columns.items()])
 
 

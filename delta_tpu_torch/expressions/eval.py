@@ -23,12 +23,19 @@ values to the column's kind first, as Arrow's `is_in` casts its value set
 string). A `datetime64[us]`
 column of a Batch holds a Delta `timestamp`, UTC instants: it is zoned
 (Arrow's `timestamp[us, tz=UTC]`), and compares with a zoned `datetime`
-literal (at its UTC instant) or a date, not with a naive `datetime`.
+literal (at its UTC instant) or a date, not with a naive `datetime`; a
+`timestamp_ntz` column (its `Column.data_type`) is zone-less and compares
+with a naive one. Byte and short columns compare as integers, never
+wrapping. A decimal column or `Decimal` literal compares exactly with
+another decimal or an integer (both at the larger scale, as Arrow's
+common decimal type), and as float64 with a float; binary compares with
+binary, or a string's UTF-8 bytes, byte by byte.
 """
 
 from __future__ import annotations
 
 import datetime
+import decimal
 import math
 import operator
 import re
@@ -51,7 +58,8 @@ from delta_tpu_torch.expressions.tree import (
     Or,
     StartsWith,
 )
-from delta_tpu_torch.models.batch import NamespacedBatch, zeros
+from delta_tpu_torch.models.batch import NamespacedBatch, decimal_value, zeros
+from delta_tpu_torch.models.schema import decimal_precision_scale
 from delta_tpu_torch.utils.timestamps import string_to_us
 
 _EPOCH = datetime.datetime(1970, 1, 1)
@@ -75,7 +83,9 @@ class UnsupportedCast(InvalidArgumentError):
 class Values:
     """One operand: `kind` is one of null, bool, int, float, string, date
     (int64 days), ts (int64 microseconds, zone-less), tsz (int64
-    microseconds of a UTC instant, zoned), other;
+    microseconds of a UTC instant, zoned), dec (unscaled integers at
+    `scale`: int64, or object of Python ints), binary (object of bytes),
+    other;
     `data` a numpy array (object of str for string); `valid` bool;
     `zone` the tzinfo of a zoned literal whose zone is not UTC (Arrow
     prints its local time); `float32` True for the values of a float32
@@ -86,6 +96,7 @@ class Values:
     valid: np.ndarray
     zone: object = None
     float32: bool = False
+    scale: int = 0
 
     def __len__(self) -> int:
         return int(self.valid.shape[0])
@@ -130,6 +141,11 @@ def scalar_kind(value) -> Tuple[str, object]:
         return "float", float(value)
     if isinstance(value, str):
         return "string", value
+    if isinstance(value, bytes):
+        return "binary", value
+    if isinstance(value, decimal.Decimal) and value.is_finite():
+        scale = max(0, -value.as_tuple().exponent)
+        return "dec", (int(value.scaleb(scale)), scale)
     if isinstance(value, datetime.datetime):
         if value.tzinfo is not None:
             return "tsz", (value - _EPOCH_UTC) // _US
@@ -143,7 +159,11 @@ def literal_values(value, n: int) -> Values:
     kind, v = scalar_kind(value)
     if kind == "null":
         return Values("null", np.zeros(n, bool), np.zeros(n, bool))
-    if kind in ("string", "other"):
+    scale = 0
+    if kind == "dec":
+        v, scale = v
+    if kind in ("string", "other", "binary") or kind == "dec" and not (
+            -(1 << 63) <= v < (1 << 63)):
         data = np.empty(n, object)
         data[:] = [v] * n
     else:
@@ -151,13 +171,24 @@ def literal_values(value, n: int) -> Values:
                                     "float": np.float64}.get(kind, np.int64))
     zone = value.tzinfo if kind == "tsz" and str(value.tzinfo) != "UTC" \
         else None
-    return Values(kind, data, np.ones(n, bool), zone)
+    return Values(kind, data, np.ones(n, bool), zone, scale=scale)
 
 
-def column_values(values: np.ndarray, valid) -> Values:
-    """A Batch column as Values."""
+def column_values(values: np.ndarray, valid, data_type=None) -> Values:
+    """A Batch column (its `Column.data_type` where it has one) as
+    Values."""
     n = values.shape[0]
     valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+    ps = decimal_precision_scale(data_type)
+    if ps is not None:
+        return Values("dec", values, valid, scale=ps[1])
+    if data_type == "binary":
+        return Values("binary", values, valid)
+    if data_type == "timestamp_ntz":
+        return Values("ts", values.astype("datetime64[us]").view(np.int64),
+                      valid)
+    if data_type is not None and not isinstance(data_type, str):
+        return Values("other", values, valid)  # a nested column
     k = values.dtype.kind
     if k == "b":
         return Values("bool", values, valid)
@@ -201,11 +232,50 @@ def _as_float64(v: Values) -> np.ndarray:
     return v.data.astype(np.float64)
 
 
+def _at_scale(v: Values, scale: int) -> np.ndarray:
+    """An int or dec operand's unscaled integers at `scale` (>= its own):
+    int64 where every product fits, else Python ints."""
+    by = scale - (v.scale if v.kind == "dec" else 0)
+    d = v.data
+    if by == 0:
+        return d
+    factor = 10 ** by
+    if d.dtype != object and len(d):
+        peak = max(abs(int(d.min())), abs(int(d.max())))
+        if peak * factor < (1 << 63):
+            return d * np.int64(factor)
+    out = np.empty(len(d), object)
+    out[:] = [int(x) * factor for x in d.tolist()]
+    return out
+
+
+def _dec_as_float64(v: Values) -> np.ndarray:
+    """A dec operand as float64, each value rounded once (Arrow casts a
+    decimal beside a float to float64)."""
+    d = v.data
+    if d.dtype != object and v.scale <= 22 and (not len(d) or max(
+            abs(int(d.min())), abs(int(d.max()))) <= _F64_EXACT_INT):
+        return d.astype(np.float64) / 10.0 ** v.scale
+    return np.array([float(decimal_value(int(x), v.scale))
+                     for x in d.tolist()], np.float64)
+
+
 def _common(a: Values, b: Values):
     """The two operands' data in one comparable domain, or raise."""
     ka, kb = a.kind, b.kind
-    if ka == kb and ka in ("bool", "int", "float", "date", "ts", "tsz"):
+    if ka == kb and ka in ("bool", "int", "float", "date", "ts", "tsz",
+                           "binary"):
         return a.data, b.data
+    if "dec" in (ka, kb) and {ka, kb} <= {"dec", "int"}:
+        scale = max(v.scale for v in (a, b) if v.kind == "dec")
+        return _at_scale(a, scale), _at_scale(b, scale)
+    if {ka, kb} == {"dec", "float"}:
+        return tuple(_dec_as_float64(v) if v.kind == "dec" else v.data
+                     for v in (a, b))
+    if {ka, kb} == {"binary", "string"}:  # Arrow casts the string
+        return tuple(v.data if v.kind == "binary" else np.array(
+            [x.encode("utf-8") for x in v.data.tolist()] + [None],
+            object)[:-1] for v in (a, b))
     if {ka, kb} == {"int", "float"}:
         return _as_float64(a), _as_float64(b)
     if ka in _TEMPORAL and kb in _TEMPORAL and {ka, kb} != {"ts", "tsz"}:
@@ -244,7 +314,7 @@ def _resolve_column(batch, name_path: Tuple[str, ...]) -> Values:
             or len(name) != 1 or name[0] not in batch.column_names:
         raise KeyError(f"column {'.'.join(name_path)} not in batch")
     c = batch.column(name[0])
-    return column_values(c.values, c.valid)
+    return column_values(c.values, c.valid, c.data_type)
 
 
 def _cast_to(kind: str, v):
@@ -277,7 +347,10 @@ def _is_in(child: Values, values: tuple) -> Kleene:
     has_null = any(v is None for v in values)
     present = [v for v in values if v is not None]
     out = np.zeros(n, bool)
-    if present and child.kind != "null":
+    if present and child.kind in ("dec", "binary"):
+        for v in present:  # exact: one `=` per value
+            out |= compare("=", child, literal_values(v, n)).filled(False)
+    elif present and child.kind != "null":
         if child.kind not in ("bool", "int", "float", "string", "date", "ts",
                               "tsz"):
             raise UnsupportedComparison(f"IN over a {child.kind} column")

@@ -4,8 +4,10 @@ gives the JAX package's checkpoint reader.
 A Parquet file ends with its FileMetaData (thrift compact protocol), a
 4-byte length and `PAR1`. `read_footer` parses it into the schema's
 leaves (dotted path, physical type, maximum definition and repetition
-levels, and the level each path element reaches) and each row group's
-column chunks (codec, encodings, page offsets, sizes). `_Thrift` is a
+levels, the level each path element reaches, each element's repetition
+and LIST / MAP annotation, and the leaf's width, decimal scale and
+precision and annotations) and each row group's column chunks (codec,
+encodings, page offsets, sizes). `_Thrift` is a
 copy of the reader in `delta_tpu/log/page_decode.py`, which the page
 splitter also uses for PageHeaders.
 """
@@ -168,6 +170,19 @@ ENCODINGS = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE", 4: "BIT_PACKED",
              7: "DELTA_BYTE_ARRAY", 8: "RLE_DICTIONARY",
              9: "BYTE_STREAM_SPLIT"}
 REQUIRED, OPTIONAL, REPEATED = 0, 1, 2
+# ConvertedType and LogicalType ids of a group's annotation
+_GROUP_CONVERTED = {1: "MAP", 2: "MAP_KEY_VALUE", 3: "LIST"}
+_GROUP_LOGICAL = {2: "MAP", 3: "LIST"}
+_LOGICAL_DECIMAL = 5
+
+
+def _annotation(el: dict) -> Optional[str]:
+    """LIST, MAP or MAP_KEY_VALUE where a group element says so."""
+    logical = thrift_field(el, 10, dict) or {}
+    for lid, name in _GROUP_LOGICAL.items():
+        if lid in logical:
+            return name
+    return _GROUP_CONVERTED.get(thrift_field(el, 6, int))
 
 
 @dataclass(frozen=True)
@@ -184,6 +199,12 @@ class Leaf:
     converted_type: Optional[int] = None  # SchemaElement field 6
     logical_type: Optional[dict] = field(  # field 10: {union id: struct}
         default=None, compare=False, hash=False)
+    type_length: Optional[int] = None  # field 2 (FIXED_LEN_BYTE_ARRAY)
+    scale: Optional[int] = None        # fields 7 and 8, or the DECIMAL
+    precision: Optional[int] = None    # logical type's
+    # per path element: its repetition and its group annotation
+    repetition: Tuple[int, ...] = ()
+    annotation: Tuple[Optional[str], ...] = ()
 
     @property
     def max_definition_level(self) -> int:
@@ -248,7 +269,7 @@ def _schema_leaves(elements: List[dict]) -> List[Leaf]:
     leaves: List[Leaf] = []
     pos = 1
 
-    def walk(n_children: int, parts, defs, reps):
+    def walk(n_children: int, parts, defs, reps, kinds, notes):
         nonlocal pos
         for _ in range(n_children):
             if pos >= len(elements):
@@ -261,18 +282,28 @@ def _schema_leaves(elements: List[dict]) -> List[Leaf]:
             d = (defs[-1] if defs else 0) + (rep != REQUIRED)
             r = (reps[-1] if reps else 0) + (rep == REPEATED)
             p, dd, rr = parts + (name,), defs + (d,), reps + (r,)
+            kk = kinds + (rep,)
             kids = thrift_field(el, 5, int, 0)
             if kids:
-                walk(kids, p, dd, rr)
-            else:
-                phys = thrift_field(el, 1, int)
-                if phys not in PHYSICAL_TYPES:
-                    raise DecodeCorrupt(f"physical type id {phys!r}")
-                leaves.append(Leaf(".".join(p), p, PHYSICAL_TYPES[phys],
-                                   dd, rr, thrift_field(el, 6, int),
-                                   thrift_field(el, 10, dict)))
+                walk(kids, p, dd, rr, kk, notes + (_annotation(el),))
+                continue
+            phys = thrift_field(el, 1, int)
+            if phys not in PHYSICAL_TYPES:
+                raise DecodeCorrupt(f"physical type id {phys!r}")
+            logical = thrift_field(el, 10, dict)
+            dec = (logical or {}).get(_LOGICAL_DECIMAL)
+            scale = thrift_field(el, 7, int)
+            precision = thrift_field(el, 8, int)
+            if type(dec) is dict:
+                scale = thrift_field(dec, 1, int, scale)
+                precision = thrift_field(dec, 2, int, precision)
+            leaves.append(Leaf(
+                ".".join(p), p, PHYSICAL_TYPES[phys], dd, rr,
+                thrift_field(el, 6, int), logical,
+                thrift_field(el, 2, int), scale, precision, kk,
+                notes + (None,)))
 
-    walk(thrift_field(elements[0], 5, int, 0), (), (), ())
+    walk(thrift_field(elements[0], 5, int, 0), (), (), (), (), ())
     return leaves
 
 

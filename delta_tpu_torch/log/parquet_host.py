@@ -8,13 +8,14 @@ structs, and the protocol, metaData, txn and domainMetadata rows. Scope:
 - flat leaves at any struct depth, and maps and lists with ONE repetition
   level (`partitionValues`, `tags`, `format.options`, `configuration`,
   `partitionColumns`, `readerFeatures`, `writerFeatures`);
-- INT32, INT64, INT96, BOOLEAN, FLOAT, DOUBLE and BYTE_ARRAY, PLAIN or
-  dictionary-coded, including a chunk whose dictionary pages are followed
+- INT32, INT64, INT96, BOOLEAN, FLOAT, DOUBLE, BYTE_ARRAY and
+  FIXED_LEN_BYTE_ARRAY, PLAIN or dictionary-coded, including a chunk whose dictionary pages are followed
   by PLAIN pages (a writer's fallback once the dictionary passes its size
   limit); and the encodings of parquet-mr's v2 writer and of Arrow's
   `column_encoding=`: DELTA_BINARY_PACKED (INT32, INT64),
-  DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY (BYTE_ARRAY),
-  BYTE_STREAM_SPLIT (FLOAT, DOUBLE, INT32, INT64) and RLE (BOOLEAN);
+  DELTA_LENGTH_BYTE_ARRAY (BYTE_ARRAY), DELTA_BYTE_ARRAY (BYTE_ARRAY and
+  FIXED_LEN_BYTE_ARRAY), BYTE_STREAM_SPLIT (FLOAT, DOUBLE, INT32, INT64,
+  FIXED_LEN_BYTE_ARRAY) and RLE (BOOLEAN);
 - data page v1 and v2, in any codec of `page_decode.py::decompress`
   (SNAPPY, ZSTD, GZIP or uncompressed).
 
@@ -23,9 +24,13 @@ microseconds since the epoch, floored as Spark floors them. Definition
 and repetition levels decode through `materialize_runs`; the PLAIN
 BYTE_ARRAY walk and the DELTA_BYTE_ARRAY prefix chain run in the host
 library (`csrc/parquet_host.cpp`). Anything else (LZ4, LZ4_RAW, BROTLI
-pages, FIXED_LEN_BYTE_ARRAY) raises DecodeUnsupported; damaged bytes
-raise DecodeCorrupt. Strings stay as (buffer, starts, lengths) until a
-caller materializes a row.
+pages) raises DecodeUnsupported; damaged bytes raise DecodeCorrupt.
+Byte strings, fixed-width ones too, stay as (buffer, starts, lengths)
+until a caller materializes a row.
+
+The row read (`log/parquet_data.py`) also takes leaves at any
+repetition depth (`read_leaf(..., nested=True)`); the checkpoint path
+refuses past one level, as it always has.
 """
 
 from __future__ import annotations
@@ -287,7 +292,22 @@ def _int96_micros(buf: np.ndarray, pos: int, count: int) -> np.ndarray:
             + (nanos // 1000).astype(np.int64))
 
 
-def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int):
+def _fixed_width(buf: np.ndarray, pos: int, count: int,
+                 width: Optional[int]) -> Strings:
+    """`count` FIXED_LEN_BYTE_ARRAY values of `width` bytes from `pos`."""
+    if not width or width < 0:
+        raise DecodeCorrupt(f"FIXED_LEN_BYTE_ARRAY of width {width!r}")
+    if pos + width * count > buf.size:
+        raise DecodeCorrupt("PLAIN FIXED_LEN_BYTE_ARRAY values past the "
+                            "page")
+    return Strings(buf, pos + np.arange(count, dtype=np.int64) * width,
+                   np.full(count, width, np.int64))
+
+
+def _plain_values(phys: str, buf: np.ndarray, pos: int, count: int,
+                  width: Optional[int] = None):
+    if phys == "FIXED_LEN_BYTE_ARRAY":
+        return _fixed_width(buf, pos, count, width)
     if phys == "BYTE_ARRAY":
         starts, lens, _ = byte_array_offsets(buf, pos, count)
         return Strings(buf, starts, lens)
@@ -429,8 +449,17 @@ def _delta_byte_array(raw: bytes, buf: np.ndarray, pos: int,
     return Strings(out, starts.astype(np.int64), lens.astype(np.int64))
 
 
-def _byte_stream_split(phys: str, buf: np.ndarray, pos: int, count: int):
+def _byte_stream_split(phys: str, buf: np.ndarray, pos: int, count: int,
+                       width: Optional[int] = None):
     """BYTE_STREAM_SPLIT: byte k of every value, then byte k + 1, ..."""
+    if phys == "FIXED_LEN_BYTE_ARRAY":
+        if not width or width < 0:
+            raise DecodeCorrupt(f"FIXED_LEN_BYTE_ARRAY of width {width!r}")
+        if pos + width * count > buf.size:
+            raise DecodeCorrupt("BYTE_STREAM_SPLIT values past the page")
+        rows = np.ascontiguousarray(
+            buf[pos:pos + width * count].reshape(width, count).T)
+        return _fixed_width(rows.reshape(-1), 0, count, width)
     dt = _FIXED.get(phys)
     if dt is None:
         raise DecodeUnsupported(f"BYTE_STREAM_SPLIT of {phys}")
@@ -459,16 +488,22 @@ def _page_values(leaf: Leaf, encoding: int, raw: bytes, buf: np.ndarray,
             raise DecodeCorrupt("dictionary index past end")
         return _take(dictionary, idx)
     if encoding == _ENC_PLAIN:
-        return _plain_values(phys, buf, pos, count)
+        return _plain_values(phys, buf, pos, count, leaf.type_length)
     if encoding == _ENC_DELTA_BINARY_PACKED and phys in ("INT32", "INT64"):
         return delta_binary_packed(raw, pos, count,
                                    32 if phys == "INT32" else 64)[0]
     if encoding == _ENC_DELTA_LENGTH_BYTE_ARRAY and phys == "BYTE_ARRAY":
         return _delta_lengths(raw, buf, pos, count)[0]
-    if encoding == _ENC_DELTA_BYTE_ARRAY and phys == "BYTE_ARRAY":
-        return _delta_byte_array(raw, buf, pos, count)
+    if encoding == _ENC_DELTA_BYTE_ARRAY and phys in (
+            "BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY"):
+        out = _delta_byte_array(raw, buf, pos, count)
+        if phys == "FIXED_LEN_BYTE_ARRAY" and bool(
+                (out.lens != leaf.type_length).any()):
+            raise DecodeCorrupt(f"{leaf.path}: a DELTA_BYTE_ARRAY value "
+                                f"is not {leaf.type_length} bytes wide")
+        return out
     if encoding == _ENC_BYTE_STREAM_SPLIT:
-        return _byte_stream_split(phys, buf, pos, count)
+        return _byte_stream_split(phys, buf, pos, count, leaf.type_length)
     if encoding == _ENC_RLE and phys == "BOOLEAN":
         ln = level_stream_length(raw, pos)
         runs, _ = parse_hybrid(raw, pos + 4, 1, count, end=pos + 4 + ln)
@@ -481,7 +516,7 @@ def _take(values, idx: np.ndarray):
 
 
 def _concat(parts: list, phys: str):
-    if phys == "BYTE_ARRAY":
+    if phys in ("BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY"):
         if not parts:
             return Strings(np.zeros(0, np.uint8), np.zeros(0, np.int64),
                            np.zeros(0, np.int64))
@@ -493,10 +528,12 @@ def _concat(parts: list, phys: str):
     return np.concatenate(parts)
 
 
-def read_leaf(footer: Footer, data: bytes, col: int) -> HostLeaf:
-    """Every row group's chunk of one leaf column."""
+def read_leaf(footer: Footer, data: bytes, col: int,
+              nested: bool = False) -> HostLeaf:
+    """Every row group's chunk of one leaf column; past one repetition
+    level only when `nested` (the row read)."""
     leaf = footer.leaves[col]
-    if leaf.max_repetition_level > 1:
+    if leaf.max_repetition_level > 1 and not nested:
         raise DecodeUnsupported(f"{leaf.path}: nested repetition")
     phys = leaf.physical_type
     max_def, max_rep = leaf.max_definition_level, leaf.max_repetition_level
@@ -513,7 +550,7 @@ def read_leaf(footer: Footer, data: bytes, col: int) -> HostLeaf:
                 decompress_page(chunk, page, codec), np.uint8)
             if page.type == _PAGE_DICT:
                 dictionary = _plain_values(phys, payload, 0,
-                                           page.num_values)
+                                           page.num_values, leaf.type_length)
                 continue
             raw = payload.tobytes()
             n = page.num_values

@@ -1,19 +1,38 @@
 """Rows in memory: named numpy columns plus validity.
 
 The port's stand-in for the Arrow tables the JAX package reads and writes
-data files with. A `Column` is a numpy array (int64, int32, float64,
-float32, bool, object of `str`, datetime64[D], datetime64[us]) and an
-optional bool validity mask (None: every row is valid). Null rows hold
-the dtype's zero (0, 0.0, False, "", the epoch), which is also what
-OPTIMIZE fills nulls with before it builds curve keys.
+data files with. A `Column` is a numpy array and an optional bool
+validity mask (None: every row is valid), and, where the dtype does not
+say the Delta type, that type (`data_type`, a `models/schema.py` type).
+By type: long int64, integer int32, short int16, byte int8, double
+float64, float float32, boolean bool, string an object array of `str`,
+binary one of `bytes`, date datetime64[D], timestamp datetime64[us] (UTC
+instants), timestamp_ntz datetime64[us] (wall times; `data_type`
+"timestamp_ntz"); `decimal(p,s)` its unscaled integers with the type
+beside them: int64 lanes for p <= 18, an object array of Python ints
+above; a struct an object array of dicts, an array one of lists, a map
+one of lists of (key, value) tuples in file order, their elements the
+Python values Arrow's `to_pylist` gives. `Column.to_python()` gives a
+column's rows as `to_pylist` does (`decimal.Decimal`s of the column's
+scale). Null rows hold the type's zero (0, 0.0, False, "", b"", the
+epoch; None for a nested type), which is also what OPTIMIZE fills nulls
+with before it builds curve keys.
 """
 
 from __future__ import annotations
 
+import datetime
+import decimal
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
+
+from delta_tpu_torch.models.schema import DataType, decimal_precision_scale
+
+# exact for every decimal the protocol allows (38 digits)
+_DECIMAL_CONTEXT = decimal.Context(prec=80)
+_EPOCH_UTC = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
 
 
 def factorize_objects(values: np.ndarray) -> np.ndarray:
@@ -25,10 +44,17 @@ def factorize_objects(values: np.ndarray) -> np.ndarray:
                        np.int64, len(values))
 
 
+def decimal_value(unscaled: int, scale: int) -> decimal.Decimal:
+    """The Decimal of an unscaled integer at `scale`, with the scale's
+    digits (`Decimal('1.50')` for 150 at 2), as Arrow gives it."""
+    return decimal.Decimal(unscaled).scaleb(-scale, _DECIMAL_CONTEXT)
+
+
 @dataclass
 class Column:
     values: np.ndarray
     valid: Optional[np.ndarray] = None
+    data_type: Optional[DataType] = None  # where the dtype does not say
 
     def __len__(self) -> int:
         return int(self.values.shape[0])
@@ -39,31 +65,65 @@ class Column:
 
     def take(self, idx: np.ndarray) -> "Column":
         return Column(self.values[idx],
-                      None if self.valid is None else self.valid[idx])
+                      None if self.valid is None else self.valid[idx],
+                      self.data_type)
 
     def slice(self, lo: int, hi: int) -> "Column":
         return Column(self.values[lo:hi],
-                      None if self.valid is None else self.valid[lo:hi])
+                      None if self.valid is None else self.valid[lo:hi],
+                      self.data_type)
 
     @staticmethod
-    def nulls(dtype: np.dtype, n: int) -> "Column":
-        return Column(zeros(dtype, n), np.zeros(n, bool))
+    def nulls(dtype: np.dtype, n: int, data_type=None) -> "Column":
+        return Column(zeros(dtype, n, data_type), np.zeros(n, bool),
+                      data_type)
 
     @staticmethod
     def concat(parts: Sequence["Column"]) -> "Column":
         values = np.concatenate([p.values for p in parts])
+        dt = parts[0].data_type
         if all(p.valid is None for p in parts):
-            return Column(values)
+            return Column(values, None, dt)
         return Column(values, np.concatenate(
             [np.ones(len(p), bool) if p.valid is None else p.valid
-             for p in parts]))
+             for p in parts]), dt)
+
+    def to_python(self) -> list:
+        """The rows as Python values, None where null, as Arrow's
+        `to_pylist` gives them: Decimals of the column's scale, naive
+        datetimes for timestamp_ntz and UTC ones for timestamp, dates,
+        bytes, and the nested values as they are."""
+        v = self.values
+        ps = decimal_precision_scale(self.data_type)
+        if ps is not None:
+            out = [decimal_value(int(x), ps[1]) for x in v.tolist()]
+        elif v.dtype == np.dtype("datetime64[us]"):
+            us = v.astype(np.int64).tolist()
+            if self.data_type == "timestamp_ntz":
+                base = _EPOCH_UTC.replace(tzinfo=None)
+            else:
+                base = _EPOCH_UTC
+            out = [base + datetime.timedelta(microseconds=x) for x in us]
+        else:
+            out = v.tolist()
+        if self.valid is not None:
+            out = [x if ok else None for x, ok in
+                   zip(out, self.valid.tolist())]
+        return out
 
 
-def zeros(dtype: np.dtype, n: int) -> np.ndarray:
+def zeros(dtype: np.dtype, n: int, data_type=None) -> np.ndarray:
+    """`n` null rows: the dtype's zero; for an object column "" (string),
+    b"" (binary), 0 (a wide decimal) or None (a nested type)."""
     dtype = np.dtype(dtype)
     if dtype.kind == "O":
         out = np.empty(n, object)
-        out[:] = ""
+        if data_type is None or data_type == "string":
+            out[:] = ""
+        elif data_type == "binary":
+            out[:] = b""
+        elif isinstance(data_type, str):  # a decimal past 18 digits
+            out[:] = 0
         return out
     return np.zeros(n, dtype)
 

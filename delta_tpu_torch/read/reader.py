@@ -4,10 +4,15 @@ Counterpart of `delta_tpu/read/reader.py:21-202`:
 
 - `read_add_files_logical`, the read half of every file-rewrite command:
   each file's columns in file order, kept when the table schema names
-  them (a partition column the file holds is dropped) and cast up where
-  the file predates a widening (int32 -> int64, float32 -> float64); a
-  schema column the file lacks reads as null; the rows its deletion
-  vector deletes dropped; then the partition columns, typed, from the
+  them (a partition column the file holds is dropped) and cast to the
+  table's type where the file predates a widening (`_cast`: byte ->
+  short -> integer -> long, integer or long -> decimal, decimal(p,s) ->
+  decimal(p',s') with s' >= s, date -> timestamp or timestamp_ntz, float
+  -> double; a value the target cannot hold leaves the column as the
+  file has it, as the reference's Arrow cast does); a schema column the
+  file lacks reads as null, of any type, nested too; the rows its
+  deletion vector deletes dropped; then the partition columns, typed
+  (decimal, binary and timestamp_ntz too), from the
   file's `partitionValues` (`_append_partition_columns`, after the data
   columns, as the reference appends them); `read_add_file_logical` reads
   one file; DML reads with `apply_dv=False`: it computes row indexes
@@ -26,9 +31,10 @@ launch on the card, `dv/descriptor.py::load_deletion_vector_masks`), then
 drop each file's deleted rows. A missing file raises
 `FileNotFoundInLogError`; column mapping, and a data file in a form the
 Parquet reader does not decode (`DecodeUnsupported`: an LZ4 or Brotli
-page, a nested column), raise `UnsupportedTableError`; a damaged data
-file (`DecodeCorrupt`) raises `DataFileCorruptedError`. Both name the
-file.
+page, a legacy two-level list), raise `UnsupportedTableError`; a damaged
+data file (`DecodeCorrupt`) raises `DataFileCorruptedError`. Both name
+the file. Every type of `models/schema.py` reads (`models/batch.py` says
+how each lies in memory); only the write paths refuse the wider ones.
 """
 
 from __future__ import annotations
@@ -45,8 +51,15 @@ from delta_tpu_torch.errors import (
 from delta_tpu_torch.log.parquet_data import read_data_file
 from delta_tpu_torch.log.parquet_footer import DecodeCorrupt, DecodeUnsupported
 from delta_tpu_torch.models.batch import Batch, Column, zeros
-from delta_tpu_torch.models.schema import schema_from_json
+from delta_tpu_torch.models.schema import (
+    MAX_INT64_PRECISION,
+    carried_type,
+    decimal_precision_scale,
+    numpy_dtype_of,
+    schema_from_json,
+)
 from delta_tpu_torch.stats.partition import partition_column
+
 
 
 def absolute_path(table_path: str, file_path: str) -> str:
@@ -55,11 +68,57 @@ def absolute_path(table_path: str, file_path: str) -> str:
     return f"{table_path}/{file_path}"
 
 
+def _rescaled(unscaled: np.ndarray, valid, by: int, precision: int):
+    """Unscaled integers times 10**by in the lanes of `precision`; None
+    where a valid value needs more than `precision` digits."""
+    ints = unscaled.tolist()
+    factor = 10 ** by
+    limit = 10 ** precision
+    out = [v * factor for v in ints]
+    ok = valid.tolist() if valid is not None else [True] * len(out)
+    if any(k and abs(v) >= limit for v, k in zip(out, ok)):
+        return None
+    if precision <= MAX_INT64_PRECISION:
+        return np.array(out, np.int64)
+    arr = np.empty(len(out), object)
+    arr[:] = out
+    return arr
+
+
+def _cast(col: Column, target) -> Column:
+    """`col` as the table's type `target` where the file's type widens to
+    it; else `col` as it is (the reference's Arrow cast, whose failures
+    leave the column be)."""
+    values, have = col.values, col.data_type
+    want_ps = decimal_precision_scale(target)
+    if want_ps is not None:
+        have_ps = decimal_precision_scale(have)
+        if have_ps is None and values.dtype.kind == "i":
+            have_ps = (19, 0)  # an integer column: unscaled at scale 0
+        if have_ps is None or have_ps[1] > want_ps[1]:
+            return col
+        out = (values if have_ps == want_ps else
+               _rescaled(values, col.valid, want_ps[1] - have_ps[1],
+                         want_ps[0]))
+        return col if out is None else Column(out, col.valid, target)
+    if not isinstance(target, str):  # nested: the file's own shape
+        return Column(values, col.valid, target) \
+            if values.dtype == object else col
+    want = numpy_dtype_of(target)
+    if decimal_precision_scale(have) is not None or have == "binary" or (
+            values.dtype != want and (values.dtype == object or not
+                                      np.can_cast(values.dtype, want,
+                                                  "safe"))):
+        return col
+    return Column(values.astype(want, copy=False), col.valid,
+                  carried_type(target))
+
+
 def _align_to_logical(batch: Batch, schema, partition_columns=(),
                       needed=None) -> Batch:
-    """Schema columns only, widened, partition columns left out; a schema
-    column the file lacks reads as null (only those in `needed`, when
-    given)."""
+    """Schema columns only, cast to the table's types, partition columns
+    left out; a schema column the file lacks reads as null (only those in
+    `needed`, when given)."""
     known = {f.name: f for f in schema.fields
              if f.name not in partition_columns}
     cols = {}
@@ -67,15 +126,11 @@ def _align_to_logical(batch: Batch, schema, partition_columns=(),
         f = known.get(name)
         if f is None:
             continue
-        col = batch.columns[name]
-        want = f.numpy_dtype
-        if col.values.dtype != want and np.can_cast(col.values.dtype, want,
-                                                    "safe"):
-            col = Column(col.values.astype(want), col.valid)
-        cols[name] = col
+        cols[name] = _cast(batch.columns[name], f.data_type)
     for f in known.values():
         if f.name not in cols and (needed is None or f.name in needed):
-            cols[f.name] = Column.nulls(f.numpy_dtype, batch.num_rows)
+            cols[f.name] = Column.nulls(f.numpy_dtype, batch.num_rows,
+                                        carried_type(f.data_type))
     return Batch(cols, batch.num_rows)
 
 
@@ -88,7 +143,8 @@ def _append_partition_columns(batch: Batch, add, schema, partition_columns,
     for c in partition_columns:
         if needed is not None and c not in needed:
             continue
-        type_name = schema[c].type_name if c in schema else "string"
+        type_name = (schema[c].data_type if c in schema and isinstance(
+            schema[c].data_type, str) else "string")
         cols[c] = partition_column(pv.get(c), type_name, batch.num_rows)
     return Batch(cols, batch.num_rows)
 
@@ -182,8 +238,8 @@ def read_add_file_logical(engine, table_path: str, metadata, add,
 def _empty(schema, names) -> Batch:
     cols = {}
     for c in names:
-        dtype = schema[c].numpy_dtype if c in schema else np.dtype(object)
-        cols[c] = Column(zeros(dtype, 0))
+        t = schema[c].data_type if c in schema else "string"
+        cols[c] = Column(zeros(numpy_dtype_of(t), 0), None, carried_type(t))
     return Batch(cols, 0)
 
 

@@ -33,12 +33,15 @@ no `stats_parsed` at all.
 from __future__ import annotations
 
 import datetime
+import decimal
 import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from delta_tpu_torch.log.parquet_data import _as_numpy
+from delta_tpu_torch.models.batch import decimal_value
 from delta_tpu_torch.stats.skipping import _Invalid, _parse_table, _Struct
 from delta_tpu_torch.utils.timestamps import json_to_us
 
@@ -47,9 +50,9 @@ _EPOCH_DATE = datetime.date(1970, 1, 1)
 _UTC = datetime.timezone.utc
 _ROOT = ("add", "stats_parsed")
 # LogicalType union ids (parquet.thrift)
-_LT_DATE, _LT_TIMESTAMP, _LT_UNKNOWN = 6, 8, 11
+_LT_DECIMAL, _LT_DATE, _LT_TIMESTAMP, _LT_UNKNOWN = 5, 6, 8, 11
 # ConvertedType ids
-_CT_DATE, _CT_TS_MILLIS, _CT_TS_MICROS = 6, 9, 10
+_CT_DECIMAL, _CT_DATE, _CT_TS_MILLIS, _CT_TS_MICROS = 5, 6, 9, 10
 
 
 # --------------------------------------------------------------- read --
@@ -62,6 +65,10 @@ def _json_default(v):
         return v.strftime("%Y-%m-%dT%H:%M:%S.%f%z") or v.isoformat()
     if isinstance(v, datetime.date):
         return v.isoformat()
+    if isinstance(v, decimal.Decimal):
+        return float(v)
+    if isinstance(v, bytes):
+        return v.decode("utf-8", errors="replace")
     raise TypeError(f"{type(v).__name__} is not JSON serializable")
 
 
@@ -94,6 +101,11 @@ def _python_values(hl, vi: np.ndarray) -> list:
     lt = leaf.logical_type or {}
     if _LT_UNKNOWN in lt:
         return [None] * len(vi)
+    if _LT_DECIMAL in lt or leaf.converted_type == _CT_DECIMAL:
+        unscaled = _as_numpy("decimal", leaf, hl.values).tolist()
+        return [None if i < 0 else decimal_value(int(unscaled[i]),
+                                                 leaf.scale or 0)
+                for i in vi.tolist()]
     raw = hl._python(vi)
     phys = leaf.physical_type
     if phys == "INT32" and (_LT_DATE in lt or leaf.converted_type == _CT_DATE):
@@ -224,7 +236,10 @@ def stats_parsed_schema(schema_string: Optional[str],
     `maxValues` over the indexed leaves (`stats/collection.py::
     stats_columns` under the table's `configuration`) of a type with an
     Arrow mapping (binary has no min or max), `nullCount` int64 per such
-    leaf, `tightBounds`."""
+    leaf, `tightBounds`. An indexed leaf of a type the reference types
+    there and this writer does not (decimal, byte, short, timestamp_ntz)
+    raises `UnsupportedTableError`, before any file is written."""
+    from delta_tpu_torch.errors import UnsupportedTableError
     from delta_tpu_torch.stats.collection import stats_columns
 
     if not schema_string:
@@ -255,7 +270,11 @@ def stats_parsed_schema(schema_string: Optional[str],
 
     for path in stats_paths:
         t = resolve(path)
-        if not isinstance(t, str) or (t not in _LEAF_KIND and t != "binary"):
+        if isinstance(t, str) and t not in _LEAF_KIND and t != "binary":
+            raise UnsupportedTableError(
+                f"stats_parsed of column {'.'.join(path)} of type {t} is "
+                "not written yet", feature="schema type")
+        if not isinstance(t, str):
             continue
         insert(nulls, path, "int64")
         if t != "binary":

@@ -8,8 +8,11 @@ the rest of this module turns them back into typed `models.batch.Batch`
 columns, for partition pruning (`expressions/eval.py` evaluates a
 partition predicate over them) and for the row read, which splices them
 into every file's rows (`partition_column`). The types come from the
-table schema's JSON (any type name, not only the ones this package
-writes).
+table schema's JSON (any primitive type, not only the ones this package
+writes): a decimal becomes its unscaled integers at the column's scale,
+binary the value's UTF-8 bytes (as the reference's Arrow array of the
+string gives them), timestamp_ntz a wall time, each with its
+`Column.data_type`.
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from delta_tpu_torch.models.batch import Batch, Column
+from delta_tpu_torch.models.schema import (
+    carried_type,
+    decimal_precision_scale,
+    numpy_dtype_of,
+)
 
 _NUMPY = {
     "long": np.int64, "integer": np.int32, "short": np.int16,
@@ -109,10 +117,30 @@ def _partition_types(metadata) -> Dict[str, str]:
     return {c: fields.get(c, "string") for c in cols}
 
 
+def _unscaled(value, scale: int) -> int:
+    """A partition value's Decimal as an integer at `scale` (exact, as
+    the reference's Arrow array of it: a value with more fractional
+    digits than the scale raises)."""
+    out = value.scaleb(scale)
+    if out != out.to_integral_value():
+        raise ValueError(f"partition value {value} has more than {scale} "
+                         "fractional digits")
+    return int(out)
+
+
 def _typed_column(values: List[Optional[str]], type_name: str) -> Column:
     n = len(values)
     valid = np.fromiter((v is not None for v in values), bool, n)
     py = [deserialize_partition_value(v, type_name) for v in values]
+    ps = decimal_precision_scale(type_name)
+    if ps is not None or type_name == "binary":
+        data = np.empty(n, object)
+        if ps is not None:
+            data[:] = [0 if v is None else _unscaled(v, ps[1]) for v in py]
+        else:
+            data[:] = [b"" if v is None else v.encode("utf-8") for v in py]
+        return Column(data.astype(numpy_dtype_of(type_name)), valid,
+                      carried_type(type_name))
     dtype = _NUMPY.get(type_name)
     if dtype is None:
         data = np.empty(n, object)
@@ -124,7 +152,7 @@ def _typed_column(values: List[Optional[str]], type_name: str) -> Column:
                         dtype=dtype)
     else:
         data = np.array([0 if v is None else v for v in py], dtype=dtype)
-    return Column(data, valid)
+    return Column(data, valid, carried_type(type_name))
 
 
 def partition_column(s: Optional[str], type_name: str, n: int) -> Column:
@@ -132,7 +160,8 @@ def partition_column(s: Optional[str], type_name: str, n: int) -> Column:
     row read's splice; `_typed_column` converts the value once)."""
     one = _typed_column([s], type_name)
     return Column(np.repeat(one.values, n),
-                  None if s is not None else np.zeros(n, bool))
+                  None if s is not None else np.zeros(n, bool),
+                  one.data_type)
 
 
 def partition_values_to_columns(pv_dicts: Sequence[Dict[str, Optional[str]]],

@@ -44,16 +44,30 @@ on the card, its plain version on a CPU engine), counted in
 columns, an AND under an OR) walks the per-conjunct ladder here
 (`_conjunct_keep`), counted in `scan.device_fallbacks`. Both AND into one
 mask. Without a state (the conflict checker's winners) only the ladder
-runs, as in the reference. Column-mapped tables are refused
+runs, as in the reference.
+
+Decimal stats are JSON numbers, which the parse rounds to the nearest
+float64 (Spark writes a decimal's digits, the reference `float(value)`),
+while a decimal compares exactly with a `Decimal` or an integer literal
+(`expressions/eval.py`). Before either route, `exact_bounds` turns such
+a comparison into a float one that can only keep more: `col > L` and
+`col >= L` become `col >= f`, f the largest double not above L (rounding
+is monotone, so a row at or past L has a stat at or past f); `<` and
+`<=` take the smallest double not below L; `=` both; IN the range of
+its values so widened; `!=` skips nothing. A float literal is left as it is: a decimal
+beside a float compares as float64 in both packages. Column-mapped tables are refused
 (`UnsupportedTableError`): their stats keys are physical names, which
 this package does not translate yet.
 """
 
 from __future__ import annotations
 
+import decimal
 import itertools
 import json
+import math
 import re
+from fractions import Fraction
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -67,6 +81,7 @@ from delta_tpu_torch.expressions.eval import (
     literal_values,
 )
 from delta_tpu_torch.expressions.tree import (
+    And,
     Column,
     Comparison,
     Expression,
@@ -77,6 +92,7 @@ from delta_tpu_torch.expressions.tree import (
     Not,
     Or,
 )
+from delta_tpu_torch.models.schema import decimal_precision_scale
 from delta_tpu_torch.utils.timestamps import parse_timestamp_s
 
 _DEVICE_PLANS = obs.counter("scan.device_plans")
@@ -395,6 +411,87 @@ def _in_keep(conj: In, index: StatsIndex) -> Optional[Kleene]:
     return keeps
 
 
+def _double_at_or_below(v) -> float:
+    f = float(v)
+    return math.nextafter(f, -math.inf) if Fraction(f) > Fraction(v) else f
+
+
+def _double_at_or_above(v) -> float:
+    f = float(v)
+    return math.nextafter(f, math.inf) if Fraction(f) < Fraction(v) else f
+
+
+def _exact_literal(value, on_decimal: bool) -> bool:
+    """A literal that compares exactly (a finite Decimal; an integer
+    beside a decimal column) where the stats may be rounded."""
+    if isinstance(value, decimal.Decimal):
+        return value.is_finite()
+    return on_decimal and isinstance(value, (int, np.integer)) \
+        and not isinstance(value, (bool, np.bool_))
+
+
+def _bounds(expr: Expression, decimals: set) -> Optional[Expression]:
+    """`expr` with every exact comparison against possibly rounded stats
+    widened to float bounds (module docstring); None: it skips nothing."""
+    if isinstance(expr, (Or, And)):
+        left = _bounds(expr.left, decimals)
+        right = _bounds(expr.right, decimals)
+        if left is None or right is None:
+            return None
+        return type(expr)(left, right)
+    if isinstance(expr, Not) and isinstance(expr.child, Comparison):
+        c = expr.child
+        return _bounds(Comparison(_NEG[c.op], c.left, c.right), decimals)
+    if isinstance(expr, In) and isinstance(expr.child, Column):
+        on_dec = expr.child.name_path in decimals
+        if not any(_exact_literal(v, on_dec) for v in expr.values):
+            return expr
+        if any(v is None for v in expr.values):
+            return None
+        try:
+            lo, hi = min(expr.values), max(expr.values)
+        except TypeError:
+            return None
+        return _bounds(And(Comparison(">=", expr.child, Literal(lo)),
+                           Comparison("<=", expr.child, Literal(hi))),
+                       decimals)
+    if not isinstance(expr, Comparison):
+        return expr
+    if isinstance(expr.left, Column) and isinstance(expr.right, Literal):
+        colref, value, op = expr.left, expr.right.value, expr.op
+    elif isinstance(expr.right, Column) and isinstance(expr.left, Literal):
+        colref, value, op = expr.right, expr.left.value, _FLIP[expr.op]
+    else:
+        return expr
+    if not _exact_literal(value, colref.name_path in decimals):
+        return expr
+    below = Comparison(">=", colref, Literal(_double_at_or_below(value)))
+    above = Comparison("<=", colref, Literal(_double_at_or_above(value)))
+    if op in (">", ">="):
+        return below
+    if op in ("<", "<="):
+        return above
+    return And(below, above) if op == "=" else None
+
+
+def exact_bounds(conjuncts: List[Expression], metadata) -> List[Expression]:
+    """The conjuncts with exact comparisons widened (`_bounds`), a
+    top-level AND split, those that skip nothing dropped."""
+    decimals = set()
+    if metadata is not None and metadata.schemaString:
+        for f in json.loads(metadata.schemaString).get("fields", []):
+            if decimal_precision_scale(f.get("type")) is not None:
+                decimals.add((f.get("name"),))
+    out: List[Expression] = []
+    for conj in conjuncts:
+        b = _bounds(conj, decimals)
+        if isinstance(b, And):
+            out.extend([b.left, b.right])
+        elif b is not None:
+            out.append(b)
+    return out
+
+
 def skipping_mask(stats: Optional[Sequence[Optional[str]]],
                   conjuncts: List[Expression], metadata, engine=None,
                   state=None) -> np.ndarray:
@@ -419,6 +516,9 @@ def skipping_mask(stats: Optional[Sequence[Optional[str]]],
         raise UnsupportedTableError(
             "data skipping over a column-mapped table is not supported "
             "yet", feature="column mapping")
+    conjuncts = exact_bounds(conjuncts, metadata)
+    if not conjuncts:
+        return keep
     rs = None
     if state is not None:
         from delta_tpu_torch.stats.device_index import snapshot_stats_index

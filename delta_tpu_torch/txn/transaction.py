@@ -67,7 +67,12 @@ from delta_tpu_torch.models.actions import (
     actions_from_commit_bytes,
     actions_to_commit_bytes,
 )
-from delta_tpu_torch.models.schema import StructType, schema_from_json, schema_to_json
+from delta_tpu_torch.models.schema import (
+    StructType,
+    check_writable,
+    schema_from_json,
+    schema_to_json,
+)
 from delta_tpu_torch.txn.conflict import (
     TransactionReadState,
     WinningCommit,
@@ -133,11 +138,12 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
             "delta.compatibility.symlinkFormatManifest.enabled needs the "
             "symlink-manifest post-commit hook, which is not ported yet",
             feature="symlink manifest")
-    schema_from_json(metadata.schemaString)  # raises on an unsupported type
+    check_writable(schema_from_json(metadata.schemaString))
 
 
 def _check_metadata(metadata: Metadata) -> None:
     schema = schema_from_json(metadata.schemaString)
+    check_writable(schema)
     if not schema.fields:
         raise InvalidArgumentError(
             "Data used in creating the Delta table doesn't have any columns.",

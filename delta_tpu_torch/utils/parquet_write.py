@@ -9,7 +9,8 @@ parquet-cpp's fallback to PLAIN pages once the dictionary passes
 (`log/snappy.py`). The footer is written with a thrift compact-protocol
 writer. Physical types: BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY;
 logical annotations STRING, DATE, TIMESTAMP (micros or millis, adjusted
-to UTC or not) and UNKNOWN (an all-null column of Arrow's null type);
+to UTC or not) and UNKNOWN (an all-null column of Arrow's null type),
+and the DECIMAL converted type with its precision and scale;
 optional groups nest to any depth (a checkpoint's `add.stats_parsed`).
 
 `write_data_file` writes one data file of a table from a
@@ -120,6 +121,8 @@ class SchemaNode:
                                      # 8 TIMESTAMP, 11 UNKNOWN (null)
     timestamp: Tuple[bool, int] = (True, 2)  # TIMESTAMP: adjusted to
                                              # UTC; unit 1 ms, 2 us
+    decimal: Optional[Tuple[int, int]] = None  # DECIMAL (converted 5):
+                                               # precision, scale
 
 
 @dataclass
@@ -311,6 +314,9 @@ def _schema(t: _Thrift, node: SchemaNode, top: bool = False) -> None:
         t.i32(5, len(node.children))
     if node.converted is not None:
         t.i32(6, node.converted)
+    if node.decimal is not None:
+        t.i32(7, node.decimal[1])
+        t.i32(8, node.decimal[0])
     if node.logical is not None:
         t.begin(10)
         t.begin(node.logical)

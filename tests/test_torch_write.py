@@ -164,12 +164,30 @@ def test_reader_matches_pyarrow(n, kw):
     _assert_batch_equals_arrow(read_data_file(data), tbl)
 
 
+def _legacy_list_file() -> bytes:
+    """A LIST whose repeated field is the element itself (the two-level
+    form of old writers), rows [1, 2], null, []."""
+    from delta_tpu_torch.utils.parquet_write import (
+        LeafColumn,
+        SchemaNode,
+        write_parquet,
+    )
+
+    schema = SchemaNode("schema", 0, (SchemaNode(
+        "x", 1, (SchemaNode("array", 2, physical="INT64"),),
+        converted=3),))
+    return write_parquet(schema, [LeafColumn(
+        ("x", "array"), "INT64", np.array([2, 2, 0, 1], np.int32),
+        np.array([0, 1, 0, 0], np.int32), 2, 1,
+        np.array([1, 2], np.int64))], 3)
+
+
 def test_reader_refuses_what_it_does_not_decode():
     from delta_tpu_torch.log.parquet_footer import DecodeUnsupported
 
+    forms = []
     for tbl, kw in [
-        (pa.table({"x": pa.array([b"a", b"b"])}), {}),               # binary
-        (pa.table({"x": pa.array([[1], [2]])}), {}),                 # list
+        (pa.table({"x": pa.array([1, 2], pa.uint32())}), {}),      # unsigned
         (pa.table({"x": pa.array([1, 2], pa.int64())}),
          {"compression": "lz4"}),
         (pa.table({"x": pa.array([1, 2], pa.int64())}),
@@ -177,8 +195,11 @@ def test_reader_refuses_what_it_does_not_decode():
     ]:
         buf = io.BytesIO()
         pq.write_table(tbl, buf, **kw)
+        forms.append(buf.getvalue())
+    forms.append(_legacy_list_file())
+    for data in forms:
         with pytest.raises(DecodeUnsupported):
-            read_data_file(buf.getvalue())
+            read_data_file(data)
 
 
 # ------------------------------------------------------------ writing --
