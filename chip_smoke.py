@@ -237,6 +237,25 @@
     each other, v1 and v2 pages) whole and projected, to the manifest's
     row digests. Prints rows/s and seconds per read.
 
+20. Writing the wider types (`wide_write_phase`), TPC-DS's data
+    maintenance of store_sales (v3 clause 5) on step 19's full read
+    (2,812,440 live rows, each copy's tickets renumbered so that
+    (ss_item_sk, ss_ticket_number) is unique), each step's counters from
+    0 and its rows against a numpy model of that read (per column valid
+    count, sum and sum of squares mod 2^64): `write_table` in files of
+    6,000 rows with deletion vectors and struct stats, a reload (K1, K2)
+    and a read of all 23 columns to the manifest's sums times 120; DF_SS,
+    a DELETE of 90% of a quarter's sold dates (K7 keeps the files the
+    stats give; K8 packs their DVs of bitmap containers once); an UPDATE
+    of one ticket's `ss_coupon_amt` (a decimal SET); LF_SS, a MERGE on
+    the key of a 1% source, half matched in the last quarter, half new
+    tickets (K9 once); OPTIMIZE ZORDER BY (ss_customer_sk, ss_item_sk)
+    of the last quarter (K4 once); a checkpoint with struct stats, its
+    reload (K3 once per part), a read with `ss_net_profit > 0` (K7) and
+    one of every column; then the 600-row nested fixture written back to
+    the manifest's row digest. Prints each step's seconds, rows/s and
+    launches.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
@@ -3072,8 +3091,9 @@ def _wide_table(root: str, work: str, links: int) -> str:
     """store_sales at `links` links of each fixture file: the files hard
     linked (copied where links fail) under new names, the DV file
     beside them, and one commit of the fixture's protocol and metaData
-    and an add per link (its stats, its DV descriptor) written by hand;
-    the port does not write these types."""
+    and an add per link (its stats, its DV descriptor) written by hand,
+    so that the read has 480 files without writing 2.88M rows (step 20
+    writes them)."""
     from delta_tpu_torch import Table, TorchEngine
 
     src = os.path.join(root, "store_sales")
@@ -3100,7 +3120,7 @@ def _wide_table(root: str, work: str, links: int) -> str:
 
 
 def wide_types_phase(root: str, device: str, card: str,
-                     links: int = WIDE_LINKS) -> dict:
+                     links: int = WIDE_LINKS, keep: dict = None) -> dict:
     """Step 19: TPC-DS store_sales (12 decimal(7,2) money columns, INT32
     in two files and FIXED_LEN_BYTE_ARRAY in two, one DV) at `links`
     links of each fixture file, loaded and read with `TorchEngine(device)`:
@@ -3109,7 +3129,8 @@ def wide_types_phase(root: str, device: str, card: str,
     23 columns; then the nested fixture table whole and projected. Each
     read's digests equal the manifest's, scaled by `links`; the load's K1
     and K2, and each read's K7 and K8 launches, are checked (0 on the
-    CPU)."""
+    CPU). `keep`, when given, receives the full read of store_sales
+    ("all") and of the nested table ("nested"), step 20's input."""
     from delta_tpu_torch import Table, TorchEngine, obs
 
     with open(os.path.join(root, "manifest.json")) as f:
@@ -3167,6 +3188,8 @@ def wide_types_phase(root: str, device: str, card: str,
                 "rows_per_s": batch.num_rows / s,
                 "columns": len(batch.column_names), "k7": k7, "k8": k8,
                 "k8_dvs": dvs}
+            if keep is not None and name == "all":
+                keep["all"] = batch
         del snap, batch
         nested = Table.for_path(os.path.join(root, "nested"),
                                 engine=TorchEngine(device)).latest_snapshot()
@@ -3183,6 +3206,333 @@ def wide_types_phase(root: str, device: str, card: str,
                 "rows": batch.num_rows, "files": 2, "s": s,
                 "rows_per_s": batch.num_rows / s,
                 "columns": len(batch.column_names)}
+            if keep is not None and name == "all":
+                keep["nested"] = batch
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# step 20: TPC-DS's data maintenance of store_sales (v3 clause 5) on the
+# port's own copy of step 19's rows: LF_SS inserts new sales, DF_SS
+# deletes the sales of a date range
+WIDE_WRITE_FILE_ROWS = 6_000  # rows per written file, the fixture's
+# fixture ticket numbers are file * 60,000 + 1..~520: each copy's tickets
+# renumbered to file * 10^6 + copy * 1,000 + the ticket's place in its
+# file, so that (ss_item_sk, ss_ticket_number) is unique, as dsdgen's key
+# is, and each quarter's tickets are contiguous
+WIDE_TICKET_FILE = 60_000
+WIDE_TICKETS = (1_000_000, 1_000)
+# DF_SS's range: the first 90% of quarter 2's sold dates, > 4,096 of each
+# of its files' 6,000 rows: DVs of bitmap containers (K8 packs)
+WIDE_DELETE_RANGE = (2451730, 2452141)
+WIDE_LAST_QUARTER = (2452187, 2452643)  # quarter 3: LF_SS's new sales
+WIDE_MERGE_SHARE = 0.01      # the MERGE source: 1% of the live rows
+WIDE_NEW_TICKET = 4_000_000  # LF_SS's new tickets: past every quarter's
+WIDE_COUPON = "1.23"         # UPDATE's decimal SET
+WIDE_ZORDER = ("ss_customer_sk", "ss_item_sk")
+WIDE_WRITE_PROPS = {"delta.enableDeletionVectors": "true",
+                    "delta.checkpoint.writeStatsAsStruct": "true"}
+WIDE_WRITE_K = {"k1": "kernel.byte_class.launches",
+                "k2": "kernel.winner_pack.launches",
+                "k3": "kernel.hybrid_extract.launches",
+                "k4": "kernel.interleave_bits.launches",
+                "k7": "kernel.skip_mask.launches",
+                "k8_pack": "kernel.dv_bits.pack_launches",
+                "k8_decode": "kernel.dv_bits.decode_launches",
+                "k9": "kernel.merge_join.launches"}
+
+
+def _renumber_tickets(item: np.ndarray, ticket: np.ndarray) -> np.ndarray:
+    """Each linked copy's tickets made its own (WIDE_TICKETS): a row's
+    copy is its place among the rows of equal (item, ticket)."""
+    n = len(ticket)
+    order = np.lexsort((np.arange(n), ticket, item))
+    key = item[order].astype(np.int64) * (1 << 32) + ticket[order]
+    starts = np.r_[0, np.flatnonzero(np.diff(key)) + 1]
+    occ = np.arange(n) - np.repeat(starts, np.diff(np.r_[starts, n]))
+    copy = np.empty(n, np.int64)
+    copy[order] = occ
+    quarter, place = np.divmod(ticket.astype(np.int64), WIDE_TICKET_FILE)
+    return quarter * WIDE_TICKETS[0] + copy * WIDE_TICKETS[1] + place
+
+
+class _WideModel:
+    """store_sales as numpy: each column's int64 lanes (decimals
+    unscaled) and validity, and which rows are live."""
+
+    def __init__(self, batch):
+        self.names = batch.column_names
+        self.types = {c: batch.column(c).data_type for c in self.names}
+        self.dtypes = {c: batch.column(c).values.dtype for c in self.names}
+        self.v = {c: np.asarray(batch.column(c).values, np.int64).copy()
+                  for c in self.names}
+        self.ok = {c: (np.ones(batch.num_rows, bool)
+                       if batch.column(c).valid is None
+                       else batch.column(c).valid.copy())
+                   for c in self.names}
+        self.alive = np.ones(batch.num_rows, bool)
+
+    def sums(self, names=None) -> dict:
+        """`wide_sums` of the live rows."""
+        out = {}
+        for c in names or self.names:
+            u = self.v[c][self.alive & self.ok[c]].view(np.uint64)
+            out[c] = [int(u.shape[0]), int(u.sum(dtype=np.uint64)),
+                      int((u * u).sum(dtype=np.uint64))]
+        return out
+
+    def keys(self) -> np.ndarray:
+        return self.v["ss_item_sk"] * (1 << 32) + self.v["ss_ticket_number"]
+
+    def batch(self, idx):
+        from delta_tpu_torch.models.batch import Batch, Column
+
+        return Batch({c: Column(self.v[c][idx].astype(self.dtypes[c]),
+                                self.ok[c][idx].copy(), self.types[c])
+                      for c in self.names}, len(idx))
+
+    def append(self, batch) -> None:
+        for c in self.names:
+            col = batch.column(c)
+            self.v[c] = np.r_[self.v[c], np.asarray(col.values, np.int64)]
+            self.ok[c] = np.r_[self.ok[c], np.ones(batch.num_rows, bool)
+                               if col.valid is None else col.valid]
+        self.alive = np.r_[self.alive, np.ones(batch.num_rows, bool)]
+
+
+def _wide_merge_source(model, rng):
+    """LF_SS's rows: 1% of the live rows, half of them live rows of the
+    last quarter with a new quantity and a profit 1.00 higher (matched),
+    half new sales on new tickets in the last quarter's dates, their other
+    columns those of last-quarter rows (inserted). Returns (source batch,
+    the matched rows' model indexes)."""
+    from delta_tpu_torch.models.batch import Batch, Column
+
+    n = int(round(model.alive.sum() * WIDE_MERGE_SHARE)) // 2
+    date = model.v["ss_sold_date_sk"]
+    last = np.flatnonzero(model.alive & model.ok["ss_sold_date_sk"]
+                          & (date >= WIDE_LAST_QUARTER[0]))
+    hit = np.sort(rng.choice(last, n, replace=False))
+    like = rng.choice(last, n)
+    cols = {}
+    for c in model.names:
+        v = np.r_[model.v[c][hit], model.v[c][like]]
+        ok = np.r_[model.ok[c][hit], model.ok[c][like]]
+        cols[c] = [v, ok]
+    cols["ss_quantity"] = [rng.integers(1, 101, 2 * n), np.ones(2 * n, bool)]
+    profit = cols["ss_net_profit"]
+    profit[0][:n] += 100
+    profit[1][:n] = True
+    cols["ss_ticket_number"][0][n:] = WIDE_NEW_TICKET + np.arange(n)
+    cols["ss_sold_date_sk"] = [np.r_[date[hit], rng.integers(
+        *WIDE_LAST_QUARTER, n)], np.ones(2 * n, bool)]
+    src = Batch({c: Column(v.astype(model.dtypes[c]),
+                           None if ok.all() else ok, model.types[c])
+                 for c, (v, ok) in cols.items()}, 2 * n)
+    return src, hit
+
+
+def _loaded(path: str, eng):
+    """A fresh Table's latest snapshot with its state loaded."""
+    from delta_tpu_torch import Table
+
+    snap = Table.for_path(path, engine=eng).latest_snapshot()
+    snap.state
+    return snap
+
+
+def wide_write_phase(batch, nested, root: str, device: str, card: str,
+                     links: int = WIDE_LINKS) -> dict:
+    """Step 20: the wider types through every write path on the card.
+    `batch` is step 19's full read of store_sales (`links` links of each
+    fixture file), `nested` its read of the nested fixture. Each step's
+    counters from 0, its rows against `_WideModel`:
+    1. `write_table` in files of 6,000 rows (tickets renumbered per
+       copy), a reload and a read of all 23 columns: the manifest's sums
+       times `links` (the tickets the model's); K1, K2 on the reload;
+    2. DELETE of WIDE_DELETE_RANGE's sold dates (DF_SS): K7 keeps the
+       files whose stats overlap the range, K8 packs once;
+    3. UPDATE of one ticket's `ss_coupon_amt` (a decimal SET);
+    4. MERGE on (ss_item_sk, ss_ticket_number) of a 1% source (LF_SS):
+       half updated, half inserted; K9 once;
+    5. OPTIMIZE ZORDER BY (ss_customer_sk, ss_item_sk) of the last
+       quarter: K4 once;
+    6. a checkpoint with struct stats, a reload (K3 once per part), a read
+       with `ss_net_profit > 0` and a read of every column;
+    7. the nested fixture written back by the port, read equal to the
+       manifest's digest.
+    Returns each step's seconds, rows/s and launches."""
+    import decimal
+
+    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.commands.merge import merge
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.batch import Batch, Column
+
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    card_run = device != "cpu"
+    eng = TorchEngine(device)
+    work = tempfile.mkdtemp(prefix="wide_write_")
+    path = os.path.join(work, "store_sales")
+    n0 = batch.num_rows
+    cols = dict(batch.columns)
+    cols["ss_ticket_number"] = Column(_renumber_tickets(
+        batch.column("ss_item_sk").values,
+        batch.column("ss_ticket_number").values))
+    src = Batch(cols, n0)
+    model = _WideModel(src)
+    _check(len(np.unique(model.keys())) == n0,
+           "wide_write: (ss_item_sk, ss_ticket_number) unique")
+    want = manifest["store_sales"]["reads"]["all"]["sums"]
+    scaled = {k: [v[0] * links, v[1] * links % (1 << 64),
+                  v[2] * links % (1 << 64)] for k, v in want.items()}
+    scaled["ss_ticket_number"] = model.sums(["ss_ticket_number"])[
+        "ss_ticket_number"]
+    _check(model.sums() == scaled, "wide_write: the model is the manifest's")
+    out = {"rows": n0, "links": links, "card": card, "steps": {}}
+    sync = eng.synchronize
+
+    def step(name, rows, fn, **expect):
+        sync()
+        obs.reset()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = obs.counters()
+        _ladder_idle(counts, f"wide_write {name}")
+        got = {k: counts.get(v, 0) for k, v in WIDE_WRITE_K.items()}
+        for k, (at_least, exactly) in expect.items():
+            ok = (got[k] >= at_least if exactly is None else
+                  got[k] == exactly) if card_run else got[k] == 0
+            _check(ok, f"wide_write {name}: {k} {got[k]}, expected "
+                   f"{exactly if exactly is not None else f'>= {at_least}'}")
+        out["steps"][name] = dict(got, s=seconds, rows=rows,
+                                  rows_per_s=rows / seconds)
+        return result
+
+    def held(read, names, what):
+        _check(read.num_rows == int(model.alive.sum())
+               and wide_sums(read) == model.sums(names),
+               f"wide_write {what}: rows equal the model's")
+
+    try:
+        # 1. the write, a reload, every column
+        step("write", n0, lambda: write_table(
+            path, src, engine=eng, properties=WIDE_WRITE_PROPS,
+            target_rows_per_file=WIDE_WRITE_FILE_ROWS))
+        table = Table.for_path(path, engine=eng)
+        n_files = -(-n0 // WIDE_WRITE_FILE_ROWS)
+        snap = step("reload", n0, lambda: _loaded(path, eng),
+                    k1=(1, None), k2=(1, None))
+        _check(len(snap.state.add_files) == n_files,
+               f"wide_write: {n_files} files written")
+        got = step("read_all", n0, lambda: read_table(path, engine=eng))
+        _check(wide_sums(got) == scaled,
+               "wide_write read_all: the manifest's sums times the links")
+        del got, snap
+        # 2. DF_SS: the sales of a date range
+        date, date_ok = model.v["ss_sold_date_sk"], model.ok["ss_sold_date_sk"]
+        lo, hi = WIDE_DELETE_RANGE
+        in_range = date_ok & (date >= lo) & (date < hi)
+        kept = 0
+        for f in range(n_files):
+            r = slice(f * WIDE_WRITE_FILE_ROWS, (f + 1) * WIDE_WRITE_FILE_ROWS)
+            d = date[r][date_ok[r]]
+            kept += int(len(d) == 0 or (d.max() >= lo and d.min() < hi))
+        m = step("delete", int(in_range.sum()), lambda: delete(
+            table, (col("ss_sold_date_sk") >= lit(lo))
+            & (col("ss_sold_date_sk") < lit(hi))),
+            k7=(1, 1), k8_pack=(1, 1))
+        _check(m.num_files_scanned == kept
+               and m.num_rows_deleted == int(in_range.sum()),
+               f"wide_write delete: K7 kept {m.num_files_scanned} of "
+               f"{n_files} files (the stats give {kept}); "
+               f"{m.num_rows_deleted} rows")
+        model.alive &= ~in_range
+        out["steps"]["delete"].update(files_kept=kept, dvs=m.num_dvs_written)
+        names = ["ss_sold_date_sk", "ss_ticket_number"]
+        held(read_table(path, columns=names, engine=eng), names,
+             "delete")
+        # 3. a decimal SET on one ticket
+        live_q3 = np.flatnonzero(model.alive & date_ok
+                                 & (date >= WIDE_LAST_QUARTER[0]))
+        ticket = int(model.v["ss_ticket_number"][live_q3[0]])
+        hit = model.alive & (model.v["ss_ticket_number"] == ticket)
+        m = step("update", int(hit.sum()), lambda: update(
+            table, {"ss_coupon_amt": lit(decimal.Decimal(WIDE_COUPON))},
+            col("ss_ticket_number") == lit(ticket)), k7=(1, 1))
+        _check(m.num_rows_updated == int(hit.sum()),
+               f"wide_write update: {m.num_rows_updated} rows")
+        model.v["ss_coupon_amt"][hit] = int(
+            decimal.Decimal(WIDE_COUPON).scaleb(2))
+        model.ok["ss_coupon_amt"][hit] = True
+        names = ["ss_ticket_number", "ss_coupon_amt"]
+        held(read_table(path, columns=names, engine=eng), names, "update")
+        # 4. LF_SS: MERGE a 1% source on the table's key
+        source, matched = _wide_merge_source(model, np.random.default_rng(20))
+        half = len(matched)
+        m = step("merge", source.num_rows, lambda: merge(
+            table, source, on=(col("target.ss_item_sk")
+                               == col("source.ss_item_sk"))
+            & (col("target.ss_ticket_number")
+               == col("source.ss_ticket_number")))
+            .when_matched_update_all().when_not_matched_insert_all()
+            .execute(), k9=(1, 1))
+        _check((m.num_target_rows_updated, m.num_target_rows_inserted)
+               == (half, half),
+               f"wide_write merge: {m.num_target_rows_updated} updated, "
+               f"{m.num_target_rows_inserted} inserted of {half} each")
+        model.alive[matched] = False
+        model.append(source)
+        names = ["ss_item_sk", "ss_ticket_number", "ss_quantity",
+                 "ss_net_profit", "ss_sold_date_sk"]
+        held(read_table(path, columns=names, engine=eng), names, "merge")
+        out["steps"]["merge"]["files_rewritten"] = \
+            m.num_target_files_rewritten
+        # 5. OPTIMIZE ZORDER BY of the last quarter
+        last = model.alive & model.ok["ss_sold_date_sk"] & (
+            model.v["ss_sold_date_sk"] >= WIDE_LAST_QUARTER[0])
+        m = step("optimize_zorder", int(last.sum()), lambda: table.optimize()
+                 .where(col("ss_sold_date_sk") >= lit(WIDE_LAST_QUARTER[0]))
+                 .execute_zorder_by(*WIDE_ZORDER), k4=(1, 1))
+        out["steps"]["optimize_zorder"].update(
+            files_removed=m.num_files_removed, files_added=m.num_files_added)
+        # 6. a checkpoint of struct stats, its reload, reads
+        step("checkpoint", 0, lambda: Table.for_path(
+            path, engine=eng).checkpoint())
+        parts = [n for n in os.listdir(os.path.join(path, "_delta_log"))
+                 if ".checkpoint." in n]
+        snap = step("checkpoint_reload", 0, lambda: _loaded(path, eng),
+                    k3=(len(parts), len(parts)))
+        _check(len(parts) >= 1 and snap.state.add_files,
+               "wide_write: the checkpoint reloads")
+        profit = model.v["ss_net_profit"]
+        pos = model.alive & model.ok["ss_net_profit"] & (profit > 0)
+        names = ["ss_item_sk", "ss_net_profit"]
+        got = step("read_profit", int(pos.sum()), lambda: snap.scan(
+            filter=col("ss_net_profit") > lit(decimal.Decimal("0.00")),
+            columns=names).to_batch(), k7=(1, 1))
+        alive = model.alive
+        model.alive = pos
+        held(got, names, "read_profit")
+        model.alive = alive
+        got = step("read_all_after", int(alive.sum()),
+                   lambda: snap.scan().to_batch())
+        held(got, None, "read_all_after")
+        del got, snap
+        # 7. the nested fixture, written back
+        npath = os.path.join(work, "nested")
+        step("nested_write", nested.num_rows, lambda: write_table(
+            npath, nested, engine=eng))
+        got = read_table(npath, engine=eng)
+        _check(wide_rows_digest(got) == manifest["nested"]["reads"]["all"][
+            "sha256"], "wide_write nested: rows equal the manifest's")
+        out["steps"]["nested_write"]["files"] = 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -3389,7 +3739,8 @@ def main(argv=None) -> int:
 
         # the wider schema types: TPC-DS store_sales at SF1's row count
         # and the nested fixture; counters from 0 per load and read
-        wide = wide_types_phase(WIDE_DIR, "cuda", card)
+        wide_in = {}
+        wide = wide_types_phase(WIDE_DIR, "cuda", card, keep=wide_in)
         wide_reads = wide["reads"].values()
         kernels["skip_mask"]["launches_wide_types"] = sum(
             r.get("k7", 0) for r in wide_reads)
@@ -3401,6 +3752,26 @@ def main(argv=None) -> int:
             print(f"wide_types {name}: {r['rows']} rows, {r['columns']} "
                   f"columns, {r['files']} files, {r['s']:.4f} s, "
                   f"{r['rows_per_s']:.1f} rows/s; {card}", flush=True)
+
+        # step 20: the wider types through every write path, on step
+        # 19's rows (TPC-DS data maintenance); counters from 0 per step
+        ww = wide_write_phase(wide_in.pop("all"), wide_in.pop("nested"),
+                              WIDE_DIR, "cuda", card)
+        ww_steps = ww["steps"].values()
+        for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                          ("hybrid_extract", "k3"),
+                          ("skip_mask", "k7")):
+            kernels[name]["launches_wide_write"] = sum(
+                s[key] for s in ww_steps)
+        wide_write_k4 = sum(s["k4"] for s in ww_steps)
+        wide_write_k8 = sum(s["k8_pack"] + s["k8_decode"] for s in ww_steps)
+        wide_write_k9 = sum(s["k9"] for s in ww_steps)
+        print("wide_write: " + json.dumps(ww), flush=True)
+        for name, r in ww["steps"].items():
+            print(f"wide_write {name}: {r['rows']} rows, {r['s']:.4f} s, "
+                  f"{r['rows_per_s']:.1f} rows/s, launches "
+                  + json.dumps({k: r[k] for k in WIDE_WRITE_K})
+                  + f"; {card}", flush=True)
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
@@ -3455,6 +3826,7 @@ def main(argv=None) -> int:
         # the OPTIMIZE path, counters from 0
         opt = optimize_phase(work, appends, card, dev)
         kernels["interleave_bits"]["launches"] = opt["launches"]
+        kernels["interleave_bits"]["launches_wide_write"] = wide_write_k4
         kernels["skip_mask"]["launches_read_table"] = \
             opt["read_table_counters"].get("kernel.skip_mask.launches", 0)
         print("optimize zorder: " + json.dumps(opt), flush=True)
@@ -3467,6 +3839,7 @@ def main(argv=None) -> int:
             s["k8_pack"] + s["k8_decode"] for s in steps.values()))
         del k8_inputs
         kernels["dv_bits"]["launches_wide_types"] = wide_k8
+        kernels["dv_bits"]["launches_wide_write"] = wide_write_k8
         kernels["dv_bits"]["launches_per_step"] = {
             k: {"pack": s["k8_pack"], "decode": s["k8_decode"],
                 "decode_dvs": s["k8_decode_dvs"]}
@@ -3492,6 +3865,7 @@ def main(argv=None) -> int:
         del lanes
         kernels["merge_join"]["launches_per_step"] = {
             k: s["k9"] for k, s in steps.items()}
+        kernels["merge_join"]["launches_wide_write"] = wide_write_k9
         for name, key in (("skip_mask", "k7"), ("byte_class", "k1"),
                           ("winner_pack", "k2"), ("hybrid_extract", "k3"),
                           ("interleave_bits", "k4")):

@@ -9,12 +9,14 @@
     batch = read_table(path, filter=col("k") < lit(5), columns=["s"])
 
 `columns` maps names to numpy arrays, (values, valid) pairs, or
-`models.batch.Column`s; a new table's schema comes from their dtypes
-(`models/schema.py::type_name_of`). The first write
-creates the table: protocol (1, 2) and metadata with the given
-properties and `partition_by` columns (ignored once the table exists, as
-in the reference), in the same commit as the data, as the reference does
-(`delta_tpu/api.py:24`). Returns the committed version.
+`models.batch.Column`s; a new table's schema comes from each column's
+`data_type` where it has one (a decimal, binary, timestamp_ntz or nested
+column: `models/batch.py::column_from_python` builds one from Python values),
+else from its dtype (`models/schema.py::type_name_of`). The first write creates
+the table: protocol (1, 2) and metadata with the given properties and
+`partition_by` columns (ignored once the table exists, as in the reference), in
+the same commit as the data, as the reference does (`delta_tpu/api.py:24`).
+Returns the committed version.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from delta_tpu_torch.write.writer import write_data_files
 def schema_of(batch: Batch) -> StructType:
     """The schema of a batch's columns: a column's own `data_type` where
     it carries one (a decimal, binary, timestamp_ntz or nested column the
-    read gave, which the writer then refuses), else its dtype's."""
+    read gave, so that it writes back as that type), else its dtype's."""
     return StructType([StructField(name, c.data_type
                                    or type_name_of(c.values))
                        for name, c in batch.columns.items()])

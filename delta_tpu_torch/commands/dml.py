@@ -88,7 +88,7 @@ from delta_tpu_torch.expressions.eval import (
 from delta_tpu_torch.expressions.tree import Expression
 from delta_tpu_torch.models.actions import AddFile
 from delta_tpu_torch.models.batch import Batch, Column, as_column
-from delta_tpu_torch.models.schema import schema_from_json
+from delta_tpu_torch.models.schema import carried_type, schema_from_json
 from delta_tpu_torch.read.reader import (
     deleted_row_mask,
     deleted_row_masks,
@@ -329,17 +329,17 @@ def _apply_assignments(matched: Batch, assignments: Dict[str, object],
         if name not in out.columns:
             raise InvalidArgumentError(f"unknown column in SET: {name}",
                                        error_class="DELTA_MISSING_SET_COLUMN")
-        type_name = schema[name].type_name
+        t = schema[name].data_type
         if isinstance(value, Expression):
-            values, valid = cast_values(evaluate_values(value, out),
-                                        type_name)
+            values, valid = cast_values(evaluate_values(value, out), t)
         elif callable(value):
             c = as_column(value(out))
-            values, valid = cast_values(column_values(c.values, c.valid),
-                                        type_name)
+            values, valid = cast_values(
+                column_values(c.values, c.valid, c.data_type), t)
         else:
-            values, valid = constant_values(value, type_name, out.num_rows)
+            values, valid = constant_values(value, t, out.num_rows)
         cols = dict(out.columns)
-        cols[name] = Column(values, None if valid.all() else valid)
+        cols[name] = Column(values, None if valid.all() else valid,
+                            carried_type(t))
         out = Batch(cols, out.num_rows)
     return out

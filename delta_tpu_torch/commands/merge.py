@@ -56,7 +56,7 @@ from __future__ import annotations
 import datetime
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -90,8 +90,14 @@ from delta_tpu_torch.models.batch import (
     Column,
     NamespacedBatch,
     as_column,
+    decimal_value,
 )
-from delta_tpu_torch.models.schema import StructType, schema_from_json
+from delta_tpu_torch.models.schema import (
+    StructType,
+    carried_type,
+    decimal_precision_scale,
+    schema_from_json,
+)
 from delta_tpu_torch.obs import PhaseTimer
 from delta_tpu_torch.ops.join import equi_join_device, host_pair_join
 from delta_tpu_torch.read.reader import read_add_files_logical
@@ -258,7 +264,18 @@ def _source_key_bounds(t_keys: List[str], s_keys: List[str],
             continue
         if v.dtype.kind == "f" and np.isnan(v).any():
             continue
+        ps = decimal_precision_scale(col.data_type)
+        if col.data_type is not None and ps is None \
+                and col.data_type != "timestamp_ntz":
+            continue  # binary and nested keys: no min or max
+        if v.dtype.kind == "O" and ps is None and not all(
+                isinstance(x, str) for x in v.tolist()):
+            continue  # bytes or dicts without a data_type
         mn, mx = _bound_literal(v, np.min), _bound_literal(v, np.max)
+        if ps is not None:
+            mn, mx = (decimal_value(int(x), ps[1]) for x in (mn, mx))
+        elif col.data_type == "timestamp_ntz":
+            mn, mx = (x.replace(tzinfo=None) for x in (mn, mx))
         target = ColumnRef((t_key,))
         conjuncts.append(Comparison(">=", target, Literal(mn)))
         conjuncts.append(Comparison("<=", target, Literal(mx)))
@@ -289,8 +306,8 @@ def _equi_keys(on: Expression):
     return t_keys, s_keys, residual
 
 
-def _col(values: np.ndarray, valid: np.ndarray) -> Column:
-    return Column(values, None if valid.all() else valid)
+def _col(values: np.ndarray, valid: np.ndarray, t) -> Column:
+    return Column(values, None if valid.all() else valid, carried_type(t))
 
 
 def _eval_values(assignments: Optional[Dict[str, object]],
@@ -308,28 +325,34 @@ def _eval_values(assignments: Optional[Dict[str, object]],
         amap = {k.lower(): v for k, v in assignments.items()}
     out = {}
     for f in schema.fields:
-        t = f.type_name
+        t = f.data_type
         if assignments is not None and f.name.lower() in amap:
             v = amap[f.name.lower()]
             if isinstance(v, Expression):
                 out[f.name] = _col(*cast_values(evaluate_values(v, batch),
-                                                t))
+                                                t), t)
             else:
-                out[f.name] = _col(*constant_values(v, t, n))
+                out[f.name] = _col(*constant_values(v, t, n), t)
             continue
         src = (source.columns.get(by_lower.get(f.name.lower()))
                if assignments is None else target.columns.get(f.name))
         if src is None:
-            out[f.name] = Column.nulls(f.numpy_dtype, n)
+            out[f.name] = Column.nulls(f.numpy_dtype, n, carried_type(t))
         else:
             out[f.name] = _col(*cast_values(
-                column_values(src.values, src.valid), t))
+                column_values(src.values, src.valid, src.data_type), t), t)
     return Batch(out, n)
 
 
-def _null_rows(schema_of: Dict[str, np.dtype], n: int) -> Batch:
-    return Batch({name: Column.nulls(dtype, n)
-                  for name, dtype in schema_of.items()}, n)
+def _null_rows(types: Dict[str, tuple], n: int) -> Batch:
+    """`n` null rows of columns named to (numpy dtype, data_type)."""
+    return Batch({name: Column.nulls(dtype, n, t)
+                  for name, (dtype, t) in types.items()}, n)
+
+
+def _schema_types(schema: StructType) -> Dict[str, tuple]:
+    return {f.name: (f.numpy_dtype, carried_type(f.data_type))
+            for f in schema.fields}
 
 
 def _in_schema_order(batch: Batch, schema: StructType) -> Batch:
@@ -389,18 +412,21 @@ def _check_key_types(t_keys: List[str], s_keys: List[str],
     """Refuse an equi-key pair of a string column and a column of another
     type, as the reference's join does ("You are trying to merge on str
     and int64 columns"): coding both by their text would match "2" with 2
-    but not with 2.0. Pairs of numbers of mixed width or kind join by
-    value."""
+    but not with 2.0. Binary counts as another type. Pairs of numbers of
+    mixed width or kind (decimals too) join by value, binary by bytes."""
     for t_key, s_key in zip(t_keys, s_keys):
         if t_key not in schema or s_key not in source.columns:
             continue
         t_type = schema[t_key].type_name
-        s_dtype = source.column(s_key).values.dtype
-        if (t_type == "string") != (s_dtype.kind in "OU"):
+        sc = source.column(s_key)
+        s_str = sc.data_type is None and sc.values.dtype.kind in "OU" and \
+            not any(isinstance(v, bytes) for v in sc.values[:1].tolist())
+        if (t_type == "string") != s_str:
             raise InvalidArgumentError(
                 f"MERGE cannot join target.{t_key} ({t_type}) with "
-                f"source.{s_key} ({s_dtype}): a string key joins only a "
-                "string key", error_class="DATATYPE_MISMATCH")
+                f"source.{s_key} ({sc.data_type or sc.values.dtype}): a "
+                "string key joins only a string key",
+                error_class="DATATYPE_MISMATCH")
 
 
 def _check_assignments(clauses: List[MergeClause], source: Batch,
@@ -442,6 +468,36 @@ def _check_assignments(clauses: List[MergeClause], source: Batch,
             feature="schema evolution")
 
 
+def _join_keys(t: Column, s: Column) -> Tuple[np.ndarray, np.ndarray]:
+    """One key pair's values, comparable by value: a decimal beside a
+    decimal or an integer as integers at the larger scale (int64 where
+    they fit), beside anything else as Python values (Decimals, which
+    equal a number of the same value, as the reference's Python objects
+    do); any other pair as it is."""
+    ts, ss = (decimal_precision_scale(c.data_type) for c in (t, s))
+    if ts is None and ss is None:
+        return t.values, s.values
+    ints = all(ps is not None or c.values.dtype.kind in "iu"
+               for ps, c in ((ts, t), (ss, s)))
+    if not ints:
+        return tuple(_objects(c.to_python()) for c in (t, s))
+    scale = max(ps[1] for ps in (ts, ss) if ps is not None)
+    out = []
+    for ps, c in ((ts, t), (ss, s)):
+        f = 10 ** (scale - (ps[1] if ps is not None else 0))
+        out.append([int(x) * f for x in c.values.tolist()])
+    if all(-(1 << 63) <= x < (1 << 63) for side in out for x in side):
+        return tuple(np.array(side, np.int64) for side in out)
+    return tuple(_objects(side) for side in out)
+
+
+def _objects(values: list) -> np.ndarray:
+    out = np.empty(len(values), object)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
+
+
 def _join(target_all: Batch, source: Batch, t_keys, s_keys, residual,
           engine, mark):
     """(tpos, spos, the source rows the device join matched or None,
@@ -461,8 +517,12 @@ def _join(target_all: Batch, source: Batch, t_keys, s_keys, residual,
             if source.column(k).valid is not None:
                 s_ok &= source.column(k).valid
         t_valid, s_valid = np.nonzero(t_ok)[0], np.nonzero(s_ok)[0]
-        t_cols = [target_all.column(k).values[t_valid] for k in t_keys]
-        s_cols = [source.column(k).values[s_valid] for k in s_keys]
+        t_cols, s_cols = [], []
+        for tk, sk in zip(t_keys, s_keys):
+            tc, sc = _join_keys(target_all.column(tk).take(t_valid),
+                                source.column(sk).take(s_valid))
+            t_cols.append(tc)
+            s_cols.append(sc)
         if not residual and len(t_valid) + len(s_valid) \
                 >= DEVICE_JOIN_MIN_ROWS:
             match, n_multi, matched_s = equi_join_device(
@@ -523,8 +583,7 @@ def _execute_merge(table, source: Batch, on: Expression,
     parts = read_add_files_logical(table.engine, table.path, meta,
                                    candidates)
     target_all = (Batch.concat(parts) if parts
-                  else _null_rows({f.name: f.numpy_dtype
-                                   for f in schema.fields}, 0))
+                  else _null_rows(_schema_types(schema), 0))
     file_of = np.repeat(np.arange(len(parts), dtype=np.int64),
                         [p.num_rows for p in parts])
     mark("read")
@@ -569,8 +628,7 @@ def _execute_merge(table, source: Batch, on: Expression,
         un_idx = np.nonzero(unmatched)[0]
         if len(un_idx):
             batch = NamespacedBatch({
-                "target": _null_rows({f.name: f.numpy_dtype
-                                      for f in schema.fields}, len(un_idx)),
+                "target": _null_rows(_schema_types(schema), len(un_idx)),
                 "source": source.take(un_idx)})
             action = _first_wins(not_matched, batch)
             for ci, clause in enumerate(not_matched):
@@ -592,9 +650,10 @@ def _execute_merge(table, source: Batch, on: Expression,
         if len(un_idx):
             batch = NamespacedBatch({
                 "target": target_all.take(un_idx),
-                "source": _null_rows({c: source.column(c).values.dtype
-                                      for c in source.column_names},
-                                     len(un_idx))})
+                "source": _null_rows({
+                    c: (source.column(c).values.dtype,
+                        source.column(c).data_type)
+                    for c in source.column_names}, len(un_idx))})
             action = _first_wins(not_matched_by_source, batch)
             dels, upd_idx, upd_rows = [], [], []
             for ci, clause in enumerate(not_matched_by_source):

@@ -249,9 +249,13 @@ def _rewrite_bin(table, meta, schema, bin_files: List[AddFile],
     if zorder_by:
         cols = []
         for c in zorder_by:
-            a = data.column(c).values  # null rows hold 0 / "" already
-            if a.dtype == object:
+            col = data.column(c)
+            a = col.values  # null rows hold 0 / "" / b"" already
+            if a.dtype == object and col.data_type is None:
                 a = a.astype(str)
+            # a decimal ranks by its value (int64 lanes, or Python ints)
+            # and binary by its bytes: Spark's order, not the
+            # reference's text order (ROADMAP C13)
             cols.append(a)
         perm = zorder_sort_indices(cols, curve=curve, device=engine.device,
                                    mark=mark)

@@ -58,8 +58,18 @@ from delta_tpu_torch.expressions.tree import (
     Or,
     StartsWith,
 )
-from delta_tpu_torch.models.batch import NamespacedBatch, decimal_value, zeros
-from delta_tpu_torch.models.schema import decimal_precision_scale
+from delta_tpu_torch.models.batch import (
+    DECIMAL_TEXT,
+    NamespacedBatch,
+    decimal_value,
+    unscaled,
+    zeros,
+)
+from delta_tpu_torch.models.schema import (
+    MAX_INT64_PRECISION,
+    decimal_precision_scale,
+    numpy_dtype_of,
+)
 from delta_tpu_torch.utils.timestamps import string_to_us
 
 _EPOCH = datetime.datetime(1970, 1, 1)
@@ -89,7 +99,8 @@ class Values:
     `data` a numpy array (object of str for string); `valid` bool;
     `zone` the tzinfo of a zoned literal whose zone is not UTC (Arrow
     prints its local time); `float32` True for the values of a float32
-    column (Arrow prints their shortest float32 digits)."""
+    column (Arrow prints their shortest float32 digits); `bits` the width
+    of an int column's type (a cast to a decimal needs room for it)."""
 
     kind: str
     data: np.ndarray
@@ -97,6 +108,7 @@ class Values:
     zone: object = None
     float32: bool = False
     scale: int = 0
+    bits: int = 64  # an int operand's width (a column's; 64 for a literal)
 
     def __len__(self) -> int:
         return int(self.valid.shape[0])
@@ -193,7 +205,8 @@ def column_values(values: np.ndarray, valid, data_type=None) -> Values:
     if k == "b":
         return Values("bool", values, valid)
     if k in "iu":
-        return Values("int", values.astype(np.int64, copy=False), valid)
+        return Values("int", values.astype(np.int64, copy=False), valid,
+                      bits=8 * values.dtype.itemsize)
     if k == "f":
         return Values("float", values.astype(np.float64, copy=False), valid,
                       float32=values.dtype == np.float32)
@@ -443,13 +456,101 @@ _FLOAT_RE = re.compile(r"[+-]?((\d+\.?\d*|\.\d+)([eE][+-]?\d+)?|nan|inf|"
                        r"infinity)", re.IGNORECASE)
 _BOOL_STRINGS = {"true": True, "false": False, "1": True, "0": False}
 _US_PER_DAY = 86_400_000_000
-_NUMPY = {"long": np.int64, "integer": np.int32, "double": np.float64,
-          "float": np.float32, "boolean": bool}
+_BITS = {"long": 64, "integer": 32, "short": 16, "byte": 8}
+# the digits of an integer type's widest value: a decimal(p,s) target
+# takes the type only where p - s holds them
+_INT_DIGITS = {64: 19, 32: 10, 16: 5, 8: 3}
+_WIDE = decimal.Context(prec=200)
 
 
 def _int_bounds(type_name: str) -> Tuple[int, int]:
-    bits = 64 if type_name == "long" else 32
+    bits = _BITS.get(type_name, 32)
     return -(1 << (bits - 1)), 1 << (bits - 1)
+
+
+def _wrap(x: int, bits: int) -> int:
+    """x in two's complement of `bits` bits."""
+    half = 1 << (bits - 1)
+    return ((x + half) % (1 << bits)) - half
+
+
+def _trunc_div(x: int, by: int) -> int:
+    """x / by rounded toward zero."""
+    q = abs(x) // by
+    return q if x >= 0 else -q
+
+
+def _rescaled(v: Values, scale: int) -> list:
+    """A dec operand's unscaled integers at `scale`: down by truncation
+    toward zero, up by multiplication wrapping at 128 bits, as Arrow's
+    unsafe decimal cast rescales (no precision check)."""
+    by = scale - v.scale
+    xs = [int(x) for x in v.data.tolist()]
+    if by >= 0:
+        f = 10 ** by
+        return [_wrap(x * f, 128) for x in xs]
+    f = 10 ** -by
+    return [_trunc_div(x, f) for x in xs]
+
+
+def _float_to_decimal(x: float, precision: int, scale: int,
+                      float32: bool) -> int:
+    """A float as the unscaled integer Arrow's unsafe cast gives: its
+    exact binary value at `scale`, rounded half to even; 0 for NaN, an
+    infinity or a value past `precision` digits."""
+    if not math.isfinite(x):
+        return 0
+    exact = decimal.Decimal(float(np.float32(x)) if float32 else x)
+    q = int(exact.scaleb(scale, _WIDE).to_integral_value(
+        decimal.ROUND_HALF_EVEN))
+    return q if abs(q) < 10 ** precision else 0
+
+
+def _parse_decimal(scale: int):
+    """A string's decimal at `scale`, as Arrow's cast parses one: an
+    optional sign, digits with an optional point, an optional exponent;
+    extra fractional digits truncated toward zero."""
+    def parse(s):
+        if not DECIMAL_TEXT.fullmatch(s):
+            return None
+        d = decimal.Decimal(s)
+        exp = d.as_tuple().exponent
+        x = int(d.scaleb(-exp, _WIDE))
+        if exp + scale >= 0:
+            return x * 10 ** (exp + scale)
+        return _trunc_div(x, 10 ** -(exp + scale))
+    return parse
+
+
+def _cast_decimal(v: Values, precision: int, scale: int):
+    """`v` as unscaled integers of decimal(precision, scale), or None
+    where Arrow has no such cast."""
+    k = v.kind
+    if k == "dec":
+        return _rescaled(v, scale)
+    if k == "int":
+        if precision - scale < _INT_DIGITS[v.bits]:
+            raise UnsupportedCast(
+                f"decimal({precision},{scale}) has no room for an "
+                f"int{v.bits}: its precision must be at least "
+                f"{_INT_DIGITS[v.bits] + scale}")
+        f = 10 ** scale
+        return [int(x) * f for x in v.data.tolist()]
+    if k == "float":
+        return [_float_to_decimal(x, precision, scale, v.float32)
+                for x in v.data.tolist()]
+    if k == "string":
+        return _parse_each(v, _parse_decimal(scale))
+    return None
+
+
+def _decimal_as_float(v: Values, float32: bool) -> np.ndarray:
+    """A dec operand as Arrow casts it to a float: the unscaled integer
+    times the power of ten, in the target's precision."""
+    ft = np.float32 if float32 else np.float64
+    lanes = np.array([float(x) for x in v.data.tolist()], np.float64) \
+        .astype(ft)
+    return lanes * ft(float(f"1e-{v.scale}"))
 
 
 def _parse_each(v: Values, parse) -> list:
@@ -542,10 +643,11 @@ def evaluate_values(expr: Expression, batch) -> Values:
     return _as_values(_eval(expr, batch))
 
 
-def cast_values(v: Values, type_name: str) -> Tuple[np.ndarray, np.ndarray]:
+def cast_values(v: Values, type_name) -> Tuple[np.ndarray, np.ndarray]:
     """`v` cast to the Delta type `type_name` as Arrow's unsafe cast
     (`cast(..., safe=False)`) does: integers wrap; floats truncate toward
-    zero, NaN and values out of range giving the type's minimum; numbers
+    zero, NaN and values out of range giving the type's minimum (for
+    short and byte: int32's, then wrapped); numbers
     become booleans as `!= 0`; booleans become 0/1 and 'true'/'false';
     strings parse strictly (an integer as `-?digits`, a float also with a
     sign, fraction, exponent, nan or inf, a boolean from true/false/1/0 in
@@ -554,37 +656,69 @@ def cast_values(v: Values, type_name: str) -> Tuple[np.ndarray, np.ndarray]:
     or its day number (as an integer);
     an integer becomes a timestamp of that many microseconds; a float or
     a timestamp becomes a string as Arrow prints it (`_float_str`,
-    `_ts_strings`). Returns (values, valid), NULL rows holding the
-    dtype's zero. A pair that Arrow refuses raises UnsupportedCast."""
+    `_ts_strings`).
+
+    Decimals: a decimal rescales, extra digits truncated toward zero,
+    with no precision check; an integer needs a precision that holds its
+    type's widest value past the scale (Arrow refuses the cast otherwise,
+    unsafe or not); a float rounds its exact value half to even, 0 where
+    NaN, infinite or past the precision; a string parses (sign, digits,
+    point, exponent) and truncates. A decimal becomes an integer truncated
+    toward zero and wrapped, a float as its unscaled value times the power
+    of ten, a string as `str(Decimal)`. A string becomes binary as its
+    UTF-8 bytes, binary a string when it is UTF-8. A timestamp_ntz takes
+    what a timestamp takes, and a string as `string_to_us` parses it. A
+    nested column keeps its values. Returns (values, valid), NULL rows
+    holding the dtype's zero. A pair that Arrow refuses raises
+    UnsupportedCast."""
     k, d, n = v.kind, v.data, len(v)
     t = type_name
-    dtype = (np.dtype("datetime64[D]") if t == "date" else
-             np.dtype("datetime64[us]") if t == "timestamp" else
-             np.dtype(object) if t == "string" else np.dtype(_NUMPY[t]))
+    dtype = numpy_dtype_of(t)
     if k == "null":
-        return zeros(dtype, n), np.zeros(n, bool)
+        return zeros(dtype, n, t), np.zeros(n, bool)
     out = None
-    if t in ("long", "integer"):
+    ps = decimal_precision_scale(t)
+    if not isinstance(t, str):
+        if k == "other":  # a nested column into its own type
+            out = d
+    elif ps is not None:
+        out = _cast_decimal(v, *ps)
+        if out is not None and ps[0] <= MAX_INT64_PRECISION:
+            if any(not -(1 << 63) <= x < (1 << 63) for x in out):
+                raise UnsupportedCast(f"a value past int64 in a {t} column")
+    elif t in _BITS:
         lo, hi = _int_bounds(t)
         if k in ("int", "bool"):
-            out = d.astype(_NUMPY[t])  # wraps
+            out = d.astype(dtype)  # wraps
         elif k == "float":
-            ok = np.isfinite(d) & (d >= lo) & (d < hi)
-            out = np.full(n, lo, _NUMPY[t])
+            lo32, hi32 = _int_bounds("integer") if _BITS[t] < 32 else (lo,
+                                                                       hi)
+            ok = np.isfinite(d) & (d >= lo32) & (d < hi32)
+            out = np.full(n, lo32, np.int64)
             out[ok] = np.trunc(d[ok])
+            out = out.astype(dtype)  # short, byte: wrapped
         elif k == "string":
-            out = np.array(_parse_each(v, _parse_int(t)), _NUMPY[t])
+            out = np.array(_parse_each(v, _parse_int(t)), dtype)
+        elif k == "dec":
+            bits = _BITS[t]
+            f = 10 ** v.scale
+            out = np.array([_wrap(_trunc_div(int(x), f), bits) if ok else 0
+                            for x, ok in zip(d.tolist(), v.valid.tolist())],
+                           dtype)
         elif (k in ("ts", "tsz") and t == "long"
               or k == "date" and t == "integer"):
-            out = d.astype(_NUMPY[t])
+            out = d.astype(dtype)
     elif t in ("double", "float"):
         if k in ("int", "bool", "float"):
             with np.errstate(over="ignore"):  # past float32: inf, as Arrow
-                out = d.astype(_NUMPY[t])
+                out = d.astype(dtype)
+        elif k == "dec":
+            with np.errstate(over="ignore"):
+                out = _decimal_as_float(v, t == "float")
         elif k == "string":
             out = np.array(_parse_each(
                 v, lambda s: float(s) if _FLOAT_RE.fullmatch(s) else None),
-                _NUMPY[t])
+                dtype)
     elif t == "boolean":
         if k in ("int", "float"):
             out = d != 0
@@ -593,9 +727,26 @@ def cast_values(v: Values, type_name: str) -> Tuple[np.ndarray, np.ndarray]:
         elif k == "string":
             out = np.array(_parse_each(
                 v, lambda s: _BOOL_STRINGS.get(s.lower())), bool)
+    elif t == "binary":
+        if k == "binary":
+            out = d
+        elif k == "string":
+            out = np.empty(n, object)
+            out[:] = [x.encode("utf-8") for x in d.tolist()]
     elif t == "string":
         if k == "string":
             out = d
+        elif k == "binary":
+            out = np.empty(n, object)
+            try:
+                out[:] = [x.decode("utf-8") for x in d.tolist()]
+            except UnicodeDecodeError as e:
+                raise UnsupportedCast(f"binary that is not UTF-8: {e}",
+                                      error_class="CAST_INVALID_INPUT")
+        elif k == "dec":
+            out = np.empty(n, object)
+            out[:] = [str(decimal_value(int(x), v.scale)) if ok else ""
+                      for x, ok in zip(d.tolist(), v.valid.tolist())]
         elif k in ("float", "ts", "tsz"):
             text = ([_float_str(x, v.float32) for x in d.tolist()]
                     if k == "float" else _ts_strings(v))
@@ -616,44 +767,59 @@ def cast_values(v: Values, type_name: str) -> Tuple[np.ndarray, np.ndarray]:
             out = np.floor_divide(_local_us(v)[0], _US_PER_DAY)
         elif k == "string":
             out = np.array(_parse_each(v, _parse_date), np.int64)
-    elif t == "timestamp":
+    elif t in ("timestamp", "timestamp_ntz"):
         if k in ("ts", "tsz", "int"):
             out = d
         elif k == "date":
             out = d * _US_PER_DAY
+        elif k == "string" and t == "timestamp_ntz":
+            out = _parse_each(v, string_to_us)
     if out is None:
         raise UnsupportedCast(f"no cast of {k} to {t}")
-    if t in ("date", "timestamp"):
+    if t in ("date", "timestamp", "timestamp_ntz"):
         out = np.asarray(out, np.int64).astype(dtype)
-    out = np.array(out, dtype)
-    out[~v.valid] = zeros(dtype, 1)[0]
+    if dtype == object:
+        arr = np.empty(n, object)
+        for i, x in enumerate(out):  # lists stay elements
+            arr[i] = x
+        out = arr
+    else:
+        out = np.array(out, dtype)
+    out[~v.valid] = zeros(dtype, 1, t)[0]
     return out, v.valid.copy()
 
 
 def constant_values(value, type_name: str, n: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """A Python constant as `n` values of the Delta type `type_name`, as
-    Arrow converts it (`pa.array([value] * n, type)`): None is NULL; an
-    integer fits the type's range (a float type: exactly, |v| <= 2^53 for
-    double and 2^24 for float); a float truncates toward zero into an
-    integer type in range; a bool becomes 1.0 in a float type and is
-    refused by an integer type; a number (a float truncated toward zero)
-    becomes a date of that many days (in int32's range) or a timestamp of
-    that many microseconds (in int64's); a datetime becomes its own
-    calendar date (its zone ignored) or its instant (a naive one read as
-    UTC); a string, a bool and a date go only to their own kind. Anything
-    else raises UnsupportedCast."""
+    Arrow converts it (`pa.array([value] * n, type)`): None is NULL; an integer
+    fits the type's range (a float type: exactly, |v| <= 2^53 for double and
+    2^24 for float); a float truncates toward zero into an integer type in
+    range; a bool becomes 1.0 in a float type and is refused by an integer
+    type; a Decimal truncates toward zero into an integer type, a date or a
+    timestamp as a float does; a number (a float truncated toward zero) becomes
+    a date of that many days (in int32's range) or a timestamp of that many
+    microseconds (in int64's); a datetime becomes its own calendar date (its
+    zone ignored) or its instant (a naive one read as UTC; a timestamp_ntz
+    takes the instant's UTC wall time); a string, a bool and a date go only to
+    their own kind, and UTF-8 bytes to a string. A decimal takes an int or a
+    Decimal that fits its scale without losing a digit and its precision;
+    binary takes bytes, or a string as its UTF-8 bytes; a nested type takes its
+    Python value as it is. Anything else raises UnsupportedCast."""
     kind, enc = scalar_kind(value)
     if kind == "null":
         return cast_values(literal_values(None, n), type_name)
     t = type_name
+    ps = decimal_precision_scale(t)
+    if not isinstance(t, str) or ps is not None or t == "binary":
+        return _constant_object(value, kind, t, ps, n)
     x = None
-    if t in ("long", "integer", "date", "timestamp") and kind in ("int",
-                                                                "float"):
-        lo, hi = _int_bounds({"date": "integer", "timestamp": "long"}.get(
-            t, t))
-        x = enc if kind == "int" else (math.trunc(enc) if math.isfinite(enc)
-                                       else None)
+    if t in ("long", "integer", "short", "byte", "date", "timestamp",
+             "timestamp_ntz") and kind in ("int", "float", "dec"):
+        lo, hi = _int_bounds({"date": "integer", "timestamp": "long",
+                              "timestamp_ntz": "long"}.get(t, t))
+        x = (enc if kind == "int" else math.trunc(value) if kind == "dec"
+             else math.trunc(enc) if math.isfinite(enc) else None)
         x = x if x is not None and lo <= x < hi else None
     elif t == "date" and kind in ("date", "ts", "tsz"):
         x = enc if kind == "date" else (value.date()
@@ -665,11 +831,42 @@ def constant_values(value, type_name: str, n: int
         elif kind == "bool":
             x = float(enc)
     elif kind == {"boolean": "bool", "string": "string"}.get(t) or (
-            t == "timestamp" and kind in ("ts", "tsz")):
+            t in ("timestamp", "timestamp_ntz") and kind in ("ts", "tsz")):
         x = enc
+    elif t == "string" and isinstance(value, (bytes, bytearray)):
+        try:
+            x = bytes(value).decode("utf-8")
+        except UnicodeDecodeError:
+            x = None
     if x is None:
         raise UnsupportedCast(f"cannot convert {value!r} to {t}")
     v = literal_values(x, n)
-    if t in ("date", "timestamp"):
+    if t in ("date", "timestamp", "timestamp_ntz"):
         v = Values("date" if t == "date" else "tsz", v.data, v.valid)
     return cast_values(v, t)
+
+
+def _constant_object(value, kind: str, t, ps, n: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """`constant_values` into a decimal, binary or nested type."""
+    x = None
+    if ps is not None and kind in ("int", "dec", "other") \
+            and not isinstance(value, (bool, np.bool_)) \
+            and isinstance(value, (int, np.integer, decimal.Decimal)):
+        try:
+            x = unscaled(decimal.Decimal(int(value)) if not isinstance(
+                value, decimal.Decimal) else value, ps[1])
+        except ValueError:
+            x = None
+        if x is not None and abs(x) >= 10 ** ps[0]:
+            x = None
+    elif t == "binary" and isinstance(value, (bytes, bytearray, str)):
+        x = value.encode("utf-8") if isinstance(value, str) else bytes(value)
+    elif not isinstance(t, str):
+        x = value
+    if x is None:
+        raise UnsupportedCast(f"cannot convert {value!r} to {t}")
+    out = zeros(numpy_dtype_of(t), n, t)
+    for i in range(n):
+        out[i] = x
+    return out, np.ones(n, bool)

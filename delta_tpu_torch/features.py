@@ -4,7 +4,9 @@ A port-owned copy of the rules of `delta_tpu/features.py:20-200`
 (`protocol_for_new_table`, after Delta's `Protocol.forNewTable`), cut to
 the features the write path supports: appendOnly and invariants (legacy:
 protocol (1, 2) carries them) and deletionVectors (a reader-writer
-feature: (3, 7) with feature lists). This module alone decides which
+feature: (3, 7) with feature lists), and a table that lists
+timestampNtz, whose columns the writer writes (a new table does not ask
+for it, as the reference's does not). This module alone decides which
 features the write path takes: `txn/transaction.py` refuses a table whose
 protocol lists any other writer feature, and `protocol_for_new_table`
 refuses a table property that would turn one on.
@@ -20,7 +22,8 @@ from delta_tpu_torch.models.actions import Protocol
 
 _LEGACY = ("appendOnly", "invariants")
 _READER_WRITER = ("deletionVectors",)
-SUPPORTED_WRITER_FEATURES = frozenset(_LEGACY + _READER_WRITER)
+SUPPORTED_WRITER_FEATURES = frozenset(_LEGACY + _READER_WRITER
+                                      + ("timestampNtz",))
 # the table property that turns on each supported feature (invariants:
 # none, a column's metadata does)
 _FEATURE_PROPERTIES = {"delta.appendOnly": "appendOnly",

@@ -84,6 +84,8 @@ from delta_tpu_torch.utils import filenames
 from delta_tpu_torch.utils.parquet_write import (
     LeafColumn,
     SchemaNode,
+    physical_values,
+    primitive_node,
     write_parquet,
 )
 from delta_tpu_torch.write import ckpt_pipeline
@@ -165,12 +167,15 @@ _ROOTS.update({n.name: n for n in (_CP_META, _SIDECAR)})
 _STATS_LEAF = {
     "int64": ("INT64", None, None, None),
     "int32": ("INT32", None, None, None),
+    "int16": ("INT32", 16, None, None),
+    "int8": ("INT32", 15, None, None),
     "float64": ("DOUBLE", None, None, None),
     "float32": ("FLOAT", None, None, None),
     "bool": ("BOOLEAN", None, None, None),
     "string": ("BYTE_ARRAY", 0, 1, None),
     "date32": ("INT32", 6, 6, None),
     "ts_us_utc": ("INT64", 10, 8, (True, 2)),
+    "ts_us": ("INT64", None, 8, (False, 2)),
     "ts_s": ("INT64", None, 8, (False, 1)),  # seconds, written as millis
     "null": ("INT32", None, 11, None),
 }
@@ -181,9 +186,12 @@ def _stats_parsed_node(name: str, t) -> SchemaNode:
     if t.kind == "struct":
         return _grp(name, *(_stats_parsed_node(k, v)
                             for k, v in t.fields.items()))
+    if t.kind.startswith("decimal("):
+        return primitive_node(name, 1, t.kind)
     phys, conv, logical, ts = _STATS_LEAF[t.kind]
     return SchemaNode(name, 1, physical=phys, converted=conv,
-                      logical=logical, timestamp=ts or (True, 2))
+                      logical=logical, timestamp=ts or (True, 2),
+                      int_bits={15: 8, 16: 16}.get(conv))
 
 
 def _stats_parsed_cols(col, prefix=("stats_parsed",)) -> dict:
@@ -204,6 +212,8 @@ def _stats_parsed_cols(col, prefix=("stats_parsed",)) -> dict:
                 data = Strings.from_bytes([v.encode("utf-8") for v in vals])
         elif kind == "ts_s":
             data = np.asarray(data, np.int64) * 1000
+        elif kind.startswith("decimal("):
+            data = physical_values(kind, data)
         elif kind == "null":
             data = np.zeros(len(valid), np.int32)
         out[path] = (data, valid)
@@ -378,7 +388,9 @@ def _block_leaves(node: SchemaNode, block: Block):
                 c = block.cols.get(path)
                 if c is None:
                     vals = (_empty_strings(block.n)
-                            if child.physical == "BYTE_ARRAY"
+                            if child.physical == "BYTE_ARRAY" else
+                            np.zeros((block.n, child.type_length), np.uint8)
+                            if child.type_length is not None
                             else np.zeros(block.n, np.int64))
                     ok = np.zeros(block.n, bool)
                 else:
@@ -460,6 +472,8 @@ def encode_part(blocks: Sequence[Block],
                 vals.append(v)
             if phys == "BYTE_ARRAY":
                 values = Strings.concat(vals) if vals else _empty_strings()
+            elif phys == "FIXED_LEN_BYTE_ARRAY":
+                values = np.concatenate(vals) if vals else template[k][4]
             else:
                 values = np.asarray(np.concatenate(vals) if vals
                                     else np.zeros(0), _PHYS_DTYPE[phys])

@@ -23,16 +23,27 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import re
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from delta_tpu_torch.models.schema import DataType, decimal_precision_scale
+from delta_tpu_torch.models.schema import (
+    DataType,
+    carried_type,
+    decimal_precision_scale,
+    numpy_dtype_of,
+)
 
 # exact for every decimal the protocol allows (38 digits)
 _DECIMAL_CONTEXT = decimal.Context(prec=80)
+# a decimal's text as Arrow parses one: a sign, digits with an optional
+# point, an optional exponent
+DECIMAL_TEXT = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?")
 _EPOCH_UTC = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+_EPOCH_DATE = datetime.date(1970, 1, 1)
+_US = datetime.timedelta(microseconds=1)
 
 
 def factorize_objects(values: np.ndarray) -> np.ndarray:
@@ -81,7 +92,8 @@ class Column:
     @staticmethod
     def concat(parts: Sequence["Column"]) -> "Column":
         values = np.concatenate([p.values for p in parts])
-        dt = parts[0].data_type
+        dt = next((p.data_type for p in parts if p.data_type is not None),
+                  None)
         if all(p.valid is None for p in parts):
             return Column(values, None, dt)
         return Column(values, np.concatenate(
@@ -110,6 +122,59 @@ class Column:
             out = [x if ok else None for x, ok in
                    zip(out, self.valid.tolist())]
         return out
+
+
+def unscaled(value, scale: int) -> int:
+    """The unscaled integer of a Decimal or an int at `scale`; a value
+    with more fractional digits than the scale raises ValueError (Arrow
+    refuses to lose them)."""
+    if isinstance(value, decimal.Decimal):
+        x = value.scaleb(scale, _DECIMAL_CONTEXT)
+        if not x.is_finite() or x != x.to_integral_value():
+            raise ValueError(f"{value} does not fit scale {scale}")
+        return int(x)
+    return int(value) * 10 ** scale
+
+
+def _micros(value: datetime.datetime) -> int:
+    if value.tzinfo is not None:
+        return (value - _EPOCH_UTC) // _US
+    return (value - _EPOCH_UTC.replace(tzinfo=None)) // _US
+
+
+def column_from_python(values: Sequence, data_type) -> Column:
+    """The Column of Python values of Delta type `data_type` as
+    `Column.to_python()` gives them (None where null): the inverse of
+    `to_python`. A naive datetime in a timestamp column is read as UTC,
+    an aware one in a timestamp_ntz column as its UTC wall time; a
+    decimal takes Decimals or ints."""
+    n = len(values)
+    valid = np.fromiter((v is not None for v in values), bool, n)
+    dtype = numpy_dtype_of(data_type)
+    out = zeros(dtype, n, data_type)
+    idx = np.flatnonzero(valid)
+    present = [values[i] for i in idx.tolist()]
+    ps = decimal_precision_scale(data_type)
+    if ps is not None:
+        lanes = [unscaled(v, ps[1]) for v in present]
+        if dtype == object:
+            for i, x in zip(idx.tolist(), lanes):
+                out[i] = x
+        else:
+            out[idx] = np.array(lanes, np.int64)
+    elif dtype == np.dtype("datetime64[us]"):
+        out[idx] = np.array([_micros(v) for v in present], np.int64) \
+            .astype(dtype)
+    elif dtype == np.dtype("datetime64[D]"):
+        out[idx] = np.array([(v - _EPOCH_DATE).days for v in present],
+                            np.int64).astype(dtype)
+    elif dtype == object:
+        for i, x in zip(idx.tolist(), present):
+            out[i] = x
+    else:
+        out[idx] = np.array(present, dtype)
+    return Column(out, None if bool(valid.all()) else valid,
+                  carried_type(data_type))
 
 
 def zeros(dtype: np.dtype, n: int, data_type=None) -> np.ndarray:

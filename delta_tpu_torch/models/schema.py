@@ -9,11 +9,15 @@ nullable, metadata}`, where a type is a primitive name (`long`,
 does. A field's `data_type` is the primitive's name (a str) or a
 `StructType`, `ArrayType` or `MapType`, nested to any depth.
 
-The row read takes every such type (`models/batch.py` says how each
-lies in memory). The writer takes the flat primitives of `_TYPES`, each
-mapped to one numpy dtype in a `models.batch.Batch` and to one Parquet
-physical type plus logical annotation in a data file; `check_writable`
-refuses any other schema before a write path writes anything.
+The row read and every write path take every such type
+(`models/batch.py` says how each lies in memory). A primitive maps to
+one numpy dtype in a `models.batch.Batch` (`numpy_dtype_of`) and to one
+Parquet leaf in a data file (`parquet_leaf`), as Spark's writer
+(parquet-mr, `writeLegacyFormat=false`) writes it; a struct is a group, an
+array the three-level LIST and a map the MAP of a repeated `key_value`
+group (`utils/parquet_write.py`). `check_writable` refuses, before a write
+path writes anything, a schema holding a type outside these (one built
+by hand: the parse refuses every other name).
 """
 
 from __future__ import annotations
@@ -29,26 +33,39 @@ from delta_tpu_torch.errors import UnsupportedTableError
 
 _DECIMAL_RE = re.compile(r"^decimal\(\s*(\d+)\s*,\s*(-?\d+)\s*\)$")
 
-# Delta type -> (numpy dtype, Parquet physical type, converted type,
-# logical type id of the thrift LogicalType union or None): what the
-# writer takes
-_TYPES: Dict[str, Tuple[np.dtype, str, Any, Any]] = {
-    "long": (np.dtype(np.int64), "INT64", None, None),
-    "integer": (np.dtype(np.int32), "INT32", None, None),
-    "double": (np.dtype(np.float64), "DOUBLE", None, None),
-    "float": (np.dtype(np.float32), "FLOAT", None, None),
-    "boolean": (np.dtype(bool), "BOOLEAN", None, None),
-    "string": (np.dtype(object), "BYTE_ARRAY", 0, 1),      # UTF8 / STRING
-    "date": (np.dtype("datetime64[D]"), "INT32", 6, 6),    # DATE
-    "timestamp": (np.dtype("datetime64[us]"), "INT64", 10, 8),  # micros, UTC
-}
-
-# the read's other primitives -> their numpy dtype
-_READ_ONLY = {
+# Delta primitive -> its numpy dtype in a Batch
+_NUMPY: Dict[str, np.dtype] = {
+    "long": np.dtype(np.int64),
+    "integer": np.dtype(np.int32),
     "short": np.dtype(np.int16),
     "byte": np.dtype(np.int8),
-    "binary": np.dtype(object),               # bytes
+    "double": np.dtype(np.float64),
+    "float": np.dtype(np.float32),
+    "boolean": np.dtype(bool),
+    "string": np.dtype(object),                   # str
+    "binary": np.dtype(object),                   # bytes
+    "date": np.dtype("datetime64[D]"),
+    "timestamp": np.dtype("datetime64[us]"),      # UTC instants
     "timestamp_ntz": np.dtype("datetime64[us]"),  # wall time, no zone
+}
+
+# Delta primitive -> (Parquet physical type, converted type, logical
+# type): converted 0 UTF8, 6 DATE, 10 TIMESTAMP_MICROS, 15 INT_8,
+# 16 INT_16; logical ("string",), ("date",), ("int", bits) signed,
+# ("timestamp", adjusted to UTC) in microseconds
+_PARQUET: Dict[str, Tuple[str, Any, Any]] = {
+    "long": ("INT64", None, None),
+    "integer": ("INT32", None, None),
+    "short": ("INT32", 16, ("int", 16)),
+    "byte": ("INT32", 15, ("int", 8)),
+    "double": ("DOUBLE", None, None),
+    "float": ("FLOAT", None, None),
+    "boolean": ("BOOLEAN", None, None),
+    "string": ("BYTE_ARRAY", 0, ("string",)),
+    "binary": ("BYTE_ARRAY", None, None),
+    "date": ("INT32", 6, ("date",)),
+    "timestamp": ("INT64", 10, ("timestamp", True)),
+    "timestamp_ntz": ("INT64", None, ("timestamp", False)),
 }
 
 # the widest decimal whose unscaled values fit int64 lanes
@@ -91,10 +108,8 @@ def numpy_dtype_of(t) -> np.dtype:
     decimal (Python ints), binary (bytes) and every nested type (dicts,
     lists)."""
     if isinstance(t, str):
-        if t in _TYPES:
-            return _TYPES[t][0]
-        if t in _READ_ONLY:
-            return _READ_ONLY[t]
+        if t in _NUMPY:
+            return _NUMPY[t]
         ps = decimal_precision_scale(t)
         if ps is not None:
             return np.dtype(np.int64 if ps[0] <= MAX_INT64_PRECISION
@@ -129,18 +144,6 @@ class StructField:
     @property
     def numpy_dtype(self) -> np.dtype:
         return numpy_dtype_of(self.data_type)
-
-    @property
-    def physical_type(self) -> str:
-        return _TYPES[self.type_name][1]
-
-    @property
-    def converted_type(self):
-        return _TYPES[self.type_name][2]
-
-    @property
-    def logical_type(self):
-        return _TYPES[self.type_name][3]
 
     def to_json_value(self) -> Dict[str, Any]:
         return {"name": self.name, "type": _type_json(self.data_type),
@@ -196,7 +199,7 @@ def _unsupported(what: str, v) -> UnsupportedTableError:
 
 def _type_from_json(v, what: str) -> DataType:
     if isinstance(v, str):
-        if v in _TYPES or v in _READ_ONLY or decimal_precision_scale(v):
+        if v in _NUMPY or decimal_precision_scale(v):
             return v
         raise _unsupported(what, v)  # variant, or a name no protocol has
     if isinstance(v, dict):
@@ -233,37 +236,84 @@ def schema_to_json(st: StructType) -> str:
     return json.dumps(st.to_json_value(), separators=(",", ":"))
 
 
+def decimal_bytes(precision: int) -> int:
+    """The fewest bytes whose two's complement holds every unscaled value
+    of `precision` digits (Spark's `minBytesForPrecision`)."""
+    n = 1
+    while (1 << (8 * n - 1)) < 10 ** precision:
+        n += 1
+    return n
+
+
+def parquet_leaf(t: str) -> Tuple[str, Any, Any, Optional[int]]:
+    """(physical type, converted type, logical type, FIXED_LEN_BYTE_ARRAY
+    length or None) of primitive `t` in a data file. A decimal(p,s) lies
+    in INT32 for p <= 9, INT64 for p <= 18, else the fewest bytes of
+    FIXED_LEN_BYTE_ARRAY, big-endian; converted DECIMAL (5), logical
+    ("decimal", p, s)."""
+    ps = decimal_precision_scale(t)
+    if ps is None:
+        return _PARQUET[t] + (None,)
+    logical = ("decimal",) + ps
+    if ps[0] <= 9:
+        return "INT32", 5, logical, None
+    if ps[0] <= MAX_INT64_PRECISION:
+        return "INT64", 5, logical, None
+    return "FIXED_LEN_BYTE_ARRAY", 5, logical, decimal_bytes(ps[0])
+
+
+def _primitive(t) -> bool:
+    if t in _NUMPY:
+        return True
+    ps = decimal_precision_scale(t)
+    return ps is not None and 0 < ps[0] <= 38 and 0 <= ps[1] <= ps[0]
+
+
+def _writable(t) -> bool:
+    if isinstance(t, StructType):
+        return all(_writable(f.data_type) for f in t.fields)
+    if isinstance(t, ArrayType):
+        return _writable(t.element_type)
+    if isinstance(t, MapType):
+        return _writable(t.key_type) and _writable(t.value_type)
+    return isinstance(t, str) and _primitive(t)
+
+
 def check_writable(schema: StructType) -> None:
-    """Refuse a schema the writer cannot write: a column of a type
-    outside `_TYPES` (nested, decimal, byte, short, binary,
-    timestamp_ntz)."""
+    """Refuse a schema the writer cannot write: one holding, at any
+    depth, a type outside the primitives of `_NUMPY`, decimal(p,s) with
+    0 < p <= 38 and 0 <= s <= p, and the struct, array and map types."""
     for f in schema.fields:
-        if not isinstance(f.data_type, str) or f.data_type not in _TYPES:
+        if not _writable(f.data_type):
             raise UnsupportedTableError(
                 f"column {f.name!r} has type "
-                f"{json.dumps(_type_json(f.data_type))}; this package "
-                f"writes flat schemas of {sorted(_TYPES)} only",
-                feature="schema type")
+                f"{json.dumps(_type_json(f.data_type), default=repr)}, "
+                "which this package does not write", feature="schema type")
 
 
 def type_name_of(values: np.ndarray) -> str:
-    """The Delta type of a numpy column: int64 long, int32 integer,
-    float64 double, float32 float, bool boolean, str or an object array
-    of `str` string, datetime64[D] date, datetime64[us] timestamp. An
-    object array holding anything but `str` (bytes, dicts, lists: what
-    the read gives for binary and nested columns) is refused."""
+    """The Delta type of a numpy column: int64 long, int32 integer, int16
+    short, int8 byte, float64 double, float32 float, bool boolean, str or
+    an object array of `str` string, an object array of `bytes` binary,
+    datetime64[D] date, datetime64[us] timestamp. An object array holding
+    anything else (a dict or a list, whose type only a column's
+    `data_type` says), or a mix, is refused."""
     dtype = values.dtype
     if dtype.kind == "U":
         return "string"
     if dtype.kind == "O":
-        odd = next((v for v in values if type(v) is not str), None)
-        if odd is not None:
-            raise UnsupportedTableError(
-                f"an object column holding {type(odd).__name__} values "
-                "has no type this package writes", feature="schema type")
-        return "string"
-    for name, (dt, _, _, _) in _TYPES.items():
-        if name != "string" and dt == dtype:
+        kinds = {type(v) for v in values}
+        if kinds <= {str}:
+            return "string"
+        if kinds == {bytes}:
+            return "binary"
+        what = next(iter(kinds)).__name__ if len(kinds) == 1 else "mixed"
+        raise UnsupportedTableError(
+            f"an object column holding {what} values has no type without "
+            "a data_type", feature="schema type")
+    for name in ("long", "integer", "short", "byte", "double", "float",
+                 "boolean", "date", "timestamp"):
+        if _NUMPY[name] == dtype:
             return name
     raise UnsupportedTableError(f"no Delta type for numpy dtype {dtype}",
                                 feature="schema type")

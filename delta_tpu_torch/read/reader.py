@@ -34,7 +34,7 @@ Parquet reader does not decode (`DecodeUnsupported`: an LZ4 or Brotli
 page, a legacy two-level list), raise `UnsupportedTableError`; a damaged
 data file (`DecodeCorrupt`) raises `DataFileCorruptedError`. Both name
 the file. Every type of `models/schema.py` reads (`models/batch.py` says
-how each lies in memory); only the write paths refuse the wider ones.
+how each lies in memory), as every write path writes it.
 """
 
 from __future__ import annotations

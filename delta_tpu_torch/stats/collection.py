@@ -15,13 +15,17 @@ byte the reference's for the same rows:
 - strings truncated to 32 characters, the max bumped upward
   (`bump_string`) and dropped when it cannot be;
 - NaN and infinities as the strings "NaN", "Infinity", "-Infinity";
-  dates as ISO dates; timestamps as `%Y-%m-%dT%H:%M:%S.%f%z` in UTC;
-- booleans get a null count only.
+  dates as ISO dates; timestamps as `%Y-%m-%dT%H:%M:%S.%f%z` in UTC,
+  timestamp_ntz ones without the zone; a decimal as `float(value)`;
+- a leaf inside a struct is found by its name path, null where any
+  struct above it is null;
+- booleans, binary, arrays and maps get a null count only.
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import decimal
 import json
 import math
 from typing import Any, Dict, List, Optional
@@ -33,13 +37,22 @@ from delta_tpu_torch.config import (
     DATA_SKIPPING_STATS_COLUMNS,
     get_table_config,
 )
-from delta_tpu_torch.models.batch import Batch
+from delta_tpu_torch.models.batch import (
+    Batch,
+    column_from_python,
+    decimal_value,
+)
+from delta_tpu_torch.models.schema import (
+    StructType,
+    decimal_precision_scale,
+)
 
 MAX_STRING_PREFIX_LENGTH = 32
 _EPOCH_DATE = dt.date(1970, 1, 1)
 _EPOCH_TS = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
-_MINMAX_TYPES = frozenset({"long", "integer", "double", "float", "string",
-                           "date", "timestamp"})
+_MINMAX_TYPES = frozenset({"long", "integer", "short", "byte", "double",
+                           "float", "string", "date", "timestamp",
+                           "timestamp_ntz"})
 
 
 def _truncate_min(s: str) -> str:
@@ -73,6 +86,8 @@ def _json_value(v: Any) -> Any:
         return v.strftime("%Y-%m-%dT%H:%M:%S.%f%z") or v.isoformat()
     if isinstance(v, dt.date):
         return v.isoformat()
+    if isinstance(v, decimal.Decimal):
+        return float(v)
     return v
 
 
@@ -117,18 +132,43 @@ def _min_max(type_name: str, v: np.ndarray):
         mn = _first_extreme(clean, np.min)
         mx = float("nan") if nan.any() else _first_extreme(clean, np.max)
         return mn, mx
-    if type_name in ("long", "integer"):
+    if type_name in ("long", "integer", "short", "byte"):
         return int(v.min()), int(v.max())
+    ps = decimal_precision_scale(type_name)
+    if ps is not None:
+        return (decimal_value(int(v.min()), ps[1]),
+                decimal_value(int(v.max()), ps[1]))
     if type_name == "date":
         days = v.astype("datetime64[D]").astype(np.int64)
         return (_EPOCH_DATE + dt.timedelta(days=int(days.min())),
                 _EPOCH_DATE + dt.timedelta(days=int(days.max())))
-    if type_name == "timestamp":
+    if type_name in ("timestamp", "timestamp_ntz"):
         us = v.astype("datetime64[us]").astype(np.int64)
-        return (_EPOCH_TS + dt.timedelta(microseconds=int(us.min())),
-                _EPOCH_TS + dt.timedelta(microseconds=int(us.max())))
+        base = (_EPOCH_TS if type_name == "timestamp"
+                else _EPOCH_TS.replace(tzinfo=None))
+        return (base + dt.timedelta(microseconds=int(us.min())),
+                base + dt.timedelta(microseconds=int(us.max())))
     vals = v.tolist()  # strings
     return min(vals), max(vals)
+
+
+def _leaf_column(batch: Batch, schema, path: List[str]):
+    """(the leaf's Column, its type) at a name path: a top-level column,
+    or a field of structs (null where a struct above it is null, as
+    Arrow's `struct_field` gives it); None when the path names no such
+    leaf. A nested type's name is struct, array or map."""
+    if path[0] not in batch.columns or path[0] not in schema:
+        return None
+    col, t = batch.columns[path[0]], schema[path[0]].data_type
+    if len(path) > 1:
+        rows = col.to_python()
+        for name in path[1:]:
+            if not isinstance(t, StructType) or name not in t:
+                return None
+            t = t[name].data_type
+            rows = [None if r is None else r.get(name) for r in rows]
+        col = column_from_python(rows, t)
+    return col, (t if isinstance(t, str) else type(t).__name__)
 
 
 def collect_stats(batch: Batch, schema, configuration: Dict[str, str],
@@ -140,14 +180,15 @@ def collect_stats(batch: Batch, schema, configuration: Dict[str, str],
     max_d: dict = {}
     null_d: dict = {}
     for path in cols:
-        if len(path) != 1 or path[0] not in batch.columns \
-                or path[0] not in schema:
+        leaf = _leaf_column(batch, schema, path)
+        if leaf is None:
             continue
-        col = batch.columns[path[0]]
+        col, type_name = leaf
         null_count = col.null_count
         _set_nested(null_d, path, int(null_count))
-        type_name = schema[path[0]].type_name
-        if type_name not in _MINMAX_TYPES or len(col) == null_count:
+        if not (type_name in _MINMAX_TYPES
+                or decimal_precision_scale(type_name)) \
+                or len(col) == null_count:
             continue
         v = col.values if col.valid is None else col.values[col.valid]
         mn, mx = _min_max(type_name, v)

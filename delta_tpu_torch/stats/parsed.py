@@ -17,17 +17,19 @@ Parquet timestamp is adjusted to UTC, nothing where it is not). Floats
 keep `json`'s own spelling: a NaN is the bare token `NaN`, not the string
 `"NaN"` that the stats collector writes.
 
-The write parses the stats strings as Arrow's JSON reader does. First
-against the explicit schema of `stats_parsed_schema` (the table schema's
-indexed leaves: long int64, integer int32, double float64, float float32,
-boolean, string, date date32, timestamp int64 microseconds adjusted to
-UTC; `nullCount` int64 per leaf), fields outside it ignored; any value
-Arrow's converter refuses (a string for a date, a fraction for an
-integer, the string "NaN" for a double, an object for a number) fails the
-whole parse. It then falls back to inference (`stats/skipping.py`'s rules:
-dates and second-precision date-times become timestamps in seconds,
-fractional timestamps stay strings), and when that fails too, the adds get
-no `stats_parsed` at all.
+The write parses the stats strings as Arrow's JSON reader does. First against
+the explicit schema of `stats_parsed_schema` (the table schema's indexed
+leaves: long int64, integer int32, short int16, byte int8, double float64,
+float float32, boolean, string, date date32, timestamp int64 microseconds
+adjusted to UTC, timestamp_ntz the same not adjusted, decimal(p,s) Arrow's
+decimal128(p,s); `nullCount` int64 per leaf), fields outside it ignored; any
+value Arrow's converter refuses (a string for a date, a fraction for an
+integer, the string "NaN" for a double, an object for a number, a number with
+more digits than a decimal's precision or more fractional digits than its
+scale) fails the whole parse. It then falls back to inference
+(`stats/skipping.py`'s rules: dates and second-precision date-times become
+timestamps in seconds, fractional timestamps stay strings), and when that fails
+too, the adds get no `stats_parsed` at all.
 """
 
 from __future__ import annotations
@@ -41,7 +43,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from delta_tpu_torch.log.parquet_data import _as_numpy
-from delta_tpu_torch.models.batch import decimal_value
+from delta_tpu_torch.models.batch import DECIMAL_TEXT, decimal_value
+from delta_tpu_torch.models.schema import (
+    decimal_precision_scale,
+    numpy_dtype_of,
+)
 from delta_tpu_torch.stats.skipping import _Invalid, _parse_table, _Struct
 from delta_tpu_torch.utils.timestamps import json_to_us
 
@@ -181,8 +187,9 @@ def stats_from_parsed(footer, data: bytes, rows: np.ndarray
 @dataclass
 class SType:
     """A `stats_parsed` field type: a struct of named fields, or a leaf
-    kind: int64, int32, float64, float32, bool, string, date32, ts_us_utc
-    (the explicit schema's), ts_s (inferred date-times, in seconds, no
+    kind: int64, int32, int16, int8, float64, float32, bool, string,
+    date32, ts_us_utc, ts_us (no zone), decimal(p,s) (the explicit
+    schema's), ts_s (inferred date-times, in seconds, no
     zone) or null (a column that is null in every row)."""
 
     kind: str
@@ -200,9 +207,10 @@ class SColumn:
     fields: Dict[str, "SColumn"] = field(default_factory=dict)
 
 
-_LEAF_KIND = {"long": "int64", "integer": "int32", "double": "float64",
-              "float": "float32", "boolean": "bool", "string": "string",
-              "date": "date32", "timestamp": "ts_us_utc"}
+_LEAF_KIND = {"long": "int64", "integer": "int32", "short": "int16",
+              "byte": "int8", "double": "float64", "float": "float32",
+              "boolean": "bool", "string": "string", "date": "date32",
+              "timestamp": "ts_us_utc", "timestamp_ntz": "ts_us"}
 
 
 class _SchemaLeaves:
@@ -233,13 +241,11 @@ def stats_parsed_schema(schema_string: Optional[str],
                         partition_columns: List[str]) -> Optional[SType]:
     """The explicit `stats_parsed` type for the table schema (the
     reference's `_stats_parsed_schema`): `numRecords`, `minValues` and
-    `maxValues` over the indexed leaves (`stats/collection.py::
-    stats_columns` under the table's `configuration`) of a type with an
-    Arrow mapping (binary has no min or max), `nullCount` int64 per such
-    leaf, `tightBounds`. An indexed leaf of a type the reference types
-    there and this writer does not (decimal, byte, short, timestamp_ntz)
-    raises `UnsupportedTableError`, before any file is written."""
-    from delta_tpu_torch.errors import UnsupportedTableError
+    `maxValues` over the indexed primitive leaves (`stats/collection.py::
+    stats_columns` under the table's `configuration`; binary has no min
+    or max), `nullCount` int64 per such leaf, `tightBounds`. An array or
+    map leaf has no field: its null count is dropped, as Arrow's reader
+    drops a field outside the explicit schema."""
     from delta_tpu_torch.stats.collection import stats_columns
 
     if not schema_string:
@@ -270,15 +276,11 @@ def stats_parsed_schema(schema_string: Optional[str],
 
     for path in stats_paths:
         t = resolve(path)
-        if isinstance(t, str) and t not in _LEAF_KIND and t != "binary":
-            raise UnsupportedTableError(
-                f"stats_parsed of column {'.'.join(path)} of type {t} is "
-                "not written yet", feature="schema type")
         if not isinstance(t, str):
             continue
         insert(nulls, path, "int64")
         if t != "binary":
-            insert(minmax, path, _LEAF_KIND[t])
+            insert(minmax, path, _LEAF_KIND.get(t, t))  # decimal(p,s)
 
     def to_type(tree) -> SType:
         return SType("struct", {k: to_type(v) if isinstance(v, dict)
@@ -299,7 +301,40 @@ class _Refused(Exception):
 
 
 _INT_RANGE = {"int64": (-(1 << 63), (1 << 63) - 1),
-              "int32": (-(1 << 31), (1 << 31) - 1)}
+              "int32": (-(1 << 31), (1 << 31) - 1),
+              "int16": (-(1 << 15), (1 << 15) - 1),
+              "int8": (-(1 << 7), (1 << 7) - 1)}
+
+
+def _json_decimal(v, precision: int, scale: int) -> int:
+    """A JSON value under decimal(precision, scale), as Arrow's JSON
+    converter takes it: a number (or a string) of its digits, at most
+    `precision` of them (fractional digits and the whole part's from its
+    first non-zero one; an exponent's zeros count), rescaled to `scale`
+    without losing a non-zero digit; returns the unscaled integer."""
+    if type(v) is str and DECIMAL_TEXT.fullmatch(v):
+        v = decimal.Decimal(v)
+    if type(v) is int:
+        v = decimal.Decimal(v)
+    if not isinstance(v, decimal.Decimal) or not v.is_finite():
+        raise _Refused("decimal")
+    _, digits, exp = v.as_tuple()
+    if exp >= 0:
+        digits_needed = len(digits) + exp
+        unscaled, at = int(v), 0
+    else:
+        whole = digits[:exp]
+        lead = next((i for i, x in enumerate(whole) if x), len(whole))
+        digits_needed = -exp + len(whole) - lead
+        unscaled, at = int(v.scaleb(-exp)), -exp
+    if digits_needed > precision:
+        raise _Refused("decimal")
+    if at > scale:
+        q, r = divmod(abs(unscaled), 10 ** (at - scale))
+        if r:
+            raise _Refused("decimal")
+        return q if unscaled >= 0 else -q
+    return unscaled * 10 ** (scale - at)
 
 
 def _convert(kind: str, v):
@@ -313,7 +348,7 @@ def _convert(kind: str, v):
             raise _Refused(kind)
         return v
     if kind in ("float64", "float32"):
-        if type(v) not in (int, float):
+        if type(v) not in (int, float, decimal.Decimal):
             raise _Refused(kind)
         return float(v)
     if kind == "bool":
@@ -324,7 +359,9 @@ def _convert(kind: str, v):
         if type(v) is not str:
             raise _Refused(kind)
         return v
-    if kind == "ts_us_utc":
+    if kind.startswith("decimal("):
+        return _json_decimal(v, *decimal_precision_scale(kind))
+    if kind in ("ts_us_utc", "ts_us"):
         if type(v) is int:
             return v
         if type(v) is not str:
@@ -336,7 +373,8 @@ def _convert(kind: str, v):
     raise _Refused(kind)
 
 
-_NP_KIND = {"int64": np.int64, "int32": np.int32, "float64": np.float64,
+_NP_KIND = {"int64": np.int64, "int32": np.int32, "int16": np.int16,
+            "int8": np.int8, "ts_us": np.int64, "float64": np.float64,
             "float32": np.float32, "bool": bool, "date32": np.int32,
             "ts_us_utc": np.int64}
 
@@ -362,6 +400,9 @@ def _explicit(rows: list, t: SType, parent_valid: np.ndarray) -> SColumn:
     if t.kind == "string":
         data = np.empty(n, object)
         data[:] = [v if v is not None else "" for v in vals]
+    elif t.kind.startswith("decimal("):
+        data = np.array([v if v is not None else 0 for v in vals],
+                        numpy_dtype_of(t.kind))
     else:
         data = np.array([v if v is not None else 0 for v in vals],
                         _NP_KIND[t.kind])
@@ -398,7 +439,9 @@ def parse_stats_structs(stats: Sequence[Optional[str]],
         return None  # a pretty-printed row breaks the line-delimited parse
     if explicit is not None:
         try:
-            rows = json.loads("[" + ",".join(texts) + "]")
+            # numbers as Decimals: a decimal leaf takes a number's text
+            rows = json.loads("[" + ",".join(texts) + "]",
+                              parse_float=decimal.Decimal)
             if len(rows) == n and all(type(r) is dict for r in rows):
                 return _explicit(rows, explicit, np.ones(n, bool))
         except (ValueError, RecursionError, _Refused):

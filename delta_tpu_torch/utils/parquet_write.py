@@ -1,4 +1,4 @@
-"""A Parquet writer: data files of flat tables, and checkpoint parts.
+"""A Parquet writer: data files, and checkpoint parts.
 
 It writes what parquet-cpp (Arrow's writer, which the JAX package uses for
 its data files and checkpoints) writes, in the same encodings: one row
@@ -7,18 +7,26 @@ RLE_DICTIONARY data pages for every non-boolean column, with
 parquet-cpp's fallback to PLAIN pages once the dictionary passes
 `DICT_LIMIT` bytes (1 MiB), PLAIN booleans, and snappy pages
 (`log/snappy.py`). The footer is written with a thrift compact-protocol
-writer. Physical types: BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY;
-logical annotations STRING, DATE, TIMESTAMP (micros or millis, adjusted
-to UTC or not) and UNKNOWN (an all-null column of Arrow's null type),
-and the DECIMAL converted type with its precision and scale;
-optional groups nest to any depth (a checkpoint's `add.stats_parsed`).
+writer. Physical types: BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY,
+FIXED_LEN_BYTE_ARRAY (big-endian two's complement decimals); logical
+annotations STRING, DATE, TIMESTAMP (micros or millis, adjusted to UTC or
+not), INT(8/16, signed), DECIMAL (with the DECIMAL converted type, its
+precision and scale), LIST, MAP and UNKNOWN (an all-null column of
+Arrow's null type); groups nest to any depth.
 
 `write_data_file` writes one data file of a table from a
-`models.batch.Batch` (an OPTIONAL column per nullable field, REQUIRED
-otherwise), as the write path does. `write_parquet` takes one
-`LeafColumn` per leaf, levels and values already laid out
-(`utils/synth.py` builds them for the checkpoint schema). Everything is
-numpy over whole columns; no step loops over rows in Python.
+`models.batch.Batch`, each column as Spark's writer lays out its Delta
+type (`models/schema.py::parquet_leaf`; an OPTIONAL field per nullable
+field, REQUIRED otherwise). A flat column is numpy over the whole column.
+A struct, array or map column (dicts, lists, lists of (key, value)
+tuples: `models/batch.py`) is shredded into one leaf per primitive, with
+definition and repetition levels by the Dremel rules: a struct is a
+group, an array the three-level LIST `<name> (LIST) { repeated group list
+{ element } }`, a map `<name> (MAP) { repeated group key_value { required
+key; value } }`; that walk visits each element in Python.
+`write_parquet` takes one `LeafColumn` per leaf, levels and values
+already laid out (`utils/synth.py` builds them for the checkpoint
+schema).
 """
 
 from __future__ import annotations
@@ -30,13 +38,21 @@ import numpy as np
 
 from delta_tpu_torch.log import snappy
 from delta_tpu_torch.log.parquet_host import Strings, ragged_arange
+from delta_tpu_torch.models.batch import column_from_python
+from delta_tpu_torch.models.schema import (
+    ArrayType,
+    MapType,
+    StructType,
+    parquet_leaf,
+)
 from delta_tpu_torch.storage.local import FileStatus, LocalLogStore
 
 DICT_LIMIT = 1 << 20    # parquet-cpp's default dictionary page size limit
 PAGE_ENTRIES = 1 << 15  # level entries per data page, at most
 
 _TYPES = {"BOOLEAN": 0, "INT32": 1, "INT64": 2, "FLOAT": 4, "DOUBLE": 5,
-          "BYTE_ARRAY": 6}
+          "BYTE_ARRAY": 6, "FIXED_LEN_BYTE_ARRAY": 7}
+_FLBA = "FIXED_LEN_BYTE_ARRAY"  # values: a uint8 matrix, a row each
 _NP = {"INT32": np.int32, "INT64": np.int64, "FLOAT": np.float32,
        "DOUBLE": np.float64}
 # floats enter the dictionary by bit pattern: 0.0 and -0.0 (and NaNs of
@@ -80,6 +96,10 @@ class _Thrift:
         self._field(fid, 6)
         self._zigzag(v)
 
+    def i8(self, fid: int, v: int) -> None:
+        self._field(fid, 3)
+        self.out.append(v & 0xFF)
+
     def boolean(self, fid: int, v: bool) -> None:
         self._field(fid, 1 if v else 2)
 
@@ -117,12 +137,15 @@ class SchemaNode:
     children: Tuple["SchemaNode", ...] = ()
     physical: Optional[str] = None
     converted: Optional[int] = None  # 0 UTF8, 1 MAP, 3 LIST, 6 DATE, ...
-    logical: Optional[int] = None    # LogicalType: 1 STRING, 6 DATE,
-                                     # 8 TIMESTAMP, 11 UNKNOWN (null)
+    logical: Optional[int] = None    # LogicalType: 1 STRING, 2 MAP,
+                                     # 3 LIST, 6 DATE, 8 TIMESTAMP,
+                                     # 11 UNKNOWN (null)
     timestamp: Tuple[bool, int] = (True, 2)  # TIMESTAMP: adjusted to
                                              # UTC; unit 1 ms, 2 us
-    decimal: Optional[Tuple[int, int]] = None  # DECIMAL (converted 5):
-                                               # precision, scale
+    decimal: Optional[Tuple[int, int]] = None  # DECIMAL (converted and
+                                               # logical): precision, scale
+    int_bits: Optional[int] = None   # INTEGER logical type, signed
+    type_length: Optional[int] = None  # FIXED_LEN_BYTE_ARRAY bytes
 
 
 @dataclass
@@ -167,6 +190,8 @@ def _plain(physical: str, values) -> bytes:
     if physical == "BOOLEAN":
         return np.packbits(np.asarray(values, bool),
                            bitorder="little").tobytes()
+    if physical == _FLBA:
+        return np.ascontiguousarray(values, np.uint8).tobytes()
     if physical != "BYTE_ARRAY":
         return np.asarray(values, _NP[physical]).tobytes()
     n = len(values)
@@ -192,6 +217,10 @@ def _dictionary(physical: str, values):
         keyed = np.ascontiguousarray(keyed).view(
             np.dtype((np.void, keyed.shape[1]))).reshape(n)
         sizes_of = lambda idx: 4 + values.lens[idx]  # noqa: E731
+    elif physical == _FLBA:
+        mat = np.ascontiguousarray(values, np.uint8)
+        keyed = mat.view(np.dtype((np.void, mat.shape[1]))).reshape(n)
+        sizes_of = lambda idx: np.full(len(idx), mat.shape[1])  # noqa: E731
     else:
         keyed = np.asarray(values)
         if physical in _BITS:
@@ -307,6 +336,8 @@ def _schema(t: _Thrift, node: SchemaNode, top: bool = False) -> None:
     t.begin()
     if node.physical is not None:
         t.i32(1, _TYPES[node.physical])
+    if node.type_length is not None:
+        t.i32(2, node.type_length)
     if not top:
         t.i32(3, node.repetition)
     t.binary(4, node.name.encode())
@@ -317,15 +348,26 @@ def _schema(t: _Thrift, node: SchemaNode, top: bool = False) -> None:
     if node.decimal is not None:
         t.i32(7, node.decimal[1])
         t.i32(8, node.decimal[0])
-    if node.logical is not None:
+    logical = node.logical
+    if logical is None and node.decimal is not None:
+        logical = 5
+    if logical is None and node.int_bits is not None:
+        logical = 10
+    if logical is not None:
         t.begin(10)
-        t.begin(node.logical)
-        if node.logical == 8:  # TimestampType: isAdjustedToUTC, unit
+        t.begin(logical)
+        if logical == 8:  # TimestampType: isAdjustedToUTC, unit
             t.boolean(1, node.timestamp[0])
             t.begin(2)
             t.begin(node.timestamp[1])
             t.end()
             t.end()
+        elif logical == 5:  # DecimalType: scale, precision
+            t.i32(1, node.decimal[1])
+            t.i32(2, node.decimal[0])
+        elif logical == 10:  # IntType: bitWidth, isSigned
+            t.i8(1, node.int_bits)
+            t.boolean(2, True)
         t.end()
         t.end()
     t.end()
@@ -391,45 +433,195 @@ def write_parquet(schema: SchemaNode, columns: List[LeafColumn],
     return b"".join(out)
 
 
-def _leaf(field, col) -> Tuple[SchemaNode, LeafColumn]:
-    """The schema node and laid-out leaf of one flat column."""
-    n = len(col)
-    optional = bool(field.nullable)
-    valid = col.valid
-    values = col.values if valid is None else col.values[valid]
-    if field.type_name == "string":
+def primitive_node(name: str, repetition: int, t: str) -> SchemaNode:
+    phys, conv, logical, length = parquet_leaf(t)
+    node = SchemaNode(name, repetition, physical=phys, converted=conv,
+                      type_length=length)
+    if logical is None:
+        return node
+    if logical[0] == "string":
+        node.logical = 1
+    elif logical[0] == "date":
+        node.logical = 6
+    elif logical[0] == "timestamp":
+        node.logical, node.timestamp = 8, (logical[1], 2)
+    elif logical[0] == "int":
+        node.int_bits = logical[1]
+    else:  # ("decimal", precision, scale)
+        node.decimal = logical[1:]
+    return node
+
+
+def physical_values(t: str, values: np.ndarray):
+    """The physical values of primitive `t`'s present values (a numpy
+    column in `models/batch.py`'s layout)."""
+    if t == "string":
         try:
-            values = Strings.from_list(list(values))
+            return Strings.from_list(list(values))
         except ValueError:  # a string holds a NUL byte: encode one by one
-            values = Strings.from_bytes([v.encode("utf-8") for v in values])
-    elif field.type_name == "date":
-        values = values.astype("datetime64[D]").astype(np.int64) \
+            return Strings.from_bytes([v.encode("utf-8") for v in values])
+    if t == "binary":
+        return Strings.from_bytes([bytes(v) for v in values])
+    if t == "date":
+        return values.astype("datetime64[D]").astype(np.int64) \
             .astype(np.int32)
-    elif field.type_name == "timestamp":
-        values = values.astype("datetime64[us]").astype(np.int64)
+    if t in ("timestamp", "timestamp_ntz"):
+        return values.astype("datetime64[us]").astype(np.int64)
+    phys, _, _, length = parquet_leaf(t)
+    if phys == _FLBA:
+        return _big_endian(values, length)
+    return np.asarray(values, _NP.get(phys, bool))
+
+
+def _big_endian(values: np.ndarray, length: int) -> np.ndarray:
+    """Integers as `length`-byte big-endian two's complement rows."""
+    out = np.zeros((len(values), length), np.uint8)
+    for i, v in enumerate(values.tolist()):
+        out[i] = np.frombuffer(int(v).to_bytes(length, "big", signed=True),
+                               np.uint8)
+    return out
+
+
+@dataclass
+class _Plan:
+    """One node of a nested column's shredding: its kind (struct, list,
+    map, leaf), whether it may be null, the rep level of its repeated
+    group (list, map), its children and its leaves' index range."""
+
+    kind: str
+    nullable: bool
+    what: str
+    rep: int = 0
+    children: Tuple["_Plan", ...] = ()
+    names: Tuple[str, ...] = ()
+    lo: int = 0
+    hi: int = 0
+
+
+def _plan(name: str, t, nullable: bool, d: int, r: int,
+          path: Tuple[str, ...], leaves: list) -> Tuple[SchemaNode, _Plan]:
+    """The schema node and shredding plan of a column of type `t`; each
+    primitive leaf goes to `leaves` as (path, type, max def, max rep)."""
+    d += int(nullable)
+    repetition = 1 if nullable else 0
+    what = ".".join(path)
+    lo = len(leaves)
+    if isinstance(t, StructType):
+        kids = [_plan(f.name, f.data_type, f.nullable, d, r,
+                      path + (f.name,), leaves) for f in t.fields]
+        node = SchemaNode(name, repetition, tuple(k[0] for k in kids))
+        plan = _Plan("struct", nullable, what,
+                     children=tuple(k[1] for k in kids),
+                     names=tuple(f.name for f in t.fields))
+    elif isinstance(t, ArrayType):
+        en, ep = _plan("element", t.element_type, t.contains_null, d + 1,
+                       r + 1, path + ("list", "element"), leaves)
+        node = SchemaNode(name, repetition, (SchemaNode("list", 2, (en,)),),
+                          converted=3, logical=3)
+        plan = _Plan("list", nullable, what, r + 1, (ep,))
+    elif isinstance(t, MapType):
+        kn, kp = _plan("key", t.key_type, False, d + 1, r + 1,
+                       path + ("key_value", "key"), leaves)
+        vn, vp = _plan("value", t.value_type, t.value_contains_null, d + 1,
+                       r + 1, path + ("key_value", "value"), leaves)
+        node = SchemaNode(name, repetition,
+                          (SchemaNode("key_value", 2, (kn, vn)),),
+                          converted=1, logical=2)
+        plan = _Plan("map", nullable, what, r + 1, (kp, vp))
     else:
-        values = np.asarray(values, field.numpy_dtype)
-    if optional:
-        defs = (np.ones(n, np.int32) if valid is None
-                else valid.astype(np.int32))
+        node = primitive_node(name, repetition, t)
+        leaves.append((path, t, d, r))
+        plan = _Plan("leaf", nullable, what)
+    plan.lo, plan.hi = lo, len(leaves)
+    return node, plan
+
+
+def _shred(plan: _Plan, v, d: int, r: int, defs: list, reps: list,
+           vals: list) -> None:
+    """Append the levels (and present values) of value `v` of `plan`'s
+    node, whose parent is defined at level `d`, at repetition level `r`."""
+    if v is None:
+        if not plan.nullable:
+            raise ValueError(f"a null in the non-nullable field {plan.what}")
+        for i in range(plan.lo, plan.hi):
+            defs[i].append(d)
+            reps[i].append(r)
+        return
+    d += int(plan.nullable)
+    kind = plan.kind
+    if kind == "leaf":
+        defs[plan.lo].append(d)
+        reps[plan.lo].append(r)
+        vals[plan.lo].append(v)
+    elif kind == "struct":
+        get = v.get
+        for name, child in zip(plan.names, plan.children):
+            _shred(child, get(name), d, r, defs, reps, vals)
     else:
-        defs = np.zeros(n, np.int32)
-    node = SchemaNode(field.name, 1 if optional else 0,
-                      physical=field.physical_type,
-                      converted=field.converted_type,
-                      logical=field.logical_type)
-    return node, LeafColumn((field.name,), field.physical_type, defs, None,
-                            1 if optional else 0, 0, values)
+        items = list(v.items()) if isinstance(v, dict) else v
+        if not len(items):
+            for i in range(plan.lo, plan.hi):
+                defs[i].append(d)
+                reps[i].append(r)
+            return
+        at = r
+        if kind == "list":
+            for e in items:
+                _shred(plan.children[0], e, d + 1, at, defs, reps, vals)
+                at = plan.rep
+        else:
+            key, value = plan.children
+            for k, x in items:
+                _shred(key, k, d + 1, at, defs, reps, vals)
+                _shred(value, x, d + 1, at, defs, reps, vals)
+                at = plan.rep
+
+
+def _column_leaves(field, col) -> Tuple[SchemaNode, List[LeafColumn]]:
+    """The schema node and laid-out leaves of one column."""
+    t, n = field.data_type, len(col)
+    valid = col.valid
+    if isinstance(t, str):
+        optional = bool(field.nullable)
+        values = col.values if valid is None else col.values[valid]
+        if optional:
+            defs = (np.ones(n, np.int32) if valid is None
+                    else valid.astype(np.int32))
+        else:
+            defs = np.zeros(n, np.int32)
+        node = primitive_node(field.name, 1 if optional else 0, t)
+        return node, [LeafColumn((field.name,), node.physical, defs, None,
+                                 int(optional), 0, physical_values(t, values))]
+    leaves: list = []
+    node, plan = _plan(field.name, t, field.nullable, 0, 0, (field.name,),
+                       leaves)
+    defs = [[] for _ in leaves]
+    reps = [[] for _ in leaves]
+    vals = [[] for _ in leaves]
+    rows = col.values.tolist()
+    if valid is not None:
+        rows = [v if ok else None for v, ok in zip(rows, valid.tolist())]
+    for v in rows:
+        _shred(plan, v, 0, 0, defs, reps, vals)
+    out = []
+    for (path, lt, max_def, max_rep), d, r, v in zip(leaves, defs, reps,
+                                                       vals):
+        present = column_from_python(v, lt).values
+        out.append(LeafColumn(path, parquet_leaf(lt)[0],
+                              np.asarray(d, np.int32),
+                              np.asarray(r, np.int32) if max_rep else None,
+                              max_def, max_rep, physical_values(lt, present)))
+    return node, out
 
 
 def data_file_bytes(batch, schema) -> bytes:
     """The bytes of one data file holding `batch`'s columns in `schema`'s
-    field order (a flat schema of `models/schema.py`'s primitives)."""
+    field order."""
     nodes, leaves = [], []
     for f in schema.fields:
-        node, leaf = _leaf(f, batch.columns[f.name])
+        node, cols = _column_leaves(f, batch.columns[f.name])
         nodes.append(node)
-        leaves.append(leaf)
+        leaves.extend(cols)
     root = SchemaNode("schema", 0, tuple(nodes))
     return write_parquet(root, leaves, batch.num_rows)
 

@@ -7,17 +7,21 @@ to stage on a transaction. A partitioned table's rows are grouped by
 their partition values (`_partition_groups`, groups in order of first
 appearance, a NaN or null value the null partition); each group's files
 go in its Hive-style directory (`stats/partition.py::partition_path`
-decoded: `month=12/`, null `__HIVE_DEFAULT_PARTITION__`) or, with `delta.randomizeFilePrefixes`, in a random prefix directory
-instead, and carry the group's `partitionValues`; the partition columns
-are left out of the file and of its stats. The file lies in that
-directory (`x=a%b/` for the value `a%b`) and its AddFile holds that
-decoded path, as a loaded snapshot's do; the log gets the path as a URI
+decoded: `month=12/`, null `__HIVE_DEFAULT_PARTITION__`) or, with
+`delta.randomizeFilePrefixes`, in a random prefix directory instead, and
+carry the group's `partitionValues` (a decimal spelled with its scale's
+digits, `1.50`; binary as its UTF-8 text; timestamp_ntz as
+`%Y-%m-%d %H:%M:%S.%f`); the partition columns are left out of the file
+and of its stats. The file lies in that directory (`x=a%b/` for the
+value `a%b`) and its AddFile holds that decoded path, as a loaded
+snapshot's do; the log gets the path as a URI
 (`models/actions.py::encode_path`: `x=a%25b/`), which every reader
 percent-decodes once back to where the file lies. (The reference puts
 the file at the undecoded name, where neither package's reader looks.)
 Rows split into files of at most `target_rows_per_file` rows. The schema
-check and the NOT NULL check run before any file is written. Column
-mapping and CHECK constraints raise `UnsupportedTableError`.
+check and the NOT NULL check (nested fields too) run before any file is
+written. Column mapping and CHECK constraints raise
+`UnsupportedTableError`.
 """
 
 from __future__ import annotations
@@ -42,7 +46,12 @@ from delta_tpu_torch.errors import (
 )
 from delta_tpu_torch.models.actions import AddFile
 from delta_tpu_torch.models.batch import Batch, factorize_objects
-from delta_tpu_torch.models.schema import StructType
+from delta_tpu_torch.models.schema import (
+    ArrayType,
+    MapType,
+    StructType,
+    decimal_precision_scale,
+)
 from delta_tpu_torch.stats.collection import collect_stats
 from delta_tpu_torch.stats.partition import (
     partition_path,
@@ -68,6 +77,15 @@ def _validate_schema(data: Batch, schema: StructType) -> None:
             f"columns {sorted(extra)} not in table schema "
             f"{sorted(schema_fields)}",
             error_class="DELTA_COLUMN_NOT_FOUND_IN_SCHEMA")
+    for name in sorted(table_fields & schema_fields):
+        want = schema[name].data_type
+        have = data.columns[name].data_type
+        if decimal_precision_scale(want) and have != want:
+            # unscaled lanes of another scale, or plain integers
+            raise SchemaMismatchError(
+                f"column {name} of type {want} takes a decimal column of "
+                f"that type, not {have or data.columns[name].values.dtype}",
+                error_class="DELTA_FAILED_TO_MERGE_FIELDS")
     nonnull_missing = [m for m in missing if not schema[m].nullable]
     if nonnull_missing:
         raise SchemaMismatchError(
@@ -76,14 +94,75 @@ def _validate_schema(data: Batch, schema: StructType) -> None:
 
 
 def _check_invariants(data: Batch, schema: StructType) -> None:
+    """NOT NULL: a top-level column (as the reference), and inside a
+    present struct, array or map (a non-nullable field, element, value,
+    and every map key), which a REQUIRED Parquet field cannot hold."""
     for f in schema.fields:
-        if not f.nullable and f.name in data.columns:
-            nulls = data.columns[f.name].null_count
-            if nulls:
+        if f.name not in data.columns:
+            continue
+        col = data.columns[f.name]
+        nulls = col.null_count if not f.nullable else 0
+        if nulls:
+            raise InvariantViolationError(
+                f"NOT NULL constraint violated for column {f.name}: "
+                f"{nulls} null row(s)",
+                error_class="DELTA_NOT_NULL_CONSTRAINT_VIOLATED")
+        if not isinstance(f.data_type, str) and _has_required(f.data_type):
+            rows = (col.values if col.valid is None
+                    else col.values[col.valid]).tolist()
+            bad = _null_required(f.data_type, rows, f.name)
+            if bad is not None:
                 raise InvariantViolationError(
-                    f"NOT NULL constraint violated for column {f.name}: "
-                    f"{nulls} null row(s)",
+                    f"NOT NULL constraint violated for column {bad}",
                     error_class="DELTA_NOT_NULL_CONSTRAINT_VIOLATED")
+
+
+def _has_required(t) -> bool:
+    if isinstance(t, StructType):
+        return any(not f.nullable or _has_required(f.data_type)
+                   for f in t.fields)
+    if isinstance(t, ArrayType):
+        return not t.contains_null or _has_required(t.element_type)
+    if isinstance(t, MapType):
+        return True  # a map key is never null
+    return False
+
+
+def _null_required(t, values: list, what: str) -> Optional[str]:
+    """The name path of the first non-nullable place that holds a null
+    among the present `values` of type `t`; None when there is none."""
+    if isinstance(t, StructType):
+        for f in t.fields:
+            if not f.nullable or _has_required(f.data_type):
+                kids = [v.get(f.name) for v in values]
+                if not f.nullable and any(k is None for k in kids):
+                    return f"{what}.{f.name}"
+                bad = _null_required(f.data_type,
+                                     [k for k in kids if k is not None],
+                                     f"{what}.{f.name}")
+                if bad is not None:
+                    return bad
+        return None
+    if isinstance(t, ArrayType):
+        elems = [e for v in values for e in v]
+        if not t.contains_null and any(e is None for e in elems):
+            return f"{what}.element"
+        return _null_required(t.element_type,
+                              [e for e in elems if e is not None],
+                              f"{what}.element")
+    if isinstance(t, MapType):
+        pairs = [kv for v in values
+                 for kv in (v.items() if isinstance(v, dict) else v)]
+        if any(k is None for k, _ in pairs):
+            return f"{what}.key"
+        if not t.value_contains_null and any(x is None for _, x in pairs):
+            return f"{what}.value"
+        return (_null_required(t.key_type, [k for k, _ in pairs],
+                               f"{what}.key")
+                or _null_required(t.value_type,
+                                  [x for _, x in pairs if x is not None],
+                                  f"{what}.value"))
+    return None
 
 
 def _split_rows(data: Batch, target_rows: Optional[int]) -> List[Batch]:
@@ -132,10 +211,19 @@ def _partition_groups(data: Batch, partition_columns: Sequence[str]
     out = []
     for g, idx in enumerate(np.split(rows, bounds[:-1])):
         head = int(first[order[g]])
-        pv = {c: serialize_partition_value(data.columns[c].values[head])
+        pv = {c: serialize_partition_value(_value_at(data.columns[c], head))
               if valid[c][head] else None for c in partition_columns}
         out.append((pv, data.take(idx) if len(order) > 1 else data))
     return out
+
+
+def _value_at(col, i: int):
+    """Row i's value as the partition value is spelled from it: the numpy
+    value, or the Python value of a column whose dtype does not say its
+    type (a decimal's Decimal, with its scale's digits)."""
+    if col.data_type is None:
+        return col.values[i]
+    return col.slice(i, i + 1).to_python()[0]
 
 
 def write_data_files(engine, table_path: str, data: Batch,

@@ -19,10 +19,11 @@ spells a Decimal's digits and a datetime's zone):
   (the same rows, and at least the files the reference keeps; a decimal
   bound rounded by the JSON stats never skips a matching file), a
   deletion vector on a wide table, `stats_parsed` of the new types in a
-  reference-written checkpoint, timestamp_ntz at protocol (1, 2) and at
-  (3, 7) with its feature;
-- the write paths' typed refusals, which leave the table as it was, and
-  `type_name_of`.
+  reference-written checkpoint (and the port's own of the same log),
+  timestamp_ntz at protocol (1, 2) and at (3, 7) with its feature;
+- each write path over a decimal and a struct column against the
+  reference's (`tests/test_torch_wide_write.py` holds the writes in
+  full), a read batch written back with its types, and `type_name_of`.
 
 The committed fixtures under `tests/torch_fixtures/wide_types/` (read on
 the card by `chip_smoke.py`'s `wide_types` phase, whose machine has no
@@ -935,9 +936,23 @@ def test_stats_parsed_of_the_new_types(tmp_path):
     ref = set(RefTable.for_path(path, HostEngine()).latest_snapshot()
               .scan(filter=ss_filter(spec, RE)).file_paths())
     assert ref <= set(snap.scan(filter=ss_filter(spec, PE)).file_paths())
+    # the port's own struct-only checkpoint of the log: the same typed
+    # stats_parsed as the reference's, and the same stats on reload
+    for f in cp:
+        os.remove(os.path.join(path, "_delta_log", f))
+    os.remove(os.path.join(path, "_delta_log", "_last_checkpoint"))
+    Table.for_path(path, engine=TorchEngine("cpu")).checkpoint()
+    mine = pq.read_table(os.path.join(path, "_delta_log", cp[0]))
+    assert mine.schema.field("add").type.field("stats_parsed") == \
+        part.schema.field("add").type.field("stats_parsed")
+    assert repr([a["stats_parsed"] for a in mine.column("add").to_pylist()
+                 if a]) == repr([a["stats_parsed"] for a in
+                                 part.column("add").to_pylist() if a])
+    snap = Table.for_path(path, engine=TorchEngine("cpu")).latest_snapshot()
+    assert sorted((a.path, a.stats) for a in snap.state.add_files) == want
 
 
-# ----------------------------------------------------- write refusals --
+# -------------------------------------------------------- write paths --
 
 def _table_files(path) -> list:
     return sorted((os.path.relpath(os.path.join(d, f), path),
@@ -945,21 +960,34 @@ def _table_files(path) -> list:
                   for d, _, fs in os.walk(path) for f in fs)
 
 
-def _refused_commands():
-    import delta_tpu_torch.api as pta
-    from delta_tpu_torch import TorchEngine
-    from delta_tpu_torch.commands.dml import delete, update
-    from delta_tpu_torch.commands.merge import merge
-    from delta_tpu_torch.expressions import col, lit
+def _write_commands(port: bool):
+    """Each write path, in the port's package or the reference's."""
+    if port:
+        import delta_tpu_torch.api as api
+        from delta_tpu_torch import TorchEngine as Engine
+        from delta_tpu_torch.commands.dml import delete, update
+        from delta_tpu_torch.commands.merge import merge
+        from delta_tpu_torch.expressions import col, lit
 
+        engine = Engine("cpu")
+        rows = {"k": np.array([9])}
+        source = {"k": np.array([1, 7])}
+    else:
+        import delta_tpu.api as api
+        from delta_tpu.commands.dml import delete, update
+        from delta_tpu.commands.merge import merge
+        from delta_tpu.engine.host import HostEngine
+        from delta_tpu.expressions import col, lit
+
+        engine = HostEngine()
+        rows = pa.table({"k": pa.array([9], pa.int64())})
+        source = pa.table({"k": pa.array([1, 7], pa.int64())})
     return {
-        "append": lambda t: pta.write_table(
-            t.path, {"k": np.array([9])}, engine=TorchEngine("cpu")),
+        "append": lambda t: api.write_table(t.path, rows, engine=engine),
         "delete": lambda t: delete(t, col("k") == lit(1)),
         "update": lambda t: update(t, {"k": lit(5)}, col("k") == lit(1)),
         "merge": lambda t: merge(
-            t, {"k": np.array([1, 7])},
-            on=col("target.k") == col("source.k"))
+            t, source, on=col("target.k") == col("source.k"))
         .when_matched_delete().when_not_matched_insert_all().execute(),
         "optimize": lambda t: t.optimize().execute_compaction(),
     }
@@ -969,37 +997,52 @@ def _refused_commands():
                                      "optimize"])
 @pytest.mark.parametrize("kind", ["decimal", "struct"])
 def test_write_paths_refuse_before_writing(tmp_path, kind, command):
+    """No longer a refusal: each write path writes a table with a decimal
+    or a struct column, on copies of one reference-written table, to the
+    rows the reference's command gives (both packages read both copies)."""
     import delta_tpu.api as dta
     from delta_tpu.engine.host import HostEngine
+    from delta_tpu.table import Table as RefTable
     from delta_tpu_torch import Table, TorchEngine
-    from delta_tpu_torch.errors import UnsupportedTableError
 
-    path = str(tmp_path / "t")
+    src = str(tmp_path / "src")
     extra = (pa.array([D("1.5"), D("2.5")], pa.decimal128(7, 2))
              if kind == "decimal" else
              pa.array([{"a": 1}, {"a": 2}], pa.struct([("a", pa.int32())])))
     for i in range(2):  # two files: OPTIMIZE has a bin to compact
-        dta.write_table(path, pa.table({"k": pa.array([1 + i], pa.int64()),
-                                        "w": extra.slice(i, 1)}),
+        dta.write_table(src, pa.table({"k": pa.array([1 + i], pa.int64()),
+                                       "w": extra.slice(i, 1)}),
                         engine=HostEngine(),
                         properties={"delta.enableDeletionVectors": "true"})
-    before = _table_files(path)
-    table = Table.for_path(path, engine=TorchEngine("cpu"))
-    with pytest.raises(UnsupportedTableError, match="'w'"):
-        _refused_commands()[command](table)
-    assert _table_files(path) == before
+    ref, port = str(tmp_path / "ref"), str(tmp_path / "port")
+    shutil.copytree(src, ref)
+    shutil.copytree(src, port)
+    before = _table_files(port)
+    _write_commands(False)[command](RefTable.for_path(ref, HostEngine()))
+    _write_commands(True)[command](Table.for_path(port,
+                                                  engine=TorchEngine("cpu")))
+    assert _table_files(port) != before
+    want = _ref_read(ref)
+    if command == "optimize":  # the same rows, in one file
+        assert len(Table.for_path(port, engine=TorchEngine("cpu"))
+                   .latest_snapshot().state.add_files) == 1
+    else:
+        assert want != _ref_read(src)
+    for path in (ref, port):
+        assert same_rows(_port_read(path), want)
+    assert same_rows(_ref_read(port), want)
 
 
 def test_a_checkpoint_of_a_wide_table(tmp_path):
     """JSON stats: the port's checkpoint is one the reference loads to the
-    same files and rows. Struct stats of a decimal column: refused, typed,
-    nothing written."""
+    same files and rows. Struct stats of the decimal, byte, short,
+    timestamp_ntz and nested columns: written, and the `stats_parsed`
+    column equals the reference's checkpoint of a copy of the log."""
     import delta_tpu.api as dta
     from delta_tpu.engine.host import HostEngine
     from delta_tpu.replay.columnar import clear_parse_cache
     from delta_tpu.table import Table as RefTable
     from delta_tpu_torch import Table, TorchEngine
-    from delta_tpu_torch.errors import UnsupportedTableError
 
     tbl = _probe_table()
     path = str(tmp_path / "json")
@@ -1017,10 +1060,21 @@ def test_a_checkpoint_of_a_wide_table(tmp_path):
     path = str(tmp_path / "struct")
     dta.write_table(path, tbl, engine=HostEngine(), properties={
         "delta.checkpoint.writeStatsAsStruct": "true"})
+    copy = str(tmp_path / "struct_ref")
+    shutil.copytree(path, copy)
     before = _table_files(path)
-    with pytest.raises(UnsupportedTableError):
-        Table.for_path(path, engine=TorchEngine("cpu")).checkpoint()
-    assert _table_files(path) == before
+    Table.for_path(path, engine=TorchEngine("cpu")).checkpoint()
+    RefTable.for_path(copy, HostEngine()).checkpoint()
+    assert _table_files(path) != before
+    parts = [pq.read_table(os.path.join(p, "_delta_log",
+                                        f"{0:020d}.checkpoint.parquet"))
+             for p in (path, copy)]
+    got, want = ([a["stats_parsed"] for a in t.column("add").to_pylist() if a]
+                 for t in parts)
+    assert len(got) == 1 and repr(got) == repr(want)
+    assert same_rows(_port_read(path), tbl.to_pylist())
+    clear_parse_cache()
+    assert same_rows(_ref_read(path), tbl.to_pylist())
 
 
 def test_type_name_of_looks_at_the_values():
@@ -1032,33 +1086,41 @@ def test_type_name_of_looks_at_the_values():
     assert type_name_of(strs) == "string"
     assert type_name_of(np.array(["a", "b"])) == "string"
     assert type_name_of(np.zeros(0, object)) == "string"
-    for odd in ([b"a", b"b"], [{"a": 1}, {"a": 2}], ["a", [1]]):
+    blobs = np.empty(2, object)
+    blobs[:] = [b"a", b""]
+    assert type_name_of(blobs) == "binary"
+    assert type_name_of(np.zeros(2, np.int8)) == "byte"
+    assert type_name_of(np.zeros(2, np.int16)) == "short"
+    for odd in ([{"a": 1}, {"a": 2}], ["a", [1]], ["a", b"b"]):
         arr = np.empty(2, object)
         arr[:] = odd
         with pytest.raises(UnsupportedTableError):
             type_name_of(arr)
     with pytest.raises(UnsupportedTableError):
-        type_name_of(np.zeros(2, np.int8))
+        type_name_of(np.zeros(2, np.uint32))
 
 
 def test_a_read_batch_with_wide_columns_does_not_write_back(probe,
                                                             tmp_path):
     """`write_table(q, read_table(p))`: the decimal, binary, timestamp_ntz
-    and nested columns keep their types and are refused, not written as
-    strings or longs."""
+    and nested columns keep their types, so they write back as those
+    types (not as strings or longs): the new table's schema and rows are
+    the probe's, as both packages read them."""
     import delta_tpu_torch.api as pta
-    from delta_tpu_torch import TorchEngine
-    from delta_tpu_torch.errors import UnsupportedTableError
+    from delta_tpu_torch import Table, TorchEngine
 
     eng = TorchEngine("cpu")
     batch = pta.read_table(probe, engine=eng)
+    want_types = Table.for_path(probe, engine=eng).latest_snapshot().schema
     for c in ("d", "big", "bin", "ntz", "st", "arr", "m"):
         q = str(tmp_path / c)
-        with pytest.raises(UnsupportedTableError):
-            pta.write_table(q, {"k": batch.column("k"),
-                                c: batch.column(c)}, engine=eng)
-        assert not os.path.exists(q) or not os.listdir(
-            os.path.join(q, "_delta_log"))
+        pta.write_table(q, {"k": batch.column("k"), c: batch.column(c)},
+                        engine=eng)
+        got = Table.for_path(q, engine=eng).latest_snapshot().schema
+        assert got[c].data_type == want_types[c].data_type, c
+        want = [{"k": r["k"], c: r[c]} for r in _ref_read(probe)]
+        assert same_rows(_port_read(q), want), c
+        assert same_rows(_ref_read(q), want), c
 
 
 def test_schema_parse_refuses_variant_and_unknown_types():
