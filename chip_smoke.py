@@ -256,9 +256,33 @@
     the manifest's row digest. Prints each step's seconds, rows/s and
     launches.
 
+21. Column mapping and ALTER TABLE (`column_mapping_phase`) on step 20's
+    table at its end (2,223,984 live rows, DVs on), each step's counters
+    from 0 and its rows against step 20's numpy model carried through
+    the renames: `set_properties` to mode `name` (the protocol lists
+    columnMapping; no data file's bytes or mtime change; each field keeps
+    its name as its physical name), a reload (K3 per part, K1, K2),
+    RENAME ss_net_profit TO ss_profit, DROP ss_coupon_amt, ADD
+    ss_channel (K1 on each commit's handoff), `ss_profit > 0` (K7 keeps
+    step 20's files of `ss_net_profit > 0`), a DELETE on ss_profit (K7,
+    K8 packs the union with DF_SS's bitmaps), an UPDATE setting
+    ss_channel (K7), LF_SS's 1% MERGE on the key (K9), ZORDER BY
+    ss_profit of the last quarter (K4; its file holds the physical
+    names), a `stats_parsed` checkpoint keyed by physical names, an
+    append, a reload (K3, K1, K2), the profit read again (K7) and a full
+    read (no ss_coupon_amt; ss_channel null outside the updated, merged
+    and appended rows); then step 19's first quarter of sold dates
+    written afresh in mode `name` partitioned by ss_sold_date_sk (every
+    footer `col-` names only, partitionValues keyed by the physical
+    name, nulls in `__HIVE_DEFAULT_PARTITION__`), a 30-date read that
+    prunes partitions, and after renaming the partition column the same
+    read by the new name: the same files and rows. Prints each step's
+    seconds, rows/s and launches.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
-`launches_stats_parsed` and `launches_compacted`), its time per call (`ms`, CUDA events around back-to-back
+`launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
+`launches_wide_write` and `launches_column_mapping`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
 its bound and both shares of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
@@ -3301,7 +3325,8 @@ class _WideModel:
         self.alive = np.r_[self.alive, np.ones(batch.num_rows, bool)]
 
 
-def _wide_merge_source(model, rng):
+def _wide_merge_source(model, rng, profit_column: str = "ss_net_profit",
+                       new_ticket: int = WIDE_NEW_TICKET):
     """LF_SS's rows: 1% of the live rows, half of them live rows of the
     last quarter with a new quantity and a profit 1.00 higher (matched),
     half new sales on new tickets in the last quarter's dates, their other
@@ -3321,10 +3346,10 @@ def _wide_merge_source(model, rng):
         ok = np.r_[model.ok[c][hit], model.ok[c][like]]
         cols[c] = [v, ok]
     cols["ss_quantity"] = [rng.integers(1, 101, 2 * n), np.ones(2 * n, bool)]
-    profit = cols["ss_net_profit"]
+    profit = cols[profit_column]
     profit[0][:n] += 100
     profit[1][:n] = True
-    cols["ss_ticket_number"][0][n:] = WIDE_NEW_TICKET + np.arange(n)
+    cols["ss_ticket_number"][0][n:] = new_ticket + np.arange(n)
     cols["ss_sold_date_sk"] = [np.r_[date[hit], rng.integers(
         *WIDE_LAST_QUARTER, n)], np.ones(2 * n, bool)]
     src = Batch({c: Column(v.astype(model.dtypes[c]),
@@ -3342,8 +3367,41 @@ def _loaded(path: str, eng):
     return snap
 
 
+def _stepper(out: dict, eng, what: str):
+    """A runner of timed steps: each step's counters from 0 just before
+    it and read just after (kept in `step.counts`), its seconds, rows/s
+    and kernel launches (`WIDE_WRITE_K`) in `out["steps"]`; each launch
+    count named in `expect` as (at least, exactly or None) on the card,
+    0 on the CPU."""
+    from delta_tpu_torch import obs
+
+    card_run = eng.device.type != "cpu"
+
+    def step(name, rows, fn, **expect):
+        eng.synchronize()
+        obs.reset()
+        t0 = time.perf_counter()
+        result = fn()
+        eng.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = step.counts = obs.counters()
+        _ladder_idle(counts, f"{what} {name}")
+        got = {k: counts.get(v, 0) for k, v in WIDE_WRITE_K.items()}
+        for k, (at_least, exactly) in expect.items():
+            ok = (got[k] >= at_least if exactly is None else
+                  got[k] == exactly) if card_run else got[k] == 0
+            _check(ok, f"{what} {name}: {k} {got[k]}, expected "
+                   f"{exactly if exactly is not None else f'>= {at_least}'}")
+        out["steps"][name] = dict(got, s=seconds, rows=rows,
+                                  rows_per_s=rows / seconds)
+        return result
+
+    step.counts = {}
+    return step
+
+
 def wide_write_phase(batch, nested, root: str, device: str, card: str,
-                     links: int = WIDE_LINKS) -> dict:
+                     links: int = WIDE_LINKS, keep: dict = None) -> dict:
     """Step 20: the wider types through every write path on the card.
     `batch` is step 19's full read of store_sales (`links` links of each
     fixture file), `nested` its read of the nested fixture. Each step's
@@ -3362,10 +3420,13 @@ def wide_write_phase(batch, nested, root: str, device: str, card: str,
        with `ss_net_profit > 0` and a read of every column;
     7. the nested fixture written back by the port, read equal to the
        manifest's digest.
-    Returns each step's seconds, rows/s and launches."""
+    Returns each step's seconds, rows/s and launches. With `keep`, the
+    table stays on disk for step 21, and `keep` gets its path, its work
+    directory (the caller removes it), the model, the files step 6's
+    profit read kept and step 19's rows."""
     import decimal
 
-    from delta_tpu_torch import Table, TorchEngine, obs
+    from delta_tpu_torch import Table, TorchEngine
     from delta_tpu_torch.api import read_table, write_table
     from delta_tpu_torch.commands.dml import delete, update
     from delta_tpu_torch.commands.merge import merge
@@ -3374,7 +3435,6 @@ def wide_write_phase(batch, nested, root: str, device: str, card: str,
 
     with open(os.path.join(root, "manifest.json")) as f:
         manifest = json.load(f)
-    card_run = device != "cpu"
     eng = TorchEngine(device)
     work = tempfile.mkdtemp(prefix="wide_write_")
     path = os.path.join(work, "store_sales")
@@ -3394,26 +3454,7 @@ def wide_write_phase(batch, nested, root: str, device: str, card: str,
         "ss_ticket_number"]
     _check(model.sums() == scaled, "wide_write: the model is the manifest's")
     out = {"rows": n0, "links": links, "card": card, "steps": {}}
-    sync = eng.synchronize
-
-    def step(name, rows, fn, **expect):
-        sync()
-        obs.reset()
-        t0 = time.perf_counter()
-        result = fn()
-        sync()
-        seconds = time.perf_counter() - t0
-        counts = obs.counters()
-        _ladder_idle(counts, f"wide_write {name}")
-        got = {k: counts.get(v, 0) for k, v in WIDE_WRITE_K.items()}
-        for k, (at_least, exactly) in expect.items():
-            ok = (got[k] >= at_least if exactly is None else
-                  got[k] == exactly) if card_run else got[k] == 0
-            _check(ok, f"wide_write {name}: {k} {got[k]}, expected "
-                   f"{exactly if exactly is not None else f'>= {at_least}'}")
-        out["steps"][name] = dict(got, s=seconds, rows=rows,
-                                  rows_per_s=rows / seconds)
-        return result
+    step = _stepper(out, eng, "wide_write")
 
     def held(read, names, what):
         _check(read.num_rows == int(model.alive.sum())
@@ -3514,9 +3555,12 @@ def wide_write_phase(batch, nested, root: str, device: str, card: str,
         profit = model.v["ss_net_profit"]
         pos = model.alive & model.ok["ss_net_profit"] & (profit > 0)
         names = ["ss_item_sk", "ss_net_profit"]
-        got = step("read_profit", int(pos.sum()), lambda: snap.scan(
+        profit_scan = snap.scan(
             filter=col("ss_net_profit") > lit(decimal.Decimal("0.00")),
-            columns=names).to_batch(), k7=(1, 1))
+            columns=names)
+        got = step("read_profit", int(pos.sum()), profit_scan.to_batch,
+                   k7=(1, 1))
+        profit_files = sorted(profit_scan.file_paths())
         alive = model.alive
         model.alive = pos
         held(got, names, "read_profit")
@@ -3533,8 +3577,385 @@ def wide_write_phase(batch, nested, root: str, device: str, card: str,
         _check(wide_rows_digest(got) == manifest["nested"]["reads"]["all"][
             "sha256"], "wide_write nested: rows equal the manifest's")
         out["steps"]["nested_write"]["files"] = 1
+        if keep is not None:
+            keep.update(path=path, work=work, model=model,
+                        profit_files=profit_files, step19=batch)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if keep is None or "work" not in keep:
+            shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# step 21: column mapping and ALTER TABLE's column operations on step 20's
+# store_sales, then a fresh name-mode table partitioned as spark-sql-perf
+# partitions store_sales (by ss_sold_date_sk)
+CM_MODE = {"delta.columnMapping.mode": "name"}
+CM_RENAME = ("ss_net_profit", "ss_profit")
+CM_DROP = "ss_coupon_amt"
+CM_ADD = "ss_channel"
+CM_DELETE_BELOW = "-4000.00"  # the DELETE: ss_profit under this
+CM_APPEND_ROWS = 1_000        # rows appended after the checkpoint
+CM_MERGE_TICKET = 5_000_000   # step 21's LF_SS tickets: past step 20's
+CM_NEW_TICKET = 6_000_000     # the appended rows' tickets
+CM_FIRST_QUARTER = (2450816, 2451273)  # step 19's file 0 of sold dates
+CM_PRUNE_RANGE = (2450816, 2450846)    # its first 30 dates
+CM_PARTITION = "ss_sold_date_sk"
+CM_PARTITION_RENAMED = "ss_sold_date"
+
+
+def _data_file_facts(path: str) -> dict:
+    """(size, mtime in ns, crc32) of every data file under a table."""
+    import zlib
+
+    out = {}
+    for root, _, names in os.walk(path):
+        if "_delta_log" in root:
+            continue
+        for n in names:
+            if n.endswith(".parquet"):
+                p = os.path.join(root, n)
+                with open(p, "rb") as f:
+                    crc = zlib.crc32(f.read())
+                st = os.stat(p)
+                out[p] = (st.st_size, st.st_mtime_ns, crc)
+    return out
+
+
+def _model_rename(model, old: str, new: str) -> None:
+    for d in (model.v, model.ok, model.types, model.dtypes):
+        d[new] = d.pop(old)
+    model.names = [new if c == old else c for c in model.names]
+
+
+def _model_drop(model, name: str) -> None:
+    for d in (model.v, model.ok, model.types, model.dtypes):
+        d.pop(name)
+    model.names = [c for c in model.names if c != name]
+
+
+def _footer_leaf_paths(path: str) -> list:
+    """The name path of every leaf of a Parquet file's schema."""
+    from delta_tpu_torch.log.parquet_footer import read_footer
+
+    with open(path, "rb") as f:
+        return [leaf.parts for leaf in read_footer(f.read()).leaves]
+
+
+def _footer_names(path: str) -> set:
+    """Every field name of a data file's Parquet schema, at every depth."""
+    return {p for parts in _footer_leaf_paths(path) for p in parts}
+
+
+def _channels_held(got, model, channel, what: str) -> None:
+    """The read's ss_channel, row by row on the key (ss_item_sk,
+    ss_ticket_number), equals the model's: null outside the updated,
+    merged and appended rows."""
+    key = (got.column("ss_item_sk").values.astype(np.int64) * (1 << 32)
+           + got.column("ss_ticket_number").values)
+    col = got.column(CM_ADD)
+    ok = (np.ones(got.num_rows, bool) if col.valid is None
+          else col.valid)
+    have = sorted(zip(key[ok].tolist(), col.values[ok].tolist()))
+    live = model.alive
+    mk = model.keys()[live]
+    mc = channel[live]
+    set_ = np.array([c is not None for c in mc], bool)
+    want = sorted(zip(mk[set_].tolist(), mc[set_].tolist()))
+    _check(have == want and int((~ok).sum()) == int((~set_).sum()),
+           f"column_mapping {what}: {CM_ADD} equals the model's "
+           f"({len(have)} set, {int((~ok).sum())} null)")
+
+
+def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
+    """Step 21: column mapping and ALTER TABLE's column operations on the
+    card. `kept` is step 20's table at its end (`wide_write_phase`'s
+    `keep`). Each step's counters from 0, its rows against step 20's
+    numpy model carried through the renames:
+    (a) 1. `set_properties` to mode `name`: the protocol lists
+       columnMapping, no data file's bytes or mtime change, each field's
+       physical name is its name; 2. a reload (K3 per part, K1, K2 on the
+       tail); 3. RENAME ss_net_profit TO ss_profit, 4. DROP ss_coupon_amt,
+       5. ADD ss_channel string, each through the commit handoff (K1);
+       6. `ss_profit > 0` (K7): the files step 20's read of
+       `ss_net_profit > 0` kept, the same rows; 7. DELETE `ss_profit <
+       -4000.00` (K7, K8 packs the union with DF_SS's bitmaps); 8. an
+       UPDATE setting ss_channel (K7); 9. LF_SS's 1% MERGE on the key,
+       setting ss_profit and ss_channel (K9); 10. ZORDER BY ss_profit of
+       the last quarter (K4), its file holding the physical names; 11. a
+       `stats_parsed` checkpoint (leaves by physical name), an append, a
+       reload (K3 per part, K1, K2), the profit read again (K7) and a
+       full read: no ss_coupon_amt, ss_channel null outside the updated,
+       merged and appended rows;
+    (b) step 19's first quarter of sold dates written afresh in mode
+       `name`, partitioned by ss_sold_date_sk (nulls in
+       `__HIVE_DEFAULT_PARTITION__`): footers of `col-` names only,
+       partitionValues keyed by the physical name, a 30-date read that
+       prunes partitions, and after renaming the partition column the
+       same read by the new name: the same files and rows.
+    Returns each step's seconds, rows/s and launches."""
+    import decimal
+
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.commands import alter
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.commands.merge import merge
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.batch import Batch, Column
+    from delta_tpu_torch.models.schema import StructField
+
+    eng = TorchEngine(device)
+    path, model = kept["path"], kept["model"]
+    out = {"rows": int(model.alive.sum()), "card": card, "steps": {}}
+    step = _stepper(out, eng, "column_mapping")
+    channel = np.full(len(model.alive), None, object)
+    log = os.path.join(path, "_delta_log")
+
+    def held(read, names, what, alive=None):
+        live = model.alive if alive is None else alive
+        saved, model.alive = model.alive, live
+        try:
+            _check(read.num_rows == int(live.sum())
+                   and wide_sums(Batch({c: read.column(c) for c in names},
+                                       read.num_rows)) == model.sums(names),
+                   f"column_mapping {what}: rows equal the model's")
+        finally:
+            model.alive = saved
+
+    def load():
+        snap = table.latest_snapshot()
+        snap.state
+        return snap
+
+    def newest_parts():
+        cps = [n for n in os.listdir(log) if ".checkpoint." in n]
+        newest = max(n[:20] for n in cps)
+        return [n for n in cps if n.startswith(newest)]
+
+    # (a) 1. the mode upgrade: a metadata and protocol commit only
+    facts = _data_file_facts(path)
+    table = Table.for_path(path, engine=eng)
+    step("set_mode", 0, lambda: alter.set_properties(table, CM_MODE))
+    _check(_data_file_facts(path) == facts,
+           "column_mapping set_mode: no data file changed")
+    # 2. a reload through step 20's checkpoint and the mode's commit
+    parts = newest_parts()
+    table = Table.for_path(path, engine=eng)
+    snap = step("reload", 0, load, k1=(1, None), k2=(1, None),
+                k3=(len(parts), len(parts)))
+    proto = snap.protocol
+    _check("columnMapping" in (proto.writerFeatures or [])
+           and "columnMapping" in (proto.readerFeatures or []),
+           f"column_mapping set_mode: the protocol lists columnMapping "
+           f"({proto.to_dict()})")
+    _check(all(f.physical_name == f.name for f in snap.schema.fields),
+           "column_mapping set_mode: each field keeps its name as its "
+           "physical name")
+    # 3-5. RENAME, DROP, ADD: metadata commits through the handoff (K1)
+    step("rename", 0, lambda: alter.rename_column(table, *CM_RENAME),
+         k1=(1, None))
+    _model_rename(model, *CM_RENAME)
+    step("drop", 0, lambda: alter.drop_column(table, CM_DROP), k1=(1, None))
+    _model_drop(model, CM_DROP)
+    step("add", 0, lambda: alter.add_columns(
+        table, [StructField(CM_ADD, "string")]), k1=(1, None))
+    _check(step.counts.get("table.notify_advances", 0) == 1,
+           "column_mapping add: the handoff advanced the cached snapshot")
+    _check(_data_file_facts(path) == facts,
+           "column_mapping: no data file changed by the ALTERs")
+    snap = table.latest_snapshot()
+    _check(snap.schema.field_names()[-1] == CM_ADD
+           and CM_DROP not in snap.schema
+           and snap.schema[CM_RENAME[1]].physical_name == CM_RENAME[0],
+           "column_mapping: the cached schema holds the ALTERs")
+    # 6. the profit read through the renamed column
+    profit = CM_RENAME[1]
+    names = ["ss_item_sk", profit]
+    pos = model.alive & model.ok[profit] & (model.v[profit] > 0)
+    scan = snap.scan(filter=col(profit) > lit(decimal.Decimal("0.00")),
+                     columns=names)
+    got = step("read_profit", int(pos.sum()), scan.to_batch, k7=(1, 1))
+    held(got, names, "read_profit", pos)
+    _check(sorted(scan.file_paths()) == kept["profit_files"],
+           "column_mapping read_profit: K7 kept step 20's files")
+    _check(step.counts.get("scan.device_plans", 0) == 1
+           and step.counts.get("scan.device_fallbacks", 0) == 0,
+           "column_mapping read_profit: planned on the stats lanes")
+    out["steps"]["read_profit"]["files_kept"] = len(kept["profit_files"])
+    # 7. a DELETE on the renamed column: DVs, K8 packs the bitmaps
+    below = int(decimal.Decimal(CM_DELETE_BELOW).scaleb(2))
+    hit = model.alive & model.ok[profit] & (model.v[profit] < below)
+    m = step("delete", int(hit.sum()), lambda: delete(
+        table, col(profit) < lit(decimal.Decimal(CM_DELETE_BELOW))),
+        k7=(1, 1), k8_pack=(1, 1))
+    _check(m.num_rows_deleted == int(hit.sum()) and m.num_dvs_written > 0,
+           f"column_mapping delete: {m.num_rows_deleted} rows, "
+           f"{m.num_dvs_written} DVs")
+    model.alive &= ~hit
+    cards = [a.deletionVector.cardinality for a in
+             table.latest_snapshot().state.add_files if a.deletionVector]
+    _check(max(cards) > 4096, "column_mapping delete: a DV of bitmap "
+           "containers (DF_SS's union)")
+    out["steps"]["delete"]["dvs"] = m.num_dvs_written
+    # 8. an UPDATE that sets the added column
+    date, date_ok = model.v["ss_sold_date_sk"], model.ok["ss_sold_date_sk"]
+    q3 = np.flatnonzero(model.alive & date_ok
+                        & (date >= WIDE_LAST_QUARTER[0]))
+    ticket = int(model.v["ss_ticket_number"][q3[0]])
+    hit = model.alive & (model.v["ss_ticket_number"] == ticket)
+    m = step("update", int(hit.sum()), lambda: update(
+        table, {CM_ADD: lit("store")}, col("ss_ticket_number") == lit(ticket)),
+        k7=(1, 1))
+    _check(m.num_rows_updated == int(hit.sum()),
+           f"column_mapping update: {m.num_rows_updated} rows")
+    channel[hit] = "store"
+    # 9. LF_SS: MERGE a 1% source on the key, setting ss_profit
+    source, matched = _wide_merge_source(model, np.random.default_rng(21),
+                                         profit, CM_MERGE_TICKET)
+    half = len(matched)
+    lf = np.empty(source.num_rows, object)
+    lf[:] = "lf_ss"
+    merged = Batch(dict(source.columns, **{CM_ADD: Column(lf)}),
+                   source.num_rows)
+    m = step("merge", source.num_rows, lambda: merge(
+        table, merged, on=(col("target.ss_item_sk")
+                           == col("source.ss_item_sk"))
+        & (col("target.ss_ticket_number")
+           == col("source.ss_ticket_number")))
+        .when_matched_update_all().when_not_matched_insert_all()
+        .execute(), k9=(1, 1))
+    _check((m.num_target_rows_updated, m.num_target_rows_inserted)
+           == (half, half),
+           f"column_mapping merge: {m.num_target_rows_updated} updated, "
+           f"{m.num_target_rows_inserted} inserted of {half} each")
+    model.alive[matched] = False
+    model.append(source)
+    channel = np.r_[channel, lf]
+    # 10. ZORDER BY the renamed column of the last quarter
+    last = model.alive & model.ok["ss_sold_date_sk"] & (
+        model.v["ss_sold_date_sk"] >= WIDE_LAST_QUARTER[0])
+    m = step("optimize_zorder", int(last.sum()), lambda: table.optimize()
+             .where(col("ss_sold_date_sk") >= lit(WIDE_LAST_QUARTER[0]))
+             .execute_zorder_by(profit), k4=(1, 1))
+    schema = table.latest_snapshot().schema
+    physical = {f.physical_name for f in schema.fields}
+    new_files = [os.path.join(path, a.path) for a in
+                 table.latest_snapshot().state.add_files
+                 if os.path.join(path, a.path) not in facts]
+    _check(new_files and all(_footer_names(f) == physical
+                             for f in new_files)
+           and CM_RENAME[0] in physical and CM_DROP not in physical,
+           "column_mapping: the rewritten files hold the physical names")
+    out["steps"]["optimize_zorder"].update(
+        files_removed=m.num_files_removed, files_added=m.num_files_added)
+    # 11. a stats_parsed checkpoint, an append, the reload, reads
+    step("checkpoint", 0, lambda: Table.for_path(
+        path, engine=eng).checkpoint())
+    parts = newest_parts()
+    leaves = set()
+    for n in parts:
+        leaves |= {p[3] for p in _footer_leaf_paths(os.path.join(log, n))
+                   if p[:2] == ("add", "stats_parsed") and len(p) > 3}
+    _check(leaves and leaves <= physical and CM_RENAME[1] not in leaves,
+           f"column_mapping checkpoint: stats_parsed keyed by physical "
+           f"names ({sorted(leaves)[:4]}...)")
+    idx = q3[:CM_APPEND_ROWS]
+    extra = model.batch(idx)
+    cols = dict(extra.columns)
+    cols["ss_ticket_number"] = Column((CM_NEW_TICKET + np.arange(len(
+        idx))).astype(model.dtypes["ss_ticket_number"]))
+    web = np.empty(len(idx), object)
+    web[:] = "web"
+    cols[CM_ADD] = Column(web)
+    extra = Batch(cols, len(idx))
+    step("append", len(idx), lambda: write_table(path, extra, engine=eng))
+    model.append(extra)
+    channel = np.r_[channel, web]
+    snap = step("checkpoint_reload", 0, lambda: _loaded(path, eng),
+                k3=(len(parts), len(parts)), k1=(1, None), k2=(1, None))
+    pos = model.alive & model.ok[profit] & (model.v[profit] > 0)
+    got = step("read_profit_after", int(pos.sum()), lambda: snap.scan(
+        filter=col(profit) > lit(decimal.Decimal("0.00")),
+        columns=names).to_batch(), k7=(1, 1))
+    held(got, names, "read_profit_after", pos)
+    got = step("read_all", int(model.alive.sum()),
+               lambda: snap.scan().to_batch())
+    _check(CM_DROP not in got.column_names
+           and got.column_names[-1] == CM_ADD and profit in got.column_names,
+           f"column_mapping read_all: the columns {got.column_names}")
+    held(got, model.names, "read_all")
+    _channels_held(got, model, channel, "read_all")
+    del got, snap
+
+    # (b) a fresh name-mode table, partitioned by the sold date
+    src = kept["step19"]
+    d = src.column(CM_PARTITION)
+    d_ok = (np.ones(src.num_rows, bool) if d.valid is None else d.valid)
+    lo, hi = CM_FIRST_QUARTER
+    file0 = src.column("ss_ticket_number").values // WIDE_TICKET_FILE == 0
+    rows = np.flatnonzero((d_ok & (d.values >= lo) & (d.values < hi))
+                          | (~d_ok & file0))
+    q0 = src.take(rows)
+    q0_model = _WideModel(q0)
+    fresh = os.path.join(kept["work"], "store_sales_mapped")
+    step("fresh_write", q0.num_rows, lambda: write_table(
+        fresh, q0, engine=eng, partition_by=[CM_PARTITION],
+        properties=CM_MODE))
+    fsnap = Table.for_path(fresh, engine=eng).latest_snapshot()
+    pkey = fsnap.schema[CM_PARTITION].physical_name
+    adds = fsnap.state.add_files
+    n_dates = len(np.unique(d.values[rows][d_ok[rows]]))
+    _check(pkey.startswith("col-")
+           and all(set(a.partitionValues) == {pkey} for a in adds)
+           and len(adds) == n_dates + int((~d_ok[rows]).any()),
+           f"column_mapping fresh_write: {len(adds)} files keyed by the "
+           f"physical name")
+    _check(any("__HIVE_DEFAULT_PARTITION__" in a.path
+               and a.partitionValues[pkey] is None for a in adds),
+           "column_mapping fresh_write: nulls in the default partition")
+    _check(all(n.startswith("col-") for a in adds
+               for n in _footer_names(os.path.join(fresh, a.path))),
+           "column_mapping fresh_write: every footer holds col- names only")
+    plo, phi = CM_PRUNE_RANGE
+    in_range = q0_model.ok[CM_PARTITION] & (q0_model.v[CM_PARTITION] >= plo) \
+        & (q0_model.v[CM_PARTITION] < phi)
+
+    def range_read(name):
+        snap = Table.for_path(fresh, engine=eng).latest_snapshot()
+        scan = snap.scan(filter=(col(name) >= lit(plo))
+                         & (col(name) < lit(phi)))
+        return scan, scan.to_batch()
+
+    scan, got = step("fresh_read_range", int(in_range.sum()),
+                     lambda: range_read(CM_PARTITION))
+    files = sorted(scan.file_paths())
+    n_in = len(np.unique(q0_model.v[CM_PARTITION][in_range]))
+    _check(scan.partition_pruned == len(adds) - n_in
+           and len(files) == n_in > 0,
+           f"column_mapping fresh_read_range: {scan.partition_pruned} "
+           f"partitions pruned, {len(files)} read")
+    sums = [c for c in q0_model.names if c != CM_PARTITION]
+    saved, q0_model.alive = q0_model.alive, in_range
+    _check(got.num_rows == int(in_range.sum())
+           and wide_sums(Batch({c: got.column(c) for c in sums},
+                               got.num_rows)) == q0_model.sums(sums),
+           "column_mapping fresh_read_range: rows equal the model's")
+    want_sums = wide_sums(Batch({c: got.column(c) for c in sums},
+                                got.num_rows))
+    step("fresh_rename", 0, lambda: alter.rename_column(
+        Table.for_path(fresh, engine=eng), CM_PARTITION,
+        CM_PARTITION_RENAMED))
+    scan, got = step("fresh_read_renamed", int(in_range.sum()),
+                     lambda: range_read(CM_PARTITION_RENAMED))
+    _check(sorted(scan.file_paths()) == files
+           and got.num_rows == int(in_range.sum())
+           and wide_sums(Batch({c: got.column(c) for c in sums},
+                               got.num_rows)) == want_sums
+           and CM_PARTITION_RENAMED in got.column_names,
+           "column_mapping fresh_read_renamed: the same files and rows")
+    q0_model.alive = saved
+    out["fresh"] = {"rows": q0.num_rows, "files": len(adds),
+                    "dates": n_dates, "pruned": scan.partition_pruned}
     return out
 
 
@@ -3755,8 +4176,9 @@ def main(argv=None) -> int:
 
         # step 20: the wider types through every write path, on step
         # 19's rows (TPC-DS data maintenance); counters from 0 per step
+        ww_keep = {}
         ww = wide_write_phase(wide_in.pop("all"), wide_in.pop("nested"),
-                              WIDE_DIR, "cuda", card)
+                              WIDE_DIR, "cuda", card, keep=ww_keep)
         ww_steps = ww["steps"].values()
         for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
                           ("hybrid_extract", "k3"),
@@ -3770,6 +4192,30 @@ def main(argv=None) -> int:
         for name, r in ww["steps"].items():
             print(f"wide_write {name}: {r['rows']} rows, {r['s']:.4f} s, "
                   f"{r['rows_per_s']:.1f} rows/s, launches "
+                  + json.dumps({k: r[k] for k in WIDE_WRITE_K})
+                  + f"; {card}", flush=True)
+
+        # step 21: column mapping and ALTER TABLE on step 20's table, then
+        # a fresh name-mode table; counters from 0 per step
+        try:
+            cm = column_mapping_phase(ww_keep, "cuda", card)
+        finally:
+            if "work" in ww_keep:
+                shutil.rmtree(ww_keep["work"], ignore_errors=True)
+            ww_keep.clear()
+        cm_steps = cm["steps"].values()
+        for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                          ("hybrid_extract", "k3"),
+                          ("skip_mask", "k7")):
+            kernels[name]["launches_column_mapping"] = sum(
+                s[key] for s in cm_steps)
+        cm_k4 = sum(s["k4"] for s in cm_steps)
+        cm_k8 = sum(s["k8_pack"] + s["k8_decode"] for s in cm_steps)
+        cm_k9 = sum(s["k9"] for s in cm_steps)
+        print("column_mapping: " + json.dumps(cm), flush=True)
+        for name, r in cm["steps"].items():
+            print(f"column_mapping {name}: {r['rows']} rows, {r['s']:.4f} "
+                  f"s, {r['rows_per_s']:.1f} rows/s, launches "
                   + json.dumps({k: r[k] for k in WIDE_WRITE_K})
                   + f"; {card}", flush=True)
 
@@ -3827,6 +4273,7 @@ def main(argv=None) -> int:
         opt = optimize_phase(work, appends, card, dev)
         kernels["interleave_bits"]["launches"] = opt["launches"]
         kernels["interleave_bits"]["launches_wide_write"] = wide_write_k4
+        kernels["interleave_bits"]["launches_column_mapping"] = cm_k4
         kernels["skip_mask"]["launches_read_table"] = \
             opt["read_table_counters"].get("kernel.skip_mask.launches", 0)
         print("optimize zorder: " + json.dumps(opt), flush=True)
@@ -3840,6 +4287,7 @@ def main(argv=None) -> int:
         del k8_inputs
         kernels["dv_bits"]["launches_wide_types"] = wide_k8
         kernels["dv_bits"]["launches_wide_write"] = wide_write_k8
+        kernels["dv_bits"]["launches_column_mapping"] = cm_k8
         kernels["dv_bits"]["launches_per_step"] = {
             k: {"pack": s["k8_pack"], "decode": s["k8_decode"],
                 "decode_dvs": s["k8_decode_dvs"]}
@@ -3866,6 +4314,7 @@ def main(argv=None) -> int:
         kernels["merge_join"]["launches_per_step"] = {
             k: s["k9"] for k, s in steps.items()}
         kernels["merge_join"]["launches_wide_write"] = wide_write_k9
+        kernels["merge_join"]["launches_column_mapping"] = cm_k9
         for name, key in (("skip_mask", "k7"), ("byte_class", "k1"),
                           ("winner_pack", "k2"), ("hybrid_extract", "k3"),
                           ("interleave_bits", "k4")):

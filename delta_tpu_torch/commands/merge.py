@@ -46,9 +46,11 @@ Refused as in the reference: no clause, an unconditional clause before
 the last of its kind, a duplicate assignment, an assignment to or an
 `*_all` over a column the target lacks (without schema evolution).
 Refused before anything is written (`UnsupportedTableError`), as not
-ported: schema evolution, identity and generated columns, column mapping,
-a table with the change data feed on (its CDC files), and what
-`check_write_supported` refuses.
+ported: schema evolution, identity and generated columns, a table with
+the change data feed on (its CDC files), and what `check_write_supported`
+refuses. A column-mapped table merges as any other: its keys, conditions
+and assignments name logical columns, the read renames the files'
+physical ones, and the writer writes physical names.
 """
 
 from __future__ import annotations
@@ -60,11 +62,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from delta_tpu_torch.config import (
-    CHANGE_DATA_FEED,
-    COLUMN_MAPPING_MODE,
-    get_table_config,
-)
+from delta_tpu_torch.config import CHANGE_DATA_FEED, get_table_config
 from delta_tpu_torch.errors import (
     DeltaError,
     InvalidArgumentError,
@@ -387,10 +385,6 @@ def _check_mergeable(snapshot, schema: StructType) -> None:
     of the protocol check, which would name only a writer version), then
     `check_write_supported`."""
     meta = snapshot.metadata
-    if get_table_config(meta.configuration, COLUMN_MAPPING_MODE) != "none":
-        raise UnsupportedTableError(
-            "MERGE into a table with column mapping is not supported yet",
-            feature="column mapping")
     if get_table_config(meta.configuration, CHANGE_DATA_FEED):
         raise UnsupportedTableError(
             "MERGE into a table with the change data feed is not supported "

@@ -68,11 +68,10 @@ class UnsupportedLogError(DeltaError):
 
 class UnsupportedTableError(DeltaError):
     """The table or the request needs a write-path feature this package
-    does not implement yet (a partitioned table, column mapping, a
-    clustered table, in-commit timestamps, row tracking, coordinated or
-    group commit, domain writes, DML on a change-data-feed table, writer
-    features beyond appendOnly, invariants and deletionVectors, a type
-    outside the flat primitive set). The command stops before it writes
+    does not implement yet (a clustered table, in-commit timestamps, row
+    tracking, coordinated or group commit, domain writes, DML on a
+    change-data-feed table, writer features beyond those of
+    `features.py`, a type outside the protocol's). The command stops before it writes
     anything a commit would reference."""
 
     error_class = "DELTA_UNSUPPORTED_FEATURES_FOR_WRITE"
@@ -210,3 +209,32 @@ class DeletionVectorError(DeltaError):
     storage type with no path."""
 
     error_class = "DELTA_DELETION_VECTOR_INVALID"
+
+
+class InvalidProtocolVersionError(DeltaError):
+    error_class = "DELTA_INVALID_PROTOCOL_VERSION"
+
+
+class SchemaEvolutionError(DeltaError):
+    """A schema change ALTER TABLE refuses (a non-nullable added column,
+    RENAME or DROP without column mapping, a partition column or the last
+    column dropped, a column a CHECK constraint or a generated column
+    depends on); `error_class` names which."""
+
+    error_class = "DELTA_UNSUPPORTED_SCHEMA_EVOLUTION"
+
+
+class ColumnMappingError(DeltaError):
+    error_class = "DELTA_UNSUPPORTED_COLUMN_MAPPING_OPERATION"
+
+
+class ColumnMappingModeChangeError(ColumnMappingError):
+    error_class = "DELTA_UNSUPPORTED_COLUMN_MAPPING_MODE_CHANGE"
+
+
+class NonExistentColumnError(DeltaError):
+    error_class = "DELTA_COLUMN_NOT_FOUND"
+
+
+class DuplicateColumnError(DeltaError):
+    error_class = "DELTA_DUPLICATE_COLUMNS_FOUND"

@@ -71,6 +71,10 @@ _PARQUET: Dict[str, Tuple[str, Any, Any]] = {
 # the widest decimal whose unscaled values fit int64 lanes
 MAX_INT64_PRECISION = 18
 
+# a field's column-mapping keys in its metadata (`columnmapping.py`)
+COLUMN_MAPPING_ID_KEY = "delta.columnMapping.id"
+COLUMN_MAPPING_PHYSICAL_NAME_KEY = "delta.columnMapping.physicalName"
+
 
 @dataclass
 class ArrayType:
@@ -144,6 +148,17 @@ class StructField:
     @property
     def numpy_dtype(self) -> np.dtype:
         return numpy_dtype_of(self.data_type)
+
+    @property
+    def column_mapping_id(self) -> Optional[int]:
+        v = self.metadata.get(COLUMN_MAPPING_ID_KEY)
+        return int(v) if v is not None else None
+
+    @property
+    def physical_name(self) -> str:
+        """The name the field has in data files and stats under column
+        mapping (its own name where the metadata gives none)."""
+        return self.metadata.get(COLUMN_MAPPING_PHYSICAL_NAME_KEY, self.name)
 
     def to_json_value(self) -> Dict[str, Any]:
         return {"name": self.name, "type": _type_json(self.data_type),

@@ -25,29 +25,43 @@ Counterpart of `delta_tpu/read/reader.py:21-202`:
   and the projection last. No surviving file gives the schema's (or the
   projection's) columns, empty.
 
+Under column mapping a file's columns are found by their physical names
+and come back under the logical ones: a column the table dropped
+disappears, one it added reads as null, a partition value is keyed by the
+physical name (or the logical one), and a projection asks the file for
+physical names. Nested struct fields are renamed the same way, at every
+depth (`columnmapping.py::logical_converter`; also on a table without
+mapping, where a field added inside a struct reads as null).
+
 Both read every file first, then decode the deletion vectors of all of
 them in one batch on the engine's device (`deleted_row_masks`: one K8
 launch on the card, `dv/descriptor.py::load_deletion_vector_masks`), then
 drop each file's deleted rows. A missing file raises
-`FileNotFoundInLogError`; column mapping, and a data file in a form the
-Parquet reader does not decode (`DecodeUnsupported`: an LZ4 or Brotli
-page, a legacy two-level list), raise `UnsupportedTableError`; a damaged
-data file (`DecodeCorrupt`) raises `DataFileCorruptedError`. Both name
-the file. Every type of `models/schema.py` reads (`models/batch.py` says
-how each lies in memory), as every write path writes it.
+`FileNotFoundInLogError`; a data file in a form the Parquet reader does
+not decode (`DecodeUnsupported`: an LZ4 or Brotli page, a legacy
+two-level list) raises `UnsupportedTableError`; a damaged data file
+(`DecodeCorrupt`) raises `DataFileCorruptedError`. Both name the file.
+Every type of `models/schema.py` reads (`models/batch.py` says how each
+lies in memory), as every write path writes it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from delta_tpu_torch.config import COLUMN_MAPPING_MODE, get_table_config
+from delta_tpu_torch.columnmapping import (
+    is_mapped,
+    logical_converter,
+    logical_to_physical_names,
+    physical_to_logical_names,
+)
 from delta_tpu_torch.dv.descriptor import load_deletion_vector_masks
 from delta_tpu_torch.errors import (
     DataFileCorruptedError,
     FileNotFoundInLogError,
     UnsupportedTableError,
 )
+from delta_tpu_torch.models.actions import Metadata
 from delta_tpu_torch.log.parquet_data import read_data_file
 from delta_tpu_torch.log.parquet_footer import DecodeCorrupt, DecodeUnsupported
 from delta_tpu_torch.models.batch import Batch, Column, zeros
@@ -58,7 +72,11 @@ from delta_tpu_torch.models.schema import (
     numpy_dtype_of,
     schema_from_json,
 )
-from delta_tpu_torch.stats.partition import partition_column
+from delta_tpu_torch.stats.partition import (
+    partition_column,
+    partition_keys,
+    partition_value,
+)
 
 
 
@@ -101,9 +119,15 @@ def _cast(col: Column, target) -> Column:
                _rescaled(values, col.valid, want_ps[1] - have_ps[1],
                          want_ps[0]))
         return col if out is None else Column(out, col.valid, target)
-    if not isinstance(target, str):  # nested: the file's own shape
-        return Column(values, col.valid, target) \
-            if values.dtype == object else col
+    if not isinstance(target, str):  # nested: renamed to the table's
+        if values.dtype != object:
+            return col
+        conv = logical_converter(target, have)
+        if conv is not None:
+            out = np.empty(len(values), object)
+            out[:] = [conv(v) for v in values.tolist()]
+            values = out
+        return Column(values, col.valid, target)
     want = numpy_dtype_of(target)
     if decimal_precision_scale(have) is not None or have == "binary" or (
             values.dtype != want and (values.dtype == object or not
@@ -115,18 +139,20 @@ def _cast(col: Column, target) -> Column:
 
 
 def _align_to_logical(batch: Batch, schema, partition_columns=(),
-                      needed=None) -> Batch:
-    """Schema columns only, cast to the table's types, partition columns
-    left out; a schema column the file lacks reads as null (only those in
-    `needed`, when given)."""
+                      needed=None, mapped: bool = False) -> Batch:
+    """Schema columns only, found by their physical names when `mapped`,
+    under their logical names, cast to the table's types, partition
+    columns left out; a schema column the file lacks reads as null (only
+    those in `needed`, when given)."""
     known = {f.name: f for f in schema.fields
              if f.name not in partition_columns}
+    p2l = physical_to_logical_names(schema) if mapped else None
     cols = {}
     for name in batch.column_names:
-        f = known.get(name)
+        f = known.get(p2l.get(name) if mapped else name)
         if f is None:
             continue
-        cols[name] = _cast(batch.columns[name], f.data_type)
+        cols[f.name] = _cast(batch.columns[name], f.data_type)
     for f in known.values():
         if f.name not in cols and (needed is None or f.name in needed):
             cols[f.name] = Column.nulls(f.numpy_dtype, batch.num_rows,
@@ -135,9 +161,10 @@ def _align_to_logical(batch: Batch, schema, partition_columns=(),
 
 
 def _append_partition_columns(batch: Batch, add, schema, partition_columns,
-                              needed=None) -> Batch:
-    """The file's partition values (strings in `partitionValues`) spliced
-    in as typed columns after the data columns."""
+                              needed=None, keys=None) -> Batch:
+    """The file's partition values (strings in `partitionValues`, keyed
+    by `keys`: the physical names under column mapping) spliced in as
+    typed columns after the data columns."""
     cols = dict(batch.columns)
     pv = add.partitionValues or {}
     for c in partition_columns:
@@ -145,15 +172,18 @@ def _append_partition_columns(batch: Batch, add, schema, partition_columns,
             continue
         type_name = (schema[c].data_type if c in schema and isinstance(
             schema[c].data_type, str) else "string")
-        cols[c] = partition_column(pv.get(c), type_name, batch.num_rows)
+        value = partition_value(pv, c, (keys or {}).get(c, c))
+        cols[c] = partition_column(value, type_name, batch.num_rows)
     return Batch(cols, batch.num_rows)
 
 
-def _logical(batch: Batch, add, schema, partition_columns,
+def _logical(batch: Batch, add, schema, metadata: Metadata,
              needed=None) -> Batch:
+    pcols = metadata.partitionColumns
     return _append_partition_columns(
-        _align_to_logical(batch, schema, partition_columns, needed), add,
-        schema, partition_columns, needed)
+        _align_to_logical(batch, schema, pcols, needed,
+                          is_mapped(metadata.configuration)),
+        add, schema, pcols, needed, partition_keys(metadata))
 
 
 def deleted_row_masks(engine, table_path: str, adds, row_counts) -> list:
@@ -180,12 +210,6 @@ def _drop_deleted(engine, table_path: str, adds, batches) -> list:
                               [b.num_rows for b in batches])
     return [b if m is None else b.take(np.flatnonzero(~m))
             for b, m in zip(batches, masks)]
-
-
-def _check_readable(metadata) -> None:
-    if get_table_config(metadata.configuration, COLUMN_MAPPING_MODE) != "none":
-        raise UnsupportedTableError(
-            "column mapping is not supported yet", feature="column mapping")
 
 
 def _read_bytes(engine, table_path: str, add) -> bytes:
@@ -216,10 +240,9 @@ def read_add_files_logical(engine, table_path: str, metadata, adds
                            ) -> list:
     """Read AddFiles' rows in the table's logical schema, one Batch each,
     their deleted rows dropped (the DVs decoded in one batch)."""
-    _check_readable(metadata)
     schema = schema_from_json(metadata.schemaString)
     batches = [_read_file(engine, table_path, a) for a in adds]
-    return [_logical(b, a, schema, metadata.partitionColumns) for a, b in
+    return [_logical(b, a, schema, metadata) for a, b in
             zip(adds, _drop_deleted(engine, table_path, adds, batches))]
 
 
@@ -229,10 +252,9 @@ def read_add_file_logical(engine, table_path: str, metadata, add,
     rows dropped unless `apply_dv` is False)."""
     if apply_dv:
         return read_add_files_logical(engine, table_path, metadata, [add])[0]
-    _check_readable(metadata)
     batch = _read_file(engine, table_path, add)
     return _logical(batch, add, schema_from_json(metadata.schemaString),
-                    metadata.partitionColumns)
+                    metadata)
 
 
 def _empty(schema, names) -> Batch:
@@ -250,8 +272,6 @@ def read_scan(scan) -> Batch:
     metadata = snapshot.metadata
     schema = schema_from_json(metadata.schemaString)
     files = scan.add_files()
-    if files:
-        _check_readable(metadata)
     requested = scan.columns
     needed = requested
     if requested is not None and scan.filter is not None:
@@ -259,9 +279,13 @@ def read_scan(scan) -> Batch:
         refs = [r[0] for r in scan.filter.references()]
         needed = requested + [c for c in dict.fromkeys(refs)
                               if c not in requested]
-    parts = [_read_file(engine, snapshot.table_path, add, needed)
+    wanted = needed
+    if needed is not None and is_mapped(metadata.configuration):
+        l2p = logical_to_physical_names(schema)
+        wanted = [l2p.get(c, c) for c in needed]
+    parts = [_read_file(engine, snapshot.table_path, add, wanted)
              for add in files]
-    batches = [_logical(part, add, schema, metadata.partitionColumns, needed)
+    batches = [_logical(part, add, schema, metadata, needed)
                for add, part in zip(files, _drop_deleted(
                    engine, snapshot.table_path, files, parts))]
     if not batches:

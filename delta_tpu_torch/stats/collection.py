@@ -20,6 +20,10 @@ byte the reference's for the same rows:
 - a leaf inside a struct is found by its name path, null where any
   struct above it is null;
 - booleans, binary, arrays and maps get a null count only.
+
+Under column mapping the leaves are chosen by their logical paths and
+keyed by their physical ones, at every depth (the reference keys the
+top level only, and drops the stats of nested leaves).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from delta_tpu_torch.columnmapping import is_mapped, physical_name_path
 from delta_tpu_torch.config import (
     DATA_SKIPPING_NUM_INDEXED_COLS,
     DATA_SKIPPING_STATS_COLUMNS,
@@ -175,6 +180,7 @@ def collect_stats(batch: Batch, schema, configuration: Dict[str, str],
                   partition_columns: List[str]) -> str:
     """Stats JSON for one written file."""
     cols = stats_columns(schema, configuration, partition_columns)
+    mapped = is_mapped(configuration)
     stats: dict = {"numRecords": batch.num_rows}
     min_d: dict = {}
     max_d: dict = {}
@@ -184,6 +190,8 @@ def collect_stats(batch: Batch, schema, configuration: Dict[str, str],
         if leaf is None:
             continue
         col, type_name = leaf
+        if mapped:
+            path = physical_name_path(schema, tuple(path)) or path
         null_count = col.null_count
         _set_nested(null_d, path, int(null_count))
         if not (type_name in _MINMAX_TYPES

@@ -42,9 +42,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from delta_tpu_torch.columnmapping import is_mapped
 from delta_tpu_torch.log.parquet_data import _as_numpy
 from delta_tpu_torch.models.batch import DECIMAL_TEXT, decimal_value
 from delta_tpu_torch.models.schema import (
+    COLUMN_MAPPING_PHYSICAL_NAME_KEY,
     decimal_precision_scale,
     numpy_dtype_of,
 )
@@ -245,7 +247,10 @@ def stats_parsed_schema(schema_string: Optional[str],
     stats_columns` under the table's `configuration`; binary has no min
     or max), `nullCount` int64 per such leaf, `tightBounds`. An array or
     map leaf has no field: its null count is dropped, as Arrow's reader
-    drops a field outside the explicit schema."""
+    drops a field outside the explicit schema. Under column mapping the
+    leaves are keyed by their physical paths, as the stats JSON is (the
+    reference keys them by logical names, which the physical JSON keys
+    do not fill)."""
     from delta_tpu_torch.stats.collection import stats_columns
 
     if not schema_string:
@@ -254,17 +259,22 @@ def stats_parsed_schema(schema_string: Optional[str],
     stats_paths = stats_columns(_SchemaLeaves(root), configuration,
                                 partition_columns)
 
+    mapped = is_mapped(configuration)
+
     def resolve(path):
-        node = root
+        """(the leaf's type, its key path in the stats)."""
+        node, keys = root, []
         for name in path:
             if not isinstance(node, dict) or node.get("type") != "struct":
-                return None
+                return None, None
             f = next((f for f in node.get("fields", [])
                       if f.get("name") == name), None)
             if f is None:
-                return None
+                return None, None
+            keys.append((f.get("metadata") or {}).get(
+                COLUMN_MAPPING_PHYSICAL_NAME_KEY, name) if mapped else name)
             node = f.get("type")
-        return node
+        return node, keys
 
     minmax: Dict = {}
     nulls: Dict = {}
@@ -275,12 +285,12 @@ def stats_parsed_schema(schema_string: Optional[str],
         tree[path[-1]] = kind
 
     for path in stats_paths:
-        t = resolve(path)
+        t, keys = resolve(path)
         if not isinstance(t, str):
             continue
-        insert(nulls, path, "int64")
+        insert(nulls, keys, "int64")
         if t != "binary":
-            insert(minmax, path, _LEAF_KIND.get(t, t))  # decimal(p,s)
+            insert(minmax, keys, _LEAF_KIND.get(t, t))  # decimal(p,s)
 
     def to_type(tree) -> SType:
         return SType("struct", {k: to_type(v) if isinstance(v, dict)

@@ -12,7 +12,9 @@ table schema's JSON (any primitive type, not only the ones this package
 writes): a decimal becomes its unscaled integers at the column's scale,
 binary the value's UTF-8 bytes (as the reference's Arrow array of the
 string gives them), timestamp_ntz a wall time, each with its
-`Column.data_type`.
+`Column.data_type`. Under column mapping the maps are keyed by the
+columns' physical names; a map keyed by the logical name is read too, as
+the reference reads it (`partition_keys`).
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from delta_tpu_torch.columnmapping import is_mapped
 from delta_tpu_torch.models.batch import Batch, Column
 from delta_tpu_torch.models.schema import (
+    COLUMN_MAPPING_PHYSICAL_NAME_KEY,
     carried_type,
     decimal_precision_scale,
     numpy_dtype_of,
@@ -105,16 +109,35 @@ def deserialize_partition_value(s: Optional[str], type_name: str):
     return s
 
 
-def _partition_types(metadata) -> Dict[str, str]:
-    """Partition column -> its type name in the schema ("string" where
-    the schema does not give a primitive type)."""
+def _partition_fields(metadata) -> Dict[str, tuple]:
+    """Partition column -> (its key in `partitionValues`, its type name
+    in the schema, "string" where the schema gives no primitive type)."""
     fields = {}
     if metadata is not None and metadata.schemaString:
+        mapped = is_mapped(metadata.configuration)
         for f in json.loads(metadata.schemaString).get("fields", []):
             t = f.get("type")
-            fields[f.get("name")] = t if isinstance(t, str) else "string"
+            key = f.get("name")
+            if mapped:
+                key = (f.get("metadata") or {}).get(
+                    COLUMN_MAPPING_PHYSICAL_NAME_KEY, key)
+            fields[f.get("name")] = (key, t if isinstance(t, str)
+                                     else "string")
     cols = metadata.partitionColumns if metadata is not None else []
-    return {c: fields.get(c, "string") for c in cols}
+    return {c: fields.get(c, (c, "string")) for c in cols}
+
+
+def partition_keys(metadata) -> Dict[str, str]:
+    """Partition column -> its key in `partitionValues`: the physical
+    name under column mapping, else the column's name."""
+    return {c: key for c, (key, _) in _partition_fields(metadata).items()}
+
+
+def partition_value(pv: Dict[str, Optional[str]], column: str, key: str
+                    ) -> Optional[str]:
+    """A file's partition value of `column`, keyed `key` (or, as the
+    reference reads it, by the column's own name)."""
+    return pv[key] if key in pv else pv.get(column)
 
 
 def _unscaled(value, scale: int) -> int:
@@ -168,18 +191,22 @@ def partition_values_to_columns(pv_dicts: Sequence[Dict[str, Optional[str]]],
                                 metadata) -> Batch:
     """One typed column per partition column over the files'
     partitionValues maps (a missing key reads as NULL)."""
-    return Batch({c: _typed_column([d.get(c) for d in pv_dicts], t)
-                  for c, t in _partition_types(metadata).items()},
+    return Batch({c: _typed_column([partition_value(d, c, key)
+                                    for d in pv_dicts], t)
+                  for c, (key, t) in _partition_fields(metadata).items()},
                  len(pv_dicts))
 
 
 def partition_values_to_batch(pv_dicts: Sequence[Dict[str, Optional[str]]],
-                              partition_columns: List[str]) -> Batch:
+                              partition_columns: List[str],
+                              metadata=None) -> Batch:
     """The conflict checker's small helper: the maps as string columns
-    (literals then compare as strings, as in the reference)."""
+    (literals then compare as strings, as in the reference), read by the
+    physical keys of a column-mapped table's `metadata`."""
+    keys = partition_keys(metadata) if metadata is not None else {}
     cols = {}
     for c in partition_columns:
-        vals = [d.get(c) for d in pv_dicts]
+        vals = [partition_value(d, c, keys.get(c, c)) for d in pv_dicts]
         data = np.empty(len(vals), object)
         data[:] = ["" if v is None else v for v in vals]
         cols[c] = Column(data, np.fromiter((v is not None for v in vals),

@@ -55,13 +55,18 @@ a comparison into a float one that can only keep more: `col > L` and
 is monotone, so a row at or past L has a stat at or past f); `<` and
 `<=` take the smallest double not below L; `=` both; IN the range of
 its values so widened; `!=` skips nothing. A float literal is left as it is: a decimal
-beside a float compares as float64 in both packages. Column-mapped tables are refused
-(`UnsupportedTableError`): their stats keys are physical names, which
-this package does not translate yet.
+beside a float compares as float64 in both packages.
+
+Under column mapping the stats keys are physical names: after
+`exact_bounds`, `_to_physical` rewrites each conjunct's logical column
+paths to physical ones (a conjunct naming a column the schema lacks is
+dropped: it keeps every file), so the lanes and the ladder read the
+physical keys, as the reference does (`stats/skipping.py:300-365`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import decimal
 import itertools
 import json
@@ -73,6 +78,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from delta_tpu_torch import obs
+from delta_tpu_torch.columnmapping import is_mapped, physical_name_path
 from delta_tpu_torch.expressions.eval import (
     Kleene,
     UnsupportedComparison,
@@ -92,7 +98,10 @@ from delta_tpu_torch.expressions.tree import (
     Not,
     Or,
 )
-from delta_tpu_torch.models.schema import decimal_precision_scale
+from delta_tpu_torch.models.schema import (
+    decimal_precision_scale,
+    schema_from_json,
+)
 from delta_tpu_torch.utils.timestamps import parse_timestamp_s
 
 _DEVICE_PLANS = obs.counter("scan.device_plans")
@@ -492,6 +501,26 @@ def exact_bounds(conjuncts: List[Expression], metadata) -> List[Expression]:
     return out
 
 
+def _to_physical(expr: Expression, schema) -> Optional[Expression]:
+    """`expr` with its logical column paths rewritten to physical ones;
+    None when a path names no field (the conjunct then keeps)."""
+    if isinstance(expr, Column):
+        phys = physical_name_path(schema, expr.name_path)
+        return Column(phys) if phys is not None else None
+    children = expr.children()
+    if not children:
+        return expr
+    new_children = []
+    for c in children:
+        nc = _to_physical(c, schema)
+        if nc is None:
+            return None
+        new_children.append(nc)
+    names = [f.name for f in dataclasses.fields(expr)
+             if isinstance(getattr(expr, f.name), Expression)]
+    return dataclasses.replace(expr, **dict(zip(names, new_children)))
+
+
 def skipping_mask(stats: Optional[Sequence[Optional[str]]],
                   conjuncts: List[Expression], metadata, engine=None,
                   state=None) -> np.ndarray:
@@ -503,20 +532,15 @@ def skipping_mask(stats: Optional[Sequence[Optional[str]]],
     runs in one `skip_mask_block` call on the engine's device (kernel K7
     on the card) and only the rest walks the ladder. Without a state,
     the index is parsed from `stats` and only the ladder runs."""
-    from delta_tpu_torch.config import COLUMN_MAPPING_MODE, get_table_config
-    from delta_tpu_torch.errors import UnsupportedTableError
-
     n = len(state.live_rows) if state is not None else len(stats)
     keep = np.ones(n, dtype=bool)
     if n == 0 or not conjuncts:
         return keep
-    if metadata is not None and get_table_config(
-            metadata.configuration, COLUMN_MAPPING_MODE) != "none":
-        # stats keys are physical names, which are not translated yet
-        raise UnsupportedTableError(
-            "data skipping over a column-mapped table is not supported "
-            "yet", feature="column mapping")
     conjuncts = exact_bounds(conjuncts, metadata)
+    if metadata is not None and is_mapped(metadata.configuration):
+        schema = schema_from_json(metadata.schemaString)
+        conjuncts = [p for p in (_to_physical(c, schema) for c in conjuncts)
+                     if p is not None]
     if not conjuncts:
         return keep
     rs = None

@@ -112,7 +112,7 @@ def _matching_adds(adds: Sequence[AddFile],
                 if pbatch is None:
                     pbatch = partition_values_to_batch(
                         [a.partitionValues for a in adds],
-                        state.partition_columns)
+                        state.partition_columns, state.metadata)
                 try:
                     alive &= evaluate_predicate(conj, pbatch)
                 except Exception as e:  # unevaluable: widen (sound)

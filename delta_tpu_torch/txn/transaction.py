@@ -21,12 +21,15 @@ post-commit hooks run (`hooks.py`: the `.crc` checksum, the checkpoint
 every `delta.checkpointInterval` commits, auto-compaction), best-effort:
 a failing hook is counted and logged, and the commit stands.
 
+A table created with `delta.columnMapping.mode` gets its fields' ids
+and physical names (`columnmapping.py::assign_column_mapping`) in its
+first metadata, and a mapped table may name columns with ' ,;{}()\n\t='.
+
 Refused with `UnsupportedTableError`, before anything is written: group
 commit, coordinated commits, in-commit timestamps, row tracking, domain
-writes, column mapping, protocol writer features
-beyond appendOnly, invariants and deletionVectors (`features.py`), and
-tables that ask for the UniForm (Iceberg/Hudi) or symlink-manifest hooks,
-which are not ported.
+writes, the writer features `features.py::unsupported_writer_features`
+names, and tables that ask for the UniForm (Iceberg/Hudi) or
+symlink-manifest hooks, which are not ported.
 """
 
 from __future__ import annotations
@@ -37,9 +40,9 @@ import uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from delta_tpu_torch.columnmapping import assign_column_mapping, is_mapped
 from delta_tpu_torch.config import (
     APPEND_ONLY,
-    COLUMN_MAPPING_MODE,
     COORDINATED_COMMITS_COORDINATOR,
     IN_COMMIT_TIMESTAMPS,
     ISOLATION_LEVEL,
@@ -93,6 +96,11 @@ class Operation:
     DELETE = "DELETE"
     UPDATE = "UPDATE"
     MERGE = "MERGE"
+    SET_TBLPROPERTIES = "SET TBLPROPERTIES"
+    ADD_COLUMNS = "ADD COLUMNS"
+    RENAME_COLUMN = "RENAME COLUMN"
+    DROP_COLUMNS = "DROP COLUMNS"
+    UPGRADE_PROTOCOL = "UPGRADE PROTOCOL"
 
 
 @dataclass
@@ -105,26 +113,17 @@ class CommitResult:
 def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
     """Refuse a table whose protocol or properties need a writer this
     package does not have."""
-    if protocol.minWriterVersion >= 7:
-        unsupported = (set(protocol.writerFeatures or [])
-                       - features.SUPPORTED_WRITER_FEATURES)
-    elif protocol.minWriterVersion > 2:
-        unsupported = {f"writerVersion={protocol.minWriterVersion}"}
-    else:
-        unsupported = set()
+    unsupported = features.unsupported_writer_features(protocol, metadata)
     if unsupported:
         raise UnsupportedTableError(
-            f"writer features not supported yet: {sorted(unsupported)}",
-            feature="writer features", features=sorted(unsupported))
+            f"writer features not supported yet: {unsupported}",
+            feature="writer features", features=unsupported)
     conf = metadata.configuration
     for cfg, what in ((IN_COMMIT_TIMESTAMPS, "in-commit timestamps"),
                       (ROW_TRACKING_ENABLED, "row tracking")):
         if get_table_config(conf, cfg):
             raise UnsupportedTableError(f"{what} are not supported yet",
                                         feature=what)
-    if get_table_config(conf, COLUMN_MAPPING_MODE) != "none":
-        raise UnsupportedTableError("column mapping is not supported yet",
-                                    feature="column mapping")
     if get_table_config(conf, COORDINATED_COMMITS_COORDINATOR) is not None:
         raise UnsupportedTableError("coordinated commits are not supported "
                                     "yet", feature="coordinated commits")
@@ -162,8 +161,9 @@ def _check_metadata(metadata: Metadata) -> None:
         raise InvalidArgumentError(
             "cannot use all columns for partition columns",
             error_class="DELTA_CANNOT_USE_ALL_COLUMNS_FOR_PARTITION")
-    bad = [f.name for f in schema.fields
-           if any(c in f.name for c in _INVALID_NAME_CHARS)]
+    bad = [] if is_mapped(metadata.configuration) else [
+        f.name for f in schema.fields
+        if any(c in f.name for c in _INVALID_NAME_CHARS)]
     if bad:
         raise InvalidArgumentError(
             f"column name(s) {bad} contain invalid characters "
@@ -233,9 +233,12 @@ class TransactionBuilder:
         txn = Transaction(self._table, snapshot, self._operation)
         if snapshot is None:
             props = dict(self._table_properties or {})
+            schema = self._schema
+            if is_mapped(props):
+                schema, props = assign_column_mapping(schema, props)
             metadata = Metadata(
                 id=str(uuid.uuid4()),
-                schemaString=schema_to_json(self._schema),
+                schemaString=schema_to_json(schema),
                 partitionColumns=list(self._partition_columns),
                 configuration=props,
                 createdTime=int(time.time() * 1000),

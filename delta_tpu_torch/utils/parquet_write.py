@@ -23,7 +23,9 @@ tuples: `models/batch.py`) is shredded into one leaf per primitive, with
 definition and repetition levels by the Dremel rules: a struct is a
 group, an array the three-level LIST `<name> (LIST) { repeated group list
 { element } }`, a map `<name> (MAP) { repeated group key_value { required
-key; value } }`; that walk visits each element in Python.
+key; value } }`; that walk visits each element in Python. Under column
+mapping (`physical=True`) every field, at every depth, is named by its
+physical name.
 `write_parquet` takes one `LeafColumn` per leaf, levels and values
 already laid out (`utils/synth.py` builds them for the checkpoint
 schema).
@@ -499,31 +501,36 @@ class _Plan:
 
 
 def _plan(name: str, t, nullable: bool, d: int, r: int,
-          path: Tuple[str, ...], leaves: list) -> Tuple[SchemaNode, _Plan]:
+          path: Tuple[str, ...], leaves: list,
+          physical: bool = False) -> Tuple[SchemaNode, _Plan]:
     """The schema node and shredding plan of a column of type `t`; each
-    primitive leaf goes to `leaves` as (path, type, max def, max rep)."""
+    primitive leaf goes to `leaves` as (path, type, max def, max rep).
+    With `physical`, a struct's fields are named by their physical names
+    (column mapping), while the values stay keyed by the logical ones."""
     d += int(nullable)
     repetition = 1 if nullable else 0
     what = ".".join(path)
     lo = len(leaves)
     if isinstance(t, StructType):
-        kids = [_plan(f.name, f.data_type, f.nullable, d, r,
-                      path + (f.name,), leaves) for f in t.fields]
+        names = [f.physical_name if physical else f.name for f in t.fields]
+        kids = [_plan(n, f.data_type, f.nullable, d, r, path + (n,),
+                      leaves, physical) for n, f in zip(names, t.fields)]
         node = SchemaNode(name, repetition, tuple(k[0] for k in kids))
         plan = _Plan("struct", nullable, what,
                      children=tuple(k[1] for k in kids),
                      names=tuple(f.name for f in t.fields))
     elif isinstance(t, ArrayType):
         en, ep = _plan("element", t.element_type, t.contains_null, d + 1,
-                       r + 1, path + ("list", "element"), leaves)
+                       r + 1, path + ("list", "element"), leaves, physical)
         node = SchemaNode(name, repetition, (SchemaNode("list", 2, (en,)),),
                           converted=3, logical=3)
         plan = _Plan("list", nullable, what, r + 1, (ep,))
     elif isinstance(t, MapType):
         kn, kp = _plan("key", t.key_type, False, d + 1, r + 1,
-                       path + ("key_value", "key"), leaves)
+                       path + ("key_value", "key"), leaves, physical)
         vn, vp = _plan("value", t.value_type, t.value_contains_null, d + 1,
-                       r + 1, path + ("key_value", "value"), leaves)
+                       r + 1, path + ("key_value", "value"), leaves,
+                       physical)
         node = SchemaNode(name, repetition,
                           (SchemaNode("key_value", 2, (kn, vn)),),
                           converted=1, logical=2)
@@ -577,9 +584,12 @@ def _shred(plan: _Plan, v, d: int, r: int, defs: list, reps: list,
                 at = plan.rep
 
 
-def _column_leaves(field, col) -> Tuple[SchemaNode, List[LeafColumn]]:
-    """The schema node and laid-out leaves of one column."""
+def _column_leaves(field, col, physical: bool = False
+                   ) -> Tuple[SchemaNode, List[LeafColumn]]:
+    """The schema node and laid-out leaves of one column (named, at every
+    depth, by the physical names with `physical`)."""
     t, n = field.data_type, len(col)
+    name = field.physical_name if physical else field.name
     valid = col.valid
     if isinstance(t, str):
         optional = bool(field.nullable)
@@ -589,12 +599,12 @@ def _column_leaves(field, col) -> Tuple[SchemaNode, List[LeafColumn]]:
                     else valid.astype(np.int32))
         else:
             defs = np.zeros(n, np.int32)
-        node = primitive_node(field.name, 1 if optional else 0, t)
-        return node, [LeafColumn((field.name,), node.physical, defs, None,
+        node = primitive_node(name, 1 if optional else 0, t)
+        return node, [LeafColumn((name,), node.physical, defs, None,
                                  int(optional), 0, physical_values(t, values))]
     leaves: list = []
-    node, plan = _plan(field.name, t, field.nullable, 0, 0, (field.name,),
-                       leaves)
+    node, plan = _plan(name, t, field.nullable, 0, 0, (name,), leaves,
+                       physical)
     defs = [[] for _ in leaves]
     reps = [[] for _ in leaves]
     vals = [[] for _ in leaves]
@@ -614,12 +624,12 @@ def _column_leaves(field, col) -> Tuple[SchemaNode, List[LeafColumn]]:
     return node, out
 
 
-def data_file_bytes(batch, schema) -> bytes:
+def data_file_bytes(batch, schema, physical: bool = False) -> bytes:
     """The bytes of one data file holding `batch`'s columns in `schema`'s
-    field order."""
+    field order, each field under its physical name with `physical`."""
     nodes, leaves = [], []
     for f in schema.fields:
-        node, cols = _column_leaves(f, batch.columns[f.name])
+        node, cols = _column_leaves(f, batch.columns[f.name], physical)
         nodes.append(node)
         leaves.extend(cols)
     root = SchemaNode("schema", 0, tuple(nodes))
@@ -627,9 +637,11 @@ def data_file_bytes(batch, schema) -> bytes:
 
 
 def write_data_file(path: str, batch, schema,
-                    store: Optional[LocalLogStore] = None) -> FileStatus:
+                    store: Optional[LocalLogStore] = None,
+                    physical: bool = False) -> FileStatus:
     """Write one data file at `path` (replacing any file there, through
     a temporary file and a rename) and return its status."""
     store = store or LocalLogStore()
-    store.write(path, data_file_bytes(batch, schema), overwrite=True)
+    store.write(path, data_file_bytes(batch, schema, physical),
+                overwrite=True)
     return store.file_status(path)

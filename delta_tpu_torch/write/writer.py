@@ -20,8 +20,11 @@ percent-decodes once back to where the file lies. (The reference puts
 the file at the undecoded name, where neither package's reader looks.)
 Rows split into files of at most `target_rows_per_file` rows. The schema
 check and the NOT NULL check (nested fields too) run before any file is
-written. Column mapping and CHECK constraints raise
-`UnsupportedTableError`.
+written. CHECK constraints raise `UnsupportedTableError`.
+
+The rows come in under logical names. Under column mapping the Parquet
+fields (at every depth), the stats JSON keys and the `partitionValues`
+keys (and the partition directories) are the physical names.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from urllib.parse import unquote
 
 import numpy as np
 
+from delta_tpu_torch.columnmapping import is_mapped
 from delta_tpu_torch.config import (
-    COLUMN_MAPPING_MODE,
     RANDOM_PREFIX_LENGTH,
     RANDOMIZE_FILE_PREFIXES,
     get_table_config,
@@ -232,10 +235,6 @@ def write_data_files(engine, table_path: str, data: Batch,
                      target_rows_per_file: Optional[int] = None,
                      ) -> List[AddFile]:
     """Write `data` under `table_path`; returns the AddFile actions."""
-    if get_table_config(configuration, COLUMN_MAPPING_MODE) != "none":
-        raise UnsupportedTableError(
-            "writing a table with column mapping is not supported yet",
-            feature="column mapping")
     if any(k.startswith("delta.constraints.") for k in configuration):
         raise UnsupportedTableError(
             "CHECK constraints are not supported yet",
@@ -248,8 +247,13 @@ def write_data_files(engine, table_path: str, data: Batch,
     now_ms = int(time.time() * 1000)
     randomize = get_table_config(configuration, RANDOMIZE_FILE_PREFIXES)
     prefix_len = max(1, get_table_config(configuration, RANDOM_PREFIX_LENGTH))
+    mapped = is_mapped(configuration)
+    key = {c: schema[c].physical_name if mapped else c
+           for c in partition_columns}
+    keyed_columns = [key[c] for c in partition_columns]
     adds: List[AddFile] = []
     for pv, part in groups:
+        pv = {key[c]: v for c, v in pv.items()}
         file_data = Batch({c: v for c, v in part.columns.items()
                            if c not in partition_columns}, part.num_rows)
         file_schema = StructType([schema[c] for c in file_data.column_names])
@@ -261,10 +265,10 @@ def write_data_files(engine, table_path: str, data: Batch,
             # directories: the values live in the AddFile only
             rel_path = (f"{uuid.uuid4().hex[:prefix_len]}/{fname}"
                         if randomize else
-                        unquote(partition_path(pv, partition_columns))
+                        unquote(partition_path(pv, keyed_columns))
                         + fname)
             status = write_data_file(f"{table_path}/{rel_path}",
-                                     chunk, file_schema, engine.fs)
+                                     chunk, file_schema, engine.fs, mapped)
             adds.append(AddFile(
                 path=rel_path,
                 partitionValues=dict(pv),

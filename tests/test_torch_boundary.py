@@ -10,7 +10,10 @@ checkpoint with struct-only stats read back and scanned, a compacted
 delta, metadata cleanup of `log/cleanup.py`), and deletion vectors (a DV
 DELETE, a read that decodes them, an UPDATE, an OPTIMIZE that purges
 them), and a partitioned write, a filtered read of it and a MERGE
-through the device join must leave no `jax`,
+through the device join, and column mapping (a mapped partitioned write,
+the expression parser, ALTER TABLE's rename, drop, add and mode upgrade,
+a filtered read through a renamed column, a DELETE and a checkpoint with
+`stats_parsed` reloaded) must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -145,6 +148,38 @@ m = (merge_mod.merge(Table.for_path(d6, engine=TorchEngine("cpu")),
      .when_not_matched_insert_all().execute())
 assert (m.num_target_rows_updated, m.num_target_rows_inserted) == (1, 1)
 assert obs.counters()["join.device_joins"] == 1
+# column mapping and ALTER TABLE: a mapped partitioned write, the parser,
+# rename, drop, add and the mode upgrade, a read through a renamed column,
+# a DELETE and a stats_parsed checkpoint reloaded
+from delta_tpu_torch.commands import alter
+from delta_tpu_torch.expressions.parser import parse_expression, to_sql
+from delta_tpu_torch.models.schema import StructField
+d7 = d + "/mapped"
+write_table(d7, {"id": np.arange(60), "v": rng.normal(size=60),
+                 "p": np.array([f"p{i % 3}" for i in range(60)])},
+            partition_by=["p"], engine=TorchEngine("cpu"),
+            properties={"delta.columnMapping.mode": "name",
+                        "delta.checkpoint.writeStatsAsStruct": "true"})
+t7 = Table.for_path(d7, engine=TorchEngine("cpu"))
+alter.rename_column(t7, "id", "key")
+alter.rename_column(t7, "p", "part")
+alter.add_columns(t7, [StructField("w", "double")])
+alter.drop_column(t7, "v")
+pred = parse_expression("key < 30 AND part = 'p1'")
+assert to_sql(pred) == "(key < 30 AND part = 'p1')"
+b = read_table(d7, filter=pred, engine=TorchEngine("cpu"))
+assert b.column_names == ["key", "w", "part"] and b.num_rows == 10
+delete(t7, parse_expression("key >= 50"))
+write_checkpoint(t7.engine, t7.latest_snapshot())
+assert Table.for_path(d7, engine=TorchEngine("cpu")).latest_snapshot() \
+    .scan(filter=parse_expression("key < 10")).to_batch().num_rows == 10
+d8 = d + "/upgraded"
+write_table(d8, {"a": np.arange(5)}, engine=TorchEngine("cpu"))
+t8 = Table.for_path(d8, engine=TorchEngine("cpu"))
+alter.set_properties(t8, {"delta.columnMapping.mode": "name"})
+alter.rename_column(t8, "a", "b")
+assert read_table(d8, engine=TorchEngine("cpu")).column(
+    "b").values.tolist() == [0, 1, 2, 3, 4]
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))
@@ -167,6 +202,10 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
     sources = sorted((REPO / "delta_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     assert len(sources) > 10
+    names = {str(p.relative_to(REPO)) for p in sources}
+    assert {"delta_tpu_torch/columnmapping.py", "delta_tpu_torch/colgen.py",
+            "delta_tpu_torch/expressions/parser.py",
+            "delta_tpu_torch/commands/alter.py"} <= names
     for src in sources:
         text = src.read_text()
         name = src.relative_to(REPO)

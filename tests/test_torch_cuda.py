@@ -1333,3 +1333,60 @@ def test_merge_on_the_card_equals_cpu(tmp_path, monkeypatch):
     assert runs["cuda"][0][0]["num_target_rows_inserted"] == 1000
     for x, y in zip(runs["cuda"][1:], runs["cpu"][1:]):
         assert np.array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_column_mapping_on_the_card_equals_cpu(tmp_path):
+    """A name-mode table renamed, dropped, added to and DELETEd from on
+    the card: every scan through a renamed column plans by K7 to the CPU's
+    files, the DELETE writes the CPU's rows, and the reads agree."""
+    _card()
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.commands import alter
+    from delta_tpu_torch.commands.dml import delete
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.schema import StructField
+
+    paths = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(19)
+        path = paths[dev] = str(tmp_path / dev)
+        eng = TorchEngine(dev)
+        for i in range(4):
+            k = np.arange(i * 1000, (i + 1) * 1000)
+            write_table(path, {"k": k, "x": rng.normal(size=1000),
+                               "p": np.array([f"p{v % 3}" for v in k])},
+                        engine=eng, partition_by=["p"],
+                        properties={"delta.columnMapping.mode": "name",
+                                    "delta.enableDeletionVectors": "true"})
+        t = Table.for_path(path, engine=eng)
+        t.latest_snapshot().state
+        alter.rename_column(t, "k", "key")
+        alter.rename_column(t, "p", "part")
+        alter.add_columns(t, [StructField("w", "double")])
+        obs.reset()
+        delete(t, (col("key") < lit(1500)) & (col("part") == lit("p1")))
+        if dev == "cuda":
+            assert obs.counters()["kernel.skip_mask.launches"] == 1
+    preds = [col("key") >= lit(2500), (col("key") < lit(700))
+             & (col("part") == lit("p2")), col("key").is_in(5, 3999)]
+    card = Table.for_path(paths["cuda"], engine=TorchEngine()) \
+        .latest_snapshot()
+    cpu = Table.for_path(paths["cpu"], engine=TorchEngine("cpu")) \
+        .latest_snapshot()
+    obs.reset()
+    for p in preds:
+        a, b = card.scan(filter=p), cpu.scan(filter=p)
+        assert len(a.file_paths()) == len(b.file_paths())
+        assert (a.skipped_by_stats, a.partition_pruned) \
+            == (b.skipped_by_stats, b.partition_pruned)
+    assert obs.counters()["kernel.skip_mask.launches"] == len(preds)
+    on_card = read_table(paths["cuda"], engine=TorchEngine())
+    on_cpu = read_table(paths["cpu"], engine=TorchEngine("cpu"))
+    assert on_card.column_names == on_cpu.column_names == [
+        "key", "x", "w", "part"]
+    order_a = np.argsort(on_card.column("key").values)
+    order_b = np.argsort(on_cpu.column("key").values)
+    assert np.array_equal(on_card.column("key").values[order_a],
+                          on_cpu.column("key").values[order_b])
+    assert on_card.num_rows == 4000 - 500

@@ -569,6 +569,19 @@ def test_identity_and_generated_columns_are_refused(tmp_path, kind):
     ({"delta.columnMapping.mode": "name"}, "column mapping"),
     ({"delta.enableChangeDataFeed": "true"}, "change data feed")])
 def test_column_mapping_and_cdf_tables_are_refused(tmp_path, props, feature):
+    """A table with the change data feed on is refused; since column
+    mapping was ported, a column-mapped table merges as the reference
+    merges it."""
+    if feature == "column mapping":
+        ref, port = _copies(tmp_path, [_target(3)], properties=props)
+        src = _source(id=(np.array([2, 7]), None),
+                      value=(np.array([1.0, 7.0]), None))
+        _run_both(ref, port, src, lambda m, t, s, E: m(t, s, on=_on(E))
+                  .when_matched_update(set={"value": E.col("source.value")})
+                  .when_not_matched_insert(values={
+                      "id": E.col("source.id"),
+                      "value": E.col("source.value")}))
+        return
     path = str(tmp_path / "t")
     dta.write_table(path, _target(3), engine=HostEngine(), properties=props)
     _refused(path, lambda t: port_merge.merge(

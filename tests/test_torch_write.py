@@ -301,9 +301,10 @@ def test_write_table_checks_schema_and_not_null(tmp_path):
 ])
 def test_write_table_refuses_feature_properties(tmp_path, props):
     """Feature properties the port does not write are refused before
-    anything is written; deletion vectors are written: the protocol and
-    the rows as the reference's."""
-    if props == {"delta.enableDeletionVectors": "true"}:
+    anything is written; deletion vectors and column mapping are written:
+    the protocol and the rows as the reference's."""
+    if props in ({"delta.enableDeletionVectors": "true"},
+                 {"delta.columnMapping.mode": "name"}):
         port, ref = str(tmp_path / "t"), str(tmp_path / "r")
         assert write_table(port, {"a": np.arange(3)}, engine=_cpu(),
                            properties=props) == 0
@@ -312,7 +313,11 @@ def test_write_table_refuses_feature_properties(tmp_path, props):
         protocols = [RefTable.for_path(p, engine=HostEngine())
                      .latest_snapshot().protocol for p in (port, ref)]
         assert protocols[0] == protocols[1]
-        assert protocols[0].writerFeatures == ["deletionVectors"]
+        if "delta.enableDeletionVectors" in props:
+            assert protocols[0].writerFeatures == ["deletionVectors"]
+        else:
+            assert (protocols[0].minReaderVersion,
+                    protocols[0].minWriterVersion) == (2, 5)
         assert dta.read_table(port, engine=HostEngine()).column(
             "a").to_pylist() == [0, 1, 2]
         return
