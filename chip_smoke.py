@@ -279,10 +279,34 @@
     read by the new name: the same files and rows. Prints each step's
     seconds, rows/s and launches.
 
+22. The write modes (`write_modes_phase`) on step 21's two tables, each
+    step's counters from 0 and its rows against step 21's numpy models.
+    On the fresh table partitioned by the renamed sold date (720,000
+    rows): a dynamic partition overwrite of one week's rows with their
+    ss_quantity refreshed (exactly those 7 partitions' files removed,
+    every other file kept by path); `replace_where` on 30 dates of the
+    partition column (its files removed whole, no K7), then a batch with
+    one row outside the range refused (DELTA_REPLACE_WHERE_MISMATCH) at
+    the same version; a `merge_schema` append of one new date's rows with
+    ss_promo_channel (a `col-` physical name, null in the old rows); the
+    rows written back with `data_change=False` (every action dataChange
+    false, the same rows); `ignore` (no commit) and `error`
+    (PathExistsError); `overwrite_schema` with three columns dropped,
+    unpartitioned (`col-` names only in every file), a reload and a full
+    read. On the upgraded table (name mode, DVs): `replace_where` on a
+    data column, one store's rows in quarter 2's first 10 copies of
+    tickets refreshed (K7 plans, K8 packs the union with DF_SS's bitmap
+    DVs, the new rows in the same commit), a reload through step 21's
+    checkpoint (K3 per part, K1, K2) and a full read. Each write but the
+    appends loads the table afresh (K1, K2; K3 per checkpoint part) and
+    hands its commit to the cached snapshot (K1).
+    Prints each step's seconds, rows/s and launches.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
-`launches_wide_write` and `launches_column_mapping`), its time per call (`ms`, CUDA events around back-to-back
+`launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
+`launches_write_modes`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
 its bound and both shares of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
@@ -3666,7 +3690,8 @@ def _channels_held(got, model, channel, what: str) -> None:
            f"({len(have)} set, {int((~ok).sum())} null)")
 
 
-def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
+def column_mapping_phase(kept: dict, device: str, card: str,
+                         keep: dict = None) -> dict:
     """Step 21: column mapping and ALTER TABLE's column operations on the
     card. `kept` is step 20's table at its end (`wide_write_phase`'s
     `keep`). Each step's counters from 0, its rows against step 20's
@@ -3692,7 +3717,11 @@ def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
        partitionValues keyed by the physical name, a 30-date read that
        prunes partitions, and after renaming the partition column the
        same read by the new name: the same files and rows.
-    Returns each step's seconds, rows/s and launches."""
+    Returns each step's seconds, rows/s and launches. With `keep`, both
+    tables stay on disk for step 22 (in `kept["work"]`, which the caller
+    removes): `keep["a"]` holds (a)'s path, model and ss_channel values,
+    `keep["b"]` (b)'s path and model under the partition column's new
+    name."""
     import decimal
 
     from delta_tpu_torch import Table, TorchEngine
@@ -3727,11 +3756,6 @@ def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
         snap.state
         return snap
 
-    def newest_parts():
-        cps = [n for n in os.listdir(log) if ".checkpoint." in n]
-        newest = max(n[:20] for n in cps)
-        return [n for n in cps if n.startswith(newest)]
-
     # (a) 1. the mode upgrade: a metadata and protocol commit only
     facts = _data_file_facts(path)
     table = Table.for_path(path, engine=eng)
@@ -3739,7 +3763,7 @@ def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
     _check(_data_file_facts(path) == facts,
            "column_mapping set_mode: no data file changed")
     # 2. a reload through step 20's checkpoint and the mode's commit
-    parts = newest_parts()
+    parts = _newest_parts(log)
     table = Table.for_path(path, engine=eng)
     snap = step("reload", 0, load, k1=(1, None), k2=(1, None),
                 k3=(len(parts), len(parts)))
@@ -3851,7 +3875,7 @@ def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
     # 11. a stats_parsed checkpoint, an append, the reload, reads
     step("checkpoint", 0, lambda: Table.for_path(
         path, engine=eng).checkpoint())
-    parts = newest_parts()
+    parts = _newest_parts(log)
     leaves = set()
     for n in parts:
         leaves |= {p[3] for p in _footer_leaf_paths(os.path.join(log, n))
@@ -3956,7 +3980,358 @@ def column_mapping_phase(kept: dict, device: str, card: str) -> dict:
     q0_model.alive = saved
     out["fresh"] = {"rows": q0.num_rows, "files": len(adds),
                     "dates": n_dates, "pruned": scan.partition_pruned}
+    if keep is not None:
+        _model_rename(q0_model, CM_PARTITION, CM_PARTITION_RENAMED)
+        keep.update(a={"path": path, "model": model, "channel": channel},
+                    b={"path": fresh, "model": q0_model})
     return out
+
+
+# step 22: the write modes on step 21's two tables
+WM_WEEK = 40               # (b)'s dynamic overwrite: its 41st-47th dates
+WM_PROMO_COLUMN = "ss_promo_channel"  # merge_schema's new column
+WM_PROMO = "promo"
+WM_PROMO_FROM = 100        # the new date's rows copy its 101st date's
+WM_NEW_DATE = CM_FIRST_QUARTER[1]     # a sold date past the quarter
+WM_REWRITE_ROWS = 1_000_000           # data_change=False: rows per file
+WM_DROPPED = (WM_PROMO_COLUMN, "ss_coupon_amt", "ss_ext_tax")
+# (a): quarter 2's tickets in its first 10 copies, whose files hold
+# DF_SS's bitmap DVs (> 4,096 of 6,000 rows), so the union packs on K8
+WM_TICKETS = (2 * WIDE_TICKETS[0], 2 * WIDE_TICKETS[0] + 10 * WIDE_TICKETS[1])
+
+
+def _head_version(path: str) -> int:
+    log = os.path.join(path, "_delta_log")
+    return max(int(n[:20]) for n in os.listdir(log)
+               if n.endswith(".json") and n[:20].isdigit())
+
+
+def _newest_parts(log: str) -> list:
+    cps = [n for n in os.listdir(log) if ".checkpoint." in n]
+    newest = max(n[:20] for n in cps)
+    return [n for n in cps if n.startswith(newest)]
+
+
+def _commit_actions(path: str, version: int) -> dict:
+    """{action kind: [bodies]} of one commit file."""
+    out = {}
+    name = os.path.join(path, "_delta_log", f"{version:020d}.json")
+    with open(name) as f:
+        for line in f:
+            if line.strip():
+                (k, v), = json.loads(line).items()
+                out.setdefault(k, []).append(v)
+    return out
+
+
+def _refreshed(model, idx, bump: int):
+    """The model's rows `idx` as a Batch, each valid ss_quantity moved to
+    (q mod 100) + bump: a refresh of those sales."""
+    from delta_tpu_torch.models.batch import Batch, Column
+
+    b = model.batch(idx)
+    q = b.column("ss_quantity")
+    cols = dict(b.columns)
+    cols["ss_quantity"] = Column(
+        np.where(q.valid, q.values % 100 + bump, q.values).astype(
+            q.values.dtype), q.valid, q.data_type)
+    return Batch(cols, b.num_rows)
+
+
+def write_modes_phase(kept: dict, device: str, card: str) -> dict:
+    """Step 22: the write modes of `api.write_table` on the card, on step
+    21's two tables (`column_mapping_phase`'s `keep`). Each step's
+    counters from 0, its rows against step 21's numpy models:
+    (b) the fresh name-mode table partitioned by ss_sold_date (720,000
+       rows at 120 links): 1. a dynamic partition overwrite of one week's
+       rows with their ss_quantity refreshed: exactly those 7 partitions'
+       files removed, every other file kept by path; 2. `replace_where`
+       on CM_PRUNE_RANGE's 30 dates of the partition column, the range's
+       rows refreshed: its files removed whole (no K7: a partition-only
+       predicate), then a batch with one row outside the range refused
+       (DELTA_REPLACE_WHERE_MISMATCH) at the same version; 3. a
+       `merge_schema` append of one new date's rows with a new column
+       ss_promo_channel: a `col-` physical name, null in the old rows;
+       4. the table's rows written back with `data_change=False`: every
+       action dataChange false, the same rows; 5. `ignore` writes nothing,
+       `error` raises PathExistsError; 6. `overwrite_schema` with three
+       columns dropped, unpartitioned: every file holds `col-` names only,
+       a reload and a full read equal the model;
+    (a) the upgraded table (name mode, DVs): `replace_where` on a data
+       column (one store's rows in a ticket range refreshed, DF_SS/LF_SS's
+       manner) in quarter 2's files, which hold DF_SS's DVs: K7 plans, K8
+       packs the union of the old and the new deleted rows (bitmap
+       containers),
+       the new rows in the same commit; then a reload through step 21's
+       checkpoint (K3 per part, K1, K2) and a full read.
+    Returns each step's seconds, rows/s and launches."""
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.errors import InvariantViolationError, PathExistsError
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.batch import Batch, Column
+
+    eng = TorchEngine(device)
+    out = {"card": card, "steps": {}}
+    step = _stepper(out, eng, "write_modes")
+
+    def held(read, model, names, what, alive=None):
+        live = model.alive if alive is None else alive
+        _check(read.num_rows == int(live.sum()), f"write_modes {what}: "
+               f"{read.num_rows} rows, the model {int(live.sum())}")
+        saved, model.alive = model.alive, live
+        try:
+            _check(wide_sums(Batch({c: read.column(c) for c in names},
+                                   read.num_rows)) == model.sums(names),
+                   f"write_modes {what}: rows equal the model's")
+        finally:
+            model.alive = saved
+
+    def all_flags(actions, flag):
+        return all(a["dataChange"] is flag for k in ("add", "remove")
+                   for a in actions.get(k, []))
+
+    # (b) the fresh partitioned table
+    fpath, fm = kept["b"]["path"], kept["b"]["model"]
+    part = CM_PARTITION_RENAMED
+    out["b_rows"] = int(fm.alive.sum())
+    promo = np.full(len(fm.alive), None, object)
+    pkey = _loaded(fpath, eng).schema[part].physical_name
+
+    def live_files():
+        return {a.path: a.partitionValues[pkey]
+                for a in _loaded(fpath, eng).state.add_files}
+
+    def range_read(lo, hi, names=None):
+        snap = Table.for_path(fpath, engine=eng).latest_snapshot()
+        return snap.scan(filter=(col(part) >= lit(lo)) & (col(part) <= lit(
+            hi)), columns=names).to_batch()
+
+    sums = fm.names
+    date, date_ok = fm.v[part], fm.ok[part]
+    # 1. dynamic partition overwrite of one week
+    dates = np.unique(date[fm.alive & date_ok])
+    week = dates[WM_WEEK:WM_WEEK + 7]
+    hit = fm.alive & date_ok & np.isin(date, week)
+    new = _refreshed(fm, np.flatnonzero(hit), 1)
+    before = live_files()
+    step("dynamic_week", new.num_rows, lambda: write_table(
+        fpath, new, mode="overwrite", partition_overwrite_mode="dynamic",
+        engine=eng), k1=(1, None), k2=(1, None))
+    fm.alive &= ~hit
+    fm.append(new)
+    promo = np.r_[promo, np.full(new.num_rows, None, object)]
+    after = live_files()
+    spelled = {str(int(d)) for d in week}
+    others = {p for p, v in before.items() if v not in spelled}
+    _check(others == {p for p, v in after.items() if v not in spelled}
+           and sorted(v for v in after.values() if v in spelled)
+           == sorted(spelled)
+           and not {p for p, v in after.items() if v in spelled} & set(before),
+           f"write_modes dynamic_week: the week's 7 partitions rewritten, "
+           f"{len(others)} other files kept by path")
+    date, date_ok = fm.v[part], fm.ok[part]
+    got = range_read(int(week[0]), int(week[-1]))
+    held(got, fm, sums, "dynamic_week",
+         fm.alive & date_ok & np.isin(date, week))
+    # 2. replace_where on 30 dates of the partition column
+    lo, hi = CM_PRUNE_RANGE
+    pred = (col(part) >= lit(lo)) & (col(part) < lit(hi))
+    hit = fm.alive & date_ok & (date >= lo) & (date < hi)
+    new = _refreshed(fm, np.flatnonzero(hit), 2)
+    in_range = {p for p, v in live_files().items()
+                if v is not None and lo <= int(v) < hi}
+    version = step("replace_range", new.num_rows, lambda: write_table(
+        fpath, new, mode="overwrite", replace_where=pred, engine=eng),
+        k1=(1, None), k2=(1, None), k7=(0, 0))
+    acts = _commit_actions(fpath, version)
+    metrics = acts["commitInfo"][0]["operationMetrics"]
+    _check({r["path"] for r in acts["remove"]} == in_range
+           and metrics["numCopiedRows"] == "0"
+           and metrics["numDeletedRows"] == str(int(hit.sum()))
+           and metrics["numOutputRows"] == str(new.num_rows)
+           and acts["commitInfo"][0]["operationParameters"]
+           == {"predicate": repr(pred)},
+           f"write_modes replace_range: {len(in_range)} files removed "
+           f"whole, {int(hit.sum())} rows replaced ({metrics})")
+    fm.alive &= ~hit
+    fm.append(new)
+    promo = np.r_[promo, np.full(new.num_rows, None, object)]
+    date, date_ok = fm.v[part], fm.ok[part]
+    got = range_read(lo, hi - 1)
+    held(got, fm, sums, "replace_range",
+         fm.alive & date_ok & (date >= lo) & (date < hi))
+    outside = np.flatnonzero(fm.alive & date_ok & (date >= hi))[:1]
+    bad = fm.batch(np.r_[np.flatnonzero(fm.alive & date_ok & (date >= lo)
+                                        & (date < hi))[:9], outside])
+
+    def refused():
+        try:
+            write_table(fpath, bad, mode="overwrite", replace_where=pred,
+                        engine=eng)
+        except InvariantViolationError as e:
+            return e.error_class
+        return None
+
+    _check(step("replace_refused", bad.num_rows, refused)
+           == "DELTA_REPLACE_WHERE_MISMATCH"
+           and _head_version(fpath) == version,
+           "write_modes replace_refused: a row outside the range refused, "
+           "nothing committed")
+    # 3. merge_schema: one new date's rows with a new column
+    idx = np.flatnonzero(fm.alive & date_ok
+                         & (date == dates[WM_PROMO_FROM]))
+    cols = dict(fm.batch(idx).columns)
+    cols[part] = Column(np.full(len(idx), WM_NEW_DATE, fm.dtypes[part]))
+    tags = np.full(len(idx), WM_PROMO, object)
+    old_max = int(_loaded(fpath, eng).metadata.configuration[
+        "delta.columnMapping.maxColumnId"])
+    extra = Batch(dict(cols, **{WM_PROMO_COLUMN: Column(tags)}), len(idx))
+    # an append reads the metadata alone: no replay, no handoff
+    step("merge_schema", len(idx), lambda: write_table(
+        fpath, extra, merge_schema=True, engine=eng), k1=(0, 0),
+        k2=(0, 0))
+    fm.append(Batch({c: cols[c] for c in fm.names}, len(idx)))
+    promo = np.r_[promo, tags]
+    snap = _loaded(fpath, eng)
+    field = snap.schema[WM_PROMO_COLUMN]
+    new_files = [a for a in snap.state.add_files
+                 if a.partitionValues[pkey] == str(WM_NEW_DATE)]
+    _check(field.physical_name.startswith("col-")
+           and field.column_mapping_id == old_max + 1
+           and snap.metadata.configuration[
+               "delta.columnMapping.maxColumnId"] == str(old_max + 1)
+           and new_files and all(
+               field.physical_name in _footer_names(os.path.join(fpath, a.path))
+               for a in new_files),
+           f"write_modes merge_schema: {WM_PROMO_COLUMN} mapped as "
+           f"{field.physical_name} (id {field.column_mapping_id})")
+    date, date_ok = fm.v[part], fm.ok[part]
+    for d, want in ((WM_NEW_DATE, WM_PROMO), (int(dates[WM_PROMO_FROM]), None)):
+        got = range_read(d, d)
+        c = got.column(WM_PROMO_COLUMN)
+        ok = np.ones(got.num_rows, bool) if c.valid is None else c.valid
+        _check(got.num_rows == len(idx) and (
+            ok.all() and set(c.values.tolist()) == {want} if want
+            else not ok.any()),
+            f"write_modes merge_schema: {WM_PROMO_COLUMN} on date {d}")
+    # 4. the rows written back with data_change=False
+    snap = _loaded(fpath, eng)
+    n_files = len(snap.state.add_files)
+    rows = step("read_before_rewrite", int(fm.alive.sum()),
+                lambda: snap.scan().to_batch())
+    held(rows, fm, sums, "read_before_rewrite")
+    c = rows.column(WM_PROMO_COLUMN)
+    ok = np.ones(rows.num_rows, bool) if c.valid is None else c.valid
+    _check(sorted(c.values[ok].tolist())
+           == sorted(v for v in promo[fm.alive] if v is not None),
+           "write_modes read_before_rewrite: the promo column's values")
+    version = step("rewrite", rows.num_rows, lambda: write_table(
+        fpath, rows, mode="overwrite", data_change=False,
+        target_rows_per_file=WM_REWRITE_ROWS, engine=eng), k1=(1, None),
+        k2=(1, None))
+    acts = _commit_actions(fpath, version)
+    _check(len(acts["remove"]) == n_files and acts["add"]
+           and all_flags(acts, False),
+           f"write_modes rewrite: {n_files} removes and "
+           f"{len(acts['add'])} adds, all dataChange false")
+    del rows, snap
+    # 5. ignore and error on the existing table
+    small = fm.batch(np.flatnonzero(fm.alive)[:10])
+    _check(step("ignore", 0, lambda: write_table(
+        fpath, small, mode="ignore", engine=eng)) == version
+        and _head_version(fpath) == version,
+        "write_modes ignore: nothing written")
+
+    def error_mode():
+        try:
+            write_table(fpath, small, mode="error", engine=eng)
+        except PathExistsError as e:
+            return e.error_class
+        return None
+
+    _check(step("error", 0, error_mode) == "DELTA_PATH_EXISTS"
+           and _head_version(fpath) == version,
+           "write_modes error: PathExistsError, nothing written")
+    # 6. overwrite_schema: three columns dropped, unpartitioned
+    snap = _loaded(fpath, eng)
+    rows = step("read_before_schema", int(fm.alive.sum()),
+                lambda: snap.scan().to_batch())
+    held(rows, fm, sums, "read_before_schema")
+    keep_cols = [c for c in rows.column_names if c not in WM_DROPPED]
+    slim = Batch({c: rows.column(c) for c in keep_cols}, rows.num_rows)
+    del rows, snap
+    step("overwrite_schema", slim.num_rows, lambda: write_table(
+        fpath, slim, mode="overwrite", overwrite_schema=True, engine=eng),
+        k1=(1, None), k2=(1, None))
+    del slim
+    snap = step("schema_reload", 0, lambda: _loaded(fpath, eng),
+                k1=(1, None), k2=(1, None))
+    schema = snap.schema
+    _check(snap.partition_columns == [] and schema.field_names() == keep_cols
+           and all(f.physical_name.startswith("col-") for f in schema.fields)
+           and all(n.startswith("col-") for a in snap.state.add_files
+                   for n in _footer_names(os.path.join(fpath, a.path))),
+           "write_modes overwrite_schema: unpartitioned, every file holds "
+           "col- names only")
+    got = step("schema_read_all", int(fm.alive.sum()),
+               lambda: snap.scan().to_batch())
+    _check(got.column_names == keep_cols,
+           f"write_modes schema_read_all: the columns {got.column_names}")
+    held(got, fm, [c for c in sums if c not in WM_DROPPED],
+         "schema_read_all")
+    out["b"] = {"files_after_week": len(after), "range_files": len(in_range),
+                "rewrite_files": n_files, "columns": len(keep_cols)}
+    del got, snap
+
+    # (a) replace_where on a data column of the upgraded table
+    path, model = kept["a"]["path"], kept["a"]["model"]
+    channel = kept["a"]["channel"]
+    log = os.path.join(path, "_delta_log")
+    out["a_rows"] = int(model.alive.sum())
+    t0, t1 = WM_TICKETS
+    store, store_ok = model.v["ss_store_sk"], model.ok["ss_store_sk"]
+    ticket = model.v["ss_ticket_number"]
+    span = model.alive & store_ok & (ticket >= t0) & (ticket < t1)
+    kinds, counts = np.unique(store[span], return_counts=True)
+    pick = int(kinds[np.argmax(counts)])
+    hit = span & (store == pick)
+    pred = (col("ss_store_sk") == lit(pick)) \
+        & (col("ss_ticket_number") >= lit(t0)) \
+        & (col("ss_ticket_number") < lit(t1))
+    new = _refreshed(model, np.flatnonzero(hit), 3)
+    parts = _newest_parts(log)
+    version = step("replace_tickets", new.num_rows, lambda: write_table(
+        path, new, mode="overwrite", replace_where=pred, engine=eng),
+        k7=(1, 1), k8_pack=(1, 1), k3=(len(parts), None), k1=(1, None),
+        k2=(1, None))
+    acts = _commit_actions(path, version)
+    metrics = acts["commitInfo"][0]["operationMetrics"]
+    dvs = [a for a in acts["add"] if a.get("deletionVector")]
+    _check(metrics["numDeletedRows"] == str(int(hit.sum()))
+           and metrics["numOutputRows"] == str(new.num_rows)
+           and metrics["numCopiedRows"] == "0" and dvs
+           and max(a["deletionVector"]["cardinality"] for a in dvs) > 4096
+           and acts["commitInfo"][0]["operationParameters"]
+           == {"predicate": repr(pred)},
+           f"write_modes replace_tickets: store {pick}, {int(hit.sum())} "
+           f"rows replaced, {len(dvs)} DVs ({metrics})")
+    out["steps"]["replace_tickets"]["dvs"] = len(dvs)
+    model.alive &= ~hit
+    model.append(new)
+    channel = np.r_[channel, np.full(new.num_rows, None, object)]
+    parts = _newest_parts(log)
+    tail = _head_version(path) > int(parts[0][:20])
+    snap = step("reload", 0, lambda: _loaded(path, eng),
+                k3=(len(parts), len(parts)), k1=(int(tail), None),
+                k2=(1, None))
+    got = step("read_all", int(model.alive.sum()),
+               lambda: snap.scan().to_batch())
+    held(got, model, model.names, "read_all")
+    _channels_held(got, model, channel, "write_modes read_all")
+    return out
+
+
 
 
 def main(argv=None) -> int:
@@ -4196,13 +4571,24 @@ def main(argv=None) -> int:
                   + f"; {card}", flush=True)
 
         # step 21: column mapping and ALTER TABLE on step 20's table, then
-        # a fresh name-mode table; counters from 0 per step
+        # a fresh name-mode table; step 22: the write modes on both
+        # tables; counters from 0 per step
+        cm_keep = {}
         try:
-            cm = column_mapping_phase(ww_keep, "cuda", card)
+            cm = column_mapping_phase(ww_keep, "cuda", card, keep=cm_keep)
+            print("column_mapping: " + json.dumps(cm), flush=True)
+            for name, r in cm["steps"].items():
+                print(f"column_mapping {name}: {r['rows']} rows, "
+                      f"{r['s']:.4f} s, {r['rows_per_s']:.1f} rows/s, "
+                      "launches " + json.dumps(
+                          {k: r[k] for k in WIDE_WRITE_K})
+                      + f"; {card}", flush=True)
+            wm = write_modes_phase(cm_keep, "cuda", card)
         finally:
             if "work" in ww_keep:
                 shutil.rmtree(ww_keep["work"], ignore_errors=True)
             ww_keep.clear()
+            cm_keep.clear()
         cm_steps = cm["steps"].values()
         for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
                           ("hybrid_extract", "k3"),
@@ -4212,12 +4598,21 @@ def main(argv=None) -> int:
         cm_k4 = sum(s["k4"] for s in cm_steps)
         cm_k8 = sum(s["k8_pack"] + s["k8_decode"] for s in cm_steps)
         cm_k9 = sum(s["k9"] for s in cm_steps)
-        print("column_mapping: " + json.dumps(cm), flush=True)
-        for name, r in cm["steps"].items():
-            print(f"column_mapping {name}: {r['rows']} rows, {r['s']:.4f} "
-                  f"s, {r['rows_per_s']:.1f} rows/s, launches "
+        wm_steps = wm["steps"].values()
+        for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                          ("hybrid_extract", "k3"),
+                          ("skip_mask", "k7")):
+            kernels[name]["launches_write_modes"] = sum(
+                s[key] for s in wm_steps)
+        wm_k8 = sum(s["k8_pack"] + s["k8_decode"] for s in wm_steps)
+        print("write_modes: " + json.dumps(wm), flush=True)
+        for name, r in wm["steps"].items():
+            print(f"write_modes {name}: {r['rows']} rows, {r['s']:.4f} s, "
+                  f"{r['rows_per_s']:.1f} rows/s, launches "
                   + json.dumps({k: r[k] for k in WIDE_WRITE_K})
                   + f"; {card}", flush=True)
+        print(f"write_modes steps: {sum(r['s'] for r in wm_steps):.4f} s; "
+              f"{card}", flush=True)
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
@@ -4288,6 +4683,7 @@ def main(argv=None) -> int:
         kernels["dv_bits"]["launches_wide_types"] = wide_k8
         kernels["dv_bits"]["launches_wide_write"] = wide_write_k8
         kernels["dv_bits"]["launches_column_mapping"] = cm_k8
+        kernels["dv_bits"]["launches_write_modes"] = wm_k8
         kernels["dv_bits"]["launches_per_step"] = {
             k: {"pack": s["k8_pack"], "decode": s["k8_decode"],
                 "decode_dvs": s["k8_decode_dvs"]}

@@ -104,6 +104,26 @@ def assign_column_mapping(schema: StructType, configuration: Dict[str, str],
     return new_schema, new_conf
 
 
+def strip_column_mapping(dt: DataType) -> DataType:
+    """A type with the ids and physical names taken out of every field's
+    metadata, at every depth (a schema to map afresh)."""
+    if isinstance(dt, StructType):
+        return StructType([StructField(
+            f.name, strip_column_mapping(f.data_type), f.nullable,
+            {k: v for k, v in f.metadata.items()
+             if k not in (COLUMN_MAPPING_ID_KEY,
+                          COLUMN_MAPPING_PHYSICAL_NAME_KEY)})
+            for f in dt.fields])
+    if isinstance(dt, ArrayType):
+        return ArrayType(strip_column_mapping(dt.element_type),
+                         dt.contains_null)
+    if isinstance(dt, MapType):
+        return MapType(strip_column_mapping(dt.key_type),
+                       strip_column_mapping(dt.value_type),
+                       dt.value_contains_null)
+    return dt
+
+
 def _physical_type(dt: DataType) -> DataType:
     if isinstance(dt, StructType):
         return StructType([StructField(f.physical_name,
@@ -190,7 +210,10 @@ def logical_converter(target: DataType, have: DataType
     where the value needs no change."""
     if isinstance(target, StructType) and isinstance(have, StructType):
         names = set(have.field_names())
-        physical = any(f.physical_name in names for f in target.fields)
+        # a field without a physical name of its own (the reference's
+        # merge_schema adds such) says nothing of how the file names
+        physical = any(f.physical_name in names for f in target.fields
+                       if f.physical_name != f.name)
         parts = []
         for f in target.fields:
             src = f.physical_name if physical else f.name

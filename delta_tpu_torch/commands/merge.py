@@ -42,7 +42,9 @@ source's `source.<name>`. A value is an expression or a constant; an
    `predicate`, the reference's metrics; the scan's predicate recorded
    for the conflict check). Nothing touched commits nothing.
 
-Refused as in the reference: no clause, an unconditional clause before
+A `target.<name>` that names a column the target lacks raises
+`NonExistentColumnError` before anything is read. Refused as in the
+reference: no clause, an unconditional clause before
 the last of its kind, a duplicate assignment, an assignment to or an
 `*_all` over a column the target lacks (without schema evolution).
 Refused before anything is written (`UnsupportedTableError`), as not
@@ -99,6 +101,7 @@ from delta_tpu_torch.models.schema import (
 from delta_tpu_torch.obs import PhaseTimer
 from delta_tpu_torch.ops.join import equi_join_device, host_pair_join
 from delta_tpu_torch.read.reader import read_add_files_logical
+from delta_tpu_torch.scan import check_columns_exist
 from delta_tpu_torch.txn.transaction import Operation, check_write_supported
 from delta_tpu_torch.write.writer import write_data_files
 
@@ -401,6 +404,19 @@ def _check_mergeable(snapshot, schema: StructType) -> None:
     check_write_supported(snapshot.protocol, meta)
 
 
+def _check_target_references(on: Expression, clauses: List[MergeClause],
+                             schema: StructType) -> None:
+    """Refuse a `target.<name>` in the ON condition, a clause's condition
+    or an assigned expression that names a column the target lacks
+    (`NonExistentColumnError`)."""
+    exprs = [on] + [c.condition for c in clauses if c.condition is not None]
+    exprs += [v for c in clauses for v in (c.assignments or {}).values()
+              if isinstance(v, Expression)]
+    check_columns_exist(schema, columns=[
+        r[1] for e in exprs for r in sorted(e.references())
+        if len(r) > 1 and r[0] == "target"])
+
+
 def _check_key_types(t_keys: List[str], s_keys: List[str],
                      schema: StructType, source: Batch) -> None:
     """Refuse an equi-key pair of a string column and a column of another
@@ -553,6 +569,8 @@ def _execute_merge(table, source: Batch, on: Expression,
     meta = snapshot.metadata
     schema = schema_from_json(meta.schemaString)
     _check_mergeable(snapshot, schema)
+    _check_target_references(on, matched + not_matched
+                             + not_matched_by_source, schema)
     has_star = any(c.assignments is None and c.kind != "delete"
                    for c in matched + not_matched)
     _check_assignments(matched + not_matched + not_matched_by_source,

@@ -30,10 +30,12 @@ read with their deletion vectors applied (decoded on the engine's
 device, K8 on the card), so the rows they delete are purged: the new
 files carry none, and the removes carry the old descriptors.
 
-A column-mapped or clustered table raises `UnsupportedTableError`; a
-predicate on a clustered table raises `OptimizeArgumentError`
+A clustered table raises `UnsupportedTableError`; a predicate on a
+clustered table raises `OptimizeArgumentError`
 (DELTA_CLUSTERING_WITH_PARTITION_PREDICATE), as in the reference,
-before that. `OptimizeMetrics` also carries `phase_seconds`, the wall
+before that. A column-mapped table optimizes as any other: the rewritten
+files hold the physical names. A `where` predicate naming a column the
+table lacks raises `NonExistentColumnError`. `OptimizeMetrics` also carries `phase_seconds`, the wall
 seconds of the command's phases: snapshot, scan, read, keys, the curve
 permutation's h2d, rank, interleave, sort and d2h, take, write, commit.
 """

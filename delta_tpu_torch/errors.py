@@ -233,7 +233,18 @@ class ColumnMappingModeChangeError(ColumnMappingError):
 
 
 class NonExistentColumnError(DeltaError):
+    """A filter, a projection or a command names a column the table's
+    schema lacks (names resolve case-sensitively)."""
+
     error_class = "DELTA_COLUMN_NOT_FOUND"
+
+
+class UnresolvedColumnError(DeltaError):
+    """A write's `replace_where` names a column the table's schema lacks;
+    raised with the error class DELTA_CANNOT_RESOLVE_COLUMN, as the
+    reference's `write_table` raises it."""
+
+    error_class = "DELTA_UNRESOLVED_COLUMN"
 
 
 class DuplicateColumnError(DeltaError):

@@ -297,12 +297,9 @@ def read_scan(scan) -> Batch:
     if scan.filter is not None:
         from delta_tpu_torch.expressions.eval import evaluate_predicate
 
-        try:
-            keep = evaluate_predicate(scan.filter, result)
-            result = result.take(np.nonzero(keep)[0])
-        except KeyError:
-            pass  # the filter references a column the table lacks
+        keep = evaluate_predicate(scan.filter, result)
+        result = result.take(np.nonzero(keep)[0])
     if requested is not None:
-        result = Batch({c: result.columns[c] for c in requested
-                        if c in result.columns}, result.num_rows)
+        result = Batch({c: result.columns[c] for c in requested},
+                       result.num_rows)
     return result

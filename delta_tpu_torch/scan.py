@@ -17,6 +17,11 @@ the actions); `partition_pruned` and
 surviving files' rows (`read/reader.py::read_scan`): the counterpart of
 the reference's `to_arrow()`, returning the port's `Batch`.
 
+A scan is built only over names the snapshot's logical schema has: a
+filter or a projection naming another column raises
+`NonExistentColumnError` (`check_columns_exist`; case-sensitive, top-level
+names). The reference keeps every row for such a filter instead.
+
 Conjuncts are told apart by `id`: `Expression.__eq__` builds a node, so
 `c in conjuncts` is always true.
 """
@@ -27,8 +32,26 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from delta_tpu_torch.errors import NonExistentColumnError
 from delta_tpu_torch.expressions.tree import Expression, split_conjuncts
 from delta_tpu_torch.models.actions import AddFile
+
+
+def check_columns_exist(schema, filter: Optional[Expression] = None,
+                        columns: Optional[Sequence[str]] = None) -> None:
+    """Raise `NonExistentColumnError` (DELTA_COLUMN_NOT_FOUND) for the
+    first name that `filter` references or `columns` lists and `schema`
+    (a table's logical schema) lacks; a nested reference resolves by its
+    top-level name."""
+    names = list(columns or ())
+    if filter is not None:
+        names += sorted(r[0] for r in filter.references())
+    known = set(schema.field_names()) if schema is not None else set()
+    for name in names:
+        if name not in known:
+            raise NonExistentColumnError(
+                f"column {name!r} not found in the table's columns "
+                f"{sorted(known)}", column=name)
 
 
 class ScanBuilder:
@@ -46,6 +69,8 @@ class ScanBuilder:
         return self
 
     def build(self) -> "Scan":
+        check_columns_exist(self._snapshot.schema, self._filter,
+                            self._columns)
         return Scan(self._snapshot, self._filter, self._columns)
 
 

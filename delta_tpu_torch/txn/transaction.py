@@ -404,6 +404,7 @@ class Transaction:
             readVersion=self.read_version if self.read_version >= 0 else None,
             isolationLevel=self.isolation_level().value,
             isBlindAppend=(not self._removes and not self._read_files
+                           and not self._read_predicates
                            and not self._read_whole_table),
             engineInfo=ENGINE_INFO,
             txnId=self.txn_id,

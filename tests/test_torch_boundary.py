@@ -13,7 +13,9 @@ them), and a partitioned write, a filtered read of it and a MERGE
 through the device join, and column mapping (a mapped partitioned write,
 the expression parser, ALTER TABLE's rename, drop, add and mode upgrade,
 a filtered read through a renamed column, a DELETE and a checkpoint with
-`stats_parsed` reloaded) must leave no `jax`,
+`stats_parsed` reloaded), and the write modes (`merge_schema`,
+`replace_where`, a dynamic partition overwrite, `overwrite_schema`) must
+leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -180,6 +182,25 @@ alter.set_properties(t8, {"delta.columnMapping.mode": "name"})
 alter.rename_column(t8, "a", "b")
 assert read_table(d8, engine=TorchEngine("cpu")).column(
     "b").values.tolist() == [0, 1, 2, 3, 4]
+# the write modes: merge_schema, replace_where, dynamic partition
+# overwrite and overwrite_schema
+cpu = TorchEngine("cpu")
+d9 = d + "/modes"
+write_table(d9, {"id": np.arange(30),
+                 "p": np.array([f"p{i % 3}" for i in range(30)])},
+            partition_by=["p"], engine=cpu)
+write_table(d9, {"id": np.arange(30, 33), "p": np.array(["p0"] * 3),
+                 "x": np.arange(3.0)}, merge_schema=True, engine=cpu)
+write_table(d9, {"id": np.array([100]), "p": np.array(["p1"])},
+            mode="overwrite", replace_where=col("p") == lit("p1"),
+            engine=cpu)
+write_table(d9, {"id": np.array([200]), "p": np.array(["p2"])},
+            mode="overwrite", partition_overwrite_mode="dynamic", engine=cpu)
+assert sorted(read_table(d9, engine=cpu).column("id").values.tolist()) \
+    == list(range(0, 30, 3)) + [30, 31, 32, 100, 200]
+write_table(d9, {"k": np.arange(4)}, mode="overwrite", overwrite_schema=True,
+            engine=cpu)
+assert read_table(d9, engine=cpu).column_names == ["k"]
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))
@@ -204,6 +225,7 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
     assert len(sources) > 10
     names = {str(p.relative_to(REPO)) for p in sources}
     assert {"delta_tpu_torch/columnmapping.py", "delta_tpu_torch/colgen.py",
+            "delta_tpu_torch/schema_evolution.py",
             "delta_tpu_torch/expressions/parser.py",
             "delta_tpu_torch/commands/alter.py"} <= names
     for src in sources:

@@ -73,6 +73,7 @@ from delta_tpu_torch.errors import (
     ColumnMappingModeChangeError,
     ConcurrentAppendError,
     DeltaError,
+    NonExistentColumnError,
     UnsupportedTableError,
 )
 from delta_tpu_torch.log.checkpointer import write_checkpoint
@@ -456,8 +457,9 @@ def test_skipping_through_a_renamed_column(tmp_path):
     port_alter.rename_column(table, "name", "label")
     s_after, _ = _counted(lambda: plan(table, "label", ("=", "n3")))
     assert s_before == s_after
-    # an old name now names nothing: the conjunct keeps every file
-    assert len(plan(table, "id", ("<", 120))[0]) == 8
+    # an old name now names nothing: the scan refuses it (C18)
+    with pytest.raises(NonExistentColumnError):
+        plan(table, "id", ("<", 120))
     got = port_read(path, filter=PE.col("key") < PE.lit(120))
     assert sorted(r["key"] for r in got) == list(range(120))
 

@@ -1390,3 +1390,100 @@ def test_column_mapping_on_the_card_equals_cpu(tmp_path):
     assert np.array_equal(on_card.column("key").values[order_a],
                           on_cpu.column("key").values[order_b])
     assert on_card.num_rows == 4000 - 500
+
+
+def _commit_shape(path: str, version: int) -> dict:
+    """A commit's operation, parameters, metrics (byte counts aside) and
+    per action kind its (dataChange, partition values, rows, DV
+    cardinality) tuples, sorted."""
+    import json
+    import os
+    import re
+
+    out = {}
+    with open(os.path.join(path, "_delta_log", f"{version:020d}.json")) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            (k, v), = json.loads(line).items()
+            if k == "commitInfo":
+                out["info"] = (v["operation"], v["operationParameters"], {
+                    m: x for m, x in v["operationMetrics"].items()
+                    if "Bytes" not in m}, v["isBlindAppend"])
+            elif k in ("add", "remove"):
+                dv = v.get("deletionVector")
+                out.setdefault(k, []).append((
+                    v["dataChange"], re.sub(r"col-[0-9a-f-]{36}", "col-*",
+                                            json.dumps(v["partitionValues"],
+                                                       sort_keys=True)),
+                    json.loads(v["stats"])["numRecords"] if v.get("stats")
+                    else None, dv["cardinality"] if dv else None))
+    return {k: sorted(v) if isinstance(v, list) else v
+            for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_write_modes_on_the_card_equal_cpu(tmp_path):
+    """`chip_smoke.py` step 22's writes on a small name-mode table with
+    DVs, partitioned: a dynamic overwrite, replace_where on the partition
+    column and on a data column (K7 plans, K8 packs: 4,725 of a file's
+    5,000 rows, a bitmap container), merge_schema, a data_change=False
+    rewrite and overwrite_schema give the CPU's commits and rows on the
+    card."""
+    _card()
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.expressions import col, lit
+
+    def rows(lo, n, part):
+        k = np.arange(lo, lo + n)
+        return {"k": k, "x": (k * 7 % 11).astype(np.float64),
+                "p": np.array([part(v) for v in k], object)}
+
+    paths, shapes, reads = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        path = paths[dev] = str(tmp_path / dev)
+        eng = TorchEngine(dev)
+        for i in range(4):
+            write_table(path, rows(i * 20000, 20000, lambda v: f"p{v % 4}"),
+                        engine=eng, partition_by=["p"],
+                        properties={"delta.columnMapping.mode": "name",
+                                    "delta.enableDeletionVectors": "true"})
+        versions = [
+            write_table(path, rows(5000, 40, lambda v: "p1"), engine=eng,
+                        mode="overwrite", partition_overwrite_mode="dynamic"),
+            write_table(path, rows(6000, 30, lambda v: "p2"), engine=eng,
+                        mode="overwrite",
+                        replace_where=col("p") == lit("p2"))]
+        obs.reset()
+        versions.append(write_table(
+            path, rows(100, 200, lambda v: f"p{v % 4}"), engine=eng,
+            mode="overwrite",
+            replace_where=(col("k") >= lit(100)) & (col("k") < lit(19000))))
+        if dev == "cuda":
+            c = obs.counters()
+            assert c["kernel.skip_mask.launches"] == 1
+            assert c["kernel.dv_bits.pack_launches"] == 1
+        extra = rows(7000, 10, lambda v: "p3")
+        extra["tag"] = np.array(["t"] * 10, object)
+        versions.append(write_table(path, extra, engine=eng,
+                                    merge_schema=True))
+        versions.append(write_table(path, read_table(path, engine=eng),
+                                    engine=eng, mode="overwrite",
+                                    data_change=False))
+        everything = read_table(path, engine=eng)
+        versions.append(write_table(
+            path, {c: everything.column(c) for c in ("k", "x", "p")},
+            engine=eng, mode="overwrite", overwrite_schema=True))
+        shapes[dev] = [_commit_shape(path, v) for v in versions[:-2]]
+        got = read_table(path, engine=eng)
+        order = np.argsort(got.column("k").values)
+        reads[dev] = (got.column_names,
+                      got.column("k").values[order].tolist(),
+                      got.column("x").values[order].tolist(),
+                      got.column("p").values[order].tolist())
+    assert shapes["cuda"] == shapes["cpu"]
+    assert reads["cuda"] == reads["cpu"]
+    assert reads["cuda"][0] == ["k", "x", "p"]
+    # p1 and p2 replaced by 40 and 30 rows; the live rows in [100, 19000)
+    # (9,450 of p0 and p3, and those 70) by 200; 10 appended
+    assert len(reads["cuda"][1]) == 80000 - 40000 - 9450 + 200 + 10
