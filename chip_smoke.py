@@ -302,11 +302,37 @@
     hands its commit to the cached snapshot (K1).
     Prints each step's seconds, rows/s and launches.
 
+23. Maintenance (`maintenance_phase`), each step's counters from 0: VACUUM
+    on a hard-link copy of the headline log (its files and a zero-byte
+    file planted for one live file and one tombstone in ten, 100
+    untracked files, a `_change_data/` file and two hidden ones, all
+    aged two hours; the cut of one in ten is for the run's time), with
+    retention 1 hour: a FULL dry run naming the generator's planted
+    tombstones, untracked and `_change_data` files (the load: K3 once
+    per part, K1, K2), a LITE dry run naming every tombstone of commits
+    0..head (the range through the device parse, K1), FULL for real (the
+    planted live and hidden files kept, the watermark at the head), LITE
+    again empty; then REORG PURGE of step 22's DV table (K8 decodes every
+    DV in one launch; K1 on the handoff; no live file keeps a DV), a full
+    read; VACUUM of it with retention 0: a dry run, LITE for real (the
+    purged files and their DV files gone), a FULL dry run naming the one
+    planted orphan, a reload and a full read (K8 0); RESTORE of step 22's
+    partitioned table to the version before `overwrite_schema` (schema
+    and partitioning back, K1 on the handoff), a full read, VACUUM with
+    retention 0, a full read, a RESTORE to the new schema's version
+    refused (DELTA_RESTORE_MISSING_DATA_FILE); a shallow CLONE of the DV
+    table read back, VACUUM of the clone (none of the source's files
+    deleted), a deep CLONE read back; every row against the generator's
+    truth or step 22's numpy models, every fixture file's name and size
+    unchanged. Prints each step's seconds, rows/s, launches and VACUUM's
+    phase seconds (load, protected set, walk or LITE's range scan,
+    selection, unlinks, watermark).
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
 `launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
-`launches_write_modes`), its time per call (`ms`, CUDA events around back-to-back
+`launches_write_modes`; every kernel `launches_maintenance`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
 its bound and both shares of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
@@ -3285,6 +3311,8 @@ WIDE_WRITE_K = {"k1": "kernel.byte_class.launches",
                 "k2": "kernel.winner_pack.launches",
                 "k3": "kernel.hybrid_extract.launches",
                 "k4": "kernel.interleave_bits.launches",
+                "k5": "kernel.unpack_bitpacked.launches",
+                "k6": "kernel.segmented_minmax.launches",
                 "k7": "kernel.skip_mask.launches",
                 "k8_pack": "kernel.dv_bits.pack_launches",
                 "k8_decode": "kernel.dv_bits.decode_launches",
@@ -4038,6 +4066,23 @@ def _refreshed(model, idx, bump: int):
     return Batch(cols, b.num_rows)
 
 
+def _held(read, model, names, what: str, alive=None) -> None:
+    """The read's rows equal the model's live rows (`alive`, else
+    `model.alive`) over the columns `names`: the count and `wide_sums`."""
+    from delta_tpu_torch.models.batch import Batch
+
+    live = model.alive if alive is None else alive
+    _check(read.num_rows == int(live.sum()),
+           f"{what}: {read.num_rows} rows, the model {int(live.sum())}")
+    saved, model.alive = model.alive, live
+    try:
+        _check(wide_sums(Batch({c: read.column(c) for c in names},
+                               read.num_rows)) == model.sums(names),
+               f"{what}: rows equal the model's")
+    finally:
+        model.alive = saved
+
+
 def write_modes_phase(kept: dict, device: str, card: str) -> dict:
     """Step 22: the write modes of `api.write_table` on the card, on step
     21's two tables (`column_mapping_phase`'s `keep`). Each step's
@@ -4076,16 +4121,7 @@ def write_modes_phase(kept: dict, device: str, card: str) -> dict:
     step = _stepper(out, eng, "write_modes")
 
     def held(read, model, names, what, alive=None):
-        live = model.alive if alive is None else alive
-        _check(read.num_rows == int(live.sum()), f"write_modes {what}: "
-               f"{read.num_rows} rows, the model {int(live.sum())}")
-        saved, model.alive = model.alive, live
-        try:
-            _check(wide_sums(Batch({c: read.column(c) for c in names},
-                                   read.num_rows)) == model.sums(names),
-                   f"write_modes {what}: rows equal the model's")
-        finally:
-            model.alive = saved
+        _held(read, model, names, f"write_modes {what}", alive)
 
     def all_flags(actions, flag):
         return all(a["dataChange"] is flag for k in ("add", "remove")
@@ -4261,9 +4297,11 @@ def write_modes_phase(kept: dict, device: str, card: str) -> dict:
     keep_cols = [c for c in rows.column_names if c not in WM_DROPPED]
     slim = Batch({c: rows.column(c) for c in keep_cols}, rows.num_rows)
     del rows, snap
-    step("overwrite_schema", slim.num_rows, lambda: write_table(
-        fpath, slim, mode="overwrite", overwrite_schema=True, engine=eng),
-        k1=(1, None), k2=(1, None))
+    schema_version = step("overwrite_schema", slim.num_rows,
+                          lambda: write_table(fpath, slim, mode="overwrite",
+                                              overwrite_schema=True,
+                                              engine=eng),
+                          k1=(1, None), k2=(1, None))
     del slim
     snap = step("schema_reload", 0, lambda: _loaded(fpath, eng),
                 k1=(1, None), k2=(1, None))
@@ -4282,6 +4320,9 @@ def write_modes_phase(kept: dict, device: str, card: str) -> dict:
          "schema_read_all")
     out["b"] = {"files_after_week": len(after), "range_files": len(in_range),
                 "rewrite_files": n_files, "columns": len(keep_cols)}
+    # step 23 restores the version before the new schema
+    kept["b"].update(promo=promo, restore_version=version,
+                     schema_version=schema_version)
     del got, snap
 
     # (a) replace_where on a data column of the upgraded table
@@ -4329,9 +4370,313 @@ def write_modes_phase(kept: dict, device: str, card: str) -> dict:
                lambda: snap.scan().to_batch())
     held(got, model, model.names, "read_all")
     _channels_held(got, model, channel, "write_modes read_all")
+    kept["a"]["channel"] = channel
     return out
 
 
+
+
+# step 23: VACUUM, REORG PURGE, RESTORE and CLONE
+MAINT_PLANT_EVERY = 10      # (i): a zero-byte file for one live file and
+                            # one tombstone in ten (a cut, for the time)
+MAINT_UNTRACKED = 100       # (i): files no log names
+MAINT_AGE_S = 2 * 3600      # (i), (iii): the planted files' and the log's age
+MAINT_RETENTION_H = 1       # (i)'s retention: the planted files are past it
+MAINT_CLONE_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_ticket_number",
+                       "ss_quantity")
+MAINT_ORPHAN = "orphan-00000.parquet"   # (iii): the one untracked file
+
+
+def _fixture_sizes() -> dict:
+    """{path: size} of every file under `tests/torch_fixtures/`."""
+    root = os.path.dirname(WIDE_DIR)
+    return {os.path.relpath(os.path.join(d, f), root):
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(root) for f in files}
+
+
+def _plant(root: str, rels, mtime: float) -> None:
+    """Zero-byte files at `rels` under `root`, with mtime `mtime`."""
+    for rel in rels:
+        name = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(name), exist_ok=True)
+        with open(name, "wb"):
+            pass
+        os.utime(name, (mtime, mtime))
+
+
+def _watermark(path: str):
+    with open(os.path.join(path, "_delta_log", "_last_vacuum_info")) as f:
+        return json.load(f)["latestCommitVersionOutsideOfRetentionWindow"]
+
+
+def maintenance_phase(head: str, truth, kept: dict, work: str, device: str,
+                      card: str, plant_every: int = MAINT_PLANT_EVERY
+                      ) -> dict:
+    """Step 23: VACUUM, REORG PURGE, RESTORE and CLONE on the card, each
+    step's counters from 0:
+    (i) VACUUM at the headline log's scale on a hard-link copy of it
+       (`head`, the generator's `truth`) whose files, and the planted ones,
+       are aged MAINT_AGE_S: a zero-byte file for one live file and one
+       tombstone in `plant_every`, MAINT_UNTRACKED untracked files, a
+       `_change_data/` file, hidden `_tmp/` and `.x` files. With retention
+       MAINT_RETENTION_H: a FULL dry run names the planted tombstones, the
+       untracked and the `_change_data` files (the load: K3 once per part,
+       K1, K2); a LITE dry run names every tombstone of commits 0..head
+       (its range read through the commit parse, K1); FULL for real
+       deletes that set, keeps every planted live file and the hidden
+       ones, and writes the watermark at the head; LITE again is empty;
+    (ii) REORG PURGE on step 22's DV table (a): every DV'd file rewritten
+       (K8 decodes their DVs in one launch; K1 on the handoff), every
+       action dataChange false, no live file keeps a DV, a full read equal
+       to step 22's model;
+    (iii) VACUUM of (a) with retention 0 and MAINT_ORPHAN planted: a dry
+       run names the purged originals and their DV files; LITE for real
+       deletes the dry run's set but the orphan; a FULL dry run then names
+       the orphan alone; a reload and a full read equal the model, K8 not
+       launched;
+    (iv) RESTORE of step 22's partitioned table (b) to the version before
+       `overwrite_schema`: its schema and partitioning back (K1 on the
+       handoff), a full read equal to the model at that version; VACUUM
+       with retention 0 deletes the new schema's files, the read stays;
+       a RESTORE to the new schema's version is refused with
+       DELTA_RESTORE_MISSING_DATA_FILE, nothing committed;
+    (v) a shallow CLONE of (a) reads (a)'s rows; VACUUM of the clone
+       deletes none of (a)'s files; a deep CLONE reads them from its own
+       copies.
+    Every file under `tests/torch_fixtures/` keeps its name and size.
+    Returns each step's seconds, rows/s and launches, and VACUUM's phase
+    seconds (`vacuum_phase_s`)."""
+    from urllib.parse import unquote
+
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.commands.reorg import reorg_purge
+    from delta_tpu_torch.commands.restore import clone, restore
+    from delta_tpu_torch.dv.descriptor import absolute_dv_path
+    from delta_tpu_torch.errors import RestoreTargetError
+
+    eng = TorchEngine(device)
+    out = {"card": card, "steps": {}, "vacuum_phase_s": {}}
+    step = _stepper(out, eng, "maintenance")
+    fixtures = _fixture_sizes()
+    old = time.time() - MAINT_AGE_S
+
+    # (i) the headline log: a copy of links (which share the headline's
+    # inodes, so its files age too; nothing after this step reads their
+    # mtimes) and the planted files
+    copy = os.path.join(work, "maintenance_headline")
+    src_log, log = (os.path.join(head, "_delta_log"),
+                    os.path.join(copy, "_delta_log"))
+    os.makedirs(log)
+    t0 = time.perf_counter()
+    for n in os.listdir(src_log):
+        _link_or_copy(os.path.join(src_log, n), os.path.join(log, n))
+        os.utime(os.path.join(log, n), (old, old))
+    live_plant = truth.live_paths[::plant_every]
+    tomb_plant = truth.removed_paths[::plant_every]
+    untracked = [f"untracked-{i:03d}.parquet" for i in range(MAINT_UNTRACKED)]
+    cdc = "_change_data/cdc-00000.parquet"
+    hidden = ["_tmp/x.parquet", ".x.parquet"]
+    _plant(copy, live_plant + tomb_plant + untracked + [cdc] + hidden, old)
+    out["plant_s"] = time.perf_counter() - t0
+    out["planted"] = {"live": len(live_plant), "tombstones": len(tomb_plant),
+                      "untracked": len(untracked)}
+    parts = _newest_parts(log)
+    rows = len(truth.live_paths) + truth.num_tombstones
+    table = Table.for_path(copy, engine=eng)
+
+    # the first run loads the table (K3 per part, K1 on the tail, K2),
+    # the others take its cached snapshot; LITE's range parse is K1's
+    expect = {"vacuum_full_dry": dict(k3=(len(parts), len(parts)),
+                                      k1=(1, None), k2=(1, None)),
+              "vacuum_lite_dry": dict(k3=(0, 0), k1=(1, None), k2=(0, 0)),
+              "vacuum_full": dict(k3=(0, 0), k1=(0, 0), k2=(0, 0)),
+              "vacuum_lite_again": dict(k3=(0, 0), k1=(0, 0), k2=(0, 0))}
+
+    def vacuum(name, **kw):
+        r = step(name, rows, lambda: table.vacuum(
+            retention_hours=MAINT_RETENTION_H, **kw), **expect[name])
+        out["vacuum_phase_s"][name] = r.phase_seconds
+        return r
+    full_want = set(tomb_plant) | set(untracked) | {cdc}
+    r = vacuum("vacuum_full_dry", dry_run=True)
+    _check(len(r.files_deleted) == len(full_want)
+           and set(r.files_deleted) == full_want,
+           f"maintenance vacuum_full_dry: {len(r.files_deleted)} files "
+           f"named, the generator's {len(full_want)}")
+    r = vacuum("vacuum_lite_dry", dry_run=True, vacuum_type="LITE")
+    _check(len(r.files_deleted) == truth.num_tombstones
+           and set(r.files_deleted) == set(truth.removed_paths)
+           and (r.eligible_start_commit_version,
+                r.eligible_end_commit_version) == (0, truth.version),
+           f"maintenance vacuum_lite_dry: {len(r.files_deleted)} files "
+           f"named, the generator's {truth.num_tombstones} tombstones")
+    r = vacuum("vacuum_full")
+    _check(set(r.files_deleted) == full_want
+           and not any(os.path.exists(os.path.join(copy, p))
+                       for p in full_want)
+           and all(os.path.exists(os.path.join(copy, p))
+                   for p in live_plant + hidden)
+           and _watermark(copy) == truth.version,
+           "maintenance vacuum_full: the named files gone, every planted "
+           "live and hidden file kept, the watermark at the head")
+    r = vacuum("vacuum_lite_again", vacuum_type="LITE")
+    _check(r.files_deleted == [] and (r.eligible_start_commit_version,
+                                      r.eligible_end_commit_version)
+           == (None, truth.version),
+           "maintenance vacuum_lite_again: an empty range")
+    del table
+
+    # (ii) REORG PURGE of (a)'s deletion vectors
+    path, model = kept["a"]["path"], kept["a"]["model"]
+    channel = kept["a"]["channel"]
+    parts = _newest_parts(os.path.join(path, "_delta_log"))
+    table = Table.for_path(path, engine=eng)
+    m = step("reorg_purge", 0, lambda: reorg_purge(table),
+             k3=(len(parts), None), k1=(1, None), k2=(1, None),
+             k8_decode=(1, 1), k8_pack=(0, 0), k7=(0, 0))
+    acts = _commit_actions(path, m.version)
+    rewritten = sum(json.loads(a["stats"])["numRecords"] for a in acts["add"])
+    st = out["steps"]["reorg_purge"]
+    st.update(rows=rewritten, rows_per_s=rewritten / st["s"],
+              files_removed=m.num_files_removed,
+              files_added=m.num_files_added, phase_s=m.phase_seconds)
+    info = acts["commitInfo"][0]
+    snap = table.latest_snapshot()
+    _check(m.num_files_removed == len(acts["remove"]) > 0
+           and all(r.get("deletionVector") for r in acts["remove"])
+           and all(a["dataChange"] is False
+                   for a in acts["add"] + acts["remove"])
+           and info["operation"] == "OPTIMIZE"
+           and info["operationParameters"] == {"applyPurge": True}
+           and snap.version == m.version
+           and all(a.deletionVector is None for a in snap.state.add_files),
+           f"maintenance reorg_purge: {m.num_files_removed} files purged "
+           f"into {m.num_files_added}, no live file keeps a DV")
+    got = step("purge_read_all", int(model.alive.sum()),
+               lambda: snap.scan().to_batch(), k8_decode=(0, 0))
+    _held(got, model, model.names, "maintenance purge_read_all")
+    _channels_held(got, model, channel, "maintenance purge_read_all")
+    del got, snap
+
+    # (iii) VACUUM of (a): LITE deletes what the log removed
+    parts = _newest_parts(os.path.join(path, "_delta_log"))
+    purged = {unquote(r["path"]) for r in acts["remove"]}
+    purged |= {os.path.relpath(absolute_dv_path(path, r["deletionVector"]),
+                               path) for r in acts["remove"]
+               if r["deletionVector"]["storageType"] == "u"}
+    _plant(path, [MAINT_ORPHAN], old)
+    table = Table.for_path(path, engine=eng)
+    dry = step("vacuum_dry", 0, lambda: table.vacuum(retention_hours=0,
+                                                     dry_run=True),
+               k3=(len(parts), None), k1=(1, None), k2=(1, None))
+    dry = set(dry.files_deleted)
+    _check(purged | {MAINT_ORPHAN} <= dry,
+           f"maintenance vacuum_dry: {len(dry)} files named, the "
+           f"{len(purged)} purged files and DV files among them")
+    lite = step("vacuum_lite", 0, lambda: table.vacuum(
+        retention_hours=0, vacuum_type="LITE"), k1=(1, None), k3=(0, 0),
+        k2=(0, 0))
+    _check(set(lite.files_deleted) == dry - {MAINT_ORPHAN}
+           and not any(os.path.exists(os.path.join(path, p))
+                       for p in lite.files_deleted),
+           f"maintenance vacuum_lite: {len(lite.files_deleted)} files "
+           "deleted, the dry run's but the orphan")
+    full = step("vacuum_full_dry_after", 0, lambda: table.vacuum(
+        retention_hours=0, dry_run=True), k1=(0, 0), k3=(0, 0), k2=(0, 0))
+    _check(full.files_deleted == [MAINT_ORPHAN],
+           f"maintenance vacuum_full_dry_after: {full.files_deleted[:5]}")
+    out["a_vacuum"] = {"dry": len(dry), "lite": len(lite.files_deleted)}
+    snap = step("vacuum_reload", 0, lambda: _loaded(path, eng),
+                k3=(len(parts), None), k1=(1, None), k2=(1, None))
+    got = step("vacuum_read_all", int(model.alive.sum()),
+               lambda: snap.scan().to_batch(), k8_decode=(0, 0),
+               k8_pack=(0, 0))
+    _held(got, model, model.names, "maintenance vacuum_read_all")
+    _channels_held(got, model, channel, "maintenance vacuum_read_all")
+    del got, snap, table
+
+    # (iv) RESTORE of (b) to the version before the new schema
+    fpath, fm = kept["b"]["path"], kept["b"]["model"]
+    promo, v_pre = kept["b"]["promo"], kept["b"]["restore_version"]
+    v_schema = kept["b"]["schema_version"]
+    table = Table.for_path(fpath, engine=eng)
+    want = table.snapshot_at(v_pre).metadata
+    rm = step("restore", 0, lambda: restore(table, version=v_pre),
+              k1=(1, None), k2=(1, None))
+    snap = table.latest_snapshot()
+    _check(step.counts.get("table.notify_advances", 0) == 1
+           and snap.version == rm.version
+           and snap.metadata.schemaString == want.schemaString
+           and snap.partition_columns == want.partitionColumns
+           == [CM_PARTITION_RENAMED],
+           f"maintenance restore: version {v_pre}'s schema and "
+           f"partitioning back ({rm.num_restored_files} files restored, "
+           f"{rm.num_removed_files} removed), through the handoff")
+
+    def held_b(what):
+        got = step(what, int(fm.alive.sum()), lambda: snap.scan().to_batch())
+        _held(got, fm, fm.names, f"maintenance {what}")
+        c = got.column(WM_PROMO_COLUMN)
+        ok = np.ones(got.num_rows, bool) if c.valid is None else c.valid
+        _check(sorted(c.values[ok].tolist())
+               == sorted(v for v in promo[fm.alive] if v is not None),
+               f"maintenance {what}: the promo column's values")
+
+    held_b("restore_read_all")
+    schema_files = {unquote(a["path"])
+                    for a in _commit_actions(fpath, v_schema)["add"]}
+    vac = step("restore_vacuum", 0, lambda: table.vacuum(retention_hours=0))
+    _check(schema_files <= set(vac.files_deleted),
+           f"maintenance restore_vacuum: {len(vac.files_deleted)} files "
+           f"deleted, the {len(schema_files)} of the new schema among them")
+    held_b("restore_vacuum_read_all")
+
+    def refused():
+        try:
+            restore(table, version=v_schema)
+        except RestoreTargetError as e:
+            return e.error_class
+        return None
+
+    _check(step("restore_refused", 0, refused)
+           == "DELTA_RESTORE_MISSING_DATA_FILE"
+           and _head_version(fpath) == rm.version,
+           "maintenance restore_refused: the vacuumed version refused, "
+           "nothing committed")
+    out["b_restore"] = {"restored": rm.num_restored_files,
+                        "removed": rm.num_removed_files,
+                        "vacuumed": len(vac.files_deleted)}
+    del snap, table
+
+    # (v) CLONE of (a): shallow (the source's files), then deep (copies)
+    a_files = sorted(os.listdir(path))
+    names = list(MAINT_CLONE_COLUMNS)
+    for kind in ("shallow", "deep"):
+        dst = os.path.join(work, f"maintenance_{kind}_clone")
+        step(f"clone_{kind}", 0, lambda: clone(
+            Table.for_path(path, engine=eng), dst, shallow=kind == "shallow"),
+            k3=(len(parts), None), k1=(1, None), k2=(1, None))
+        adds = _commit_actions(dst, 0)["add"]
+        _check(all(os.path.isabs(a["path"]) == (kind == "shallow")
+                   for a in adds)
+               and all(os.path.exists(os.path.join(dst, a["path"]))
+                       for a in adds),
+               f"maintenance clone_{kind}: {len(adds)} files, "
+               f"{'absolute' if kind == 'shallow' else 'copied'}")
+        got = step(f"{kind}_read", int(model.alive.sum()), lambda: _loaded(
+            dst, eng).scan(columns=names).to_batch())
+        _held(got, model, names, f"maintenance {kind}_read")
+        del got
+        if kind == "shallow":
+            v = step("shallow_vacuum", 0, lambda: Table.for_path(
+                dst, engine=eng).vacuum(retention_hours=0))
+            _check(v.files_deleted == [] and sorted(os.listdir(path))
+                   == a_files, "maintenance shallow_vacuum: none of the "
+                   "source's files deleted")
+    _check(_fixture_sizes() == fixtures,
+           "maintenance: every fixture file keeps its name and size")
+    return out
 
 
 def main(argv=None) -> int:
@@ -4584,6 +4929,9 @@ def main(argv=None) -> int:
                           {k: r[k] for k in WIDE_WRITE_K})
                       + f"; {card}", flush=True)
             wm = write_modes_phase(cm_keep, "cuda", card)
+            # step 23: VACUUM (the headline log, then step 22's tables),
+            # REORG PURGE, RESTORE and CLONE; counters from 0 per step
+            mt = maintenance_phase(path, truth, cm_keep, work, "cuda", card)
         finally:
             if "work" in ww_keep:
                 shutil.rmtree(ww_keep["work"], ignore_errors=True)
@@ -4613,6 +4961,21 @@ def main(argv=None) -> int:
                   + f"; {card}", flush=True)
         print(f"write_modes steps: {sum(r['s'] for r in wm_steps):.4f} s; "
               f"{card}", flush=True)
+        print("maintenance: " + json.dumps(mt), flush=True)
+        for name, r in mt["steps"].items():
+            print(f"maintenance {name}: {r['rows']} rows, {r['s']:.4f} s, "
+                  f"{r['rows_per_s']:.1f} rows/s, launches "
+                  + json.dumps({k: r[k] for k in WIDE_WRITE_K})
+                  + (f", phases {json.dumps(mt['vacuum_phase_s'][name])}"
+                     if name in mt["vacuum_phase_s"] else "")
+                  + (f", files {r['files_removed']} rewritten into "
+                     f"{r['files_added']}" if "files_removed" in r else "")
+                  + f"; {card}", flush=True)
+        print(f"maintenance steps: "
+              f"{sum(r['s'] for r in mt['steps'].values()):.4f} s, planting "
+              f"{mt['plant_s']:.4f} s; {card}", flush=True)
+        mt_launches = {k: sum(r[k] for r in mt["steps"].values())
+                       for k in WIDE_WRITE_K}
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
@@ -4734,6 +5097,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                      ("hybrid_extract", "k3"), ("interleave_bits", "k4"),
+                      ("unpack_bitpacked", "k5"), ("segmented_minmax", "k6"),
+                      ("skip_mask", "k7"), ("merge_join", "k9")):
+        kernels[name]["launches_maintenance"] = mt_launches[key]
+    kernels["dv_bits"]["launches_maintenance"] = \
+        mt_launches["k8_pack"] + mt_launches["k8_decode"]
     for k in kernels.values():
         k["share"] = k["bound_ms"] / k["ms"]
         k["device_share"] = k["bound_ms"] / k["device_ms"]

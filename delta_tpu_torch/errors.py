@@ -249,3 +249,24 @@ class UnresolvedColumnError(DeltaError):
 
 class DuplicateColumnError(DeltaError):
     error_class = "DELTA_DUPLICATE_COLUMNS_FOUND"
+
+
+class VacuumRetentionError(DeltaError):
+    """A VACUUM retention the check refuses (a negative one)."""
+
+    error_class = "DELTA_UNSAFE_VACUUM_RETENTION"
+
+
+class VacuumLiteError(DeltaError):
+    """VACUUM LITE cannot prove completeness: log cleanup removed commits
+    that no earlier vacuum scanned."""
+
+    error_class = "DELTA_CANNOT_VACUUM_LITE"
+
+
+class RestoreTargetError(DeltaError):
+    error_class = "DELTA_CANNOT_RESTORE_TABLE_VERSION"
+
+
+class CloneTargetExistsError(DeltaError):
+    error_class = "DELTA_CLONE_AMBIGUOUS_TARGET"

@@ -441,6 +441,22 @@ class CheckpointRows:
                     else _python(part.read, "remove.stats", rows))
         return out
 
+    def refs(self, idx: np.ndarray) -> tuple:
+        """(paths, deletion timestamps, DV descriptors) of rows `idx`: the
+        three leaves VACUUM reads, without building the actions (an add's
+        deletion timestamp is None)."""
+        paths: List[str] = []
+        stamps: list = []
+        dvs: list = []
+        for part, is_add, rows in self.blocks(idx):
+            root = "add" if is_add else "remove"
+            paths += [decode_path(p)
+                      for p in _python(part.read, root + ".path", rows)]
+            stamps += ([None] * len(rows) if is_add else
+                       _python(part.read, "remove.deletionTimestamp", rows))
+            dvs += _dvs(part.read, root, rows)[0]
+        return paths, stamps, dvs
+
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         out: List[AddFile] = []
         for part, is_add, rows in self.blocks(idx):
@@ -781,6 +797,14 @@ class CompositeRows:
 
     def stats(self, idx: np.ndarray) -> List[Optional[str]]:
         return self._each(idx, "stats")
+
+    def refs(self, idx: np.ndarray) -> tuple:
+        out: tuple = ([], [], [])
+        for st, local in self.pieces(idx):
+            if len(local):
+                for acc, got in zip(out, st.refs(local)):
+                    acc += got
+        return out
 
     def add_files(self, idx: np.ndarray) -> List[AddFile]:
         return self._each(idx, "add_files")

@@ -175,6 +175,14 @@ class SpanRows:
     def stats(self, idx: np.ndarray) -> List[Optional[str]]:
         return self.strings(idx, "stats", self.lanes["stats_present"][idx])
 
+    def refs(self, idx: np.ndarray) -> tuple:
+        """(paths, deletion timestamps, DV descriptors) of rows `idx`; a
+        line of this route holds no deletion vector."""
+        a = self.lanes
+        stamps = [t if ok else None for t, ok in zip(
+            a["del_ts"][idx].tolist(), a["del_ts_present"][idx].tolist())]
+        return self.paths(idx), stamps, [None] * len(idx)
+
     def _common(self, idx):
         a = self.lanes
         stats = self.strings(idx, "stats", a["stats_present"][idx])

@@ -62,6 +62,14 @@ class DictRows:
     def stats(self, idx: np.ndarray) -> List[Optional[str]]:
         return [self.bodies[i].get("stats") for i in idx.tolist()]
 
+    def refs(self, idx: np.ndarray) -> tuple:
+        """(paths, deletion timestamps, DV descriptors) of rows `idx`."""
+        rows = [self.bodies[i] for i in idx.tolist()]
+        return ([decode_path(b["path"]) for b in rows],
+                [b.get("deletionTimestamp") for b in rows],
+                [DeletionVectorDescriptor.from_dict(b.get("deletionVector"))
+                 for b in rows])
+
     def dv_ids(self, idx: np.ndarray) -> List[Optional[str]]:
         return [_dv_unique_id(self.bodies[i].get("deletionVector"))
                 for i in idx.tolist()]

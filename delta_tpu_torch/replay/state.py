@@ -105,6 +105,16 @@ class SnapshotState:
         materializing their actions."""
         return self.file_actions.rows.stats(self.live_rows)
 
+    def file_refs(self) -> tuple:
+        """(live flags, paths, deletion timestamps, DV descriptors) of the
+        live files and the tombstones, in row order: the rows the masks
+        pick on the device, their three leaves from the row store alone
+        (VACUUM's protected set; no action is built)."""
+        keep = self.live_mask | self.tombstone_mask
+        idx = torch.nonzero(keep).squeeze(1).cpu().numpy()
+        return (self.live_mask[keep].cpu().numpy(),
+                *self.file_actions.rows.refs(idx))
+
     @cached_property
     def tombstones(self) -> List[RemoveFile]:
         idx = torch.nonzero(self.tombstone_mask).squeeze(1).cpu().numpy()

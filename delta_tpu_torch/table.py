@@ -1,9 +1,9 @@
 """Table: the entry point handle for a Delta table at a path.
 
-Counterpart of `delta_tpu/table.py` without vacuum and coordinated
-commits: `for_path`, `exists`, `latest_snapshot`, `update`,
-`notify_commit`, `snapshot_at`, `snapshot_as_of_timestamp`, `history`,
-`create_transaction_builder`, `optimize` and `checkpoint`.
+Counterpart of `delta_tpu/table.py` without coordinated commits:
+`for_path`, `exists`, `latest_snapshot`, `update`, `notify_commit`,
+`snapshot_at`, `snapshot_as_of_timestamp`, `history`,
+`create_transaction_builder`, `optimize`, `vacuum` and `checkpoint`.
 
 The table keeps its newest snapshot. `latest_snapshot()` LISTs from the
 `_last_checkpoint` hint and serves the cached snapshot while the version
@@ -187,6 +187,17 @@ class Table:
         from delta_tpu_torch.commands.optimize import OptimizeBuilder
 
         return OptimizeBuilder(self)
+
+    def vacuum(self, retention_hours: Optional[float] = None,
+               dry_run: bool = False, inventory=None,
+               vacuum_type: str = "FULL"):
+        """`VACUUM` (`commands/vacuum.py`): delete the files the table no
+        longer references past the retention window."""
+        from delta_tpu_torch.commands.vacuum import vacuum
+
+        return vacuum(self, retention_hours=retention_hours,
+                      dry_run=dry_run, inventory=inventory,
+                      vacuum_type=vacuum_type)
 
     def __repr__(self):
         return f"Table({self.path!r})"

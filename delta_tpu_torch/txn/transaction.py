@@ -101,6 +101,8 @@ class Operation:
     RENAME_COLUMN = "RENAME COLUMN"
     DROP_COLUMNS = "DROP COLUMNS"
     UPGRADE_PROTOCOL = "UPGRADE PROTOCOL"
+    RESTORE = "RESTORE"
+    CLONE = "CLONE"
 
 
 @dataclass

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 LOG_DIR_NAME = "_delta_log"
 SIDECAR_SUBDIR = "_sidecars"
+CHANGE_DATA_DIR = "_change_data"  # CDC files, which VACUUM walks
 
 DELTA_FILE_RE = re.compile(r"^(\d+)\.json$")
 COMPACTED_DELTA_FILE_RE = re.compile(r"^(\d+)\.(\d+)\.compacted\.json$")

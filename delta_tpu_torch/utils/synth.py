@@ -3,10 +3,11 @@ synthetic checkpoints.
 
 `synth_delta_log` is a copy of `bench.py::synth_delta_log` (same seed,
 same bytes) that also returns the generator's own truth, so a load can be
-checked without a second reader: the live paths, their total size and the
-tombstone count. Given `checkpoint_version` it also writes a checkpoint
-of the state at that version, split into parts the way `bench.py`'s
-checkpoint metric splits them (`part_size = num_files // 8`).
+checked without a second reader: the live paths, their total size, the
+tombstone count and the removed paths. Given `checkpoint_version` it also
+writes a checkpoint of the state at that version, split into parts the
+way `bench.py`'s checkpoint metric splits them (`part_size = num_files //
+8`).
 
 `write_checkpoint` writes a checkpoint of the generator's own truth (not
 of a loaded snapshot: the package's writer, `log/checkpointer.py`, does
@@ -20,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -72,6 +73,7 @@ class SynthTruth:
     num_tombstones: int
     num_actions: int
     checkpoint: Optional[dict] = None  # the _last_checkpoint record
+    removed_paths: List[str] = field(default_factory=list)  # sorted
 
 
 PROTOCOL = {"minReaderVersion": 1, "minWriterVersion": 2}
@@ -196,4 +198,5 @@ def synth_delta_log(path: str, commits: int, files_per_commit: int,
                       size_in_bytes=ADD_SIZE * len(alive),
                       num_tombstones=len(removed),
                       num_actions=len(paths) + len(removed),
-                      checkpoint=info)
+                      checkpoint=info,
+                      removed_paths=sorted(paths[f] for f, _ in removed))

@@ -14,8 +14,9 @@ through the device join, and column mapping (a mapped partitioned write,
 the expression parser, ALTER TABLE's rename, drop, add and mode upgrade,
 a filtered read through a renamed column, a DELETE and a checkpoint with
 `stats_parsed` reloaded), and the write modes (`merge_schema`,
-`replace_where`, a dynamic partition overwrite, `overwrite_schema`) must
-leave no `jax`,
+`replace_where`, a dynamic partition overwrite, `overwrite_schema`), and
+the maintenance commands (REORG PURGE, VACUUM FULL and LITE with a dry
+run, RESTORE, a shallow and a deep CLONE) must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -201,6 +202,31 @@ assert sorted(read_table(d9, engine=cpu).column("id").values.tolist()) \
 write_table(d9, {"k": np.arange(4)}, mode="overwrite", overwrite_schema=True,
             engine=cpu)
 assert read_table(d9, engine=cpu).column_names == ["k"]
+# the maintenance commands: REORG PURGE of d5's DVs, VACUUM (a dry run,
+# FULL, LITE), RESTORE of a vacuumed version refused, then forced, CLONE
+import os, time
+from delta_tpu_torch.commands.reorg import reorg_purge
+from delta_tpu_torch.commands.restore import clone, restore
+from delta_tpu_torch.errors import RestoreTargetError
+delete(t5, col("k") < lit(5100))
+assert reorg_purge(t5).num_files_removed == 1
+old = time.time() - 7200
+for root, _, files in os.walk(d5):
+    for f in files:
+        os.utime(os.path.join(root, f), (old, old))
+dry = t5.vacuum(retention_hours=0, dry_run=True).files_deleted
+assert dry and t5.vacuum(retention_hours=0).files_deleted == dry
+assert t5.vacuum(retention_hours=0, vacuum_type="LITE").files_deleted == []
+for shallow in (True, False):
+    dst = d + f"/clone_{shallow}"
+    clone(t5, dst, shallow=shallow)
+    assert read_table(dst, engine=cpu).num_rows == 3950
+try:
+    restore(t5, version=1)
+    raise AssertionError("restored a vacuumed version")
+except RestoreTargetError as e:
+    assert e.error_class == "DELTA_RESTORE_MISSING_DATA_FILE"
+assert restore(t5, version=5, force=True).version == 8
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))
@@ -227,7 +253,10 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
     assert {"delta_tpu_torch/columnmapping.py", "delta_tpu_torch/colgen.py",
             "delta_tpu_torch/schema_evolution.py",
             "delta_tpu_torch/expressions/parser.py",
-            "delta_tpu_torch/commands/alter.py"} <= names
+            "delta_tpu_torch/commands/alter.py",
+            "delta_tpu_torch/commands/vacuum.py",
+            "delta_tpu_torch/commands/reorg.py",
+            "delta_tpu_torch/commands/restore.py"} <= names
     for src in sources:
         text = src.read_text()
         name = src.relative_to(REPO)

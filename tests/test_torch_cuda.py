@@ -1487,3 +1487,58 @@ def test_write_modes_on_the_card_equal_cpu(tmp_path):
     # p1 and p2 replaced by 40 and 30 rows; the live rows in [100, 19000)
     # (9,450 of p0 and p3, and those 70) by 200; 10 appended
     assert len(reads["cuda"][1]) == 80000 - 40000 - 9450 + 200 + 10
+
+
+@pytest.mark.cuda
+def test_reorg_and_vacuum_on_the_card_equal_cpu(tmp_path):
+    """REORG PURGE of a DV table (a bitmap container and an array one:
+    K8 decodes both in one launch), then VACUUM's dry run, LITE and a
+    FULL dry run with retention 0 (the range read through K1), on the
+    card and on the CPU: the same metrics, deleted sets and rows."""
+    import os
+    import time
+
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.commands.dml import delete
+    from delta_tpu_torch.commands.reorg import reorg_purge
+    from delta_tpu_torch.expressions import col, lit
+
+    _card()
+    src = str(tmp_path / "src")
+    for i in range(3):
+        k = np.arange(i * 6000, (i + 1) * 6000)
+        write_table(src, {"k": k, "x": (k % 17).astype(np.float64)},
+                    engine=TorchEngine("cpu"),
+                    properties={"delta.enableDeletionVectors": "true"})
+    delete(Table.for_path(src, engine=TorchEngine("cpu")),
+           (col("k") < lit(5000))
+           | ((col("k") >= lit(9000)) & (col("k") < lit(9050))))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / dev)
+        shutil.copytree(src, path)
+        eng = TorchEngine(dev)
+        t = Table.for_path(path, engine=eng)
+        obs.reset()
+        m = reorg_purge(t)
+        if dev == "cuda":
+            assert obs.counters()["kernel.dv_bits.decode_launches"] == 1
+        old = time.time() - 7200
+        for f in os.listdir(path):
+            if f != "_delta_log":
+                os.utime(os.path.join(path, f), (old, old))
+        t = Table.for_path(path, engine=eng)
+        dry = t.vacuum(retention_hours=0, dry_run=True).files_deleted
+        obs.reset()
+        lite = t.vacuum(retention_hours=0, vacuum_type="LITE")
+        if dev == "cuda":
+            assert obs.counters()["kernel.byte_class.launches"] >= 1
+        after = t.vacuum(retention_hours=0, dry_run=True).files_deleted
+        got = read_table(path, engine=eng)
+        runs[dev] = ((m.num_files_added, m.num_files_removed,
+                      m.bytes_removed), sorted(dry),
+                     sorted(lite.files_deleted), after,
+                     np.sort(got.column("k").values).tolist())
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][1] == runs["cuda"][2] and runs["cuda"][3] == []
+    assert len(runs["cuda"][4]) == 18000 - 5000 - 50
