@@ -328,11 +328,35 @@
     phase seconds (load, protected set, walk or LITE's range scan,
     selection, unlinks, watermark).
 
+24. Table features (`table_features_phase`), each step's counters from
+    0, its rows against the numpy models carried from step 22: on step
+    23's DV table, `delta.enableTypeWidening` and CHANGE COLUMN TYPE
+    ss_quantity integer -> long and ss_sales_price decimal(7,2) ->
+    decimal(9,2) (K1 on the handoff), 10,000 rows with ss_quantity past
+    2^31 and reads filtered at the old files' exact bound and past 2^31
+    (K7 over int and long bounds), ZORDER BY ss_quantity (K4), a
+    checkpoint, a reload through it (K3 per part) and a full read;
+    LF_SS's MERGE with a new column under `with_schema_evolution()` (K9;
+    the old rows read it as null), a DELETE leaving a deletion vector;
+    ADD CONSTRAINT `ss_quantity >= 0` refused (NULL quantities violate),
+    then `ss_quantity IS NULL OR ss_quantity >= 0` added (every live row
+    checked, K8 decoding the DVs once); a violating append and UPDATE
+    refused with the version and live files unchanged; DROP CONSTRAINT.
+    Then step 19's first quarter written afresh with an identity column
+    (start 1000, step 3), a generated ss_tax_covered =
+    ss_net_paid_inc_tax >= ss_net_paid (checked with numpy first) and a
+    CURRENT_DEFAULT ss_channel, two appends and LF_SS's MERGE (K9): the
+    identity values unique and running by the step from each commit's
+    watermark, the generated and default values numpy's. At least one
+    launch each of K1, K2, K3, K4, K7, K8 and K9. Prints each step's
+    seconds, rows/s and launches.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
 `launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
-`launches_write_modes`; every kernel `launches_maintenance`), its time per call (`ms`, CUDA events around back-to-back
+`launches_write_modes`; every kernel `launches_maintenance` and
+`launches_table_features`), its time per call (`ms`, CUDA events around back-to-back
 calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
 its bound and both shares of the bound), the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
@@ -4679,6 +4703,412 @@ def maintenance_phase(head: str, truth, kept: dict, work: str, device: str,
     return out
 
 
+# step 24: type widening, MERGE's schema evolution, CHECK constraints, and
+# generated, identity and default columns
+TF_WIDEN = {"delta.enableTypeWidening": "true"}
+TF_TYPES = (("ss_quantity", "long"), ("ss_sales_price", "decimal(9,2)"))
+TF_APPEND_ROWS = 10_000          # 2.: ss_quantity past 2^31
+TF_BIG = 1 << 31
+TF_BIG_STEP = 1_000
+TF_APPEND_TICKET = 7_000_000     # 2.'s tickets: past step 21's
+TF_MERGE_TICKET = 8_000_000      # 4.'s LF_SS tickets
+TF_PROMO = "ss_promo"            # 4.'s new source column
+TF_DELETE_ABOVE = TF_BIG + TF_BIG_STEP * (TF_APPEND_ROWS // 2)
+TF_CHECK = ("qty_nonneg", "ss_quantity >= 0")
+TF_CHECK_NULLS = ("qty_nonneg", "ss_quantity IS NULL OR ss_quantity >= 0")
+TF_ID = ("ss_row_id", 1_000, 3)  # 7.: identity (name, start, step)
+TF_GENERATED = ("ss_tax_covered", "ss_net_paid_inc_tax >= ss_net_paid")
+TF_DEFAULT = ("ss_channel", "'store'", "store")
+TF_FRESH_APPENDS = (2_000, 3_000)  # 7.: the two appends' rows
+TF_FRESH_TICKET = 9_000_000
+TF_FRESH_MERGE_TICKET = 9_500_000
+
+
+def _field_metadata(path: str, version: int, name: str):
+    """A field's metadata in the metaData action of commit `version`
+    (None: the commit holds none)."""
+    meta = _commit_actions(path, version).get("metaData")
+    if not meta:
+        return None
+    return next(f["metadata"] for f in json.loads(
+        meta[0]["schemaString"])["fields"] if f["name"] == name)
+
+
+def _covered(model, idx) -> tuple:
+    """ss_net_paid_inc_tax >= ss_net_paid over the model's rows `idx`
+    (unscaled decimals of one scale): (values, valid)."""
+    a, b = "ss_net_paid_inc_tax", "ss_net_paid"
+    ok = model.ok[a][idx] & model.ok[b][idx]
+    return model.v[a][idx] >= model.v[b][idx], ok
+
+
+def table_features_phase(kept: dict, step19, work: str, device: str,
+                         card: str) -> dict:
+    """Step 24: type widening, MERGE's schema evolution, CHECK constraints,
+    and generated, identity and default columns on the card, each step's
+    counters from 0 and its rows against the numpy models carried from
+    step 22 (`kept`: `column_mapping_phase`'s `keep`, after steps 22-23):
+    (a) the name-mode DV table: 1. `delta.enableTypeWidening` on (the
+       protocol lists typeWidening), then CHANGE COLUMN TYPE ss_quantity
+       integer -> long and ss_sales_price decimal(7,2) -> decimal(9,2)
+       (K1 on each commit's handoff); 2. TF_APPEND_ROWS rows with
+       ss_quantity past 2^31, then reads filtered on ss_quantity at the
+       old files' exact bound (>= 100) and past 2^31 (K7 over files of
+       int and of long bounds); 3. ZORDER BY ss_quantity of the last
+       quarter (K4), a checkpoint, a fresh Table's reload through it (K3
+       on every part) and a full read; 4. LF_SS's 1% MERGE with a new
+       column TF_PROMO under `with_schema_evolution()` (K9): the rows
+       written before read it as null; then a DELETE of half the
+       appended rows (a deletion vector, K8 packs); 5. ADD CONSTRAINT
+       `ss_quantity >= 0` refused (ss_quantity has NULLs, which violate),
+       then `ss_quantity IS NULL OR ss_quantity >= 0` added: every live
+       row checked, K8 decoding the DVs in one launch; 6. an append and
+       an UPDATE that would violate it refused, the version and the
+       live files as they were; DROP CONSTRAINT;
+    (b) step 19's first quarter (720,000 rows at 120 links) written afresh
+       with an identity column (start 1000, step 3), a generated column
+       ss_tax_covered = ss_net_paid_inc_tax >= ss_net_paid (the relation
+       checked with numpy first) and a CURRENT_DEFAULT column ss_channel:
+       7. the write and two appends: the identity values unique, each
+       commit's values running by the step from the previous watermark,
+       the watermark in each commit's metadata; the generated and default
+       values equal numpy's; 8. a 1% MERGE into it in LF_SS's manner
+       (K9): half the source matches live rows and sets their ss_quantity
+       and ss_net_profit, half inserts new tickets; the inserted rows'
+       identity values from the watermark (moved in the MERGE's commit),
+       their generated and default values; the updated rows keep theirs.
+    Returns each step's seconds, rows/s and launches."""
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.api import schema_of, write_table
+    from delta_tpu_torch.colgen import (
+        default_field,
+        generated_field,
+        identity_field,
+    )
+    from delta_tpu_torch.commands import alter
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.commands.merge import merge
+    from delta_tpu_torch.constraints import add_constraint, drop_constraint
+    from delta_tpu_torch.errors import InvariantViolationError
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.batch import Batch, Column
+    from delta_tpu_torch.models.schema import StructType
+
+    eng = TorchEngine(device)
+    out = {"card": card, "steps": {}}
+    step = _stepper(out, eng, "table_features")
+    path, model = kept["a"]["path"], kept["a"]["model"]
+    channel = kept["a"]["channel"]
+    log = os.path.join(path, "_delta_log")
+    out["a_rows"] = int(model.alive.sum())
+    key = (col("target.ss_item_sk") == col("source.ss_item_sk")) \
+        & (col("target.ss_ticket_number") == col("source.ss_ticket_number"))
+
+    def loaded_table():
+        """A Table whose cached snapshot holds its state, so that a
+        commit on it takes the post-commit handoff (K1)."""
+        t = Table.for_path(path, engine=eng)
+        t.latest_snapshot().state
+        return t
+
+    # 1. the flag (a protocol commit), then the two type changes
+    table = loaded_table()
+    step("set_widening", 0, lambda: alter.set_properties(table, TF_WIDEN))
+    proto = Table.for_path(path, engine=eng).latest_snapshot().protocol
+    _check("typeWidening" in (proto.writerFeatures or [])
+           and "typeWidening" in (proto.readerFeatures or []),
+           f"table_features set_widening: the protocol {proto}")
+    table = loaded_table()
+    for name, new_type in TF_TYPES:
+        step(f"widen_{name}", 0, lambda: alter.change_column_type(
+            table, name, new_type), k1=(1, None))
+        model.types[name] = None if new_type == "long" else new_type
+        if new_type == "long":
+            model.dtypes[name] = np.dtype(np.int64)
+    schema = table.latest_snapshot().schema
+    _check(schema["ss_quantity"].data_type == "long"
+           and schema["ss_sales_price"].data_type == "decimal(9,2)"
+           and step.counts.get("table.notify_advances", 0) == 1,
+           "table_features widen: both types changed through the handoff")
+
+    # 2. rows past 2^31, filters at the old and the new bounds
+    q3 = np.flatnonzero(model.alive & model.ok["ss_sold_date_sk"]
+                        & (model.v["ss_sold_date_sk"]
+                           >= WIDE_LAST_QUARTER[0]))
+    idx = q3[:TF_APPEND_ROWS]
+    big = model.batch(idx)
+    cols = dict(big.columns)
+    cols["ss_ticket_number"] = Column((TF_APPEND_TICKET + np.arange(len(
+        idx))).astype(model.dtypes["ss_ticket_number"]))
+    cols["ss_quantity"] = Column(TF_BIG + TF_BIG_STEP * np.arange(
+        len(idx), dtype=np.int64))
+    big = Batch(cols, len(idx))
+    step("append_big", len(idx), lambda: write_table(path, big, engine=eng))
+    model.append(big)
+    channel = np.r_[channel, np.full(len(idx), None, object)]
+    qty, qty_ok = model.v["ss_quantity"], model.ok["ss_quantity"]
+    names = ["ss_quantity", "ss_ticket_number", "ss_sales_price"]
+    for what, pred, sel in (
+            ("read_at_old_bound", col("ss_quantity") >= lit(100),
+             qty >= 100),
+            ("read_past_2_31", col("ss_quantity") > lit(TF_BIG + 5),
+             qty > TF_BIG + 5)):
+        hit = model.alive & qty_ok & sel
+        snap = Table.for_path(path, engine=eng).latest_snapshot()
+        got = step(what, int(hit.sum()), lambda: snap.scan(
+            filter=pred, columns=names).to_batch(), k7=(1, 1))
+        _held(got, model, names, f"table_features {what}", hit)
+
+    # 3. ZORDER BY the widened column, a checkpoint, a reload, a full read
+    table = Table.for_path(path, engine=eng)
+    last = model.alive & model.ok["ss_sold_date_sk"] & (
+        model.v["ss_sold_date_sk"] >= WIDE_LAST_QUARTER[0])
+    m = step("zorder", int(last.sum()), lambda: table.optimize()
+             .where(col("ss_sold_date_sk") >= lit(WIDE_LAST_QUARTER[0]))
+             .execute_zorder_by("ss_quantity"), k4=(1, 1))
+    out["steps"]["zorder"].update(files_removed=m.num_files_removed,
+                                  files_added=m.num_files_added)
+    step("checkpoint", 0, lambda: Table.for_path(
+        path, engine=eng).checkpoint())
+    parts = _newest_parts(log)
+    snap = step("reload", 0, lambda: _loaded(path, eng),
+                k3=(len(parts), len(parts)), k2=(1, None))
+    _check(snap.schema["ss_quantity"].data_type == "long",
+           "table_features reload: the widened schema")
+    got = step("read_all", int(model.alive.sum()),
+               lambda: snap.scan().to_batch())
+    _held(got, model, model.names, "table_features read_all")
+    _channels_held(got, model, channel, "table_features read_all")
+    del got, snap
+
+    # 4. LF_SS's MERGE with a new column, under schema evolution
+    source, matched = _wide_merge_source(model, np.random.default_rng(24),
+                                         "ss_profit", TF_MERGE_TICKET)
+    promo = np.empty(source.num_rows, object)
+    promo[:] = "lf_ss_promo"
+    merged = Batch(dict(source.columns, **{TF_PROMO: Column(promo)}),
+                   source.num_rows)
+    table = Table.for_path(path, engine=eng)
+    m = step("merge_evolve", source.num_rows, lambda: merge(
+        table, merged, on=key).with_schema_evolution()
+        .when_matched_update_all().when_not_matched_insert_all().execute(),
+        k9=(1, 1))
+    half = len(matched)
+    _check((m.num_target_rows_updated, m.num_target_rows_inserted)
+           == (half, half),
+           f"table_features merge_evolve: {m.num_target_rows_updated} "
+           f"updated, {m.num_target_rows_inserted} inserted of {half} each")
+    model.alive[matched] = False
+    model.append(source)
+    channel = np.r_[channel, np.full(source.num_rows, None, object)]
+    field = Table.for_path(path, engine=eng).latest_snapshot().schema[
+        TF_PROMO]
+    _check(field.physical_name.startswith("col-"),
+           f"table_features merge_evolve: {TF_PROMO} mapped as "
+           f"{field.physical_name}")
+    # then a deletion vector: half the appended rows
+    gone = model.alive & model.ok["ss_quantity"] & (
+        model.v["ss_quantity"] > TF_DELETE_ABOVE)
+    m = step("delete_big", int(gone.sum()), lambda: delete(
+        Table.for_path(path, engine=eng),
+        col("ss_quantity") > lit(TF_DELETE_ABOVE)), k7=(1, 1))
+    _check(m.num_rows_deleted == int(gone.sum()) and m.num_dvs_written >= 1,
+           f"table_features delete_big: {m.num_rows_deleted} rows, "
+           f"{m.num_dvs_written} DVs")
+    model.alive &= ~gone
+
+    # 5. ADD CONSTRAINT: NULLs violate, then the NULL-tolerant body
+    nulls = int((model.alive & ~model.ok["ss_quantity"]).sum())
+    _check(nulls > 0, "table_features: ss_quantity holds NULLs")
+    before_v = _head_version(path)
+
+    def refused_constraint():
+        try:
+            add_constraint(Table.for_path(path, engine=eng), *TF_CHECK)
+        except InvariantViolationError as e:
+            return e.error_class
+        return None
+
+    _check(step("constraint_refused", int(model.alive.sum()),
+                refused_constraint)
+           == "DELTA_NEW_CHECK_CONSTRAINT_VIOLATION"
+           and _head_version(path) == before_v,
+           f"table_features constraint_refused: {nulls} NULL quantities "
+           "violate, nothing committed")
+    version = step("add_constraint", int(model.alive.sum()),
+                   lambda: add_constraint(Table.for_path(path, engine=eng),
+                                          *TF_CHECK_NULLS),
+                   k8_decode=(1, 1))
+    conf = Table.for_path(path, engine=eng).latest_snapshot() \
+        .metadata.configuration
+    _check(conf.get("delta.constraints.qty_nonneg")
+           == "(ss_quantity IS NULL OR ss_quantity >= 0)"
+           and _commit_actions(path, version).keys() >= {"metaData"},
+           "table_features add_constraint: the constraint stored")
+
+    # 6. a violating append and UPDATE refused, then DROP CONSTRAINT
+    live_before = sorted(a.path for a in _loaded(path, eng).state.add_files)
+    bad = model.batch(q3[:10])
+    cols = dict(bad.columns)
+    cols["ss_quantity"] = Column(np.full(10, -1, np.int64))
+    bad = Batch(cols, 10)
+    ticket = int(model.v["ss_ticket_number"][np.flatnonzero(
+        model.alive)[0]])
+
+    def violated(fn):
+        def run():
+            try:
+                fn()
+            except InvariantViolationError as e:
+                return e.error_class
+            return None
+        return run
+
+    for what, fn in (
+            ("append_refused", lambda: write_table(path, bad, engine=eng)),
+            ("update_refused", lambda: update(
+                Table.for_path(path, engine=eng), {"ss_quantity": -5},
+                col("ss_ticket_number") == lit(ticket)))):
+        _check(step(what, 10, violated(fn))
+               == "DELTA_VIOLATE_CONSTRAINT_WITH_VALUES"
+               and _head_version(path) == version
+               and sorted(a.path for a in _loaded(path, eng)
+                          .state.add_files) == live_before,
+               f"table_features {what}: refused, the version and the live "
+               "files as they were")
+    step("drop_constraint", 0, lambda: drop_constraint(
+        Table.for_path(path, engine=eng), TF_CHECK[0]))
+    got = step("read_after", int(model.alive.sum()), lambda: _loaded(
+        path, eng).scan(columns=names + [TF_PROMO, "ss_item_sk"])
+        .to_batch(), k8_decode=(1, 1))
+    _held(got, model, names, "table_features read_after")
+    c = got.column(TF_PROMO)
+    ok = np.ones(got.num_rows, bool) if c.valid is None else c.valid
+    _check(int(ok.sum()) == source.num_rows
+           and set(c.values[ok].tolist()) == {"lf_ss_promo"},
+           f"table_features read_after: {TF_PROMO} set on the "
+           f"{source.num_rows} merged rows only")
+    kept["a"]["channel"] = channel
+    del got
+
+    # (b) 7. a fresh table with identity, generated and default columns
+    d = step19.column(CM_PARTITION)
+    d_ok = np.ones(step19.num_rows, bool) if d.valid is None else d.valid
+    lo, hi = CM_FIRST_QUARTER
+    file0 = step19.column("ss_ticket_number").values // WIDE_TICKET_FILE == 0
+    q0 = step19.take(np.flatnonzero((d_ok & (d.values >= lo)
+                                     & (d.values < hi)) | (~d_ok & file0)))
+    cols = dict(q0.columns)  # each linked copy's tickets its own
+    cols["ss_ticket_number"] = Column(_renumber_tickets(
+        q0.column("ss_item_sk").values,
+        q0.column("ss_ticket_number").values))
+    q0 = Batch(cols, q0.num_rows)
+    fm = _WideModel(q0)
+    _check(len(np.unique(fm.keys())) == q0.num_rows,
+           "table_features: (ss_item_sk, ss_ticket_number) unique")
+    cov, cov_ok = _covered(fm, np.arange(q0.num_rows))
+    _check(cov[cov_ok].all() and cov_ok.any(),
+           f"table_features: {TF_GENERATED[1]} holds on every row of "
+           "step 19's first quarter")
+    id_name, start, stride = TF_ID
+    schema = StructType([identity_field(id_name, start, stride)]
+                        + list(schema_of(q0).fields)
+                        + [generated_field(TF_GENERATED[0], "boolean",
+                                           TF_GENERATED[1]),
+                           default_field(TF_DEFAULT[0], "string",
+                                         TF_DEFAULT[1])])
+    fresh = os.path.join(work, "table_features_fresh")
+    wm = start - stride  # the next values run from wm + stride
+
+    def commit_ids(version, n):
+        """The commit's watermark moved n values past the last."""
+        nonlocal wm
+        md = _field_metadata(fresh, version, id_name)
+        want = wm + stride * n
+        _check(md is not None and md.get("delta.identity.highWaterMark")
+               == want, f"table_features: commit {version}'s watermark "
+               f"{md and md.get('delta.identity.highWaterMark')}, "
+               f"expected {want}")
+        ids = wm + stride * np.arange(1, n + 1)
+        wm = want
+        return ids
+
+    version = step("fresh_write", q0.num_rows, lambda: write_table(
+        fresh, q0, schema=schema, engine=eng))
+    ids = [commit_ids(version, q0.num_rows)]
+    for i, n in enumerate(TF_FRESH_APPENDS):
+        idx = np.arange(n) + i * n
+        rows = fm.batch(idx)
+        cols = dict(rows.columns)
+        cols["ss_ticket_number"] = Column((TF_FRESH_TICKET + i * n
+                                           + np.arange(n)).astype(
+            fm.dtypes["ss_ticket_number"]))
+        rows = Batch(cols, n)
+        version = step(f"fresh_append_{i}", n, lambda: write_table(
+            fresh, rows, engine=eng))
+        ids.append(commit_ids(version, n))
+        fm.append(rows)
+    # 8. LF_SS's MERGE into it: inserted rows take the next identities
+    rng = np.random.default_rng(25)
+    half = int(round(fm.alive.sum() * WIDE_MERGE_SHARE)) // 2
+    live = np.flatnonzero(fm.alive)
+    matched = np.sort(rng.choice(live, half, replace=False))
+    source = fm.batch(np.r_[matched, rng.choice(live, half)])
+    cols = dict(source.columns)
+    cols["ss_quantity"] = Column(rng.integers(1, 101, 2 * half).astype(
+        fm.dtypes["ss_quantity"]))
+    ticket = cols["ss_ticket_number"].values.copy()
+    ticket[half:] = TF_FRESH_MERGE_TICKET + np.arange(half)
+    cols["ss_ticket_number"] = Column(ticket)
+    source = Batch(cols, 2 * half)
+    m = step("fresh_merge", source.num_rows, lambda: merge(
+        Table.for_path(fresh, engine=eng), source, on=key)
+        .when_matched_update(set={
+            c: col(f"source.{c}") for c in ("ss_quantity", "ss_net_profit")})
+        .when_not_matched_insert_all().execute(), k9=(1, 1))
+    _check((m.num_target_rows_updated, m.num_target_rows_inserted)
+           == (half, half),
+           f"table_features fresh_merge: {m.num_target_rows_updated} "
+           f"updated, {m.num_target_rows_inserted} inserted of {half} each")
+    ids.append(commit_ids(m.version, half))
+    fm.alive[matched] = False
+    fm.append(source)
+    got = step("fresh_read", int(fm.alive.sum()), lambda: _loaded(
+        fresh, eng).scan(columns=[id_name, "ss_item_sk", "ss_ticket_number",
+                                  "ss_net_paid", "ss_net_paid_inc_tax",
+                                  TF_GENERATED[0], TF_DEFAULT[0]])
+        .to_batch())
+    _held(got, fm, ["ss_item_sk", "ss_ticket_number", "ss_net_paid",
+                    "ss_net_paid_inc_tax"], "table_features fresh_read")
+    idc = got.column(id_name)
+    all_ids = np.concatenate(ids)  # the updated rows keep theirs
+    _check(idc.valid is None and len(np.unique(idc.values)) == got.num_rows
+           and sorted(idc.values.tolist()) == sorted(all_ids.tolist()),
+           f"table_features fresh_read: {got.num_rows} identity values, "
+           f"unique, by the step {stride} across {len(ids)} commits")
+    # the generated and default values, row by row on the key
+    k = (got.column("ss_item_sk").values.astype(np.int64) * (1 << 32)
+         + got.column("ss_ticket_number").values)
+    order = np.argsort(k, kind="stable")
+    mk = fm.keys()[fm.alive]
+    morder = np.argsort(mk, kind="stable")
+    cov, cov_ok = _covered(fm, np.flatnonzero(fm.alive))
+    g = got.column(TF_GENERATED[0])
+    g_ok = np.ones(got.num_rows, bool) if g.valid is None else g.valid
+    ch = got.column(TF_DEFAULT[0])
+    _check(np.array_equal(k[order], mk[morder])
+           and np.array_equal(g_ok[order], cov_ok[morder])
+           and np.array_equal(g.values[order][g_ok[order]],
+                              cov[morder][cov_ok[morder]])
+           and (ch.valid is None or ch.valid.all())
+           and set(ch.values.tolist()) == {TF_DEFAULT[2]},
+           f"table_features fresh_read: {TF_GENERATED[0]} equals numpy's, "
+           f"{TF_DEFAULT[0]} is {TF_DEFAULT[2]!r} on every row")
+    out["fresh"] = {"rows": got.num_rows, "watermark": int(wm),
+                    "commits": len(ids)}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -4932,6 +5362,11 @@ def main(argv=None) -> int:
             # step 23: VACUUM (the headline log, then step 22's tables),
             # REORG PURGE, RESTORE and CLONE; counters from 0 per step
             mt = maintenance_phase(path, truth, cm_keep, work, "cuda", card)
+            # step 24: type widening, MERGE's schema evolution, CHECK
+            # constraints, generated, identity and default columns on step
+            # 23's table (a) and step 19's first quarter
+            tf = table_features_phase(cm_keep, ww_keep["step19"], work,
+                                      "cuda", card)
         finally:
             if "work" in ww_keep:
                 shutil.rmtree(ww_keep["work"], ignore_errors=True)
@@ -4976,6 +5411,17 @@ def main(argv=None) -> int:
               f"{mt['plant_s']:.4f} s; {card}", flush=True)
         mt_launches = {k: sum(r[k] for r in mt["steps"].values())
                        for k in WIDE_WRITE_K}
+        print("table_features: " + json.dumps(tf), flush=True)
+        for name, r in tf["steps"].items():
+            print(f"table_features {name}: {r['rows']} rows, {r['s']:.4f} s, "
+                  f"{r['rows_per_s']:.1f} rows/s, launches "
+                  + json.dumps({k: r[k] for k in WIDE_WRITE_K})
+                  + f"; {card}", flush=True)
+        tf_launches = {k: sum(r[k] for r in tf["steps"].values())
+                       for k in WIDE_WRITE_K}
+        print(f"table_features steps: "
+              f"{sum(r['s'] for r in tf['steps'].values()):.4f} s, launches "
+              + json.dumps(tf_launches) + f"; {card}", flush=True)
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
@@ -5104,6 +5550,16 @@ def main(argv=None) -> int:
         kernels[name]["launches_maintenance"] = mt_launches[key]
     kernels["dv_bits"]["launches_maintenance"] = \
         mt_launches["k8_pack"] + mt_launches["k8_decode"]
+    for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                      ("hybrid_extract", "k3"), ("interleave_bits", "k4"),
+                      ("unpack_bitpacked", "k5"), ("segmented_minmax", "k6"),
+                      ("skip_mask", "k7"), ("merge_join", "k9")):
+        kernels[name]["launches_table_features"] = tf_launches[key]
+    kernels["dv_bits"]["launches_table_features"] = \
+        tf_launches["k8_pack"] + tf_launches["k8_decode"]
+    for key in ("k1", "k2", "k3", "k4", "k7", "k8_decode", "k9"):
+        _check(tf_launches[key] >= 1,
+               f"table_features: {key} launched ({tf_launches[key]})")
     for k in kernels.values():
         k["share"] = k["bound_ms"] / k["ms"]
         k["device_share"] = k["bound_ms"] / k["device_ms"]

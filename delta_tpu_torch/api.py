@@ -46,6 +46,13 @@ takes them, in one commit each:
 - `data_change=False`: every add and remove says `dataChange: false` (a
   rearrangement: streams skip it).
 
+Once the schema is settled, a table with generated, identity or default
+columns fills the ones the rows leave out and checks the generated ones
+they supply (`colgen.py::apply_column_generation`), before
+`replace_where`'s check; a moved identity watermark is committed as the
+table's metadata with the adds. The writer then holds the rows to the
+NOT NULL and CHECK constraints (`write/writer.py`).
+
 On a column-mapped table a new or replaced schema's fields get ids and
 `col-<uuid>` physical names, and `delta.columnMapping.maxColumnId` moves
 past them (`columnmapping.py::assign_column_mapping`); the reference gives
@@ -64,6 +71,10 @@ import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
 
+from delta_tpu_torch.colgen import (
+    apply_column_generation,
+    needs_column_generation,
+)
 from delta_tpu_torch.columnmapping import (
     assign_column_mapping,
     is_mapped,
@@ -151,6 +162,14 @@ def write_table(path: str, columns, mode: str = "append",
         _merge_schema(txn, schema_of(batch))
     meta = txn.metadata()
     table_schema = schema_from_json(meta.schemaString)
+    if needs_column_generation(table_schema):
+        batch, moved = apply_column_generation(batch, table_schema)
+        if moved is not None:
+            # the identity watermark moves in this commit
+            table_schema = moved
+            txn.update_metadata(dataclasses.replace(
+                meta, schemaString=schema_to_json(moved)))
+            meta = txn.metadata()
     if replace_where is not None:
         _check_replace_where(replace_where, batch, table_schema)
     now_ms = int(time.time() * 1000)

@@ -12,6 +12,8 @@ operation names and parameters:
     set_properties(table, {"delta.columnMapping.mode": "name"})
     unset_properties(table, ["delta.appendOnly"])      # SET TBLPROPERTIES
     upgrade_protocol(table, feature="deletionVectors")  # UPGRADE PROTOCOL
+    set_properties(table, {"delta.enableTypeWidening": "true"})
+    change_column_type(table, "qty", "long")           # CHANGE COLUMN TYPE
 
 RENAME and DROP COLUMN need column mapping (they change only the
 metadata); a column that a CHECK constraint or a generated column
@@ -24,10 +26,14 @@ change other than none -> name or none -> id, raises
 `ColumnMappingModeChangeError` (the reference unsets it, after which its
 reads look for the physical names' columns by their logical names).
 
-Not ported: `change_column_type` (type widening) raises
-`UnsupportedTableError`; so does a property that would turn on a feature
-the write path does not write (`features.py::refused_properties`), and
-the commit refuses a protocol upgrade to one. Unknown `delta.*` keys are
+CHANGE COLUMN TYPE widens a top-level column's type along
+`schema_evolution.py::can_widen` on a table with
+`delta.enableTypeWidening`, upgrading the protocol to `typeWidening`
+(CHECK constraints are added and dropped by `constraints.py`). A property
+that would turn on a feature the write path does not write
+(`features.py::refused_properties`: the change data feed, row tracking,
+...) raises `UnsupportedTableError`, and the commit refuses a protocol
+upgrade to one. Unknown `delta.*` keys are
 not refused, as the reference refuses them, since this package parses
 only some of the reference's properties.
 """
@@ -47,6 +53,7 @@ from delta_tpu_torch.columnmapping import (
     validate_mode_change,
 )
 from delta_tpu_torch.config import TABLE_CONFIGS, _parse_bool
+from delta_tpu_torch.constraints import CONSTRAINT_PREFIX
 from delta_tpu_torch.errors import (
     DeltaError,
     InvalidArgumentError,
@@ -64,6 +71,7 @@ from delta_tpu_torch.features import (
     refused_properties,
     upgraded_protocol,
 )
+from delta_tpu_torch.schema_evolution import can_widen
 from delta_tpu_torch.models.schema import (
     DataType,
     StructField,
@@ -73,7 +81,7 @@ from delta_tpu_torch.models.schema import (
 )
 from delta_tpu_torch.txn.transaction import Operation
 
-CONSTRAINT_PREFIX = "delta.constraints."
+TYPE_WIDENING_KEY = "delta.enableTypeWidening"
 
 
 def _check_dependent_columns(schema: StructType, configuration, column: str,
@@ -262,10 +270,34 @@ def drop_column(table, name: str) -> int:
 
 
 def change_column_type(table, name: str, new_type: DataType) -> int:
-    """CHANGE COLUMN TYPE (type widening) is not ported."""
-    raise UnsupportedTableError(
-        f"changing the type of column {name} (type widening) is not "
-        "supported yet", feature="type widening")
+    """CHANGE COLUMN TYPE of a top-level column, widening only
+    (`schema_evolution.py::can_widen`: DELTA_CANNOT_CHANGE_DATA_TYPE) on
+    a table with `delta.enableTypeWidening` (DELTA_TYPE_WIDENING_DISABLED);
+    the protocol is upgraded to `typeWidening` in the same commit. The
+    files keep their old type: the read casts them (`read/reader.py`)."""
+    txn = _metadata_txn(table, Operation.CHANGE_COLUMN)
+    meta = txn.metadata()
+    schema = schema_from_json(meta.schemaString)
+    if name not in schema:
+        raise SchemaMismatchError(
+            f"column {name} not found",
+            error_class="DELTA_COLUMN_NOT_FOUND_IN_SCHEMA")
+    old = schema[name].type_name
+    if not can_widen(schema[name].data_type, new_type):
+        raise SchemaEvolutionError(
+            f"unsupported type change {old} -> {new_type} (only widening "
+            "changes allowed)", error_class="DELTA_CANNOT_CHANGE_DATA_TYPE")
+    if not _parse_bool(meta.configuration.get(TYPE_WIDENING_KEY, "")):
+        raise SchemaEvolutionError(
+            f"set {TYPE_WIDENING_KEY} = true first",
+            error_class="DELTA_TYPE_WIDENING_DISABLED")
+    widened = StructType([
+        StructField(f.name, new_type, f.nullable, dict(f.metadata))
+        if f.name == name else f for f in schema.fields])
+    proto = upgraded_protocol(txn.protocol(), FEATURES["typeWidening"])
+    if proto != txn.protocol():
+        txn.update_protocol(proto)
+    return _commit_schema(txn, widened, {"column": name, "newType": new_type})
 
 
 def _validate_properties(properties: Dict[str, str]) -> None:

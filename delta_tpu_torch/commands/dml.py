@@ -44,7 +44,12 @@ taking the matched rows as a `Batch` and returning the new values
 (an array, a (values, valid) pair or a `Column`), cast the same way;
 `expressions/eval.py::cast_values`.
 
-Refused as in the reference: an append-only table
+Every rewritten row passes the writer's NOT NULL and CHECK constraints
+(`write/writer.py`); a copied row keeps its generated and identity
+values, and an updated row's generated columns are computed again where
+the SET changes a column they read, and checked where the SET assigns
+them (`colgen.py::regenerate_columns`; the reference leaves them stale,
+ROADMAP C24). Refused as in the reference: an append-only table
 (`AppendOnlyTableError`), an UPDATE of an identity column
 (`IdentityColumnError`), a SET of a column the table lacks
 (`InvalidArgumentError`). Refused before anything is written
@@ -63,6 +68,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from delta_tpu_torch import obs
+from delta_tpu_torch.colgen import is_identity, regenerate_columns
 from delta_tpu_torch.config import (
     APPEND_ONLY,
     CHANGE_DATA_FEED,
@@ -97,7 +103,6 @@ from delta_tpu_torch.read.reader import (
 from delta_tpu_torch.txn.transaction import Operation, check_write_supported
 from delta_tpu_torch.write.writer import write_data_files
 
-_IDENTITY_KEYS = ("delta.identity.start", "delta.identity.step")
 _DV_SINGLE = obs.counter("dml.dv_single_decodes")
 
 
@@ -272,8 +277,7 @@ def update(table, assignments: Dict[str, object],
     txn, snapshot = _open(table, Operation.UPDATE, "UPDATE")
     meta = snapshot.metadata
     schema = schema_from_json(meta.schemaString)
-    identity = {f.name for f in schema.fields
-                if any(k in f.metadata for k in _IDENTITY_KEYS)}
+    identity = {f.name for f in schema.fields if is_identity(f)}
     hit = sorted(identity & set(assignments))
     if hit:
         # values are system-allocated; an UPDATE would break uniqueness
@@ -297,8 +301,9 @@ def update(table, assignments: Dict[str, object],
         n_match = int(matches.sum())
         if n_match == 0:
             continue
-        updated = _apply_assignments(data.take(np.nonzero(matches)[0]),
-                                     assignments, schema)
+        updated = regenerate_columns(_apply_assignments(
+            data.take(np.nonzero(matches)[0]), assignments, schema),
+            schema, set(assignments))
         untouched = data.take(np.nonzero(~matches)[0])
         metrics.num_rows_updated += n_match
         metrics.num_rows_copied += untouched.num_rows

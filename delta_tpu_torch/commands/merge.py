@@ -40,23 +40,46 @@ source's `source.<name>`. A value is an expression or a constant; an
    again (copy-on-write, the partitioned writer), the inserts appended,
    in one commit (`Operation.MERGE`, the ON condition as its
    `predicate`, the reference's metrics; the scan's predicate recorded
-   for the conflict check). Nothing touched commits nothing.
+   for the conflict check). Nothing touched commits nothing (but an
+   evolved schema).
+
+Schema evolution (`with_schema_evolution()`): the table evolves by the
+source columns a clause consumes, every source-only column under an
+`*_all` clause and each new column an assignment names, added nullable in
+sorted order without widening (`schema_evolution.py::merge_schemas`, as
+the reference); a column-mapped table gives them ids and `col-` physical
+names (`columnmapping.py::assign_column_mapping`). The rows written before
+read the new columns as NULL, and the evolved metadata commits with the
+files (alone, when nothing else is touched).
+
+Generated, identity and default columns: an inserted row's unassigned
+ones are filled and its assigned generated ones checked
+(`colgen.py::apply_column_generation`; an explicit identity value needs
+`allowExplicitInsert`), and the moved identity watermark commits with the
+files; an updated row's generated columns are computed again where an
+assignment changes what they read, and checked where assigned. (The
+reference leaves them NULL, does not move the watermark and leaves a
+generated column stale: ROADMAP C24.) An UPDATE of an identity column,
+explicit or by `UPDATE SET *` from a source that holds it, raises
+DELTA_IDENTITY_COLUMNS_UPDATE_NOT_SUPPORTED. The table's CHECK
+constraints hold every written row (`write/writer.py`).
 
 A `target.<name>` that names a column the target lacks raises
 `NonExistentColumnError` before anything is read. Refused as in the
-reference: no clause, an unconditional clause before
-the last of its kind, a duplicate assignment, an assignment to or an
-`*_all` over a column the target lacks (without schema evolution).
-Refused before anything is written (`UnsupportedTableError`), as not
-ported: schema evolution, identity and generated columns, a table with
-the change data feed on (its CDC files), and what `check_write_supported`
-refuses. A column-mapped table merges as any other: its keys, conditions
-and assignments name logical columns, the read renames the files'
-physical ones, and the writer writes physical names.
+reference: no clause, an unconditional clause before the last of its
+kind, a duplicate assignment, an assignment to or an `*_all` over a
+column the target lacks (without schema evolution). Refused before
+anything is written (`UnsupportedTableError`), as not ported: a table
+with the change data feed on (its CDC files), and what
+`check_write_supported` refuses. A column-mapped table merges as any
+other: its keys, conditions and assignments name logical columns, the
+read renames the files' physical ones, and the writer writes physical
+names.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import time
 from dataclasses import dataclass, field
@@ -64,9 +87,17 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from delta_tpu_torch.colgen import (
+    apply_column_generation,
+    generation_columns,
+    is_identity,
+    regenerate_columns,
+)
+from delta_tpu_torch.columnmapping import assign_column_mapping, is_mapped
 from delta_tpu_torch.config import CHANGE_DATA_FEED, get_table_config
 from delta_tpu_torch.errors import (
     DeltaError,
+    IdentityColumnError,
     InvalidArgumentError,
     MissingTransactionLogError,
     UnsupportedTableError,
@@ -93,23 +124,25 @@ from delta_tpu_torch.models.batch import (
     decimal_value,
 )
 from delta_tpu_torch.models.schema import (
+    StructField,
     StructType,
     carried_type,
     decimal_precision_scale,
     schema_from_json,
+    schema_to_json,
+    type_name_of,
 )
 from delta_tpu_torch.obs import PhaseTimer
 from delta_tpu_torch.ops.join import equi_join_device, host_pair_join
 from delta_tpu_torch.read.reader import read_add_files_logical
 from delta_tpu_torch.scan import check_columns_exist
+from delta_tpu_torch.schema_evolution import merge_schemas
 from delta_tpu_torch.txn.transaction import Operation, check_write_supported
-from delta_tpu_torch.write.writer import write_data_files
+from delta_tpu_torch.write.writer import check_rows, write_data_files
 
 # pure equi-joins of at least this many rows (target + source, NULL keys
 # left out) take the device join; tests lower it to 0
 DEVICE_JOIN_MIN_ROWS = 65_536
-_IDENTITY_KEYS = ("delta.identity.start", "delta.identity.step")
-_GENERATED_KEY = "delta.generationExpression"
 _EPOCH_DATE = datetime.date(1970, 1, 1)
 _EPOCH_TS = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
 
@@ -152,9 +185,9 @@ class MergeBuilder:
         self._schema_evolution = False
 
     def with_schema_evolution(self) -> "MergeBuilder":
-        """Ask to evolve the target schema with source-only columns (the
-        reference's `withSchemaEvolution()`): a MERGE that would evolve it
-        is refused, as not ported."""
+        """Evolve the target schema by the source columns the clauses
+        consume (the reference's `withSchemaEvolution()`; module
+        docstring)."""
         self._schema_evolution = True
         return self
 
@@ -312,11 +345,15 @@ def _col(values: np.ndarray, valid: np.ndarray, t) -> Column:
 
 
 def _eval_values(assignments: Optional[Dict[str, object]],
-                 batch: NamespacedBatch, schema: StructType) -> Batch:
+                 batch: NamespacedBatch, schema: StructType,
+                 leave_out=frozenset()) -> Batch:
     """A clause's output rows over `batch`, every target column: an
     assigned column its value, an `*_all` clause the source column of the
     same name (case-insensitively; NULL when the source lacks it), an
-    unassigned column the target's value (NULL for an insert)."""
+    unassigned column the target's value (NULL for an insert); the
+    columns named in `leave_out` are left out (an insert's unassigned
+    generated, identity and default columns, which
+    `colgen.py::apply_column_generation` fills)."""
     n = batch.num_rows
     source, target = batch.spaces["source"], batch.spaces["target"]
     if assignments is None:
@@ -326,6 +363,8 @@ def _eval_values(assignments: Optional[Dict[str, object]],
         amap = {k.lower(): v for k, v in assignments.items()}
     out = {}
     for f in schema.fields:
+        if f.name in leave_out:
+            continue
         t = f.data_type
         if assignments is not None and f.name.lower() in amap:
             v = amap[f.name.lower()]
@@ -345,6 +384,17 @@ def _eval_values(assignments: Optional[Dict[str, object]],
     return Batch(out, n)
 
 
+def _updated(clause: MergeClause, batch: NamespacedBatch, schema: StructType,
+             source: Batch, generated: set) -> Batch:
+    """An update clause's rows, every target column: the generated
+    columns it reads through its assignments computed again, those it
+    assigns checked (`colgen.py::regenerate_columns`)."""
+    rows = _eval_values(clause.assignments, batch, schema)
+    if not generated:
+        return rows
+    return regenerate_columns(rows, schema, _assigned(clause, schema, source))
+
+
 def _null_rows(types: Dict[str, tuple], n: int) -> Batch:
     """`n` null rows of columns named to (numpy dtype, data_type)."""
     return Batch({name: Column.nulls(dtype, n, t)
@@ -357,8 +407,12 @@ def _schema_types(schema: StructType) -> Dict[str, tuple]:
 
 
 def _in_schema_order(batch: Batch, schema: StructType) -> Batch:
-    return Batch({f.name: batch.columns[f.name] for f in schema.fields},
-                 batch.num_rows)
+    """`batch`'s columns in schema order, a column it lacks (a row from
+    before the schema evolved) NULL."""
+    return Batch({f.name: batch.columns[f.name] if f.name in batch.columns
+                  else Column.nulls(f.numpy_dtype, batch.num_rows,
+                                    carried_type(f.data_type))
+                  for f in schema.fields}, batch.num_rows)
 
 
 def _pairs(target: Batch, source: Batch, tpos, spos) -> NamespacedBatch:
@@ -383,24 +437,15 @@ def _first_wins(clauses: List[MergeClause], batch) -> np.ndarray:
     return action
 
 
-def _check_mergeable(snapshot, schema: StructType) -> None:
-    """The refusals of what MERGE does not port, each by its name (ahead
-    of the protocol check, which would name only a writer version), then
+def _check_mergeable(snapshot) -> None:
+    """The refusal of what MERGE does not port, by its name (ahead of the
+    protocol check, which would name only a writer version), then
     `check_write_supported`."""
     meta = snapshot.metadata
     if get_table_config(meta.configuration, CHANGE_DATA_FEED):
         raise UnsupportedTableError(
             "MERGE into a table with the change data feed is not supported "
             "yet (its CDC files are not ported)", feature="change data feed")
-    for f in schema.fields:
-        if any(k in f.metadata for k in _IDENTITY_KEYS):
-            raise UnsupportedTableError(
-                f"MERGE into a table with an identity column ({f.name}) is "
-                "not supported yet", feature="identity columns")
-        if _GENERATED_KEY in f.metadata:
-            raise UnsupportedTableError(
-                f"MERGE into a table with a generated column ({f.name}) is "
-                "not supported yet", feature="generated columns")
     check_write_supported(snapshot.protocol, meta)
 
 
@@ -439,11 +484,18 @@ def _check_key_types(t_keys: List[str], s_keys: List[str],
                 error_class="DATATYPE_MISMATCH")
 
 
-def _check_assignments(clauses: List[MergeClause], source: Batch,
+def _check_assignments(matched: List[MergeClause],
+                       clauses: List[MergeClause], source: Batch,
                        schema: StructType, has_star: bool,
-                       schema_evolution: bool) -> None:
-    """The reference's analysis of the clauses' target columns."""
+                       schema_evolution: bool) -> List[str]:
+    """The reference's analysis of the clauses' target columns, in its
+    order: duplicate assignments, an UPDATE of an identity column (an
+    explicit assignment, or an UPDATE SET * whose source holds it), then
+    the columns the target lacks. Returns the source columns the table
+    evolves by, sorted: every source-only column under an `*` clause,
+    and each explicitly assigned new column."""
     target_lower = {f.name.lower() for f in schema.fields}
+    identity = {f.name.lower() for f in schema.fields if is_identity(f)}
     for c in clauses:
         seen: set = set()
         for k in c.assignments or ():
@@ -452,6 +504,20 @@ def _check_assignments(clauses: List[MergeClause], source: Batch,
                     f"duplicate assignment for column '{k}' in MERGE clause",
                     error_class="DELTA_DUPLICATE_COLUMNS_ON_UPDATE_TABLE")
             seen.add(k.lower())
+            if c.kind == "update" and k.lower() in identity:
+                raise IdentityColumnError(
+                    f"UPDATE on IDENTITY column {k} is not supported in "
+                    "MERGE",
+                    error_class="DELTA_IDENTITY_COLUMNS_UPDATE_NOT_SUPPORTED")
+    if identity and any(c.kind == "update" and c.assignments is None
+                        for c in matched):
+        hit = sorted(c for c in source.column_names
+                     if c.lower() in identity)
+        if hit:
+            raise IdentityColumnError(
+                f"UPDATE on IDENTITY column {hit[0]} is not supported in "
+                "MERGE (UPDATE SET * assigns it from the source)",
+                error_class="DELTA_IDENTITY_COLUMNS_UPDATE_NOT_SUPPORTED")
     unknown = sorted({k for c in clauses for k in c.assignments or ()
                       if k.lower() not in target_lower})
     extra = [c for c in source.column_names if c.lower() not in target_lower]
@@ -472,10 +538,38 @@ def _check_assignments(clauses: List[MergeClause], source: Batch,
             f"source column(s) {extra} not in the target schema; call "
             "with_schema_evolution() to evolve the table",
             error_class="DELTA_MERGE_UNRESOLVED_EXPRESSION")
-    if unknown or (extra and has_star):
-        raise UnsupportedTableError(
-            "MERGE with schema evolution is not supported yet",
-            feature="schema evolution")
+    evolve = set(extra) if has_star else set()
+    for k in unknown:
+        evolve.add(next(c for c in source.column_names
+                        if c.lower() == k.lower()))
+    return sorted(evolve)
+
+
+def _evolve(txn, meta, schema: StructType, source: Batch,
+            new_columns: List[str]) -> StructType:
+    """Stage the table's schema with the source's `new_columns` (nullable,
+    no widening; ids and `col-` physical names on a mapped table); returns
+    the evolved schema."""
+    evolved = merge_schemas(schema, StructType([
+        StructField(c, source.column(c).data_type
+                    or type_name_of(source.column(c).values))
+        for c in new_columns]))
+    conf = meta.configuration
+    if is_mapped(conf):
+        evolved, conf = assign_column_mapping(evolved, conf)
+    txn.update_metadata(dataclasses.replace(
+        meta, schemaString=schema_to_json(evolved), configuration=conf))
+    return evolved
+
+
+def _assigned(clause: MergeClause, schema: StructType,
+              source: Batch) -> set:
+    """The target columns a clause gives a value: its assignments', or
+    under `*` every column the source holds (case-insensitively)."""
+    names = ({k.lower() for k in clause.assignments}
+             if clause.assignments is not None
+             else {c.lower() for c in source.column_names})
+    return {f.name for f in schema.fields if f.name.lower() in names}
 
 
 def _join_keys(t: Column, s: Column) -> Tuple[np.ndarray, np.ndarray]:
@@ -568,13 +662,18 @@ def _execute_merge(table, source: Batch, on: Expression,
         raise MissingTransactionLogError(f"no table at {table.path}")
     meta = snapshot.metadata
     schema = schema_from_json(meta.schemaString)
-    _check_mergeable(snapshot, schema)
-    _check_target_references(on, matched + not_matched
-                             + not_matched_by_source, schema)
+    _check_mergeable(snapshot)
+    clauses = matched + not_matched + not_matched_by_source
+    _check_target_references(on, clauses, schema)
     has_star = any(c.assignments is None and c.kind != "delete"
                    for c in matched + not_matched)
-    _check_assignments(matched + not_matched + not_matched_by_source,
-                       source, schema, has_star, schema_evolution)
+    new_columns = _check_assignments(matched, clauses, source, schema,
+                                     has_star, schema_evolution)
+    if new_columns:
+        schema = _evolve(txn, meta, schema, source, new_columns)
+    conf = txn.metadata().configuration
+    generated = generation_columns(schema)
+    watermark = None  # the schema with a moved identity watermark
     part_cols = list(meta.partitionColumns)
     now_ms = int(time.time() * 1000)
     metrics = MergeMetrics(num_source_rows=source.num_rows,
@@ -645,11 +744,17 @@ def _execute_merge(table, source: Batch, on: Expression,
             action = _first_wins(not_matched, batch)
             for ci, clause in enumerate(not_matched):
                 sel = np.nonzero(action == ci)[0]
-                if len(sel):
-                    insert_parts.append(_eval_values(
-                        clause.assignments, NamespacedBatch({
-                            k: b.take(sel) for k, b in batch.spaces.items()}),
-                        schema))
+                if not len(sel):
+                    continue
+                rows = _eval_values(
+                    clause.assignments, NamespacedBatch({
+                        k: b.take(sel) for k, b in batch.spaces.items()}),
+                    schema, generated - _assigned(clause, schema, source))
+                if generated:
+                    rows, moved = apply_column_generation(
+                        rows, watermark or schema)
+                    watermark = moved or watermark
+                insert_parts.append(rows)
 
     # unmatched target rows: not matched by source
     nmbs_delete_t = np.empty(0, np.int64)
@@ -676,11 +781,9 @@ def _execute_merge(table, source: Batch, on: Expression,
                     dels.append(un_idx[sel])
                 else:
                     upd_idx.append(un_idx[sel])
-                    upd_rows.append(_eval_values(clause.assignments,
-                                                 NamespacedBatch({
-                                                     k: b.take(sel) for k, b
-                                                     in batch.spaces.items()}),
-                                                 schema))
+                    upd_rows.append(_updated(clause, NamespacedBatch({
+                        k: b.take(sel) for k, b in batch.spaces.items()}),
+                        schema, source, generated))
             if dels:
                 nmbs_delete_t = np.concatenate(dels)
             if upd_idx:
@@ -700,6 +803,7 @@ def _execute_merge(table, source: Batch, on: Expression,
     upd_file = file_of[tpos[upd_pi]]
     upd_clause = pair_action[upd_pi]
     nmbs_file = file_of[nmbs_upd_t]
+    writes = []
     for fi in touched.tolist():
         here = file_of == fi
         kept = np.nonzero(here & ~del_mask & ~upd_mask)[0]
@@ -710,9 +814,9 @@ def _execute_merge(table, source: Batch, on: Expression,
         in_file = upd_file == fi
         for ci in np.unique(upd_clause[in_file]).tolist():
             pis = upd_pi[in_file & (upd_clause == ci)]
-            rows = _eval_values(matched[ci].assignments,
-                                _pairs(target_all, source, tpos[pis],
-                                       spos[pis]), schema)
+            rows = _updated(matched[ci], _pairs(target_all, source,
+                                                tpos[pis], spos[pis]),
+                            schema, source, generated)
             out.append(rows)
             metrics.num_target_rows_updated += rows.num_rows
         sel = np.nonzero(nmbs_file == fi)[0]
@@ -723,18 +827,23 @@ def _execute_merge(table, source: Batch, on: Expression,
         txn.remove_file(candidates[fi].remove(deletion_timestamp=now_ms))
         metrics.num_target_files_rewritten += 1
         if out:
-            txn.add_files(write_data_files(
-                table.engine, table.path, Batch.concat(out), schema,
-                part_cols, meta.configuration))
+            writes.append(Batch.concat(out))
     if insert_parts:
-        ins = Batch.concat(insert_parts)
-        metrics.num_target_rows_inserted = ins.num_rows
-        txn.add_files(write_data_files(table.engine, table.path, ins, schema,
-                                       part_cols, meta.configuration))
+        writes.append(Batch.concat(insert_parts))
+        metrics.num_target_rows_inserted = writes[-1].num_rows
+    for rows in writes:  # every batch checked before the first file
+        check_rows(rows, schema, conf)
+    for rows in writes:
+        txn.add_files(write_data_files(table.engine, table.path, rows,
+                                       schema, part_cols, conf))
+    if watermark is not None:
+        # the identity watermark moves in this commit
+        txn.update_metadata(dataclasses.replace(
+            txn.metadata(), schemaString=schema_to_json(watermark)))
     mark("write")
 
-    if not txn._adds and not txn._removes:
-        return metrics  # nothing touched; no commit
+    if not txn._adds and not txn._removes and not new_columns:
+        return metrics  # nothing touched; an evolved schema still commits
     txn.set_operation_parameters({"predicate": repr(on)})
     txn.set_operation_metrics({
         "numTargetRowsUpdated": metrics.num_target_rows_updated,

@@ -203,6 +203,14 @@ class IdentityColumnError(DeltaError):
     error_class = "DELTA_IDENTITY_COLUMNS_ILLEGAL_OPERATION"
 
 
+class ConstraintAlreadyExistsError(DeltaError):
+    error_class = "DELTA_CONSTRAINT_ALREADY_EXISTS"
+
+
+class ConstraintNotFoundError(DeltaError):
+    error_class = "DELTA_CONSTRAINT_DOES_NOT_EXIST"
+
+
 class DeletionVectorError(DeltaError):
     """A deletion vector that cannot be read as its descriptor says: a bad
     magic or cookie, a checksum, size or cardinality mismatch, or a

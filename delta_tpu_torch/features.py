@@ -7,11 +7,12 @@ features with their reader and writer versions and the metadata that
 turns each on, `protocol_for_new_table` and `upgraded_protocol`.
 
 The write path takes appendOnly and invariants (legacy: protocol (1, 2)
-carries them), columnMapping (legacy at (2, 5)), deletionVectors (a
-reader-writer feature at (3, 7) with feature lists) and timestampNtz.
-checkConstraints, changeDataFeed and generatedColumns may be listed (or
-implied by a legacy writer version of 3 to 5) while nothing in the
-metadata turns them on. `unsupported_writer_features` names the rest,
+carries them), checkConstraints (1, 3), generatedColumns (1, 4),
+columnMapping (legacy at (2, 5)), identityColumns (1, 6), deletionVectors
+(a reader-writer feature at (3, 7) with feature lists), timestampNtz,
+typeWidening and allowColumnDefaults. changeDataFeed may be listed (or
+implied by a legacy writer version of 4 to 6) while nothing in the
+metadata turns it on. `unsupported_writer_features` names the rest,
 which `txn/transaction.py` refuses; `refused_properties` names the table
 properties that would turn on a feature this package does not write.
 
@@ -120,16 +121,16 @@ _feature("allowColumnDefaults", 1, 7, False,
          _schema_has_metadata_key(lambda k: k == "CURRENT_DEFAULT"))
 
 SUPPORTED_WRITER_FEATURES = frozenset({
-    "appendOnly", "invariants", "columnMapping", "deletionVectors",
-    "timestampNtz"})
+    "appendOnly", "invariants", "checkConstraints", "generatedColumns",
+    "columnMapping", "identityColumns", "deletionVectors", "timestampNtz",
+    "typeWidening", "allowColumnDefaults"})
 # supported while the metadata does not turn them on (the commands that
 # would have to honour them refuse such a table by name)
-_WHILE_INACTIVE = frozenset({"checkConstraints", "changeDataFeed",
-                             "generatedColumns"})
-_MAX_LEGACY_WRITER = 5
+_WHILE_INACTIVE = frozenset({"changeDataFeed"})
+_MAX_LEGACY_WRITER = 6
 # properties that would turn on a table feature this package does not write
 _REFUSED_FLAGS = ("delta.enableChangeDataFeed",
-                  "delta.enableRowTracking", "delta.enableTypeWidening",
+                  "delta.enableRowTracking",
                   "delta.enableIcebergCompatV1", "delta.enableIcebergCompatV2",
                   "delta.enableInCommitTimestamps",
                   "delta.enableChangeDataCapture")
@@ -148,7 +149,7 @@ def _implied(protocol: Protocol) -> set:
 def unsupported_writer_features(protocol: Protocol,
                                 metadata: Metadata) -> List[str]:
     """The features of a table this package cannot write: those listed
-    (or implied by a legacy writer version up to 5) outside the supported
+    (or implied by a legacy writer version up to 6) outside the supported
     set, and those of `_WHILE_INACTIVE` the metadata turns on; a legacy
     writer version past 5 names itself."""
     if protocol.minWriterVersion >= 7:
@@ -167,15 +168,17 @@ def refused_properties(properties: Dict[str, str]) -> List[str]:
     """The table properties that would turn on a feature this package
     does not write, or set the protocol itself."""
     needs = [k for k in _REFUSED_FLAGS if _parse_bool(properties.get(k, ""))]
-    needs += [k for k in properties
-              if k in _PROTOCOL_PROPS or k.startswith("delta.constraints.")]
+    needs += [k for k in properties if k in _PROTOCOL_PROPS]
     if properties.get("delta.checkpointPolicy", "classic") != "classic":
         needs.append("delta.checkpointPolicy")
     return sorted(needs)
 
 
-def protocol_for_new_table(properties: Dict[str, str]) -> Protocol:
-    """The least protocol that carries the features `properties` turn on: (1, 2) for legacy ones alone,
+def protocol_for_new_table(properties: Dict[str, str],
+                           schema_string: Optional[str] = None) -> Protocol:
+    """The least protocol that carries the features `properties` and the
+    schema's field metadata (generated, identity and default columns)
+    turn on: (1, 2) for legacy ones alone,
     (2, 5) with column mapping; with a non-legacy feature, (3, 7) with the
     reader-writer features listed for readers and every turned-on feature
     for writers. A property that would need a feature this package does
@@ -186,7 +189,8 @@ def protocol_for_new_table(properties: Dict[str, str]) -> Protocol:
         raise UnsupportedTableError(
             f"table properties {needs} need table features this "
             "package does not write yet", feature="table properties")
-    meta = Metadata(id="", configuration=dict(properties))
+    meta = Metadata(id="", schemaString=schema_string or "",
+                    configuration=dict(properties))
     needed = [f for f in FEATURES.values()
               if f.activated_by is not None and f.activated_by(meta)]
     min_reader, min_writer = 1, 2

@@ -24,6 +24,12 @@ a failing hook is counted and logged, and the commit stands.
 A table created with `delta.columnMapping.mode` gets its fields' ids
 and physical names (`columnmapping.py::assign_column_mapping`) in its
 first metadata, and a mapped table may name columns with ' ,;{}()\n\t='.
+Every staged metadata passes `colgen.py::validate_generated_schema`; a
+new table's protocol carries the features its properties and its
+schema's generated, identity and default columns turn on. An identity
+write's moved watermark is a metadata action, so of two concurrent
+writes to an identity column the later loses with
+`MetadataChangedError`.
 
 Refused with `UnsupportedTableError`, before anything is written: group
 commit, coordinated commits, in-commit timestamps, row tracking, domain
@@ -40,6 +46,7 @@ import uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from delta_tpu_torch.colgen import validate_generated_schema
 from delta_tpu_torch.columnmapping import assign_column_mapping, is_mapped
 from delta_tpu_torch.config import (
     APPEND_ONLY,
@@ -100,6 +107,9 @@ class Operation:
     ADD_COLUMNS = "ADD COLUMNS"
     RENAME_COLUMN = "RENAME COLUMN"
     DROP_COLUMNS = "DROP COLUMNS"
+    CHANGE_COLUMN = "CHANGE COLUMN"
+    ADD_CONSTRAINT = "ADD CONSTRAINT"
+    DROP_CONSTRAINT = "DROP CONSTRAINT"
     UPGRADE_PROTOCOL = "UPGRADE PROTOCOL"
     RESTORE = "RESTORE"
     CLONE = "CLONE"
@@ -150,6 +160,7 @@ def _check_metadata(metadata: Metadata) -> None:
             "Data used in creating the Delta table doesn't have any columns.",
             error_class="DELTA_EMPTY_DATA")
     pcols = list(metadata.partitionColumns or [])
+    validate_generated_schema(schema, pcols)
     # partition columns name schema fields, once each, and leave one out
     missing = [c for c in pcols if c not in schema]
     if missing:
@@ -246,7 +257,8 @@ class TransactionBuilder:
                 createdTime=int(time.time() * 1000),
             )
             txn.update_metadata(metadata)
-            txn.update_protocol(features.protocol_for_new_table(props))
+            txn.update_protocol(features.protocol_for_new_table(
+                props, metadata.schemaString))
         if self._txn_app_id is not None:
             txn.set_transaction_id(self._txn_app_id, self._txn_version)
         return txn
@@ -305,6 +317,11 @@ class Transaction:
         for f in files:
             self._read_files.add((f.path, f.dv_unique_id))
         return files
+
+    def mark_read_whole_table(self) -> None:
+        """Record a read of every row (ADD CONSTRAINT's check): any
+        concurrent add conflicts."""
+        self._read_whole_table = True
 
     def txn_version(self, app_id: str) -> Optional[int]:
         """An idempotent-txn watermark; the read is tracked."""

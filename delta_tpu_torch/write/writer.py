@@ -19,8 +19,13 @@ snapshot's do; the log gets the path as a URI
 percent-decodes once back to where the file lies. (The reference puts
 the file at the undecoded name, where neither package's reader looks.)
 Rows split into files of at most `target_rows_per_file` rows. The schema
-check and the NOT NULL check (nested fields too) run before any file is
-written. CHECK constraints raise `UnsupportedTableError`.
+check, the NOT NULL check (nested fields too) and the table's CHECK
+constraints (`constraints.py`, from `delta.constraints.*`) run before any
+file is written: a row whose constraint is false or NULL (the reference
+fills NULL with False) raises DELTA_VIOLATE_CONSTRAINT_WITH_VALUES, a
+column the rows leave out reading as NULL. Every write path comes
+through here: append and every write mode, DELETE's and UPDATE's
+rewrites, MERGE, OPTIMIZE and REORG.
 
 The rows come in under logical names. Under column mapping the Parquet
 fields (at every depth), the stats JSON keys and the `partitionValues`
@@ -42,17 +47,17 @@ from delta_tpu_torch.config import (
     RANDOMIZE_FILE_PREFIXES,
     get_table_config,
 )
-from delta_tpu_torch.errors import (
-    InvariantViolationError,
-    SchemaMismatchError,
-    UnsupportedTableError,
-)
+from delta_tpu_torch.constraints import table_constraints
+from delta_tpu_torch.errors import InvariantViolationError, SchemaMismatchError
+from delta_tpu_torch.expressions.eval import evaluate_predicate
+from delta_tpu_torch.expressions.parser import to_sql
 from delta_tpu_torch.models.actions import AddFile
-from delta_tpu_torch.models.batch import Batch, factorize_objects
+from delta_tpu_torch.models.batch import Batch, Column, factorize_objects
 from delta_tpu_torch.models.schema import (
     ArrayType,
     MapType,
     StructType,
+    carried_type,
     decimal_precision_scale,
 )
 from delta_tpu_torch.stats.collection import collect_stats
@@ -120,6 +125,26 @@ def _check_invariants(data: Batch, schema: StructType) -> None:
                     error_class="DELTA_NOT_NULL_CONSTRAINT_VIOLATED")
 
 
+def _check_constraints(data: Batch, schema: StructType,
+                       configuration: Dict[str, str]) -> None:
+    """Every row satisfies every CHECK constraint of the table (a NULL
+    result violates; a column the rows lack reads as NULL)."""
+    for name, expr in table_constraints(configuration).items():
+        cols = dict(data.columns)
+        for ref in sorted({r[0] for r in expr.references()}):
+            if ref not in cols and ref in schema:
+                f = schema[ref]
+                cols[ref] = Column.nulls(f.numpy_dtype, data.num_rows,
+                                         carried_type(f.data_type))
+        bad = int((~evaluate_predicate(expr, Batch(cols, data.num_rows)))
+                  .sum())
+        if bad:
+            raise InvariantViolationError(
+                f"CHECK constraint {name} ({to_sql(expr)}) violated by "
+                f"{bad} row(s)",
+                error_class="DELTA_VIOLATE_CONSTRAINT_WITH_VALUES")
+
+
 def _has_required(t) -> bool:
     if isinstance(t, StructType):
         return any(not f.nullable or _has_required(f.data_type)
@@ -166,6 +191,17 @@ def _null_required(t, values: list, what: str) -> Optional[str]:
                                   [x for _, x in pairs if x is not None],
                                   f"{what}.value"))
     return None
+
+
+def check_rows(data: Batch, schema: StructType,
+               configuration: Dict[str, str]) -> None:
+    """The checks every write makes before its first file: the schema,
+    NOT NULL and the CHECK constraints (a command that writes several
+    batches calls it on each first, so that nothing is written when one
+    fails)."""
+    _validate_schema(data, schema)
+    _check_invariants(data, schema)
+    _check_constraints(data, schema, configuration)
 
 
 def _split_rows(data: Batch, target_rows: Optional[int]) -> List[Batch]:
@@ -235,12 +271,7 @@ def write_data_files(engine, table_path: str, data: Batch,
                      target_rows_per_file: Optional[int] = None,
                      ) -> List[AddFile]:
     """Write `data` under `table_path`; returns the AddFile actions."""
-    if any(k.startswith("delta.constraints.") for k in configuration):
-        raise UnsupportedTableError(
-            "CHECK constraints are not supported yet",
-            feature="check constraints")
-    _validate_schema(data, schema)
-    _check_invariants(data, schema)
+    check_rows(data, schema, configuration)
     partition_columns = list(partition_columns)
     groups = (_partition_groups(data, partition_columns)
               if partition_columns and data.num_rows else [({}, data)])

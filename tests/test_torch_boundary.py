@@ -227,6 +227,29 @@ try:
 except RestoreTargetError as e:
     assert e.error_class == "DELTA_RESTORE_MISSING_DATA_FILE"
 assert restore(t5, version=5, force=True).version == 8
+# type widening, MERGE's schema evolution, CHECK constraints, generated,
+# identity and default columns
+from delta_tpu_torch.colgen import (default_field, generated_field,
+                                    identity_field)
+from delta_tpu_torch.commands.merge import merge
+from delta_tpu_torch.constraints import add_constraint, drop_constraint
+from delta_tpu_torch.models.schema import StructType
+d10 = d + "/features"
+write_table(d10, {"k": np.arange(5, dtype=np.int32)}, engine=cpu,
+            properties={"delta.enableTypeWidening": "true"})
+t10 = Table.for_path(d10, engine=cpu)
+alter.change_column_type(t10, "k", "long")
+add_constraint(t10, "pos", "k >= 0")
+merge(t10, {"k": np.array([4, 1 << 40]), "x": np.array([1.0, 2.0])},
+      on=col("target.k") == col("source.k")).with_schema_evolution() \
+    .when_not_matched_insert_all().execute()
+drop_constraint(t10, "pos")
+d11 = d + "/generated"
+write_table(d11, {"k": np.arange(3)}, engine=cpu, schema=StructType([
+    identity_field("id", 10, -2), StructField("k", "long"),
+    generated_field("g", "boolean", "k > 0"),
+    default_field("c", "string", "'x'")]))
+assert read_table(d11, engine=cpu).column("id").values.tolist() == [10, 8, 6]
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))
@@ -256,7 +279,8 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
             "delta_tpu_torch/commands/alter.py",
             "delta_tpu_torch/commands/vacuum.py",
             "delta_tpu_torch/commands/reorg.py",
-            "delta_tpu_torch/commands/restore.py"} <= names
+            "delta_tpu_torch/commands/restore.py",
+            "delta_tpu_torch/constraints.py"} <= names
     for src in sources:
         text = src.read_text()
         name = src.relative_to(REPO)

@@ -74,6 +74,7 @@ from delta_tpu_torch.errors import (
     ConcurrentAppendError,
     DeltaError,
     NonExistentColumnError,
+    SchemaEvolutionError,
     UnsupportedTableError,
 )
 from delta_tpu_torch.log.checkpointer import write_checkpoint
@@ -582,12 +583,26 @@ def test_zorder_by_a_renamed_column_orders_by_it(tmp_path):
 
 
 def test_merge_schema_evolution_stays_refused(tmp_path):
+    """Since MERGE's schema evolution was ported, it runs on a name-mode
+    table as the reference's: the new column gets an id and a `col-`
+    physical name in both, and each package reads both copies
+    (`tests/test_torch_type_widening.py` holds the full comparison)."""
     ref, port = _copies(tmp_path, NAME)
-    with pytest.raises(UnsupportedTableError):
-        (port_merge.merge(Table.for_path(port, engine=CPU),
-                          {"id": np.array([1]), "extra": np.array([2])},
-                          on=PE.col("target.id") == PE.col("source.id"))
+    src = pa.table({"id": pa.array([1, 500]), "extra": pa.array([2, 3])})
+    for merge, T, E, s in (
+            (ref_merge.merge, RefTable.for_path(ref, engine=HostEngine()),
+             RE, src),
+            (port_merge.merge, Table.for_path(port, engine=CPU), PE,
+             to_port(src))):
+        (merge(T, s, on=E.col("target.id") == E.col("source.id"))
          .with_schema_evolution().when_not_matched_insert_all().execute())
+    field = _schema(port)["extra"]
+    assert field.physical_name.startswith("col-")
+    assert field.physical_name in _physical_names(_schema(port))
+    rows = ref_read(ref)
+    assert [r["extra"] for r in rows if r["id"] == 500] == [3]
+    for got in (port_read(ref), port_read(port), ref_read(port)):
+        assert same_rows(got, rows)
 
 
 # ------------------------------------------ C15: the mode upgrade --
@@ -851,26 +866,33 @@ def test_dependent_columns_refused(tmp_path, what, kind):
             else:
                 A.drop_column(t, column)
         assert e.value.error_class == want
-    # nothing was committed, and a column nothing references is refused
-    # only as a write to a table whose feature the writer lacks
+    # nothing was committed; a column nothing references renames as in
+    # the reference (the constraint and generated-column features are
+    # written since they were ported, so such a table is writable)
     assert _version(port) == 1
-    with pytest.raises(UnsupportedTableError):
-        port_alter.rename_column(Table.for_path(port, engine=CPU), "id",
-                                 "key")
+    rv = ref_alter.rename_column(RefTable.for_path(ref, engine=HostEngine()),
+                                 "id", "key")
+    pv = port_alter.rename_column(Table.for_path(port, engine=CPU), "id",
+                                  "key")
+    assert rv == pv == 2
+    rows = port_read(ref)
+    assert "key" in rows[0] and same_rows(port_read(port), rows)
 
 
 def test_refused_alter_operations(tmp_path):
-    """Not ported, typed: type widening; properties that turn on a
-    feature the write path does not write; dropping the mode."""
+    """Refused, typed: a type change that does not widen (since type
+    widening was ported: `tests/test_torch_type_widening.py`); properties
+    that turn on a feature the write path does not write; dropping the
+    mode. A CHECK constraint set as a property is written since
+    constraints were ported."""
     path = str(tmp_path / "t")
     _write("port", path, [_arrow(0, 10)], NAME)
     t = Table.for_path(path, engine=CPU)
-    with pytest.raises(UnsupportedTableError) as e:
+    with pytest.raises(SchemaEvolutionError) as e:
         port_alter.change_column_type(t, "id", "double")
-    assert "type widening" in str(e.value)
+    assert e.value.error_class == "DELTA_CANNOT_CHANGE_DATA_TYPE"
     for props in ({"delta.enableChangeDataFeed": "true"},
-                  {"delta.enableRowTracking": "true"},
-                  {"delta.constraints.c": "id > 0"}):
+                  {"delta.enableRowTracking": "true"}):
         with pytest.raises(UnsupportedTableError):
             port_alter.set_properties(t, props)
     with pytest.raises(ColumnMappingModeChangeError):
@@ -879,6 +901,8 @@ def test_refused_alter_operations(tmp_path):
     with pytest.raises(UnsupportedTableError):
         port_alter.upgrade_protocol(t, feature="rowTracking")
     assert _version(path) == 0
+    assert port_alter.set_properties(t, {"delta.constraints.c": "id > 0"}) \
+        == 1
     # an upgrade to writer 5 on an unmapped table stays writable
     plain = str(tmp_path / "plain")
     _write("port", plain, [_arrow(0, 10)])

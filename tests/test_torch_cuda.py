@@ -1542,3 +1542,100 @@ def test_reorg_and_vacuum_on_the_card_equal_cpu(tmp_path):
     assert runs["cuda"] == runs["cpu"]
     assert runs["cuda"][1] == runs["cuda"][2] and runs["cuda"][3] == []
     assert len(runs["cuda"][4]) == 18000 - 5000 - 50
+
+
+@pytest.mark.cuda
+def test_table_features_on_the_card_equal_cpu(tmp_path, monkeypatch):
+    """`chip_smoke.py` step 24's operations on a small name-mode DV table,
+    on the card and on the CPU: CHANGE COLUMN TYPE integer -> long, an
+    append past 2^31 and a filtered read at the old bound (K7 once), a
+    MERGE with schema evolution (K9 once), a DELETE leaving a bitmap DV,
+    ADD CONSTRAINT over every live row (K8 decodes the DV in one launch),
+    a violating append refused; then a table with identity, generated and
+    default columns, appended to and merged into (K9). The same commits'
+    shapes, rows and identity values."""
+    import delta_tpu_torch.commands.merge as merge_mod
+    from delta_tpu_torch.api import read_table, write_table
+    from delta_tpu_torch.colgen import (default_field, generated_field,
+                                        identity_field)
+    from delta_tpu_torch.commands import alter
+    from delta_tpu_torch.commands.dml import delete
+    from delta_tpu_torch.constraints import add_constraint
+    from delta_tpu_torch.errors import InvariantViolationError
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.schema import StructField, StructType
+
+    _card()
+    monkeypatch.setattr(merge_mod, "DEVICE_JOIN_MIN_ROWS", 0)
+    on = col("target.k") == col("source.k")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        path, eng = str(tmp_path / dev), TorchEngine(dev)
+        for i in range(3):
+            k = np.arange(i * 6000, (i + 1) * 6000)
+            write_table(path, {"k": k, "q": (k % 100).astype(np.int32)},
+                        engine=eng, properties={
+                            "delta.columnMapping.mode": "name",
+                            "delta.enableDeletionVectors": "true",
+                            "delta.enableTypeWidening": "true"})
+        t = Table.for_path(path, engine=eng)
+        t.latest_snapshot().state
+        obs.reset()
+        versions = [alter.change_column_type(t, "q", "long")]
+        counts = [obs.counters()]
+        k = np.arange(20_000, 26_000)
+        versions.append(write_table(path, {"k": k, "q": (1 << 31) + k},
+                                    engine=eng))
+        obs.reset()
+        at_bound = read_table(path, filter=col("q") >= lit(99), engine=eng)
+        counts.append(obs.counters())
+        src = {"k": np.arange(17_000, 19_000),
+               "q": np.arange(2000, dtype=np.int64),
+               "tag": np.array(["new"] * 2000, object)}
+        obs.reset()
+        versions.append(merge_mod.merge(t, src, on).with_schema_evolution()
+                        .when_matched_update_all()
+                        .when_not_matched_insert_all().execute().version)
+        counts.append(obs.counters())
+        versions.append(delete(t, col("q") > lit((1 << 31) + 21_000))
+                        .version)
+        obs.reset()
+        versions.append(add_constraint(t, "pos", "q >= 0"))
+        counts.append(obs.counters())
+        with pytest.raises(InvariantViolationError):
+            write_table(path, {"k": np.array([1]), "q": np.array([-1])},
+                        engine=eng)
+        fresh = str(tmp_path / f"{dev}_ids")
+        schema = StructType([identity_field("id", 5, -2),
+                             StructField("k", "long"),
+                             generated_field("big", "boolean", "k > 100"),
+                             default_field("c", "string", "'x'")])
+        write_table(fresh, {"k": np.arange(200)}, schema=schema, engine=eng)
+        write_table(fresh, {"k": np.arange(200, 300)}, engine=eng)
+        obs.reset()
+        merge_mod.merge(Table.for_path(fresh, engine=eng),
+                        {"k": np.arange(250, 400)}, on) \
+            .when_not_matched_insert_all().execute()
+        counts.append(obs.counters())
+        got, ids = read_table(path, engine=eng), read_table(fresh,
+                                                            engine=eng)
+        order = np.argsort(got.column("k").values, kind="stable")
+        iorder = np.argsort(ids.column("k").values, kind="stable")
+        runs[dev] = (
+            [_commit_shape(path, v) for v in versions],
+            at_bound.num_rows, got.column_names,
+            got.column("k").values[order].tolist(),
+            got.column("q").values[order].tolist(),
+            ids.column("id").values[iorder].tolist(),
+            ids.column("big").values[iorder].tolist(),
+            set(ids.column("c").values.tolist()))
+        if dev == "cuda":
+            assert counts[0].get("kernel.byte_class.launches", 0) >= 1
+            assert counts[1]["kernel.skip_mask.launches"] == 1
+            assert counts[2]["kernel.merge_join.launches"] == 1
+            assert counts[3]["kernel.dv_bits.decode_launches"] == 1
+            assert counts[4]["kernel.merge_join.launches"] == 1
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"][2] == ["k", "q", "tag"]
+    assert runs["cuda"][5] == [5 - 2 * i for i in range(400)]
+    assert runs["cuda"][7] == {"x"}

@@ -20,9 +20,10 @@ insert-only MERGE), a partitioned target with pruning by partition, a
 deletion-vector target (soft-deleted rows neither match nor come back),
 multi-key and string keys on the device route. The device route is
 asserted through `join.device_joins` (a silent host route cannot pass);
-K9 itself runs only on the card (`tests/test_torch_cuda.py`). The
-refusals of what is not ported: schema evolution, identity and generated
-columns, column mapping, the change data feed.
+K9 itself runs only on the card (`tests/test_torch_cuda.py`). Schema
+evolution and identity and generated columns, refused until they were
+ported, now run (the reference's NULLs pinned as C24); the change data
+feed stays refused.
 """
 
 import json
@@ -518,21 +519,32 @@ def _upsert_all(t, on=None):
 
 
 def test_schema_evolution_is_refused(tmp_path):
-    path = str(tmp_path / "t")
-    dta.write_table(path, pa.table({"id": pa.array([1, 2], pa.int64())}),
-                    engine=HostEngine())
-    with pytest.raises(DeltaError, match="with_schema_evolution"):
-        _upsert_all(Table.for_path(path, engine=CPU)).execute()
-    _refused(path, lambda t: _upsert_all(t).with_schema_evolution(),
-             "schema evolution")
-    _refused(path, lambda t: port_merge.merge(
-        t, {"id": np.array([3]), "extra": np.array(["x"])}, on=_on(PE))
-        .with_schema_evolution().when_not_matched_insert(
-            values={"id": PE.col("source.id"),
-                    "extra": PE.col("source.extra")}), "schema evolution")
+    """A MERGE that would evolve the schema is refused without
+    `with_schema_evolution()`, by the reference's error; with it (ported
+    since: `tests/test_torch_type_widening.py` holds the full cases) it
+    runs as the reference's: an `*` clause adds every source-only column,
+    an explicit assignment the one it names."""
+    ref, port = _copies(tmp_path, [pa.table({
+        "id": pa.array([1, 2], pa.int64())})])
+    src = _source(id=(np.array([2, 9]), None),
+                  extra=(np.array(["e", "f"], object), None))
+    upsert_all = (lambda m, t, s, E: m(t, s, on=_on(E))
+                  .when_matched_update_all().when_not_matched_insert_all())
+    assert _run_both(ref, port, src, upsert_all) == (
+        "InvalidArgumentError", "DELTA_MERGE_UNRESOLVED_EXPRESSION")
+    m = _run_both(ref, port, src, lambda *a: upsert_all(
+        *a).with_schema_evolution())
+    assert (m.num_target_rows_updated, m.num_target_rows_inserted) == (1, 1)
+    src2 = _source(id=(np.array([3]), None), more=(np.array([1.5]), None))
+    _run_both(ref, port, src2, lambda m, t, s, E: m(t, s, on=_on(E))
+              .with_schema_evolution().when_not_matched_insert(
+                  values={"id": E.col("source.id"),
+                          "more": E.col("source.more")}))
+    assert Table.for_path(port, engine=CPU).latest_snapshot() \
+        .schema.field_names() == ["id", "extra", "more"]
     # asked for, but nothing to evolve: runs as without it
-    m = port_merge.merge(Table.for_path(path, engine=CPU),
-                         {"id": np.array([2, 3])}, on=_on(PE)) \
+    m = port_merge.merge(Table.for_path(port, engine=CPU),
+                         {"id": np.array([2, 4])}, on=_on(PE)) \
         .with_schema_evolution().when_not_matched_insert_all().execute()
     assert m.num_target_rows_inserted == 1
 
@@ -553,16 +565,51 @@ def _with_field_metadata(path, name, metadata):
         f.write(json.dumps({"metaData": meta}) + "\n")
 
 
+# the reference's MERGE takes an explicit identity value and leaves an
+# inserted row's generated column NULL (ROADMAP C24)
+_REFERENCE_LEAVES_GENERATED_NULL = True
+
+
 @pytest.mark.parametrize("kind", ["identity", "generated"])
 def test_identity_and_generated_columns_are_refused(tmp_path, kind):
-    path = str(tmp_path / "t")
-    dta.write_table(path, _target(3), engine=HostEngine())
-    _with_field_metadata(path, "id", {
-        "identity": {"delta.identity.start": 1, "delta.identity.step": 1},
-        "generated": {"delta.generationExpression": "value * 2"}}[kind])
-    _refused(path, lambda t: port_merge.merge(
-        t, {"id": np.array([9]), "value": np.array([1.0])}, on=_on(PE))
-        .when_not_matched_insert_all(), f"{kind} column")
+    """A target with an identity column (`id`, hand-written metadata,
+    protocol (1, 2)) or a generated one (`status` = `value > 15.0`).
+    Since they were ported, MERGE refuses only what Delta refuses: an
+    explicit identity value from `insert *` without allowExplicitInsert
+    (DELTA_IDENTITY_COLUMNS_EXPLICIT_INSERT_NOT_SUPPORTED, nothing
+    committed), and it computes an inserted row's generated value. The
+    reference inserts the identity value and a NULL status (C24)."""
+    ref, port = _copies(tmp_path, [_target(3)])
+    for path in (ref, port):
+        if kind == "identity":
+            _with_field_metadata(path, "id", {"delta.identity.start": 1,
+                                              "delta.identity.step": 1})
+        else:
+            _with_field_metadata(path, "status", {
+                "delta.generationExpression": "value > 15.0"})
+    tbl = pa.table({"id": pa.array([9], pa.int64()),
+                    "value": pa.array([21.0])})
+    ref_merge.merge(RefTable.for_path(ref, engine=HostEngine()), tbl,
+                    on=_on(RE)).when_not_matched_insert_all().execute()
+    before = sorted(os.listdir(os.path.join(port, "_delta_log")))
+    run = (lambda: port_merge.merge(
+        Table.for_path(port, engine=CPU),
+        {"id": np.array([9]), "value": np.array([21.0])}, on=_on(PE))
+        .when_not_matched_insert_all().execute())
+    new = [r for r in _rows(ref, "port") if r[0] == 9]
+    if kind == "identity":
+        with pytest.raises(DeltaError) as e:
+            run()
+        assert e.value.error_class == \
+            "DELTA_IDENTITY_COLUMNS_EXPLICIT_INSERT_NOT_SUPPORTED"
+        assert sorted(os.listdir(os.path.join(port, "_delta_log"))) == \
+            before
+        assert _REFERENCE_LEAVES_GENERATED_NULL and new == [(9, None, 21.0)]
+        return
+    assert run().num_target_rows_inserted == 1
+    assert [r for r in _rows(port, "port") if r[0] == 9] == \
+        [(9, "true", 21.0)] == [r for r in _rows(port, "ref") if r[0] == 9]
+    assert _REFERENCE_LEAVES_GENERATED_NULL and new == [(9, None, 21.0)]
 
 
 @pytest.mark.parametrize("props,feature", [
