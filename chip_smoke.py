@@ -304,9 +304,9 @@
 
 23. Maintenance (`maintenance_phase`), each step's counters from 0: VACUUM
     on a hard-link copy of the headline log (its files and a zero-byte
-    file planted for one live file and one tombstone in ten, 100
+    file planted for one live file and one tombstone in twenty, 100
     untracked files, a `_change_data/` file and two hidden ones, all
-    aged two hours; the cut of one in ten is for the run's time), with
+    aged two hours; the cut of one in twenty is for the run's time), with
     retention 1 hour: a FULL dry run naming the generator's planted
     tombstones, untracked and `_change_data` files (the load: K3 once
     per part, K1, K2), a LITE dry run naming every tombstone of commits
@@ -351,16 +351,36 @@
     launch each of K1, K2, K3, K4, K7, K8 and K9. Prints each step's
     seconds, rows/s and launches.
 
+25. The change data feed (`change_data_feed_phase`), each step's counters
+    from 0, its rows against the numpy models carried from step 24: on
+    step 24's DV table (a), `delta.enableChangeDataFeed` on (K1 on the
+    handoff), DF_SS's DELETE of 80% of quarter 0's sold dates (K7, K8
+    packs; its change data file in Delta's form), an UPDATE of a few
+    hundred rows, LF_SS's 1% MERGE (K9), then `read/cdc.py::
+    table_changes` over those versions (K1 on the range): per version and
+    change type (ss_item_sk, ss_ticket_number, ss_profit) equal to the
+    model's, each `_commit_timestamp` its commit's, the same rows by
+    timestamp bounds, DELTA_MISSING_CHANGE_DATA from before the flag;
+    RESTORE to the flag's version and its feed (made from DV'd removes
+    and adds: counts from numRecords and DV cardinalities, inserts minus
+    deletes equal to the model's difference, every DV in one K8 decode).
+    On step 23's partitioned table (b): the flag, an append of a new
+    date, a DELETE of one date's partition and a 1% MERGE (K9) whose
+    change data lies under `_change_data/<physical key>=<date>/`, and
+    their feed with the partition column restored. At least one launch
+    each of K1, K2, K3, K7, K8 pack, K8 decode and K9.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
 `launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
-`launches_write_modes`; every kernel `launches_maintenance` and
-`launches_table_features`), its time per call (`ms`, CUDA events around back-to-back
-calls of the wrapper) and on the card alone (`device_ms`, torch.profiler),
-its bound and both shares of the bound), the card's
-`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, and
-as the last line `{"ok": true, "device": {...}}`. Any failed phase exits
+`launches_write_modes`; every kernel `launches_maintenance`,
+`launches_table_features` and `launches_change_data_feed`), its time per
+call (`ms`, CUDA events around back-to-back calls of the wrapper) and on
+the card alone (`device_ms`, torch.profiler), its bound and both shares
+of the bound), a `phase_wall` line (each phase's wall seconds), the
+card's `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+line, and as the last line `{"ok": true, "device": {...}}`. Any failed phase exits
 non-zero and prints no result; so does a run without a CUDA device.
 """
 
@@ -4401,8 +4421,8 @@ def write_modes_phase(kept: dict, device: str, card: str) -> dict:
 
 
 # step 23: VACUUM, REORG PURGE, RESTORE and CLONE
-MAINT_PLANT_EVERY = 10      # (i): a zero-byte file for one live file and
-                            # one tombstone in ten (a cut, for the time)
+MAINT_PLANT_EVERY = 20      # (i): a zero-byte file for one live file and
+                            # one tombstone in twenty (a cut, for the time)
 MAINT_UNTRACKED = 100       # (i): files no log names
 MAINT_AGE_S = 2 * 3600      # (i), (iii): the planted files' and the log's age
 MAINT_RETENTION_H = 1       # (i)'s retention: the planted files are past it
@@ -5109,6 +5129,449 @@ def table_features_phase(kept: dict, step19, work: str, device: str,
     return out
 
 
+# step 25: the change data feed
+CDF_ON = {"delta.enableChangeDataFeed": "true"}
+# (a) 2.: DF_SS over the first 80% of quarter 0's sold dates, > 4,096 of
+# each of its files' 6,000 rows: bitmap DVs (K8 packs)
+CDF_DELETE_RANGE = (2450816, 2451182)
+CDF_UPDATE_QUARTER = 2          # (a) 3.: the middle copy of its tickets,
+                                # DF_SS's survivors in one file
+CDF_UPDATE_QUANTITY = 77
+CDF_UPDATE_PROFIT = "12.34"
+CDF_MERGE_TICKET = 8_500_000     # (a) 4.: LF_SS's new tickets
+CDF_B_DATE_FROM = 60             # (b): the appended date copies its 61st
+CDF_B_DELETE_DATE = 90           # (b): the deleted partition, its 91st
+CDF_B_NEW_DATE = CM_FIRST_QUARTER[1] + 1
+CDF_B_TICKET = 9_800_000         # (b): the appended rows' tickets
+CDF_B_MERGE_KEYS = 60            # (b): live keys the MERGE updates (each
+                                 # in every linked copy)
+CDF_B_MERGE_TICKET = 9_900_000   # (b): the MERGE's new tickets
+_NULL = np.iinfo(np.int64).min   # a null in a compared tuple
+
+
+def _tuples(cols: list) -> np.ndarray:
+    """Rows of (values, valid) int64 columns as an [n, k] array, nulls as
+    _NULL, sorted lexicographically."""
+    if not cols or not len(cols[0][0]):
+        return np.zeros((0, len(cols)), np.int64)
+    out = np.stack([np.where(ok, np.asarray(v, np.int64), _NULL)
+                    for v, ok in cols], 1)
+    return out[np.lexsort(out.T[::-1])]
+
+
+def _feed_groups(feed, names) -> dict:
+    """{(version, change type): `_tuples` of the feed's rows over
+    `names`}."""
+    ver = feed.column("_commit_version").values
+    kind = feed.column("_change_type").values
+    out = {}
+    for v in np.unique(ver).tolist():
+        at = ver == v
+        for t in sorted(set(kind[at].tolist())):
+            sel = np.flatnonzero(at & (kind == t))
+            cols = []
+            for c in names:
+                col = feed.column(c)
+                ok = (np.ones(len(sel), bool) if col.valid is None
+                      else col.valid[sel])
+                cols.append((col.values[sel], ok))
+            out[(v, t)] = _tuples(cols)
+    return out
+
+
+def _model_tuples(model, idx, names) -> np.ndarray:
+    return _tuples([(model.v[c][idx], model.ok[c][idx]) for c in names])
+
+
+def _signed(pos: np.ndarray, neg: np.ndarray) -> tuple:
+    """pos minus neg as a signed multiset: (distinct rows, their
+    counts), the rows of count 0 left out."""
+    rows = np.concatenate([pos, neg])
+    if not len(rows):
+        return rows, np.zeros(0)
+    u, inv = np.unique(rows, axis=0, return_inverse=True)
+    c = np.bincount(inv.reshape(-1), weights=np.r_[np.ones(len(pos)),
+                                                   -np.ones(len(neg))],
+                    minlength=len(u))
+    return u[c != 0], c[c != 0]
+
+
+def _feed_held(feed, want: dict, names, what: str) -> None:
+    """The feed's groups equal `want` ({(version, change type): tuples}),
+    none more."""
+    got = _feed_groups(feed, names)
+    _check(sorted(got) == sorted(want),
+           f"{what}: the feed's groups {sorted(got)}, expected "
+           f"{sorted(want)}")
+    for k, rows in want.items():
+        _check(np.array_equal(got[k], rows),
+               f"{what}: {k}: {len(got[k])} rows, the model's {len(rows)}")
+
+
+def _commit_stamps_held(feed, path: str, what: str) -> None:
+    """Each row's _commit_timestamp is its commit's commitInfo
+    timestamp."""
+    ver = feed.column("_commit_version").values
+    ts = feed.column("_commit_timestamp").values
+    for v in np.unique(ver).tolist():
+        want = _commit_actions(path, v)["commitInfo"][0]["timestamp"]
+        _check(bool((ts[ver == v] == want).all()),
+               f"{what}: version {v}'s _commit_timestamp {want}")
+
+
+def _cdc_paths_held(path: str, version: int, schema, key, what: str
+                    ) -> list:
+    """The commit's change data files in Delta's form: under
+    `_change_data/` (and `<key>=<value>/` on a partitioned table), the
+    physical names and `_change_type` in the footer, no partition column,
+    dataChange false. Returns the `cdc` actions."""
+    cdcs = _commit_actions(path, version).get("cdc", [])
+    _check(len(cdcs) > 0, f"{what}: change data files in commit {version}")
+    names = {f.physical_name for f in schema.fields} | {"_change_type"}
+    for c in cdcs:
+        rel = c["path"]
+        top = _footer_names(os.path.join(path, rel))
+        if key is None:
+            ok = rel.startswith("_change_data/cdc-")
+        else:
+            ok = (rel.startswith(f"_change_data/{key}=")
+                  and list(c["partitionValues"]) == [key] and key not in top)
+        _check(ok and not c["dataChange"] and "_change_type" in top
+               and top <= names,
+               f"{what}: {rel} in Delta's form ({sorted(top)[:4]}...)")
+    return cdcs
+
+
+def _data_changing_before(path: str, version: int) -> int:
+    """The newest commit before `version` with a data-changing action."""
+    for v in range(version - 1, -1, -1):
+        acts = _commit_actions(path, v)
+        if any(a.get("dataChange") for k in ("add", "remove")
+               for a in acts.get(k, [])):
+            return v
+    raise AssertionError(f"no data-changing commit before {version}")
+
+
+def _live_records(actions: list) -> int:
+    """Σ numRecords − DV cardinality over add or remove actions."""
+    n = 0
+    for a in actions:
+        n += json.loads(a["stats"])["numRecords"]
+        dv = a.get("deletionVector")
+        n -= dv["cardinality"] if dv else 0
+    return n
+
+
+def change_data_feed_phase(kept: dict, device: str, card: str) -> dict:
+    """Step 25: the change data feed on the card, each step's counters
+    from 0 and its rows against the numpy models carried from step 24
+    (`kept`: `column_mapping_phase`'s `keep`, after steps 22-24):
+    (a) the name-mode DV table: 1. `delta.enableChangeDataFeed` on (the
+       protocol lists changeDataFeed; K1 on the handoff); 2. DF_SS's
+       DELETE of CDF_DELETE_RANGE's sold dates (K7 plans, K8 packs the
+       bitmap DVs), its change data file in Delta's form; 3. an UPDATE of
+       the few hundred rows of the middle copy of CDF_UPDATE_QUARTER's
+       tickets (K7); 4. LF_SS's 1% MERGE
+       (K9), half updates, half inserts; 5. `table_changes` over [1.'s
+       version + 1, the head] (K1 on the range): per version and change
+       type the multiset of (ss_item_sk, ss_ticket_number, ss_profit)
+       equals the model's, each `_commit_timestamp` its commit's; the
+       same read by timestamp bounds gives the same rows; a range from
+       the last data-changing commit before 1. raises
+       DELTA_MISSING_CHANGE_DATA; 6. RESTORE to 1.'s version (removes
+       and adds of DV'd files, no change data): its feed's deletes are
+       Σ numRecords − DV cardinality of the removed files, its inserts
+       the same of the added ones, inserts minus deletes as multisets the
+       model's rows at 1. minus its rows at the head, every DV of the read
+       decoded in one K8 launch;
+    (b) the partitioned name-mode table: 7. the feed on, an append of a
+       new date (no change data: its feed made from the adds), a DELETE
+       of one date's partition (removed whole), a 1% MERGE (K9) whose
+       change data files lie under `_change_data/<physical key>=<date>/`
+       with physical names; `table_changes` over these versions: the
+       partition column restored, (ss_item_sk, ss_ticket_number,
+       ss_sold_date) equal to the model's per version and change type.
+    Returns each step's seconds, rows/s and launches."""
+    import decimal
+
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.commands import alter
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.commands.merge import merge
+    from delta_tpu_torch.commands.restore import restore
+    from delta_tpu_torch.errors import InvalidArgumentError
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.models.batch import Batch, Column
+    from delta_tpu_torch.read.cdc import table_changes
+
+    eng = TorchEngine(device)
+    out = {"card": card, "steps": {}}
+    step = _stepper(out, eng, "change_data_feed")
+    key = (col("target.ss_item_sk") == col("source.ss_item_sk")) \
+        & (col("target.ss_ticket_number") == col("source.ss_ticket_number"))
+
+    def loaded_table(p):
+        t = Table.for_path(p, engine=eng)
+        t.latest_snapshot().state
+        return t
+
+    def flag(p, what):
+        t = loaded_table(p)
+        v = step(what, 0, lambda: alter.set_properties(t, CDF_ON),
+                 k1=(1, None))
+        proto = Table.for_path(p, engine=eng).latest_snapshot().protocol
+        _check("changeDataFeed" in (proto.writerFeatures or [])
+               or (proto.writerFeatures is None
+                   and proto.minWriterVersion >= 4),
+               f"change_data_feed {what}: the protocol {proto}")
+        return v
+
+    # (a) 1. the flag
+    path, model = kept["a"]["path"], kept["a"]["model"]
+    profit = CM_RENAME[1]
+    names = ["ss_item_sk", "ss_ticket_number", profit]
+    out["a_rows"] = int(model.alive.sum())
+    v_on = flag(path, "a_set_cdf")
+    alive_on = model.alive.copy()
+    want = {}
+
+    # 2. DF_SS: the sold-date range, DVs of bitmap containers
+    date, date_ok = model.v["ss_sold_date_sk"], model.ok["ss_sold_date_sk"]
+    lo, hi = CDF_DELETE_RANGE
+    gone = model.alive & date_ok & (date >= lo) & (date < hi)
+    m = step("a_delete", int(gone.sum()), lambda: delete(
+        Table.for_path(path, engine=eng),
+        (col("ss_sold_date_sk") >= lit(lo))
+        & (col("ss_sold_date_sk") < lit(hi))), k7=(1, 1), k8_pack=(1, 1))
+    _check(m.num_rows_deleted == int(gone.sum()) and m.num_dvs_written > 0,
+           f"change_data_feed a_delete: {m.num_rows_deleted} rows, "
+           f"{m.num_dvs_written} DVs")
+    schema = Table.for_path(path, engine=eng).latest_snapshot().schema
+    _cdc_paths_held(path, m.version, schema, None,
+                    "change_data_feed a_delete")
+    want[(m.version, "delete")] = _model_tuples(model, gone, names)
+    model.alive &= ~gone
+
+    # 3. UPDATE of a few hundred rows: a quantity and a profit
+    ticket = model.v["ss_ticket_number"]
+    quarter = model.alive & (ticket // WIDE_TICKETS[0] == CDF_UPDATE_QUARTER)
+    copies = np.unique(ticket[quarter] % WIDE_TICKETS[0] // WIDE_TICKETS[1])
+    t0 = (CDF_UPDATE_QUARTER * WIDE_TICKETS[0]
+          + int(copies[len(copies) // 2]) * WIDE_TICKETS[1])
+    t1 = t0 + WIDE_TICKETS[1]
+    hit = model.alive & (ticket >= t0) & (ticket < t1)
+    idx = np.flatnonzero(hit)
+    new = model.batch(idx)
+    cols = dict(new.columns)
+    cols["ss_quantity"] = Column(np.full(len(idx), CDF_UPDATE_QUANTITY,
+                                         model.dtypes["ss_quantity"]),
+                                 None, model.types["ss_quantity"])
+    cols[profit] = Column(np.full(len(idx), int(decimal.Decimal(
+        CDF_UPDATE_PROFIT).scaleb(2)), model.dtypes[profit]), None,
+        model.types[profit])
+    new = Batch(cols, len(idx))
+    m = step("a_update", len(idx), lambda: update(
+        Table.for_path(path, engine=eng),
+        {"ss_quantity": CDF_UPDATE_QUANTITY,
+         profit: lit(decimal.Decimal(CDF_UPDATE_PROFIT))},
+        (col("ss_ticket_number") >= lit(t0))
+        & (col("ss_ticket_number") < lit(t1))), k7=(1, 1))
+    _check(m.num_rows_updated == len(idx) and 100 <= len(idx) <= 2_000,
+           f"change_data_feed a_update: {m.num_rows_updated} rows of "
+           f"{len(idx)}")
+    want[(m.version, "update_preimage")] = _model_tuples(model, idx, names)
+    model.alive[idx] = False
+    n0 = len(model.alive)
+    model.append(new)
+    want[(m.version, "update_postimage")] = _model_tuples(
+        model, np.arange(n0, len(model.alive)), names)
+
+    # 4. LF_SS's 1% MERGE: half updates, half inserts
+    source, matched = _wide_merge_source(model, np.random.default_rng(26),
+                                         profit, CDF_MERGE_TICKET)
+    half = len(matched)
+    m = step("a_merge", source.num_rows, lambda: merge(
+        Table.for_path(path, engine=eng), source, on=key)
+        .when_matched_update_all().when_not_matched_insert_all().execute(),
+        k9=(1, 1))
+    _check((m.num_target_rows_updated, m.num_target_rows_inserted)
+           == (half, half),
+           f"change_data_feed a_merge: {m.num_target_rows_updated} "
+           f"updated, {m.num_target_rows_inserted} inserted of {half} each")
+    want[(m.version, "update_preimage")] = _model_tuples(model, matched,
+                                                         names)
+    model.alive[matched] = False
+    n0 = len(model.alive)
+    model.append(source)
+    want[(m.version, "update_postimage")] = _model_tuples(
+        model, np.arange(n0, n0 + half), names)
+    want[(m.version, "insert")] = _model_tuples(
+        model, np.arange(n0 + half, len(model.alive)), names)
+    head = m.version
+
+    # 5. the feed over the range, by versions and by timestamps
+    feed = step("a_feed", sum(len(r) for r in want.values()),
+                lambda: table_changes(Table.for_path(path, engine=eng),
+                                      v_on + 1, head), k1=(1, None))
+    _feed_held(feed, want, names, "change_data_feed a_feed")
+    _commit_stamps_held(feed, path, "change_data_feed a_feed")
+    stamps = {r.version: r.timestamp_ms
+              for r in Table.for_path(path, engine=eng).history(
+                  limit=head - v_on + 1)}
+    by_time = step("a_feed_by_time", feed.num_rows, lambda: table_changes(
+        Table.for_path(path, engine=eng), starting_timestamp=stamps[v_on + 1],
+        ending_timestamp=stamps[head]), k1=(1, None))
+    _feed_held(by_time, want, names, "change_data_feed a_feed_by_time")
+    out["a_feed"] = {"rows": feed.num_rows, "versions": [v_on + 1, head],
+                     "groups": {f"{v} {t}": len(r)
+                                for (v, t), r in want.items()}}
+    del feed, by_time
+    early = _data_changing_before(path, v_on)
+
+    def missing():
+        try:
+            table_changes(Table.for_path(path, engine=eng), early, head)
+        except InvalidArgumentError as e:
+            return e.error_class
+        return None
+
+    _check(step("a_feed_missing", 0, missing) == "DELTA_MISSING_CHANGE_DATA",
+           f"change_data_feed a_feed_missing: [{early}, {head}] refused")
+
+    # 6. RESTORE to 1.'s version: a feed made from DV'd removes and adds
+    rm = step("a_restore", 0, lambda: restore(
+        Table.for_path(path, engine=eng), version=v_on), k1=(1, None))
+    acts = _commit_actions(path, rm.version)
+    removed = [a for a in acts.get("remove", []) if a["dataChange"]]
+    added = [a for a in acts.get("add", []) if a["dataChange"]]
+    _check("cdc" not in acts and any(a.get("deletionVector")
+                                     for a in removed),
+           "change_data_feed a_restore: removes of DV'd files, no change "
+           "data")
+    n_del, n_ins = _live_records(removed), _live_records(added)
+    feed = step("a_restore_feed", n_del + n_ins, lambda: table_changes(
+        Table.for_path(path, engine=eng), rm.version, rm.version),
+        k1=(1, None), k8_decode=(1, 1))
+    dvs = step.counts.get("kernel.dv_bits.decode_dvs", 0)
+    _check(eng.device.type == "cpu"
+           or dvs == sum(bool(a.get("deletionVector"))
+                         for a in removed + added),
+           f"change_data_feed a_restore_feed: {dvs} DVs in one decode")
+    groups = _feed_groups(feed, names)
+    ins = groups.get((rm.version, "insert"), np.zeros((0, 3), np.int64))
+    dels = groups.get((rm.version, "delete"), np.zeros((0, 3), np.int64))
+    _check((len(dels), len(ins)) == (n_del, n_ins),
+           f"change_data_feed a_restore_feed: {len(dels)} deletes, "
+           f"{len(ins)} inserts; the actions' {n_del}, {n_ins}")
+    on = np.r_[alive_on, np.zeros(len(model.alive) - len(alive_on), bool)]
+    got_u, got_c = _signed(ins, dels)
+    want_u, want_c = _signed(_model_tuples(model, on & ~model.alive, names),
+                             _model_tuples(model, model.alive & ~on, names))
+    _check(np.array_equal(got_u, want_u) and np.array_equal(got_c, want_c),
+           f"change_data_feed a_restore_feed: inserts minus deletes "
+           f"({len(got_u)} rows) equal the model's rows at {v_on} minus "
+           f"its rows at the head ({len(want_u)})")
+    out["a_restore"] = {"removed": len(removed), "added": len(added),
+                        "deletes": n_del, "inserts": n_ins, "dvs": dvs}
+    model.alive = on
+    del feed
+
+    # (b) 7. the partitioned name-mode table
+    fpath, fm = kept["b"]["path"], kept["b"]["model"]
+    part = CM_PARTITION_RENAMED
+    bnames = ["ss_item_sk", "ss_ticket_number", part]
+    out["b_rows"] = int(fm.alive.sum())
+    v_b = flag(fpath, "b_set_cdf")
+    pkey = _loaded(fpath, eng).schema[part].physical_name
+    bwant = {}
+    fdate, fdate_ok = fm.v[part], fm.ok[part]
+    dates = np.unique(fdate[fm.alive & fdate_ok])
+    like = np.flatnonzero(fm.alive & fdate_ok
+                          & (fdate == dates[CDF_B_DATE_FROM]))
+    rows = fm.batch(like)
+    cols = dict(rows.columns)
+    cols[part] = Column(np.full(len(like), CDF_B_NEW_DATE,
+                                fm.dtypes[part]), None, fm.types[part])
+    cols["ss_ticket_number"] = Column((CDF_B_TICKET + np.arange(
+        len(like))).astype(fm.dtypes["ss_ticket_number"]))
+    rows = Batch(cols, len(like))
+    v = step("b_append", len(like), lambda: write_table(fpath, rows,
+                                                        engine=eng))
+    _check("cdc" not in _commit_actions(fpath, v),
+           "change_data_feed b_append: no change data")
+    n0 = len(fm.alive)
+    fm.append(rows)
+    bwant[(v, "insert")] = _model_tuples(fm, np.arange(n0, len(fm.alive)),
+                                         bnames)
+    d = int(dates[CDF_B_DELETE_DATE])
+    gone = fm.alive & fm.ok[part] & (fm.v[part] == d)
+    m = step("b_delete_partition", int(gone.sum()), lambda: delete(
+        Table.for_path(fpath, engine=eng), col(part) == lit(d)))
+    _check(m.num_files_removed_fully > 0 and m.num_dvs_written == 0
+           and m.num_files_rewritten == 0,
+           f"change_data_feed b_delete_partition: {d}'s files removed whole")
+    schema = Table.for_path(fpath, engine=eng).latest_snapshot().schema
+    _cdc_paths_held(fpath, m.version, schema, pkey,
+                    "change_data_feed b_delete_partition")
+    bwant[(m.version, "delete")] = _model_tuples(fm, gone, bnames)
+    fm.alive &= ~gone
+    # a 1% MERGE: CDF_B_MERGE_KEYS live keys updated in every copy, as
+    # many new rows inserted
+    rng = np.random.default_rng(27)
+    keys = fm.keys()
+    live = np.flatnonzero(fm.alive)
+    pick = rng.choice(np.unique(keys[live]), CDF_B_MERGE_KEYS, replace=False)
+    first = live[np.unique(keys[live], return_index=True)[1]]
+    first = first[np.isin(keys[first], pick)]
+    n_new = int(round(fm.alive.sum() * WIDE_MERGE_SHARE)) - len(first)
+    like = rng.choice(live, n_new)
+    src = fm.batch(np.r_[first, like])
+    cols = dict(src.columns)
+    qty = rng.integers(1, 101, len(first) + n_new)
+    cols["ss_quantity"] = Column(qty.astype(fm.dtypes["ss_quantity"]), None,
+                                 fm.types["ss_quantity"])
+    tk = cols["ss_ticket_number"].values.copy()
+    tk[len(first):] = CDF_B_MERGE_TICKET + np.arange(n_new)
+    cols["ss_ticket_number"] = Column(tk)
+    src = Batch(cols, len(first) + n_new)
+    matched = fm.alive & np.isin(keys, pick)
+    m = step("b_merge", src.num_rows, lambda: merge(
+        Table.for_path(fpath, engine=eng), src, on=key)
+        .when_matched_update(set={"ss_quantity": col("source.ss_quantity")})
+        .when_not_matched_insert_all().execute(), k9=(1, 1))
+    _check((m.num_target_rows_updated, m.num_target_rows_inserted)
+           == (int(matched.sum()), n_new),
+           f"change_data_feed b_merge: {m.num_target_rows_updated} updated "
+           f"({int(matched.sum())}), {m.num_target_rows_inserted} inserted "
+           f"({n_new})")
+    cdcs = _cdc_paths_held(fpath, m.version, schema, pkey,
+                           "change_data_feed b_merge")
+    idx = np.flatnonzero(matched)
+    bwant[(m.version, "update_preimage")] = _model_tuples(fm, idx, bnames)
+    bwant[(m.version, "update_postimage")] = bwant[(m.version,
+                                                    "update_preimage")]
+    # each copy of a picked key takes its source row's quantity
+    by_key = dict(zip(keys[first].tolist(), qty[:len(first)].tolist()))
+    fm.v["ss_quantity"][idx] = [by_key[k] for k in keys[idx].tolist()]
+    fm.ok["ss_quantity"][idx] = True
+    n0 = len(fm.alive)
+    fm.append(src.take(np.arange(len(first), src.num_rows)))
+    bwant[(m.version, "insert")] = _model_tuples(
+        fm, np.arange(n0, len(fm.alive)), bnames)
+    feed = step("b_feed", sum(len(r) for r in bwant.values()),
+                lambda: table_changes(Table.for_path(fpath, engine=eng),
+                                      v_b + 1, m.version), k1=(1, None))
+    _check(feed.column_names[:-3][-1] == part,
+           f"change_data_feed b_feed: the columns {feed.column_names}")
+    _feed_held(feed, bwant, bnames, "change_data_feed b_feed")
+    _commit_stamps_held(feed, fpath, "change_data_feed b_feed")
+    out["b_feed"] = {"rows": feed.num_rows, "cdc_files": len(cdcs),
+                     "groups": {f"{v} {t}": len(r)
+                                for (v, t), r in bwant.items()}}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -5130,6 +5593,15 @@ def main(argv=None) -> int:
     from delta_tpu_torch.utils import filenames
     from delta_tpu_torch.utils.synth import synth_delta_log
 
+    t_start = time.perf_counter()
+    phase_wall = {}  # each phase's wall seconds, the printing after it
+    last = [t_start]  # included
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_wall[name] = round(now - last[0], 3)
+        last[0] = now
+
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5143,6 +5615,7 @@ def main(argv=None) -> int:
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.2f}s\n{info['log'].strip()}")
     print(f"build wall: {build_s:.2f}s", flush=True)
+    lap("build")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -5159,6 +5632,7 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         side = os.path.join(work, "checkpoint_aside")
         aside = _set_aside(log, side)
+        lap("generate")
 
         # one real parse window of the log: its first <= 64 MiB of commits
         eng = TorchEngine()
@@ -5174,6 +5648,7 @@ def main(argv=None) -> int:
             {k: {"ms": v["ms"], "plain_ms": v["plain_ms"]}
              for k, v in kernels.items()}) + "; winner_pack equal on "
             "long runs", flush=True)
+        lap("kernel_phase")
 
         # commit-only path, counters from 0
         state, counts, list_s, load_s, peak = _timed_load(
@@ -5206,6 +5681,7 @@ def main(argv=None) -> int:
             "peak_device_bytes": peak, "card": card}), flush=True)
         del state
         _put_back(log, side, aside)
+        lap("commit_only_load")
 
         # K3 on every part of the headline checkpoint, then edge plans
         parts = sorted(os.path.join(log, n) for n in aside
@@ -5213,6 +5689,7 @@ def main(argv=None) -> int:
         kernels["hybrid_extract"] = hybrid_extract_phase(parts, dev)
         print("hybrid_extract phase: " + json.dumps(
             kernels["hybrid_extract"]), flush=True)
+        lap("hybrid_extract")
 
         # checkpoint path (the slice's main path), counters from 0
         state, counts, list_s, load_s, peak = _timed_load(
@@ -5252,6 +5729,7 @@ def main(argv=None) -> int:
         print("scan: " + json.dumps(scan), flush=True)
         print("skip_mask phase: " + json.dumps(kernels["skip_mask"]),
               flush=True)
+        lap("checkpoint_load_and_scan")
 
         # the snapshot's life after the load: update(), a poll, P&M, an
         # append whose hooks take the advanced state, a scan of the
@@ -5267,16 +5745,19 @@ def main(argv=None) -> int:
         kernels["hybrid_extract"]["launches_update"] = \
             upd["update_counters"].get("kernel.hybrid_extract.launches", 0)
         print("update: " + json.dumps(upd), flush=True)
+        lap("update")
 
         # the load's degradation ladder and .crc quarantine on the card
         print("ladder: " + json.dumps(ladder_phase(
             path, truth, parts, Table, TorchEngine, obs, card)), flush=True)
+        lap("ladder")
 
         # the checkpoint write (the slice's main path), counters from 0
         cw = checkpoint_write_phase(path, truth, card)
         kernels["hybrid_extract"]["launches_checkpoint_write_reload"] = \
             cw["reload_counters"].get("kernel.hybrid_extract.launches", 0)
         print("checkpoint write: " + json.dumps(cw), flush=True)
+        lap("checkpoint_write")
 
         # the log forms: compacted deltas, V2 with sidecars and reuse,
         # stats_parsed, cleanup, C6; each load's counters from 0
@@ -5297,6 +5778,7 @@ def main(argv=None) -> int:
                     "struct_stats", "struct_index_build", "cleanup"):
             print(f"log forms {key}: {forms[key + '_s']:.4f} s; {card}",
                   flush=True)
+        lap("log_forms")
 
         # other writers' Parquet forms: the committed fixtures' digests,
         # their logs' live files and routes; counters from 0 per log
@@ -5307,6 +5789,7 @@ def main(argv=None) -> int:
         print(f"parquet_forms host decode: zstd {pforms['zstd_mb_s']:.1f} "
               f"MB/s, snappy {pforms['snappy_mb_s']:.1f} MB/s on "
               f"{pforms['timed_bytes']} B; {card}", flush=True)
+        lap("parquet_forms")
 
         # the wider schema types: TPC-DS store_sales at SF1's row count
         # and the nested fixture; counters from 0 per load and read
@@ -5323,6 +5806,7 @@ def main(argv=None) -> int:
             print(f"wide_types {name}: {r['rows']} rows, {r['columns']} "
                   f"columns, {r['files']} files, {r['s']:.4f} s, "
                   f"{r['rows_per_s']:.1f} rows/s; {card}", flush=True)
+        lap("wide_types")
 
         # step 20: the wider types through every write path, on step
         # 19's rows (TPC-DS data maintenance); counters from 0 per step
@@ -5339,6 +5823,7 @@ def main(argv=None) -> int:
         wide_write_k8 = sum(s["k8_pack"] + s["k8_decode"] for s in ww_steps)
         wide_write_k9 = sum(s["k9"] for s in ww_steps)
         print("wide_write: " + json.dumps(ww), flush=True)
+        lap("wide_write")
         for name, r in ww["steps"].items():
             print(f"wide_write {name}: {r['rows']} rows, {r['s']:.4f} s, "
                   f"{r['rows_per_s']:.1f} rows/s, launches "
@@ -5351,6 +5836,7 @@ def main(argv=None) -> int:
         cm_keep = {}
         try:
             cm = column_mapping_phase(ww_keep, "cuda", card, keep=cm_keep)
+            lap("column_mapping")
             print("column_mapping: " + json.dumps(cm), flush=True)
             for name, r in cm["steps"].items():
                 print(f"column_mapping {name}: {r['rows']} rows, "
@@ -5359,14 +5845,21 @@ def main(argv=None) -> int:
                           {k: r[k] for k in WIDE_WRITE_K})
                       + f"; {card}", flush=True)
             wm = write_modes_phase(cm_keep, "cuda", card)
+            lap("write_modes")
             # step 23: VACUUM (the headline log, then step 22's tables),
             # REORG PURGE, RESTORE and CLONE; counters from 0 per step
             mt = maintenance_phase(path, truth, cm_keep, work, "cuda", card)
+            lap("maintenance")
             # step 24: type widening, MERGE's schema evolution, CHECK
             # constraints, generated, identity and default columns on step
             # 23's table (a) and step 19's first quarter
             tf = table_features_phase(cm_keep, ww_keep["step19"], work,
                                       "cuda", card)
+            lap("table_features")
+            # step 25: the change data feed on step 24's table (a) and
+            # step 23's partitioned table (b)
+            cdf = change_data_feed_phase(cm_keep, "cuda", card)
+            lap("change_data_feed")
         finally:
             if "work" in ww_keep:
                 shutil.rmtree(ww_keep["work"], ignore_errors=True)
@@ -5422,6 +5915,17 @@ def main(argv=None) -> int:
         print(f"table_features steps: "
               f"{sum(r['s'] for r in tf['steps'].values()):.4f} s, launches "
               + json.dumps(tf_launches) + f"; {card}", flush=True)
+        print("change_data_feed: " + json.dumps(cdf), flush=True)
+        for name, r in cdf["steps"].items():
+            print(f"change_data_feed {name}: {r['rows']} rows, "
+                  f"{r['s']:.4f} s, {r['rows_per_s']:.1f} rows/s, launches "
+                  + json.dumps({k: r[k] for k in WIDE_WRITE_K})
+                  + f"; {card}", flush=True)
+        cdf_launches = {k: sum(r[k] for r in cdf["steps"].values())
+                        for k in WIDE_WRITE_K}
+        print(f"change_data_feed steps: "
+              f"{sum(r['s'] for r in cdf['steps'].values()):.4f} s, launches "
+              + json.dumps(cdf_launches) + f"; {card}", flush=True)
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")
@@ -5438,6 +5942,7 @@ def main(argv=None) -> int:
         print("handoff load: " + json.dumps({
             "parts": h_truth.checkpoint.get("parts", 1), "load_s": h_s,
             "counters": h_counts}), flush=True)
+        lap("handoff_load")
 
         # a small checkpointed log on the card and on the CPU: equal masks
         small = os.path.join(work, "small")
@@ -5455,6 +5960,7 @@ def main(argv=None) -> int:
                and on_card.add_files == on_cpu.add_files,
                "small checkpointed log: card == CPU")
         print("small checkpointed log: card == cpu", flush=True)
+        lap("small_card_vs_cpu")
 
         # K4 on the OPTIMIZE cell's own rank matrix, then edge shapes
         appends = config4_appends(args.seed + 1)
@@ -5472,6 +5978,7 @@ def main(argv=None) -> int:
         kernels["segmented_minmax"] = minmax_phase(appends, dev)
         print("segmented_minmax phase: " + json.dumps(
             kernels["segmented_minmax"]), flush=True)
+        lap("k4_k5_k6")
 
         # the OPTIMIZE path, counters from 0
         opt = optimize_phase(work, appends, card, dev)
@@ -5481,6 +5988,7 @@ def main(argv=None) -> int:
         kernels["skip_mask"]["launches_read_table"] = \
             opt["read_table_counters"].get("kernel.skip_mask.launches", 0)
         print("optimize zorder: " + json.dumps(opt), flush=True)
+        lap("optimize")
         # DML on a deletion-vector table (cell 10), each step's counters
         # from 0; K8 on its DVs at two shapes
         dml, k8_inputs = dml_phase(work, appends, card, dev)
@@ -5509,6 +6017,7 @@ def main(argv=None) -> int:
                   f"parse.device_fallbacks {s['parse_device_fallbacks']}; "
                   f"{card}", flush=True)
         print("dv_bits phase: " + json.dumps(kernels["dv_bits"]), flush=True)
+        lap("dml")
         # MERGE into a partitioned table (cell 11), each step's counters
         # from 0; K9 at the upsert's shape and a skewed one
         mrg, lanes = merge_phase(work, card, args.seed + 7, dev)
@@ -5533,15 +6042,19 @@ def main(argv=None) -> int:
                   f"{json.dumps(split)}; {card}", flush=True)
         print("merge_join phase: " + json.dumps(kernels["merge_join"]),
               flush=True)
+        lap("merge")
         optimize_card_vs_cpu(work)
         print("small optimize, both curves: card == cpu", flush=True)
+        lap("optimize_card_vs_cpu")
         if args.profile:
             profile_decode(parts)
             profile_load(path, Table, TorchEngine)
             profile_checkpoint_write(path, truth.version - 1)
             profile_optimize(os.path.join(work, "optimize"))
+            lap("profile")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    lap("cleanup")
 
     for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
                       ("hybrid_extract", "k3"), ("interleave_bits", "k4"),
@@ -5560,6 +6073,16 @@ def main(argv=None) -> int:
     for key in ("k1", "k2", "k3", "k4", "k7", "k8_decode", "k9"):
         _check(tf_launches[key] >= 1,
                f"table_features: {key} launched ({tf_launches[key]})")
+    for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                      ("hybrid_extract", "k3"), ("interleave_bits", "k4"),
+                      ("unpack_bitpacked", "k5"), ("segmented_minmax", "k6"),
+                      ("skip_mask", "k7"), ("merge_join", "k9")):
+        kernels[name]["launches_change_data_feed"] = cdf_launches[key]
+    kernels["dv_bits"]["launches_change_data_feed"] = \
+        cdf_launches["k8_pack"] + cdf_launches["k8_decode"]
+    for key in ("k1", "k2", "k3", "k7", "k8_pack", "k8_decode", "k9"):
+        _check(cdf_launches[key] >= 1,
+               f"change_data_feed: {key} launched ({cdf_launches[key]})")
     for k in kernels.values():
         k["share"] = k["bound_ms"] / k["ms"]
         k["device_share"] = k["bound_ms"] / k["device_ms"]
@@ -5567,6 +6090,8 @@ def main(argv=None) -> int:
         print("device_ms by stalled events (the profiler missed): "
               + json.dumps(DEVICE_MS_BY_EVENTS))
     print(json.dumps({"kernels": list(kernels.values())}))
+    print("phase_wall: " + json.dumps(
+        dict(phase_wall, total=time.perf_counter() - t_start)), flush=True)
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -35,7 +35,11 @@ takes them, in one commit each:
   matches are deleted, exactly as DELETE deletes them
   (`commands/dml.py::delete_matching_rows`: whole files, deletion vectors
   on a table with them, else copy-on-write); the commit carries the
-  `predicate` parameter and DELETE's row and file metrics;
+  `predicate` parameter and DELETE's row and file metrics and, on an
+  existing table with the change data feed on, the deleted rows'
+  `delete` change data and the written rows' `insert` change data (the
+  other modes write none: their feed is made from their adds and removes,
+  `read/cdc.py`);
 - `overwrite` with `partition_overwrite_mode="dynamic"`: only the files of
   the partitions the rows fall in are removed (partition values compared
   as the log spells them, keyed by physical name on a mapped table);
@@ -80,7 +84,11 @@ from delta_tpu_torch.columnmapping import (
     is_mapped,
     strip_column_mapping,
 )
-from delta_tpu_torch.commands.dml import DMLMetrics, delete_matching_rows
+from delta_tpu_torch.commands.dml import (
+    DMLMetrics,
+    delete_matching_rows,
+    stage_change_data,
+)
 from delta_tpu_torch.errors import (
     InvalidArgumentError,
     InvariantViolationError,
@@ -195,6 +203,10 @@ def write_table(path: str, columns, mode: str = "append",
                                          data_change=data_change))
     txn.add_files(adds)
     if replace_where is not None:
+        if exists:
+            # a commit with change data is read from it alone, so the
+            # written rows need their images too
+            stage_change_data(txn, table, meta, [batch], "insert")
         txn.set_operation_parameters({"predicate": repr(replace_where)})
         if metrics is not None:
             txn.set_operation_metrics({

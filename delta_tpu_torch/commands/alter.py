@@ -21,7 +21,9 @@ depends on is neither renamed nor dropped. Turning column mapping on
 (`set_properties`) keeps every existing field's name as its physical
 name, so the files written before read on (`columnmapping.py`); it
 upgrades the protocol to carry `columnMapping`, as a property that turns
-deletion vectors on upgrades it to (3, 7). Unsetting the mode, or a mode
+deletion vectors on upgrades it to (3, 7) and `delta.enableChangeDataFeed`
+a legacy protocol to writer 4 (or lists `changeDataFeed` at writer 7).
+Unsetting the mode, or a mode
 change other than none -> name or none -> id, raises
 `ColumnMappingModeChangeError` (the reference unsets it, after which its
 reads look for the physical names' columns by their logical names).
@@ -31,7 +33,7 @@ CHANGE COLUMN TYPE widens a top-level column's type along
 `delta.enableTypeWidening`, upgrading the protocol to `typeWidening`
 (CHECK constraints are added and dropped by `constraints.py`). A property
 that would turn on a feature the write path does not write
-(`features.py::refused_properties`: the change data feed, row tracking,
+(`features.py::refused_properties`: row tracking, in-commit timestamps,
 ...) raises `UnsupportedTableError`, and the commit refuses a protocol
 upgrade to one. Unknown `delta.*` keys are
 not refused, as the reference refuses them, since this package parses

@@ -31,6 +31,15 @@ Counterpart of `delta_tpu/commands/dml.py:94-336` (Delta's
 3. One commit with the reference's operation parameters and metrics;
    nothing matched commits nothing.
 
+On a table with the change data feed on (`config.py::cdf_enabled`), the
+commit also carries the command's change data, one set of files per
+change type (`stage_change_data` → `write/writer.py::write_cdc_files`):
+DELETE's deleted rows as `delete` in each of its three forms (a file
+removed whole, a deletion vector, a copy-on-write rewrite), UPDATE's
+matched rows before and after as `update_preimage` and
+`update_postimage`. A DELETE with no predicate writes none, as the
+reference: its feed is made from its removes (`read/cdc.py`).
+
 On a partitioned table each candidate's rows carry its partition
 columns (`read/reader.py`), so a predicate and a SET may name them, and
 the rewritten rows go back through the partitioned writer (an UPDATE of
@@ -53,8 +62,7 @@ ROADMAP C24). Refused as in the reference: an append-only table
 (`AppendOnlyTableError`), an UPDATE of an identity column
 (`IdentityColumnError`), a SET of a column the table lacks
 (`InvalidArgumentError`). Refused before anything is written
-(`UnsupportedTableError`): what `check_write_supported` refuses, and a
-table with the change data feed on (its CDC files are not ported).
+(`UnsupportedTableError`): what `check_write_supported` refuses.
 """
 
 from __future__ import annotations
@@ -71,8 +79,8 @@ from delta_tpu_torch import obs
 from delta_tpu_torch.colgen import is_identity, regenerate_columns
 from delta_tpu_torch.config import (
     APPEND_ONLY,
-    CHANGE_DATA_FEED,
     DELETION_VECTORS_ENABLED,
+    cdf_enabled,
     get_table_config,
 )
 from delta_tpu_torch.dv.descriptor import write_deletion_vector_file
@@ -82,7 +90,6 @@ from delta_tpu_torch.errors import (
     IdentityColumnError,
     InvalidArgumentError,
     MissingTransactionLogError,
-    UnsupportedTableError,
 )
 from delta_tpu_torch.expressions.eval import (
     cast_values,
@@ -101,7 +108,7 @@ from delta_tpu_torch.read.reader import (
     read_add_file_logical,
 )
 from delta_tpu_torch.txn.transaction import Operation, check_write_supported
-from delta_tpu_torch.write.writer import write_data_files
+from delta_tpu_torch.write.writer import write_cdc_files, write_data_files
 
 _DV_SINGLE = obs.counter("dml.dv_single_decodes")
 
@@ -129,13 +136,27 @@ def _open(table, operation: str, what: str):
     return txn, snapshot
 
 
-def _check_writable(snapshot) -> None:
-    meta = snapshot.metadata
-    check_write_supported(snapshot.protocol, meta)
-    if get_table_config(meta.configuration, CHANGE_DATA_FEED):
-        raise UnsupportedTableError(
-            "DML on a table with the change data feed is not supported yet "
-            "(its CDC files are not ported)", feature="change data feed")
+def stage_change_data(txn, table, metadata, parts: List[Batch],
+                      change_type: str) -> None:
+    """Write `parts` (logical rows, each aligned to the table's schema, a
+    column it lacks null) as one command's change data of `change_type`
+    and stage the files on `txn`; nothing when the table's feed is off or
+    no row changed."""
+    if not cdf_enabled(metadata.configuration):
+        return
+    parts = [p for p in parts if p.num_rows]
+    if not parts:
+        return
+    schema = schema_from_json(metadata.schemaString)
+    rows = Batch.concat([Batch({
+        f.name: p.columns[f.name] if f.name in p.columns
+        else Column.nulls(f.numpy_dtype, p.num_rows,
+                          carried_type(f.data_type))
+        for f in schema.fields}, p.num_rows) for p in parts])
+    for cdc in write_cdc_files(table.engine, table.path, rows, schema,
+                               metadata.partitionColumns,
+                               metadata.configuration, change_type):
+        txn.add_cdc_file(cdc)
 
 
 def _read_physical(table, snapshot, add: AddFile) -> Batch:
@@ -189,7 +210,7 @@ def _existing_mask(table, presized: Dict[int, tuple], i: int, add: AddFile,
 def delete(table, predicate: Optional[Expression] = None) -> DMLMetrics:
     """DELETE FROM table WHERE predicate (None: every row)."""
     txn, snapshot = _open(table, Operation.DELETE, "DELETE from")
-    _check_writable(snapshot)
+    check_write_supported(snapshot.protocol, snapshot.metadata)
     now_ms = int(time.time() * 1000)
     metrics = DMLMetrics()
     candidates = txn.scan_files(filter=predicate)
@@ -226,11 +247,13 @@ def delete_matching_rows(txn, table, snapshot, predicate: Expression,
                          candidates: List[AddFile]) -> None:
     """Stage on an open transaction the removal of every row `predicate`
     matches in `candidates`: full removes, deletion vectors or
-    copy-on-write rewrites."""
+    copy-on-write rewrites, and the deleted rows' change data."""
     meta = snapshot.metadata
     use_dv = get_table_config(meta.configuration, DELETION_VECTORS_ENABLED)
     schema = schema_from_json(meta.schemaString)
     dv_writes = []
+    deleted = []  # the change data, when the table's feed is on
+    feed = cdf_enabled(meta.configuration)
     presized = _presized_masks(table, candidates)
     for i, add in enumerate(candidates):
         data = _read_physical(table, snapshot, add)
@@ -242,12 +265,14 @@ def delete_matching_rows(txn, table, snapshot, predicate: Expression,
         if n_match == 0:
             continue
         metrics.num_rows_deleted += n_match
+        if feed:
+            deleted.append(data.take(np.nonzero(matches)[0]))
         if n_match == int(visible.sum()):
             txn.remove_file(add.remove(deletion_timestamp=now_ms))
             metrics.num_files_removed_fully += 1
         elif use_dv:
-            deleted = matches if existing is None else matches | existing
-            dv_writes.append((add, np.nonzero(deleted)[0].astype(np.uint64)))
+            gone = matches if existing is None else matches | existing
+            dv_writes.append((add, np.nonzero(gone)[0].astype(np.uint64)))
         else:
             survivors = data.take(np.nonzero(visible & ~matches)[0])
             metrics.num_rows_copied += survivors.num_rows
@@ -256,6 +281,7 @@ def delete_matching_rows(txn, table, snapshot, predicate: Expression,
                 meta.partitionColumns, meta.configuration))
             txn.remove_file(add.remove(deletion_timestamp=now_ms))
             metrics.num_files_rewritten += 1
+    stage_change_data(txn, table, meta, deleted, "delete")
     if not dv_writes:
         return
     descriptors = write_deletion_vector_file(
@@ -284,11 +310,13 @@ def update(table, assignments: Dict[str, object],
         raise IdentityColumnError(
             f"UPDATE on IDENTITY column(s) {hit} is not supported",
             error_class="DELTA_IDENTITY_COLUMNS_UPDATE_NOT_SUPPORTED")
-    _check_writable(snapshot)
+    check_write_supported(snapshot.protocol, meta)
     now_ms = int(time.time() * 1000)
     metrics = DMLMetrics()
     candidates = txn.scan_files(filter=predicate)
     metrics.num_files_scanned = len(candidates)
+    before, after = [], []  # the change data, when the feed is on
+    feed = cdf_enabled(meta.configuration)
     presized = _presized_masks(table, candidates)
     for i, add in enumerate(candidates):
         data = _read_physical(table, snapshot, add)
@@ -305,6 +333,9 @@ def update(table, assignments: Dict[str, object],
             data.take(np.nonzero(matches)[0]), assignments, schema),
             schema, set(assignments))
         untouched = data.take(np.nonzero(~matches)[0])
+        if feed:
+            before.append(data.take(np.nonzero(matches)[0]))
+            after.append(updated)
         metrics.num_rows_updated += n_match
         metrics.num_rows_copied += untouched.num_rows
         txn.add_files(write_data_files(
@@ -314,6 +345,8 @@ def update(table, assignments: Dict[str, object],
         metrics.num_files_rewritten += 1
     if not txn._adds and not txn._removes:
         return metrics
+    stage_change_data(txn, table, meta, before, "update_preimage")
+    stage_change_data(txn, table, meta, after, "update_postimage")
     txn.set_operation_parameters(
         {"predicate": repr(predicate) if predicate is not None else "true"})
     txn.set_operation_metrics({

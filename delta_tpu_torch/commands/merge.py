@@ -41,7 +41,13 @@ source's `source.<name>`. A value is an expression or a constant; an
    in one commit (`Operation.MERGE`, the ON condition as its
    `predicate`, the reference's metrics; the scan's predicate recorded
    for the conflict check). Nothing touched commits nothing (but an
-   evolved schema).
+   evolved schema). On a table with the change data feed on, the commit
+   carries the change data (`commands/dml.py::stage_change_data`): the
+   deleted target rows as `delete`, each updated row before and after
+   as `update_preimage` and `update_postimage` (a not-matched-by-source
+   update too, as Delta writes it; the reference writes none for it,
+   ROADMAP C27), the inserted rows as `insert`; rows written before the
+   schema evolved read the new columns as null there too.
 
 Schema evolution (`with_schema_evolution()`): the table evolves by the
 source columns a clause consumes, every source-only column under an
@@ -69,8 +75,7 @@ A `target.<name>` that names a column the target lacks raises
 reference: no clause, an unconditional clause before the last of its
 kind, a duplicate assignment, an assignment to or an `*_all` over a
 column the target lacks (without schema evolution). Refused before
-anything is written (`UnsupportedTableError`), as not ported: a table
-with the change data feed on (its CDC files), and what
+anything is written (`UnsupportedTableError`): what
 `check_write_supported` refuses. A column-mapped table merges as any
 other: its keys, conditions and assignments name logical columns, the
 read renames the files' physical ones, and the writer writes physical
@@ -94,13 +99,13 @@ from delta_tpu_torch.colgen import (
     regenerate_columns,
 )
 from delta_tpu_torch.columnmapping import assign_column_mapping, is_mapped
-from delta_tpu_torch.config import CHANGE_DATA_FEED, get_table_config
+from delta_tpu_torch.commands.dml import stage_change_data
+from delta_tpu_torch.config import cdf_enabled
 from delta_tpu_torch.errors import (
     DeltaError,
     IdentityColumnError,
     InvalidArgumentError,
     MissingTransactionLogError,
-    UnsupportedTableError,
 )
 from delta_tpu_torch.expressions.eval import (
     cast_values,
@@ -437,18 +442,6 @@ def _first_wins(clauses: List[MergeClause], batch) -> np.ndarray:
     return action
 
 
-def _check_mergeable(snapshot) -> None:
-    """The refusal of what MERGE does not port, by its name (ahead of the
-    protocol check, which would name only a writer version), then
-    `check_write_supported`."""
-    meta = snapshot.metadata
-    if get_table_config(meta.configuration, CHANGE_DATA_FEED):
-        raise UnsupportedTableError(
-            "MERGE into a table with the change data feed is not supported "
-            "yet (its CDC files are not ported)", feature="change data feed")
-    check_write_supported(snapshot.protocol, meta)
-
-
 def _check_target_references(on: Expression, clauses: List[MergeClause],
                              schema: StructType) -> None:
     """Refuse a `target.<name>` in the ON condition, a clause's condition
@@ -662,7 +655,7 @@ def _execute_merge(table, source: Batch, on: Expression,
         raise MissingTransactionLogError(f"no table at {table.path}")
     meta = snapshot.metadata
     schema = schema_from_json(meta.schemaString)
-    _check_mergeable(snapshot)
+    check_write_supported(snapshot.protocol, meta)
     clauses = matched + not_matched + not_matched_by_source
     _check_target_references(on, clauses, schema)
     has_star = any(c.assignments is None and c.kind != "delete"
@@ -804,6 +797,8 @@ def _execute_merge(table, source: Batch, on: Expression,
     upd_clause = pair_action[upd_pi]
     nmbs_file = file_of[nmbs_upd_t]
     writes = []
+    before, after = [], []  # the updated rows' change data
+    feed = cdf_enabled(conf)
     for fi in touched.tolist():
         here = file_of == fi
         kept = np.nonzero(here & ~del_mask & ~upd_mask)[0]
@@ -818,10 +813,16 @@ def _execute_merge(table, source: Batch, on: Expression,
                                                 tpos[pis], spos[pis]),
                             schema, source, generated)
             out.append(rows)
+            if feed:
+                before.append(target_all.take(tpos[pis]))
+                after.append(rows)
             metrics.num_target_rows_updated += rows.num_rows
         sel = np.nonzero(nmbs_file == fi)[0]
         if len(sel):
             out.append(nmbs_rows.take(sel))
+            if feed:
+                before.append(target_all.take(nmbs_upd_t[sel]))
+                after.append(out[-1])
             metrics.num_target_rows_updated += len(sel)
         metrics.num_target_rows_deleted += int((here & del_mask).sum())
         txn.remove_file(candidates[fi].remove(deletion_timestamp=now_ms))
@@ -840,6 +841,12 @@ def _execute_merge(table, source: Batch, on: Expression,
         # the identity watermark moves in this commit
         txn.update_metadata(dataclasses.replace(
             txn.metadata(), schemaString=schema_to_json(watermark)))
+    if feed:
+        deleted = [target_all.take(np.nonzero(del_mask)[0])]
+        for parts, kind in ((deleted, "delete"), (before, "update_preimage"),
+                            (after, "update_postimage"),
+                            (insert_parts, "insert")):
+            stage_change_data(txn, table, txn.metadata(), parts, kind)
     mark("write")
 
     if not txn._adds and not txn._removes and not new_columns:

@@ -84,6 +84,9 @@ DELETION_VECTORS_ENABLED = TableConfig("delta.enableDeletionVectors", False,
                                        _parse_bool)
 CHANGE_DATA_FEED = TableConfig("delta.enableChangeDataFeed", False,
                                _parse_bool)
+# the legacy alias, honoured wherever the flag is (`cdf_enabled`)
+CHANGE_DATA_CAPTURE = TableConfig("delta.enableChangeDataCapture", False,
+                                  _parse_bool)
 COLUMN_MAPPING_MODE = TableConfig("delta.columnMapping.mode", "none", str)
 IN_COMMIT_TIMESTAMPS = TableConfig("delta.enableInCommitTimestamps", False,
                                    _parse_bool)
@@ -125,6 +128,13 @@ def get_table_config(configuration: Dict[str, str], cfg: TableConfig):
     if raw is None:
         return cfg.default
     return cfg.parse(raw)
+
+
+def cdf_enabled(configuration: Dict[str, str]) -> bool:
+    """The change data feed on: `delta.enableChangeDataFeed` or its legacy
+    alias `delta.enableChangeDataCapture`."""
+    return (get_table_config(configuration, CHANGE_DATA_FEED)
+            or get_table_config(configuration, CHANGE_DATA_CAPTURE))
 
 
 @dataclass

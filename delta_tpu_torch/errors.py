@@ -69,10 +69,10 @@ class UnsupportedLogError(DeltaError):
 class UnsupportedTableError(DeltaError):
     """The table or the request needs a write-path feature this package
     does not implement yet (a clustered table, in-commit timestamps, row
-    tracking, coordinated or group commit, domain writes, DML on a
-    change-data-feed table, writer features beyond those of
-    `features.py`, a type outside the protocol's). The command stops before it writes
-    anything a commit would reference."""
+    tracking, coordinated or group commit, domain writes, writer
+    features beyond those of `features.py`, a type outside the
+    protocol's). The command stops before it writes anything a commit
+    would reference."""
 
     error_class = "DELTA_UNSUPPORTED_FEATURES_FOR_WRITE"
 
@@ -278,3 +278,9 @@ class RestoreTargetError(DeltaError):
 
 class CloneTargetExistsError(DeltaError):
     error_class = "DELTA_CLONE_AMBIGUOUS_TARGET"
+
+
+class CdcNotEnabledError(DeltaError):
+    """A change data feed read of a table whose feed is off."""
+
+    error_class = "DELTA_CHANGE_TABLE_FEED_DISABLED"

@@ -7,12 +7,15 @@ features with their reader and writer versions and the metadata that
 turns each on, `protocol_for_new_table` and `upgraded_protocol`.
 
 The write path takes appendOnly and invariants (legacy: protocol (1, 2)
-carries them), checkConstraints (1, 3), generatedColumns (1, 4),
-columnMapping (legacy at (2, 5)), identityColumns (1, 6), deletionVectors
-(a reader-writer feature at (3, 7) with feature lists), timestampNtz,
-typeWidening and allowColumnDefaults. changeDataFeed may be listed (or
-implied by a legacy writer version of 4 to 6) while nothing in the
-metadata turns it on. `unsupported_writer_features` names the rest,
+carries them), checkConstraints (1, 3), changeDataFeed and
+generatedColumns (1, 4), columnMapping (legacy at (2, 5)),
+identityColumns (1, 6), deletionVectors (a reader-writer feature at (3,
+7) with feature lists), timestampNtz, typeWidening and
+allowColumnDefaults. changeDataFeed is turned on by
+`delta.enableChangeDataFeed` alone, as in the reference; the legacy alias
+`delta.enableChangeDataCapture` turns the feed on
+(`config.py::cdf_enabled`) without a protocol feature.
+`unsupported_writer_features` names the rest,
 which `txn/transaction.py` refuses; `refused_properties` names the table
 properties that would turn on a feature this package does not write.
 
@@ -121,19 +124,15 @@ _feature("allowColumnDefaults", 1, 7, False,
          _schema_has_metadata_key(lambda k: k == "CURRENT_DEFAULT"))
 
 SUPPORTED_WRITER_FEATURES = frozenset({
-    "appendOnly", "invariants", "checkConstraints", "generatedColumns",
-    "columnMapping", "identityColumns", "deletionVectors", "timestampNtz",
-    "typeWidening", "allowColumnDefaults"})
-# supported while the metadata does not turn them on (the commands that
-# would have to honour them refuse such a table by name)
-_WHILE_INACTIVE = frozenset({"changeDataFeed"})
+    "appendOnly", "invariants", "checkConstraints", "changeDataFeed",
+    "generatedColumns", "columnMapping", "identityColumns",
+    "deletionVectors", "timestampNtz", "typeWidening",
+    "allowColumnDefaults"})
 _MAX_LEGACY_WRITER = 6
 # properties that would turn on a table feature this package does not write
-_REFUSED_FLAGS = ("delta.enableChangeDataFeed",
-                  "delta.enableRowTracking",
+_REFUSED_FLAGS = ("delta.enableRowTracking",
                   "delta.enableIcebergCompatV1", "delta.enableIcebergCompatV2",
-                  "delta.enableInCommitTimestamps",
-                  "delta.enableChangeDataCapture")
+                  "delta.enableInCommitTimestamps")
 _PROTOCOL_PROPS = ("delta.minReaderVersion", "delta.minWriterVersion",
                    "delta.ignoreProtocolDefaults")
 
@@ -146,22 +145,17 @@ def _implied(protocol: Protocol) -> set:
                  or f.min_reader_version <= protocol.minReaderVersion)}
 
 
-def unsupported_writer_features(protocol: Protocol,
-                                metadata: Metadata) -> List[str]:
+def unsupported_writer_features(protocol: Protocol) -> List[str]:
     """The features of a table this package cannot write: those listed
     (or implied by a legacy writer version up to 6) outside the supported
-    set, and those of `_WHILE_INACTIVE` the metadata turns on; a legacy
-    writer version past 5 names itself."""
+    set; a legacy writer version past 6 names itself."""
     if protocol.minWriterVersion >= 7:
         listed = set(protocol.writerFeatures or [])
     elif protocol.minWriterVersion > _MAX_LEGACY_WRITER:
         return [f"writerVersion={protocol.minWriterVersion}"]
     else:
         listed = _implied(protocol)
-    bad = listed - SUPPORTED_WRITER_FEATURES - _WHILE_INACTIVE
-    bad |= {n for n in listed & _WHILE_INACTIVE
-            if FEATURES[n].activated_by(metadata)}
-    return sorted(bad)
+    return sorted(listed - SUPPORTED_WRITER_FEATURES)
 
 
 def refused_properties(properties: Dict[str, str]) -> List[str]:

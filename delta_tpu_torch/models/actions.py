@@ -1,7 +1,7 @@
 """Typed schemas of the transaction-log actions.
 
 Counterpart of `delta_tpu/models/actions.py`, cut to `metaData`,
-`protocol`, `add`, `remove`, `txn`, `domainMetadata` and `commitInfo`
+`protocol`, `add`, `remove`, `cdc`, `txn`, `domainMetadata` and `commitInfo`
 (plus the deletion-vector descriptor an `add`/`remove` may carry). Field
 lists follow the Delta protocol's action definitions.
 
@@ -390,6 +390,45 @@ class RemoveFile:
 
 
 @dataclass
+class AddCDCFile:
+    """`cdc` action: a change data file under `_change_data/`, written
+    beside a data-changing command's adds and removes; it takes no part
+    in the replay of the live files."""
+
+    WRAPPER_KEY: ClassVar[str] = "cdc"
+
+    path: str
+    partitionValues: Dict[str, Optional[str]] = field(default_factory=dict)
+    size: int = 0
+    dataChange: bool = False
+    tags: Optional[Dict[str, str]] = None
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = _prune({
+            "path": encode_path(self.path),
+            "partitionValues": dict(self.partitionValues),
+            "size": self.size,
+            "dataChange": self.dataChange,
+            "tags": self.tags,
+        })
+        d.update(self.extra)
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "AddCDCFile":
+        known = {"path", "partitionValues", "size", "dataChange", "tags"}
+        return AddCDCFile(
+            path=decode_path(d["path"]),
+            partitionValues=dict(d.get("partitionValues") or {}),
+            size=int(d.get("size") or 0),
+            dataChange=bool(d.get("dataChange", False)),
+            tags=(dict(d["tags"]) if d.get("tags") is not None else None),
+            extra={k: v for k, v in d.items() if k not in known},
+        )
+
+
+@dataclass
 class SetTransaction:
     """`txn` action: idempotence watermark per application id. Latest-seen
     version wins per appId."""
@@ -507,8 +546,8 @@ class CommitInfo:
 
 
 _WRAPPER_TO_CLASS = {cls.WRAPPER_KEY: cls for cls in (
-    AddFile, RemoveFile, Metadata, Protocol, SetTransaction, DomainMetadata,
-    CommitInfo)}
+    AddFile, RemoveFile, AddCDCFile, Metadata, Protocol, SetTransaction,
+    DomainMetadata, CommitInfo)}
 
 
 def action_to_json(action) -> str:
@@ -524,8 +563,8 @@ def actions_to_commit_bytes(actions: Iterable) -> bytes:
 
 def actions_from_commit_bytes(data: bytes) -> list:
     """Parse a commit file into actions; a wrapper this module does not
-    model (`cdc`, `checkpointMetadata`, `sidecar`, future ones) is
-    skipped, as readers must skip action types they do not know."""
+    model (`checkpointMetadata`, `sidecar`, future ones) is skipped, as
+    readers must skip action types they do not know."""
     out = []
     for line in data.split(b"\n"):
         line = line.strip()

@@ -16,7 +16,10 @@ Counterpart of `delta_tpu/read/reader.py:21-202`:
   file's `partitionValues` (`_append_partition_columns`, after the data
   columns, as the reference appends them); `read_add_file_logical` reads
   one file; DML reads with `apply_dv=False`: it computes row indexes
-  against the file's own order;
+  against the file's own order; the change data feed reads with
+  `missing_ok`, where a vacuumed file reads as None;
+- `read_cdc_files_logical`, the change data files of a feed
+  (`read/cdc.py`), in Delta's form and in the reference's;
 - `read_scan`, the row read of a scan (`Scan.to_batch()`): each surviving
   file reads only the needed data columns (the projection plus the
   residual filter's references), drops its deleted rows, aligns to the
@@ -77,6 +80,7 @@ from delta_tpu_torch.stats.partition import (
     partition_keys,
     partition_value,
 )
+from delta_tpu_torch.write.writer import CDC_TYPE_COLUMN
 
 
 
@@ -236,14 +240,68 @@ def _read_file(engine, table_path: str, add, columns=None) -> Batch:
             f"data file {add.path} is damaged: {e}", path=add.path) from e
 
 
-def read_add_files_logical(engine, table_path: str, metadata, adds
-                           ) -> list:
+def read_add_files_logical(engine, table_path: str, metadata, adds,
+                           missing_ok=None) -> list:
     """Read AddFiles' rows in the table's logical schema, one Batch each,
-    their deleted rows dropped (the DVs decoded in one batch)."""
+    their deleted rows dropped (the DVs decoded in one batch). A file
+    whose `missing_ok` entry is true and that is missing (vacuumed) reads
+    as None."""
     schema = schema_from_json(metadata.schemaString)
-    batches = [_read_file(engine, table_path, a) for a in adds]
-    return [_logical(b, a, schema, metadata) for a, b in
-            zip(adds, _drop_deleted(engine, table_path, adds, batches))]
+    batches = []
+    for i, a in enumerate(adds):
+        try:
+            batches.append(_read_file(engine, table_path, a))
+        except FileNotFoundInLogError:
+            if not (missing_ok is not None and missing_ok[i]):
+                raise
+            batches.append(None)
+    have = [i for i, b in enumerate(batches) if b is not None]
+    kept = _drop_deleted(engine, table_path, [adds[i] for i in have],
+                         [batches[i] for i in have])
+    out = [None] * len(adds)
+    for i, b in zip(have, kept):
+        out[i] = _logical(b, adds[i], schema, metadata)
+    return out
+
+
+def read_cdc_files_logical(engine, table_path: str, metadata, cdcs
+                           ) -> list:
+    """Read change data files (`cdc` actions) in the table's logical
+    schema, data columns then partition columns, then `_change_type`, one
+    Batch each. Both forms read: Delta's (physical names under column
+    mapping, the partition columns in `partitionValues`) and the
+    reference's (logical names, the partition columns in the file,
+    `partitionValues` empty: ROADMAP C26). A column is found by its
+    physical name, then by its name; a partition column by its
+    `partitionValues` key, then in the file; a column neither holds reads
+    as null."""
+    schema = schema_from_json(metadata.schemaString)
+    mapped = is_mapped(metadata.configuration)
+    pcols = list(metadata.partitionColumns)
+    keys = partition_keys(metadata)
+    out = []
+    for cdc in cdcs:
+        batch = _read_file(engine, table_path, cdc)
+        n = batch.num_rows
+        pv = cdc.partitionValues or {}
+        cols = {}
+        for f in sorted(schema.fields, key=lambda f: f.name in pcols):
+            held = [c for c in ((f.physical_name if mapped else f.name),
+                                f.name) if c in batch.columns]
+            key = keys.get(f.name, f.name)
+            if f.name in pcols and (key in pv or f.name in pv or not held):
+                t = (f.data_type if isinstance(f.data_type, str)
+                     else "string")
+                cols[f.name] = partition_column(
+                    partition_value(pv, f.name, key), t, n)
+            elif held:
+                cols[f.name] = _cast(batch.columns[held[0]], f.data_type)
+            else:
+                cols[f.name] = Column.nulls(f.numpy_dtype, n,
+                                            carried_type(f.data_type))
+        cols[CDC_TYPE_COLUMN] = batch.columns[CDC_TYPE_COLUMN]
+        out.append(Batch(cols, n))
+    return out
 
 
 def read_add_file_logical(engine, table_path: str, metadata, add,

@@ -7,6 +7,7 @@ OPTIMIZE and a plain append need:
     files = txn.scan_files()           # a whole-table read, tracked
     files = txn.scan_files(filter=p)   # a predicate read, tracked
     txn.remove_file(...); txn.add_files([...])
+    txn.add_cdc_file(...)              # a change data file (CDF tables)
     result = txn.commit()
 
 The commit serializes the actions (commitInfo first), writes `N+1.json`
@@ -68,6 +69,7 @@ from delta_tpu_torch.errors import (
 from delta_tpu_torch import features
 from delta_tpu_torch.hooks import run_post_commit_hooks
 from delta_tpu_torch.models.actions import (
+    AddCDCFile,
     AddFile,
     CommitInfo,
     Metadata,
@@ -125,7 +127,7 @@ class CommitResult:
 def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
     """Refuse a table whose protocol or properties need a writer this
     package does not have."""
-    unsupported = features.unsupported_writer_features(protocol, metadata)
+    unsupported = features.unsupported_writer_features(protocol)
     if unsupported:
         raise UnsupportedTableError(
             f"writer features not supported yet: {unsupported}",
@@ -275,6 +277,7 @@ class Transaction:
         self.isolation: Optional[IsolationLevel] = None
         self._adds: List[AddFile] = []
         self._removes: List[RemoveFile] = []
+        self._cdcs: List[AddCDCFile] = []
         self._set_txns: Dict[str, SetTransaction] = {}
         self._new_metadata: Optional[Metadata] = None
         self._new_protocol: Optional[Protocol] = None
@@ -340,6 +343,11 @@ class Transaction:
 
     def remove_file(self, remove: RemoveFile) -> None:
         self._removes.append(remove)
+
+    def add_cdc_file(self, cdc: AddCDCFile) -> None:
+        """Stage a change data file (`write/writer.py::write_cdc_files`);
+        it commits after the adds, as in the reference."""
+        self._cdcs.append(cdc)
 
     def set_transaction_id(self, app_id: str, version: int,
                            last_updated: Optional[int] = None) -> None:
@@ -436,6 +444,7 @@ class Transaction:
         actions.extend(self._set_txns.values())
         actions.extend(self._removes)
         actions.extend(self._adds)
+        actions.extend(self._cdcs)
         return actions
 
     def _read_state(self) -> TransactionReadState:

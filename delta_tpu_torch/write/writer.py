@@ -30,6 +30,16 @@ rewrites, MERGE, OPTIMIZE and REORG.
 The rows come in under logical names. Under column mapping the Parquet
 fields (at every depth), the stats JSON keys and the `partitionValues`
 keys (and the partition directories) are the physical names.
+
+`write_cdc_files` writes a command's change data (counterpart of
+`delta_tpu/commands/dml.py::_write_cdc`) in Delta's form: the rows in
+the table's schema with `_change_type` last, under `_change_data/` and,
+on a partitioned table, under the partition's directory there, the
+partition columns left out of the file and in the `cdc` action's
+`partitionValues`, physical names under column mapping; no stats, no
+checks (the rows are images of rows the table held or now holds),
+`dataChange` false, nothing for zero rows. (The reference writes the
+full rows under logical names with `partitionValues` `{}`: ROADMAP C26.)
 """
 
 from __future__ import annotations
@@ -51,11 +61,12 @@ from delta_tpu_torch.constraints import table_constraints
 from delta_tpu_torch.errors import InvariantViolationError, SchemaMismatchError
 from delta_tpu_torch.expressions.eval import evaluate_predicate
 from delta_tpu_torch.expressions.parser import to_sql
-from delta_tpu_torch.models.actions import AddFile
+from delta_tpu_torch.models.actions import AddCDCFile, AddFile
 from delta_tpu_torch.models.batch import Batch, Column, factorize_objects
 from delta_tpu_torch.models.schema import (
     ArrayType,
     MapType,
+    StructField,
     StructType,
     carried_type,
     decimal_precision_scale,
@@ -65,9 +76,11 @@ from delta_tpu_torch.stats.partition import (
     partition_path,
     serialize_partition_value,
 )
+from delta_tpu_torch.utils.filenames import CHANGE_DATA_DIR
 from delta_tpu_torch.utils.parquet_write import write_data_file
 
-_CDC_COLUMNS = {"_change_type", "_commit_version", "_commit_timestamp"}
+CDC_TYPE_COLUMN = "_change_type"
+_CDC_COLUMNS = {CDC_TYPE_COLUMN, "_commit_version", "_commit_timestamp"}
 
 
 def _validate_schema(data: Batch, schema: StructType) -> None:
@@ -279,8 +292,7 @@ def write_data_files(engine, table_path: str, data: Batch,
     randomize = get_table_config(configuration, RANDOMIZE_FILE_PREFIXES)
     prefix_len = max(1, get_table_config(configuration, RANDOM_PREFIX_LENGTH))
     mapped = is_mapped(configuration)
-    key = {c: schema[c].physical_name if mapped else c
-           for c in partition_columns}
+    key = _partition_keys(schema, partition_columns, mapped)
     keyed_columns = [key[c] for c in partition_columns]
     adds: List[AddFile] = []
     for pv, part in groups:
@@ -310,3 +322,50 @@ def write_data_files(engine, table_path: str, data: Batch,
                                     partition_columns),
             ))
     return adds
+
+
+def _partition_keys(schema: StructType, partition_columns: Sequence[str],
+                    mapped: bool) -> Dict[str, str]:
+    """Each partition column's key in `partitionValues` and its directory
+    name: the physical name under column mapping."""
+    return {c: schema[c].physical_name if mapped else c
+            for c in partition_columns}
+
+
+def write_cdc_files(engine, table_path: str, rows: Batch,
+                    schema: StructType, partition_columns: Sequence[str],
+                    configuration: Dict[str, str], change_type: str
+                    ) -> List[AddCDCFile]:
+    """Write `rows` (logical names) as change data of `change_type` under
+    `_change_data/` (module docstring); returns the `cdc` actions. A
+    schema column the rows lack is written null."""
+    if rows.num_rows == 0:
+        return []
+    partition_columns = list(partition_columns)
+    groups = (_partition_groups(rows, partition_columns)
+              if partition_columns else [({}, rows)])
+    mapped = is_mapped(configuration)
+    key = _partition_keys(schema, partition_columns, mapped)
+    keyed_columns = [key[c] for c in partition_columns]
+    fields = [f for f in schema.fields if f.name not in partition_columns]
+    file_schema = StructType(fields + [StructField(CDC_TYPE_COLUMN,
+                                                   "string")])
+    out: List[AddCDCFile] = []
+    for pv, part in groups:
+        pv = {key[c]: v for c, v in pv.items()}
+        change = np.empty(part.num_rows, object)
+        change[:] = change_type
+        cols = {f.name: part.columns[f.name] if f.name in part.columns
+                else Column.nulls(f.numpy_dtype, part.num_rows,
+                                  carried_type(f.data_type))
+                for f in fields}
+        cols[CDC_TYPE_COLUMN] = Column(change)
+        rel_path = (f"{CHANGE_DATA_DIR}/"
+                    + unquote(partition_path(pv, keyed_columns))
+                    + f"cdc-{uuid.uuid4()}.parquet")
+        status = write_data_file(f"{table_path}/{rel_path}",
+                                 Batch(cols, part.num_rows), file_schema,
+                                 engine.fs, mapped)
+        out.append(AddCDCFile(path=rel_path, partitionValues=dict(pv),
+                              size=status.size, dataChange=False))
+    return out

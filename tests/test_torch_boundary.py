@@ -16,7 +16,9 @@ a filtered read through a renamed column, a DELETE and a checkpoint with
 `stats_parsed` reloaded), and the write modes (`merge_schema`,
 `replace_where`, a dynamic partition overwrite, `overwrite_schema`), and
 the maintenance commands (REORG PURGE, VACUUM FULL and LITE with a dry
-run, RESTORE, a shallow and a deep CLONE) must leave no `jax`,
+run, RESTORE, a shallow and a deep CLONE), and the change data feed (the
+change data of DELETE, UPDATE and MERGE on a mapped partitioned table
+and `table_changes`) must leave no `jax`,
 `pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -250,6 +252,22 @@ write_table(d11, {"k": np.arange(3)}, engine=cpu, schema=StructType([
     generated_field("g", "boolean", "k > 0"),
     default_field("c", "string", "'x'")]))
 assert read_table(d11, engine=cpu).column("id").values.tolist() == [10, 8, 6]
+# the change data feed on a mapped partitioned table
+from delta_tpu_torch.read.cdc import table_changes
+d12 = d + "/cdf"
+write_table(d12, {"k": np.arange(20), "p": np.arange(20) % 2}, engine=cpu,
+            partition_by=["p"],
+            properties={"delta.enableChangeDataFeed": "true",
+                        "delta.columnMapping.mode": "name"})
+t12 = Table.for_path(d12, engine=cpu)
+delete(t12, col("k") < lit(3))
+update(t12, {"k": 100}, col("k") == lit(5))
+merge(t12, {"k": np.array([7, 50]), "p": np.array([1, 0])},
+      on=col("target.k") == col("source.k")).when_matched_delete() \
+    .when_not_matched_insert_all().execute()
+kinds = table_changes(t12, 1).column("_change_type").values.tolist()
+assert sorted(kinds) == ["delete"] * 4 + ["insert", "update_postimage",
+                                          "update_preimage"], kinds
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))
@@ -280,7 +298,8 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
             "delta_tpu_torch/commands/vacuum.py",
             "delta_tpu_torch/commands/reorg.py",
             "delta_tpu_torch/commands/restore.py",
-            "delta_tpu_torch/constraints.py"} <= names
+            "delta_tpu_torch/constraints.py",
+            "delta_tpu_torch/read/cdc.py"} <= names
     for src in sources:
         text = src.read_text()
         name = src.relative_to(REPO)

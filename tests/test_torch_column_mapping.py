@@ -881,20 +881,19 @@ def test_dependent_columns_refused(tmp_path, what, kind):
 
 def test_refused_alter_operations(tmp_path):
     """Refused, typed: a type change that does not widen (since type
-    widening was ported: `tests/test_torch_type_widening.py`); properties
-    that turn on a feature the write path does not write; dropping the
-    mode. A CHECK constraint set as a property is written since
-    constraints were ported."""
+    widening was ported: `tests/test_torch_type_widening.py`); a property
+    that turns on a feature the write path does not write (row tracking);
+    dropping the mode. A CHECK constraint set as a property is written
+    since constraints were ported, and the change data feed since it was
+    ported: its protocol upgrade equals the reference's."""
     path = str(tmp_path / "t")
     _write("port", path, [_arrow(0, 10)], NAME)
     t = Table.for_path(path, engine=CPU)
     with pytest.raises(SchemaEvolutionError) as e:
         port_alter.change_column_type(t, "id", "double")
     assert e.value.error_class == "DELTA_CANNOT_CHANGE_DATA_TYPE"
-    for props in ({"delta.enableChangeDataFeed": "true"},
-                  {"delta.enableRowTracking": "true"}):
-        with pytest.raises(UnsupportedTableError):
-            port_alter.set_properties(t, props)
+    with pytest.raises(UnsupportedTableError):
+        port_alter.set_properties(t, {"delta.enableRowTracking": "true"})
     with pytest.raises(ColumnMappingModeChangeError):
         port_alter.unset_properties(t, ["delta.columnMapping.mode"])
     # a protocol upgrade to a feature the writer lacks fails at commit
@@ -903,6 +902,18 @@ def test_refused_alter_operations(tmp_path):
     assert _version(path) == 0
     assert port_alter.set_properties(t, {"delta.constraints.c": "id > 0"}) \
         == 1
+    cdf = {"delta.enableChangeDataFeed": "true"}
+    ref = str(tmp_path / "ref")
+    _write("ref", ref, [_arrow(0, 10)], NAME)
+    ref_alter.set_properties(RefTable.for_path(ref, engine=HostEngine()),
+                             cdf)
+    assert port_alter.set_properties(t, cdf) == 2
+    clear_parse_cache()
+    protocols = [RefTable.for_path(p, engine=HostEngine()).latest_snapshot()
+                 .protocol.to_dict() for p in (ref, path)]
+    assert protocols[0] == protocols[1]
+    assert Table.for_path(path, engine=CPU).latest_snapshot().metadata \
+        .configuration["delta.enableChangeDataFeed"] == "true"
     # an upgrade to writer 5 on an unmapped table stays writable
     plain = str(tmp_path / "plain")
     _write("port", plain, [_arrow(0, 10)])

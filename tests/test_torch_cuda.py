@@ -1639,3 +1639,51 @@ def test_table_features_on_the_card_equal_cpu(tmp_path, monkeypatch):
     assert runs["cuda"][2] == ["k", "q", "tag"]
     assert runs["cuda"][5] == [5 - 2 * i for i in range(400)]
     assert runs["cuda"][7] == {"x"}
+
+
+@pytest.mark.cuda
+def test_change_data_feed_on_the_card_equals_cpu(tmp_path):
+    """A table with deletion vectors and the change data feed: an UPDATE,
+    a DELETE that leaves bitmap DVs (its change data file), then a
+    DELETE of every row (no change data: its feed is made from removes
+    that carry DVs). On the card and on the CPU the feeds are equal; on
+    the card the read of the last version parses its range in one K1
+    launch and decodes every DV it carries in one K8 launch."""
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.commands.dml import delete, update
+    from delta_tpu_torch.expressions import col, lit
+    from delta_tpu_torch.read.cdc import table_changes
+
+    _card()
+    rng = np.random.default_rng(25)
+    src = str(tmp_path / "src")
+    for n in (70_000, 9_000):
+        write_table(src, {"k": rng.integers(0, 1 << 30, n),
+                          "x": rng.normal(size=n)}, engine=TorchEngine("cpu"),
+                    properties={"delta.enableDeletionVectors": "true",
+                                "delta.enableChangeDataFeed": "true"})
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / dev)
+        shutil.copytree(src, path)
+        eng = TorchEngine(dev)
+        update(Table.for_path(path, engine=eng), {"x": lit(0.5)},
+               col("k") < lit(1 << 24))
+        delete(Table.for_path(path, engine=eng), col("x") > lit(0.3))
+        delete(Table.for_path(path, engine=eng), None)
+        obs.reset()
+        last = table_changes(Table.for_path(path, engine=eng), 4, 4)
+        counts = obs.counters()
+        feed = table_changes(Table.for_path(path, engine=eng), 0)
+        order = np.lexsort((feed.column("x").values, feed.column("k").values,
+                            feed.column("_commit_version").values))
+        runs[dev] = (last.num_rows, [
+            feed.column(c).values[order].tolist()
+            for c in ("k", "x", "_change_type", "_commit_version")])
+        if dev == "cuda":
+            assert counts["kernel.byte_class.launches"] == 1
+            assert counts["kernel.dv_bits.decode_launches"] == 1
+            assert counts["kernel.dv_bits.decode_dvs"] >= 1
+    assert runs["cuda"] == runs["cpu"]
+    assert set(runs["cpu"][1][2]) == {"insert", "delete", "update_preimage",
+                                      "update_postimage"}

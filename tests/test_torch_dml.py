@@ -16,7 +16,8 @@ version) on the other. Compared, exactly:
 Cases: the DV and full-remove branches in one DELETE, copy-on-write, a
 second DELETE over a DV'd file, DELETE with no predicate, nothing matched,
 a dense DELETE (bitmap containers, packed by K8's plain version),
-append-only and change-data-feed tables refused, UPDATE of a DV'd file
+append-only tables refused, change-data-feed tables (their change data
+and feed against the reference's), UPDATE of a DV'd file
 with a constant, an expression and a callable, an identity column and an
 unknown column refused, OPTIMIZE purging DVs, a checkpoint of a DV table
 written by either package and read back by both, `Table.update()`
@@ -50,13 +51,14 @@ import delta_tpu_torch.commands.dml as port_dml
 import delta_tpu_torch.expressions.tree as PE
 from delta_tpu_torch import Table, TorchEngine, obs
 from delta_tpu_torch.api import read_table, write_table
-from delta_tpu_torch.errors import DeltaError, UnsupportedTableError
+from delta_tpu_torch.errors import DeltaError
 from delta_tpu_torch.expressions.eval import (
     UnsupportedCast,
     cast_values,
     constant_values,
     literal_values,
 )
+from test_torch_cdf import port_changes_of, ref_changes_of
 
 DV = {"delta.enableDeletionVectors": "true"}
 
@@ -330,15 +332,22 @@ def test_append_only_refused(tmp_path):
                                    dict(DV, **{
                                        "delta.enableChangeDataFeed": "true"})])
 def test_change_data_feed_table_refused(tmp_path, props):
+    """Refused until the change data feed was ported: now a CDF table
+    (with and without deletion vectors) takes DELETE and UPDATE as the
+    reference does (metrics, commits, rows, DVs), each commit carries
+    change data, and the feeds are equal (`tests/test_torch_cdf.py`
+    holds the feed in full)."""
     ref, port = _make(tmp_path, props)
-    before = sorted(os.listdir(port))
-    for run in (lambda t: port_dml.delete(t, PE.col("k") < PE.lit(5)),
-                lambda t: port_dml.update(t, {"x": 0.0})):
-        with pytest.raises(UnsupportedTableError):
-            run(_port_table(port))
-    assert sorted(os.listdir(port)) == before  # nothing written
-    # the reference deletes and writes its CDC files
-    assert ref_dml.delete(_ref_table(ref), RE.col("k") < RE.lit(5)).version
+    rm, pm = _delete_both(ref, port, _some_and_all)
+    _check_same(ref, port, rm, pm)
+    pred = (lambda E: (E.col("k") >= E.lit(600))
+            & (E.col("k") < E.lit(610)))
+    rm = ref_dml.update(_ref_table(ref), {"x": 0.0}, pred(RE))
+    pm = port_dml.update(_port_table(port), {"x": 0.0}, pred(PE))
+    _check_same(ref, port, rm, pm)
+    for v in (pm.version - 1, pm.version):
+        assert any("cdc" in a for a in _commit(port, v))
+    assert port_changes_of(port, 4) == ref_changes_of(ref, 4)
 
 
 def _updates():

@@ -22,8 +22,8 @@ multi-key and string keys on the device route. The device route is
 asserted through `join.device_joins` (a silent host route cannot pass);
 K9 itself runs only on the card (`tests/test_torch_cuda.py`). Schema
 evolution and identity and generated columns, refused until they were
-ported, now run (the reference's NULLs pinned as C24); the change data
-feed stays refused.
+ported, now run (the reference's NULLs pinned as C24); so does a table
+with the change data feed on.
 """
 
 import json
@@ -44,7 +44,8 @@ import delta_tpu_torch.commands.merge as port_merge
 import delta_tpu_torch.expressions.tree as PE
 from delta_tpu_torch import Table, TorchEngine, obs
 from delta_tpu_torch.api import read_table
-from delta_tpu_torch.errors import DeltaError, UnsupportedTableError
+from delta_tpu_torch.errors import DeltaError
+from test_torch_cdf import port_changes_of, ref_changes_of
 
 CPU = TorchEngine("cpu")
 METRICS = ("num_target_rows_updated", "num_target_rows_deleted",
@@ -501,16 +502,6 @@ def test_deletion_vector_rows_neither_match_nor_return(tmp_path):
 # ------------------------------------------------------------ refusals
 
 
-def _refused(path, build, feature):
-    before = sorted(os.listdir(os.path.join(path, "_delta_log")))
-    with pytest.raises(UnsupportedTableError) as e:
-        build(Table.for_path(path, engine=CPU)).execute()
-    assert e.value.error_class == "DELTA_UNSUPPORTED_FEATURES_FOR_WRITE"
-    assert feature in str(e.value).lower() or \
-        feature in str(getattr(e.value, "feature", "")).lower()
-    assert sorted(os.listdir(os.path.join(path, "_delta_log"))) == before
-
-
 def _upsert_all(t, on=None):
     return port_merge.merge(t, {"id": np.array([2, 9]),
                                 "extra": np.array(["e", "f"])},
@@ -616,24 +607,27 @@ def test_identity_and_generated_columns_are_refused(tmp_path, kind):
     ({"delta.columnMapping.mode": "name"}, "column mapping"),
     ({"delta.enableChangeDataFeed": "true"}, "change data feed")])
 def test_column_mapping_and_cdf_tables_are_refused(tmp_path, props, feature):
-    """A table with the change data feed on is refused; since column
-    mapping was ported, a column-mapped table merges as the reference
-    merges it."""
-    if feature == "column mapping":
-        ref, port = _copies(tmp_path, [_target(3)], properties=props)
-        src = _source(id=(np.array([2, 7]), None),
-                      value=(np.array([1.0, 7.0]), None))
-        _run_both(ref, port, src, lambda m, t, s, E: m(t, s, on=_on(E))
+    """Both were refused until ported: a column-mapped table merges as the
+    reference merges it, and so does a table with the change data feed
+    on, whose commit carries the change data the reference's does
+    (`tests/test_torch_cdf.py` holds the feed in full)."""
+    ref, port = _copies(tmp_path, [_target(3)], properties=props)
+    src = _source(id=(np.array([2, 7]), None),
+                  value=(np.array([1.0, 7.0]), None))
+    m = _run_both(ref, port, src, lambda m, t, s, E: m(t, s, on=_on(E))
                   .when_matched_update(set={"value": E.col("source.value")})
                   .when_not_matched_insert(values={
                       "id": E.col("source.id"),
                       "value": E.col("source.value")}))
-        return
-    path = str(tmp_path / "t")
-    dta.write_table(path, _target(3), engine=HostEngine(), properties=props)
-    _refused(path, lambda t: port_merge.merge(
-        t, {"id": np.array([2]), "value": np.array([1.0])}, on=_on(PE))
-        .when_matched_update_all(), feature)
+    if feature == "change data feed":
+        assert port_changes_of(port, 1) == ref_changes_of(ref, 1) == {
+            (1, "update_preimage"): [(("id", "2"), ("status", "'a'"),
+                                      ("value", "20.0"))],
+            (1, "update_postimage"): [(("id", "2"), ("status", "'a'"),
+                                       ("value", "1.0"))],
+            (1, "insert"): [(("id", "7"), ("status", "None"),
+                             ("value", "7.0"))]}
+        assert m.version == 1
 
 
 # ------------------------------------------------- C10 and C9: key codes

@@ -48,6 +48,7 @@ from delta_tpu_torch.storage.local import LocalLogStore
 from delta_tpu_torch.txn import transaction as port_txn
 from delta_tpu_torch.utils.parquet_write import data_file_bytes
 from delta_tpu_torch.write.writer import write_data_files
+from test_torch_cdf import port_changes_of, ref_changes_of
 
 
 def _cpu():
@@ -328,11 +329,17 @@ def test_write_table_refuses_feature_properties(tmp_path, props):
 
 
 def test_write_table_refuses_reference_tables_with_features(tmp_path):
+    """Refused until ported: a reference table with the change data feed
+    on now takes the append (which writes no change data: its feed is
+    made from the adds), and a partitioned one."""
     path = str(tmp_path / "t")
     dta.write_table(path, pa.table({"a": [1, 2]}), engine=HostEngine(),
                     properties={"delta.enableChangeDataFeed": "true"})
-    with pytest.raises(UnsupportedTableError):
-        write_table(path, {"a": np.arange(3)}, engine=_cpu())
+    assert write_table(path, {"a": np.arange(3)}, engine=_cpu()) == 1
+    got = dta.read_table(path, engine=HostEngine())
+    assert sorted(got.column("a").to_pylist()) == [0, 1, 1, 2, 2]
+    assert port_changes_of(path, 1) == ref_changes_of(path, 1) == {
+        (1, "insert"): [(("a", str(i)),) for i in range(3)]}
     # a partitioned table was refused too, before partitioned tables were
     # ported: now the append lands in the partitions, as the reference's
     part = str(tmp_path / "p")

@@ -8,8 +8,9 @@ vectors where a delete is involved), once per package:
 
 - static overwrite, `overwrite_schema` (repartitioned too), `merge_schema`
   (a top-level and a nested field), `replace_where` on the partition
-  column and on a data column, dynamic partition overwrite (the null
-  partition included), `ignore` and `data_change=False`;
+  column and on a data column (and on a table with the change data feed,
+  its feed too), dynamic partition overwrite (the null partition
+  included), `ignore` and `data_change=False`;
 - the commits agree: operation, `operationParameters`,
   `operationMetrics` (byte counts aside), `isBlindAppend`, protocol,
   metadata (physical names masked), and every add and remove by its
@@ -66,7 +67,6 @@ from delta_tpu_torch.errors import (
     DeltaError,
     NonExistentColumnError,
     UnresolvedColumnError,
-    UnsupportedTableError,
 )
 from delta_tpu_torch.models.schema import (
     ArrayType,
@@ -74,6 +74,7 @@ from delta_tpu_torch.models.schema import (
     StructField,
     StructType,
 )
+from test_torch_cdf import port_changes_of, ref_changes_of
 from test_torch_wide_types import port_rows, same_rows
 from test_torch_wide_write import to_port
 
@@ -523,16 +524,22 @@ def test_replace_where_across_deletion_vectors(tmp_path):
 
 
 def test_replace_where_on_a_cdf_table_is_refused(tmp_path):
-    """The change data feed's CDC files are not ported: a write to such a
-    table is refused, typed, before anything is written."""
+    """Refused until the change data feed was ported: now the write runs
+    as the reference's (the commit and the rows), and its change data
+    (the replaced rows' `delete` images, the written rows' `insert`
+    ones) gives the reference's feed (`tests/test_torch_cdf.py` holds
+    the feed in full)."""
     ref, port, src = _base(tmp_path, "plain",
                            {"delta.enableChangeDataFeed": "true"},
                            appends=((0, 10),))
-    v = _version(port)
-    with pytest.raises(UnsupportedTableError):
-        pta.write_table(port, to_port(_arrow(range(3))), mode="overwrite",
-                        replace_where=PE.col("id") < PE.lit(3), engine=CPU)
-    assert _version(port) == v and _data_files(port) == src
+    rv, pv = _write_both(ref, port, _arrow(range(3)), mode="overwrite",
+                         replace_where=lambda E: E.col("id") < E.lit(3))
+    _same_commit(ref, port, rv, pv, src)
+    _same_rows(ref, port)
+    got = port_changes_of(port, pv)
+    assert got == ref_changes_of(ref, rv)
+    assert sorted(got) == [(pv, "delete"), (pv, "insert")]
+    assert len(got[(pv, "delete")]) == len(got[(pv, "insert")]) == 3
 
 
 def test_replace_where_validates_rows(tmp_path):
