@@ -370,12 +370,32 @@
     their feed with the partition column restored. At least one launch
     each of K1, K2, K3, K7, K8 pack, K8 decode and K9.
 
-Prints a metrics line per phase, a `kernels` JSON line (K1-K9, each with
+26. Device SQL (`sql_phase`), TPC-DS's 23 single-block queries through
+    `delta_tpu_torch.sqlengine.execute_select` on `TorchEngine()`: (a) at
+    scale 12,000 (`utils/tpcds.py`'s generator, `load_delta` on the
+    card), each with LIMIT stripped against Python's `sqlite3` loaded from
+    the same numpy columns (the oracle's mechanical rewrites and 2e-4
+    tolerance, `tests/tpcds_sqlite_oracle.py`), K10 launched on every
+    query that aggregates rows, no string aggregate on the host, each
+    verbatim text within its LIMIT; (b) at SF1's 2,880,404 store_sales
+    rows (every other table sized by the generator's rules; the ten
+    tables the queries read written on the card), q3, q7, q42, q43, q52,
+    q55, q96 and q17 on the card and on `TorchEngine("cpu")`, equal rows,
+    each query's seconds, phase split (scan, join, group, sort) and the
+    launches of K1, K2, K3, K7 and K10; (c) K10 (`csrc/seg_agg.cu`)
+    against its plain version and timed beside it, `scatter_reduce_` and
+    its bound at three shapes: store_sales' `ss_ext_sales_price` by
+    `ss_item_sk` (11,521 groups; also the variance's sumsq pass),
+    `ss_quantity` by `ss_store_sk` (12 groups), and the largest group-by
+    that (b) ran.
+
+Prints a metrics line per phase, a `kernels` JSON line (K1-K10, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
 `launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
 `launches_write_modes`; every kernel `launches_maintenance`,
-`launches_table_features` and `launches_change_data_feed`), its time per
+`launches_table_features` and `launches_change_data_feed`; K1-K3 and K7
+`launches_sql`), its time per
 call (`ms`, CUDA events around back-to-back calls of the wrapper) and on
 the card alone (`device_ms`, torch.profiler), its bound and both shares
 of the bound), a `phase_wall` line (each phase's wall seconds), the
@@ -390,6 +410,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -5572,6 +5593,352 @@ def change_data_feed_phase(kept: dict, device: str, card: str) -> dict:
     return out
 
 
+# step 26: device SQL, TPC-DS's 23 single-block queries
+
+SQL_SMALL_SCALE = 12_000
+SQL_FULL_SCALE = 2_880_404          # SF1's store_sales row count
+# the store_sales star joins with the largest group-bys, and q17's
+# stddev_samp, at full width
+SQL_FULL_QUERIES = ("q3", "q7", "q42", "q43", "q52", "q55", "q96", "q17")
+# the tables those eight read (the generator draws every table)
+SQL_FULL_TABLES = ("date_dim", "time_dim", "item", "customer_demographics",
+                   "household_demographics", "promotion", "store",
+                   "store_sales", "store_returns", "catalog_sales")
+SQL_K = {"k1": "kernel.byte_class.launches",
+         "k2": "kernel.winner_pack.launches",
+         "k3": "kernel.hybrid_extract.launches",
+         "k7": "kernel.skip_mask.launches",
+         "k10": "kernel.seg_agg.launches"}
+# a query that aggregates launches K10 (a GROUP BY with no aggregate, q37
+# and q82, only dedupes its keys on the host; a GROUP BY over no rows has
+# no group to launch for)
+_SQL_AGG = re.compile(r"\b(sum|avg|count|min|max|stddev_samp)\s*\(",
+                      re.IGNORECASE)
+
+
+def _strip_limit(q: str) -> str:
+    return re.sub(r"\blimit\s+\d+\s*$", "", q.strip(), flags=re.IGNORECASE)
+
+
+def _sqlite_rewrite(q: str) -> str:
+    """The mechanical rewrites of `tests/tpcds_sqlite_oracle.py::_rewrite`
+    that the 23 single-block texts need (kept here: the card's machine
+    has no Arrow): padded date literals, real division outside string
+    literals, date arithmetic as sqlite's date(), stddev_samp by sums of
+    squares, CAST AS decimal as REAL, no trailing ORDER BY."""
+    q = re.sub(r"'(\d{4})-(\d{1,2})-(\d{1,2})'",
+               lambda m: f"'{m.group(1)}-{int(m.group(2)):02d}-"
+                         f"{int(m.group(3)):02d}'", q)
+    parts = q.split("'")
+    q = "'".join(p.replace("/", "*1.0/") if i % 2 == 0 else p
+                 for i, p in enumerate(parts))
+    q = re.sub(r"\(\s*cast\s*\(\s*'([0-9-]+)'\s+as\s+date\s*\)\s*([+-])\s*"
+               r"interval\s+(\d+)\s+days?\s*\)",
+               r"date('\1','\g<2>\3 days')", q, flags=re.IGNORECASE)
+    q = re.sub(r"([a-z_][\w.]*\.?d_date)\s*([+-])\s*interval\s+(\d+)\s+days?",
+               r"date(\1,'\g<2>\3 days')", q, flags=re.IGNORECASE)
+    q = re.sub(r"cast\s*\(\s*'([0-9-]+)'\s+as\s+date\s*\)", r"'\1'", q,
+               flags=re.IGNORECASE)
+    q = re.sub(r"cast\s*\(\s*([a-z_][\w.]*)\s+as\s+date\s*\)", r"\1", q,
+               flags=re.IGNORECASE)
+    q = re.sub(r"\border\s+by\s+[^()]*$", "", q, flags=re.IGNORECASE)
+    q = re.sub(r"stddev_samp\s*\(\s*([a-z_][a-z0-9_.]*)\s*\)",
+               r"(case when count(\1) > 1 then sqrt(max(0.0,"
+               r"(1.0*sum(1.0*\1*\1) - 1.0*sum(\1)*sum(\1)/count(\1))"
+               r"/(count(\1)-1))) else null end)", q, flags=re.IGNORECASE)
+    q = re.sub(r"cast\s*\(\s*([^()]+?)\s+as\s+decimal\s*\([^)]*\)\s*\)",
+               r"CAST(\1 AS REAL)", q, flags=re.IGNORECASE)
+    return q
+
+
+def _sqlite_of(tables: dict):
+    """sqlite3 in memory, loaded from the generator's columns (dates as
+    ISO strings; sqlite stores a NaN as NULL, as the oracle's load does)."""
+    import math
+    import sqlite3
+
+    conn = sqlite3.connect(":memory:")
+    conn.create_function("sqrt", 1, math.sqrt)
+    for name, batch in tables.items():
+        cols = batch.column_names
+        conn.execute(f"CREATE TABLE {name} ({', '.join(cols)})")
+        values = []
+        for c in cols:
+            py = batch.column(c).to_python()
+            if batch.column(c).values.dtype.kind == "M":
+                py = [None if v is None else v.isoformat() for v in py]
+            values.append(py)
+        conn.executemany(f"INSERT INTO {name} VALUES "
+                         f"({','.join('?' * len(cols))})", zip(*values))
+    return conn
+
+
+def _norm_cell(v):
+    import datetime as _dt
+    import math
+
+    if isinstance(v, float):
+        return None if math.isnan(v) else round(v, 3)
+    if isinstance(v, _dt.date):
+        return v.isoformat()[:10]
+    return v
+
+
+def _rows_equal(got, want, tol: float = 2e-4) -> tuple:
+    """`tests/tpcds_sqlite_oracle.py::rows_equal`: order-insensitive
+    multiset equality, floats to `tol` relative. At the oracle's 2e-4 the
+    floats are compared rounded to 3 decimals, as there; a tighter `tol`
+    compares them unrounded (the rounding is then only the sort key's)."""
+    rounded = tol >= 2e-4
+
+    def cell(v):
+        if not rounded and isinstance(v, float):
+            return None if v != v else v
+        return _norm_cell(v)
+
+    if len(got) != len(want):
+        return False, f"row count {len(got)} != {len(want)}"
+
+    def key(row):
+        out = []
+        for v in row:
+            v = _norm_cell(v)
+            if isinstance(v, bool):
+                out.append(f"bool:{v}")
+            elif isinstance(v, (int, float)):
+                out.append(f"num:{float(v):.3f}")
+            else:
+                out.append(f"{type(v).__name__}:{v}")
+        return tuple(out)
+
+    for i, (ra, rb) in enumerate(zip(sorted(got, key=key),
+                                     sorted(want, key=key))):
+        if len(ra) != len(rb):
+            return False, f"row {i}: width {len(ra)} != {len(rb)}"
+        for j, (va, vb) in enumerate(zip(ra, rb)):
+            va, vb = cell(va), cell(vb)
+            if va is None and vb is None:
+                continue
+            if isinstance(va, float) or isinstance(vb, float):
+                if va is None or vb is None or abs(va - vb) > tol * max(
+                        1.0, abs(va), abs(vb)):
+                    return False, f"row {i} col {j}: {va!r} vs {vb!r}"
+            elif va != vb:
+                return False, f"row {i} col {j}: {va!r} vs {vb!r}"
+    return True, "ok"
+
+
+def _sql_launches(counts: dict) -> dict:
+    return {k: counts.get(name, 0) for k, name in SQL_K.items()}
+
+
+def _k10_times(codes, values, valid, op: str, n_groups: int,
+               means=None) -> dict:
+    """K10 on one input: against its plain version on the card (ints and
+    counts exact, float sums to 1e-12 relative), timed beside it, beside
+    `scatter_reduce_(include_self=False)` on pre-masked values (the one
+    library call) and its bound."""
+    from delta_tpu_torch.ops.segagg import seg_agg, seg_agg_plain
+
+    got = seg_agg(codes, values, valid, op, n_groups, means)
+    torch.cuda.synchronize()
+    want = seg_agg_plain(codes, values, valid, op, n_groups, means)
+    _check(torch.equal(got[1], want[1]), f"seg_agg count != plain ({op})")
+    if got[0].dtype == torch.float64 and op in ("sum", "sumsq"):
+        err = float((got[0] - want[0]).abs().max()) if n_groups else 0.0
+        _check(torch.allclose(got[0], want[0], rtol=1e-12, atol=1e-9),
+               f"seg_agg {op} != plain within 1e-12")
+    else:
+        _check(torch.equal(got[0].view(torch.int64),
+                           want[0].view(torch.int64)),
+               f"seg_agg {op} != plain bit for bit")
+        err = 0.0
+    n = codes.numel()
+    call = lambda: seg_agg(codes, values, valid, op, n_groups, means)  # noqa
+    idx = codes.to(torch.int64)
+    keep = valid if valid is not None else torch.ones_like(codes,
+                                                           dtype=torch.bool)
+    if op == "sumsq":
+        d = values - means[idx]
+        masked = torch.where(keep, d * d, 0.0)
+    elif op == "count":
+        masked = keep.to(torch.int64)
+    else:
+        masked = torch.where(keep, values, torch.zeros((), dtype=values.dtype,
+                                                       device=values.device))
+    reduce = {"min": "amin", "max": "amax"}.get(op, "sum")
+    out = torch.zeros(n_groups, dtype=masked.dtype, device=codes.device)
+    library = lambda: out.scatter_reduce_(0, idx, masked, reduce,  # noqa
+                                          include_self=False)
+    # each input read once: 4 B code, 8 B value (a count reads none),
+    # 1 B valid where there is a mask; 16 B out per group, plus 8 B of
+    # means for the sumsq pass
+    reads_values = values is not None and op != "count"
+    row_bytes = 4.0 + (8.0 if reads_values else 0.0) + (
+        1.0 if valid is not None else 0.0)
+    nbytes = row_bytes * n + 16.0 * n_groups + (
+        8.0 * n_groups if op == "sumsq" else 0.0)
+    bound, by = _bound_ms(nbytes, float(n))
+    ms = _time_ms(call, 50)
+    dev_ms = _device_ms(call, 50, ("seg_agg",))
+    return {"op": op, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": _time_ms(lambda: seg_agg_plain(
+                codes, values, valid, op, n_groups, means), 10),
+            "plain_device": "cuda",
+            "library_ms": _time_ms(library, 50),
+            "library_call": f"Tensor.scatter_reduce_(0, idx, masked, "
+                            f"{reduce!r}, include_self=False)",
+            "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+            "share": bound / ms, "device_share": bound / dev_ms,
+            "shape": _k10_shape(n, values if reads_values else None, valid,
+                                n_groups)}
+
+
+def _k10_shape(n: int, values, valid, n_groups: int) -> str:
+    """The inputs K10 reads and its output length, as `i32[n]+f64[n]+
+    bool[n] -> [groups]`."""
+    parts = [f"i32[{n}]"]
+    if values is not None:
+        parts.append({torch.float64: "f64", torch.int64: "i64"}.get(
+            values.dtype, str(values.dtype).split(".")[-1]) + f"[{n}]")
+    if valid is not None:
+        parts.append(f"bool[{n}]")
+    return "+".join(parts) + f" -> [{n_groups}]"
+
+
+def sql_phase(work: str, card: str, dev) -> tuple:
+    """Step 26 (module docstring): (a) the 23 queries at scale 12,000
+    against sqlite, (b) eight at SF1 on the card against the CPU engine,
+    (c) K10 beside its plain version and `scatter_reduce_`. Returns (the
+    phase's metrics, K10's row of the kernels line)."""
+    from delta_tpu_torch import TorchEngine, obs
+    from delta_tpu_torch.catalog import Catalog
+    from delta_tpu_torch.ops import sqlops
+    from delta_tpu_torch.sqlengine import execute_select
+    from delta_tpu_torch.utils.tpcds import QUERIES, generate, load_delta
+
+    out = {"small": {}, "full": {}}
+    # (a) every single-block query at scale 12,000, LIMIT stripped,
+    # against sqlite; each verbatim text within its LIMIT
+    tabs = generate(SQL_SMALL_SCALE)
+    t0 = time.perf_counter()
+    cat = load_delta(os.path.join(work, "sql_small"), tables=tabs,
+                     engine=TorchEngine())
+    out["small_write_s"] = time.perf_counter() - t0
+    conn = _sqlite_of(tabs)
+    small_k10 = 0
+    for name, text in QUERIES.items():
+        q = _strip_limit(text)
+        obs.reset()
+        t0 = time.perf_counter()
+        res = execute_select(q, catalog=cat)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = obs.counters()
+        ok, msg = _rows_equal(res.rows(),
+                              conn.execute(_sqlite_rewrite(q)).fetchall())
+        _check(ok, f"sql (a) {name} != sqlite: {msg}")
+        k10 = counts.get(SQL_K["k10"], 0)
+        if _SQL_AGG.search(q) and res.num_rows:
+            _check(k10 >= 1, f"sql (a) {name}: K10 launched ({k10})")
+        _check(counts.get("sql.host_string_aggs", 0) == 0,
+               f"sql (a) {name}: a string aggregate on the host")
+        small_k10 += k10
+        m = re.search(r"\blimit\s+(\d+)\s*$", text.strip(), re.IGNORECASE)
+        verbatim = execute_select(text, catalog=cat)
+        _check(m is None or verbatim.num_rows <= int(m.group(1)),
+               f"sql (a) {name} past its LIMIT")
+        out["small"][name] = {"rows": res.num_rows, "s": s, "k10": k10}
+    conn.close()
+    out["small_k10"] = small_k10
+    print(f"sql (a): 23 queries at scale {SQL_SMALL_SCALE} equal sqlite, "
+          f"K10 {small_k10}; {card}", flush=True)
+
+    # (b) SF1's store_sales, the tables these queries read
+    t0 = time.perf_counter()
+    tabs = generate(SQL_FULL_SCALE)
+    out["generate_s"] = time.perf_counter() - t0
+    ss = tabs["store_sales"]
+    root = os.path.join(work, "sql_sf1")
+    obs.reset()
+    t0 = time.perf_counter()
+    load_delta(root, tables={k: tabs[k] for k in SQL_FULL_TABLES},
+               engine=TorchEngine())
+    out["write_s"] = time.perf_counter() - t0
+    out["rows"] = {k: tabs[k].num_rows for k in SQL_FULL_TABLES}
+    del tabs
+    card_cat = Catalog(root, engine=TorchEngine())
+    cpu_cat = Catalog(root, engine=TorchEngine("cpu"))
+    largest = {}
+    real_seg_agg = sqlops.seg_agg
+
+    def watching(codes, values, valid, op, n_groups, means=None):
+        if codes.is_cuda and codes.numel() > largest.get("n", -1):
+            largest.update(n=codes.numel(), args=(codes, values, valid, op,
+                                                  n_groups, means))
+        return real_seg_agg(codes, values, valid, op, n_groups, means)
+
+    sqlops.seg_agg = watching
+    try:
+        for name in SQL_FULL_QUERIES:
+            q = _strip_limit(QUERIES[name])
+            torch.cuda.synchronize()
+            obs.reset()
+            t0 = time.perf_counter()
+            res = execute_select(q, catalog=card_cat)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            counts = obs.counters()
+            t0 = time.perf_counter()
+            cpu = execute_select(q, catalog=cpu_cat)
+            cpu_s = time.perf_counter() - t0
+            ok, msg = _rows_equal(res.rows(), cpu.rows(), tol=1e-9)
+            _check(ok, f"sql (b) {name}: card != CPU: {msg}")
+            launches = _sql_launches(counts)
+            _check(launches["k10"] >= 1, f"sql (b) {name}: K10 launched")
+            out["full"][name] = {
+                "rows": res.num_rows, "s": s, "cpu_s": cpu_s,
+                "phase_s": {p: counts.get(f"sql.{p}_ns", 0) / 1e9
+                            for p in ("scan", "join", "group", "sort")},
+                "launches": launches}
+            print(f"sql (b) {name}: {res.num_rows} rows, {s:.4f} s on the "
+                  f"card ({json.dumps(out['full'][name]['phase_s'])}), "
+                  f"{cpu_s:.4f} s on the CPU, launches "
+                  f"{json.dumps(launches)}; {card}", flush=True)
+    finally:
+        sqlops.seg_agg = real_seg_agg
+    _check("args" in largest, "sql (b): a group-by on the card")
+
+    # (c) K10 at three shapes
+    item = ss.column("ss_item_sk").values
+    price = ss.column("ss_ext_sales_price").values
+    n_items = int(item.max())
+    codes = torch.from_numpy((item - 1).astype(np.int32)).to(dev)
+    p_valid = torch.from_numpy(~np.isnan(price)).to(dev)
+    p_vals = torch.from_numpy(np.nan_to_num(price, nan=0.0)).to(dev)
+    store = ss.column("ss_store_sk").values
+    s_codes = torch.from_numpy((store - 1).astype(np.int32)).to(dev)
+    qty = torch.from_numpy(ss.column("ss_quantity").values).to(dev)
+    q_valid = None if ss.column("ss_quantity").valid is None else \
+        torch.from_numpy(ss.column("ss_quantity").valid).to(dev)
+    by_item = _k10_times(codes, p_vals, p_valid, "sum", n_items)
+    means = torch.zeros(n_items, dtype=torch.float64, device=dev)
+    by_item_sumsq = _k10_times(codes, p_vals, p_valid, "sumsq", n_items,
+                               means + 1.5)
+    by_store = _k10_times(s_codes, qty, q_valid, "sum", 12)
+    biggest = _k10_times(*largest["args"])
+    biggest["query_shape"] = True
+    row = {"name": "seg_agg", "route": "cuda",
+           "source": "delta_tpu_torch/csrc/seg_agg.cu",
+           "replaces": "delta_tpu/ops/sqlops.py:123",
+           "launches": sum(r["launches"]["k10"]
+                           for r in out["full"].values()),
+           "launches_small": small_k10,
+           **by_item, "sumsq": by_item_sumsq, "by_store": by_store,
+           "largest_query_groupby": biggest}
+    return out, row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--commits", type=int, default=10_000,
@@ -5926,6 +6293,24 @@ def main(argv=None) -> int:
         print(f"change_data_feed steps: "
               f"{sum(r['s'] for r in cdf['steps'].values()):.4f} s, launches "
               + json.dumps(cdf_launches) + f"; {card}", flush=True)
+
+        # step 26: device SQL, TPC-DS's single-block queries at scale
+        # 12,000 against sqlite and eight at SF1 against the CPU engine;
+        # K10 at three shapes
+        sqlm, kernels["seg_agg"] = sql_phase(work, card, dev)
+        sql_launches = {k: sum(r["launches"][k] for r in
+                               sqlm["full"].values()) for k in SQL_K}
+        for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
+                          ("hybrid_extract", "k3"), ("skip_mask", "k7")):
+            kernels[name]["launches_sql"] = sql_launches[key]
+        print("sql: " + json.dumps(sqlm), flush=True)
+        print("seg_agg phase: " + json.dumps(kernels["seg_agg"]),
+              flush=True)
+        print(f"sql (b) queries: {sum(r['s'] for r in sqlm['full'].values()):.4f}"
+              f" s on the card, {sum(r['cpu_s'] for r in sqlm['full'].values()):.4f}"
+              f" s on the CPU, write {sqlm['write_s']:.4f} s, launches "
+              + json.dumps(sql_launches) + f"; {card}", flush=True)
+        lap("sql")
 
         # handoff: a checkpoint at the head of a 200-commit log
         small = os.path.join(work, "handoff")

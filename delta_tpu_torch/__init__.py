@@ -35,6 +35,10 @@ roaring bit scatter), and the row read and OPTIMIZE apply it. The last two
 TPU kernels have entry points of their own: `ops/unpack.py` (kernel K5,
 Parquet bit-packed groups) and `ops/minmax.py` (kernel K6, per-file min,
 max and null count).
+
+SQL (`sql.py`, `sqlengine/`, `catalog.py`) runs one SELECT block over
+Delta tables: scans with pushed-down filters, then joins, aggregates
+(kernel K10, the segment aggregate) and ORDER BY sorts on the card.
 """
 
 from delta_tpu_torch.engine import TorchEngine

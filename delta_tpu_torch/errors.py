@@ -284,3 +284,31 @@ class CdcNotEnabledError(DeltaError):
     """A change data feed read of a table whose feed is off."""
 
     error_class = "DELTA_CHANGE_TABLE_FEED_DISABLED"
+
+
+class SqlParseError(DeltaError):
+    """SQL text failed to tokenize or parse (the reference's
+    `DELTA_PARSE_SYNTAX_ERROR` family)."""
+
+    error_class = "DELTA_PARSE_SYNTAX_ERROR"
+
+
+class AmbiguousColumnError(DeltaError):
+    error_class = "DELTA_AMBIGUOUS_COLUMN"
+
+
+class UnsupportedSqlError(DeltaError):
+    """Valid-looking SQL that uses a construct this package does not run;
+    the message names the construct."""
+
+    error_class = "DELTA_UNSUPPORTED_SQL"
+
+
+class SubqueryShapeError(DeltaError):
+    """A scalar or IN subquery returned the wrong shape."""
+
+    error_class = "DELTA_INVALID_SUBQUERY"
+
+
+class CatalogTableError(DeltaError):
+    error_class = "DELTA_CATALOG_TABLE_ERROR"

@@ -39,6 +39,7 @@ SOURCES = {
     "skip_mask": "skip_mask.cu",
     "dv_bits": "dv_bits.cu",
     "merge_join": "merge_join.cu",
+    "seg_agg": "seg_agg.cu",
     "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

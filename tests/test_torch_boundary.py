@@ -18,8 +18,10 @@ a filtered read through a renamed column, a DELETE and a checkpoint with
 the maintenance commands (REORG PURGE, VACUUM FULL and LITE with a dry
 run, RESTORE, a shallow and a deep CLONE), and the change data feed (the
 change data of DELETE, UPDATE and MERGE on a mapped partitioned table
-and `table_changes`) must leave no `jax`,
-`pyarrow`, `pandas`, `delta_tpu` or `delta_tpu.*` module in `sys.modules`
+and `table_changes`), and SQL (the TPC-DS generator and catalog, two
+corpus queries through `sql()`, a plain SELECT with time travel, a
+refused statement) must leave no `jax`, `pyarrow`, `pandas`,
+`delta_tpu`, `delta_tpu.*` or `benchmarks*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
 """
@@ -268,7 +270,23 @@ merge(t12, {"k": np.array([7, 50]), "p": np.array([1, 0])},
 kinds = table_changes(t12, 1).column("_change_type").values.tolist()
 assert sorted(kinds) == ["delete"] * 4 + ["insert", "update_postimage",
                                           "update_preimage"], kinds
-banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu")
+# SQL: the TPC-DS generator and catalog, a query through `sql()` (joins,
+# GROUP BY through K10's plain version, ORDER BY), a plain SELECT with
+# time travel and a refused statement
+from delta_tpu_torch.errors import UnsupportedSqlError
+from delta_tpu_torch.sql import sql
+from delta_tpu_torch.utils.tpcds import QUERIES, load_delta
+cat = load_delta(d + "/tpcds", scale=2000, engine=cpu)
+assert sql(QUERIES["q3"], catalog=cat).names == [
+    "d_year", "brand_id", "brand", "sum_agg"]
+assert sql(QUERIES["q17"], catalog=cat).num_columns == 15
+assert sql(f"select k from '{d12}' version as of 0", engine=cpu).num_rows == 20
+try:
+    sql("VACUUM store_sales", catalog=cat)
+    raise AssertionError("VACUUM ran")
+except UnsupportedSqlError:
+    pass
+banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu", "benchmarks")
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in banned)))
 """
@@ -286,6 +304,10 @@ _REFERENCE_IMPORT = re.compile(r"\b(from|import)\s+delta_tpu(\.|\s|$)",
                                re.MULTILINE)
 
 
+_BENCHMARKS_IMPORT = re.compile(r"\b(from|import)\s+benchmarks(\.|\s|$)",
+                                re.MULTILINE)
+
+
 def test_port_sources_name_no_jax_pyarrow_or_reference():
     sources = sorted((REPO / "delta_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
@@ -299,7 +321,12 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
             "delta_tpu_torch/commands/reorg.py",
             "delta_tpu_torch/commands/restore.py",
             "delta_tpu_torch/constraints.py",
-            "delta_tpu_torch/read/cdc.py"} <= names
+            "delta_tpu_torch/read/cdc.py", "delta_tpu_torch/sql.py",
+            "delta_tpu_torch/catalog.py",
+            "delta_tpu_torch/sqlengine/executor.py",
+            "delta_tpu_torch/sqlengine/device.py",
+            "delta_tpu_torch/ops/sqlops.py", "delta_tpu_torch/ops/segagg.py",
+            "delta_tpu_torch/utils/tpcds.py"} <= names
     for src in sources:
         text = src.read_text()
         name = src.relative_to(REPO)
@@ -307,3 +334,5 @@ def test_port_sources_name_no_jax_pyarrow_or_reference():
             assert word not in text, f"{name} contains {word!r}"
         # `delta_tpu_torch.` is the port itself; `delta_tpu.` is not
         assert not _REFERENCE_IMPORT.search(text), f"{name} imports delta_tpu"
+        assert not _BENCHMARKS_IMPORT.search(text), \
+            f"{name} imports benchmarks"

@@ -1687,3 +1687,142 @@ def test_change_data_feed_on_the_card_equals_cpu(tmp_path):
     assert runs["cuda"] == runs["cpu"]
     assert set(runs["cpu"][1][2]) == {"insert", "delete", "update_preimage",
                                       "update_postimage"}
+
+
+def _seg_agg_case(n: int, n_groups: int, dtype, seed: int):
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, max(n_groups, 1), n)
+                             .astype(np.int32))
+    if dtype == torch.int64:
+        v = torch.from_numpy(rng.integers(-10**9, 10**9, n))
+    else:
+        v = torch.from_numpy(np.round(rng.normal(0, 1e3, n), 2))
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    return codes, v, valid
+
+
+def _seg_agg_same(got, want, op, dtype):
+    assert torch.equal(got[1].cpu(), want[1])
+    if dtype == torch.float64 and op in ("sum", "sumsq"):
+        assert torch.allclose(got[0].cpu(), want[0], rtol=1e-12, atol=1e-9)
+    else:
+        assert torch.equal(got[0].cpu().view(torch.int64),
+                           want[0].view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", [
+    (op, dt) for op in ("count", "sum", "min", "max", "sumsq")
+    for dt in (torch.int64, torch.float64)
+    if op != "sumsq" or dt == torch.float64])
+@pytest.mark.parametrize("n,n_groups", [(0, 3), (1, 1), (1000, 1),
+                                        (4097, 4097), (100_000, 12),
+                                        (100_000, 1024), (100_000, 1025),
+                                        (2_000_000, 11_521)])
+def test_seg_agg_kernel_matches_plain(op, dtype, n, n_groups):
+    """K10 against its plain version: one group, as many groups as rows,
+    the shared-table path's edge (1,024 groups) and the global one."""
+    from delta_tpu_torch.ops.segagg import seg_agg, seg_agg_plain
+
+    dev = _card()
+    codes, v, valid = _seg_agg_case(n, n_groups, dtype, n + n_groups)
+    means = torch.linspace(-5, 5, n_groups, dtype=torch.float64) \
+        if op == "sumsq" else None
+    launches = obs.counter("kernel.seg_agg.launches").read()
+    got = seg_agg(codes.to(dev), v.to(dev), valid.to(dev), op, n_groups,
+                  None if means is None else means.to(dev))
+    torch.cuda.synchronize()
+    _seg_agg_same(got, seg_agg_plain(codes, v, valid, op, n_groups, means),
+                  op, dtype)
+    assert obs.counter("kernel.seg_agg.launches").read() == launches + 1
+
+
+@pytest.mark.cuda
+def test_seg_agg_kernel_on_edge_values():
+    """All rows invalid, ±0.0 and infinities, an int64 sum that wraps
+    (as the reference's segment_sum), no valid mask, a group with no
+    row."""
+    from delta_tpu_torch.ops.segagg import seg_agg, seg_agg_plain
+
+    dev = _card()
+    codes = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], dtype=torch.int32)
+    f = torch.tensor([0.0, -0.0, -0.0, 0.0, float("inf"), 1.0,
+                      float("-inf"), -1.0], dtype=torch.float64)
+    big = torch.tensor([2**62, 2**62, 2**62, 2**62, -2**63, -1, 5, 6],
+                       dtype=torch.int64)
+    none = torch.zeros(8, dtype=torch.bool)
+    for v in (f, big):
+        for valid in (None, none, torch.ones(8, dtype=torch.bool)):
+            for op in ("count", "sum", "min", "max"):
+                got = seg_agg(codes.to(dev), v.to(dev),
+                              None if valid is None else valid.to(dev), op, 5)
+                torch.cuda.synchronize()
+                want = seg_agg_plain(codes, v, valid, op, 5)
+                assert torch.equal(got[1].cpu(), want[1])
+                assert torch.equal(got[0].cpu().view(torch.int64),
+                                   want[0].view(torch.int64)), (op, valid)
+
+
+@pytest.mark.cuda
+def test_a_k10_build_or_launch_failure_raises(monkeypatch, tmp_path):
+    """On a CUDA engine a K10 that cannot be built, or whose launch
+    fails, raises out of the query: there is no host fallback."""
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.ops import cuda_build, segagg
+    from delta_tpu_torch.sqlengine import execute_select
+
+    _card()
+    p = str(tmp_path / "t")
+    write_table(p, {"k": np.arange(10) % 3, "v": np.arange(10.0)},
+                engine=TorchEngine("cpu"))
+    q = f"SELECT k, sum(v) FROM '{p}' GROUP BY k"
+
+    real_function = cuda_build.function
+
+    def unbuildable(name, *a, **k):
+        if name == "seg_agg":
+            raise RuntimeError("native library seg_agg: nvcc failed")
+        return real_function(name, *a, **k)
+
+    monkeypatch.setattr(segagg, "_LAUNCH", None)
+    monkeypatch.setattr(cuda_build, "function", unbuildable)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        execute_select(q, engine=TorchEngine())
+    monkeypatch.setattr(segagg, "_LAUNCH",
+                        (lambda *a: 700, lambda index: 0))
+    with pytest.raises(RuntimeError, match="seg_agg launch failed"):
+        execute_select(q, engine=TorchEngine())
+
+
+@pytest.mark.cuda
+def test_sql_on_the_card_equals_cpu(tmp_path):
+    """The TPC-DS generator at scale 12,000 written on the CPU, every
+    single-block query on the card and on the CPU: the same rows (the
+    card's float sums to 1e-9 relative); K10 launched on every query
+    that aggregates and has rows, the joins and sorts counted."""
+    from delta_tpu_torch.catalog import Catalog
+    from delta_tpu_torch.sqlengine import execute_select
+    from delta_tpu_torch.utils.tpcds import QUERIES, load_delta
+
+    _card()
+    root = str(tmp_path / "tpcds")
+    load_delta(root, scale=12_000, engine=TorchEngine("cpu"))
+    card = Catalog(root, engine=TorchEngine())
+    cpu = Catalog(root, engine=TorchEngine("cpu"))
+    for name, text in QUERIES.items():
+        obs.reset()
+        got = execute_select(text, catalog=card)
+        counts = obs.counters()
+        want = execute_select(text, catalog=cpu)
+        assert got.names == want.names, name
+        key = lambda r: repr([round(x, 3) if isinstance(x, float) else x
+                              for x in r])  # noqa: E731
+        for a, b in zip(sorted(got.rows(), key=key),
+                        sorted(want.rows(), key=key), strict=True):
+            for x, y in zip(a, b, strict=True):
+                assert x == pytest.approx(y, rel=1e-9) \
+                    if isinstance(y, float) else x == y, name
+        if got.num_rows and any(f"{a}(" in text.lower() for a in (
+                "sum", "avg", "count", "stddev_samp")):
+            assert counts.get("kernel.seg_agg.launches", 0) >= 1, name
+        assert counts.get("sql.device_joins", 0) >= 1, name

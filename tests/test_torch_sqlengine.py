@@ -1,0 +1,297 @@
+"""The port's single-block executor, construct by construct, against the
+reference's `sql()` on the same tables.
+
+The statements are the single-block ones of `tests/test_sqlengine.py`
+(literals and operators, CASE, BETWEEN, IN with NULL, LIKE, IS NULL,
+CAST and interval arithmetic, date parts, the scalar functions, every
+aggregate, NULL group keys, GROUP BY expressions, INNER and CROSS joins,
+lateral aliases, ORDER BY's null order, DISTINCT, HAVING) and a few
+more. Each runs through `delta_tpu_torch.sql.sql` on `TorchEngine("cpu")`
+and through the reference's `sql` on `HostEngine` over one table written
+by the reference; rows are compared in order where the statement orders
+them, else as multisets. Errors: both raise, with the reference's error
+class where the port has the class.
+"""
+
+import re
+
+import numpy as np
+import pyarrow as pa
+import pytest
+
+import delta_tpu.api as dta
+from delta_tpu.engine.host import HostEngine
+from delta_tpu.errors import DeltaError as RefDeltaError
+from delta_tpu.sql import sql as ref_sql
+from delta_tpu_torch import TorchEngine
+from delta_tpu_torch.errors import DeltaError, UnsupportedSqlError
+from delta_tpu_torch.sql import sql
+
+CPU = TorchEngine("cpu")
+
+
+@pytest.fixture(scope="module")
+def paths(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_sqlengine")
+    t, other, nulls = (str(root / n) for n in ("t", "other", "nulls"))
+    dta.write_table(t, pa.table({
+        "id": pa.array([1, 2, 3, 4, None], pa.int64()),
+        "v": pa.array([10.0, 20.0, 30.0, 40.0, 50.0]),
+        "s": pa.array(["apple", "banana", "cherry", None, "apricot"]),
+        "d": pa.array([18262, 18293, 18322, 18353, 18383], pa.date32()),
+    }))
+    dta.write_table(other, pa.table({
+        "k": pa.array([2, 3, 9, 3], pa.int64()),
+        "w": pa.array([200.0, 300.0, 900.0, 301.0]),
+    }))
+    dta.write_table(nulls, pa.table({
+        "k": pa.array([None, None, "a", "b"]),
+        "v": pa.array([1, 2, 3, None], pa.int64()),
+        "f": pa.array([1.5, float("nan"), None, -2.0]),
+    }))
+    return {"t": t, "other": other, "nulls": nulls}
+
+
+def _rows(out):
+    if hasattr(out, "rows"):
+        return out.names, out.rows()
+    names = out.column_names
+    if hasattr(out, "num_columns") and isinstance(out, pa.Table):
+        return names, list(zip(*(c.to_pylist() for c in out.columns))) \
+            if out.num_columns else []
+    return names, list(zip(*(out.column(c).to_python() for c in names)))
+
+
+def _norm(v):
+    if isinstance(v, float):
+        return None if v != v else round(v, 9)
+    if hasattr(v, "isoformat"):
+        return v.isoformat()[:10]
+    return v
+
+
+STATEMENTS = [
+    "SELECT id, v + 1, v - 1, v * 2, v / 2, -v FROM '{t}' WHERE id = 1",
+    "SELECT s || '_x' FROM '{t}' WHERE id = 1",
+    "SELECT id FROM '{t}' WHERE id = 3 ORDER BY id",
+    "SELECT id FROM '{t}' WHERE id <> 3 ORDER BY id",
+    "SELECT id FROM '{t}' WHERE id < 3 OR s = 'cherry' ORDER BY id",
+    "SELECT id FROM '{t}' WHERE NOT (id >= 3) ORDER BY id",
+    "SELECT v AS val, s FROM '{t}' WHERE id >= 3 ORDER BY val DESC",
+    "SELECT DISTINCT CASE WHEN id < 3 THEN 'lo' ELSE 'hi' END AS bucket "
+    "FROM '{t}' WHERE id IS NOT NULL",
+    "SELECT id FROM '{t}' ORDER BY id DESC LIMIT 2",
+    "SELECT id FROM '{t}' ORDER BY id",
+    "SELECT id, s FROM '{t}' ORDER BY s DESC, id",
+    "SELECT CASE WHEN v < 25 THEN 'small' WHEN v < 45 THEN 'mid' "
+    "ELSE 'big' END c FROM '{t}' ORDER BY v",
+    "SELECT CASE WHEN v < 25 THEN v END c FROM '{t}' ORDER BY v",
+    "SELECT CASE WHEN id < 3 THEN 'y' ELSE 'n' END c FROM '{t}' "
+    "WHERE id IS NULL",
+    "SELECT CASE s WHEN 'apple' THEN 1 WHEN 'banana' THEN 2 ELSE 0 END c "
+    "FROM '{t}' ORDER BY v",
+    "SELECT id FROM '{t}' WHERE v BETWEEN 15 AND 35 ORDER BY id",
+    "SELECT id FROM '{t}' WHERE v NOT BETWEEN 15 AND 35 ORDER BY id",
+    "SELECT id FROM '{t}' WHERE id IN (1, NULL)",
+    "SELECT id FROM '{t}' WHERE id NOT IN (1, NULL)",
+    "SELECT id FROM '{t}' WHERE id NOT IN (1, 2) ORDER BY id",
+    "SELECT s FROM '{t}' WHERE s LIKE 'ap%' ORDER BY s",
+    "SELECT s FROM '{t}' WHERE s LIKE '_anana'",
+    "SELECT s FROM '{t}' WHERE s LIKE 'a.p%'",
+    "SELECT s FROM '{t}' WHERE s NOT LIKE 'a%' ORDER BY s",
+    "SELECT v FROM '{t}' WHERE id IS NULL",
+    "SELECT COUNT(*) n FROM '{t}' WHERE id IS NOT NULL",
+    "SELECT CAST(v AS int) i, CAST(id AS double) f, CAST(id AS string) st, "
+    "CAST(v AS decimal(10,2)) dec FROM '{t}' WHERE id = 2",
+    "SELECT id FROM '{t}' WHERE d BETWEEN cast('2020-01-15' as date) AND "
+    "(cast('2020-01-15' as date) + interval 60 days) ORDER BY id",
+    "SELECT id FROM '{t}' WHERE d > '2020-2-1' ORDER BY id",
+    "SELECT d, id FROM '{t}' WHERE d <= cast('2020-03-01' as date) "
+    "ORDER BY d DESC",
+    "SELECT year(d) y, month(d) m FROM '{t}' WHERE id = 3",
+    "SELECT substr(s, 1, 3) a, upper(s) u, lower(upper(s)) lo, length(s) n "
+    "FROM '{t}' WHERE id = 2",
+    "SELECT substr(s, 2) a FROM '{t}' ORDER BY v",
+    "SELECT abs(10 - v) a, round(v / 3, 1) r, coalesce(id, -1) c, "
+    "concat(s, '!') k FROM '{t}' WHERE v = 50",
+    "SELECT round(2.125, 2) r, round(-2.5) r0 FROM '{t}' WHERE id = 1",
+    "SELECT coalesce(s, 'none') c FROM '{t}' ORDER BY v",
+    "SELECT COUNT(*) n, COUNT(id) ni, SUM(v) s, AVG(v) a, MIN(v) lo, "
+    "MAX(v) hi, stddev_samp(v) sd, var_samp(v) vr FROM '{t}'",
+    "SELECT MIN(s) lo, MAX(s) hi, MIN(d) d0, MAX(d) d1 FROM '{t}'",
+    "SELECT k, SUM(v) s, COUNT(f) c, AVG(f) a, MIN(f) lo FROM '{nulls}' "
+    "GROUP BY k ORDER BY k",
+    "SELECT k, COUNT(*) n FROM '{nulls}' GROUP BY k",
+    "SELECT SUM(v) s FROM '{nulls}' WHERE v > 100",
+    "SELECT COUNT(*) n, MAX(f) m FROM '{nulls}' WHERE f IS NULL",
+    "SELECT month(d) m, COUNT(*) n FROM '{t}' GROUP BY month(d) "
+    "ORDER BY m LIMIT 2",
+    "SELECT id IS NULL k, SUM(v) s FROM '{t}' GROUP BY id IS NULL "
+    "ORDER BY k",
+    "SELECT a.id, b.w FROM '{t}' a JOIN '{other}' b ON a.id = b.k "
+    "ORDER BY a.id, b.w",
+    "SELECT a.id, b.w FROM '{t}' a INNER JOIN '{other}' b ON b.k = a.id "
+    "WHERE b.w > 250 ORDER BY b.w",
+    "SELECT COUNT(*) n FROM '{t}' a CROSS JOIN '{other}' b",
+    "SELECT a.id, SUM(b.w) s FROM '{t}' a, '{other}' b WHERE a.id = b.k "
+    "GROUP BY a.id HAVING SUM(b.w) > 250 ORDER BY s DESC",
+    "SELECT COUNT(*) n FROM '{t}' a, '{other}' b WHERE a.v < b.w / 10",
+    "SELECT k * 100 AS w, w + 1 AS x FROM '{other}' ORDER BY k, w",
+    "SELECT k * 100 AS big, big + 1 AS x FROM '{other}' ORDER BY k, w",
+    "SELECT k, SUM(w) total FROM '{other}' GROUP BY k HAVING total > 250 "
+    "ORDER BY 2 DESC",
+    "SELECT ID, V FROM '{t}' WHERE id = 2",
+    "SELECT * FROM '{t}' WHERE id = 1",
+    "SELECT DISTINCT k FROM '{other}' ORDER BY k",
+    "SELECT b.k, b.w FROM '{other}' AS b WHERE b.k = 3 OR b.w IS NULL "
+    "ORDER BY b.w DESC",
+]
+
+
+@pytest.mark.parametrize("stmt", STATEMENTS)
+def test_statement_equals_reference(paths, stmt):
+    s = stmt.format(**paths)
+    got_names, got = _rows(sql(s, engine=CPU))
+    want_names, want = _rows(ref_sql(s, engine=HostEngine()))
+    assert got_names == want_names
+    got = [tuple(_norm(v) for v in r) for r in got]
+    want = [tuple(_norm(v) for v in r) for r in want]
+    if not re.search(r"\border\s+by\b", s, re.IGNORECASE):
+        got, want = sorted(got, key=repr), sorted(want, key=repr)
+    assert got == want
+
+
+@pytest.mark.parametrize("stmt,match", [
+    ("SELECT a.id FROM '{t}' a JOIN '{other}' b ON a.id < b.k", "JOIN ON"),
+    ("SELECT nope FROM '{t}'", "not found"),
+    ("SELECT id FROM '{t}' a, '{t}' b WHERE a.id = b.id", "ambiguous"),
+    ("SELECT a.id FROM '{t}' a, '{t}' a", "duplicate"),
+    ("SELECT id FROM '{t}' ORDER BY id nonsense extra", "trailing"),
+    ("SELECT regexp_extract(s, 'x') FROM '{t}'", "unsupported function"),
+    ("SELECT abs(*) FROM '{t}'", "count"),
+    ("SELECT id FROM '{t}' VERSION AS OF 'zero'", "VERSION AS OF"),
+    ("SELECT id FROM '{t}' WHERE SUM(v) > 10", "not allowed|aggregate"),
+    ("SELECT v, COUNT(*) FROM '{t}' GROUP BY id", "GROUP BY"),
+    ("SELECT id FROM '{t}' HAVING id > 1", "HAVING"),
+])
+def test_errors_as_in_the_reference(paths, stmt, match):
+    s = stmt.format(**paths)
+    with pytest.raises(RefDeltaError, match=match) as ref:
+        ref_sql(s, engine=HostEngine())
+    with pytest.raises(DeltaError, match=match) as got:
+        sql(s, engine=CPU)
+    assert got.value.error_class == ref.value.error_class
+
+
+@pytest.mark.parametrize("stmt,construct", [
+    ("SELECT a.id, b.w FROM '{t}' a LEFT JOIN '{other}' b ON a.id = b.k",
+     "LEFT OUTER JOIN"),
+    ("SELECT id FROM '{t}' WHERE v > (SELECT AVG(w) FROM '{other}')",
+     "subquery"),
+    ("SELECT id FROM (SELECT id FROM '{t}') x", "subquery"),
+    ("SELECT sum(DISTINCT v) FROM '{t}'", "SUM(DISTINCT)"),
+    ("SELECT rank() OVER (ORDER BY v) FROM '{t}'", "window function (OVER)"),
+    ("SELECT id FROM '{t}' UNION ALL SELECT k FROM '{other}'", "UNION ALL"),
+    ("WITH x AS (SELECT id FROM '{t}') SELECT id FROM x", "WITH"),
+])
+def test_constructs_outside_the_slice_are_refused(paths, stmt, construct):
+    with pytest.raises(UnsupportedSqlError) as e:
+        sql(stmt.format(**paths), engine=CPU)
+    assert e.value.context["construct"] == construct
+
+
+def test_repeated_output_names_keep_every_column(paths):
+    out = sql("SELECT id, id, v AS id FROM '{t}' WHERE id <= 2 "
+              "ORDER BY v".format(**paths), engine=CPU)
+    assert out.names == ["id", "id", "id"]
+    assert out.column_names == ["id", "id#2", "id#3"]
+    assert out.rows() == [(1, 1, 10.0), (2, 2, 20.0)]
+    assert np.array_equal(out.column_at(2).values, [10.0, 20.0])
+
+
+def test_catalog_against_the_reference(tmp_path):
+    """Each package's catalog reads the other's entries; CREATE TABLE with
+    a schema commits, a name over an existing table registers it, and the
+    refusals raise the reference's error classes."""
+    from delta_tpu.catalog import Catalog as RefCatalog
+    from delta_tpu_torch.catalog import Catalog, TableAlreadyExistsError
+    from delta_tpu_torch.errors import CatalogTableError
+    from delta_tpu_torch.models.schema import StructField, StructType
+
+    root = str(tmp_path)
+    cat = Catalog(root, engine=CPU)
+    ref = RefCatalog(root, engine=HostEngine())
+    t = cat.create_table("sales.daily", schema=StructType(
+        [StructField("k", "long"), StructField("p", "string")]),
+        partition_by=["p"], properties={"delta.appendOnly": "false"})
+    assert t.latest_snapshot().metadata.partitionColumns == ["p"]
+    ext = str(tmp_path / "ext")
+    dta.write_table(ext, pa.table({"x": [1, 2, 3]}))
+    ref.register("ext", ext)
+    assert cat.tables() == ref.tables() == ["ext", "sales.daily"]
+    assert ref.table("sales.daily").latest_snapshot().metadata \
+        .partitionColumns == ["p"]
+    assert sql("SELECT sum(x) s FROM ext", catalog=cat).rows() == [(6,)]
+    assert cat.table("ext") is cat.table("ext")
+    with pytest.raises(TableAlreadyExistsError):
+        cat.register("ext", ext)
+    with pytest.raises(CatalogTableError) as e:
+        cat.create_table("sales.daily", partition_by=["k"],
+                         if_not_exists=True)
+    assert e.value.error_class == \
+        "DELTA_CREATE_TABLE_WITH_DIFFERENT_PARTITIONING"
+    with pytest.raises(DeltaError) as e:
+        cat.table("no such name!")
+    assert e.value.error_class == "DELTA_PARSING_ILLEGAL_TABLE_NAME"
+    assert cat.drop("ext") and not ref.exists("ext")
+    assert not cat.drop("ext", if_exists=True)
+    other = Catalog(str(tmp_path / "other"), engine=CPU)
+    other.register("e2", ext)
+    with pytest.raises(CatalogTableError):  # external: outside its root
+        other.drop("e2", delete_data=True)
+    assert cat.drop("sales.daily", delete_data=True)
+    assert ref.tables() == []
+
+
+def test_pushdown_takes_only_literals_of_the_columns_type(paths,
+                                                          monkeypatch):
+    """A conjunct goes into the scan's filter only where its literal has
+    its column's type; a string against the date column stays with the
+    executor's own coercions, and the rows are the reference's."""
+    from delta_tpu_torch.snapshot import Snapshot
+
+    filters = []
+    real = Snapshot.scan
+
+    def scan(self, filter=None, columns=None):
+        filters.append(filter)
+        return real(self, filter=filter, columns=columns)
+
+    monkeypatch.setattr(Snapshot, "scan", scan)
+    s = ("SELECT id FROM '{t}' WHERE d > '2020-2-1' AND id >= 2 "
+         "AND s IN ('banana', 'cherry', 7) ORDER BY id").format(**paths)
+    got = [tuple(_norm(v) for v in r) for r in _rows(sql(s, engine=CPU))[1]]
+    want = [tuple(_norm(v) for v in r)
+            for r in _rows(ref_sql(s, engine=HostEngine()))[1]]
+    assert got == want == [(3,)]
+    assert len(filters) == 1
+    text = repr(filters[0])
+    assert "id" in text and "2020" not in text and "banana" not in text
+
+
+def test_a_scan_failure_under_a_pushed_filter_propagates(paths,
+                                                         monkeypatch):
+    """The executor does not scan again without the filter when the
+    filtered scan raises: the error reaches the caller."""
+    from delta_tpu_torch.snapshot import Snapshot
+
+    calls = []
+
+    def scan(self, filter=None, columns=None):
+        calls.append(filter)
+        raise ValueError("skipping: bad input")
+
+    monkeypatch.setattr(Snapshot, "scan", scan)
+    with pytest.raises(ValueError, match="bad input"):
+        sql("SELECT id FROM '{t}' WHERE id = 3".format(**paths), engine=CPU)
+    assert len(calls) == 1 and calls[0] is not None
