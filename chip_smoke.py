@@ -383,11 +383,13 @@
     q55, q96 and q17 on the card and on `TorchEngine("cpu")`, equal rows,
     each query's seconds, phase split (scan, join, group, sort) and the
     launches of K1, K2, K3, K7 and K10; (c) K10 (`csrc/seg_agg.cu`)
-    against its plain version and timed beside it, `scatter_reduce_` and
-    its bound at three shapes: store_sales' `ss_ext_sales_price` by
-    `ss_item_sk` (11,521 groups; also the variance's sumsq pass),
-    `ss_quantity` by `ss_store_sk` (12 groups), and the largest group-by
-    that (b) ran.
+    against its plain version and timed beside it, `scatter_reduce_`, its
+    bound and its launches a call at six shapes, one or two of each of its
+    regimes: store_sales' `ss_ext_sales_price` by `ss_item_sk` (11,521
+    groups; also the variance's sumsq pass), `ss_quantity` by
+    `ss_store_sk` (12 groups), the largest group-by that (b) ran, and
+    `ss_ext_sales_price` by `ss_customer_sk` (57,608 groups) and by
+    `ss_ticket_number` (about 221,000 tickets of 1-25 rows, in runs).
 
 Prints a metrics line per phase, a `kernels` JSON line (K1-K10, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
@@ -451,7 +453,8 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int, kernels, per_call: int = 1) -> float:
+def _device_ms(fn, reps: int, kernels, per_call: int = 1,
+               launches: list = None) -> float:
     """Device milliseconds per call of the kernels whose names hold one of
     `kernels`, each launched `per_call` times a call: the sum over those
     kernels of their mean duration in a torch.profiler trace of `reps`
@@ -464,7 +467,10 @@ def _device_ms(fn, reps: int, kernels, per_call: int = 1) -> float:
     taken again, up to three times; then the time comes from
     `_stalled_ms` instead, which counts every device operation of a call
     (a fill, a copy) beside the kernels, and the miss is recorded in
-    `DEVICE_MS_BY_EVENTS`, which the run prints."""
+    `DEVICE_MS_BY_EVENTS`, which the run prints. A `launches` list gets
+    {"per_call": the kernels' launches a call that the trace saw,
+    "kernels": each kernel's launches and mean microseconds} (None where
+    it fell back)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     seen = []
@@ -484,7 +490,14 @@ def _device_ms(fn, reps: int, kernels, per_call: int = 1) -> float:
                 if any(k in r[1] for k in kernels)]
         seen.append([r[2] for r in rows])
         if rows and all(2 * c >= reps * per_call for _, _, c in rows):
+            if launches is not None:
+                launches.append({
+                    "per_call": sum(c for _, _, c in rows) / reps,
+                    "kernels": [{"name": k[:48], "launches": c,
+                                 "mean_us": us / c} for us, k, c in rows]})
             return sum(us / c for us, _, c in rows) * per_call / 1e3
+    if launches is not None:
+        launches.append(None)
     ms = _stalled_ms(fn, reps)
     DEVICE_MS_BY_EVENTS.append({"kernels": list(kernels), "seen": seen,
                                 "reps": reps, "ms": ms})
@@ -5780,8 +5793,11 @@ def _k10_times(codes, values, valid, op: str, n_groups: int,
         8.0 * n_groups if op == "sumsq" else 0.0)
     bound, by = _bound_ms(nbytes, float(n))
     ms = _time_ms(call, 50)
-    dev_ms = _device_ms(call, 50, ("seg_agg",))
+    seen = []
+    dev_ms = _device_ms(call, 50, ("seg_agg",), launches=seen)
     return {"op": op, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "launches_per_call": seen[0] and seen[0]["per_call"],
+            "device_kernels": seen[0] and seen[0]["kernels"],
             "plain_ms": _time_ms(lambda: seg_agg_plain(
                 codes, values, valid, op, n_groups, means), 10),
             "plain_device": "cuda",
@@ -5909,7 +5925,7 @@ def sql_phase(work: str, card: str, dev) -> tuple:
         sqlops.seg_agg = real_seg_agg
     _check("args" in largest, "sql (b): a group-by on the card")
 
-    # (c) K10 at three shapes
+    # (c) K10 at six shapes
     item = ss.column("ss_item_sk").values
     price = ss.column("ss_ext_sales_price").values
     n_items = int(item.max())
@@ -5928,6 +5944,11 @@ def sql_phase(work: str, card: str, dev) -> tuple:
     by_store = _k10_times(s_codes, qty, q_valid, "sum", 12)
     biggest = _k10_times(*largest["args"])
     biggest["query_shape"] = True
+    runs = {}
+    for col in ("ss_customer_sk", "ss_ticket_number"):
+        keys = ss.column(col).values - 1
+        runs[col] = _k10_times(torch.from_numpy(keys.astype(np.int32)).to(dev),
+                               p_vals, p_valid, "sum", int(keys.max()) + 1)
     row = {"name": "seg_agg", "route": "cuda",
            "source": "delta_tpu_torch/csrc/seg_agg.cu",
            "replaces": "delta_tpu/ops/sqlops.py:123",
@@ -5935,7 +5956,9 @@ def sql_phase(work: str, card: str, dev) -> tuple:
                            for r in out["full"].values()),
            "launches_small": small_k10,
            **by_item, "sumsq": by_item_sumsq, "by_store": by_store,
-           "largest_query_groupby": biggest}
+           "largest_query_groupby": biggest,
+           "by_customer": runs["ss_customer_sk"],
+           "by_ticket": runs["ss_ticket_number"]}
     return out, row
 
 
@@ -6296,7 +6319,7 @@ def main(argv=None) -> int:
 
         # step 26: device SQL, TPC-DS's single-block queries at scale
         # 12,000 against sqlite and eight at SF1 against the CPU engine;
-        # K10 at three shapes
+        # K10 at six shapes
         sqlm, kernels["seg_agg"] = sql_phase(work, card, dev)
         sql_launches = {k: sum(r["launches"][k] for r in
                                sqlm["full"].values()) for k in SQL_K}

@@ -24,11 +24,17 @@ is, by op,
 
 There are no pad buckets (PyTorch keeps no compiled shape to reuse). On a
 CUDA tensor `seg_agg` launches K10 (`csrc/seg_agg.cu`) on the current
-stream, or raises; it never falls back. On a CPU tensor it runs
-`seg_agg_plain`, the same function in torch ops (`scatter_add_`,
-`scatter_reduce_`). Ints and counts are exact; a float64 sum on the card
-adds in the order its atomics land, so it may differ from the plain
-version's in the last bits (the tests allow 1e-12 relative).
+stream, or raises; it never falls back. K10 is two launches, an init and
+the rows, in one of three regimes that its C entry point picks by the
+group count G: tables private to each thread in shared memory up to 16
+groups, a whole table in each block's shared memory, folded over a
+cluster of 4 blocks, up to 19,370 groups (227 KiB a block), and global
+atomics after a warp folds each run of one code past that (or past 2^32
+rows). On a CPU tensor it runs `seg_agg_plain`, the same function in torch
+ops (`scatter_add_`, `scatter_reduce_`). Ints and counts are exact; a
+float64 sum on the card adds in the order its atomics land, so it may
+differ from the plain version's in the last bits (the tests allow 1e-12
+relative).
 """
 
 from __future__ import annotations
@@ -150,9 +156,8 @@ def seg_agg(codes: torch.Tensor, values: Optional[torch.Tensor],
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(agg [n_groups], count int64 [n_groups]) of `op` over the groups
     (module docstring). A CPU tensor takes the plain version; a CUDA
-    tensor launches K10 (an init launch, the rows' launch and, for a
-    float min or max, the images back to floats: one C call), or
-    raises."""
+    tensor launches K10 (an init launch and the rows' launch: one C
+    call), or raises."""
     global _LAUNCH
     _check(codes, values, valid, op, n_groups, means)
     if codes.device.type == "cpu":

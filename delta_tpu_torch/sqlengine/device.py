@@ -132,9 +132,11 @@ class DeviceSpine:
             var, _ = ga.var(v, valid)
             return column(np.sqrt(var) if name == "stddev_samp" else var)
         if name == "avg":
-            s, cnt = ga.reduce(v, valid, "sum")
+            # summed as float64, as the reference and Spark's avg do: an
+            # int64 sum would wrap past 2^63
+            s, cnt = ga.reduce(np.asarray(v, np.float64), valid, "sum")
             with np.errstate(all="ignore"):
-                mean = s.astype(np.float64) / np.maximum(cnt, 1)
+                mean = s / np.maximum(cnt, 1)
             return column(mean, cnt > 0)
         agg, cnt = ga.reduce(v, valid, name)
         return column(agg, cnt > 0)

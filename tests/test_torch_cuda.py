@@ -1718,10 +1718,19 @@ def _seg_agg_same(got, want, op, dtype):
 @pytest.mark.parametrize("n,n_groups", [(0, 3), (1, 1), (1000, 1),
                                         (4097, 4097), (100_000, 12),
                                         (100_000, 1024), (100_000, 1025),
-                                        (2_000_000, 11_521)])
+                                        (2_000_000, 11_521),
+                                        (100_000, 16), (100_000, 17),
+                                        (2_000_000, 11_622),
+                                        (2_000_000, 11_623),
+                                        (2_000_000, 19_370),
+                                        (2_000_000, 19_371)])
 def test_seg_agg_kernel_matches_plain(op, dtype, n, n_groups):
     """K10 against its plain version: one group, as many groups as rows,
-    the shared-table path's edge (1,024 groups) and the global one."""
+    and each regime's edges (`csrc/seg_agg.cu`): the lane tables' last G
+    (16) and the first past it, in a cluster's tables; the last G whose
+    sumsq means fit beside the table (11,622) and the first past it; the
+    tables' last G (19,370: 227 KiB a block) and the first that goes to
+    global atomics."""
     from delta_tpu_torch.ops.segagg import seg_agg, seg_agg_plain
 
     dev = _card()
@@ -1735,6 +1744,55 @@ def test_seg_agg_kernel_matches_plain(op, dtype, n, n_groups):
     _seg_agg_same(got, seg_agg_plain(codes, v, valid, op, n_groups, means),
                   op, dtype)
     assert obs.counter("kernel.seg_agg.launches").read() == launches + 1
+
+
+def _seg_agg_pattern(pattern: str, n: int, n_groups: int, rng):
+    """Codes and validity of a pattern: every 128-row warp step one code
+    ("warp"), tickets' runs of 1-25 rows ("runs"), or random codes with
+    no valid row ("invalid")."""
+    if pattern == "warp":
+        codes = np.repeat(rng.integers(0, n_groups, n // 128 + 1), 128)[:n]
+    elif pattern == "runs":
+        sizes = rng.integers(1, 26, n)
+        codes = np.repeat(np.arange(n) % n_groups, sizes)[:n]
+    else:
+        codes = rng.integers(0, n_groups, n)
+    valid = np.zeros(n, bool) if pattern == "invalid" else rng.random(n) > 0.1
+    return torch.from_numpy(codes.astype(np.int32)), torch.from_numpy(valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", [
+    (op, dt) for op in ("count", "sum", "min", "max", "sumsq")
+    for dt in (torch.int64, torch.float64)
+    if op != "sumsq" or dt == torch.float64])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("pattern", ["warp", "runs", "invalid"])
+@pytest.mark.parametrize("n_groups", [6, 11_521, 221_000])
+def test_seg_agg_kernel_on_code_patterns(op, dtype, masked, pattern,
+                                         n_groups):
+    """K10 against its plain version where a warp's rows share one code,
+    where codes come in runs as a ticket's line items do, and where no
+    row is valid (the mask, or none: every row valid), in each regime:
+    warp tables (6 groups), a cluster's table (11,521) and global atomics
+    (221,000)."""
+    from delta_tpu_torch.ops.segagg import seg_agg, seg_agg_plain
+
+    dev = _card()
+    n = 300_000
+    rng = np.random.default_rng(n_groups)
+    codes, valid = _seg_agg_pattern(pattern, n, n_groups, rng)
+    _, v, _ = _seg_agg_case(n, n_groups, dtype, n_groups + 1)
+    if not masked:
+        valid = None
+    means = torch.linspace(-5, 5, n_groups, dtype=torch.float64) \
+        if op == "sumsq" else None
+    got = seg_agg(codes.to(dev), v.to(dev),
+                  None if valid is None else valid.to(dev), op, n_groups,
+                  None if means is None else means.to(dev))
+    torch.cuda.synchronize()
+    _seg_agg_same(got, seg_agg_plain(codes, v, valid, op, n_groups, means),
+                  op, dtype)
 
 
 @pytest.mark.cuda
@@ -1792,6 +1850,32 @@ def test_a_k10_build_or_launch_failure_raises(monkeypatch, tmp_path):
                         (lambda *a: 700, lambda index: 0))
     with pytest.raises(RuntimeError, match="seg_agg launch failed"):
         execute_select(q, engine=TorchEngine())
+
+
+@pytest.mark.cuda
+def test_avg_of_a_long_column_on_the_card(tmp_path):
+    """AVG over int64 values whose sum passes 2^63 sums in float64 on the
+    card as on the CPU (C30), in one group and under a GROUP BY."""
+    from delta_tpu_torch.api import write_table
+    from delta_tpu_torch.models.batch import Column
+    from delta_tpu_torch.sql import sql
+
+    _card()
+    p = str(tmp_path / "c30")
+    write_table(p, {"id": Column(np.array([1, 2, 3, 4, 5, 0]),
+                                 np.array([True] * 5 + [False])),
+                    "i": np.array([2**62, 2**62, 1, 2, 3, 4])},
+                engine=TorchEngine("cpu"))
+    for stmt, means in (
+            (f"SELECT AVG(i) a FROM '{p}'", [1.5372286728091292e+18]),
+            (f"SELECT id IS NULL k, AVG(i) a FROM '{p}' GROUP BY id IS NULL "
+             "ORDER BY k", [1.8446744073709553e+18, 4.0])):
+        launches = obs.counter("kernel.seg_agg.launches").read()
+        got = [r[-1] for r in sql(stmt, engine=TorchEngine()).rows()]
+        assert obs.counter("kernel.seg_agg.launches").read() > launches
+        want = [r[-1] for r in sql(stmt, engine=TorchEngine("cpu")).rows()]
+        assert got == pytest.approx(want, rel=1e-12)
+        assert got == pytest.approx(means, rel=1e-12)
 
 
 @pytest.mark.cuda

@@ -33,7 +33,8 @@ CPU = TorchEngine("cpu")
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_sqlengine")
-    t, other, nulls = (str(root / n) for n in ("t", "other", "nulls"))
+    t, other, nulls, c30 = (str(root / n)
+                            for n in ("t", "other", "nulls", "c30"))
     dta.write_table(t, pa.table({
         "id": pa.array([1, 2, 3, 4, None], pa.int64()),
         "v": pa.array([10.0, 20.0, 30.0, 40.0, 50.0]),
@@ -49,7 +50,11 @@ def paths(tmp_path_factory):
         "v": pa.array([1, 2, 3, None], pa.int64()),
         "f": pa.array([1.5, float("nan"), None, -2.0]),
     }))
-    return {"t": t, "other": other, "nulls": nulls}
+    dta.write_table(c30, pa.table({
+        "id": pa.array([1, 2, 3, 4, 5, None], pa.int64()),
+        "i": pa.array([2**62, 2**62, 1, 2, 3, 4], pa.int64()),
+    }))
+    return {"t": t, "other": other, "nulls": nulls, "c30": c30}
 
 
 def _rows(out):
@@ -198,6 +203,21 @@ def test_constructs_outside_the_slice_are_refused(paths, stmt, construct):
     with pytest.raises(UnsupportedSqlError) as e:
         sql(stmt.format(**paths), engine=CPU)
     assert e.value.context["construct"] == construct
+
+
+@pytest.mark.parametrize("stmt,means", [
+    ("SELECT AVG(i) a FROM '{c30}'", [1.5372286728091292e+18]),
+    ("SELECT id IS NULL k, AVG(i) a FROM '{c30}' GROUP BY id IS NULL "
+     "ORDER BY k", [1.8446744073709553e+18, 4.0]),
+])
+def test_avg_of_a_long_column_sums_in_float64(paths, stmt, means):
+    """AVG over int64 values whose sum passes 2^63 (C30): summed as
+    float64, as the reference does, not wrapped as SUM is."""
+    s = stmt.format(**paths)
+    got = [r[-1] for r in _rows(sql(s, engine=CPU))[1]]
+    want = [r[-1] for r in _rows(ref_sql(s, engine=HostEngine()))[1]]
+    assert got == pytest.approx(want, rel=1e-12)
+    assert got == pytest.approx(means, rel=1e-12)
 
 
 def test_repeated_output_names_keep_every_column(paths):

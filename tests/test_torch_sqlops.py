@@ -4,7 +4,9 @@ functions (`delta_tpu/ops/sqlops.py`, queue B's B11).
 - `ops/segagg.py::seg_agg_plain` (kernel K10's function) against
   `_segagg_kernel` (count, sum, min, max over int64 and float64 with
   validity), `_group_sizes_kernel` and `_centered_sumsq_kernel`, with
-  all-null groups, empty input and int64 overflow; `GroupAggregator.var`
+  all-null groups, empty input, int64 overflow and the card tests' code
+  patterns (a warp step on one code, runs, no valid row);
+  `GroupAggregator.var`
   and `.count` against numpy;
 - `ops/sqlops.py::sort_permutation` against `_sort_kernel` (stable on
   ties);
@@ -71,6 +73,34 @@ def test_seg_agg_plain_equals_segagg_kernel(op, dtype, n, n_groups,
     got_agg, got_cnt = _port(codes, v, valid, op, n_groups)
     assert np.array_equal(got_cnt, want_cnt)
     assert got_agg.dtype == (np.int64 if op == "count" else dtype)
+    if dtype == np.float64 and op == "sum":
+        np.testing.assert_allclose(got_agg, want_agg, rtol=1e-12, atol=1e-9)
+    else:
+        assert np.array_equal(got_agg, want_agg)
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("dtype", [np.int64, np.float64])
+@pytest.mark.parametrize("pattern", ["warp", "runs", "invalid"])
+def test_seg_agg_plain_on_code_patterns_equals_segagg_kernel(op, dtype,
+                                                             pattern):
+    """The code patterns that the card's K10 tests hold the kernel to
+    this plain version on: 128 rows in a row on one code (a warp step),
+    tickets' runs of 1-25 rows, and no valid row at all."""
+    n, n_groups = 5000, 37
+    rng = np.random.default_rng(len(pattern))
+    codes, v, valid = _case(7, n, n_groups, dtype, 0.1)
+    if pattern == "warp":
+        codes = np.repeat(rng.integers(0, n_groups, n // 128 + 1),
+                          128)[:n].astype(np.int32)
+    elif pattern == "runs":
+        codes = np.repeat(np.arange(n) % n_groups,
+                          rng.integers(1, 26, n))[:n].astype(np.int32)
+    else:
+        valid = np.zeros(n, bool)
+    want_agg, want_cnt = _ref_segagg(codes, v, valid, op, n_groups)
+    got_agg, got_cnt = _port(codes, v, valid, op, n_groups)
+    assert np.array_equal(got_cnt, want_cnt)
     if dtype == np.float64 and op == "sum":
         np.testing.assert_allclose(got_agg, want_agg, rtol=1e-12, atol=1e-9)
     else:
