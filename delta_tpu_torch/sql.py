@@ -6,8 +6,9 @@ read:
     SELECT <cols|*> FROM <t> [VERSION AS OF n | TIMESTAMP AS OF <ms|'iso'>]
         [WHERE <pred>] [LIMIT n]                 (a scan: its Batch)
     SELECT * FROM table_changes(<t>, start[, end]) [LIMIT n]
-    SELECT ... (joins, GROUP BY, HAVING, ORDER BY: one SELECT block,
-        `sqlengine/executor.py`, an `SqlResult`)
+    [WITH ...] SELECT ... (joins, GROUP BY, HAVING, ORDER BY, subqueries,
+        UNION / INTERSECT / EXCEPT: `sqlengine/executor.py`, an
+        `SqlResult`)
 
 `<t>` is '/path', delta.`/path`, "/path", or a bare name resolved through
 `catalog` (`catalog.py`). `path_guard(path)`, when given, is called for
@@ -225,6 +226,18 @@ def _simple_select(s: str, engine, catalog):
     return out
 
 
+_NESTED = re.compile(r"\b(?:UNION|INTERSECT|EXCEPT)\b|\(\s*SELECT\b",
+                     re.IGNORECASE)
+
+
+def _is_nested(s: str) -> bool:
+    """Whether a SELECT holds a set operation or a subquery (outside its
+    string literals): the sqlengine's, never `_simple_select`'s."""
+    if not re.match(r"\(*\s*SELECT\b", s, re.IGNORECASE):
+        return False
+    return bool(_NESTED.search(re.sub(r"'[^']*'", "''", s)))
+
+
 def _query_statement(s: str, engine, catalog):
     # table_changes(<t>, start [, end]): Delta's change data feed as a
     # table function, rows with _change_type, _commit_version and
@@ -243,7 +256,7 @@ def _query_statement(s: str, engine, catalog):
         if m.group("limit"):
             out = out.slice(0, int(m.group("limit")))
         return out
-    if re.match(r"WITH\b", s, re.IGNORECASE):
+    if re.match(r"WITH\b", s, re.IGNORECASE) or _is_nested(s):
         return _exec_select_extended(s, engine, catalog)
     if re.match(r"SELECT\b", s, re.IGNORECASE):
         result = _simple_select(s, engine, catalog)

@@ -1,16 +1,23 @@
 """DeviceSpine: the SQL executor's relational core (GROUP BY aggregation,
-equi-join, ORDER BY sort) on the engine's device.
+equi-join, the lookups and membership tests of subqueries and set
+operations, ORDER BY sort) on the engine's device.
 
 Counterpart of `delta_tpu/sqlengine/device.py::DeviceSpine`: `groupby`
 (`:211`), `merge` (`:297`), `_gather` (`:368`), `_order_lanes` (`:384`)
-and `sort_frame` (`:415`). The host dictionary-codes the keys and
-rebuilds output rows with O(output) takes; the device sorts and reduces
+and `sort_frame` (`:415`). The reference decorrelates subqueries and
+tests INTERSECT and EXCEPT rows in per-row Python dictionaries and data
+frame merges (`executor.py:1524-1647`, `:100-111`); here they are left
+joins on the card: `match_codes` (a left row's first right row of the
+same code), `lookup` (of key tuples; a NULL key never matches) and
+`member` (a semi-join). The host dictionary-codes the keys and rebuilds
+output rows with O(output) takes; the device sorts and reduces
 (`ops/sqlops.py`: stable `torch.sort`, kernel K10). There is no routing
 gate and no host fallback: on a CUDA engine every GROUP BY aggregate goes
-through K10, every join and ORDER BY sorts on the card, and a build or
-launch failure raises. On a CPU engine the same code runs the plain
-versions on CPU tensors. The windows (`:438-556`), the resident operand
-cache and the routing gate of the reference are not ported.
+through K10, every join, lookup, membership test and ORDER BY sorts on
+the card, and a build or launch failure raises. On a CPU engine the same
+code runs the plain versions on CPU tensors. The windows (`:438-556`),
+the resident operand cache and the routing gate of the reference are not
+ported.
 
 What stays on the host, as in the reference: a string MIN or MAX (the
 reference's `unsupported-agg-dtype` fallback), counted on
@@ -28,7 +35,8 @@ from delta_tpu_torch.errors import UnsupportedSqlError
 from delta_tpu_torch.models.batch import Column, factorize_objects
 from delta_tpu_torch.ops import sqlops
 from delta_tpu_torch.ops.join import joint_codes
-from delta_tpu_torch.sqlengine.frame import Frame, column, valid_of
+from delta_tpu_torch.sqlengine.frame import (Frame, column, null_rows,
+                                             valid_of)
 
 GROUPBYS = obs.counter("sql.device_groupbys")
 JOINS = obs.counter("sql.device_joins")
@@ -176,6 +184,44 @@ class DeviceSpine:
         cols = {k: c.take(l_idx) for k, c in left.cols.items()}
         cols.update({k: c.take(r_idx) for k, c in right.cols.items()})
         return Frame(cols, len(l_idx))
+
+    def match_codes(self, l_codes: np.ndarray, r_codes: np.ndarray
+                    ) -> np.ndarray:
+        """Per left row, a right row of the same code (the first, in input
+        order), -1 where there is none: a left join against the right's
+        distinct codes (dense, < 2^31)."""
+        out = np.full(len(l_codes), -1, np.int64)
+        if not len(l_codes) or not len(r_codes):
+            return out
+        uniq, first = np.unique(r_codes, return_index=True)
+        l_idx, u_idx = sqlops.join_pairs(l_codes, uniq, how="left",
+                                         device=self.device)
+        JOINS.inc()
+        hit = u_idx >= 0
+        out[l_idx[hit]] = first[u_idx[hit]]
+        return out
+
+    def lookup(self, left: List[Column], right: List[Column]) -> np.ndarray:
+        """Per left row, a right row whose key tuple equals its own (the
+        first), -1 where there is none. A NULL key on either side never
+        matches (`k = NULL` is UNKNOWN)."""
+        nl = len(left[0])
+        out = np.full(nl, -1, np.int64)
+        l_rows = np.flatnonzero(~null_rows(left))
+        r_rows = np.flatnonzero(~null_rows(right))
+        if not len(l_rows) or not len(r_rows):
+            return out
+        codes = joint_codes([c.values[l_rows] for c in left],
+                            [c.values[r_rows] for c in right])
+        got = self.match_codes(codes[:len(l_rows)], codes[len(l_rows):])
+        hit = got >= 0
+        out[l_rows[hit]] = r_rows[got[hit]]
+        return out
+
+    def member(self, left: List[Column], right: List[Column]) -> np.ndarray:
+        """Per left row, whether some right row has its key tuple (a
+        semi-join; NULL keys never match)."""
+        return self.lookup(left, right) >= 0
 
     @staticmethod
     def cross(left: Frame, right: Frame) -> Frame:

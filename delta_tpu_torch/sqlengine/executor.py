@@ -1,37 +1,58 @@
-"""SELECT executor: name resolution, scan pushdown, join planning,
-evaluation over the port's Columns, aggregation, ordering.
+"""SELECT executor: query folding (WITH, set operations), name
+resolution, scan pushdown, join planning, subqueries, evaluation over the
+port's Columns, aggregation, ordering.
 
-Counterpart of `delta_tpu/sqlengine/executor.py` for one SELECT block
-(`execute_select` `:50`, `_run_query` `:63`, `_Exec.run` `:379`):
+Counterpart of `delta_tpu/sqlengine/executor.py` (`execute_select` `:50`,
+`_run_query` `:63`, `_Exec` `:344`):
 
-1. Every table reference resolves to a Delta snapshot (a path, or a name
-   through the catalog, with VERSION / TIMESTAMP AS OF), the referenced
-   columns of each are collected, and each is scanned with that
-   projection and the WHERE conjuncts that name it alone pushed into
-   `Snapshot.scan(filter=...)` (partition pruning, and stats skipping on
-   the card through kernel K7). A pushed conjunct is applied again with
-   SQL's semantics once its tables are joined, so the scan is only ever
-   a superset.
-2. Joins: INNER JOIN ... ON clauses and the implicit comma list, through
+1. A query (`_run_query`) binds its WITH clauses in order: each CTE is
+   materialized once as a `Frame` and sees the bindings before it, never
+   its siblings; a nested WITH never leaks outward. Its branches run in
+   turn and fold left to right: UNION ALL stacks them by position
+   (`frame.concat_frames`), UNION, INTERSECT and EXCEPT have set semantics (the
+   rows distinct, NULL equal to NULL: `group_codes`' codes; INTERSECT and
+   EXCEPT test membership through `DeviceSpine.match_codes`). A trailing
+   ORDER BY names output columns or ordinals only; LIMIT follows.
+2. A SELECT block (`_Exec.run`): every source resolves to a Delta
+   snapshot (a path, or a name through the catalog, with VERSION /
+   TIMESTAMP AS OF), a CTE (its Columns under each reference's alias,
+   not copied) or a subquery in FROM. A scanned source is read with the
+   columns the query names and the WHERE conjuncts that name it alone
+   pushed into `Snapshot.scan(filter=...)` (partition pruning, and stats
+   skipping on the card through kernel K7); a pushed conjunct is applied
+   again with SQL's semantics once its tables are joined, so the scan is
+   only ever a superset. A CTE or subquery source is filtered by such
+   conjuncts before any join.
+3. Joins: INNER JOIN ... ON clauses and the implicit comma list, through
    the equi-join edges of the WHERE conjuncts (and those common to every
    branch of an OR, q13 and q48's shape); the most connected, then the
    smallest, table joins next (the reference's greedy order); a table
    with no edge is cross-joined. A conjunct applies as soon as its
-   tables are joined. A NULL key never matches (`_merge_null_safe`).
-3. The residual WHERE, then GROUP BY aggregation (NULL group keys kept, a
+   tables are joined, unless it holds a subquery: those apply after the
+   joins. A NULL key never matches (`_merge_null_safe`).
+4. Subqueries in expressions: an uncorrelated one runs once (a scalar, an
+   IN set, EXISTS); a correlated one is decorrelated on its equality
+   conjuncts (`_correlation`, with the OR factoring of q41): a scalar
+   groups the subquery by its correlation columns (K10) and looks each
+   outer key tuple up in the groups (`DeviceSpine.lookup`: a left join on
+   the card); IN and EXISTS are semi-joins (`DeviceSpine.member`).
+   Three-valued IN holds, a NULL outer key makes EXISTS and IN false, a
+   correlated COUNT over no rows is 0 and any other aggregate NULL.
+5. The residual WHERE, then GROUP BY aggregation (NULL group keys kept, a
    sum of no values NULL), HAVING, the projection, DISTINCT, ORDER BY
    with Spark's null order (NULLS FIRST ascending, LAST descending) and
    LIMIT.
 
-Joins, every aggregate and the ORDER BY sort run on the engine's device
-through `sqlengine/device.py::DeviceSpine` (K10 for the aggregates). The
-result is an `SqlResult`: a `Batch` that also keeps the output names in
-order, repeats included.
+Joins, lookups, membership tests, every aggregate and the ORDER BY sort
+run on the engine's device through `sqlengine/device.py::DeviceSpine`
+(K10 for the aggregates). The result is an `SqlResult`: a `Batch` that
+also keeps the output names in order, repeats included.
 
 Outside this slice, and refused with `UnsupportedSqlError` naming the
-construct before any table is read: WITH, UNION / INTERSECT / EXCEPT, a
-subquery in any position, outer joins, window functions, ROLLUP and
-DISTINCT inside an aggregate (COUNT(DISTINCT)).
+construct before any table is read, wherever the query holds it (a CTE
+body, a derived table, a subquery, a set-operation branch): outer joins,
+window functions, ROLLUP and DISTINCT inside an aggregate
+(COUNT(DISTINCT)).
 """
 
 from __future__ import annotations
@@ -48,21 +69,23 @@ from delta_tpu_torch.errors import (
     CatalogTableError,
     DeltaError,
     SqlParseError,
+    SubqueryShapeError,
     UnresolvedColumnError,
     UnsupportedSqlError,
 )
 from delta_tpu_torch.models.batch import Batch, Column
 from delta_tpu_torch.sqlengine import frame as fv
-from delta_tpu_torch.sqlengine.device import DeviceSpine
+from delta_tpu_torch.sqlengine.device import DeviceSpine, group_codes
 from delta_tpu_torch.sqlengine.frame import Frame
 from delta_tpu_torch.sqlengine.parser import (
     And, Between, BinOp, CaseWhen, Cast, Cmp, Col, Exists, Func, InList,
     InSelect, Interval, IsNull, Like, Lit, Neg, Not, Or, Query,
-    ScalarSelect, Select, Star, TableRef, Window, parse_query,
+    ScalarSelect, Select, SelectItem, Star, TableRef, Window, parse_query,
 )
 
 _NUMERIC_TYPES = {"byte", "short", "integer", "long", "float", "double"}
 _AGGS = {"count", "sum", "min", "max", "avg", "stddev_samp", "var_samp"}
+_SUBQUERY = (ScalarSelect, InSelect, Exists)
 
 QUERIES = obs.counter("sql.queries")
 # wall nanoseconds of each phase of the queries run (the scans with their
@@ -81,14 +104,7 @@ class SqlResult(Batch):
     itself, so no column is lost."""
 
     def __init__(self, names: List[str], columns: List[Column], n: int):
-        keyed = {}
-        for name, c in zip(names, columns):
-            key, k = name, 1
-            while key in keyed:
-                k += 1
-                key = f"{name}#{k}"
-            keyed[key] = c
-        super().__init__(keyed, n)
+        super().__init__(dict(zip(_unique(names), columns)), n)
         self.names = list(names)
 
     @property
@@ -106,12 +122,27 @@ class SqlResult(Batch):
         return list(zip(*cols))
 
 
+def _unique(names: List[str]) -> List[str]:
+    """`names` with each repeat keyed `name#2`, `name#3`, ..."""
+    out, seen = [], set()
+    for name in names:
+        key, k = name, 1
+        while key in seen:
+            k += 1
+            key = f"{name}#{k}"
+        seen.add(key)
+        out.append(key)
+    return out
+
+
 # ---------------------------------------------------------------- API --
 
-def execute_select(statement_or_ast, engine=None, catalog=None) -> SqlResult:
-    """Run one SELECT (text, `Select` or `Query`) against Delta tables:
+def execute_select(statement_or_ast, engine=None, catalog=None,
+                   ctes=None) -> SqlResult:
+    """Run one query (text, `Select` or `Query`) against Delta tables:
     paths, or names through `catalog`. On `engine`'s device (the
-    catalog's engine when none is given; the card when neither is)."""
+    catalog's engine when none is given; the card when neither is).
+    `ctes` binds names to `Frame`s, as a WITH clause would."""
     if isinstance(statement_or_ast, Select):
         q = Query(selects=[statement_or_ast])
     elif isinstance(statement_or_ast, Query):
@@ -125,10 +156,89 @@ def execute_select(statement_or_ast, engine=None, catalog=None) -> SqlResult:
             from delta_tpu_torch.engine import TorchEngine
 
             engine = TorchEngine()
-    sel = check_supported(q)
+    check_supported(q)
     QUERIES.inc()
-    names, cols, n = _Exec(engine, catalog).run(sel)
-    return SqlResult(names, cols, n)
+    out, names = _run_query(q, engine, catalog, dict(ctes or {}))
+    return SqlResult(names, list(out.cols.values()), len(out))
+
+
+def _positional(cols: List[Column], n: int) -> Frame:
+    return Frame({f"__c{j}": c for j, c in enumerate(cols)}, n)
+
+
+def _distinct(frame: Frame) -> Frame:
+    """The first row of each distinct row, in order (NULL equals NULL)."""
+    if not frame.cols or not len(frame):
+        return frame
+    _, _, first = group_codes(list(frame.cols.values()))
+    return frame.take(np.sort(first))
+
+
+def _run_query(q: Query, engine, catalog, ctes) -> Tuple[Frame, List[str]]:
+    """A full query (module docstring, 1.): its rows as a Frame keyed by
+    position (`__c0`, `__c1`, ...) and its output names."""
+    for name, sub in q.ctes:
+        # a CTE body sees the bindings before it, not its siblings'; a
+        # copy of the bindings keeps its own nested WITH from leaking
+        frame, names = _run_query(sub, engine, catalog, dict(ctes))
+        ctes[name.lower()] = frame.rekey(_unique(names))
+    frames: List[Frame] = []
+    out_names: List[str] = []
+    for i, sel in enumerate(q.selects):
+        if isinstance(sel, Query):  # a parenthesized nested query
+            frame, names = _run_query(sel, engine, catalog, dict(ctes))
+        else:
+            names, cols, n = _Exec(engine, catalog, ctes).run(sel)
+            frame = _positional(cols, n)
+        if i == 0:
+            out_names = names
+        elif len(names) != len(out_names):
+            raise SqlParseError(
+                f"set operation branches have different widths "
+                f"({len(out_names)} vs {len(names)})",
+                error_class="DELTA_UNION_WIDTH_MISMATCH")
+        frames.append(frame)
+    spine = DeviceSpine(engine.device)
+    result = frames[0]
+    for op, f in zip(q.union_ops, frames[1:]):
+        if op in ("all", "distinct"):
+            result = fv.concat_frames([result, f])
+            if op == "distinct":
+                result = _distinct(result)
+            continue
+        # INTERSECT and EXCEPT are distinct, and NULL equals NULL: codes
+        # over both sides' rows, then each left row's membership
+        a, b = _distinct(result), _distinct(f)
+        both = fv.concat_frames([a, b])
+        codes, _, _ = group_codes(list(both.cols.values()))
+        got = spine.match_codes(codes[:len(a)], codes[len(a):])
+        keep = got >= 0 if op == "intersect" else got < 0
+        result = both.head(len(a)).filter(keep)
+    if q.order_by:
+        lower = [n.lower() for n in out_names]
+        cols = list(result.cols.values())
+        keys, ascs = [], []
+        for e, asc in q.order_by:
+            if isinstance(e, Lit) and isinstance(e.value, int) \
+                    and not isinstance(e.value, bool) \
+                    and 1 <= e.value <= len(out_names):
+                pos = e.value - 1
+            elif (isinstance(e, Col) and len(e.parts) == 1
+                    and e.parts[0].lower() in lower):
+                pos = lower.index(e.parts[0].lower())
+            else:
+                raise UnsupportedSqlError(
+                    "ORDER BY after a set operation must name output "
+                    f"columns or ordinals; got {_render(e)!r}",
+                    error_class="DELTA_ORDER_BY_AFTER_UNION",
+                    construct="ORDER BY expression after a set operation")
+            keys.append(cols[pos])
+            ascs.append(asc)
+        with _Clock(SORT_NS):
+            result = result.take(spine.sort_permutation(keys, ascs))
+    if q.limit is not None:
+        result = result.head(q.limit)
+    return result, out_names
 
 
 def _refuse(construct: str):
@@ -137,27 +247,26 @@ def _refuse(construct: str):
         construct=construct)
 
 
-def check_supported(q: Query) -> Select:
-    """The query's one SELECT block, or UnsupportedSqlError naming the
-    first construct outside this slice."""
-    if q.ctes:
-        _refuse("WITH")
-    if len(q.selects) > 1 or q.union_ops:
-        op = q.union_ops[0] if q.union_ops else "intersect"
-        _refuse({"all": "UNION ALL", "distinct": "UNION"}.get(
-            op, op.upper()))
-    sel = q.selects[0]
-    if isinstance(sel, Query):
-        if len(sel.selects) > 1:
-            _refuse({"all": "UNION ALL", "distinct": "UNION"}.get(
-                sel.union_ops[0] if sel.union_ops else "intersect",
-                "INTERSECT"))
-        _refuse("subquery")
+def check_supported(q) -> None:
+    """UnsupportedSqlError naming the first construct outside this slice,
+    wherever the query (a `Query` or a `Select`) holds it: its CTE
+    bodies, set-operation branches, derived tables and subqueries."""
+    if isinstance(q, Select):
+        _check_select(q)
+        return
+    for _, sub in q.ctes:
+        check_supported(sub)
+    for sel in q.selects:
+        check_supported(sel)
+
+
+def _check_select(sel: Select) -> None:
     found = []
+    nested = []
 
     def chk(e):
-        if isinstance(e, (ScalarSelect, InSelect, Exists)):
-            found.append("subquery")
+        if isinstance(e, _SUBQUERY):
+            nested.append(e.select)
         elif isinstance(e, Window):
             found.append("window function (OVER)")
         elif isinstance(e, Func):
@@ -168,9 +277,6 @@ def check_supported(q: Query) -> Select:
             elif e.distinct:
                 found.append(f"{e.name.upper()}(DISTINCT)")
 
-    for ref in list(sel.froms) + [j.ref for j in sel.joins]:
-        if ref.kind == "subquery":
-            _refuse("subquery")
     for j in sel.joins:
         if j.kind not in ("inner", "cross"):
             _refuse(j.kind.upper() + " JOIN")
@@ -180,7 +286,11 @@ def check_supported(q: Query) -> Select:
         _walk_all(e, chk)
     if found:
         _refuse(found[0])
-    return sel
+    for ref in list(sel.froms) + [j.ref for j in sel.joins]:
+        if ref.kind == "subquery":
+            check_supported(ref.value)
+    for sub in nested:
+        _check_select(sub)
 
 
 def _walk_all(e, fn):
@@ -238,6 +348,8 @@ def _canon(e, resolve) -> str:
         return f"cast({_canon(e.item, resolve)} as {e.type_name})"
     if isinstance(e, Interval):
         return f"interval:{e.n}:{e.unit}"
+    if isinstance(e, _SUBQUERY):
+        return f"subquery:{id(e)}"
     raise UnsupportedSqlError(f"cannot canonicalize {type(e).__name__}")
 
 
@@ -339,19 +451,11 @@ def _sub_aliases(e, alias_map):
     return e
 
 
-def _null_keys(frame: Frame, keys: List[str]) -> np.ndarray:
-    bad = np.zeros(len(frame), bool)
-    for k in keys:
-        if frame[k].valid is not None:
-            bad |= ~frame[k].valid
-    return bad
-
-
 def _merge_null_safe(spine: DeviceSpine, left: Frame, right: Frame,
                      lk: List[str], rk: List[str]) -> Frame:
     """SQL inner join: a row with a NULL key never matches."""
-    lnull = _null_keys(left, lk)
-    rnull = _null_keys(right, rk)
+    lnull = fv.null_rows([left[k] for k in lk])
+    rnull = fv.null_rows([right[k] for k in rk])
     if lnull.any():
         left = left.filter(~lnull)
     if rnull.any():
@@ -375,10 +479,14 @@ class _Clock:
 # -------------------------------------------------------- the executor --
 
 class _Exec:
-    def __init__(self, engine, catalog):
+    def __init__(self, engine, catalog, ctes=None):
         self.engine = engine
         self.catalog = catalog
+        # name (lower case) -> the CTE's Frame, keyed by its output names
+        self.ctes = ctes if ctes is not None else {}
         self.spine = DeviceSpine(engine.device)
+        self._outer_aliases: set = set()
+        self._uncorrelated: Dict[int, Frame] = {}
 
     # -- table materialization ------------------------------------------
     def _snapshot(self, ref: TableRef):
@@ -404,24 +512,47 @@ class _Exec:
                 timestamp_ms(ref.tt_timestamp))
         return table.latest_snapshot()
 
+    def _select_frame(self, sel) -> Frame:
+        """A nested SELECT block or query under the bindings in scope, as
+        a Frame keyed by its output names (repeats `name#2`, ...)."""
+        if isinstance(sel, Query):
+            frame, names = _run_query(sel, self.engine, self.catalog,
+                                      dict(self.ctes))
+        else:
+            names, cols, n = _Exec(self.engine, self.catalog,
+                                   self.ctes).run(sel)
+            frame = _positional(cols, n)
+        return frame.rekey(_unique(names))
+
     def run(self, sel: Select) -> Tuple[List[str], List[Column], int]:
         # ---- source inventory -----------------------------------------
         sources: List[dict] = []
         seen_aliases = set()
-        with _Clock(SCAN_NS):
-            for i, ref in enumerate(list(sel.froms)
-                                    + [j.ref for j in sel.joins]):
-                snap = self._snapshot(ref)
-                alias = ref.alias or (ref.value.split(".")[-1]
-                                      if ref.kind == "name" else f"_t{i}")
-                if alias.lower() in seen_aliases:
-                    raise AmbiguousColumnError(
-                        f"duplicate table alias {alias!r}")
-                seen_aliases.add(alias.lower())
-                sources.append({"alias": alias, "snap": snap,
-                                "cols": [f.name for f in snap.schema.fields],
-                                "types": {f.name: f.type_name
-                                          for f in snap.schema.fields}})
+        for i, ref in enumerate(list(sel.froms) + [j.ref for j in sel.joins]):
+            if ref.kind == "subquery":
+                src = {"alias": ref.alias or f"_s{i}",
+                       "frame": self._select_frame(ref.value)}
+            elif ref.kind == "name" and ref.value.lower() in self.ctes:
+                # a WITH binding: its Columns, shared by every reference
+                src = {"alias": ref.alias or ref.value,
+                       "frame": self.ctes[ref.value.lower()]}
+            else:
+                with _Clock(SCAN_NS):
+                    snap = self._snapshot(ref)
+                src = {"alias": ref.alias or (
+                           ref.value.split(".")[-1] if ref.kind == "name"
+                           else f"_t{i}"),
+                       "snap": snap, "frame": None,
+                       "cols": [f.name for f in snap.schema.fields],
+                       "types": {f.name: f.type_name
+                                 for f in snap.schema.fields}}
+            if src["frame"] is not None:
+                src["cols"] = src["frame"].names
+            alias = src["alias"]
+            if alias.lower() in seen_aliases:
+                raise AmbiguousColumnError(f"duplicate table alias {alias!r}")
+            seen_aliases.add(alias.lower())
+            sources.append(src)
         join_aliases = [sources[len(sel.froms) + k]["alias"]
                         for k in range(len(sel.joins))]
         by_alias = {s["alias"]: s for s in sources}
@@ -460,6 +591,7 @@ class _Exec:
                 f"{[a for a, _ in owners]}); qualify it with a table alias")
 
         self._resolve = resolve
+        self._outer_aliases = set(by_alias)
 
         # ---- referenced columns per alias (projection) ----------------
         needed: Dict[str, set] = {s["alias"]: set() for s in sources}
@@ -473,6 +605,12 @@ class _Exec:
                     return  # raises properly during evaluation
                 alias, name = phys.split(".", 1)
                 needed[alias].add(name)
+            elif isinstance(e, _SUBQUERY):
+                # a correlated subquery's outer columns (its WHERE names
+                # them) must survive the projection; its own names that
+                # do not resolve here are skipped
+                _walk_exprs(e.select.where,
+                            lambda x: note(x) if isinstance(x, Col) else None)
 
         for it in sel.items:
             _walk_exprs(it.expr, note)
@@ -486,29 +624,48 @@ class _Exec:
         # ---- pushdown -------------------------------------------------
         conjuncts = _split_and(sel.where)
         pushed: Dict[str, list] = {s["alias"]: [] for s in sources}
+        frame_pushed: Dict[str, list] = {s["alias"]: [] for s in sources}
         for conj in conjuncts:
             target = self._sole_alias(conj, resolve)
-            if target:
-                tree = self._to_tree(conj, resolve,
-                                     by_alias[target]["types"])
-                if tree is not None:
-                    pushed[target].append(tree)
+            if not target:
+                continue
+            if by_alias[target]["frame"] is not None:
+                # a CTE or subquery source is filtered before any join
+                # (q4's six-way self-join would multiply first)
+                frame_pushed[target].append(conj)
+                continue
+            tree = self._to_tree(conj, resolve, by_alias[target]["types"])
+            if tree is not None:
+                pushed[target].append(tree)
 
         # ---- materialize ----------------------------------------------
-        with _Clock(SCAN_NS):
-            for s in sources:
-                filt = None
-                for t in pushed[s["alias"]]:
-                    filt = t if filt is None else (filt & t)
-                # schema order: SELECT * presents columns in table order
-                cols = [c for c in s["cols"] if c in needed[s["alias"]]] \
-                    or s["cols"][:1]
-                s["frame"] = self._scan(s["snap"], filt, cols, s["alias"])
+        applied = set()
+        for s in sources:
+            alias = s["alias"]
+            # schema order: SELECT * presents columns in table order
+            cols = [c for c in s["cols"] if c in needed[alias]] \
+                or s["cols"][:1]
+            if s["frame"] is not None:
+                frame = s["frame"]
+                frame = Frame({f"{alias}.{c}": frame[c] for c in cols},
+                              len(frame))
+                for conj in frame_pushed[alias]:
+                    frame = self._apply_mask(
+                        frame, fv.truth(self._eval(conj, frame)))
+                    applied.add(id(conj))
+                s["frame"] = frame
+                continue
+            filt = None
+            for t in pushed[alias]:
+                filt = t if filt is None else (filt & t)
+            with _Clock(SCAN_NS):
+                s["frame"] = self._scan(s["snap"], filt, cols, alias)
 
         # ---- joins ----------------------------------------------------
         with _Clock(JOIN_NS):
-            current, consumed, applied = self._join(
-                sel, sources, by_alias, join_aliases, conjuncts, resolve)
+            current, consumed = self._join(
+                sel, sources, by_alias, join_aliases, conjuncts, resolve,
+                applied)
 
         # ---- residual WHERE -------------------------------------------
         residual = [c for c in conjuncts
@@ -533,7 +690,7 @@ class _Exec:
         return frame.filter(mask)
 
     def _join(self, sel, sources, by_alias, join_aliases, conjuncts,
-              resolve):
+              resolve, applied):
         implicit = [s["alias"] for s in sources
                     if s["alias"] not in set(join_aliases)]
         edges = []   # (alias_a, col_a, alias_b, col_b, conj)
@@ -573,10 +730,10 @@ class _Exec:
                     if aa != ab:
                         edges.append((aa, pa_, ab, pb_, None))
 
-        applied = set()
         joined = set()
 
         def conj_aliases(conj):
+            # a conjunct that holds a subquery applies after the joins
             aliases = set()
             blocked = []
 
@@ -586,6 +743,8 @@ class _Exec:
                         aliases.add(resolve(x).split(".", 1)[0])
                     except DeltaError:
                         blocked.append(x)
+                elif isinstance(x, _SUBQUERY):
+                    blocked.append(x)
             _walk_exprs(conj, chk)
             return None if blocked else aliases
 
@@ -696,22 +855,12 @@ class _Exec:
             joined.add(a)
             pool = [(pa, pj) for pa, pj in pool if pa != a]
             current = apply_eager(current)
-        return current, consumed, applied
+        return current, consumed
 
     # -- projection / aggregation / order -------------------------------
     def _project(self, sel: Select, df: Frame, resolve):
-        has_agg = False
-
-        def check_agg(e):
-            nonlocal has_agg
-            if isinstance(e, Func) and e.name in _AGGS:
-                has_agg = True
-
-        for it in sel.items:
-            _walk_exprs(it.expr, check_agg)
-        _walk_exprs(sel.having, check_agg)
-        for o, _ in sel.order_by:
-            _walk_exprs(o, check_agg)
+        has_agg = any(_has_agg(e) for e in [it.expr for it in sel.items]
+                      + [sel.having] + [o for o, _ in sel.order_by])
         if sel.having is not None and not sel.group_by and not has_agg:
             raise SqlParseError(
                 "HAVING without GROUP BY requires an aggregate",
@@ -864,6 +1013,16 @@ class _Exec:
                 "GROUP BY or inside an aggregate")
         if isinstance(e, Func) and e.name in _AGGS:
             raise UnsupportedSqlError(f"aggregate {e.name} not computed")
+        if isinstance(e, ScalarSelect):
+            # over aggregated rows (HAVING sum(x) > (SELECT ...)): only an
+            # uncorrelated scalar, as in the reference (`:1186`)
+            if self._correlation(e.select):
+                raise UnsupportedSqlError(
+                    "correlated scalar subquery over an aggregated result "
+                    "is not supported",
+                    error_class="DELTA_UNSUPPORTED_CORRELATED_SUBQUERY",
+                    construct="correlated subquery after GROUP BY")
+            return self._scalar_value(e.select)
         return self._eval_node(e, df, ev)
 
     # -- row-environment evaluation -------------------------------------
@@ -876,6 +1035,8 @@ class _Exec:
                 error_class="DELTA_AGGREGATION_NOT_SUPPORTED")
         if isinstance(e, Star):
             raise SqlParseError("* is only allowed as a lone select item")
+        if isinstance(e, _SUBQUERY):
+            return self._eval_subquery(e, df)
         return self._eval_node(e, df, lambda x: self._eval(x, df))
 
     @staticmethod
@@ -939,6 +1100,362 @@ class _Exec:
             f"unsupported expression {type(e).__name__}",
             construct=type(e).__name__)
 
+    # -- subqueries -----------------------------------------------------
+    def _eval_subquery(self, e, df: Frame):
+        """A subquery in the row environment (reference `_eval`
+        `:1291-1330`): correlated ones are decorrelated, uncorrelated ones
+        run once per executor."""
+        corr = self._correlation(e.select)
+        if isinstance(e, ScalarSelect):
+            if corr:
+                return self._correlated_scalar(e.select, corr, df)
+            return self._scalar_value(e.select)
+        if isinstance(e, InSelect):
+            if corr:
+                m = self._correlated_semi(e.select, corr, df, item=e.item)
+            else:
+                rows = self._uncorrelated_frame(e.select)
+                if len(rows.cols) != 1:
+                    raise SqlParseError("IN subquery must return one column")
+                m = _in_membership(self.spine, fv.broadcast(
+                    self._eval(e.item, df), len(df)), rows.column_at(0))
+            return fv.k_not(m) if e.negated else m
+        if corr:  # EXISTS
+            m = self._correlated_semi(e.select, corr, df)
+            return fv.k_not(m) if e.negated else m
+        flag = len(self._uncorrelated_frame(e.select)) > 0
+        return (not flag) if e.negated else flag
+
+    def _uncorrelated_frame(self, sub: Select) -> Frame:
+        got = self._uncorrelated.get(id(sub))
+        if got is None:
+            got = self._uncorrelated[id(sub)] = self._select_frame(sub)
+        return got
+
+    def _scalar_value(self, sub: Select):
+        rows = self._uncorrelated_frame(sub)
+        if len(rows.cols) != 1:
+            raise SqlParseError("scalar subquery must return one column")
+        if len(rows) > 1:
+            raise SubqueryShapeError(
+                f"scalar subquery returned {len(rows)} rows, not one")
+        if not len(rows):
+            return None
+        return _scalar_of(rows.column_at(0))
+
+    @staticmethod
+    def _inner_aliases(sub: Select) -> set:
+        out = set()
+        for ref in list(sub.froms) + [j.ref for j in sub.joins]:
+            if ref.alias:
+                out.add(ref.alias.lower())
+            elif ref.kind == "name":
+                out.add(ref.value.split(".")[-1].lower())
+        return out
+
+    def _inner_columns(self, sub: Select) -> set:
+        """The lower-case column names of the subquery's own sources (a
+        schema read; snapshots cache their metadata)."""
+        out = set()
+        for ref in list(sub.froms) + [j.ref for j in sub.joins]:
+            try:
+                if ref.kind == "subquery":
+                    inner = ref.value.selects[0] \
+                        if isinstance(ref.value, Query) else ref.value
+                    for it in inner.items:
+                        if it.alias:
+                            out.add(it.alias.lower())
+                        elif isinstance(it.expr, Col):
+                            out.add(it.expr.parts[-1].lower())
+                elif ref.kind == "name" and ref.value.lower() in self.ctes:
+                    out |= {c.lower()
+                            for c in self.ctes[ref.value.lower()].names}
+                else:
+                    snap = self._snapshot(ref)
+                    if snap.schema is not None:
+                        out |= {f.name.lower() for f in snap.schema.fields}
+            except (DeltaError, OSError):
+                pass  # an unknown source: its columns are unknown
+        return out
+
+    def _correlation(self, sub: Select) -> Optional["_CorrInfo"]:
+        """The subquery's equality correlation (reference `:1379`): WHERE
+        conjuncts `outer.col = inner_col`, the outer side qualified by an
+        outer alias (q1, q30, q81) or a bare name only the outer scope
+        has (q32, q92's `i_item_sk`); an equality repeated in every
+        branch of an OR is factored out (q41); other conjuncts naming an
+        outer column are residuals, applied after the semi-join's pairs.
+        None when uncorrelated; raises where outer references have no
+        equality to decorrelate on."""
+        inner = self._inner_aliases(sub)
+        outer = {a.lower() for a in self._outer_aliases}
+        inner_cols = None  # read when first needed
+
+        def is_outer(c) -> bool:
+            nonlocal inner_cols
+            if not isinstance(c, Col):
+                return False
+            if len(c.parts) >= 2:
+                return (c.parts[-2].lower() not in inner
+                        and c.parts[-2].lower() in outer)
+            # a bare name is outer only where the subquery's sources do
+            # not have it and the outer scope resolves it
+            if inner_cols is None:
+                inner_cols = self._inner_columns(sub)
+            if c.parts[0].lower() in inner_cols:
+                return False
+            try:
+                self._resolve(c)
+                return True
+            except DeltaError:
+                return False
+
+        def outer_eq(conj):
+            if (isinstance(conj, Cmp) and conj.op == "="
+                    and isinstance(conj.left, Col)
+                    and isinstance(conj.right, Col)):
+                lo, ro = is_outer(conj.left), is_outer(conj.right)
+                if lo != ro:
+                    return ((conj.left, conj.right) if lo
+                            else (conj.right, conj.left))
+            return None
+
+        corr = []        # [(outer Col, inner Col)]
+        residual = []    # conjuncts naming outer columns, not equalities
+        where_rest = []  # the inner-only conjuncts (OR-factored ones rebuilt)
+        for conj in _split_and(sub.where):
+            eq = outer_eq(conj)
+            if eq:
+                corr.append(eq)
+                continue
+            if isinstance(conj, Or):
+                branch_splits = [_split_and(b) for b in conj.items]
+                common = next(
+                    (cand for cand in branch_splits[0]
+                     if outer_eq(cand)
+                     and all(cand in bs for bs in branch_splits)), None)
+                if common is not None:
+                    leftover = []
+                    for bs in branch_splits:
+                        for c in bs:
+                            if c != common:
+                                _walk_exprs(c, lambda x: leftover.append(x)
+                                            if is_outer(x) else None)
+                    if leftover:
+                        residual.append(conj)
+                        continue
+                    corr.append(outer_eq(common))
+                    branches = []
+                    for bs in branch_splits:
+                        rest = tuple(c for c in bs if c != common)
+                        if not rest:
+                            # a branch that was only the equality: the OR
+                            # holds wherever the key matches
+                            branches = None
+                            break
+                        branches.append(rest[0] if len(rest) == 1
+                                        else And(rest))
+                    if branches is not None:
+                        where_rest.append(Or(tuple(branches)))
+                    continue
+            has_outer = []
+            _walk_exprs(conj, lambda x: has_outer.append(x)
+                        if is_outer(x) else None)
+            (residual if has_outer else where_rest).append(conj)
+        if not corr:
+            if residual:
+                raise UnsupportedSqlError(
+                    "correlated subquery has outer references but no "
+                    "equality correlation to decorrelate on",
+                    error_class="DELTA_UNSUPPORTED_CORRELATED_SUBQUERY",
+                    construct="correlated subquery without an equality")
+            return None
+        return _CorrInfo(corr, where_rest, residual, is_outer)
+
+    def _decorrelated_frame(self, sub: Select, info: "_CorrInfo",
+                            extra_items: List[SelectItem],
+                            aggregate: bool) -> Tuple[Frame, List[str]]:
+        """`sub` without its correlation conjuncts, its inner correlation
+        columns as `__ck0`, `__ck1`, ...: the GROUP BY keys (aggregate:
+        K10 reduces each group) or distinct output columns. Returns (the
+        Frame, the key names)."""
+        if sub.group_by or sub.having:
+            raise UnsupportedSqlError(
+                "correlated subquery with its own GROUP BY/HAVING is not "
+                "supported",
+                error_class="DELTA_UNSUPPORTED_CORRELATED_SUBQUERY",
+                construct="correlated subquery with GROUP BY")
+        where = None
+        if info.where_rest:
+            where = info.where_rest[0] if len(info.where_rest) == 1 \
+                else And(tuple(info.where_rest))
+        keys = [f"__ck{k}" for k in range(len(info.corr))]
+        inner_sel = Select(
+            items=[SelectItem(i, alias=k)
+                   for k, (_o, i) in zip(keys, info.corr)] + extra_items,
+            froms=list(sub.froms), joins=list(sub.joins), where=where,
+            group_by=[i for _o, i in info.corr] if aggregate else [],
+            distinct=not aggregate)
+        names, cols, n = _Exec(self.engine, self.catalog,
+                               self.ctes).run(inner_sel)
+        return Frame(dict(zip(_unique(names), cols)), n), keys
+
+    def _outer_keys(self, info: "_CorrInfo", df: Frame) -> List[Column]:
+        return [fv.broadcast(self._eval(o, df), len(df))
+                for o, _i in info.corr]
+
+    def _correlated_scalar(self, sub: Select, info: "_CorrInfo",
+                           df: Frame) -> Column:
+        """Per outer row, the aggregate of the inner rows of its key: the
+        decorrelated subquery grouped by its correlation columns on the
+        card (K10), then a left join of the outer key tuples against the
+        groups (`DeviceSpine.lookup`). A key with no group takes the
+        aggregate of no rows (COUNT 0, else NULL); a NULL outer key
+        NULL."""
+        if info.residual:
+            raise UnsupportedSqlError(
+                "correlated scalar subquery with non-equality outer "
+                "references is not supported",
+                error_class="DELTA_UNSUPPORTED_CORRELATED_SUBQUERY",
+                construct="correlated scalar subquery with a residual")
+        if len(sub.items) != 1 or isinstance(sub.items[0].expr, Star):
+            raise SqlParseError("scalar subquery must return one column")
+        val_item = SelectItem(sub.items[0].expr, alias="__cv")
+        if not _has_agg(val_item.expr):
+            raise UnsupportedSqlError(
+                "correlated scalar subquery must aggregate (else it may "
+                "return more than one row per outer row)",
+                error_class="DELTA_UNSUPPORTED_CORRELATED_SUBQUERY",
+                construct="correlated scalar subquery without an aggregate")
+        groups, keys = self._decorrelated_frame(sub, info, [val_item],
+                                                aggregate=True)
+        outer = self._outer_keys(info, df)
+        idx = self.spine.lookup(outer, [groups[k] for k in keys])
+        cv = groups["__cv"]
+        hit = idx >= 0
+        if len(cv):
+            at = np.where(hit, idx, 0)
+            values, valid = cv.values[at], hit & fv.valid_of(cv)[at]
+        else:
+            values, valid = np.zeros(len(df), cv.values.dtype), hit
+        default = self._empty_agg_value(val_item.expr)
+        if default is not None:
+            fill = ~hit & ~fv.null_rows(outer)
+            values[fill] = default
+            valid = valid | fill
+        return fv.column(values, valid)
+
+    def _empty_agg_value(self, expr):
+        """The value of an aggregate expression over no rows: COUNT 0,
+        any other aggregate NULL, constants folded through; None where it
+        does not fold."""
+        def sub(e):
+            if isinstance(e, Func) and e.name in _AGGS:
+                return Lit(0) if e.name == "count" else Lit(None)
+            if isinstance(e, (BinOp, Cmp)):
+                return dataclasses.replace(e, left=sub(e.left),
+                                           right=sub(e.right))
+            if isinstance(e, (Neg, Cast)):
+                return dataclasses.replace(e, item=sub(e.item))
+            return e
+        try:
+            v = self._eval(sub(expr), Frame({}, 0))
+        except (DeltaError, KeyError, TypeError, ValueError):
+            return None  # not a constant: NULL, as the reference has it
+        return None if fv.is_col(v) or fv.is_null(v) else v
+
+    def _correlated_semi(self, sub: Select, info: "_CorrInfo", df: Frame,
+                         item=None) -> Column:
+        """EXISTS, or IN with `item`, against a correlated subquery: semi-
+        joins of the outer key tuples against the decorrelated subquery's
+        distinct rows (`DeviceSpine.member`). Three-valued IN: a NULL in
+        a key's inner values makes a miss NULL, a NULL item against a key
+        with inner rows is NULL; a NULL outer key makes EXISTS and IN
+        false."""
+        if info.residual:
+            if item is not None:
+                raise UnsupportedSqlError(
+                    "correlated IN with non-equality outer references is "
+                    "not supported",
+                    error_class="DELTA_UNSUPPORTED_CORRELATED_SUBQUERY",
+                    construct="correlated IN with a residual")
+            return self._correlated_exists_residual(sub, info, df)
+        extra = []
+        if item is not None:
+            if len(sub.items) != 1 or isinstance(sub.items[0].expr, Star):
+                raise SqlParseError("IN subquery must return one column")
+            extra = [SelectItem(sub.items[0].expr, alias="__cv")]
+        inner, keys = self._decorrelated_frame(sub, info, extra,
+                                               aggregate=False)
+        outer = self._outer_keys(info, df)
+        inner_keys = [inner[k] for k in keys]
+        if item is None:
+            return Column(self.spine.member(outer, inner_keys))
+        seen = self.spine.member(outer, inner_keys)
+        cv = inner["__cv"]
+        ok = fv.valid_of(cv)
+        v = fv.broadcast(self._eval(item, df), len(df))
+        with_value = np.flatnonzero(ok)
+        hit = self.spine.member(outer + [v],
+                                [k.take(with_value) for k in inner_keys]
+                                + [cv.take(with_value)])
+        null_value = np.flatnonzero(~ok)
+        has_null = self.spine.member(outer, [k.take(null_value)
+                                             for k in inner_keys]) \
+            if len(null_value) else np.zeros(len(df), bool)
+        unknown = seen & ~hit & (~fv.valid_of(v) | has_null)
+        return fv.column(hit, ~unknown)
+
+    def _correlated_exists_residual(self, sub: Select, info: "_CorrInfo",
+                                    df: Frame) -> Column:
+        """EXISTS with equality correlation and residual conjuncts naming
+        outer columns (q94's `<>`): the outer key tuples joined to the
+        decorrelated inner rows, the residuals applied to the pairs, then
+        reduced per outer row."""
+        inner_cols, outer_cols = [], []
+
+        def reg(c):
+            if not isinstance(c, Col):
+                return
+            side = outer_cols if info.is_outer(c) else inner_cols
+            if c not in side:
+                side.append(c)
+
+        for rc in info.residual:
+            _walk_exprs(rc, reg)
+        extra = [SelectItem(c, alias=f"__rin_{j}")
+                 for j, c in enumerate(inner_cols)]
+        inner, keys = self._decorrelated_frame(sub, info, extra,
+                                               aggregate=False)
+        n = len(df)
+        cols = {k: c for k, c in zip(keys, self._outer_keys(info, df))}
+        for j, c in enumerate(outer_cols):
+            cols[f"__out_{j}"] = fv.broadcast(self._eval(c, df), n)
+        cols["__rowid"] = Column(np.arange(n, dtype=np.int64))
+        inner_keys = [f"__ick{k}" for k in range(len(keys))]
+        inner = inner.rekey(inner_keys + inner.names[len(keys):])
+        with _Clock(JOIN_NS):
+            pairs = _merge_null_safe(self.spine, Frame(cols, n), inner,
+                                     keys, inner_keys)
+
+        def flat(c):
+            if info.is_outer(c):
+                return Col((f"__out_{outer_cols.index(c)}",))
+            return Col((f"__rin_{inner_cols.index(c)}",))
+
+        outer_resolve = self._resolve
+        self._resolve = lambda col: col.parts[-1]
+        try:
+            mask = np.ones(len(pairs), bool)
+            for rc in info.residual:
+                m = fv.truth(self._eval(_rewrite_cols(rc, flat), pairs))
+                mask &= m if isinstance(m, np.ndarray) else bool(m)
+        finally:
+            self._resolve = outer_resolve
+        flags = np.zeros(n, bool)
+        flags[pairs["__rowid"].values[mask]] = True
+        return Column(flags)
+
     # -- pushdown helpers ------------------------------------------------
     @staticmethod
     def _sole_alias(conj, resolve) -> Optional[str]:
@@ -952,6 +1469,8 @@ class _Exec:
                     aliases.add(resolve(e).split(".", 1)[0])
                 except DeltaError:
                     bad = True
+            elif isinstance(e, _SUBQUERY):
+                bad = True  # never pushed into a scan or a source
 
         _walk_exprs(conj, note)
         if bad or len(aliases) != 1:
@@ -1020,3 +1539,84 @@ class _Exec:
             return None
 
         return conv(conj)
+
+
+class _CorrInfo:
+    """A correlated subquery's decorrelation: its equality pairs (outer
+    Col, inner Col), the inner-only WHERE rest (OR-factored equalities
+    taken out) and the residual conjuncts naming outer columns."""
+
+    def __init__(self, corr, where_rest, residual, is_outer):
+        self.corr = corr
+        self.where_rest = where_rest
+        self.residual = residual
+        self.is_outer = is_outer
+
+    def __bool__(self):
+        return bool(self.corr)
+
+
+def _has_agg(e) -> bool:
+    found = []
+    _walk_exprs(e, lambda x: found.append(x)
+                if isinstance(x, Func) and x.name in _AGGS else None)
+    return bool(found)
+
+
+def _rewrite_cols(e, fn):
+    """`e` rebuilt with every Col node replaced by fn(col)."""
+    if isinstance(e, Col):
+        return fn(e)
+    if isinstance(e, (BinOp, Cmp)):
+        return dataclasses.replace(e, left=_rewrite_cols(e.left, fn),
+                                   right=_rewrite_cols(e.right, fn))
+    if isinstance(e, (And, Or)):
+        return dataclasses.replace(
+            e, items=tuple(_rewrite_cols(x, fn) for x in e.items))
+    if isinstance(e, (Not, Neg, IsNull, Like, Cast)):
+        return dataclasses.replace(e, item=_rewrite_cols(e.item, fn))
+    if isinstance(e, Between):
+        return dataclasses.replace(
+            e, item=_rewrite_cols(e.item, fn), lo=_rewrite_cols(e.lo, fn),
+            hi=_rewrite_cols(e.hi, fn))
+    if isinstance(e, InList):
+        return dataclasses.replace(
+            e, item=_rewrite_cols(e.item, fn),
+            values=tuple(_rewrite_cols(v, fn) for v in e.values))
+    if isinstance(e, Func):
+        return dataclasses.replace(
+            e, args=tuple(_rewrite_cols(a, fn) for a in e.args))
+    if isinstance(e, CaseWhen):
+        return dataclasses.replace(
+            e, whens=tuple((_rewrite_cols(c, fn), _rewrite_cols(v, fn))
+                           for c, v in e.whens),
+            else_=_rewrite_cols(e.else_, fn) if e.else_ is not None
+            else None)
+    cols = []
+    _walk_exprs(e, lambda x: cols.append(x) if isinstance(x, Col) else None)
+    if cols:
+        raise UnsupportedSqlError(
+            f"unsupported expression {type(e).__name__} in a correlated "
+            "residual predicate", construct=type(e).__name__)
+    return e
+
+
+def _in_membership(spine: DeviceSpine, v: Column, values: Column) -> Column:
+    """`v IN (values)`, three-valued (reference `:2133`): NULL for a NULL
+    item, a miss NULL where the values hold a NULL; the membership test a
+    semi-join on the card."""
+    ok = fv.valid_of(values)
+    hit = spine.member([v], [values.take(np.flatnonzero(ok))])
+    valid = fv.valid_of(v) & (hit | bool(ok.all()))
+    return fv.column(hit, valid)
+
+
+def _scalar_of(c: Column):
+    """Row 0 of a Column as the executor's scalar: a Python number, str
+    or bool, a numpy datetime64, or None."""
+    if c.valid is not None and not c.valid[0]:
+        return None
+    v = c.values[0]
+    if isinstance(v, np.generic) and v.dtype.kind in "biuf":
+        return v.item()
+    return v

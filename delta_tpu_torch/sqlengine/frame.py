@@ -66,6 +66,56 @@ class Frame:
         return Frame({name: c.slice(0, k) for name, c in self.cols.items()},
                      k)
 
+    def column_at(self, i: int) -> Column:
+        return list(self.cols.values())[i]
+
+    def rekey(self, names: Sequence[str]) -> "Frame":
+        """The same Columns (not copied) under new names, by position."""
+        return Frame(dict(zip(names, self.cols.values())), self.n)
+
+
+def concat_frames(frames: Sequence[Frame]) -> Frame:
+    """Frames stacked by position, under the first one's names (UNION ALL).
+    Each position's Columns take one type, as the reference's positional
+    concatenation gives them: ints and floats together are float64, a
+    Column with no valid row (a branch of NULLs, or no rows) takes the
+    others' type, and any other mix is object."""
+    frames = list(frames)
+    out = {}
+    for pos, name in enumerate(frames[0].names):
+        parts = [f.column_at(pos) for f in frames]
+        out[name] = Column.concat(_unified(parts))
+    return Frame(out, sum(len(f) for f in frames))
+
+
+def _unified(parts: List[Column]) -> List[Column]:
+    typed = {id(p) for p in parts if len(p) and valid_of(p).any()}
+    dtypes = {p.values.dtype for p in parts if id(p) in typed} \
+        or {parts[0].values.dtype}
+    if len(dtypes) == 1:
+        dtype = dtypes.pop()
+    elif all(d.kind in "iub" for d in dtypes):
+        dtype = np.dtype(np.int64)
+    elif all(d.kind in "iubf" for d in dtypes):
+        dtype = np.dtype(np.float64)
+    elif all(d.kind == "M" for d in dtypes):
+        dtype = np.result_type(*dtypes)
+    else:
+        dtype = np.dtype(object)
+    out = []
+    for p in parts:
+        if p.values.dtype == dtype:
+            out.append(Column(p.values, p.valid))
+        elif id(p) not in typed:
+            out.append(Column.nulls(dtype, len(p)))
+        elif dtype == object:
+            vals = np.empty(len(p), object)
+            vals[:] = p.values.tolist()
+            out.append(Column(vals, p.valid))
+        else:
+            out.append(Column(p.values.astype(dtype), p.valid))
+    return out
+
 
 # ------------------------------------------------------------- values ---
 
@@ -117,6 +167,15 @@ def is_null(x) -> bool:
 
 def valid_of(c: Column) -> np.ndarray:
     return np.ones(len(c), bool) if c.valid is None else c.valid
+
+
+def null_rows(cols: Sequence[Column]) -> np.ndarray:
+    """The rows where any of the (equal-length) Columns is NULL."""
+    bad = np.zeros(len(cols[0]), bool)
+    for c in cols:
+        if c.valid is not None:
+            bad |= ~c.valid
+    return bad
 
 
 def _and_valid(*parts) -> Optional[np.ndarray]:

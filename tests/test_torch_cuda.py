@@ -1878,12 +1878,25 @@ def test_avg_of_a_long_column_on_the_card(tmp_path):
         assert got == pytest.approx(means, rel=1e-12)
 
 
+def _same_sql_rows(got, want, name):
+    assert got.names == want.names, name
+    key = lambda r: repr([round(x, 3) if isinstance(x, float) else x
+                          for x in r])  # noqa: E731
+    for a, b in zip(sorted(got.rows(), key=key),
+                    sorted(want.rows(), key=key), strict=True):
+        for x, y in zip(a, b, strict=True):
+            assert x == pytest.approx(y, rel=1e-9) \
+                if isinstance(y, float) else x == y, name
+
+
 @pytest.mark.cuda
 def test_sql_on_the_card_equals_cpu(tmp_path):
-    """The TPC-DS generator at scale 12,000 written on the CPU, every
-    single-block query on the card and on the CPU: the same rows (the
-    card's float sums to 1e-9 relative); K10 launched on every query
-    that aggregates and has rows, the joins and sorts counted."""
+    """The TPC-DS generator at scale 12,000 written on the CPU, each of
+    the 71 texts the port runs on the card and on the CPU: the same rows
+    (the card's float sums to 1e-9 relative); K10 launched on every query
+    that aggregates and has rows; the joins, lookups, membership tests,
+    group-bys and sorts counted the same on both (q9 and q41 join
+    nothing)."""
     from delta_tpu_torch.catalog import Catalog
     from delta_tpu_torch.sqlengine import execute_select
     from delta_tpu_torch.utils.tpcds import QUERIES, load_delta
@@ -1893,20 +1906,44 @@ def test_sql_on_the_card_equals_cpu(tmp_path):
     load_delta(root, scale=12_000, engine=TorchEngine("cpu"))
     card = Catalog(root, engine=TorchEngine())
     cpu = Catalog(root, engine=TorchEngine("cpu"))
+    plan = ("sql.device_joins", "sql.device_groupbys", "sql.device_sorts")
     for name, text in QUERIES.items():
         obs.reset()
         got = execute_select(text, catalog=card)
         counts = obs.counters()
+        obs.reset()
         want = execute_select(text, catalog=cpu)
-        assert got.names == want.names, name
-        key = lambda r: repr([round(x, 3) if isinstance(x, float) else x
-                              for x in r])  # noqa: E731
-        for a, b in zip(sorted(got.rows(), key=key),
-                        sorted(want.rows(), key=key), strict=True):
-            for x, y in zip(a, b, strict=True):
-                assert x == pytest.approx(y, rel=1e-9) \
-                    if isinstance(y, float) else x == y, name
+        cpu_counts = obs.counters()
+        _same_sql_rows(got, want, name)
         if got.num_rows and any(f"{a}(" in text.lower() for a in (
                 "sum", "avg", "count", "stddev_samp")):
             assert counts.get("kernel.seg_agg.launches", 0) >= 1, name
+        assert [counts.get(k, 0) for k in plan] == \
+            [cpu_counts.get(k, 0) for k in plan], name
+        if name not in ("q9", "q41"):
+            assert counts.get("sql.device_joins", 0) >= 1, name
+
+
+@pytest.mark.cuda
+def test_nested_sql_on_the_card_equals_cpu(tmp_path):
+    """q32 (a correlated scalar: its decorrelated group-by on K10, the
+    outer keys looked up on the card), q59 (a CTE self-joined) and q87
+    (EXCEPT of three channels' distinct rows) at scale 12,000 on the card
+    and on the CPU: the same rows, K10 launched."""
+    from delta_tpu_torch.catalog import Catalog
+    from delta_tpu_torch.sqlengine import execute_select
+    from delta_tpu_torch.utils.tpcds import QUERIES, load_delta
+
+    _card()
+    root = str(tmp_path / "tpcds")
+    load_delta(root, scale=12_000, engine=TorchEngine("cpu"))
+    card = Catalog(root, engine=TorchEngine())
+    cpu = Catalog(root, engine=TorchEngine("cpu"))
+    for name in ("q32", "q59", "q87"):
+        obs.reset()
+        got = execute_select(QUERIES[name], catalog=card)
+        counts = obs.counters()
+        _same_sql_rows(got, execute_select(QUERIES[name], catalog=cpu), name)
+        assert got.num_rows >= 1, name
+        assert counts.get("kernel.seg_agg.launches", 0) >= 1, name
         assert counts.get("sql.device_joins", 0) >= 1, name

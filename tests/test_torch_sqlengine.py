@@ -1,12 +1,18 @@
-"""The port's single-block executor, construct by construct, against the
-reference's `sql()` on the same tables.
+"""The port's executor, construct by construct, against the reference's
+`sql()` on the same tables.
 
 The statements are the single-block ones of `tests/test_sqlengine.py`
 (literals and operators, CASE, BETWEEN, IN with NULL, LIKE, IS NULL,
 CAST and interval arithmetic, date parts, the scalar functions, every
 aggregate, NULL group keys, GROUP BY expressions, INNER and CROSS joins,
 lateral aliases, ORDER BY's null order, DISTINCT, HAVING) and a few
-more. Each runs through `delta_tpu_torch.sql.sql` on `TorchEngine("cpu")`
+more, and the nested ones: CTEs (a CTE sees the one before it, not its
+sibling; one CTE aliased three times), derived tables and their
+pushdown, uncorrelated and correlated scalar, IN and EXISTS subqueries
+(NOT IN over a set with a NULL, EXISTS with a NULL outer key, a
+correlated COUNT and SUM over no rows, a scalar subquery of two rows),
+UNION against UNION ALL, INTERSECT and EXCEPT with NULL rows, ORDER BY
+after a union and the types a union gives. Each runs through `delta_tpu_torch.sql.sql` on `TorchEngine("cpu")`
 and through the reference's `sql` on `HostEngine` over one table written
 by the reference; rows are compared in order where the statement orders
 them, else as multisets. Errors: both raise, with the reference's error
@@ -150,6 +156,54 @@ STATEMENTS = [
     "SELECT DISTINCT k FROM '{other}' ORDER BY k",
     "SELECT b.k, b.w FROM '{other}' AS b WHERE b.k = 3 OR b.w IS NULL "
     "ORDER BY b.w DESC",
+    # CTEs and derived tables
+    "WITH a AS (SELECT id, v FROM '{t}' WHERE id > 1), "
+    "b AS (SELECT id FROM a WHERE v < 40) SELECT id FROM b ORDER BY id",
+    "WITH c AS (SELECT k, SUM(w) s FROM '{other}' GROUP BY k) "
+    "SELECT x.k, y.s, z.s + 1 FROM c x, c y, c AS z "
+    "WHERE x.k = y.k AND y.k = z.k ORDER BY x.k",
+    "SELECT x.k, x.s, t.v FROM (SELECT k, SUM(w) s FROM '{other}' "
+    "GROUP BY k) x, '{t}' t WHERE x.k = t.id AND x.s > 250 ORDER BY x.k",
+    "SELECT q.n FROM (WITH z AS (SELECT COUNT(*) n FROM '{other}') "
+    "SELECT n FROM z) q",
+    # subqueries in expressions
+    "SELECT id FROM '{t}' WHERE v > (SELECT AVG(w) / 10 FROM '{other}') "
+    "ORDER BY id",
+    "SELECT id FROM '{t}' WHERE id IN (SELECT v FROM '{nulls}') "
+    "ORDER BY id",
+    "SELECT id FROM '{t}' WHERE id NOT IN (SELECT v FROM '{nulls}')",
+    "SELECT id FROM '{t}' WHERE id NOT IN (SELECT k FROM '{other}') "
+    "ORDER BY id",
+    "SELECT id FROM '{t}' a WHERE EXISTS (SELECT 1 FROM '{other}' b "
+    "WHERE b.k = a.id) ORDER BY id",
+    "SELECT id, v FROM '{t}' a WHERE NOT EXISTS (SELECT 1 FROM '{other}' "
+    "b WHERE b.k = a.id) ORDER BY v",
+    "SELECT id, v FROM '{t}' a WHERE v * 10 IN (SELECT w FROM '{other}' "
+    "b WHERE b.k = a.id) ORDER BY v",
+    "SELECT id, v FROM '{t}' a WHERE v * 10 NOT IN (SELECT w FROM "
+    "'{other}' b WHERE b.k = a.id) ORDER BY v",
+    "SELECT id, (SELECT COUNT(*) FROM '{other}' b WHERE b.k = a.id) n, "
+    "(SELECT SUM(w) FROM '{other}' b WHERE b.k = a.id) s FROM '{t}' a "
+    "ORDER BY v",
+    "SELECT id FROM '{t}' a WHERE v * 10 < (SELECT MAX(w) FROM '{other}' "
+    "b WHERE b.k = a.id) ORDER BY id",
+    "SELECT id FROM '{t}' a WHERE EXISTS (SELECT 1 FROM '{other}' b "
+    "WHERE b.k = a.id AND b.w <> a.v * 10) ORDER BY id",
+    "SELECT k, SUM(w) s FROM '{other}' GROUP BY k "
+    "HAVING SUM(w) > (SELECT AVG(w) FROM '{other}') ORDER BY k",
+    # set operations
+    "SELECT k FROM '{other}' UNION ALL SELECT id FROM '{t}'",
+    "SELECT k FROM '{other}' UNION SELECT id FROM '{t}'",
+    "SELECT k FROM '{nulls}' INTERSECT SELECT k FROM '{nulls}' WHERE v < 3",
+    "SELECT k FROM '{nulls}' EXCEPT SELECT k FROM '{nulls}' WHERE v = 3",
+    "SELECT k, v FROM '{nulls}' UNION SELECT k, v FROM '{nulls}' "
+    "ORDER BY k, v DESC",
+    "SELECT id AS n, v FROM '{t}' UNION ALL SELECT k, w FROM '{other}' "
+    "ORDER BY 2 DESC LIMIT 4",
+    "SELECT id FROM '{t}' UNION ALL SELECT k FROM (SELECT k FROM "
+    "'{other}' EXCEPT SELECT 9 FROM '{other}') e ORDER BY id",
+    "SELECT COUNT(*) n FROM ((SELECT k FROM '{other}') EXCEPT "
+    "(SELECT id FROM '{t}')) x",
 ]
 
 
@@ -178,6 +232,16 @@ def test_statement_equals_reference(paths, stmt):
     ("SELECT id FROM '{t}' WHERE SUM(v) > 10", "not allowed|aggregate"),
     ("SELECT v, COUNT(*) FROM '{t}' GROUP BY id", "GROUP BY"),
     ("SELECT id FROM '{t}' HAVING id > 1", "HAVING"),
+    ("WITH a AS (SELECT id FROM b), b AS (SELECT id FROM '{t}') "
+     "SELECT id FROM a", "requires a catalog"),
+    ("SELECT z.n FROM (WITH z AS (SELECT 1 n FROM '{t}') SELECT n FROM z) "
+     "q, z", "requires a catalog"),
+    ("SELECT id FROM '{t}' WHERE v > (SELECT w FROM '{other}' "
+     "WHERE k = 3)", "scalar subquery"),
+    ("SELECT id, v FROM '{t}' UNION ALL SELECT k FROM '{other}'",
+     "different widths"),
+    ("SELECT id FROM '{t}' UNION SELECT k FROM '{other}' ORDER BY id + 1",
+     "ORDER BY after"),
 ])
 def test_errors_as_in_the_reference(paths, stmt, match):
     s = stmt.format(**paths)
@@ -191,18 +255,71 @@ def test_errors_as_in_the_reference(paths, stmt, match):
 @pytest.mark.parametrize("stmt,construct", [
     ("SELECT a.id, b.w FROM '{t}' a LEFT JOIN '{other}' b ON a.id = b.k",
      "LEFT OUTER JOIN"),
-    ("SELECT id FROM '{t}' WHERE v > (SELECT AVG(w) FROM '{other}')",
-     "subquery"),
-    ("SELECT id FROM (SELECT id FROM '{t}') x", "subquery"),
+    ("SELECT id FROM '{t}' WHERE v > (SELECT COUNT(DISTINCT w) "
+     "FROM '{other}')", "COUNT(DISTINCT)"),
+    ("SELECT id FROM (SELECT a.id FROM '{t}' a FULL JOIN '{other}' b "
+     "ON a.id = b.k) x", "FULL OUTER JOIN"),
     ("SELECT sum(DISTINCT v) FROM '{t}'", "SUM(DISTINCT)"),
     ("SELECT rank() OVER (ORDER BY v) FROM '{t}'", "window function (OVER)"),
-    ("SELECT id FROM '{t}' UNION ALL SELECT k FROM '{other}'", "UNION ALL"),
-    ("WITH x AS (SELECT id FROM '{t}') SELECT id FROM x", "WITH"),
+    ("SELECT id FROM '{t}' UNION ALL SELECT k FROM '{other}' "
+     "GROUP BY ROLLUP(k)", "ROLLUP"),
+    ("WITH x AS (SELECT id, rank() OVER (ORDER BY v) r FROM '{t}') "
+     "SELECT id FROM x", "window function (OVER)"),
 ])
 def test_constructs_outside_the_slice_are_refused(paths, stmt, construct):
+    """Refused by name wherever the query holds the construct (a CTE, a
+    derived table, a subquery, a set-operation branch), before any table
+    is read."""
+    from delta_tpu_torch import obs
+
+    scans = obs.counter("sql.scan_ns").read()
     with pytest.raises(UnsupportedSqlError) as e:
         sql(stmt.format(**paths), engine=CPU)
     assert e.value.context["construct"] == construct
+    assert obs.counter("sql.scan_ns").read() == scans
+
+
+@pytest.mark.parametrize("stmt,kinds", [
+    ("SELECT id FROM '{t}' WHERE id < 3 UNION ALL SELECT w FROM '{other}'",
+     ("f", "double")),
+    ("SELECT k FROM '{other}' UNION ALL SELECT NULL FROM '{t}'",
+     ("i", "int64")),
+    ("SELECT NULL AS x FROM '{t}' UNION ALL SELECT s FROM '{t}'",
+     ("O", "string")),
+    ("SELECT k FROM '{other}' UNION SELECT id FROM '{t}' WHERE id > 1",
+     ("i", "int64")),
+])
+def test_union_column_types_follow_the_reference(paths, stmt, kinds):
+    """An int branch against a float branch is float64; a branch of NULLs
+    takes the other branch's type."""
+    s = stmt.format(**paths)
+    got = sql(s, engine=CPU)
+    want = ref_sql(s, engine=HostEngine())
+    assert got.column_at(0).values.dtype.kind == kinds[0]
+    assert str(want.column(0).type) == kinds[1]
+
+
+def test_derived_table_filters_apply_before_the_join(paths, monkeypatch):
+    """A WHERE conjunct that names one derived table alone filters it
+    before any join (q4's six-way self-join shape)."""
+    from delta_tpu_torch.sqlengine.device import DeviceSpine
+
+    sizes = []
+    merge = DeviceSpine.merge
+
+    def watched(self, left, right, lk, rk):
+        sizes.append((len(left), len(right)))
+        return merge(self, left, right, lk, rk)
+
+    monkeypatch.setattr(DeviceSpine, "merge", watched)
+    s = ("WITH c AS (SELECT k, SUM(w) s FROM '{other}' GROUP BY k) "
+         "SELECT x.k, y.s FROM c x, c y WHERE x.k = y.k AND x.s > 250 "
+         "AND y.s < 500 ORDER BY x.k").format(**paths)
+    got = sql(s, engine=CPU)
+    assert _rows(got) == _rows(ref_sql(s, engine=HostEngine()))
+    # c has 3 groups (2: 200, 3: 601, 9: 900): x keeps 2, y keeps 1
+    assert sizes == [(2, 1)]
+    assert got.rows() == []
 
 
 @pytest.mark.parametrize("stmt,means", [
