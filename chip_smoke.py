@@ -144,24 +144,26 @@
     (one kernel per call) beside its plain version, `torch.where` +
     `torch.aminmax`, and its bound.
 14. OPTIMIZE path, BASELINE config 4 (`benchmarks/workloads.py:162-203`):
-    the port's `write_table` builds a table of 20 appends of 500,000 rows
-    (k1, k2, k3 int64 uniform in [0, 2^30), payload float64 normal; 10M
-    rows, uncut), then, counters from 0,
-    `Table.for_path(p, engine=TorchEngine()).optimize()
-    .execute_zorder_by("k1", "k2", "k3")`. The new snapshot must hold 20
-    tombstones with dataChange false and ceil(bytes / 256 MiB) live files,
+    the port's `write_table` builds a table of the first
+    OPTIMIZE_CELL_APPENDS (10) of its 20 appends of 500,000 rows (k1, k2,
+    k3 int64 uniform in [0, 2^30), payload float64 normal; 5M rows, a cut
+    for the run's time: K4's own phase above keeps the 10M rows), then,
+    counters from 0, `Table.for_path(p, engine=TorchEngine()).optimize()
+    .execute_zorder_by("k1", "k2", "k3")`. The new snapshot must hold one
+    tombstone with dataChange false a file and ceil(bytes / 256 MiB) live
+    files,
     all with ZCube tags; the rows read back in add order must be the
     input rows (an order-free digest, and a row-by-row match), in
     non-decreasing curve-key order under the keys the plain versions
     compute; K4 must have launched. The post-commit hooks run on every
-    commit: checkpoints at 10 and 20 (the new snapshot loads from 20), a
-    `.crc` per version, the OPTIMIZE commit's validating against the
+    commit: a checkpoint at each tenth version, the OPTIMIZE commit's (10)
+    among them (the new snapshot loads from it), a `.crc` per version, the OPTIMIZE commit's validating against the
     reloaded state, no hook failure; the ZCube tags are checked on the
     OPTIMIZE commit file's own adds (the checkpoint, like the reference's,
     has no add.tags column). Then the row read, counters from 0:
     `api.read_table(table, filter=(k1 < 2^28) & (k2 >= 2^29),
     columns=["k1", "payload"])` on the card (K7 once) must return the
-    rows the same filter selects in numpy from the 20 appends, as a
+    rows the same filter selects in numpy from those appends, as a
     multiset of row hashes. Prints the phase split, rows/s of the
     command and of `zorder_sort_indices` alone, the read's wall seconds
     and table rows/s, and peak device memory.
@@ -371,39 +373,53 @@
     their feed with the partition column restored. At least one launch
     each of K1, K2, K3, K7, K8 pack, K8 decode and K9.
 
-26. Device SQL (`sql_phase`), the 71 TPC-DS texts the port runs (23
-    single SELECT blocks, 48 with CTEs, subqueries or set operations)
-    through `delta_tpu_torch.sqlengine.execute_select` on `TorchEngine()`:
-    (a) at scale 12,000 (`utils/tpcds.py`'s generator, `load_delta` on
-    the card), each with LIMIT stripped against Python's `sqlite3` loaded
-    from the same numpy columns, its `*_sk` columns indexed (the oracle's
-    mechanical rewrites and 2e-4 tolerance, `tests/tpcds_sqlite_oracle.py`;
-    sqlite runs in a thread beside the card's queries), every aggregate
-    the executor ran launched on K10, no string aggregate on the host,
-    each verbatim text within its LIMIT; (b) at SF1's 2,880,404
-    store_sales rows (every other table sized by the generator's rules;
-    the twelve tables the queries read written on the card), q3, q7, q42,
-    q43, q52, q55, q96 and q17, and q59 (a CTE self-joined), q65 (nested
-    derived tables), q32 (a correlated scalar over catalog_sales) and q87
-    (EXCEPT of three channels) on the card and on `TorchEngine("cpu")`,
+26. Device SQL (`sql_phase`), TPC-DS's 102 texts through
+    `delta_tpu_torch.sqlengine.execute_select` on `TorchEngine()`: (a) at
+    scale 12,000 (`utils/tpcds.py`'s generator, `load_delta` on the
+    card), each with LIMIT stripped, and q51 with its running windows in
+    the default RANGE frame (`q51_range`: no corpus text has one), against
+    Python's `sqlite3` loaded from the same numpy columns, its `*_sk`
+    columns indexed (the oracle's mechanical rewrites, ROLLUP expanded into
+    its levels, and 2e-4 tolerance, `tests/tpcds_sqlite_oracle.py`; sqlite
+    runs in a thread beside the card's queries), q67 against
+    `TorchEngine("cpu")` (its nine-level ROLLUP expansion overflows
+    sqlite's parser; so do q51, q97 and q51_range where sqlite predates
+    FULL OUTER JOIN, 3.39); every aggregate and window the executor ran
+    launched its kernel (K10; K11's ranks, running scan and peer pass), no
+    string aggregate on the host, each verbatim text within its LIMIT;
+    (b) at SF1's 2,880,404 store_sales rows (every other table sized by
+    the generator's rules; the twelve tables the queries read written on
+    the card), q3, q7, q42, q43, q52, q55, q96 and q17, q59 (a CTE
+    self-joined), q65 (nested derived tables), q32 (a correlated scalar
+    over catalog_sales), q87 (EXCEPT of three channels), q98 (a partition
+    SUM window), q27 (ROLLUP), q97 (a FULL OUTER JOIN of two channels),
+    q28 (COUNT(DISTINCT) over six buckets), q86 (rank() over ROLLUP's
+    levels), q51 (running windows in ROWS frames, a FULL OUTER JOIN) and
+    q51_range (the peer pass) on the card and on `TorchEngine("cpu")`,
     equal rows, each query's seconds, phase split (scan, join, group,
-    sort) and the launches of K1, K2, K3, K7 and K10; (c) K10
-    (`csrc/seg_agg.cu`)
+    sort) and the launches of K1, K2, K3, K7, K10 and K11's three
+    launchers, each of K11's at least once; (c) K10 (`csrc/seg_agg.cu`)
     against its plain version and timed beside it, `scatter_reduce_`, its
     bound and its launches a call at six shapes, one or two of each of its
     regimes: store_sales' `ss_ext_sales_price` by `ss_item_sk` (11,521
     groups; also the variance's sumsq pass), `ss_quantity` by
     `ss_store_sk` (12 groups), the largest group-by that (b) ran, and
     `ss_ext_sales_price` by `ss_customer_sk` (57,608 groups) and by
-    `ss_ticket_number` (about 221,000 tickets of 1-25 rows, in runs).
+    `ss_ticket_number` (about 221,000 tickets of 1-25 rows, in runs); and
+    K11 (`csrc/window_scan.cu`, `k11_phase`) at store_sales' rows in
+    (ss_item_sk, ss_sold_date_sk) order: ranks, the running sum, mean,
+    count, min and max, and the peer pass of the running sum against
+    their plain versions (exact; sums within 1e-9 of the partition's
+    absolute sum), timed beside them (`torch.cumsum` beside the running
+    sum) with their bounds.
 
-Prints a metrics line per phase, a `kernels` JSON line (K1-K10, each with
+Prints a metrics line per phase, a `kernels` JSON line (K1-K11, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
 `launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
 `launches_write_modes`; every kernel `launches_maintenance`,
-`launches_table_features` and `launches_change_data_feed`; K1-K3 and K7
-`launches_sql`), its time per
+`launches_table_features` and `launches_change_data_feed`; K1-K3, K7
+and K11's three launchers `launches_sql`), its time per
 call (`ms`, CUDA events around back-to-back calls of the wrapper) and on
 the card alone (`device_ms`, torch.profiler), its bound and both shares
 of the bound), a `phase_wall` line (each phase's wall seconds), the
@@ -1478,6 +1494,8 @@ def profile_load(path: str, Table, TorchEngine) -> None:
 
 ZORDER_COLS = ("k1", "k2", "k3")
 OPTIMIZE_APPENDS = 20       # BASELINE config 4: 20 appends
+OPTIMIZE_CELL_APPENDS = 10  # cell 4's OPTIMIZE: the first 10 (5M rows; a
+                            # cut, for the run's time)
 CONFIG4_ROWS = 10_000_000   # of 500,000 rows each
 OPTIMIZE_MAX_FILE = 256 << 20  # the default max_file_size
 READ_K1 = 1 << 28           # the row read's filter over the cell's table:
@@ -1628,9 +1646,15 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     _check(not any(v for k, v in obs.counters().items()
                    if k.startswith("hooks.")),
            "optimize: no hook failed on the appends")
-    _check(os.path.exists(filenames.checkpoint_file_singular(log, 10))
-           and read_last_checkpoint(TorchEngine().fs, log).version == 10,
-           "optimize: the hook checkpointed version 10")
+    # the checkpoint hook fires at each tenth version (the appends are
+    # versions 0 .. len - 1)
+    last_cp = read_last_checkpoint(TorchEngine().fs, log)
+    if len(appends) > 10:
+        _check(os.path.exists(filenames.checkpoint_file_singular(log, 10))
+               and last_cp.version == 10,
+               "optimize: the hook checkpointed version 10")
+    else:
+        _check(last_cp is None, "optimize: no checkpoint before version 10")
     before = Table.for_path(path, engine=TorchEngine()).latest_snapshot()
     _check(before.state.num_files == len(appends), "optimize: input files")
     _ladder_idle(obs.counters(), "optimize: the appends and their reload")
@@ -1662,8 +1686,9 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     adds = after.add_files
     _check(len(adds) == n_out == m.num_files_added,
            f"optimize: {n_out} output files")
-    # the hooks: checkpoints at 10 and 20 (the snapshot now loads from
-    # 20), a .crc per version, the OPTIMIZE commit's validating
+    # the hooks: a checkpoint at each tenth version, the OPTIMIZE
+    # commit's among them (the snapshot now loads from it), a .crc per
+    # version, the OPTIMIZE commit's validating
     _check(after.file_actions.version.min() == m.version
            and read_last_checkpoint(TorchEngine().fs, log).version
            == m.version, "optimize: the hook checkpointed the OPTIMIZE "
@@ -1694,7 +1719,7 @@ def optimize_phase(work: str, appends: list, card: str, dev) -> dict:
     del out
 
     # the row read over the optimized table, counters from 0: the filter
-    # applied in numpy to the 20 appends is the truth, compared as a
+    # applied in numpy to the appends is the truth, compared as a
     # multiset of row hashes
     from delta_tpu_torch.api import read_table
     from delta_tpu_torch.expressions import col, lit
@@ -5614,17 +5639,22 @@ def change_data_feed_phase(kept: dict, device: str, card: str) -> dict:
     return out
 
 
-# step 26: device SQL, the 71 TPC-DS texts the port runs
+# step 26: device SQL, TPC-DS's 102 texts
 
 SQL_SMALL_SCALE = 12_000
 SQL_FULL_SCALE = 2_880_404          # SF1's store_sales row count
 # the store_sales star joins with the largest group-bys, q17's
 # stddev_samp, and one text for each nested construct: q59 a CTE
 # self-joined, q65 nested derived tables, q32 a correlated scalar, q87
-# EXCEPT; at full width
+# EXCEPT; and one for each construct of the third slice: q98 a partition
+# SUM window, q27 ROLLUP, q97 a FULL OUTER JOIN of two channels, q28
+# COUNT(DISTINCT) over six buckets, q86 rank() over ROLLUP's levels, q51
+# running windows (ROWS frames) and a FULL OUTER JOIN, and q51 in the
+# RANGE frame (the peer pass); at full width
 SQL_FULL_QUERIES = ("q3", "q7", "q42", "q43", "q52", "q55", "q96", "q17",
-                    "q59", "q65", "q32", "q87")
-# the tables those twelve read (the generator draws every table)
+                    "q59", "q65", "q32", "q87", "q98", "q27", "q97", "q28",
+                    "q86", "q51", "q51_range")
+# the tables those texts read (the generator draws every table)
 SQL_FULL_TABLES = ("date_dim", "time_dim", "item", "customer_demographics",
                    "household_demographics", "promotion", "store",
                    "store_sales", "store_returns", "catalog_sales",
@@ -5634,12 +5664,29 @@ SQL_K = {"k1": "kernel.byte_class.launches",
          "k2": "kernel.winner_pack.launches",
          "k3": "kernel.hybrid_extract.launches",
          "k7": "kernel.skip_mask.launches",
-         "k10": "kernel.seg_agg.launches"}
+         "k10": "kernel.seg_agg.launches",
+         "k11_ranks": "kernel.window_ranks.launches",
+         "k11_running": "kernel.window_running.launches",
+         "k11_peers": "kernel.window_peer_last.launches"}
+K11_ROWS = {"k11_ranks": ("window_ranks", "delta_tpu/ops/sqlops.py:543"),
+            "k11_running": ("window_running",
+                            "delta_tpu/ops/sqlops.py:585"),
+            "k11_peers": ("window_peer_last",
+                          "delta_tpu/ops/sqlops.py:655")}
 # a query that aggregates and returns rows launches K10 (a GROUP BY with
 # no aggregate, q37 and q82, only dedupes its keys on the host; a GROUP BY
 # over no rows has no group to launch for)
 _SQL_AGG = re.compile(r"\b(sum|avg|count|min|max|stddev_samp)\s*\(",
                       re.IGNORECASE)
+# no corpus text has a running window in SQL's default RANGE frame (q51's
+# are ROWS frames): q51 with them left to the default runs the peer pass
+_ROWS_FRAME = re.compile(r"\s+rows\s+between\s+unbounded\s+preceding\s+"
+                         r"and\s+current\s+row", re.IGNORECASE)
+
+
+def _sql_texts(queries: dict) -> dict:
+    """The corpus' texts and q51 in the RANGE frame (`q51_range`)."""
+    return dict(queries, q51_range=_ROWS_FRAME.sub("", queries["q51"]))
 
 
 def _strip_limit(q: str) -> str:
@@ -5648,11 +5695,11 @@ def _strip_limit(q: str) -> str:
 
 def _sqlite_rewrite(q: str) -> str:
     """The mechanical rewrites of `tests/tpcds_sqlite_oracle.py::_rewrite`
-    that the 71 texts need (kept here: the card's machine has no Arrow):
-    padded date literals, real division outside string literals, date
-    arithmetic as sqlite's date(), no parentheses around a compound
-    select's operands (q87), stddev_samp by sums of squares, CAST AS
-    decimal as REAL, no trailing ORDER BY."""
+    (kept here: the card's machine has no Arrow): padded date literals,
+    real division outside string literals, date arithmetic as sqlite's
+    date(), no parentheses around a compound select's operands (q87),
+    stddev_samp by sums of squares, CAST AS decimal as REAL, no trailing
+    ORDER BY, GROUP BY ROLLUP as a UNION ALL of its levels."""
     q = re.sub(r"'(\d{4})-(\d{1,2})-(\d{1,2})'",
                lambda m: f"'{m.group(1)}-{int(m.group(2)):02d}-"
                          f"{int(m.group(3)):02d}'", q)
@@ -5677,7 +5724,53 @@ def _sqlite_rewrite(q: str) -> str:
                r"/(count(\1)-1))) else null end)", q, flags=re.IGNORECASE)
     q = re.sub(r"cast\s*\(\s*([^()]+?)\s+as\s+decimal\s*\([^)]*\)\s*\)",
                r"CAST(\1 AS REAL)", q, flags=re.IGNORECASE)
-    return q
+    return _expand_rollup(q)
+
+
+def _expand_rollup(q: str) -> str:
+    """`tests/tpcds_sqlite_oracle.py::_expand_rollup`: sqlite has no GROUP
+    BY ROLLUP, so the owning SELECT becomes a UNION ALL of one aggregation
+    per key prefix, where the rolled-up keys of its select list are NULL
+    and `grouping(k)` is the 0/1 constant; the WHERE clause is untouched
+    and the trailing ORDER BY dropped (the comparison ignores order)."""
+    m = re.search(r"group\s+by\s+rollup\s*\(([^)]*)\)", q, re.IGNORECASE)
+    if not m:
+        return q
+    keys = [k.strip() for k in m.group(1).split(",")]
+
+    def depth0_positions(text, word):
+        out = []
+        depth = 0
+        for mo in re.finditer(r"[()]|\b" + word + r"\b", text,
+                              re.IGNORECASE):
+            tok = mo.group(0)
+            if tok == "(":
+                depth += 1
+            elif tok == ")":
+                depth -= 1
+            elif depth == 0:
+                out.append(mo.start())
+        return out
+
+    head = q[:m.start()]
+    sel_start = depth0_positions(head, "select")[-1]
+    from_start = [p for p in depth0_positions(head, "from")
+                  if p > sel_start][0]
+    select_list = q[sel_start:from_start]
+    branches = []
+    for level in range(len(keys), -1, -1):
+        sl = select_list
+        for j, k in enumerate(keys):
+            sl = re.sub(r"grouping\s*\(\s*" + re.escape(k) + r"\s*\)",
+                        "1" if j >= level else "0", sl, flags=re.IGNORECASE)
+            if j >= level:
+                sl = re.sub(r"\b" + re.escape(k) + r"\b", "NULL", sl,
+                            flags=re.IGNORECASE)
+        gb = ("GROUP BY " + ", ".join(keys[:level])) if level else ""
+        branches.append(sl + q[from_start:m.start()] + gb + " ")
+    tail = re.sub(r"\border\s+by\b.*$", "", q[m.end():],
+                  flags=re.IGNORECASE | re.DOTALL)
+    return q[:sel_start] + " UNION ALL ".join(branches) + " " + tail
 
 
 def _sqlite_of(tables: dict, path: str) -> None:
@@ -5883,25 +5976,144 @@ def _k10_shape(n: int, values, valid, n_groups: int) -> str:
     return "+".join(parts) + f" -> [{n_groups}]"
 
 
+def _k11_times(call, plain, kernels: tuple, row_bytes: float, n: int,
+               library=None) -> dict:
+    """One K11 launcher at the main path's shape: `ms` (CUDA events over
+    50 wrapper calls), `device_ms` (its three kernels in a torch.profiler
+    trace, names holding `kernels`), its plain version on the card and
+    `library` where one PyTorch call computes a part of it; the bound is
+    `row_bytes` a row over the card's memory rate."""
+    nbytes = row_bytes * n
+    bound, by = _bound_ms(nbytes, float(n))
+    ms = _time_ms(call, 50)
+    seen = []
+    dev_ms = _device_ms(call, 50, kernels, launches=seen)
+    return {"ms": ms, "device_ms": dev_ms,
+            "launches_per_call": seen[0] and seen[0]["per_call"],
+            "device_kernels": seen[0] and seen[0]["kernels"],
+            "plain_ms": _time_ms(plain, 10), "plain_device": "cuda",
+            "library_ms": None if library is None else _time_ms(library, 50),
+            "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
+
+
+def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
+    """K11's three launchers against their plain versions at store_sales'
+    size (2,880,404 rows in (ss_item_sk, ss_sold_date_sk) order:
+    partitions by item, peer runs by date) and timed beside them: ranks,
+    counts and maxima exact, running sums within 1e-9 of the partition's
+    absolute sum where a valid value came before. Returns the three rows
+    of the kernels line."""
+    from delta_tpu_torch.ops import window
+
+    item = ss.column("ss_item_sk").values
+    date = ss.column("ss_sold_date_sk")
+    dvals = np.where(date.valid if date.valid is not None else True,
+                     date.values, -1)
+    order = np.lexsort((dvals, item))
+    it, dt = item[order], dvals[order]
+    n = len(order)
+    pb = np.ones(n, bool)
+    pb[1:] = it[1:] != it[:-1]
+    kb = pb.copy()
+    kb[1:] |= dt[1:] != dt[:-1]
+    price = ss.column("ss_ext_sales_price").values[order]
+    valid = ~np.isnan(price)
+    tpb, tkb = torch.from_numpy(pb).to(dev), torch.from_numpy(kb).to(dev)
+    tv = torch.from_numpy(np.where(valid, price, 0.0)).to(dev)
+    tvalid = torch.from_numpy(valid).to(dev)
+    shape = (f"{n} rows, {int(pb.sum())} partitions (ss_item_sk), "
+             f"{int(kb.sum())} peer runs (ss_sold_date_sk)")
+    rows = {}
+
+    got = window.window_ranks(tpb, tkb)
+    torch.cuda.synchronize()
+    want = window.window_ranks_plain(tpb, tkb)
+    _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+           "window_ranks != plain")
+    rows["k11_ranks"] = dict(max_abs_err=0.0, **_k11_times(
+        lambda: window.window_ranks(tpb, tkb),
+        lambda: window.window_ranks_plain(tpb, tkb), ("RankOp",), 26.0, n),
+        library_none="no single PyTorch call ranks rows within segments")
+
+    part = torch.cumsum(tpb.to(torch.int64), 0) - 1
+    scale = torch.zeros(int(part[-1]) + 1, dtype=torch.float64,
+                        device=dev).scatter_add_(0, part, tv.abs())[part]
+    err = 0.0
+    for op in ("sum", "mean", "count", "min", "max"):
+        out, cnt = window.window_running(tv, tvalid, tpb, op)
+        torch.cuda.synchronize()
+        w_out, w_cnt = window.window_running_plain(tv, tvalid, tpb, op)
+        _check(torch.equal(cnt, w_cnt), f"window_running {op} counts")
+        if op in ("sum", "mean"):
+            some = cnt > 0
+            diff = (out - w_out).abs()[some]
+            _check(bool((diff <= 1e-9 * scale[some]).all()),
+                   f"window_running {op} != plain within 1e-9 of the "
+                   "partition's absolute sum")
+            err = max(err, float(diff.max()))
+        else:
+            _check(torch.equal(out, w_out), f"window_running {op} != plain")
+    vals, cnts = window.window_running(tv, tvalid, tpb, "sum")
+    rows["k11_running"] = dict(max_abs_err=err, op="sum", **_k11_times(
+        lambda: window.window_running(tv, tvalid, tpb, "sum"),
+        lambda: window.window_running_plain(tv, tvalid, tpb, "sum"),
+        ("RunOp<0>",), 26.0, n, library=lambda: torch.cumsum(tv, 0)),
+        library_call="torch.cumsum(values, 0): the prefix sum, a part of "
+                     "the running sum (no reset at partitions, no count)")
+
+    got = window.window_peer_last(vals, cnts, tkb)
+    torch.cuda.synchronize()
+    want = window.window_peer_last_plain(vals, cnts, tkb)
+    _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+           "window_peer_last != plain")
+    rows["k11_peers"] = dict(max_abs_err=0.0, **_k11_times(
+        lambda: window.window_peer_last(vals, cnts, tkb),
+        lambda: window.window_peer_last_plain(vals, cnts, tkb),
+        ("PeerOp",), 33.0, n),
+        library_none="no single PyTorch call gives each row its run's "
+                     "last value")
+    out = {}
+    for key, (name, replaces) in K11_ROWS.items():
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "delta_tpu_torch/csrc/window_scan.cu",
+                     "replaces": replaces, "launches": launches[key],
+                     "launches_sql": launches[key],
+                     "launches_small": launches_small[key],
+                     **rows[key], "shape": shape}
+    return out
+
+
 def sql_phase(work: str, card: str, dev) -> tuple:
-    """Step 26 (module docstring): (a) the 71 queries at scale 12,000
-    against sqlite, (b) twelve at SF1 on the card against the CPU engine,
-    (c) K10 beside its plain version and `scatter_reduce_`. Returns (the
-    phase's metrics, K10's row of the kernels line)."""
+    """Step 26 (module docstring): (a) the 102 texts and q51 in the RANGE
+    frame at scale 12,000 against sqlite (q67 against the CPU engine),
+    (b) nineteen at SF1 on the card against the CPU engine, (c) K10
+    beside its plain version and `scatter_reduce_`, and K11 beside its
+    plain versions. Returns (the phase's metrics, the kernels line's rows
+    of K10 and K11's three launchers)."""
+    import sqlite3
     import threading
 
     from delta_tpu_torch import TorchEngine, obs
     from delta_tpu_torch.catalog import Catalog
-    from delta_tpu_torch.ops import sqlops
+    from delta_tpu_torch.ops import sqlops, window
     from delta_tpu_torch.sqlengine import execute_select
     from delta_tpu_torch.utils.tpcds import QUERIES, generate, load_delta
 
     out = {"small": {}, "full": {}}
+    corpus = _sql_texts(QUERIES)
+    # q67: sqlite's parser overflows on its nine-level ROLLUP expansion;
+    # FULL OUTER JOIN came in sqlite 3.39
+    exempt = {"q67"}
+    if tuple(int(x) for x in sqlite3.sqlite_version.split(".")[:2]) \
+            < (3, 39):
+        exempt |= {"q51", "q97", "q51_range"}
+    print(f"sql (a): sqlite {sqlite3.sqlite_version}; held to the CPU "
+          f"engine instead: {sorted(exempt)}", flush=True)
     # (a) every query at scale 12,000, LIMIT stripped, against sqlite (in
     # a thread: sqlite leaves the GIL while it runs a statement); each
     # verbatim text within its LIMIT
     tabs = generate(SQL_SMALL_SCALE)
-    texts = {name: _strip_limit(text) for name, text in QUERIES.items()}
+    texts = {name: _strip_limit(text) for name, text in corpus.items()}
     oracle = {}
 
     def run_sqlite():
@@ -5909,7 +6121,9 @@ def sql_phase(work: str, card: str, dev) -> tuple:
         try:
             db = os.path.join(work, "sql_small.sqlite")
             _sqlite_of(tabs, db)
-            oracle.update(_sqlite_answers(db, texts, SQL_SQLITE_WORKERS))
+            oracle.update(_sqlite_answers(
+                db, {k: v for k, v in texts.items() if k not in exempt},
+                SQL_SQLITE_WORKERS))
         except BaseException as e:  # reported after the join
             oracle["__error__"] = repr(e)
         oracle["__s__"] = time.perf_counter() - t0
@@ -5917,59 +6131,90 @@ def sql_phase(work: str, card: str, dev) -> tuple:
     sqlite = threading.Thread(target=run_sqlite, daemon=True)
     sqlite.start()
     t0 = time.perf_counter()
-    cat = load_delta(os.path.join(work, "sql_small"), tables=tabs,
-                     engine=TorchEngine())
+    small_root = os.path.join(work, "sql_small")
+    cat = load_delta(small_root, tables=tabs, engine=TorchEngine())
     out["small_write_s"] = time.perf_counter() - t0
-    real_seg_agg = sqlops.seg_agg
-    with_groups = [0]
+    # each wrapper's calls that have rows to launch for: every one must
+    # have launched its kernel
+    real = {"k10": sqlops.seg_agg, "k11_ranks": window.window_ranks,
+            "k11_running": window.window_running,
+            "k11_peers": window.window_peer_last}
+    calls = dict.fromkeys(real, 0)
 
-    def counting(codes, values, valid, op, n_groups, means=None):
-        with_groups[0] += int(n_groups > 0)
-        return real_seg_agg(codes, values, valid, op, n_groups, means)
+    def counting_k10(codes, values, valid, op, n_groups, means=None):
+        calls["k10"] += int(n_groups > 0)
+        return real["k10"](codes, values, valid, op, n_groups, means)
 
-    small_k10 = 0
+    def counting(key):
+        def call(first, *rest):
+            calls[key] += int(first.numel() > 0)
+            return real[key](first, *rest)
+        return call
+
+    small = dict.fromkeys(real, 0)
     got_rows = {}
     t_all = time.perf_counter()
-    sqlops.seg_agg = counting
+    sqlops.seg_agg = counting_k10
+    window.window_ranks = counting("k11_ranks")
+    window.window_running = counting("k11_running")
+    window.window_peer_last = counting("k11_peers")
     try:
         for name, q in texts.items():
-            with_groups[0] = 0
+            for key in calls:
+                calls[key] = 0
             obs.reset()
             t0 = time.perf_counter()
             res = execute_select(q, catalog=cat)
             torch.cuda.synchronize()
             s = time.perf_counter() - t0
             counts = obs.counters()
-            k10 = counts.get(SQL_K["k10"], 0)
-            # every aggregate the executor ran (one K10 call each, a
-            # group or more) launched K10
-            _check(k10 == with_groups[0],
-                   f"sql (a) {name}: K10 launched {k10} of {with_groups[0]}")
+            launched = {k: counts.get(SQL_K[k], 0) for k in real}
+            # every aggregate and window the executor ran (one call each,
+            # with a group or a row or more) launched its kernel
+            for key in real:
+                _check(launched[key] == calls[key],
+                       f"sql (a) {name}: {key} launched {launched[key]} of "
+                       f"{calls[key]}")
             if _SQL_AGG.search(q) and res.num_rows:
-                _check(k10 >= 1, f"sql (a) {name}: K10 launched ({k10})")
+                _check(launched["k10"] >= 1,
+                       f"sql (a) {name}: K10 launched ({launched['k10']})")
             _check(counts.get("sql.host_string_aggs", 0) == 0,
                    f"sql (a) {name}: a string aggregate on the host")
-            small_k10 += k10
+            for key in real:
+                small[key] += launched[key]
             got_rows[name] = res.rows()
-            m = re.search(r"\blimit\s+(\d+)\s*$", QUERIES[name].strip(),
+            m = re.search(r"\blimit\s+(\d+)\s*$", corpus[name].strip(),
                           re.IGNORECASE)
-            verbatim = execute_select(QUERIES[name], catalog=cat)
+            verbatim = execute_select(corpus[name], catalog=cat)
             _check(m is None or verbatim.num_rows <= int(m.group(1)),
                    f"sql (a) {name} past its LIMIT")
-            out["small"][name] = {"rows": res.num_rows, "s": s, "k10": k10}
+            out["small"][name] = {"rows": res.num_rows, "s": s,
+                                  "launches": launched}
     finally:
-        sqlops.seg_agg = real_seg_agg
+        sqlops.seg_agg = real["k10"]
+        window.window_ranks = real["k11_ranks"]
+        window.window_running = real["k11_running"]
+        window.window_peer_last = real["k11_peers"]
     out["small_card_s"] = time.perf_counter() - t_all
     sqlite.join()
     out["small_sqlite_s"] = oracle.get("__s__")
     _check("__error__" not in oracle, f"sql (a) sqlite: "
            f"{oracle.get('__error__')}")
+    cpu_small = Catalog(small_root, engine=TorchEngine("cpu"))
     for name, rows in got_rows.items():
-        ok, msg = _rows_equal(rows, oracle[name])
-        _check(ok, f"sql (a) {name} != sqlite: {msg}")
-    out["small_k10"] = small_k10
+        if name in exempt:
+            want = execute_select(texts[name], catalog=cpu_small).rows()
+            ok, msg = _rows_equal(rows, want, tol=1e-9)
+            _check(ok, f"sql (a) {name} != the CPU engine: {msg}")
+        else:
+            ok, msg = _rows_equal(rows, oracle[name])
+            _check(ok, f"sql (a) {name} != sqlite: {msg}")
+    for key in K11_ROWS:
+        _check(small[key] >= 1, f"sql (a): {key} launched ({small[key]})")
+    out["small_launches"] = small
     print(f"sql (a): {len(texts)} queries at scale {SQL_SMALL_SCALE} equal "
-          f"sqlite, K10 {small_k10}; the card's {out['small_card_s']:.2f} s, "
+          f"sqlite ({sorted(exempt)} the CPU engine), launches "
+          f"{json.dumps(small)}; the card's {out['small_card_s']:.2f} s, "
           f"sqlite's {out['small_sqlite_s']:.2f} s beside them; {card}",
           flush=True)
 
@@ -5994,12 +6239,12 @@ def sql_phase(work: str, card: str, dev) -> tuple:
         if codes.is_cuda and codes.numel() > largest.get("n", -1):
             largest.update(n=codes.numel(), args=(codes, values, valid, op,
                                                   n_groups, means))
-        return real_seg_agg(codes, values, valid, op, n_groups, means)
+        return real["k10"](codes, values, valid, op, n_groups, means)
 
     sqlops.seg_agg = watching
     try:
         for name in SQL_FULL_QUERIES:
-            q = _strip_limit(QUERIES[name])
+            q = _strip_limit(corpus[name])
             torch.cuda.synchronize()
             obs.reset()
             t0 = time.perf_counter()
@@ -6024,8 +6269,12 @@ def sql_phase(work: str, card: str, dev) -> tuple:
                   f"{cpu_s:.4f} s on the CPU, launches "
                   f"{json.dumps(launches)}; {card}", flush=True)
     finally:
-        sqlops.seg_agg = real_seg_agg
+        sqlops.seg_agg = real["k10"]
     _check("args" in largest, "sql (b): a group-by on the card")
+    full = {k: sum(r["launches"][k] for r in out["full"].values())
+            for k in SQL_K}
+    for key in K11_ROWS:
+        _check(full[key] >= 1, f"sql (b): {key} launched ({full[key]})")
 
     # (c) K10 at six shapes
     item = ss.column("ss_item_sk").values
@@ -6051,17 +6300,18 @@ def sql_phase(work: str, card: str, dev) -> tuple:
         keys = ss.column(col).values - 1
         runs[col] = _k10_times(torch.from_numpy(keys.astype(np.int32)).to(dev),
                                p_vals, p_valid, "sum", int(keys.max()) + 1)
-    row = {"name": "seg_agg", "route": "cuda",
-           "source": "delta_tpu_torch/csrc/seg_agg.cu",
-           "replaces": "delta_tpu/ops/sqlops.py:123",
-           "launches": sum(r["launches"]["k10"]
-                           for r in out["full"].values()),
-           "launches_small": small_k10,
-           **by_item, "sumsq": by_item_sumsq, "by_store": by_store,
-           "largest_query_groupby": biggest,
-           "by_customer": runs["ss_customer_sk"],
-           "by_ticket": runs["ss_ticket_number"]}
-    return out, row
+    rows = {"seg_agg": {
+        "name": "seg_agg", "route": "cuda",
+        "source": "delta_tpu_torch/csrc/seg_agg.cu",
+        "replaces": "delta_tpu/ops/sqlops.py:123",
+        "launches": full["k10"], "launches_small": small["k10"],
+        **by_item, "sumsq": by_item_sumsq, "by_store": by_store,
+        "largest_query_groupby": biggest,
+        "by_customer": runs["ss_customer_sk"],
+        "by_ticket": runs["ss_ticket_number"]}}
+    # (c) K11 at store_sales' size
+    rows.update(k11_phase(ss, dev, full, small))
+    return out, rows
 
 
 def main(argv=None) -> int:
@@ -6419,18 +6669,19 @@ def main(argv=None) -> int:
               f"{sum(r['s'] for r in cdf['steps'].values()):.4f} s, launches "
               + json.dumps(cdf_launches) + f"; {card}", flush=True)
 
-        # step 26: device SQL, the 71 TPC-DS texts the port runs at scale
-        # 12,000 against sqlite and twelve at SF1 against the CPU engine;
-        # K10 at six shapes
-        sqlm, kernels["seg_agg"] = sql_phase(work, card, dev)
+        # step 26: device SQL, TPC-DS's 102 texts at scale 12,000 against
+        # sqlite and nineteen at SF1 against the CPU engine; K10 at six
+        # shapes, K11 at store_sales' size
+        sqlm, sql_rows = sql_phase(work, card, dev)
+        kernels.update(sql_rows)
         sql_launches = {k: sum(r["launches"][k] for r in
                                sqlm["full"].values()) for k in SQL_K}
         for name, key in (("byte_class", "k1"), ("winner_pack", "k2"),
                           ("hybrid_extract", "k3"), ("skip_mask", "k7")):
             kernels[name]["launches_sql"] = sql_launches[key]
         print("sql: " + json.dumps(sqlm), flush=True)
-        print("seg_agg phase: " + json.dumps(kernels["seg_agg"]),
-              flush=True)
+        for name in sql_rows:
+            print(f"{name} phase: " + json.dumps(kernels[name]), flush=True)
         print(f"sql (b) queries: {sum(r['s'] for r in sqlm['full'].values()):.4f}"
               f" s on the card, {sum(r['cpu_s'] for r in sqlm['full'].values()):.4f}"
               f" s on the CPU, write {sqlm['write_s']:.4f} s, launches "
@@ -6491,7 +6742,8 @@ def main(argv=None) -> int:
         lap("k4_k5_k6")
 
         # the OPTIMIZE path, counters from 0
-        opt = optimize_phase(work, appends, card, dev)
+        opt = optimize_phase(work, appends[:OPTIMIZE_CELL_APPENDS], card,
+                             dev)
         kernels["interleave_bits"]["launches"] = opt["launches"]
         kernels["interleave_bits"]["launches_wide_write"] = wide_write_k4
         kernels["interleave_bits"]["launches_column_mapping"] = cm_k4

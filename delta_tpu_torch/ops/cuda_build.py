@@ -40,6 +40,7 @@ SOURCES = {
     "dv_bits": "dv_bits.cu",
     "merge_join": "merge_join.cu",
     "seg_agg": "seg_agg.cu",
+    "window_scan": "window_scan.cu",
     "parquet_host": "parquet_host.cpp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

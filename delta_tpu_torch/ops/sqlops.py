@@ -2,7 +2,7 @@
 GROUP BY's reductions and the equi-join.
 
 Counterpart of `delta_tpu/ops/sqlops.py` (queue B's B11) without its
-windows and its sharded path. The division of labour is the reference's:
+sharded path; its window scans are K11's (`ops/window.py`). The division of labour is the reference's:
 
 - host: dictionary codes of the keys (`ops/join.py::joint_codes`) and the
   O(output) pair expansion of a join (`_expand_pairs`, numpy, as in the
@@ -20,9 +20,16 @@ left rows first, each side in input order, as the reference's
 
 `GroupAggregator` (`:229`) keeps the group codes on the device and runs
 each reduction through K10: `sizes()` (COUNT(*)), `reduce(values, valid,
-op)` and `var(values, valid)` (the exact two-pass sample variance: a sum,
-then the centered sum of squares). Results are numpy, [n_groups]. There
-are no pad buckets.
+op)`, `var(values, valid)` (the exact two-pass sample variance: a sum,
+then the centered sum of squares) and `count_distinct(value_codes,
+valid)` (the (group, value) pairs sorted on the device, each run's first
+row counted by K10); `distinct_rows` gives the rows SUM and AVG(DISTINCT)
+aggregate. Results are numpy, [n_groups]. There are no pad buckets.
+
+`window_order` (`sqlengine/device.py:473`'s `_window_order`) sorts a
+window's rows by (partition code, order lanes) on the device and leaves
+the permutation and the partition and peer boundaries there, for kernel
+K11 (`ops/window.py`).
 """
 
 from __future__ import annotations
@@ -58,6 +65,18 @@ def _lane_tensor(lane: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(lane)).to(dev)
 
 
+def _sorted_order(lanes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The stable ascending permutation of lane tensors (primary first):
+    one stable `torch.sort` pass a lane, the last lane first."""
+    perm = None
+    for key in reversed(list(lanes)):
+        if perm is not None:
+            key = key[perm]
+        order = torch.sort(key, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
 def sort_permutation(lanes: Sequence[np.ndarray], device=None) -> np.ndarray:
     """Stable multi-key ascending sort; the permutation (int64 row
     indices). Lanes are NaN-free numbers, primary first; callers encode
@@ -66,14 +85,39 @@ def sort_permutation(lanes: Sequence[np.ndarray], device=None) -> np.ndarray:
     n = int(len(lanes[0]))
     if n == 0:
         return np.empty(0, np.int64)
-    perm = None
-    for lane in reversed(list(lanes)):
-        key = _lane_tensor(lane, dev)
-        if perm is not None:
-            key = key[perm]
-        order = torch.sort(key, stable=True).indices
-        perm = order if perm is None else perm[order]
-    return perm.cpu().numpy()
+    return _sorted_order([_lane_tensor(l, dev) for l in lanes]).cpu().numpy()
+
+
+def _run_starts(lanes: Sequence[torch.Tensor], n: int,
+                dev: torch.device) -> torch.Tensor:
+    """bool [n]: row 0, and each row where a (sorted) lane differs from
+    the row before."""
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n:
+        out[0] = True
+    for lane in lanes:
+        out[1:] |= lane[1:] != lane[:-1]
+    return out
+
+
+def window_order(part_codes, key_lanes: Sequence[np.ndarray], n: int,
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """A window's rows sorted on the device by (partition code, order
+    lanes), the reference's `_window_order` (`sqlengine/device.py:473`):
+    (perm int64 [n], pb bool [n], kb bool [n]) on the device, pb marking
+    each partition's first sorted row and kb each run of equal order keys
+    (pb included)."""
+    dev = _device(device)
+    parts = [] if part_codes is None else [_lane_tensor(part_codes, dev)]
+    keys = [_lane_tensor(l, dev) for l in key_lanes]
+    if parts or keys:
+        perm = _sorted_order(parts + keys)
+    else:
+        perm = torch.arange(n, dtype=torch.int64, device=dev)
+    pb = _run_starts([p[perm] for p in parts], n, dev)
+    kb = pb | _run_starts([k[perm] for k in keys], n, dev)
+    return perm, pb, kb
 
 
 # --------------------------------------------------- group-by reduce ----
@@ -120,6 +164,39 @@ class GroupAggregator:
         vt, mt = self._upload(values, valid)
         agg, cnt = seg_agg(self.codes, vt, mt, op, self.n_groups)
         return agg.cpu().numpy(), cnt.cpu().numpy()
+
+    def _distinct_runs(self, value_codes, valid
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The valid rows sorted on the device by (group, value code):
+        (their row indices, their group codes int32, the first row of
+        each (group, value) run as bool flags)."""
+        vc = torch.from_numpy(np.ascontiguousarray(value_codes, np.int64)) \
+            .to(self.device)
+        rows = torch.arange(self.n, dtype=torch.int64, device=self.device)
+        if valid is not None:
+            rows = rows[torch.from_numpy(np.ascontiguousarray(
+                valid, bool)).to(self.device)]
+        g, v = self.codes[rows], vc[rows]
+        order = _sorted_order([g, v])
+        rows, g, v = rows[order], g[order], v[order]
+        first = _run_starts([g, v], int(rows.numel()), self.device)
+        return rows, g, first
+
+    def count_distinct(self, value_codes, valid) -> np.ndarray:
+        """COUNT(DISTINCT x) per group (the reference's `count_distinct`,
+        `_count_distinct_kernel` at `:350`): the (group, value code) pairs
+        of the valid rows sorted on the device, the first row of each run
+        flagged, the flags counted per group by K10."""
+        _, g, first = self._distinct_runs(value_codes, valid)
+        _, cnt = seg_agg(g.contiguous(), None, first, "count", self.n_groups)
+        return cnt.cpu().numpy()
+
+    def distinct_rows(self, value_codes, valid) -> np.ndarray:
+        """One row of each distinct (group, value) pair among the valid
+        rows (the first in sorted order): the rows SUM(DISTINCT) and
+        AVG(DISTINCT) aggregate."""
+        rows, _, first = self._distinct_runs(value_codes, valid)
+        return rows[first].cpu().numpy()
 
     def var(self, values, valid) -> Tuple[np.ndarray, np.ndarray]:
         """Two-pass sample variance (exact centering: a one-pass sum of

@@ -23,13 +23,18 @@ Counterpart of `delta_tpu/sqlengine/executor.py` (`execute_select` `:50`,
    again with SQL's semantics once its tables are joined, so the scan is
    only ever a superset. A CTE or subquery source is filtered by such
    conjuncts before any join.
-3. Joins: INNER JOIN ... ON clauses and the implicit comma list, through
-   the equi-join edges of the WHERE conjuncts (and those common to every
-   branch of an OR, q13 and q48's shape); the most connected, then the
-   smallest, table joins next (the reference's greedy order); a table
-   with no edge is cross-joined. A conjunct applies as soon as its
-   tables are joined, unless it holds a subquery: those apply after the
-   joins. A NULL key never matches (`_merge_null_safe`).
+3. Joins: JOIN ... ON clauses and the implicit comma list, through the
+   equi-join edges of the WHERE conjuncts (and those common to every
+   branch of an OR, q13 and q48's shape); among the comma list and the
+   leading INNER and CROSS joins the most connected, then the smallest,
+   table joins next (the reference's greedy order); a table with no edge
+   is cross-joined. LEFT, RIGHT and FULL OUTER joins, and every join
+   after one, keep clause order on their ON keys. A conjunct applies as
+   soon as its tables are joined, unless it holds a subquery (after the
+   joins) or names a side an outer join can null-extend: that one is
+   never pushed into a scan or made a join key, and filters after the
+   joins. A NULL key never matches; the rows a preserved side loses to
+   one are appended null-extended (`_merge_null_safe`).
 4. Subqueries in expressions: an uncorrelated one runs once (a scalar, an
    IN set, EXISTS); a correlated one is decorrelated on its equality
    conjuncts (`_correlation`, with the OR factoring of q41): a scalar
@@ -39,20 +44,25 @@ Counterpart of `delta_tpu/sqlengine/executor.py` (`execute_select` `:50`,
    Three-valued IN holds, a NULL outer key makes EXISTS and IN false, a
    correlated COUNT over no rows is 0 and any other aggregate NULL.
 5. The residual WHERE, then GROUP BY aggregation (NULL group keys kept, a
-   sum of no values NULL), HAVING, the projection, DISTINCT, ORDER BY
-   with Spark's null order (NULLS FIRST ascending, LAST descending) and
+   sum of no values NULL; COUNT, SUM, AVG (DISTINCT ...) over each
+   group's distinct values; GROUP BY ROLLUP's levels stacked, with
+   `grouping(k)`), HAVING, the projection with its window functions
+   (over the rows, or over the aggregated rows), DISTINCT, ORDER BY with
+   Spark's null order (NULLS FIRST ascending, LAST descending) and
    LIMIT.
 
-Joins, lookups, membership tests, every aggregate and the ORDER BY sort
-run on the engine's device through `sqlengine/device.py::DeviceSpine`
-(K10 for the aggregates). The result is an `SqlResult`: a `Batch` that
-also keeps the output names in order, repeats included.
+Joins, lookups, membership tests, every aggregate, every window and the
+ORDER BY sort run on the engine's device through
+`sqlengine/device.py::DeviceSpine` (K10 for the aggregates, DISTINCT
+aggregates and partition windows; K11 for ranks and running windows).
+The result is an `SqlResult`: a `Batch` that also keeps the output names
+in order, repeats included.
 
-Outside this slice, and refused with `UnsupportedSqlError` naming the
-construct before any table is read, wherever the query holds it (a CTE
-body, a derived table, a subquery, a set-operation branch): outer joins,
-window functions, ROLLUP and DISTINCT inside an aggregate
-(COUNT(DISTINCT)).
+Refused before any table is read, with the reference's error classes,
+wherever the query holds them (a CTE body, a derived table, a subquery,
+a set-operation branch): DISTINCT inside a window function, a window
+function other than SUM, AVG, MIN, MAX, COUNT, row_number, rank and
+dense_rank, and a rank without ORDER BY (`check_supported`).
 """
 
 from __future__ import annotations
@@ -241,16 +251,17 @@ def _run_query(q: Query, engine, catalog, ctes) -> Tuple[Frame, List[str]]:
     return result, out_names
 
 
-def _refuse(construct: str):
-    raise UnsupportedSqlError(
-        f"{construct} is not supported by this package's SQL yet",
-        construct=construct)
+_RANKS = ("rank", "row_number", "dense_rank")
+_WINDOW_AGGS = ("sum", "avg", "min", "max", "count")
 
 
 def check_supported(q) -> None:
-    """UnsupportedSqlError naming the first construct outside this slice,
-    wherever the query (a `Query` or a `Select`) holds it: its CTE
-    bodies, set-operation branches, derived tables and subqueries."""
+    """The window shapes the reference refuses, refused before any table
+    is read, wherever the query (a `Query` or a `Select`) holds them: its
+    CTE bodies, set-operation branches, derived tables and subqueries.
+    The errors are the reference's (`_window_eval`, `executor.py:1702`):
+    DISTINCT inside a window, a function other than the aggregates and
+    the ranks, a rank without ORDER BY."""
     if isinstance(q, Select):
         _check_select(q)
         return
@@ -260,32 +271,37 @@ def check_supported(q) -> None:
         check_supported(sel)
 
 
+def _check_window(e: Window) -> None:
+    name = e.func.name
+    if e.func.distinct:
+        raise UnsupportedSqlError(
+            f"DISTINCT inside window function {name} is not supported",
+            error_class="DELTA_UNSUPPORTED_DISTINCT_IN_WINDOW",
+            construct=f"{name.upper()}(DISTINCT) OVER")
+    if name not in _RANKS + _WINDOW_AGGS:
+        raise UnsupportedSqlError(
+            f"unsupported window function {name!r}",
+            error_class="DELTA_UNSUPPORTED_WINDOW_FUNCTION",
+            construct=f"{name}() OVER")
+    if name in _RANKS and not e.order_by:
+        raise SqlParseError(f"{name}() requires ORDER BY",
+                            error_class="DELTA_WINDOW_REQUIRES_ORDER",
+                            construct=f"{name}() OVER without ORDER BY")
+
+
 def _check_select(sel: Select) -> None:
-    found = []
     nested = []
 
     def chk(e):
         if isinstance(e, _SUBQUERY):
             nested.append(e.select)
         elif isinstance(e, Window):
-            found.append("window function (OVER)")
-        elif isinstance(e, Func):
-            if e.name == "rollup":
-                found.append("ROLLUP")
-            elif e.distinct and e.name == "count":
-                found.append("COUNT(DISTINCT)")
-            elif e.distinct:
-                found.append(f"{e.name.upper()}(DISTINCT)")
+            _check_window(e)
 
-    for j in sel.joins:
-        if j.kind not in ("inner", "cross"):
-            _refuse(j.kind.upper() + " JOIN")
     for e in ([it.expr for it in sel.items] + [sel.where, sel.having]
               + list(sel.group_by) + [o for o, _ in sel.order_by]
               + [j.on for j in sel.joins]):
         _walk_all(e, chk)
-    if found:
-        _refuse(found[0])
     for ref in list(sel.froms) + [j.ref for j in sel.joins]:
         if ref.kind == "subquery":
             check_supported(ref.value)
@@ -348,6 +364,11 @@ def _canon(e, resolve) -> str:
         return f"cast({_canon(e.item, resolve)} as {e.type_name})"
     if isinstance(e, Interval):
         return f"interval:{e.n}:{e.unit}"
+    if isinstance(e, Window):
+        parts = ",".join(_canon(p, resolve) for p in e.partition_by)
+        orders = ",".join(f"{_canon(o, resolve)}:{a}" for o, a in e.order_by)
+        return (f"win({_canon(e.func, resolve)};part={parts};"
+                f"ord={orders};{e.frame})")
     if isinstance(e, _SUBQUERY):
         return f"subquery:{id(e)}"
     raise UnsupportedSqlError(f"cannot canonicalize {type(e).__name__}")
@@ -439,6 +460,13 @@ def _sub_aliases(e, alias_map):
         return dataclasses.replace(
             e, item=_sub_aliases(e.item, alias_map),
             values=tuple(_sub_aliases(v, alias_map) for v in e.values))
+    if isinstance(e, Window):
+        return dataclasses.replace(
+            e, func=_sub_aliases(e.func, alias_map),
+            partition_by=tuple(_sub_aliases(p, alias_map)
+                               for p in e.partition_by),
+            order_by=tuple((_sub_aliases(o, alias_map), asc)
+                           for o, asc in e.order_by))
     if isinstance(e, Func):
         return dataclasses.replace(e, args=tuple(
             _sub_aliases(a, alias_map) for a in e.args))
@@ -452,15 +480,34 @@ def _sub_aliases(e, alias_map):
 
 
 def _merge_null_safe(spine: DeviceSpine, left: Frame, right: Frame,
-                     lk: List[str], rk: List[str]) -> Frame:
-    """SQL inner join: a row with a NULL key never matches."""
+                     lk: List[str], rk: List[str], how: str = "inner"
+                     ) -> Frame:
+    """SQL equi-join (reference `:273`): a row with a NULL key never
+    matches; the rows a preserved side (`how` "left", "right", "outer")
+    loses to a NULL key are appended null-extended."""
     lnull = fv.null_rows([left[k] for k in lk])
     rnull = fv.null_rows([right[k] for k in rk])
-    if lnull.any():
-        left = left.filter(~lnull)
-    if rnull.any():
-        right = right.filter(~rnull)
-    return spine.merge(left, right, lk, rk)
+    lm = left.filter(~lnull) if lnull.any() else left
+    rm = right.filter(~rnull) if rnull.any() else right
+    merged = spine.merge(lm, rm, lk, rk, how)
+    extra = []
+    none = np.empty(0, np.int64)
+    if how in ("left", "outer") and lnull.any():
+        rows = np.flatnonzero(lnull)
+        extra.append(spine.gather(left, right.take(none), rows,
+                                  np.full(len(rows), -1, np.int64)))
+    if how in ("right", "outer") and rnull.any():
+        rows = np.flatnonzero(rnull)
+        extra.append(spine.gather(left.take(none), right,
+                                  np.full(len(rows), -1, np.int64), rows))
+    return fv.concat_frames([merged] + extra) if extra else merged
+
+
+# the sides of each outer join that it can null-extend (reference `:44`)
+_NULL_SUPPLYING = {"left outer": ("right",), "right outer": ("left",),
+                   "full outer": ("left", "right")}
+_HOW = {"inner": "inner", "left outer": "left", "right outer": "right",
+        "full outer": "outer"}
 
 
 class _Clock:
@@ -622,12 +669,22 @@ class _Exec:
                 needed[s["alias"]] = set(s["cols"])
 
         # ---- pushdown -------------------------------------------------
+        # a conjunct on a side an outer join can null-extend filters after
+        # that join, never in the scan (reference `:494-528`)
         conjuncts = _split_and(sel.where)
+        null_supplying = set()
+        for k, j in enumerate(sel.joins):
+            sides = _NULL_SUPPLYING.get(j.kind, ())
+            if "right" in sides:
+                null_supplying.add(join_aliases[k])
+            if "left" in sides:
+                null_supplying.update(
+                    s["alias"] for s in sources[:len(sel.froms) + k])
         pushed: Dict[str, list] = {s["alias"]: [] for s in sources}
         frame_pushed: Dict[str, list] = {s["alias"]: [] for s in sources}
         for conj in conjuncts:
             target = self._sole_alias(conj, resolve)
-            if not target:
+            if not target or target in null_supplying:
                 continue
             if by_alias[target]["frame"] is not None:
                 # a CTE or subquery source is filtered before any join
@@ -665,7 +722,7 @@ class _Exec:
         with _Clock(JOIN_NS):
             current, consumed = self._join(
                 sel, sources, by_alias, join_aliases, conjuncts, resolve,
-                applied)
+                applied, null_supplying)
 
         # ---- residual WHERE -------------------------------------------
         residual = [c for c in conjuncts
@@ -690,7 +747,15 @@ class _Exec:
         return frame.filter(mask)
 
     def _join(self, sel, sources, by_alias, join_aliases, conjuncts,
-              resolve, applied):
+              resolve, applied, null_supplying):
+        """The FROM list and the JOIN clauses joined (reference
+        `:560-790`). The implicit list and the leading INNER and CROSS
+        joins commute: the most connected, then the smallest, table joins
+        next, WHERE equi-edges counting as keys. An outer join and every
+        join after it keep clause order, on their ON keys alone. A WHERE
+        equi-edge or conjunct naming a side an outer join can null-extend
+        never becomes a key or an early filter: it filters after the
+        joins."""
         implicit = [s["alias"] for s in sources
                     if s["alias"] not in set(join_aliases)]
         edges = []   # (alias_a, col_a, alias_b, col_b, conj)
@@ -729,6 +794,8 @@ class _Exec:
                     aa, ab = pa_.split(".", 1)[0], pb_.split(".", 1)[0]
                     if aa != ab:
                         edges.append((aa, pa_, ab, pb_, None))
+        # edges on a null-supplying side stay residual filters
+        edges = [e for e in edges if not ({e[0], e[2]} & null_supplying)]
 
         joined = set()
 
@@ -753,7 +820,8 @@ class _Exec:
                 if id(conj) in consumed or id(conj) in applied:
                     continue
                 al = conj_aliases(conj)
-                if al is None or not al or not al <= joined:
+                if al is None or not al or not al <= joined \
+                        or al & null_supplying:
                     continue
                 frame = self._apply_mask(
                     frame, fv.truth(self._eval(conj, frame)))
@@ -822,9 +890,15 @@ class _Exec:
                 rk.append(pr)
             return lk, rk
 
-        # the explicit INNER/CROSS joins in greedy order, as the implicit
-        # pool (WHERE equi-edges count as keys)
-        pool = list(zip(join_aliases, sel.joins))
+        # the leading INNER and CROSS joins in greedy order, as the
+        # implicit pool (WHERE equi-edges count as keys); an outer join
+        # and everything after it keep clause order
+        explicit = list(zip(join_aliases, sel.joins))
+        n_prefix = 0
+        while n_prefix < len(explicit) \
+                and explicit[n_prefix][1].kind in ("inner", "cross"):
+            n_prefix += 1
+        pool, tail = explicit[:n_prefix], explicit[n_prefix:]
         while pool:
             best = None
             best_score = None
@@ -854,6 +928,20 @@ class _Exec:
                 current = self.spine.cross(current, by_alias[a]["frame"])
             joined.add(a)
             pool = [(pa, pj) for pa, pj in pool if pa != a]
+            current = apply_eager(current)
+        for a, j in tail:
+            right = by_alias[a]["frame"]
+            if j.kind == "cross":
+                current = self.spine.cross(current, right)
+            else:
+                on = on_keys(a, j)
+                if on is None:
+                    raise UnsupportedSqlError(
+                        f"JOIN ON for {a!r} references aliases joined "
+                        "after it", construct="JOIN ON order")
+                current = _merge_null_safe(self.spine, current, right,
+                                           on[0], on[1], _HOW[j.kind])
+            joined.add(a)
             current = apply_eager(current)
         return current, consumed
 
@@ -934,6 +1022,14 @@ class _Exec:
         if sel.order_by:
             keys, ascs = [], []
             for e, asc in sel.order_by:
+                if isinstance(e, Col) and len(e.parts) == 1 \
+                        and e.parts[0] in alias_map \
+                        and e.parts[0] in out_names:
+                    # an alias: its output column (a window in it is not
+                    # evaluated twice)
+                    keys.append(out_cols[out_names.index(e.parts[0])])
+                    ascs.append(asc)
+                    continue
                 e = _sub_aliases(e, alias_map)
                 s = None
                 if isinstance(e, Lit) and isinstance(e.value, int) \
@@ -957,8 +1053,18 @@ class _Exec:
         return out_names, out_cols, n
 
     def _aggregate(self, sel: Select, df: Frame, resolve):
+        """GROUP BY (reference `:927-1055`): the aggregates of each group
+        through K10, DISTINCT ones over each group's distinct values. With
+        GROUP BY ROLLUP (k1, ..., kn) every key prefix, from the longest
+        to the empty one, is aggregated and the levels are stacked: a
+        rolled-up key is NULL and `grouping(k)` is 1 on its rows, else
+        0."""
         canon = lambda e: _canon(e, resolve)  # noqa: E731
         key_exprs = list(sel.group_by)
+        rollup = len(key_exprs) == 1 and isinstance(key_exprs[0], Func) \
+            and key_exprs[0].name == "rollup"
+        if rollup:
+            key_exprs = list(key_exprs[0].args)
         key_names, key_cols = [], []
         for e in key_exprs:
             k = canon(e)
@@ -986,17 +1092,88 @@ class _Exec:
                     raise SqlParseError(
                         f"* argument is only allowed in count(*), not "
                         f"{f.name}(*)")
-                specs.append((f.name, None))
+                specs.append((f.name, None, False))
                 continue
             if len(f.args) != 1:
                 raise SqlParseError(f"{f.name} takes exactly one argument")
             specs.append((f.name, fv.broadcast(self._eval(f.args[0], df),
-                                               len(df))))
-        out_keys, aggs = self.spine.groupby(key_cols, specs, len(df))
-        cols = dict(zip(key_names, out_keys))
-        cols.update(zip(agg_specs, aggs))
-        n = 1 if not key_cols else len(out_keys[0])
-        return Frame(cols, n), set(cols)
+                                               len(df)), f.distinct))
+        if not rollup:
+            out_keys, aggs = self.spine.groupby(key_cols, specs, len(df))
+            cols = dict(zip(key_names, out_keys))
+            cols.update(zip(agg_specs, aggs))
+            n = len(out_keys[0]) if key_cols else 1
+            return Frame(cols, n), set(cols)
+        frames = []
+        for level, out_keys, aggs in self._rollup_levels(key_cols, specs,
+                                                         len(df)):
+            n = len(out_keys[0]) if level else 1
+            cols = {}
+            for j, name in enumerate(key_names):
+                cols[name] = out_keys[j] if j < level else \
+                    Column.nulls(key_cols[j].values.dtype, n)
+            cols.update(zip(agg_specs, aggs))
+            for j, name in enumerate(key_names):
+                cols[f"grouping({name})"] = Column(
+                    np.full(n, int(j >= level), np.int64))
+            frames.append(Frame(cols, n))
+        out = fv.concat_frames(frames)
+        return out, set(out.cols)
+
+    def _rollup_levels(self, key_cols: List[Column], specs: List[tuple],
+                       n_rows: int):
+        """(level, the level's key Columns, its aggregates) of GROUP BY
+        ROLLUP, from the longest key prefix to the empty one. The longest
+        aggregates the rows. Where every aggregate is a plain SUM, COUNT,
+        MIN, MAX or AVG, each shorter prefix aggregates the groups of the
+        level before it (sums of sums and of counts, the least of minima,
+        AVG from its sum and count), through K10 like the rows: a group
+        with one child takes the child's value bit for bit, so a tie that
+        exact arithmetic makes across levels (q67 ranks across them) is a
+        tie on the card too, whatever order its atomics summed the rows
+        in. Otherwise (a DISTINCT aggregate, a variance) each level
+        aggregates the rows."""
+        plain = all(not d and name in ("sum", "count", "min", "max", "avg")
+                    for name, _, d in specs)
+        ext = list(specs)
+        hidden = {}  # avg spec index -> (its sum's index, its count's)
+        if plain:
+            for i, (name, arg, _) in enumerate(specs):
+                if name == "avg":
+                    hidden[i] = (len(ext), len(ext) + 1)
+                    ext.append(("sum", Column(arg.values.astype(np.float64),
+                                              arg.valid), False))
+                    ext.append(("count", arg, False))
+        level = len(key_cols)
+        keys, aggs = self.spine.groupby(key_cols, ext, n_rows)
+        yield level, keys, aggs[:len(specs)]
+        for level in range(level - 1, -1, -1):
+            if not plain:
+                keys, aggs = self.spine.groupby(key_cols[:level], specs,
+                                                n_rows)
+                yield level, keys, aggs
+                continue
+            # an AVG's own column is not rolled up: its sum and count are
+            rolled = [i for i in range(len(ext)) if i not in hidden]
+            ops = [ext[i][0] if ext[i][0] in ("min", "max") else "sum"
+                   for i in rolled]
+            keys, got = self.spine.groupby(
+                keys[:level], [(op, aggs[i], False)
+                               for op, i in zip(ops, rolled)],
+                len(keys[0]))
+            aggs = [None] * len(ext)
+            for i, col in zip(rolled, got):
+                aggs[i] = col
+            for i, (name, _, _) in enumerate(ext):
+                if name == "count":  # a sum of no counts is 0
+                    aggs[i] = Column(np.where(fv.valid_of(aggs[i]),
+                                              aggs[i].values, 0))
+            for i, (si, ci) in hidden.items():
+                total, count = aggs[si], aggs[ci]
+                with np.errstate(all="ignore"):
+                    mean = total.values / np.maximum(count.values, 1)
+                aggs[i] = fv.column(mean, count.values > 0)
+            yield level, keys, aggs[:len(specs)]
 
     def _eval_out(self, e, df: Frame, env, resolve):
         """Evaluate in the post-aggregation environment when there is
@@ -1013,6 +1190,8 @@ class _Exec:
                 "GROUP BY or inside an aggregate")
         if isinstance(e, Func) and e.name in _AGGS:
             raise UnsupportedSqlError(f"aggregate {e.name} not computed")
+        if isinstance(e, Window):
+            return self._window_eval(e, df, ev)
         if isinstance(e, ScalarSelect):
             # over aggregated rows (HAVING sum(x) > (SELECT ...)): only an
             # uncorrelated scalar, as in the reference (`:1186`)
@@ -1037,7 +1216,40 @@ class _Exec:
             raise SqlParseError("* is only allowed as a lone select item")
         if isinstance(e, _SUBQUERY):
             return self._eval_subquery(e, df)
+        if isinstance(e, Window):
+            return self._window_eval(e, df, lambda x: self._eval(x, df))
         return self._eval_node(e, df, lambda x: self._eval(x, df))
+
+    # -- windows ----------------------------------------------------------
+    def _window_eval(self, e: Window, df: Frame, ev) -> Column:
+        """A window function over `df`'s rows (reference `_window_eval`,
+        `:1702-1806`); `ev` evaluates its expressions in the caller's
+        environment (rows, or aggregated rows). SUM, AVG, MIN, MAX and
+        COUNT without ORDER BY: per partition through K10
+        (`DeviceSpine.partition_transform`); with ORDER BY: running, K11
+        (`window_running`); row_number, rank and dense_rank: K11
+        (`window_rank`). Both sort on the card."""
+        _check_window(e)
+        n = len(df)
+        name = e.func.name
+        parts = [fv.broadcast(ev(p), n) for p in e.partition_by]
+        items = [(fv.broadcast(ev(o), n), asc) for o, asc in e.order_by]
+        if name in _RANKS:
+            return self.spine.window_rank(parts, items, name, n)
+        if e.func.star:
+            if name != "count":
+                raise SqlParseError(
+                    f"* argument is only allowed in count(*), not "
+                    f"{name}(*)")
+            arg = None
+        else:
+            if len(e.func.args) != 1:
+                raise SqlParseError(f"{name} takes exactly one argument")
+            arg = fv.broadcast(ev(e.func.args[0]), n)
+        if items:
+            return self.spine.window_running(parts, items, name, arg,
+                                             e.frame, n)
+        return self.spine.partition_transform(parts, name, arg, n)
 
     @staticmethod
     def _eval_node(e, df: Frame, ev):

@@ -12,7 +12,12 @@ pushdown, uncorrelated and correlated scalar, IN and EXISTS subqueries
 (NOT IN over a set with a NULL, EXISTS with a NULL outer key, a
 correlated COUNT and SUM over no rows, a scalar subquery of two rows),
 UNION against UNION ALL, INTERSECT and EXCEPT with NULL rows, ORDER BY
-after a union and the types a union gives. Each runs through `delta_tpu_torch.sql.sql` on `TorchEngine("cpu")`
+after a union and the types a union gives; LEFT, RIGHT and FULL joins
+with NULL keys on each side, a WHERE on the null-supplying side, an inner
+prefix before an outer join; COUNT, SUM and AVG (DISTINCT ...) with and
+without GROUP BY; ROLLUP with `grouping()`; each window function with and
+without PARTITION BY and ORDER BY, in the RANGE and ROWS frames, over
+rows and over aggregated rows. Each runs through `delta_tpu_torch.sql.sql` on `TorchEngine("cpu")`
 and through the reference's `sql` on `HostEngine` over one table written
 by the reference; rows are compared in order where the statement orders
 them, else as multisets. Errors: both raise, with the reference's error
@@ -204,6 +209,81 @@ STATEMENTS = [
     "'{other}' EXCEPT SELECT 9 FROM '{other}') e ORDER BY id",
     "SELECT COUNT(*) n FROM ((SELECT k FROM '{other}') EXCEPT "
     "(SELECT id FROM '{t}')) x",
+    # outer joins: NULL keys on each side, WHERE on the null-supplying
+    # side, an inner prefix before an outer join
+    "SELECT a.id, b.k, b.w FROM '{t}' a LEFT JOIN '{other}' b ON a.id = b.k",
+    "SELECT a.id, b.k, b.w FROM '{t}' a RIGHT JOIN '{other}' b "
+    "ON a.id = b.k",
+    "SELECT a.id, a.s, b.k, b.w FROM '{t}' a FULL OUTER JOIN '{other}' b "
+    "ON a.id = b.k",
+    "SELECT n.k, n.v, a.id FROM '{nulls}' n LEFT JOIN '{t}' a ON n.v = a.id",
+    "SELECT n.k, n.v, a.id FROM '{nulls}' n RIGHT OUTER JOIN '{t}' a "
+    "ON n.v = a.id",
+    "SELECT a.id, n.v, n.k FROM '{t}' a FULL JOIN '{nulls}' n ON a.id = n.v",
+    "SELECT a.id, b.w FROM '{t}' a LEFT JOIN '{other}' b ON a.id = b.k "
+    "WHERE b.w IS NULL",
+    "SELECT a.id, b.w FROM '{t}' a LEFT JOIN '{other}' b ON a.id = b.k "
+    "WHERE b.w > 250 AND a.v < 45",
+    "SELECT a.id, b.k FROM '{t}' a RIGHT JOIN '{other}' b ON a.id = b.k "
+    "WHERE a.v > 15 OR a.v IS NULL",
+    "SELECT a.id, b.w, c.k FROM '{t}' a JOIN '{other}' b ON a.id = b.k "
+    "LEFT JOIN '{nulls}' c ON b.k = c.v",
+    "SELECT a.id, n.k, b.w FROM '{t}' a, '{nulls}' n LEFT JOIN '{other}' b "
+    "ON n.v = b.k WHERE a.id = n.v",
+    "SELECT b.k, COUNT(a.id) c, SUM(a.v) s FROM '{other}' b LEFT JOIN "
+    "'{t}' a ON b.k = a.id GROUP BY b.k",
+    "SELECT a.id, b.k, c.k FROM '{t}' a FULL JOIN '{other}' b ON a.id = b.k "
+    "FULL JOIN '{nulls}' c ON a.id = c.v",
+    # DISTINCT aggregates, with and without GROUP BY
+    "SELECT COUNT(DISTINCT k) a, SUM(DISTINCT k) b, AVG(DISTINCT k) c "
+    "FROM '{other}'",
+    "SELECT k, COUNT(DISTINCT v) a, SUM(DISTINCT f) s, AVG(DISTINCT v) m "
+    "FROM '{nulls}' GROUP BY k",
+    "SELECT COUNT(DISTINCT s) n, COUNT(DISTINCT id) i, COUNT(id) c "
+    "FROM '{t}'",
+    "SELECT k, COUNT(DISTINCT k) a, SUM(DISTINCT w) b, COUNT(*) c "
+    "FROM '{other}' GROUP BY k",
+    "SELECT COUNT(DISTINCT k) n, SUM(DISTINCT k) s FROM '{other}' "
+    "WHERE k > 100",
+    # ROLLUP with grouping()
+    "SELECT k, SUM(w) s, grouping(k) g FROM '{other}' GROUP BY ROLLUP(k)",
+    "SELECT s, id, COUNT(*) c, grouping(s) gs, grouping(id) gi FROM '{t}' "
+    "GROUP BY ROLLUP(s, id)",
+    "SELECT k, SUM(v) s, grouping(k) + 0 g FROM '{nulls}' "
+    "GROUP BY ROLLUP(k) ORDER BY g, k",
+    "SELECT k, SUM(w) s FROM '{other}' WHERE k > 100 GROUP BY ROLLUP(k)",
+    # window functions: partitions, whole frames, ranks, running
+    # aggregates in the RANGE and ROWS frames, over aggregated rows
+    "SELECT k, w, SUM(w) OVER (PARTITION BY k) s, AVG(w) OVER (PARTITION "
+    "BY k) a, MIN(w) OVER (PARTITION BY k) mn, MAX(w) OVER (PARTITION BY "
+    "k) mx, COUNT(w) OVER (PARTITION BY k) c FROM '{other}'",
+    "SELECT k, w, SUM(w) OVER () s, COUNT(*) OVER () c, MIN(w) OVER () m "
+    "FROM '{other}'",
+    "SELECT k, v, f, SUM(f) OVER (PARTITION BY k) s, COUNT(f) OVER "
+    "(PARTITION BY k) c, MAX(v) OVER (PARTITION BY k) m FROM '{nulls}'",
+    "SELECT id, MIN(d) OVER (PARTITION BY s) m FROM '{t}'",
+    "SELECT k, w, rank() OVER (ORDER BY k) r, dense_rank() OVER "
+    "(ORDER BY k) d, row_number() OVER (ORDER BY k, w) n FROM '{other}'",
+    "SELECT k, w, rank() OVER (PARTITION BY k ORDER BY w DESC) r "
+    "FROM '{other}'",
+    "SELECT id, rank() OVER (ORDER BY id DESC) r, row_number() OVER "
+    "(ORDER BY id) n, dense_rank() OVER (ORDER BY s) d FROM '{t}'",
+    "SELECT k, w, SUM(w) OVER (ORDER BY k) s, COUNT(w) OVER (ORDER BY k) c, "
+    "MAX(w) OVER (ORDER BY k) m, AVG(w) OVER (ORDER BY k) a FROM '{other}'",
+    "SELECT k, w, SUM(w) OVER (ORDER BY k, w ROWS BETWEEN UNBOUNDED "
+    "PRECEDING AND CURRENT ROW) s, MIN(w) OVER (ORDER BY k ROWS BETWEEN "
+    "UNBOUNDED PRECEDING AND CURRENT ROW) m FROM '{other}'",
+    "SELECT k, v, SUM(v) OVER (PARTITION BY k ORDER BY v) s, AVG(f) OVER "
+    "(PARTITION BY k ORDER BY v ROWS BETWEEN UNBOUNDED PRECEDING AND "
+    "CURRENT ROW) a, MIN(f) OVER (PARTITION BY k ORDER BY v) mn FROM "
+    "'{nulls}'",
+    "SELECT k, COUNT(*) OVER (ORDER BY k) c FROM '{other}'",
+    "SELECT k, SUM(w) s, rank() OVER (ORDER BY SUM(w) DESC) r, "
+    "SUM(SUM(w)) OVER () t FROM '{other}' GROUP BY k",
+    "SELECT k, SUM(w) s, grouping(k) g, rank() OVER (PARTITION BY "
+    "grouping(k) ORDER BY SUM(w)) r FROM '{other}' GROUP BY ROLLUP(k)",
+    "SELECT k, r FROM (SELECT k, rank() OVER (ORDER BY w) r FROM "
+    "'{other}') x WHERE r <= 2",
 ]
 
 
@@ -242,6 +322,16 @@ def test_statement_equals_reference(paths, stmt):
      "different widths"),
     ("SELECT id FROM '{t}' UNION SELECT k FROM '{other}' ORDER BY id + 1",
      "ORDER BY after"),
+    ("SELECT a.id FROM '{t}' a LEFT JOIN '{other}' b ON a.id < b.k",
+     "JOIN ON"),
+    ("SELECT a.id FROM '{t}' a LEFT JOIN '{other}' b ON c.v = b.k "
+     "JOIN '{nulls}' c ON c.v = a.id", "joined after"),
+    ("SELECT rank() OVER (PARTITION BY k) FROM '{other}'",
+     "requires ORDER BY"),
+    ("SELECT ntile(2) OVER (ORDER BY k) FROM '{other}'",
+     "unsupported window function"),
+    ("SELECT SUM(DISTINCT w) OVER (PARTITION BY k) FROM '{other}'",
+     "DISTINCT inside window"),
 ])
 def test_errors_as_in_the_reference(paths, stmt, match):
     s = stmt.format(**paths)
@@ -253,27 +343,27 @@ def test_errors_as_in_the_reference(paths, stmt, match):
 
 
 @pytest.mark.parametrize("stmt,construct", [
-    ("SELECT a.id, b.w FROM '{t}' a LEFT JOIN '{other}' b ON a.id = b.k",
-     "LEFT OUTER JOIN"),
-    ("SELECT id FROM '{t}' WHERE v > (SELECT COUNT(DISTINCT w) "
-     "FROM '{other}')", "COUNT(DISTINCT)"),
-    ("SELECT id FROM (SELECT a.id FROM '{t}' a FULL JOIN '{other}' b "
-     "ON a.id = b.k) x", "FULL OUTER JOIN"),
-    ("SELECT sum(DISTINCT v) FROM '{t}'", "SUM(DISTINCT)"),
-    ("SELECT rank() OVER (ORDER BY v) FROM '{t}'", "window function (OVER)"),
-    ("SELECT id FROM '{t}' UNION ALL SELECT k FROM '{other}' "
-     "GROUP BY ROLLUP(k)", "ROLLUP"),
-    ("WITH x AS (SELECT id, rank() OVER (ORDER BY v) r FROM '{t}') "
-     "SELECT id FROM x", "window function (OVER)"),
+    ("SELECT SUM(DISTINCT w) OVER (PARTITION BY k) FROM '{other}'",
+     "SUM(DISTINCT) OVER"),
+    ("SELECT id FROM '{t}' WHERE v > (SELECT COUNT(DISTINCT w) OVER () "
+     "FROM '{other}')", "COUNT(DISTINCT) OVER"),
+    ("SELECT ntile(2) OVER (ORDER BY k) FROM '{other}'", "ntile() OVER"),
+    ("SELECT id FROM (SELECT id, lag(v) OVER (ORDER BY v) f FROM '{t}') x",
+     "lag() OVER"),
+    ("WITH x AS (SELECT k, rank() OVER (PARTITION BY k) r FROM '{other}') "
+     "SELECT k FROM x", "rank() OVER without ORDER BY"),
+    ("SELECT k FROM '{other}' UNION ALL SELECT row_number() OVER "
+     "(PARTITION BY id) FROM '{t}'", "row_number() OVER without ORDER BY"),
 ])
 def test_constructs_outside_the_slice_are_refused(paths, stmt, construct):
     """Refused by name wherever the query holds the construct (a CTE, a
     derived table, a subquery, a set-operation branch), before any table
-    is read."""
+    is read: the window shapes the reference refuses (its
+    `_window_eval`)."""
     from delta_tpu_torch import obs
 
     scans = obs.counter("sql.scan_ns").read()
-    with pytest.raises(UnsupportedSqlError) as e:
+    with pytest.raises(DeltaError) as e:
         sql(stmt.format(**paths), engine=CPU)
     assert e.value.context["construct"] == construct
     assert obs.counter("sql.scan_ns").read() == scans
@@ -307,9 +397,9 @@ def test_derived_table_filters_apply_before_the_join(paths, monkeypatch):
     sizes = []
     merge = DeviceSpine.merge
 
-    def watched(self, left, right, lk, rk):
+    def watched(self, left, right, lk, rk, how="inner"):
         sizes.append((len(left), len(right)))
-        return merge(self, left, right, lk, rk)
+        return merge(self, left, right, lk, rk, how)
 
     monkeypatch.setattr(DeviceSpine, "merge", watched)
     s = ("WITH c AS (SELECT k, SUM(w) s FROM '{other}' GROUP BY k) "
@@ -432,3 +522,16 @@ def test_a_scan_failure_under_a_pushed_filter_propagates(paths,
     with pytest.raises(ValueError, match="bad input"):
         sql("SELECT id FROM '{t}' WHERE id = 3".format(**paths), engine=CPU)
     assert len(calls) == 1 and calls[0] is not None
+
+
+def test_a_whole_frame_sum_of_no_values_is_null(paths):
+    """ROADMAP C31: over a window with neither PARTITION BY nor ORDER BY,
+    the reference's SUM of no valid value is 0.0 (a data frame's sum),
+    where its partitioned and running windows, SQL and the port give NULL;
+    COUNT is 0 and MAX NULL in both."""
+    s = ("SELECT k, SUM(f) OVER () s, COUNT(f) OVER () c, MAX(f) OVER () m, "
+         "SUM(f) OVER (PARTITION BY k) p FROM '{nulls}' WHERE k = 'a'"
+         ).format(**paths)
+    assert _rows(sql(s, engine=CPU))[1] == [("a", None, 0, None, None)]
+    assert _rows(ref_sql(s, engine=HostEngine()))[1] == [
+        ("a", 0.0, 0, None, None)]

@@ -25,7 +25,6 @@ import pytest
 import torch
 
 from delta_tpu.ops import sqlops as ref
-from delta_tpu_torch.errors import UnsupportedSqlError
 from delta_tpu_torch.ops import sqlops
 from delta_tpu_torch.ops.segagg import seg_agg, seg_agg_plain
 
@@ -230,8 +229,8 @@ def test_join_pairs_equal_reference(how, nl, nr, keys):
 
 
 def test_a_failing_k10_raises_through_the_executor(monkeypatch, tmp_path):
-    """No fallback: a K10 failure on the group-by path propagates out of
-    the query (on the card a build or launch failure raises the same
+    """No fallback: a K10 failure on the group-by, COUNT(DISTINCT) and
+    partition-window paths propagates out of the query (on the card a build or launch failure raises the same
     way; `tests/test_torch_cuda.py` holds that there)."""
     from delta_tpu_torch import TorchEngine
     from delta_tpu_torch.api import write_table
@@ -248,6 +247,9 @@ def test_a_failing_k10_raises_through_the_executor(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="seg_agg launch failed"):
         execute_select(f"SELECT k, sum(v) FROM '{p}' GROUP BY k",
                        engine=TorchEngine("cpu"))
-    with pytest.raises(UnsupportedSqlError, match="COUNT\\(DISTINCT\\)"):
-        execute_select(f"SELECT count(DISTINCT v) FROM '{p}'",
-                       engine=TorchEngine("cpu"))
+    # COUNT(DISTINCT) counts its runs through K10 too, and a partition
+    # window aggregates through it
+    for q in (f"SELECT count(DISTINCT v) FROM '{p}'",
+              f"SELECT k, sum(v) OVER (PARTITION BY k) FROM '{p}'"):
+        with pytest.raises(RuntimeError, match="seg_agg launch failed"):
+            execute_select(q, engine=TorchEngine("cpu"))

@@ -1,13 +1,15 @@
 """The port's SQL on TPC-DS: its data, its 23 single-block queries, its
 refusals, and `sql()`'s query statements, against the reference (the 48
-nested texts: `tests/test_torch_tpcds_nested.py`).
+nested texts: `tests/test_torch_tpcds_nested.py`; the 31 with outer
+joins, windows, ROLLUP or DISTINCT aggregates:
+`tests/test_torch_tpcds_rest.py`).
 
 - `delta_tpu_torch/utils/tpcds.py::generate` equals
   `benchmarks/tpcds_data.py::generate` column by column at two scales,
-  NaN values in the same places; its 71 texts equal the corpus' letter
-  for letter, and are exactly the corpus' texts that the port runs: 23
-  single SELECT blocks and 48 with WITH, subqueries or set operations.
-- Each of the 23 queries, run by the port on `TorchEngine("cpu")`
+  NaN values in the same places; its 102 texts equal the corpus' letter
+  for letter, and the port runs every one (q16 is not in the corpus).
+- Each of the 23 single-block queries (none of the rest's constructs),
+  run by the port on `TorchEngine("cpu")`
   (through `execute_select` and through `sql()`, the same rows) over
   tables the port wrote (`load_delta`), equals the reference's
   `execute_select` over the same tables on `HostEngine` (its pandas
@@ -19,11 +21,11 @@ nested texts: `tests/test_torch_tpcds_nested.py`).
   output column, the port's order holds the keys' order (Spark's NULLS
   FIRST ascending, LAST descending) and its LIMITed key sequence is the
   reference's.
-- Each of the other 31 texts raises `UnsupportedSqlError` naming a
-  construct the text holds (an outer join, a window, ROLLUP or a DISTINCT
-  aggregate, also inside a CTE or a subquery), before any table is read
-  (q16 is not in the corpus, as in the reference); each non-query
-  statement of `sql()` names its statement.
+- What both packages still refuse over these tables, with the
+  reference's error class: DISTINCT inside a window, ntile() and lag(),
+  a rank without ORDER BY, a non-equality ON, an ON naming a later alias,
+  a correlated subquery with no equality; each non-query statement of
+  `sql()` names its statement.
 - NaN is NULL: the generator's money columns hold NaN values (not
   nulls), which both the reference's executor and sqlite read as NULL;
   the port does too, and its stats skipping prunes no file on a NaN
@@ -45,11 +47,12 @@ from benchmarks.tpcds_data import generate as ref_generate
 from benchmarks.tpcds_queries import QUERIES as REF_QUERIES
 from delta_tpu.catalog import Catalog as RefCatalog
 from delta_tpu.engine.host import HostEngine
+from delta_tpu.errors import DeltaError as RefDeltaError
 from delta_tpu.sql import sql as ref_sql
 from delta_tpu.sqlengine import execute_select as ref_execute
 from delta_tpu_torch import TorchEngine, obs
 from delta_tpu_torch.api import write_table
-from delta_tpu_torch.errors import UnsupportedSqlError
+from delta_tpu_torch.errors import DeltaError, UnsupportedSqlError
 from delta_tpu_torch.sql import sql
 from delta_tpu_torch.sqlengine import execute_select, parse_query
 from delta_tpu_torch.sqlengine.executor import check_supported
@@ -59,8 +62,14 @@ from tests.tpcds_sqlite_oracle import SqliteOracle, rows_equal
 SCALE = 12_000
 _NESTED_TEXT = re.compile(r"^\s*with\b|\(\s*select\b|\b(union|intersect|"
                           r"except)\b", re.IGNORECASE | re.MULTILINE)
+# the texts of one SELECT block with none of the constructs of
+# `tests/test_torch_tpcds_rest.py` (outer joins, windows, ROLLUP, DISTINCT
+# aggregates)
+_REST_TEXT = re.compile(r"\bover\s*\(|\brollup\b|\b(left|right|full)\s+"
+                        r"(outer\s+)?join\b|\b(count|sum|avg)\s*\(\s*"
+                        r"distinct\b", re.IGNORECASE)
 SINGLE = sorted(n for n, t in tpcds.QUERIES.items()
-                if not _NESTED_TEXT.search(t))
+                if not _NESTED_TEXT.search(t) and not _REST_TEXT.search(t))
 OTHERS = sorted(set(REF_QUERIES) - set(tpcds.QUERIES))
 CPU = TorchEngine("cpu")
 
@@ -139,11 +148,11 @@ def test_texts_are_the_corpus_single_block_texts():
         except UnsupportedSqlError:
             pass
     assert sorted(runnable) == sorted(tpcds.QUERIES)
-    assert len(tpcds.QUERIES) == 71 and len(SINGLE) == 23
+    assert len(tpcds.QUERIES) == 102 and len(SINGLE) == 23
     for name in SINGLE:  # one SELECT block each
         q = parse_query(REF_QUERIES[name])
         assert not q.ctes and len(q.selects) == 1, name
-    assert len(OTHERS) == 31 and "q16" not in REF_QUERIES
+    assert not OTHERS and "q16" not in REF_QUERIES
 
 
 # ---------------------------------------------------------- the queries ---
@@ -226,28 +235,37 @@ def test_verbatim_texts_respect_limit_and_order(env):
     assert checked >= 15
 
 
-_CONSTRUCT_TEXT = {
-    "window function (OVER)": r"\bover\s*\(",
-    "ROLLUP": r"\brollup\b",
-    "COUNT(DISTINCT)": r"\bcount\s*\(\s*distinct\b",
-    "LEFT OUTER JOIN": r"\bleft\s+(outer\s+)?join\b",
-    "RIGHT OUTER JOIN": r"\bright\s+(outer\s+)?join\b",
-    "FULL OUTER JOIN": r"\bfull\s+(outer\s+)?join\b",
-}
-
-
-@pytest.mark.parametrize("name", OTHERS)
-def test_other_texts_are_refused_by_construct(env, name):
-    text = REF_QUERIES[name]
-    scans = obs.counter("sql.scan_ns").read()
-    with pytest.raises(UnsupportedSqlError) as e:
-        execute_select(text, catalog=env["cat"])
-    construct = e.value.context["construct"]
-    assert e.value.error_class == "DELTA_UNSUPPORTED_SQL"
-    assert construct in str(e.value)
-    assert re.search(_CONSTRUCT_TEXT[construct], text,
-                     re.IGNORECASE | re.MULTILINE), (name, construct)
-    assert obs.counter("sql.scan_ns").read() == scans  # nothing read
+@pytest.mark.parametrize("stmt,error_class", [
+    ("select ss_item_sk, sum(distinct ss_quantity) over (partition by "
+     "ss_store_sk) from store_sales", "DELTA_UNSUPPORTED_DISTINCT_IN_WINDOW"),
+    ("select ss_item_sk, ntile(4) over (order by ss_quantity) "
+     "from store_sales", "DELTA_UNSUPPORTED_WINDOW_FUNCTION"),
+    ("select ss_item_sk, lag(ss_quantity) over (partition by ss_store_sk "
+     "order by ss_quantity) from store_sales",
+     "DELTA_UNSUPPORTED_WINDOW_FUNCTION"),
+    ("select ss_item_sk, rank() over (partition by ss_store_sk) "
+     "from store_sales", "DELTA_WINDOW_REQUIRES_ORDER"),
+    ("select i_item_id from item left outer join store_sales "
+     "on ss_item_sk < i_item_sk", "DELTA_UNSUPPORTED_JOIN_CONDITION"),
+    ("select i_item_id from item left outer join store_sales "
+     "on ss_store_sk = s_store_sk join store on s_store_sk = i_item_sk",
+     "DELTA_UNSUPPORTED_SQL"),
+    ("select i_item_id from item where i_current_price > (select "
+     "avg(ss_sales_price) from store_sales where ss_item_sk > i_item_sk)",
+     "DELTA_UNSUPPORTED_CORRELATED_SUBQUERY"),
+])
+def test_other_texts_are_refused_by_construct(env, stmt, error_class):
+    """What both packages still refuse, over the TPC-DS tables, with the
+    reference's error class: DISTINCT inside a window, a window function
+    other than the aggregates and the ranks (ntile, lag), a rank without
+    ORDER BY, a non-equality ON conjunct, an ON that names an alias joined
+    later, a correlated subquery with no equality."""
+    with pytest.raises(RefDeltaError) as ref:
+        ref_execute(stmt, catalog=env["ref_cat"])
+    with pytest.raises(DeltaError) as got:
+        execute_select(stmt, catalog=env["cat"])
+    assert ref.value.error_class == error_class
+    assert got.value.error_class == error_class
 
 
 @pytest.mark.parametrize("statement,construct", [

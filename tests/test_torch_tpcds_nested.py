@@ -65,7 +65,7 @@ def env(tmp_path_factory):
 
 
 def test_the_nested_texts_are_in_the_port_corpus():
-    assert len(NESTED) == 48 and len(tpcds.QUERIES) == 71
+    assert len(NESTED) == 48 and len(tpcds.QUERIES) == 102
     for name in NESTED:
         assert tpcds.QUERIES[name] == REF_QUERIES[name], name
         assert re.search(r"^\s*with\b|\(\s*select\b|\b(union|intersect|"
