@@ -410,8 +410,9 @@
     (ss_item_sk, ss_sold_date_sk) order: ranks, the running sum, mean,
     count, min and max, and the peer pass of the running sum against
     their plain versions (exact; sums within 1e-9 of the partition's
-    absolute sum), timed beside them (`torch.cumsum` beside the running
-    sum) with their bounds.
+    absolute sum), each called twice with the same bits, timed beside
+    them (`torch.cumsum` beside the running sum) with their bounds, one
+    kernel and one memset a call in the trace.
 
 Prints a metrics line per phase, a `kernels` JSON line (K1-K11, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
@@ -5976,35 +5977,39 @@ def _k10_shape(n: int, values, valid, n_groups: int) -> str:
     return "+".join(parts) + f" -> [{n_groups}]"
 
 
-def _k11_times(call, plain, kernels: tuple, row_bytes: float, n: int,
+# the names of K11's launches in a torch.profiler trace of one launcher's
+# calls: its one kernel and the memset of its tile flags
+K11_KERNELS = ("window_scan_pass", "Memset")
+K11_REPS = 50  # wrapper calls a K11 time is taken over
+
+
+def _k11_times(call, plain, row_bytes: float, n: int,
                library=None) -> dict:
     """One K11 launcher at the main path's shape: `ms` (CUDA events over
-    50 wrapper calls), `device_ms` (its three kernels in a torch.profiler
-    trace, names holding `kernels`), its plain version on the card and
-    `library` where one PyTorch call computes a part of it; the bound is
-    `row_bytes` a row over the card's memory rate."""
+    K11_REPS wrapper calls), `device_ms` (its launches in a torch.profiler
+    trace, names holding one of K11_KERNELS: the kernel and the memset
+    before it), the launches a call and each one's mean microseconds the
+    trace saw, its plain version on the card and `library` where one
+    PyTorch call computes a part of it; the bound is `row_bytes` a row
+    over the card's memory rate."""
     nbytes = row_bytes * n
     bound, by = _bound_ms(nbytes, float(n))
-    ms = _time_ms(call, 50)
+    ms = _time_ms(call, K11_REPS)
     seen = []
-    dev_ms = _device_ms(call, 50, kernels, launches=seen)
+    dev_ms = _device_ms(call, K11_REPS, K11_KERNELS, launches=seen)
     return {"ms": ms, "device_ms": dev_ms,
             "launches_per_call": seen[0] and seen[0]["per_call"],
             "device_kernels": seen[0] and seen[0]["kernels"],
             "plain_ms": _time_ms(plain, 10), "plain_device": "cuda",
-            "library_ms": None if library is None else _time_ms(library, 50),
+            "library_ms": None if library is None
+            else _time_ms(library, K11_REPS),
             "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
 
 
-def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
-    """K11's three launchers against their plain versions at store_sales'
-    size (2,880,404 rows in (ss_item_sk, ss_sold_date_sk) order:
-    partitions by item, peer runs by date) and timed beside them: ranks,
-    counts and maxima exact, running sums within 1e-9 of the partition's
-    absolute sum where a valid value came before. Returns the three rows
-    of the kernels line."""
-    from delta_tpu_torch.ops import window
-
+def _k11_inputs(ss, dev) -> dict:
+    """store_sales' rows in (ss_item_sk, ss_sold_date_sk) order on the
+    card: partition flags by item, peer-run flags by date, and
+    `ss_ext_sales_price` with its validity."""
     item = ss.column("ss_item_sk").values
     date = ss.column("ss_sold_date_sk")
     dvals = np.where(date.valid if date.valid is not None else True,
@@ -6018,21 +6023,45 @@ def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
     kb[1:] |= dt[1:] != dt[:-1]
     price = ss.column("ss_ext_sales_price").values[order]
     valid = ~np.isnan(price)
-    tpb, tkb = torch.from_numpy(pb).to(dev), torch.from_numpy(kb).to(dev)
-    tv = torch.from_numpy(np.where(valid, price, 0.0)).to(dev)
-    tvalid = torch.from_numpy(valid).to(dev)
-    shape = (f"{n} rows, {int(pb.sum())} partitions (ss_item_sk), "
-             f"{int(kb.sum())} peer runs (ss_sold_date_sk)")
-    rows = {}
+    return {"n": n, "pb": torch.from_numpy(pb).to(dev),
+            "kb": torch.from_numpy(kb).to(dev),
+            "v": torch.from_numpy(np.where(valid, price, 0.0)).to(dev),
+            "valid": torch.from_numpy(valid).to(dev),
+            "shape": f"{n} rows, {int(pb.sum())} partitions (ss_item_sk), "
+                     f"{int(kb.sum())} peer runs (ss_sold_date_sk)"}
 
+
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int64) if x.is_floating_point()
+                           else x, y.view(torch.int64)
+                           if y.is_floating_point() else y)
+               for x, y in zip(a, b))
+
+
+def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
+    """K11's three launchers against their plain versions at store_sales'
+    size (2,880,404 rows in (ss_item_sk, ss_sold_date_sk) order:
+    partitions by item, peer runs by date: ranks, counts and maxima exact,
+    running sums within 1e-9 of the partition's absolute sum where a valid
+    value came before), each twice with the same bits, and timed beside
+    them (`_k11_times`), each a kernel and a memset a call in the trace.
+    Returns the three rows of the kernels line."""
+    from delta_tpu_torch.ops import window
+
+    inp = _k11_inputs(ss, dev)
+    n, tpb, tkb, tv, tvalid = (inp[k] for k in ("n", "pb", "kb", "v",
+                                                "valid"))
+    rows = {}
     got = window.window_ranks(tpb, tkb)
     torch.cuda.synchronize()
     want = window.window_ranks_plain(tpb, tkb)
     _check(all(torch.equal(g, w) for g, w in zip(got, want)),
            "window_ranks != plain")
+    _check(_same_bits(got, window.window_ranks(tpb, tkb)),
+           "window_ranks: two calls differ")
     rows["k11_ranks"] = dict(max_abs_err=0.0, **_k11_times(
         lambda: window.window_ranks(tpb, tkb),
-        lambda: window.window_ranks_plain(tpb, tkb), ("RankOp",), 26.0, n),
+        lambda: window.window_ranks_plain(tpb, tkb), 26.0, n),
         library_none="no single PyTorch call ranks rows within segments")
 
     part = torch.cumsum(tpb.to(torch.int64), 0) - 1
@@ -6053,11 +6082,14 @@ def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
             err = max(err, float(diff.max()))
         else:
             _check(torch.equal(out, w_out), f"window_running {op} != plain")
+        _check(_same_bits((out, cnt),
+                          window.window_running(tv, tvalid, tpb, op)),
+               f"window_running {op}: two calls differ")
     vals, cnts = window.window_running(tv, tvalid, tpb, "sum")
     rows["k11_running"] = dict(max_abs_err=err, op="sum", **_k11_times(
         lambda: window.window_running(tv, tvalid, tpb, "sum"),
         lambda: window.window_running_plain(tv, tvalid, tpb, "sum"),
-        ("RunOp<0>",), 26.0, n, library=lambda: torch.cumsum(tv, 0)),
+        26.0, n, library=lambda: torch.cumsum(tv, 0)),
         library_call="torch.cumsum(values, 0): the prefix sum, a part of "
                      "the running sum (no reset at partitions, no count)")
 
@@ -6066,12 +6098,25 @@ def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
     want = window.window_peer_last_plain(vals, cnts, tkb)
     _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
            "window_peer_last != plain")
+    _check(_same_bits(got, window.window_peer_last(vals, cnts, tkb)),
+           "window_peer_last: two calls differ")
     rows["k11_peers"] = dict(max_abs_err=0.0, **_k11_times(
         lambda: window.window_peer_last(vals, cnts, tkb),
         lambda: window.window_peer_last_plain(vals, cnts, tkb),
-        ("PeerOp",), 33.0, n),
+        33.0, n),
         library_none="no single PyTorch call gives each row its run's "
                      "last value")
+    # one kernel and at most one memset a call: the trace may miss
+    # launches (`_device_ms`), never add them, so each name's count over
+    # K11_REPS calls is at most K11_REPS
+    for key, row in rows.items():
+        seen = row["device_kernels"]
+        _check(seen is not None, f"{key}: the trace saw no launches")
+        _check(sum("window_scan_pass" in k["name"] for k in seen) == 1
+               and sum("Memset" in k["name"] for k in seen) <= 1
+               and len(seen) <= 2
+               and all(k["launches"] <= K11_REPS for k in seen),
+               f"{key}: one kernel and at most one memset a call ({seen})")
     out = {}
     for key, (name, replaces) in K11_ROWS.items():
         out[name] = {"name": name, "route": "cuda",
@@ -6079,7 +6124,7 @@ def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
                      "replaces": replaces, "launches": launches[key],
                      "launches_sql": launches[key],
                      "launches_small": launches_small[key],
-                     **rows[key], "shape": shape}
+                     **rows[key], "shape": inp["shape"]}
     return out
 
 

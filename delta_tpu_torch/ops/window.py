@@ -19,9 +19,10 @@ partition).
 - `window_peer_last(values, counts, kb)` -> each row takes the value and
   count of the last row of its `kb` run (the RANGE frame: peers share).
 
-On a CUDA tensor each launches K11 (`csrc/window_scan.cu`, three launches
-over 2048-row tiles: tile totals, their prefix, the rows) on the current
-stream, or raises; it never falls back. On a CPU tensor it runs the
+On a CUDA tensor each launches K11 (`csrc/window_scan.cu`: a memset of
+its tile flags, then one pass over 2048-row tiles whose carries go by
+decoupled look-back) on the current stream, or raises; it never falls
+back. On a CPU tensor it runs the
 `*_plain` version, the same math in torch ops (`cummax` of flagged
 positions and prefix counts as the reference writes them,
 `scatter_reduce_` of each run's last row); a running min or max is a
@@ -30,7 +31,8 @@ scan by doubling, so that it rounds within its partition (the reference
 subtracts the partition's base from a global prefix sum, which carries
 the rounding of every row before it). Ranks, counts, min and max are exact; a running sum or mean
 is float64 and the kernel adds in another order, so they agree to
-rounding (the tests allow 1e-9 of the partition's absolute sum).
+rounding (the tests allow 1e-9 of the partition's absolute sum). The
+kernel's order is fixed: every call gives the same bits.
 """
 
 from __future__ import annotations

@@ -10,7 +10,11 @@ with no valid value, and every running op. Tolerance: ranks, counts, min
 and max exact; a running sum or mean within 1e-9 of its partition's
 absolute sum, where a valid value came before (the reference subtracts
 float64 prefix sums, the plain version scans each partition by doubling,
-the kernel adds in tile order).
+the kernel adds in tile order). On the card, also: every launcher gives
+the same bits on every call, takes inputs at an unaligned offset, and
+holds infinities and sums that overflow within their partition. Those
+cases stay out of the reference's parity tests: its running sum turns
+every partition after an infinite prefix into NaN (ROADMAP C32).
 
 The reference's jitted functions run inside `jax.enable_x64(True)`: its
 public wrappers (`window_ranks`, ...) would turn x64 on for the whole
@@ -257,3 +261,141 @@ def test_kernel_equals_plain(n, shape):
                                        tkb.to(dev))
     w_out, w_cnt = window.window_peer_last_plain(vals, counts, tkb)
     assert torch.equal(out.cpu(), w_out) and torch.equal(cnt.cpu(), w_cnt)
+
+
+def test_running_sum_restarts_after_an_infinite_partition():
+    """An infinite value stays in its partition: [1, inf, 2 | 3, 4] runs
+    to [1, inf, inf, 3, 7]. The reference subtracts global prefix sums,
+    so its later partition is NaN (ROADMAP C32, a caveat of the
+    reference), where the port restarts."""
+    v = np.array([1.0, np.inf, 2.0, 3.0, 4.0])
+    valid = np.ones(5, bool)
+    pb = np.array([True, False, False, True, False])
+    for op, want in (("sum", [1.0, np.inf, np.inf, 3.0, 7.0]),
+                     ("mean", [1.0, np.inf, np.inf, 3.0, 3.5])):
+        out, cnt = window.window_running_plain(_t(v), _t(valid), _t(pb), op)
+        assert out.tolist() == want, op
+        assert cnt.tolist() == [1, 2, 3, 1, 2]
+        w_out, w_cnt = _ref_running(v, valid, pb, op)
+        assert np.array_equal(w_cnt, cnt.numpy())
+        assert w_out[:3].tolist() == want[:3]
+        assert np.isnan(w_out[3:]).all(), op
+
+
+def _bits(x):
+    return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+
+def _launch_all(pb, kb, v, valid):
+    """Every launcher's outputs on these (device) inputs, the peer pass
+    over the running sum's."""
+    outs = list(window.window_ranks(pb, kb))
+    for op in RUNNING_OPS:
+        outs += window.window_running(v, valid, pb, op)
+    outs += window.window_peer_last(outs[3], outs[4], kb)
+    return [_bits(o).cpu() for o in outs]
+
+
+def _special_values(rng, v, pb):
+    """v with +inf, -inf, +1e308 or -1e308 at about 2% of the rows, one
+    kind a partition: any order of adding a partition's values gives the
+    same sums (a kind never meets its opposite)."""
+    part = np.cumsum(pb) - 1
+    kinds = rng.integers(0, 5, int(part[-1]) + 1)
+    kinds[0] = 3  # the first partition overflows
+    special = np.array([0.0, np.inf, -np.inf, 1e308, -1e308])
+    hit = (rng.random(v.size) < 0.02) & (kinds[part] > 0)
+    return np.where(hit, special[kinds[part]], v)
+
+
+def _on_card(x, dev, offset):
+    """x on the card, `offset` rows into its storage."""
+    pad = torch.zeros(offset, dtype=x.dtype)
+    return torch.cat([pad, x]).to(dev)[offset:]
+
+
+def _held_to_plain(pb, kb, v, valid, dev, offset=0):
+    """The launchers on the card, each input `offset` rows into its
+    storage, against their plain versions on the CPU: ranks, counts, min
+    and max exact; a non-finite sum or mean exact, a finite one within
+    1e-9 of its partition's absolute sum; the peer pass bit for bit on the
+    same inputs."""
+    tpb, tkb, tv, tvalid = (_on_card(x, dev, offset)
+                            for x in (pb, kb, v, valid))
+    if offset:
+        assert all(x.data_ptr() % 16 for x in (tpb, tkb, tv, tvalid))
+    for g, w in zip(window.window_ranks(tpb, tkb),
+                    window.window_ranks_plain(pb, kb)):
+        assert torch.equal(g.cpu(), w)
+    for op in RUNNING_OPS:
+        out, cnt = window.window_running(tv, tvalid, tpb, op)
+        w_out, w_cnt = window.window_running_plain(v, valid, pb, op)
+        assert torch.equal(cnt.cpu(), w_cnt), op
+        got, want = out.cpu().numpy(), w_out.numpy()
+        if op not in ("sum", "mean"):
+            assert np.array_equal(got, want), op
+            continue
+        fin = np.isfinite(want)
+        assert np.array_equal(got[~fin], want[~fin], equal_nan=True), op
+        keep = fin & (w_cnt.numpy() > 0)
+        with np.errstate(over="ignore"):  # two 1e308 overflow the scale
+            scale = _partition_abs_sum(pb.numpy(), v.numpy(), valid.numpy())
+        assert (np.abs(got[keep] - want[keep])
+                <= SUM_TOL * scale[keep]).all(), op
+    vals, counts = window.window_running_plain(v, valid, pb, "sum")
+    out, cnt = window.window_peer_last(_on_card(vals, dev, offset),
+                                       _on_card(counts, dev, offset), tkb)
+    w_out, w_cnt = window.window_peer_last_plain(vals, counts, kb)
+    assert torch.equal(_bits(out.cpu()), _bits(w_out))
+    assert torch.equal(cnt.cpu(), w_cnt)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K11 runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_gives_the_same_bits_on_every_call():
+    """Five calls of each launcher on one partition of 1,000,003 rows
+    (about 489 tiles, every carry through the look-back) give the same
+    bits: the float64 sum folds the tiles in one order whatever the
+    look-back found."""
+    dev = _card()
+    rng = np.random.default_rng(29)
+    n = 1_000_003
+    pb, kb = _boundaries(rng, n, "one_partition")
+    v, valid = _values(rng, n, "one_partition")
+    args = [_t(x).to(dev) for x in (pb, kb, v, valid)]
+    first = _launch_all(*args)
+    for _ in range(4):
+        again = _launch_all(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2049, 100_000])
+@pytest.mark.parametrize("shape", ["one_partition", "mixed"])
+def test_kernel_takes_unaligned_views(n, shape):
+    """Inputs that are views 3 rows into their storage (flags 3 bytes,
+    values 24 bytes past a 16-byte boundary) equal the plain versions."""
+    dev = _card()
+    rng = np.random.default_rng(n + len(shape))
+    pb, kb = _boundaries(rng, n, shape)
+    v, valid = _values(rng, n, shape)
+    _held_to_plain(_t(pb), _t(kb), _t(v), _t(valid), dev, offset=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["one_partition", "long_peers", "mixed"])
+def test_kernel_holds_infinities(shape):
+    """Values holding inf, -inf and +-1e308 (sums that overflow inside a
+    partition, carried across tiles) equal the plain versions."""
+    dev = _card()
+    rng = np.random.default_rng(len(shape) + 1)
+    n = 50_000
+    pb, kb = _boundaries(rng, n, shape)
+    v, valid = _values(rng, n, shape)
+    v = _special_values(rng, v, pb)
+    _held_to_plain(_t(pb), _t(kb), _t(v), _t(valid), dev)
