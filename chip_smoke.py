@@ -414,13 +414,36 @@
     them (`torch.cumsum` beside the running sum) with their bounds, one
     kernel and one memset a call in the trace.
 
+27. SQL's statements past the query (`sql_statements_phase`, inside
+    `sql_phase` after (b), on (b)'s SF1 tables), every one through
+    `delta_tpu_torch.sql.sql` with the card's catalog, after TPC-DS v3
+    §5's data maintenance: DESCRIBE DETAIL and HISTORY of store_sales,
+    SET TBLPROPERTIES turning deletion vectors on, DF_SS as a DELETE of
+    a tenth of the sold dates (K7, K8 pack), an UPDATE of the first
+    2,000 tickets' quantity (K8 decode), CREATE TABLE lf_ss and INSERT
+    INTO it 1,000 rows by VALUES, MERGE INTO store_sales on (ticket,
+    item) with UPDATE SET * and INSERT * (half the rows live keys, K9),
+    OPTIMIZE store_returns ZORDER BY (sr_item_sk, sr_customer_sk) (K4),
+    RESTORE of store_sales to before the DELETE, VACUUM RETAIN 0 HOURS
+    DRY RUN, GENERATE symlink_format_manifest for store_returns, ADD and
+    DROP CONSTRAINT and DROP FEATURE checkConstraints on lf_ss, CONVERT
+    TO DELTA of hard links to store_returns' data files, DROP TABLE and
+    SHOW TABLES. After each data-changing statement the row count and
+    the sums of ss_quantity and ss_net_paid equal numpy's truth from the
+    generator's columns; the manifest names the live files; the
+    converted table's rows are its source's; store_sales read on the card
+    equals its read on `TorchEngine("cpu")`, row for row. Each
+    statement's seconds and launches; K1, K2, K4, K7, K8 pack and decode
+    and K9 at least once in the step.
+
 Prints a metrics line per phase, a `kernels` JSON line (K1-K11, each with
 its launches (K1, K2, K3 and K7 also `launches_v2`,
 `launches_stats_parsed` and `launches_compacted`; K1-K4 and K7-K9
 `launches_wide_write` and `launches_column_mapping`; K1-K3, K7 and K8
 `launches_write_modes`; every kernel `launches_maintenance`,
-`launches_table_features` and `launches_change_data_feed`; K1-K3, K7
-and K11's three launchers `launches_sql`), its time per
+`launches_table_features`, `launches_change_data_feed` and
+`launches_sql_statements`; K1-K3, K7 and K11's three launchers
+`launches_sql`), its time per
 call (`ms`, CUDA events around back-to-back calls of the wrapper) and on
 the card alone (`device_ms`, torch.profiler), its bound and both shares
 of the bound), a `phase_wall` line (each phase's wall seconds), the
@@ -6128,6 +6151,269 @@ def k11_phase(ss, dev, launches: dict, launches_small: dict) -> dict:
     return out
 
 
+# step 27: SQL's statements past the query (TPC-DS v3 §5's data
+# maintenance through `sql()`) on step 26 (b)'s SF1 tables
+
+STMT_DELETE_QUANTILES = (0.40, 0.50)  # DF_SS: the sold dates between the
+                                      # 40th and 50th percentiles, ~10%
+STMT_UPDATE_TICKETS = 2_000           # UPDATE: the first tickets' rows
+STMT_UPDATE_QUANTITY = 77
+STMT_LF_SS = 1_000                    # LF_SS: half updates, half inserts
+STMT_LF_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_ticket_number",
+                   "ss_quantity", "ss_net_paid")
+STMT_ZORDER = ("sr_item_sk", "sr_customer_sk")
+STMT_CHECK = ("qty_nonneg", "ss_quantity IS NULL OR ss_quantity >= 0")
+# the statements' launches, kernel row -> counter keys
+STMT_ROWS = {"byte_class": ("k1",), "winner_pack": ("k2",),
+             "hybrid_extract": ("k3",), "interleave_bits": ("k4",),
+             "unpack_bitpacked": ("k5",), "segmented_minmax": ("k6",),
+             "skip_mask": ("k7",), "dv_bits": ("k8_pack", "k8_decode"),
+             "merge_join": ("k9",), "seg_agg": ("k10",),
+             "window_ranks": ("k11_ranks",),
+             "window_running": ("k11_running",),
+             "window_peer_last": ("k11_peers",)}
+_SQL_TYPE = {"long": "BIGINT", "integer": "INT", "double": "DOUBLE"}
+
+
+def _row_digest(batch, names) -> np.ndarray:
+    """One 64-bit hash a row over `names` (a null its own value, NaN one
+    value), sorted: equal arrays are equal multisets of rows."""
+    h = np.zeros(batch.num_rows, np.uint64)
+    for name in names:
+        c = batch.column(name)
+        v = np.asarray(c.values)
+        if v.dtype == object:
+            bits = np.fromiter((hash(x) for x in v.tolist()), np.int64,
+                               len(v)).view(np.uint64)
+        elif v.dtype.kind == "f":
+            f = v.astype(np.float64)
+            bits = np.where(np.isnan(f), np.float64(np.nan), f).view(
+                np.uint64)
+        else:
+            bits = v.astype(np.int64).view(np.uint64)
+        if c.valid is not None:
+            bits = np.where(c.valid, bits, np.uint64(0x9E3779B97F4A7C15))
+        h = (h * np.uint64(1_000_003)) ^ bits
+    return np.sort(h)
+
+
+def _sums_of(batch) -> tuple:
+    """(rows, the sum of ss_quantity's valid values, the sum of
+    ss_net_paid's valid non-NaN values)."""
+    q = batch.column("ss_quantity")
+    p = batch.column("ss_net_paid")
+    qv = q.values if q.valid is None else q.values[q.valid]
+    pv = p.values if p.valid is None else p.values[p.valid]
+    return batch.num_rows, int(qv.astype(np.int64).sum()), \
+        float(np.nansum(pv))
+
+
+def sql_statements_phase(root: str, ss, sr, device: str, card: str) -> dict:
+    """Step 27 (module docstring): every statement through
+    `delta_tpu_torch.sql.sql` on the catalog of the tables at `root`
+    (step 26 (b)'s), on `device`; `ss` and `sr` are the generator's
+    store_sales and store_returns, the numpy truth. Each statement's
+    seconds and launches (`WIDE_WRITE_K`, K10 and K11) in
+    `out["steps"]`."""
+    from delta_tpu_torch import Table, TorchEngine
+    from delta_tpu_torch.catalog import Catalog
+    from delta_tpu_torch.sql import sql
+
+    eng = TorchEngine(device)
+    cat = Catalog(root, engine=eng)
+    cpu_cat = Catalog(root, engine=TorchEngine("cpu"))
+    out = {"steps": {}}
+    step = _stepper(out, eng, "sql statements")
+    launches = {}
+
+    def run(name, text, rows, **expect):
+        res = step(name, rows, lambda: sql(text, catalog=cat), **expect)
+        counts = step.counts
+        launches[name] = {k: counts.get(v, 0)
+                          for k, v in {**WIDE_WRITE_K, **SQL_K}.items()}
+        print(f"sql statements {name}: {out['steps'][name]['s']:.4f} s, "
+              f"{rows} rows, launches {json.dumps(launches[name])}; {card}",
+              flush=True)
+        return res
+
+    # the numpy truth of store_sales: who is alive, and the two columns
+    date = ss.column("ss_sold_date_sk")
+    d_ok = np.ones(ss.num_rows, bool) if date.valid is None else date.valid
+    item = ss.column("ss_item_sk").values.astype(np.int64)
+    ticket = ss.column("ss_ticket_number").values.astype(np.int64)
+    qty = ss.column("ss_quantity").values.astype(np.int64).copy()
+    paid = ss.column("ss_net_paid").values.astype(np.float64).copy()
+    alive = np.ones(ss.num_rows, bool)
+    extra_q, extra_p = np.zeros(0, np.int64), np.zeros(0, np.float64)
+    original = (int(alive.sum()), int(qty.sum()), float(np.nansum(paid)))
+
+    def truth():
+        return (int(alive.sum()) + len(extra_q),
+                int(qty[alive].sum() + extra_q.sum()),
+                float(np.nansum(paid[alive]) + extra_p.sum()))
+
+    def held(what, want=None):
+        got = _sums_of(sql("SELECT ss_quantity, ss_net_paid FROM "
+                           "store_sales", catalog=cat))
+        want = truth() if want is None else want
+        _check(got[:2] == want[:2]
+               and abs(got[2] - want[2]) <= 1e-9 * abs(want[2]),
+               f"sql statements {what}: (rows, quantity, net paid) {got}, "
+               f"numpy {want}")
+
+    n_ss, n_sr = ss.num_rows, sr.num_rows
+    detail = run("describe_detail", "DESCRIBE DETAIL store_sales", 1)
+    _check(detail["numFiles"] >= 1 and detail["partitionColumns"] == [],
+           f"sql statements: DESCRIBE DETAIL {detail}")
+    history = run("describe_history", "DESCRIBE HISTORY store_sales", 1)
+    _check(history[0]["version"] == detail["version"],
+           f"sql statements: DESCRIBE HISTORY's head {history[0]}")
+    v_dv = run("set_deletion_vectors", "ALTER TABLE store_sales SET "
+               "TBLPROPERTIES ('delta.enableDeletionVectors' = 'true')", 1)
+    feats = sql("DESCRIBE DETAIL store_sales", catalog=cat)["tableFeatures"]
+    _check("deletionVectors" in feats,
+           f"sql statements: the DV upgrade, features {feats}")
+    # DF_SS: a range of sold dates
+    lo, hi = (int(np.quantile(date.values[d_ok], q))
+              for q in STMT_DELETE_QUANTILES)
+    gone = d_ok & (date.values >= lo) & (date.values <= hi)
+    m = run("delete_df_ss", f"DELETE FROM store_sales WHERE ss_sold_date_sk "
+            f">= {lo} AND ss_sold_date_sk <= {hi}", int(gone.sum()),
+            k7=(1, None), k8_pack=(1, None))
+    alive &= ~gone
+    _check(m.num_rows_deleted == int(gone.sum()),
+           f"sql statements DELETE: {m.num_rows_deleted} rows, numpy "
+           f"{int(gone.sum())}")
+    held("DELETE")
+    t_hi = int(ticket.min()) + STMT_UPDATE_TICKETS
+    hit = alive & (ticket <= t_hi)
+    m = run("update", f"UPDATE store_sales SET ss_quantity = "
+            f"{STMT_UPDATE_QUANTITY} WHERE ss_ticket_number <= {t_hi}",
+            int(hit.sum()), k8_decode=(1, None))
+    qty[hit] = STMT_UPDATE_QUANTITY
+    _check(m.num_rows_updated == int(hit.sum()),
+           f"sql statements UPDATE: {m.num_rows_updated} rows, numpy "
+           f"{int(hit.sum())}")
+    held("UPDATE")
+
+    # LF_SS: a 1,000-row source in the catalog, half of it live keys
+    types = {f.name: f.data_type for f in
+             Table.for_path(f"{root}/store_sales", engine=eng)
+             .latest_snapshot().schema.fields}
+    cols = ", ".join(f"{c} {_SQL_TYPE[types[c]]}" for c in STMT_LF_COLUMNS)
+    run("create_table", f"CREATE TABLE lf_ss ({cols}) USING DELTA "
+        "TBLPROPERTIES ('delta.enableDeletionVectors' = 'true')", 0)
+    rng = np.random.default_rng(27)
+    half = STMT_LF_SS // 2
+    key = item * (1 << 32) + ticket
+    # matched rows: live keys from the last tickets (few candidate rows
+    # past the source's bounds), each key once
+    cand = np.flatnonzero(alive & (ticket > ticket.max() - 20 * half))
+    _, first = np.unique(key[cand], return_index=True)
+    pick = rng.choice(cand[first], half, replace=False)
+    s_item = np.concatenate([item[pick], rng.integers(1, item.max() + 1,
+                                                      half)])
+    s_ticket = np.concatenate([ticket[pick], ticket.max() + 1
+                               + np.arange(half)])
+    s_date = np.concatenate([date.values[pick], np.full(half, hi + 1)])
+    s_qty = rng.integers(1, 101, STMT_LF_SS)
+    s_paid = np.round(rng.uniform(1.0, 2000.0, STMT_LF_SS), 2)
+    values = ", ".join(f"({d}, {i}, {t}, {q}, {p!r})" for d, i, t, q, p in zip(
+        s_date.tolist(), s_item.tolist(), s_ticket.tolist(), s_qty.tolist(),
+        s_paid.tolist()))
+    run("insert_values", f"INSERT INTO lf_ss VALUES {values}", STMT_LF_SS)
+    got = sql("SELECT * FROM lf_ss", catalog=cat)
+    _check(got.num_rows == STMT_LF_SS and int(got.column("ss_quantity")
+           .values.sum()) == int(s_qty.sum()),
+           "sql statements INSERT: lf_ss's rows")
+    m = run("merge", "MERGE INTO store_sales t USING lf_ss s ON "
+            "t.ss_ticket_number = s.ss_ticket_number AND t.ss_item_sk = "
+            "s.ss_item_sk WHEN MATCHED THEN UPDATE SET * WHEN NOT MATCHED "
+            "THEN INSERT *", STMT_LF_SS, k9=(1, None))
+    s_key = s_item * (1 << 32) + s_ticket
+    order = np.argsort(s_key[:half])
+    matched = alive & np.isin(key, s_key[:half])
+    at = order[np.searchsorted(s_key[:half], key[matched],
+                               sorter=order)]
+    qty[matched] = s_qty[at]
+    paid[matched] = s_paid[at]
+    extra_q, extra_p = s_qty[half:], s_paid[half:]
+    _check(m.num_target_rows_updated == int(matched.sum())
+           and m.num_target_rows_inserted == half,
+           f"sql statements MERGE: {m}, numpy {int(matched.sum())} updated, "
+           f"{half} inserted")
+    held("MERGE")
+
+    # OPTIMIZE ... ZORDER BY on store_returns
+    m = run("optimize_zorder", "OPTIMIZE store_returns ZORDER BY ("
+            + ", ".join(STMT_ZORDER) + ")", n_sr, k4=(1, None))
+    _check(m.num_files_added >= 1, f"sql statements OPTIMIZE: {m}")
+    got = sql("SELECT sr_return_quantity FROM store_returns", catalog=cat)
+    _check(got.num_rows == n_sr and int(got.column("sr_return_quantity")
+           .values.sum()) == int(sr.column("sr_return_quantity").values
+                                 .sum()), "sql statements OPTIMIZE: rows")
+    # RESTORE to the version before the DELETE
+    m = run("restore", f"RESTORE TABLE store_sales TO VERSION AS OF {v_dv}",
+            n_ss)
+    held("RESTORE", original)
+    version = m.version
+    res = run("vacuum_dry_run", "VACUUM store_sales RETAIN 0 HOURS DRY RUN",
+              0)
+    live = {a.path for a in Table.for_path(f"{root}/store_sales", engine=eng)
+            .latest_snapshot().state.add_files}
+    _check(res.dry_run and len(res.files_deleted) >= 1
+           and not live & set(res.files_deleted),
+           f"sql statements VACUUM: {res.files_deleted} beside {live}")
+    manifests = run("generate", "GENERATE symlink_format_manifest FOR TABLE "
+                    "store_returns", n_sr)
+    sr_table = Table.for_path(f"{root}/store_returns", engine=eng)
+    sr_live = sorted(f"{sr_table.path}/{a.path}" for a in
+                     sr_table.latest_snapshot().state.add_files)
+    for path in manifests:
+        with open(path) as f:
+            _check(f.read().split() == sr_live,
+                   f"sql statements GENERATE: {path} names the live files")
+    _check(len(manifests) == 1, f"sql statements GENERATE: {manifests}")
+    # CHECK constraints and DROP FEATURE on lf_ss
+    run("add_constraint", f"ALTER TABLE lf_ss ADD CONSTRAINT {STMT_CHECK[0]} "
+        f"CHECK ({STMT_CHECK[1]})", STMT_LF_SS)
+    run("drop_constraint", f"ALTER TABLE lf_ss DROP CONSTRAINT {STMT_CHECK[0]}",
+        0)
+    run("drop_feature", "ALTER TABLE lf_ss DROP FEATURE checkConstraints", 0)
+    feats = sql("DESCRIBE DETAIL lf_ss", catalog=cat)["tableFeatures"]
+    _check("checkConstraints" not in feats and "deletionVectors" in feats,
+           f"sql statements DROP FEATURE: features {feats}")
+    # CONVERT TO DELTA: hard links to store_returns' data files
+    conv = os.path.join(root, "converted_returns")
+    os.makedirs(conv)
+    for p in sr_live:
+        _link_or_copy(p, os.path.join(conv, os.path.basename(p)))
+    run("convert", f"CONVERT TO DELTA parquet.`{conv}`", n_sr)
+    names = sorted(sr.column_names)
+    a = _row_digest(sql(f"SELECT * FROM '{conv}'", engine=TorchEngine(
+        device)), names)
+    b = _row_digest(sql("SELECT * FROM store_returns", catalog=cat), names)
+    _check(np.array_equal(a, b), "sql statements CONVERT: the converted "
+           "table's rows are its source's")
+    dropped = run("drop_table", "DROP TABLE lf_ss", 0)
+    tables = run("show_tables", "SHOW TABLES", 0)
+    _check(dropped is True and "lf_ss" not in tables
+           and "store_sales" in tables,
+           f"sql statements DROP TABLE, SHOW TABLES: {tables}")
+    # the card's read of store_sales is the CPU's, row for row
+    names = sorted(ss.column_names)
+    q = f"SELECT * FROM store_sales VERSION AS OF {version}"
+    _check(np.array_equal(_row_digest(sql(q, catalog=cat), names),
+                          _row_digest(sql(q, catalog=cpu_cat), names)),
+           "sql statements: the card's store_sales is the CPU's")
+    for name, r in out["steps"].items():
+        r["launches_sql"] = {k: launches[name][k] for k in SQL_K}
+    out["launches"] = {k: sum(launches[s][k] for s in launches)
+                       for k in {**WIDE_WRITE_K, **SQL_K}}
+    out["s"] = sum(r["s"] for r in out["steps"].values())
+    return out
+
+
 def sql_phase(work: str, card: str, dev) -> tuple:
     """Step 26 (module docstring): (a) the 102 texts and q51 in the RANGE
     frame at scale 12,000 against sqlite (q67 against the CPU engine),
@@ -6267,7 +6553,7 @@ def sql_phase(work: str, card: str, dev) -> tuple:
     t0 = time.perf_counter()
     tabs = generate(SQL_FULL_SCALE)
     out["generate_s"] = time.perf_counter() - t0
-    ss = tabs["store_sales"]
+    ss, sr = tabs["store_sales"], tabs["store_returns"]
     root = os.path.join(work, "sql_sf1")
     obs.reset()
     t0 = time.perf_counter()
@@ -6320,6 +6606,19 @@ def sql_phase(work: str, card: str, dev) -> tuple:
             for k in SQL_K}
     for key in K11_ROWS:
         _check(full[key] >= 1, f"sql (b): {key} launched ({full[key]})")
+
+    # step 27: the statements past the query, on (b)'s tables
+    t0 = time.perf_counter()
+    st = out["statements"] = sql_statements_phase(root, ss, sr, dev.type,
+                                                  card)
+    st["wall_s"] = time.perf_counter() - t0
+    del sr
+    for key in ("k1", "k2", "k4", "k7", "k8_pack", "k8_decode", "k9"):
+        _check(st["launches"][key] >= 1, f"sql statements: {key} launched "
+               f"({st['launches'][key]})")
+    print(f"sql statements: {len(st['steps'])} statements {st['s']:.4f} s "
+          f"(step 27's wall {st['wall_s']:.4f} s), launches "
+          + json.dumps(st["launches"]) + f"; {card}", flush=True)
 
     # (c) K10 at six shapes
     item = ss.column("ss_item_sk").values
@@ -6890,6 +7189,9 @@ def main(argv=None) -> int:
     for key in ("k1", "k2", "k3", "k7", "k8_pack", "k8_decode", "k9"):
         _check(cdf_launches[key] >= 1,
                f"change_data_feed: {key} launched ({cdf_launches[key]})")
+    for name, keys in STMT_ROWS.items():
+        kernels[name]["launches_sql_statements"] = sum(
+            sqlm["statements"]["launches"][k] for k in keys)
     for k in kernels.values():
         k["share"] = k["bound_ms"] / k["ms"]
         k["device_share"] = k["bound_ms"] / k["device_ms"]

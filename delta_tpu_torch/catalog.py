@@ -149,8 +149,9 @@ class Catalog:
             log_existed = local and os.path.isdir(
                 os.path.join(loc, "_delta_log"))
             try:
+                # a WRITE commit, as the reference's catalog makes it
                 builder = table.create_transaction_builder(
-                    Operation.CREATE_TABLE).with_schema(schema)
+                    Operation.WRITE).with_schema(schema)
                 if partition_by:
                     builder = builder.with_partition_columns(partition_by)
                 if properties:

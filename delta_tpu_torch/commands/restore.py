@@ -21,8 +21,14 @@ Counterpart of `delta_tpu/commands/restore.py:35-186`
   which then resolves under the clone's root, where no such file is). A
   deep clone copies each data file and 'u' DV file under the clone's
   root (a file named by an absolute path gets a fresh unique name).
-
-`convert_to_delta` is not ported (ROADMAP A23).
+- `convert_to_delta(path, partition_schema=None)`
+  (`ConvertToDeltaCommand.scala`): a directory of Parquet files, Hive
+  partitioned or not, becomes a Delta table in place with one CONVERT
+  commit (version 0). The schema is the first file's footer's
+  (`stats/footer.py::footer_schema`) with the partition columns added;
+  each file's stats come from its footer (`footer_stats`), read on a
+  small thread pool. `__HIVE_DEFAULT_PARTITION__` is a null partition
+  value, the others are percent-decoded.
 """
 
 from __future__ import annotations
@@ -31,17 +37,26 @@ import dataclasses
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
+from urllib.parse import unquote
 
 from delta_tpu_torch.dv.descriptor import absolute_dv_path
 from delta_tpu_torch.errors import (
     CloneTargetExistsError,
+    ConvertTargetError,
+    InvalidArgumentError,
     RestoreTargetError,
     TimestampEarlierThanCommitRetentionError,
     TimestampLaterThanLatestCommitError,
 )
-from delta_tpu_torch.models.actions import DeletionVectorDescriptor
-from delta_tpu_torch.models.schema import schema_from_json
+from delta_tpu_torch.models.actions import AddFile, DeletionVectorDescriptor
+from delta_tpu_torch.models.schema import (
+    StructField,
+    StructType,
+    _primitive,
+    schema_from_json,
+)
 from delta_tpu_torch.read.reader import absolute_path
 from delta_tpu_torch.table import Table
 from delta_tpu_torch.txn.transaction import Operation
@@ -171,4 +186,95 @@ def clone(source_table, dest_path: str, shallow: bool = True,
     txn.set_operation_parameters({"source": src_root,
                                   "sourceVersion": snap.version,
                                   "isShallow": shallow})
+    return txn.commit().version
+
+
+_FOOTER_WORKERS = 8
+_HIVE_NULL = "__HIVE_DEFAULT_PARTITION__"
+
+
+def _parquet_manifest(root: str, part_cols: List[str]) -> List[tuple]:
+    """(absolute path, relative path, partition values) of every Parquet
+    data file under `root`, in `os.walk` order; hidden files and
+    directories and the log are skipped."""
+    manifest = []
+    for dirpath, dirs, files in os.walk(root):
+        rel_dir = os.path.relpath(dirpath, root)
+        if rel_dir.startswith("_delta_log"):
+            continue
+        dirs[:] = [d for d in dirs if not d.startswith((".", "_"))]
+        pv: Dict[str, Optional[str]] = {}
+        if rel_dir != ".":
+            for part in rel_dir.split(os.sep):
+                if "=" in part:
+                    k, _, v = part.partition("=")
+                    pv[k] = None if v == _HIVE_NULL else unquote(v)
+        for fname in files:
+            if not fname.endswith(".parquet") or fname.startswith((".", "_")):
+                continue
+            full = os.path.join(dirpath, fname)
+            rel = os.path.relpath(full, root).replace(os.sep, "/")
+            missing = [k for k in part_cols if k not in pv]
+            if missing:
+                raise ConvertTargetError(
+                    f"file {rel} lacks partition values for {missing}",
+                    error_class="DELTA_CONVERSION_NO_PARTITION_FOUND")
+            manifest.append((full, rel, {k: pv.get(k) for k in part_cols}))
+    return manifest
+
+
+def convert_to_delta(path: str,
+                     partition_schema: Optional[Dict[str, str]] = None,
+                     engine=None) -> int:
+    """CONVERT TO DELTA of the Parquet files under `path` (partition
+    column -> type in `partition_schema`); returns the commit version."""
+    from delta_tpu_torch.log.parquet_footer import (
+        DecodeCorrupt,
+        DecodeUnsupported,
+    )
+    from delta_tpu_torch.stats.footer import (
+        footer_schema,
+        footer_stats,
+        read_file_footer,
+    )
+
+    table = Table.for_path(path, engine)
+    if table.exists():
+        raise ConvertTargetError(
+            f"{path} is already a Delta table",
+            error_class="DELTA_CONVERT_TARGET_ALREADY_DELTA")
+    part_schema = partition_schema or {}
+    part_cols = list(part_schema)
+    manifest = _parquet_manifest(table.path, part_cols)
+    if not manifest:
+        raise ConvertTargetError(f"no parquet files found under {path}")
+    schema = footer_schema(read_file_footer(manifest[0][0]))
+    for col_name, type_name in part_schema.items():
+        if col_name not in schema:
+            if not _primitive(type_name):
+                raise InvalidArgumentError(
+                    f"unknown primitive type: {type_name}",
+                    error_class="DELTA_PARSING_UNSUPPORTED_DATA_TYPE")
+            schema = StructType(schema.fields
+                                + [StructField(col_name, type_name)])
+
+    def to_add(entry: tuple) -> AddFile:
+        full, rel, pvals = entry
+        st = os.stat(full)
+        try:
+            stats = footer_stats(read_file_footer(full), schema, {},
+                                 part_cols)
+        except (OSError, DecodeCorrupt, DecodeUnsupported):
+            stats = None  # converted without stats, as the reference
+        return AddFile(path=rel, partitionValues=pvals, size=st.st_size,
+                       modificationTime=int(st.st_mtime * 1000),
+                       dataChange=True, stats=stats)
+
+    with ThreadPoolExecutor(min(_FOOTER_WORKERS, len(manifest))) as pool:
+        adds = list(pool.map(to_add, manifest))
+    txn = (table.create_transaction_builder(Operation.CONVERT)
+           .with_schema(schema).with_partition_columns(part_cols).build())
+    txn.add_files(adds)
+    txn.set_operation_parameters({"numFiles": len(adds),
+                                  "partitionedBy": part_cols})
     return txn.commit().version

@@ -276,6 +276,21 @@ class RestoreTargetError(DeltaError):
     error_class = "DELTA_CANNOT_RESTORE_TABLE_VERSION"
 
 
+class ConvertTargetError(DeltaError):
+    error_class = "DELTA_CONVERSION_UNSUPPORTED_SOURCE"
+
+
+class FeatureDropError(DeltaError):
+    """DROP FEATURE's preconditions are not met (the
+    `DELTA_FEATURE_DROP_*` family)."""
+
+    error_class = "DELTA_FEATURE_DROP_UNSUPPORTED_CLIENT_FEATURE"
+
+
+class FeatureDropHistoricalVersionsExistError(FeatureDropError):
+    error_class = "DELTA_FEATURE_DROP_HISTORICAL_VERSIONS_EXIST"
+
+
 class CloneTargetExistsError(DeltaError):
     error_class = "DELTA_CLONE_AMBIGUOUS_TARGET"
 

@@ -145,6 +145,21 @@ def _implied(protocol: Protocol) -> set:
                  or f.min_reader_version <= protocol.minReaderVersion)}
 
 
+def is_feature_supported(protocol: Protocol, feature: TableFeature) -> bool:
+    """Whether the protocol lists the feature, or (legacy features only)
+    implies it by a writer version below 7."""
+    if feature.name in protocol.writer_feature_set() or (
+            feature.is_reader_writer
+            and feature.name in protocol.reader_feature_set()):
+        return True
+    if feature.legacy:
+        ok_writer = protocol.minWriterVersion >= feature.min_writer_version
+        ok_reader = (not feature.is_reader_writer
+                     or protocol.minReaderVersion >= feature.min_reader_version)
+        return ok_writer and ok_reader and protocol.minWriterVersion < 7
+    return False
+
+
 def unsupported_writer_features(protocol: Protocol) -> List[str]:
     """The features of a table this package cannot write: those listed
     (or implied by a legacy writer version up to 6) outside the supported

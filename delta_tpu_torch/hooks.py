@@ -6,10 +6,17 @@ commits (`checkpoint_hook`, at versions > 0 that the interval divides), and
 auto-compaction after a data-adding commit on a table with
 `delta.autoOptimize.autoCompact` (or the legacy `delta.autoOptimize`)
 once 50 files are under 128 MiB (`auto_compact_hook`, the port's
-`execute_compaction`). The commit has landed before they run, so they
-are best-effort, as in the reference: a failing hook does not fail the
-commit, but bumps `hooks.<name>.failures` and is logged, so that nothing
-swallows it unseen. The reference's Iceberg/Hudi and symlink-manifest
+`execute_compaction`), and the symlink manifests of the partitions a
+commit touched on a table with
+`delta.compatibility.symlinkFormatManifest.enabled`
+(`symlink_manifest_hook`, `commands/generate.py`). The commit has landed
+before they run, so they are best-effort, as in the reference: a failing
+hook does not fail the commit, but bumps `hooks.<name>.failures` and is
+logged, so that nothing swallows it unseen. The symlink-manifest hook is
+critical, as in the reference (`GenerateSymlinkManifest.handleError`): a
+stale manifest would serve external engines rows the table no longer
+holds, so its failure is counted too and then raised as
+`PostCommitHookError` (the commit stands). The reference's Iceberg/Hudi
 hooks are not ported; a table whose configuration asks for them is
 refused before the commit (`txn/transaction.py::check_write_supported`).
 
@@ -23,10 +30,12 @@ from __future__ import annotations
 import logging
 
 from delta_tpu_torch import obs
+from delta_tpu_torch.errors import DeltaError
 from delta_tpu_torch.config import (
     AUTO_OPTIMIZE_AUTO_COMPACT,
     AUTO_OPTIMIZE_LEGACY,
     CHECKPOINT_INTERVAL,
+    SYMLINK_MANIFEST_ENABLED,
     get_table_config,
 )
 
@@ -85,15 +94,48 @@ def auto_compact_hook(table, txn, version: int, metadata) -> None:
         max_file_size=AUTO_COMPACT_MAX_FILE_SIZE)
 
 
-HOOKS = (checksum_hook, checkpoint_hook, auto_compact_hook)
+def symlink_manifest_hook(table, txn, version: int, metadata) -> None:
+    from delta_tpu_torch.commands.generate import (
+        incremental_symlink_manifest_hook,
+    )
+
+    if not get_table_config(metadata.configuration,
+                            SYMLINK_MANIFEST_ENABLED):
+        return
+    if not (txn._adds or txn._removes):
+        return
+    incremental_symlink_manifest_hook(table, txn, version, metadata,
+                                      _snapshot_for_hook(table, version))
+
+
+symlink_manifest_hook.critical = True
+
+
+class PostCommitHookError(DeltaError):
+    """A critical post-commit hook failed; the commit itself stands."""
+
+    error_class = "DELTA_POST_COMMIT_HOOK_FAILED"
+
+    def __init__(self, hook_name: str, version: int, cause: Exception):
+        super().__init__(f"post-commit hook {hook_name!r} failed after "
+                         f"version {version} committed: {cause}")
+        self.hook_name = hook_name
+        self.version = version
+        self.__cause__ = cause
+
+
+HOOKS = (checksum_hook, checkpoint_hook, auto_compact_hook,
+         symlink_manifest_hook)
 
 
 def run_post_commit_hooks(table, txn, version: int, metadata) -> None:
     for hook in HOOKS:
         try:
             hook(table, txn, version, metadata)
-        except Exception:
+        except Exception as e:
             obs.counter(f"hooks.{hook.__name__}.failures").inc()
             _log.warning("post-commit hook %s failed after version %d "
                          "committed (the commit stands)", hook.__name__,
                          version, exc_info=True)
+            if getattr(hook, "critical", False):
+                raise PostCommitHookError(hook.__name__, version, e) from e

@@ -7,7 +7,7 @@ leaves (dotted path, physical type, maximum definition and repetition
 levels, the level each path element reaches, each element's repetition
 and LIST / MAP annotation, and the leaf's width, decimal scale and
 precision and annotations) and each row group's column chunks (codec,
-encodings, page offsets, sizes). `_Thrift` is a
+encodings, page offsets, sizes, statistics). `_Thrift` is a
 copy of the reader in `delta_tpu/log/page_decode.py`, which the page
 splitter also uses for PageHeaders.
 """
@@ -225,6 +225,9 @@ class ColumnChunk:
     dictionary_page_offset: Optional[int]
     total_compressed_size: int
     total_uncompressed_size: int
+    # ColumnMetaData's Statistics (field 12) as read: {field id: value}
+    statistics: Optional[dict] = field(default=None, compare=False,
+                                       hash=False)
 
     @property
     def start(self) -> int:
@@ -353,7 +356,8 @@ def read_footer(data: bytes) -> Footer:
                 data_page_offset=thrift_field(cm, 9, int, 0),
                 dictionary_page_offset=thrift_field(cm, 11, int),
                 total_compressed_size=thrift_field(cm, 7, int, 0),
-                total_uncompressed_size=thrift_field(cm, 6, int, 0)))
+                total_uncompressed_size=thrift_field(cm, 6, int, 0),
+                statistics=thrift_field(cm, 12, dict)))
         if len(cols) != len(leaves):
             raise DecodeCorrupt("row group does not cover the schema")
         groups.append(RowGroup(thrift_field(rg, 3, int, 0), tuple(cols)))

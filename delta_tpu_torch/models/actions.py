@@ -192,6 +192,9 @@ class Protocol:
     def reader_feature_set(self) -> frozenset:
         return frozenset(self.readerFeatures or [])
 
+    def writer_feature_set(self) -> frozenset:
+        return frozenset(self.writerFeatures or [])
+
     def to_dict(self) -> Dict[str, Any]:
         return _prune(
             {

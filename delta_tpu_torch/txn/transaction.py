@@ -35,8 +35,8 @@ writes to an identity column the later loses with
 Refused with `UnsupportedTableError`, before anything is written: group
 commit, coordinated commits, in-commit timestamps, row tracking, domain
 writes, the writer features `features.py::unsupported_writer_features`
-names, and tables that ask for the UniForm (Iceberg/Hudi) or
-symlink-manifest hooks, which are not ported.
+names, and tables that ask for the UniForm (Iceberg/Hudi) hooks, which
+are not ported.
 """
 
 from __future__ import annotations
@@ -55,7 +55,6 @@ from delta_tpu_torch.config import (
     IN_COMMIT_TIMESTAMPS,
     ISOLATION_LEVEL,
     ROW_TRACKING_ENABLED,
-    SYMLINK_MANIFEST_ENABLED,
     UNIFORM_ENABLED_FORMATS,
     get_table_config,
 )
@@ -115,6 +114,7 @@ class Operation:
     UPGRADE_PROTOCOL = "UPGRADE PROTOCOL"
     RESTORE = "RESTORE"
     CLONE = "CLONE"
+    CONVERT = "CONVERT"
 
 
 @dataclass
@@ -146,11 +146,6 @@ def check_write_supported(protocol: Protocol, metadata: Metadata) -> None:
             "UniForm (delta.universalFormat.enabledFormats) needs the "
             "Iceberg/Hudi post-commit hooks, which are not ported yet",
             feature="uniform")
-    if get_table_config(conf, SYMLINK_MANIFEST_ENABLED):
-        raise UnsupportedTableError(
-            "delta.compatibility.symlinkFormatManifest.enabled needs the "
-            "symlink-manifest post-commit hook, which is not ported yet",
-            feature="symlink manifest")
     check_writable(schema_from_json(metadata.schemaString))
 
 
@@ -369,6 +364,10 @@ class Transaction:
         self._new_protocol = protocol
 
     def set_domain_metadata(self, domain: str, configuration: str) -> None:
+        raise UnsupportedTableError("domain metadata writes are not "
+                                    "supported yet", feature="domain writes")
+
+    def remove_domain_metadata(self, domain: str) -> None:
         raise UnsupportedTableError("domain metadata writes are not "
                                     "supported yet", feature="domain writes")
 

@@ -19,8 +19,8 @@ the maintenance commands (REORG PURGE, VACUUM FULL and LITE with a dry
 run, RESTORE, a shallow and a deep CLONE), and the change data feed (the
 change data of DELETE, UPDATE and MERGE on a mapped partitioned table
 and `table_changes`), and SQL (the TPC-DS generator and catalog, two
-corpus queries through `sql()`, a plain SELECT with time travel, a
-refused statement) must leave no `jax`, `pyarrow`, `pandas`,
+corpus queries through `sql()`, a plain SELECT with time travel,
+DESCRIBE DETAIL, a DELETE and a refused construct) must leave no `jax`, `pyarrow`, `pandas`,
 `delta_tpu`, `delta_tpu.*` or `benchmarks*` module in `sys.modules`
 (`delta_tpu_torch` itself shares the prefix, so the check matches whole
 dotted names). And no source of the port may name them in an import.
@@ -272,7 +272,7 @@ assert sorted(kinds) == ["delete"] * 4 + ["insert", "update_postimage",
                                           "update_preimage"], kinds
 # SQL: the TPC-DS generator and catalog, a query through `sql()` (joins,
 # GROUP BY through K10's plain version, ORDER BY), a plain SELECT with
-# time travel and a refused statement
+# time travel, DESCRIBE DETAIL, a DELETE and a refused construct
 from delta_tpu_torch.errors import UnsupportedSqlError
 from delta_tpu_torch.sql import sql
 from delta_tpu_torch.utils.tpcds import QUERIES, load_delta
@@ -281,9 +281,12 @@ assert sql(QUERIES["q3"], catalog=cat).names == [
     "d_year", "brand_id", "brand", "sum_agg"]
 assert sql(QUERIES["q17"], catalog=cat).num_columns == 15
 assert sql(f"select k from '{d12}' version as of 0", engine=cpu).num_rows == 20
+assert sql("DESCRIBE DETAIL store_sales", catalog=cat)["numFiles"] >= 1
+assert sql("DELETE FROM store_sales WHERE ss_quantity > 50",
+           catalog=cat).num_rows_deleted > 0
 try:
-    sql("VACUUM store_sales", catalog=cat)
-    raise AssertionError("VACUUM ran")
+    sql("OPTIMIZE store_sales FULL", catalog=cat)
+    raise AssertionError("OPTIMIZE ... FULL ran")
 except UnsupportedSqlError:
     pass
 banned = ("jax", "jaxlib", "pyarrow", "pandas", "delta_tpu", "benchmarks")

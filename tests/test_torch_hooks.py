@@ -5,9 +5,9 @@ checkpoint every `delta.checkpointInterval` commits and auto-compaction.
 The reference reads what they write: each `.crc` passes the JAX
 package's `validate_state_against_checksum` on a `HostEngine`
 `snapshot_at` of its version, and the checkpoint loads there. A failing
-hook is counted and the commit stands; the UniForm and symlink-manifest
-properties, whose hooks are not ported, are refused before anything is
-written.
+hook is counted and the commit stands; the UniForm properties, whose
+hooks are not ported, are refused before anything is written (the
+symlink-manifest hook is ported: `tests/test_torch_sql_statements.py`).
 """
 
 import glob
@@ -196,7 +196,7 @@ def test_auto_compaction_fires_on_fifty_small_files_as_the_reference(
 @pytest.mark.parametrize("props", [
     {"delta.universalFormat.enabledFormats": "iceberg"},
     {"delta.universalFormat.enabledFormats": "hudi"},
-    {"delta.compatibility.symlinkFormatManifest.enabled": "true"},
+    {"delta.universalFormat.enabledFormats": "iceberg,hudi"},
 ])
 def test_tables_asking_for_unported_hooks_are_refused(tmp_path, props):
     root = str(tmp_path)
